@@ -1,0 +1,57 @@
+"""Carry state from the JAX package into the port.
+
+The reference's containers hold jax arrays; a caller turns them into
+numpy (``{name: np.asarray(getattr(obj, name))}``) and these functions
+build the port's containers from that, so one operand can feed both
+packages.  This module imports nothing of the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.precision import MonitorParams
+from repro_torch.sparse.csr import CSR, GSECSR
+
+__all__ = ["gsecsr_from_repro", "csr_from_repro", "monitor_params_from_repro"]
+
+_GSECSR_DTYPES = {
+    "rowptr": np.int32, "colpak": np.uint32, "head": np.uint16,
+    "tail1": np.uint16, "tail2": np.uint32, "table": np.int32,
+    "row_ids": np.int32,
+}
+_CSR_DTYPES = {"rowptr": np.int32, "col": np.int32, "val": np.float64,
+               "row_ids": np.int32}
+
+
+def _tensors(arrays: dict, dtypes: dict, device) -> dict:
+    host = {name: np.asarray(arrays[name]) for name in dtypes}
+    for name, dtype in dtypes.items():
+        if host[name].dtype != dtype:
+            raise TypeError(f"{name} must be {np.dtype(dtype).name}, "
+                            f"got {host[name].dtype}")
+    return {name: torch.from_numpy(np.array(a)).to(device)
+            for name, a in host.items()}
+
+
+def gsecsr_from_repro(arrays: dict, ei_bit: int, shape, device="cuda") -> GSECSR:
+    """A port ``GSECSR`` from the numpy arrays of a reference ``GSECSR``
+    (keys ``rowptr colpak head tail1 tail2 table row_ids``)."""
+    return GSECSR(**_tensors(arrays, _GSECSR_DTYPES, device),
+                  ei_bit=int(ei_bit), shape=tuple(int(s) for s in shape))
+
+
+def csr_from_repro(arrays: dict, shape, device="cuda") -> CSR:
+    """A port ``CSR`` from the numpy arrays of a reference ``CSR`` (keys
+    ``rowptr col val row_ids``)."""
+    return CSR(**_tensors(arrays, _CSR_DTYPES, device),
+               shape=tuple(int(s) for s in shape))
+
+
+def monitor_params_from_repro(params) -> MonitorParams:
+    """The port's ``MonitorParams`` with every field of a reference
+    ``MonitorParams`` (any object with the same attribute names)."""
+    return MonitorParams(**{f.name: getattr(params, f.name)
+                            for f in dataclasses.fields(MonitorParams)})

@@ -1,0 +1,194 @@
+// Kernel A on Hopper: tag-specialized GSE-SEM SpMV, two builds.
+//
+// Replaces the Pallas kernel `gse_spmv_call` (src/repro/kernels/gse_spmv.py,
+// bodies `_spmv_body_tag1/2/3`, decode `decode_tile`).  Both builds decode
+// the GSE-SEM segments in the kernel: expIdx = colpak >> (32 - ei_bit), the
+// column is the low bits, sign = head bit 15, mantissa = head & 0x7FFF,
+// spliced with tail1 (tag >= 2) and tail2 (tag 3), times 2^(E_sh - 15/31/63).
+// Each tag variant is a template instance that loads only the segments its
+// tag reads: 6/8/12 bytes per nonzero plus the x gather.
+//
+// What bounds it: HBM bytes.  An SpMV does 2 flops per nonzero against
+// 6-12 matrix bytes plus the gathered x, far below the card's
+// operations-per-byte balance, so the design goal is to touch each segment
+// byte once and nothing more.
+//
+// * A32 (`gse_spmv_ell_f32`): f32 decode and sums over the uniform ELL
+//   arrays of `ell_pack_gsecsr`, the same function as the Pallas kernel.
+//   One warp per row, lanes striding along L, so each segment load is
+//   coalesced; a warp shuffle replaces the 128 lane partials the TPU kernel
+//   summed after its grid.  The decode keeps `decode_tile`'s operation
+//   order with round-to-nearest intrinsics; the row sum may use any order.
+//
+// * A64 (`gse_spmv_csr_f64`): the f64 operator of the stepped CG loop, the
+//   same function as `spmv_gse` (`_decode_gsecsr` plus `segment_sum`).  One
+//   thread per row walks rowptr[i]..rowptr[i+1] in CSR order from 0.0 with
+//   __dmul_rn/__dadd_rn (no FMA contraction), which keeps the result bitwise
+//   equal to the reference's sequential row sum.  The tag is read from a
+//   device int32 so the solver loop never syncs to pick a build; the branch
+//   is uniform across the grid and the tag-1 branch never loads a tail.
+//   Padded slots do not exist here, so a non-finite x spreads exactly as in
+//   `spmv_gse`.  The per-row order costs coalescing; a row-parallel design
+//   that keeps the parity is later work.
+//
+// Every entry point launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError() so the Python wrapper can raise on a refused
+// launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// Exact 2^n by exponent-field construction, clipped to [0, 2046] like the
+// reference `_pow2_exact` (underflow to zero, saturate at the top binade).
+__device__ __forceinline__ double pow2_f64(int n) {
+  long long e = (long long)n + 1023;
+  e = e < 0 ? 0 : (e > 2046 ? 2046 : e);
+  return __longlong_as_double(e << 52);
+}
+
+// Python's n // 2 (floor division) for a signed int.
+__device__ __forceinline__ int floor_half(int n) {
+  return n >= 0 ? n / 2 : -((1 - n) / 2);
+}
+
+template <int TAG>
+__device__ __forceinline__ double row_sum_f64(
+    int64_t begin, int64_t end, const uint32_t* __restrict__ colpak,
+    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
+    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
+    const double* __restrict__ x, int shift, uint32_t mask) {
+  constexpr int kBits = TAG == 1 ? 15 : (TAG == 2 ? 31 : 63);
+  double acc = 0.0;
+  for (int64_t k = begin; k < end; ++k) {
+    const uint32_t cp = __ldg(colpak + k);
+    const uint32_t h = __ldg(head + k);
+    const double m_head = (double)(h & 0x7FFFu);
+    double mant;
+    if (TAG == 1) {
+      mant = m_head;
+    } else if (TAG == 2) {
+      mant = __dadd_rn(__dmul_rn(m_head, 65536.0), (double)__ldg(tail1 + k));
+    } else {
+      // m_head * 2^48 + tail1 * 2^32 + tail2, left to right.
+      mant = __dadd_rn(
+          __dadd_rn(__dmul_rn(m_head, 281474976710656.0),
+                    __dmul_rn((double)__ldg(tail1 + k), 4294967296.0)),
+          (double)__ldg(tail2 + k));
+    }
+    const int p = __ldg(table + (cp >> shift)) - 1023 - kBits;
+    const int half = floor_half(p);
+    const double sgn = __dsub_rn(1.0, __dmul_rn(2.0, (double)((h >> 15) & 1u)));
+    const double val = __dmul_rn(
+        sgn, __dmul_rn(__dmul_rn(mant, pow2_f64(half)), pow2_f64(p - half)));
+    acc = __dadd_rn(acc, __dmul_rn(val, __ldg(x + (cp & mask))));
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads) spmv_csr_f64_kernel(
+    const int32_t* __restrict__ tag, const int32_t* __restrict__ rowptr,
+    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
+    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
+    const int32_t* __restrict__ table, const double* __restrict__ x,
+    double* __restrict__ y, int64_t rows, int shift, uint32_t mask) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= rows) return;
+  int t = __ldg(tag);
+  t = t < 1 ? 1 : (t > 3 ? 3 : t);  // the reference clips tag - 1 to [0, 2]
+  const int64_t b = __ldg(rowptr + row);
+  const int64_t e = __ldg(rowptr + row + 1);
+  double acc;
+  if (t == 1) {
+    acc = row_sum_f64<1>(b, e, colpak, head, tail1, tail2, table, x, shift, mask);
+  } else if (t == 2) {
+    acc = row_sum_f64<2>(b, e, colpak, head, tail1, tail2, table, x, shift, mask);
+  } else {
+    acc = row_sum_f64<3>(b, e, colpak, head, tail1, tail2, table, x, shift, mask);
+  }
+  y[row] = acc;
+}
+
+template <int TAG>
+__global__ void __launch_bounds__(kThreads) spmv_ell_f32_kernel(
+    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
+    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
+    const float* __restrict__ x, const float* __restrict__ scales,
+    float* __restrict__ y, int64_t rows, int width, int shift, uint32_t mask) {
+  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // uniform across the warp
+  const int64_t base = row * (int64_t)width;
+  float acc = 0.0f;
+  for (int j = lane; j < width; j += 32) {
+    const int64_t k = base + j;
+    const uint32_t cp = __ldg(colpak + k);
+    const uint32_t h = __ldg(head + k);
+    const float sgn = __fsub_rn(1.0f, __fmul_rn(2.0f, (float)((h >> 15) & 1u)));
+    float mant = (float)(h & 0x7FFFu);
+    if (TAG >= 2) {
+      mant = __fadd_rn(__fmul_rn(mant, 65536.0f), (float)__ldg(tail1 + k));
+    }
+    if (TAG == 3) {
+      mant = __fadd_rn(__fmul_rn(mant, 4294967296.0f),
+                       __uint2float_rn(__ldg(tail2 + k)));
+    }
+    const float val = __fmul_rn(__fmul_rn(sgn, mant), __ldg(scales + (cp >> shift)));
+    acc = __fadd_rn(acc, __fmul_rn(val, __ldg(x + (cp & mask))));
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  }
+  if (lane == 0) y[row] = acc;
+}
+
+}  // namespace
+
+extern "C" int gse_spmv_csr_f64(const void* tag, const void* rowptr,
+                                const void* colpak, const void* head,
+                                const void* tail1, const void* tail2,
+                                const void* table, const void* x, void* y,
+                                long long rows, int ei_bit, void* stream) {
+  const int shift = 32 - ei_bit;
+  const uint32_t mask = (1u << shift) - 1u;
+  const long long blocks = (rows + kThreads - 1) / kThreads;
+  spmv_csr_f64_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)tag, (const int32_t*)rowptr, (const uint32_t*)colpak,
+      (const uint16_t*)head, (const uint16_t*)tail1, (const uint32_t*)tail2,
+      (const int32_t*)table, (const double*)x, (double*)y, rows, shift, mask);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gse_spmv_ell_f32(int tag, const void* colpak, const void* head,
+                                const void* tail1, const void* tail2,
+                                const void* x, const void* scales, void* y,
+                                long long rows, int width, int ei_bit,
+                                void* stream) {
+  const int shift = 32 - ei_bit;
+  const uint32_t mask = (1u << shift) - 1u;
+  const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t* cp = (const uint32_t*)colpak;
+  const uint16_t* hd = (const uint16_t*)head;
+  const uint16_t* t1 = (const uint16_t*)tail1;
+  const uint32_t* t2 = (const uint32_t*)tail2;
+  const float* xs = (const float*)x;
+  const float* sc = (const float*)scales;
+  float* out = (float*)y;
+  if (tag == 1) {
+    spmv_ell_f32_kernel<1><<<(unsigned)blocks, kThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, rows, width, shift, mask);
+  } else if (tag == 2) {
+    spmv_ell_f32_kernel<2><<<(unsigned)blocks, kThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, rows, width, shift, mask);
+  } else if (tag == 3) {
+    spmv_ell_f32_kernel<3><<<(unsigned)blocks, kThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, rows, width, shift, mask);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,112 @@
+"""SpMV operators (paper Section III.C.2): fixed-dtype baselines and the
+three GSE-SEM tags.
+
+Port of ``repro/sparse/spmv.py``: ``spmv`` (:32), ``_decode_gsecsr``
+(:40), ``decode_gsecsr``, ``decode_operand`` (the ``GSECSR`` branch),
+``spmv_gse`` (:128) and ``spmv_ell`` (:156).  Values are stored at the
+target precision and multiplied and summed in f64.
+
+``spmv_gse`` is the f64 operator of the stepped solvers.  It runs the
+hand-written CUDA kernel A64 (``kernels.gse_spmv.gse_spmv_csr_f64``) on
+the card; for CPU tensors the kernel's plain version runs instead.  Both
+sum each row sequentially in CSR order from 0.0, which is bitwise what
+the reference ``_decode_gsecsr`` + ``segment_sum`` computes.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.gse import _pow2_exact
+from repro_torch.sparse.csr import CSR, GSECSR
+
+__all__ = ["spmv", "spmv_gse", "spmv_ell", "decode_gsecsr", "decode_operand"]
+
+
+def spmv(a: CSR, x: torch.Tensor, store_dtype=torch.float64,
+         acc_dtype=torch.float64) -> torch.Tensor:
+    """y = A @ x with values stored at ``store_dtype`` (paper's baselines)."""
+    v = a.val.to(store_dtype).to(acc_dtype)  # storage round-trip
+    prod = v * x.to(acc_dtype)[a.col.long()]
+    y = torch.zeros(a.shape[0], dtype=acc_dtype, device=prod.device)
+    return y.index_add_(0, a.row_ids.long(), prod)
+
+
+def _decode_gsecsr(colpak, head, tail1, tail2, table, ei_bit: int, tag: int,
+                   acc_dtype=torch.float64):
+    """Decode GSE-SEM CSR values to ``acc_dtype`` (15-bit-head layout).
+
+    Returns ``(values, columns)``.  The operation order is the
+    reference's: the tag-3 mantissa is ``m_head*2^48 + tail1*2^32 +
+    tail2`` left to right, and the scale is applied as two exact
+    power-of-two factors.
+    """
+    shift = 32 - ei_bit
+    cp = colpak.to(torch.int64)
+    exp_idx = cp >> shift
+    h = head.to(torch.int64)
+    sign = (h >> 15) & 0x1
+    m_head = (h & 0x7FFF).to(acc_dtype)
+    if tag == 1:
+        mant = m_head
+        bits_used = 15
+    elif tag == 2:
+        mant = m_head * 65536.0 + tail1.to(torch.int64).to(acc_dtype)
+        bits_used = 31
+    elif tag == 3:
+        mant = (
+            m_head * float(2.0**48)
+            + tail1.to(torch.int64).to(acc_dtype) * float(2.0**32)
+            + tail2.to(torch.int64).to(acc_dtype)
+        )
+        bits_used = 63
+    else:
+        raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
+    e_sh = table.to(torch.int32)[exp_idx] - 1023
+    pow_ = e_sh - bits_used
+    half = torch.div(pow_, 2, rounding_mode="floor")
+    sgn = 1.0 - 2.0 * sign.to(acc_dtype)
+    val = sgn * ((mant * _pow2_exact(half, acc_dtype))
+                 * _pow2_exact(pow_ - half, acc_dtype))
+    return val, cp & ((1 << shift) - 1)
+
+
+def decode_gsecsr(a: GSECSR, tag: int, acc_dtype=torch.float64):
+    """(values, columns) decoded from a GSE-SEM CSR at precision ``tag``."""
+    return _decode_gsecsr(a.colpak, a.head, a.tail1, a.tail2, a.table,
+                          a.ei_bit, tag, acc_dtype)
+
+
+def decode_operand(a: GSECSR, tag: int, acc_dtype=torch.float64):
+    """CSR-order ``(values, columns)`` decode of a ``GSECSR`` (the SELL
+    branch arrives with the SELL-C-sigma layout)."""
+    if not isinstance(a, GSECSR):
+        raise NotImplementedError(
+            f"decode_operand takes a GSECSR; {type(a).__name__} layouts are "
+            "not ported yet (ROADMAP queue 1 item 10)")
+    return decode_gsecsr(a, tag, acc_dtype)
+
+
+def spmv_gse(a: GSECSR, x: torch.Tensor, tag=1) -> torch.Tensor:
+    """Paper Algorithm 2 (+tails): f64 GSE-SEM SpMV at precision ``tag``.
+
+    ``tag`` is an int or an int32 tensor on ``a``'s device; the kernel
+    reads a device tag itself, so the stepped solver loop passes its
+    monitor's tag without a host sync.  Bytes touched for the matrix
+    stream: 2/4/8 value bytes per nnz for tags 1/2/3 plus 4 of packed
+    colidx (``a.bytes_touched(tag)``).
+    """
+    # Imported here: the kernel module imports this one's decode.
+    from repro_torch.kernels.gse_spmv import gse_spmv_csr_f64
+
+    if x.shape != (a.shape[1],):
+        raise ValueError(f"x has shape {tuple(x.shape)}, the operand "
+                         f"{a.shape[1]} columns")
+    return gse_spmv_csr_f64(a.rowptr, a.colpak, a.head, a.tail1, a.tail2,
+                            a.table, x, ei_bit=a.ei_bit, tag=tag)
+
+
+def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+             acc_dtype=torch.float64) -> torch.Tensor:
+    """Padded-ELL SpMV over dense (rows, L) arrays."""
+    prod = vals.to(acc_dtype) * x.to(acc_dtype)[cols.long()]
+    return torch.sum(prod, dim=1)

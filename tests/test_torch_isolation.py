@@ -1,0 +1,109 @@
+"""The port stands alone: ``src/repro_torch``, ``tools/`` and
+``chip_smoke.py`` import neither JAX nor the JAX package, entry points
+default to the card and run on the CPU when asked, and ``chip_smoke.py``
+fails without a card or without the rest of the repository.
+"""
+import ast
+import inspect
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_module_imports_no_jax_and_no_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = sorted(set(_imported_roots(tree)) & FORBIDDEN)
+    assert not bad, f"{path.name} imports {bad}"
+    for node in ast.walk(tree):  # no torch.compile anywhere in the port
+        if isinstance(node, ast.Attribute) and node.attr == "compile":
+            assert not (isinstance(node.value, ast.Name)
+                        and node.value.id == "torch"), path.name
+
+
+def _device_defaults():
+    from repro_torch import convert
+    from repro_torch.core import gse, precision
+    from repro_torch.sparse import csr, generators
+
+    fns = [csr.from_coo, gse.pack, gse.pack_with_table, precision.init,
+           convert.gsecsr_from_repro, convert.csr_from_repro]
+    fns += [getattr(generators, n) for n in generators.__all__
+            if "device" in inspect.signature(getattr(generators, n)).parameters]
+    return fns
+
+
+def test_entry_points_default_to_cuda():
+    fns = _device_defaults()
+    assert len(fns) >= 15
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__qualname__
+
+
+def test_asking_for_cpu_runs_the_main_path_on_cpu():
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.kernels import gse_spmv as K
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vec_f64 as V
+    from repro_torch.solvers.cg import solve_cg
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+    from repro_torch.sparse.spmv import spmv_gse
+
+    a = G.random_spd(200, seed=4, device="cpu")
+    g = pack_csr(a)
+    assert all(t.device.type == "cpu" for t in (g.colpak, g.head, g.table))
+    x = torch.ones(200, dtype=torch.float64)
+    K.reset_launch_counts()
+    V.reset_launch_counts()
+    y = ops.gse_spmv_ell(ops.ell_pack_gsecsr(g), g.table, x.float(),
+                         g.ei_bit, tag=2)
+    b = spmv_gse(g, x, 3)
+    res = solve_cg(g, b, tol=1e-10, maxiter=500,
+                   params=MonitorParams(t=20, l=20, m=10))
+    assert y.device.type == "cpu" and bool(res.converged)
+    assert res.x.device.type == "cpu"
+    # CPU tensors take the plain versions: no kernel launched.
+    assert K.gse_spmv_ell_f32.launches == K.gse_spmv_csr_f64.launches == 0
+    assert V.seq_dot.launches == V.fma_axpy.launches == 0
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py would run")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_without_the_repository(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Where the time of one stepped-CG iteration goes on the GPU.
+
+    python3 tools/profile_torch_cg.py [--n 1048576] [--iters 128]
+
+Builds the port's full-size chip_smoke matrix
+(``diag_rescale(random_spd(n, 8, seed=21), 8, 21)``), warms the solver
+up, then runs ``solve_cg`` for ``--iters`` iterations three ways:
+
+* wall clock per iteration (host clock around a synchronized solve);
+* ``torch.profiler`` over the same solve: device busy time per
+  iteration, the device's idle share, kernel launches per iteration and
+  the kernels with the most device time;
+* the shares of A64 (``gse_spmv_csr_f64``) and of the CG dot
+  (``seq_dot_f64``) in the device time.
+
+Prints one JSON object (last line) and writes the Chrome trace to
+``build/profile_torch_cg.json``.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=1 << 20)
+    ap.add_argument("--iters", type=int, default=128)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_cg: needs a CUDA device")
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.kernels import _build
+    from repro_torch.solvers.cg import solve_cg
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+    from repro_torch.sparse.spmv import spmv_gse
+
+    _build.build_all()
+    g = pack_csr(G.diag_rescale(G.random_spd(args.n, nnz_per_row=8, seed=21,
+                                             device="cuda"), 8.0, 21))
+    x_true = torch.from_numpy(np.random.default_rng(1).normal(size=args.n))
+    b = spmv_gse(g, x_true.cuda(), 3)
+    params = MonitorParams(t=40, l=60, m=30)
+
+    def run():
+        res = solve_cg(g, b, tol=1e-8, maxiter=args.iters, params=params)
+        torch.cuda.synchronize()
+        return res
+
+    run()  # warm-up: kernel build, allocator, cuSPARSE-free first launches
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    iters = int(res.iters)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(out_dir / "profile_torch_cg.json"))
+
+    kernels = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and str(evt.device_type).endswith("CUDA"):
+            kernels.append((evt.key, dev_us, evt.count))
+    kernels.sort(key=lambda k: -k[1])
+    busy_us = sum(k[1] for k in kernels)
+    launches = sum(k[2] for k in kernels)
+    a64_us = sum(k[1] for k in kernels if "spmv_csr_f64" in k[0])
+    dot_us = sum(k[1] for k in kernels if "seq_dot_f64" in k[0])
+    summary = {
+        "n": args.n, "nnz": g.nnz, "iters": iters,
+        "wall_ms_per_iter": wall / iters * 1e3,
+        "device_busy_ms_per_iter": busy_us / iters / 1e3,
+        "device_idle_share": 1.0 - (busy_us / 1e6) / wall,
+        "kernel_launches_per_iter": launches / iters,
+        "a64_share_of_device_time": a64_us / busy_us if busy_us else None,
+        "seq_dot_share_of_device_time": dot_us / busy_us if busy_us else None,
+        "top_kernels": [{"name": k[0][:80], "device_ms": k[1] / 1e3,
+                         "count": k[2]} for k in kernels[:8]],
+        "device": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0],
+    }
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
