@@ -29,6 +29,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.vec_f64 import sqrt_rn
+
 __all__ = ["MonitorParams", "MonitorState", "init", "record", "metrics",
            "update_tag"]
 
@@ -111,7 +113,7 @@ def metrics(state: MonitorState) -> Tuple[torch.Tensor, torch.Tensor,
     t = w.shape[0]
     avg = torch.sum(w) / t
     dev = w - avg
-    rsd = torch.sqrt(torch.sum(dev * dev) / t) / torch.clamp(
+    rsd = sqrt_rn(torch.sum(dev * dev) / t) / torch.clamp(
         avg, min=torch.finfo(w.dtype).tiny
     )
     ndec = torch.sum((w[:-1] > w[1:]).to(torch.int32))

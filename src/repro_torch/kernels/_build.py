@@ -5,8 +5,9 @@ it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/repro_torch/`` at the root of the checkout (listed in
 ``.gitignore``) and loaded with ``ctypes``; the Python wrappers pass
 tensor pointers and PyTorch's current stream.  A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt
-and never shadowed by a stale build.  Nothing here runs at import time:
+carries a hash of its source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source is rebuilt and never shadowed by a stale
+build.  Nothing here runs at import time:
 the CPU tests import every module without ``nvcc``.
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ __all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCES", "build_all", "load",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gse_spmv", "vec_f64")
+SOURCES = ("gse_spmv", "gse_spmm", "vec_f64")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +48,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

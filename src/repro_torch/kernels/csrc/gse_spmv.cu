@@ -38,22 +38,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gse_decode.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-// Exact 2^n by exponent-field construction, clipped to [0, 2046] like the
-// reference `_pow2_exact` (underflow to zero, saturate at the top binade).
-__device__ __forceinline__ double pow2_f64(int n) {
-  long long e = (long long)n + 1023;
-  e = e < 0 ? 0 : (e > 2046 ? 2046 : e);
-  return __longlong_as_double(e << 52);
-}
-
-// Python's n // 2 (floor division) for a signed int.
-__device__ __forceinline__ int floor_half(int n) {
-  return n >= 0 ? n / 2 : -((1 - n) / 2);
-}
 
 template <int TAG>
 __device__ __forceinline__ double row_sum_f64(
@@ -61,29 +50,12 @@ __device__ __forceinline__ double row_sum_f64(
     const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
     const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
     const double* __restrict__ x, int shift, uint32_t mask) {
-  constexpr int kBits = TAG == 1 ? 15 : (TAG == 2 ? 31 : 63);
   double acc = 0.0;
   for (int64_t k = begin; k < end; ++k) {
     const uint32_t cp = __ldg(colpak + k);
-    const uint32_t h = __ldg(head + k);
-    const double m_head = (double)(h & 0x7FFFu);
-    double mant;
-    if (TAG == 1) {
-      mant = m_head;
-    } else if (TAG == 2) {
-      mant = __dadd_rn(__dmul_rn(m_head, 65536.0), (double)__ldg(tail1 + k));
-    } else {
-      // m_head * 2^48 + tail1 * 2^32 + tail2, left to right.
-      mant = __dadd_rn(
-          __dadd_rn(__dmul_rn(m_head, 281474976710656.0),
-                    __dmul_rn((double)__ldg(tail1 + k), 4294967296.0)),
-          (double)__ldg(tail2 + k));
-    }
-    const int p = __ldg(table + (cp >> shift)) - 1023 - kBits;
-    const int half = floor_half(p);
-    const double sgn = __dsub_rn(1.0, __dmul_rn(2.0, (double)((h >> 15) & 1u)));
-    const double val = __dmul_rn(
-        sgn, __dmul_rn(__dmul_rn(mant, pow2_f64(half)), pow2_f64(p - half)));
+    const double val = gse::decode_f64<TAG>(
+        __ldg(head + k), TAG >= 2 ? __ldg(tail1 + k) : 0u,
+        TAG == 3 ? __ldg(tail2 + k) : 0u, __ldg(table + (cp >> shift)) - 1023);
     acc = __dadd_rn(acc, __dmul_rn(val, __ldg(x + (cp & mask))));
   }
   return acc;
@@ -126,17 +98,9 @@ __global__ void __launch_bounds__(kThreads) spmv_ell_f32_kernel(
   for (int j = lane; j < width; j += 32) {
     const int64_t k = base + j;
     const uint32_t cp = __ldg(colpak + k);
-    const uint32_t h = __ldg(head + k);
-    const float sgn = __fsub_rn(1.0f, __fmul_rn(2.0f, (float)((h >> 15) & 1u)));
-    float mant = (float)(h & 0x7FFFu);
-    if (TAG >= 2) {
-      mant = __fadd_rn(__fmul_rn(mant, 65536.0f), (float)__ldg(tail1 + k));
-    }
-    if (TAG == 3) {
-      mant = __fadd_rn(__fmul_rn(mant, 4294967296.0f),
-                       __uint2float_rn(__ldg(tail2 + k)));
-    }
-    const float val = __fmul_rn(__fmul_rn(sgn, mant), __ldg(scales + (cp >> shift)));
+    const float val = gse::decode_f32<TAG>(
+        __ldg(head + k), TAG >= 2 ? __ldg(tail1 + k) : 0u,
+        TAG == 3 ? __ldg(tail2 + k) : 0u, __ldg(scales + (cp >> shift)));
     acc = __fadd_rn(acc, __fmul_rn(val, __ldg(x + (cp & mask))));
   }
   for (int off = 16; off > 0; off >>= 1) {

@@ -32,6 +32,19 @@
 //   by HBM bytes (two reads, one write).  alpha is read from device memory,
 //   so the loop never syncs to pass it.
 //
+// The batched CG loop keeps its vectors as (nrhs, n) blocks, one column
+// contiguous per right-hand side, and runs the column-batched twins:
+//
+// * `seq_dot_cols_f64`: one block per column, each running the chain above
+//   on its own column, so the chains run side by side on separate SMs and
+//   a batch costs one chain's latency, not nrhs of them.  Column j rounds
+//   exactly as `seq_dot_f64` on that column.  An inactive column (device
+//   uint8 active[j] == 0) reads nothing and gets 0.0.
+// * `fma_axpy_cols_f64`: out[j] = fma(alpha[j], x[j], y[j]), grid.y over
+//   the columns; column j is bitwise `fma_axpy_f64` on that column.
+//
+// The single-vector entry points are the same kernels with one column.
+//
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
@@ -74,11 +87,21 @@ __device__ __forceinline__ void load_group(const double* xa, const double* xb,
   }
 }
 
+// Block j computes out[j] = a[j] . b[j] over the j-th n-long column;
+// `active` may be null (every column active).
 __global__ void __launch_bounds__(kDotThreads)
 seq_dot_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
-                   long long n, double* __restrict__ out) {
+                   long long n, const uint8_t* __restrict__ active,
+                   double* __restrict__ out) {
   __shared__ __align__(16) double sa[2][kTile];
   __shared__ __align__(16) double sb[2][kTile];
+  const int col = blockIdx.x;
+  if (active != nullptr && !active[col]) {  // uniform across the block
+    if (threadIdx.x == 0) out[col] = 0.0;
+    return;
+  }
+  a += (long long)col * n;
+  b += (long long)col * n;
   const bool loader = threadIdx.x >= 32;
   const long long tiles = (n + kTile - 1) / kTile;
   double acc = 0.0;
@@ -121,18 +144,31 @@ seq_dot_f64_kernel(const double* __restrict__ a, const double* __restrict__ b,
     }
     __syncthreads();  // buffer `cur` is read; the other one is full
   }
-  if (threadIdx.x == 0) *out = acc;
+  if (threadIdx.x == 0) out[col] = acc;
 }
 
+// Column j = blockIdx.y of the (ncols, n) blocks: out = fma(alpha[j], x, y).
 __global__ void __launch_bounds__(kAxpyThreads)
 fma_axpy_f64_kernel(const double* __restrict__ alpha,
                     const double* __restrict__ x, const double* __restrict__ y,
                     double* __restrict__ out, long long n) {
-  const double s = *alpha;
+  const long long off = (long long)blockIdx.y * n;
+  const double s = alpha[blockIdx.y];
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride)
-    out[i] = __fma_rn(s, x[i], y[i]);
+    out[off + i] = __fma_rn(s, x[off + i], y[off + i]);
+}
+
+cudaError_t launch_axpy(const void* alpha, const void* x, const void* y,
+                        void* out, long long n, int ncols, void* stream) {
+  long long blocks = (n + kAxpyThreads - 1) / kAxpyThreads;
+  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
+  if (blocks < 1) blocks = 1;
+  fma_axpy_f64_kernel<<<dim3((unsigned)blocks, (unsigned)ncols), kAxpyThreads,
+                        0, (cudaStream_t)stream>>>(
+      (const double*)alpha, (const double*)x, (const double*)y, (double*)out, n);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -141,17 +177,30 @@ fma_axpy_f64_kernel(const double* __restrict__ alpha,
 extern "C" int seq_dot_f64(const void* a, const void* b, long long n, void* out,
                            void* stream) {
   seq_dot_f64_kernel<<<1, kDotThreads, 0, (cudaStream_t)stream>>>(
-      (const double*)a, (const double*)b, n, (double*)out);
+      (const double*)a, (const double*)b, n, nullptr, (double*)out);
+  return (int)cudaGetLastError();
+}
+
+// out[j] = a[j] . b[j] for the ncols n-long columns of two (ncols, n)
+// blocks, each rounded as seq_dot_f64; 0.0 where active[j] is 0.
+extern "C" int seq_dot_cols_f64(const void* a, const void* b, long long n,
+                                int ncols, const void* active, void* out,
+                                void* stream) {
+  seq_dot_f64_kernel<<<ncols, kDotThreads, 0, (cudaStream_t)stream>>>(
+      (const double*)a, (const double*)b, n, (const uint8_t*)active,
+      (double*)out);
   return (int)cudaGetLastError();
 }
 
 // out[i] = fma(alpha[0], x[i], y[i]) over n f64 elements.
 extern "C" int fma_axpy_f64(const void* alpha, const void* x, const void* y,
                             void* out, long long n, void* stream) {
-  long long blocks = (n + kAxpyThreads - 1) / kAxpyThreads;
-  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  if (blocks < 1) blocks = 1;
-  fma_axpy_f64_kernel<<<(unsigned)blocks, kAxpyThreads, 0, (cudaStream_t)stream>>>(
-      (const double*)alpha, (const double*)x, (const double*)y, (double*)out, n);
-  return (int)cudaGetLastError();
+  return (int)launch_axpy(alpha, x, y, out, n, 1, stream);
+}
+
+// out[j, i] = fma(alpha[j], x[j, i], y[j, i]) over (ncols, n) f64 blocks.
+extern "C" int fma_axpy_cols_f64(const void* alpha, const void* x,
+                                 const void* y, void* out, long long n,
+                                 int ncols, void* stream) {
+  return (int)launch_axpy(alpha, x, y, out, n, ncols, stream);
 }

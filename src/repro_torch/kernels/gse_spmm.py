@@ -1,0 +1,214 @@
+"""Kernel C: the tag-specialized GSE-SEM SpMM, hand-written for Hopper.
+
+Replaces the Pallas kernel ``gse_spmm_call`` of
+``repro/kernels/gse_spmm.py`` (:102; bodies ``_spmm_body_tag1/2/3``
+:81-96, ``_accumulate`` :54, ``pallas_call`` :137).  The CUDA source is
+``csrc/gse_spmm.cu``; it holds two builds:
+
+* **C32** -- :func:`gse_spmm_ell_f32`: f32 decode and sums over the
+  uniform-ELL arrays of ``ops.ell_pack_gsecsr`` and an ``(nrhs, n)`` f32
+  X, what the Pallas kernel computes; Y is ``(m, nrhs)``.  Each entry is
+  decoded once for every column.  Held to rtol 2e-5 / atol 1e-4 against
+  the Pallas kernel; its plain version is A32's plain version column by
+  column, and at nrhs = 1 the kernel is bitwise A32.
+* **C64** -- :func:`gse_spmm_csr_f64`: f64 over the CSR rows, the operator
+  of the batched stepped CG loop.  Column j runs at its own tag
+  (``tags[j]``, a device int32) when ``active[j]`` (a device bool), so
+  column j of Y is bitwise A64 at ``tags[j]`` on column j of X, and one
+  launch per iteration streams the matrix once for the whole batch.
+  Y is ``(nrhs, m)``; inactive columns are 0.0.
+
+Both are bound by HBM bytes: ``bytes_touched(tag)`` of segments plus
+``nrhs * (m + n)`` vector elements.  Each wrapper takes ``device=``
+(default ``"cuda"``): it launches its kernel on the card, runs the plain
+version only when the caller asks for the CPU, and raises for tensors
+anywhere else.  Each counts its launches in its ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.gse_spmv import (_check, _raise_on, csr_row_sums,
+                                          gse_spmv_ell_f32_plain)
+from repro_torch.kernels.vec_f64 import on_device
+from repro_torch.sparse.spmv import _decode_gsecsr
+
+__all__ = ["gse_spmm_ell_f32", "gse_spmm_ell_f32_plain", "gse_spmm_csr_f64",
+           "gse_spmm_csr_f64_plain", "KERNELS", "reset_launch_counts"]
+
+_P = ctypes.c_void_p
+_ARGTYPES = {
+    "gse_spmm_ell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
+                         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_int, ctypes.c_int, _P],
+    "gse_spmm_csr_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                         ctypes.c_int, _P],
+}
+_BOUND = {}
+
+
+def _fn(name: str):
+    fn = _BOUND.get(name)
+    if fn is None:
+        fn = getattr(_build.load("gse_spmm"), name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _BOUND[name] = fn
+    return fn
+
+
+# --- C32: f32 ELL -----------------------------------------------------------
+
+def gse_spmm_ell_f32_plain(colpak, head, tail1, tail2, x, scales, *,
+                           ei_bit: int, tag: int) -> torch.Tensor:
+    """Plain version of C32: A32's plain version on each column of the
+    ``(nrhs, n)`` X, stacked to ``(m, nrhs)``."""
+    cols = [gse_spmv_ell_f32_plain(colpak, head, tail1, tail2, x[j], scales,
+                                   ei_bit=ei_bit, tag=tag)
+            for j in range(x.shape[0])]
+    if not cols:
+        return torch.zeros(colpak.shape[0], 0, dtype=torch.float32,
+                           device=colpak.device)
+    return torch.stack(cols, dim=1)
+
+
+def gse_spmm_ell_f32(colpak, head, tail1, tail2, x, scales, *, ei_bit: int,
+                     tag: int, device="cuda") -> torch.Tensor:
+    """Y = A @ X as ``(m, nrhs)`` f32 from ``(m, L)`` ELL segments at
+    ``tag`` and an ``(nrhs, n)`` f32 X (columns contiguous).
+
+    ``tail1``/``tail2`` may be ``None`` when ``tag`` does not read them.
+    ``scales`` is the (k,) or (1, k) f32 table ``ref.make_scales`` gives.
+    """
+    if tag not in (1, 2, 3):
+        raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
+    dev = on_device(device, colpak=colpak, head=head, x=x, scales=scales,
+                    tail1=tail1 if tag >= 2 else None,
+                    tail2=tail2 if tag == 3 else None)
+    if dev.type == "cpu":
+        return gse_spmm_ell_f32_plain(colpak, head, tail1, tail2, x, scales,
+                                      ei_bit=ei_bit, tag=tag)
+    if dev.type != "cuda":
+        raise ValueError(f"gse_spmm_ell_f32 runs on cuda or cpu, not {dev}")
+    dev = colpak.device
+    rows, width = colpak.shape
+    _check(colpak, "colpak", torch.uint32, dev, 2)
+    _check(head, "head", torch.uint16, dev, 2)
+    segs = {"head": head}
+    if tag >= 2:
+        _check(tail1, "tail1", torch.uint16, dev, 2)
+        segs["tail1"] = tail1
+    if tag == 3:
+        _check(tail2, "tail2", torch.uint32, dev, 2)
+        segs["tail2"] = tail2
+    for name, t in segs.items():
+        if tuple(t.shape) != (rows, width):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != colpak's")
+    _check(x, "x", torch.float32, dev, 2)
+    scales = scales.reshape(-1)
+    _check(scales, "scales", torch.float32, dev, 1)
+    nrhs, n = x.shape
+    y = torch.empty(rows, nrhs, dtype=torch.float32, device=dev)
+    if rows == 0 or nrhs == 0:
+        return y
+    rc = _fn("gse_spmm_ell_f32")(
+        tag, colpak.data_ptr(), head.data_ptr(),
+        tail1.data_ptr() if tag >= 2 else None,
+        tail2.data_ptr() if tag == 3 else None,
+        x.data_ptr(), scales.data_ptr(), y.data_ptr(), rows, width, n, nrhs,
+        ei_bit, torch.cuda.current_stream(dev).cuda_stream)
+    gse_spmm_ell_f32.launches += 1
+    _raise_on(rc, "gse_spmm_ell_f32")
+    return y
+
+
+# --- C64: f64 CSR, the batched solver-loop operator -------------------------
+
+def gse_spmm_csr_f64_plain(rowptr, colpak, head, tail1, tail2, table, x,
+                           tags, active, *, ei_bit: int) -> torch.Tensor:
+    """Plain version of C64: A64's plain version on each active column of
+    the ``(nrhs, n)`` X at that column's tag; 0.0 for the others.
+
+    The active columns that share a tag share one decode, and their row
+    sums run side by side (``csr_row_sums``, elementwise across columns),
+    so each column is bitwise ``gse_spmv_csr_f64_plain`` on it."""
+    nrhs = x.shape[0]
+    y = torch.zeros(nrhs, rowptr.shape[0] - 1, dtype=torch.float64,
+                    device=x.device)
+    by_tag = {}
+    for j, (t, on) in enumerate(zip(tags.tolist(), active.tolist())):
+        if on:
+            by_tag.setdefault(min(max(int(t), 1), 3), []).append(j)
+    for t, js in by_tag.items():
+        val, col = _decode_gsecsr(colpak, head, tail1, tail2, table, ei_bit,
+                                  t)
+        prod = val[:, None] * x[js].to(torch.float64)[:, col].t()
+        y[js] = csr_row_sums(rowptr, prod).t()
+    return y
+
+
+def gse_spmm_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, tags,
+                     active, *, ei_bit: int, device="cuda") -> torch.Tensor:
+    """Y = A @ X as ``(nrhs, m)`` f64 over GSE-SEM CSR segments and an
+    ``(nrhs, n)`` f64 X (columns contiguous).
+
+    ``tags`` is an ``(nrhs,)`` int32 tensor (each clipped to [1, 3] as the
+    reference's ``lax.switch`` clips it) and ``active`` an ``(nrhs,)``
+    bool tensor, both on the operand's device, so the batched loop passes
+    its monitors' tags and its live columns without a host sync.  All
+    three segment arrays are passed because the tags are read on the
+    device.
+    """
+    dev = on_device(device, rowptr=rowptr, colpak=colpak, head=head,
+                    tail1=tail1, tail2=tail2, table=table, x=x, tags=tags,
+                    active=active)
+    if dev.type == "cpu":
+        return gse_spmm_csr_f64_plain(rowptr, colpak, head, tail1, tail2,
+                                      table, x, tags, active, ei_bit=ei_bit)
+    if dev.type != "cuda":
+        raise ValueError(f"gse_spmm_csr_f64 runs on cuda or cpu, not {dev}")
+    dev = colpak.device
+    nnz = colpak.shape[0]
+    _check(rowptr, "rowptr", torch.int32, dev, 1)
+    for name, t, dt in (("colpak", colpak, torch.uint32),
+                        ("head", head, torch.uint16),
+                        ("tail1", tail1, torch.uint16),
+                        ("tail2", tail2, torch.uint32)):
+        _check(t, name, dt, dev, 1)
+        if t.shape[0] != nnz:
+            raise ValueError(f"{name} has {t.shape[0]} entries, colpak {nnz}")
+    _check(table, "table", torch.int32, dev, 1)
+    _check(x, "x", torch.float64, dev, 2)
+    nrhs, n = x.shape
+    _check(tags, "tags", torch.int32, dev, 1)
+    _check(active, "active", torch.bool, dev, 1)
+    if tags.shape[0] != nrhs or active.shape[0] != nrhs:
+        raise ValueError(f"tags/active have {tags.shape[0]}/"
+                         f"{active.shape[0]} entries, x {nrhs} columns")
+    rows = rowptr.shape[0] - 1
+    y = torch.empty(nrhs, rows, dtype=torch.float64, device=dev)
+    if rows == 0 or nrhs == 0:
+        return y
+    rc = _fn("gse_spmm_csr_f64")(
+        tags.data_ptr(), active.data_ptr(), rowptr.data_ptr(),
+        colpak.data_ptr(), head.data_ptr(), tail1.data_ptr(),
+        tail2.data_ptr(), table.data_ptr(), x.data_ptr(), y.data_ptr(), rows,
+        n, nrhs, ei_bit, torch.cuda.current_stream(dev).cuda_stream)
+    gse_spmm_csr_f64.launches += 1
+    _raise_on(rc, "gse_spmm_csr_f64")
+    return y
+
+
+KERNELS = (gse_spmm_ell_f32, gse_spmm_csr_f64)
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+reset_launch_counts()

@@ -151,23 +151,32 @@ def gse_spmv_ell_f32(colpak, head, tail1, tail2, x, scales, *, ei_bit: int,
 def gse_spmv_csr_f64_plain(rowptr, colpak, head, tail1, tail2, table, x, *,
                            ei_bit: int, tag) -> torch.Tensor:
     """Plain version of A64: the f64 decode of ``_decode_gsecsr``, then
-    each row's products added in CSR order from 0.0 -- one slot column of
-    the row-padded layout at a time, vectorised over rows.  Padded slots
-    are never read, so a non-finite x spreads as in ``spmv_gse``.
-    (``index_add_`` would not promise the order.)"""
+    each row's products added in CSR order from 0.0 (:func:`csr_row_sums`).
+    Padded slots are never read, so a non-finite x spreads as in
+    ``spmv_gse``."""
     tag = min(max(int(tag), 1), 3)
     val, col = _decode_gsecsr(colpak, head, tail1, tail2, table, ei_bit, tag)
     prod = val * x.to(torch.float64)[col]
+    return csr_row_sums(rowptr, prod[:, None])[:, 0]
+
+
+def csr_row_sums(rowptr, prod) -> torch.Tensor:
+    """``(rows, k)`` sums of the ``(nnz, k)`` CSR-ordered terms ``prod``:
+    each row's terms added in CSR order from 0.0, one slot of the
+    row-padded layout at a time, vectorised over rows and the k columns
+    (elementwise, so column c is the sum of ``prod[:, c]`` alone).  Padded
+    slots are never read.  (``index_add_`` would not promise the order.)"""
     rp = rowptr.to(torch.int64)
     starts, lens = rp[:-1], rp[1:] - rp[:-1]
-    y = torch.zeros(lens.shape[0], dtype=torch.float64, device=x.device)
-    if prod.numel() == 0:
+    y = torch.zeros(lens.shape[0], prod.shape[1], dtype=prod.dtype,
+                    device=prod.device)
+    if prod.shape[0] == 0:
         return y
-    slot = torch.arange(int(lens.max()), device=x.device)
+    slot = torch.arange(int(lens.max()), device=prod.device)
     has = slot[None, :] < lens[:, None]
     terms = prod[torch.where(has, starts[:, None] + slot[None, :], 0)]
     for j in range(slot.shape[0]):
-        y = torch.where(has[:, j], y + terms[:, j], y)
+        y = torch.where(has[:, j, None], y + terms[:, j], y)
     return y
 
 

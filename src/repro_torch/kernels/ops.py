@@ -1,8 +1,9 @@
-"""Public wrappers around the SpMV kernel: ELL packing, the pack cache and
-the tag-specialized dispatch.
+"""Public wrappers around the SpMV and SpMM kernels: ELL packing, the pack
+cache and the tag-specialized dispatch.
 
 Port of ``repro/kernels/ops.py``: ``_cached_pack`` (:72),
-``ell_pack_gsecsr`` (:172), ``spmv_kernel_for`` (:349) and
+``ell_pack_gsecsr`` (:172), ``spmv_kernel_for`` (:349),
+``spmm_kernel_for`` (:387), ``gse_spmm_ell`` (:427) and
 ``gse_spmv_ell`` (:660).  The reference pads rows to its (8, 128) grid
 block; the CUDA kernel takes any row count, so only the lane width (128,
 the reference's default plan) is padded.  ``PACK_STATS`` is a plain dict
@@ -19,11 +20,13 @@ import torch
 
 from repro_torch.core.precision_table import TAG_BITS_USED
 from repro_torch.kernels import ref
+from repro_torch.kernels.gse_spmm import gse_spmm_ell_f32
 from repro_torch.kernels.gse_spmv import gse_spmv_ell_f32
 from repro_torch.sparse.csr import GSECSR, scatter_rows
 
-__all__ = ["gse_spmv_ell", "ell_pack_gsecsr", "spmv_kernel_for",
-           "PACK_STATS", "PACK_CACHE_MAX", "LANE"]
+__all__ = ["gse_spmv_ell", "gse_spmm_ell", "ell_pack_gsecsr",
+           "spmv_kernel_for", "spmm_kernel_for", "PACK_STATS",
+           "PACK_CACHE_MAX", "LANE"]
 
 # Operand-pack cache accounting: ``hits``/``misses`` let callers assert
 # that repeated solves re-pack nothing; ``evictions`` counts LRU drops and
@@ -153,3 +156,52 @@ def gse_spmv_ell(ell, table, x: torch.Tensor, ei_bit: int,
     if tag == 3:
         operands.append(t2)
     return spmv_kernel_for(tag, ei_bit)(*operands, x, scales)
+
+
+@functools.lru_cache(maxsize=None)
+def spmm_kernel_for(tag: int, ei_bit: int):
+    """Tag-specialized SpMM dispatch, the multi-RHS twin of
+    :func:`spmv_kernel_for`: the returned callable takes exactly the
+    operands ``tag`` streams -- ``(colpak, head, x, scales)`` for tag 1,
+    ``+ tail1`` for tag 2, ``+ tail2`` for tag 3 -- with ``x`` an
+    ``(nrhs, n)`` block, and a ``device=`` keyword (default ``"cuda"``).
+    The segments are streamed once for all ``nrhs`` columns."""
+    if tag == 1:
+        def call(colpak, head, x, scales, *, device="cuda"):
+            return gse_spmm_ell_f32(colpak, head, None, None, x, scales,
+                                    ei_bit=ei_bit, tag=1, device=device)
+    elif tag == 2:
+        def call(colpak, head, tail1, x, scales, *, device="cuda"):
+            return gse_spmm_ell_f32(colpak, head, tail1, None, x, scales,
+                                    ei_bit=ei_bit, tag=2, device=device)
+    elif tag == 3:
+        def call(colpak, head, tail1, tail2, x, scales, *, device="cuda"):
+            return gse_spmm_ell_f32(colpak, head, tail1, tail2, x, scales,
+                                    ei_bit=ei_bit, tag=3, device=device)
+    else:
+        raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
+    return call
+
+
+def gse_spmm_ell(ell, table, x: torch.Tensor, ei_bit: int, tag: int = 1, *,
+                 device="cuda") -> torch.Tensor:
+    """Y = A @ X (f32, ``(m, nrhs)``) from ELL-packed GSE-SEM segments
+    (kernel C32), X a dense ``(n, nrhs)`` block as in the reference.
+
+    X is passed to the kernel as ``(nrhs, n)``, columns contiguous, as the
+    reference passes it to its Pallas kernel.  Only the segment arrays
+    ``tag`` reads are passed and streamed, once for every column:
+    ``iteration_stream_bytes(a, tag, nrhs=nrhs)`` is the modeled traffic.
+    """
+    if x.dim() != 2:
+        raise ValueError(f"gse_spmm_ell wants a (n, nrhs) block; got "
+                         f"{tuple(x.shape)}")
+    colpak, head, t1, t2 = ell
+    scales = ref.make_scales(table, TAG_BITS_USED[tag])
+    operands = [colpak, head]
+    if tag >= 2:
+        operands.append(t1)
+    if tag == 3:
+        operands.append(t2)
+    xt = x.to(torch.float32).t().contiguous()
+    return spmm_kernel_for(tag, ei_bit)(*operands, xt, scales, device=device)

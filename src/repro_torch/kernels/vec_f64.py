@@ -19,8 +19,27 @@ are bitwise the reference's, on the card and on the CPU twin alike:
 * :func:`fma_axpy` -- ``fma(alpha, x, y)`` elementwise, ``alpha`` a device
   scalar.  Bound by HBM bytes.
 
-Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
-plain version only for CPU tensors; each counts its launches in its
+The batched CG loop (``solvers/batched.py``, the reference's per-column
+``jnp.vdot`` and updates in ``repro/solvers/batched.py:332-344``) keeps
+its vectors as ``(nrhs, n)`` blocks, one contiguous column per
+right-hand side, and runs the column-batched twins:
+
+* :func:`seq_dot_cols` -- one chain per column, the chains side by side,
+  each rounded exactly as :func:`seq_dot`; inactive columns are skipped.
+* :func:`fma_axpy_cols` -- ``fma(alpha[j], x[j], y[j])`` per column.
+
+Column j of either is bitwise the single-vector op on column j.
+
+:func:`ref_norm_cols` is the reference's ``jnp.linalg.norm`` (the solvers'
+``||b||``) as XLA's CPU build computes it, in torch operations around
+those kernels, and :func:`sqrt_rn` a square root rounded as the
+reference's.
+
+Each single-vector wrapper launches its kernel for CUDA tensors (or
+raises) and runs its plain version only for CPU tensors.  The column
+wrappers take ``device=`` (default ``"cuda"``): they launch on the card
+and run the plain version only when the caller asks for the CPU, and
+raise for tensors elsewhere.  Each wrapper counts its launches in its
 ``launches`` attribute.
 """
 from __future__ import annotations
@@ -28,21 +47,28 @@ from __future__ import annotations
 import ctypes
 import ctypes.util
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
 __all__ = ["seq_dot", "seq_dot_plain", "fma_axpy", "fma_axpy_plain",
-           "KERNELS", "reset_launch_counts"]
+           "seq_dot_cols", "seq_dot_cols_plain", "fma_axpy_cols",
+           "fma_axpy_cols_plain", "ref_norm_cols", "sqrt_rn", "KERNELS",
+           "reset_launch_counts"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "seq_dot_f64": [_P, _P, ctypes.c_longlong, _P, _P],
     "fma_axpy_f64": [_P, _P, _P, _P, ctypes.c_longlong, _P],
+    "seq_dot_cols_f64": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P],
+    "fma_axpy_cols_f64": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                          _P],
 }
 _BOUND = {}
 _SPLIT = 134217729.0  # 2**27 + 1: Veltkamp's splitter for f64
 _HEAD = 8  # leading elements of a dot added without fusion
+_WINDOW = 32  # XLA's CPU tree-reduction window
 
 
 def _fn(name: str):
@@ -77,6 +103,19 @@ def _check(t: torch.Tensor, name: str, device, ndim: int):
 def _raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def on_device(device, **tensors) -> torch.device:
+    """``torch.device(device)`` after checking that every tensor lies there
+    (a device without an index matches any index of its type)."""
+    dev = torch.device(device)
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device.type != dev.type or (dev.index is not None
+                                         and t.device.index != dev.index):
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    return dev
 
 
 # --- the dot: one chain ------------------------------------------------------
@@ -177,7 +216,155 @@ def fma_axpy(alpha: torch.Tensor, x: torch.Tensor,
     return out
 
 
-KERNELS = (seq_dot, fma_axpy)
+# --- the column-batched twins ----------------------------------------------
+
+def _check_block(name, t, dev, nrhs=None, n=None):
+    _check(t, name, dev, 2)
+    if (nrhs, n) != (None, None) and tuple(t.shape) != (nrhs, n):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"({nrhs}, {n})")
+
+
+def _active(active, nrhs: int, dev):
+    if active is None:
+        return torch.ones(nrhs, dtype=torch.bool, device=dev)
+    if active.dtype != torch.bool or tuple(active.shape) != (nrhs,):
+        raise ValueError(f"active must be a ({nrhs},) bool tensor, got "
+                         f"{active.dtype} {tuple(active.shape)}")
+    return active.contiguous()
+
+
+def seq_dot_cols_plain(a: torch.Tensor, b: torch.Tensor,
+                       active: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of :func:`seq_dot_cols`: :func:`seq_dot_plain` on each
+    active column, 0.0 for the others."""
+    nrhs = a.shape[0]
+    act = _active(active, nrhs, a.device).tolist()
+    out = torch.zeros(nrhs, dtype=torch.float64, device=a.device)
+    for j in range(nrhs):
+        if act[j]:
+            out[j] = seq_dot_plain(a[j], b[j])
+    return out
+
+
+def seq_dot_cols(a: torch.Tensor, b: torch.Tensor,
+                 active: torch.Tensor | None = None, *,
+                 device="cuda") -> torch.Tensor:
+    """``(nrhs,)`` dots of the columns of two ``(nrhs, n)`` f64 blocks,
+    column j rounded exactly as ``seq_dot(a[j], b[j])``.  ``active`` is an
+    ``(nrhs,)`` bool tensor (default: every column); an inactive column is
+    not read and gives 0.0."""
+    dev = on_device(device, a=a, b=b, active=active)
+    if dev.type == "cpu":
+        return seq_dot_cols_plain(a, b, active)
+    if dev.type != "cuda":
+        raise ValueError(f"seq_dot_cols runs on cuda or cpu, not {dev}")
+    dev = a.device
+    _check_block("a", a, dev)
+    nrhs, n = a.shape
+    _check_block("b", b, dev, nrhs, n)
+    act = _active(active, nrhs, dev)
+    out = torch.empty(nrhs, dtype=torch.float64, device=dev)
+    if nrhs == 0:
+        return out
+    rc = _fn("seq_dot_cols_f64")(a.data_ptr(), b.data_ptr(), n, nrhs,
+                                 act.data_ptr(), out.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    seq_dot_cols.launches += 1
+    _raise_on(rc, "seq_dot_cols_f64")
+    return out
+
+
+def fma_axpy_cols_plain(alpha: torch.Tensor, x: torch.Tensor,
+                        y: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`fma_axpy_cols`: :func:`fma_axpy_plain` with
+    ``alpha`` broadcast down each column.  It is elementwise, so column j
+    is bitwise ``fma_axpy_plain(alpha[j], x[j], y[j])``."""
+    return fma_axpy_plain(alpha[:, None], x, y)
+
+
+def fma_axpy_cols(alpha: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
+                  device="cuda") -> torch.Tensor:
+    """``fma(alpha[j], x[j], y[j])`` for the columns of ``(nrhs, n)`` f64
+    blocks, each rounded once; ``alpha`` is an ``(nrhs,)`` f64 tensor on
+    their device."""
+    dev = on_device(device, alpha=alpha, x=x, y=y)
+    if dev.type == "cpu":
+        return fma_axpy_cols_plain(alpha, x, y)
+    if dev.type != "cuda":
+        raise ValueError(f"fma_axpy_cols runs on cuda or cpu, not {dev}")
+    dev = x.device
+    _check_block("x", x, dev)
+    nrhs, n = x.shape
+    _check_block("y", y, dev, nrhs, n)
+    _check(alpha, "alpha", dev, 1)
+    if alpha.shape[0] != nrhs:
+        raise ValueError(f"alpha has {alpha.shape[0]} entries, x {nrhs} "
+                         "columns")
+    out = torch.empty_like(y)
+    if nrhs == 0:
+        return out
+    rc = _fn("fma_axpy_cols_f64")(alpha.data_ptr(), x.data_ptr(),
+                                  y.data_ptr(), out.data_ptr(), n, nrhs,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    fma_axpy_cols.launches += 1
+    _raise_on(rc, "fma_axpy_cols_f64")
+    return out
+
+
+# --- the reference's norm ----------------------------------------------------
+
+def sqrt_rn(v: torch.Tensor) -> torch.Tensor:
+    """IEEE square root, rounded to nearest, as the reference's ``jnp.sqrt``
+    (XLA emits the hardware instruction).  CUDA's f64 ``sqrt`` is correctly
+    rounded; torch's CPU kernel is not (an ulp off for about 1% of inputs),
+    so on the CPU the root is numpy's."""
+    if v.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.sqrt(v.detach().numpy())))
+    return torch.sqrt(v)
+
+
+def ref_norm_cols(v: torch.Tensor, *, device="cuda") -> torch.Tensor:
+    """``(nrhs,)`` 2-norms of the columns of an ``(nrhs, n)`` f64 block,
+    rounded as XLA's CPU build computes the reference's
+    ``jnp.linalg.norm`` (``||b||`` in every solver).
+
+    For n <= 32 XLA fuses the squares into the sum: one chain
+    ``acc = fma(v[i], v[i], acc)`` from 0.0 (:func:`fma_axpy_cols`).  For
+    n > 32 its tree-reduction rewrite rounds the squares, sums them in
+    windows of 32 -- the input padded to a whole number of windows, the
+    padding split evenly before and after, each window added in order from
+    0.0 -- and reduces the window sums the same way until at most 32 are
+    left, which it adds in order from 0.0.  The window sums are elementwise
+    across windows and columns, so the card and the CPU give the same
+    bits; an added +0.0 of padding leaves a sum of squares unchanged.
+    """
+    nrhs, n = v.shape
+    if n <= _WINDOW:
+        acc = torch.zeros(nrhs, 1, dtype=v.dtype, device=v.device)
+        for i in range(n):
+            acc = fma_axpy_cols(v[:, i].contiguous(),
+                                v[:, i:i + 1].contiguous(), acc,
+                                device=device)
+        return sqrt_rn(acc[:, 0])
+    s = v * v
+    while s.shape[1] > _WINDOW:
+        m = s.shape[1]
+        w = -(-m // _WINDOW)
+        pad = w * _WINDOW - m
+        s = torch.nn.functional.pad(s, (pad // 2, pad - pad // 2))
+        s = s.reshape(nrhs, w, _WINDOW)
+        acc = torch.zeros(nrhs, w, dtype=v.dtype, device=v.device)
+        for i in range(_WINDOW):
+            acc = acc + s[:, :, i]
+        s = acc
+    acc = torch.zeros(nrhs, dtype=v.dtype, device=v.device)
+    for i in range(s.shape[1]):
+        acc = acc + s[:, i]
+    return sqrt_rn(acc)
+
+
+KERNELS = (seq_dot, fma_axpy, seq_dot_cols, fma_axpy_cols)
 
 
 def reset_launch_counts():

@@ -1,0 +1,474 @@
+"""Request-batching solve service over registered GSE-SEM operators.
+
+Port of ``repro/launch/solver_serve.py``: ``SolveRequest``,
+``SolveReport``, ``_Operator`` and ``SolverService`` (``__init__``,
+``register``, ``submit``, ``flush``, ``_run_slot``, ``solution``,
+``_byte_shares``; :105-685) and the ``main`` demo (:688).
+
+The service packs each registered matrix once, buckets incoming requests
+by (operator, tolerance, precision axis), pads each bucket to a fixed
+slot width with all-zero columns and runs the batched stepped CG
+(``solvers.batched.solve_cg_batched``): one streaming pass over the packed
+matrix (kernel C64) feeds every request in a slot, so the matrix traffic
+is charged once per iteration however many requests ride along.  A
+degraded column gets a bounded single-RHS retry at tag 3.  Each request
+gets a :class:`SolveReport`: iterations, final relative residual, its own
+tag-switch schedule, health, retries and its modeled byte share of the
+batch (matrix bytes split evenly across each iteration's active columns,
+vector bytes owned per column).  A padding column has ``||b|| = 0``: it
+converges at iteration 0 and never perturbs a real request.
+
+``stats`` is a plain dict with the reference's seven keys and
+``queue_depth`` an int; the flush-latency and byte histograms and the
+spans arrive with ``obs/`` (ROADMAP queue 1 item 12).  Not yet ported:
+preconditioners (item 6), ``layout="sell"`` (item 10), per-group TagMaps
+and ``tags="adaptive"`` (item 11), launch plans and tuning (item 14) and
+sharded handles (item 15); each raises ``NotImplementedError``.
+
+Usage (demo, on the card):
+  PYTHONPATH=src python -m repro_torch.launch.solver_serve --requests 6 --slots 4
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import precision as P
+from repro_torch.kernels.vec_f64 import on_device, seq_dot
+from repro_torch.robustness.guards import (
+    DEFAULT_GUARDS,
+    GuardParams,
+    HEALTH_NONFINITE,
+    HEALTH_OK,
+    health_name,
+)
+from repro_torch.solvers.batched import column_tags_at, solve_cg_batched
+from repro_torch.solvers.cg import solve_cg
+from repro_torch.sparse.csr import CSR, GSECSR, iteration_stream_bytes, pack_csr
+
+__all__ = ["SolveRequest", "SolveReport", "SolverService"]
+
+_PRECONDITIONERS = ("jacobi", "spai0")
+
+
+def _normalize_service_tags(tags):
+    """Validate a service-level ``tags=`` axis: ``None`` (the monitor's
+    default) or an int tag 1/2/3."""
+    if tags is None:
+        return None
+    if isinstance(tags, str):
+        if tags != "adaptive":
+            raise ValueError(
+                f"tags= accepts an int tag, a TagMap, or 'adaptive'; "
+                f"got {tags!r}")
+        raise NotImplementedError(
+            "tags='adaptive' is not ported yet (ROADMAP queue 1 item 11)")
+    if isinstance(tags, bool) or not isinstance(tags, (int, np.integer)):
+        raise NotImplementedError(
+            f"tags= takes an int tag; {type(tags).__name__} (TagMap) is not "
+            "ported yet (ROADMAP queue 1 item 11)")
+    if int(tags) not in (1, 2, 3):
+        raise ValueError(f"tag must be 1, 2 or 3, got {int(tags)}")
+    return int(tags)
+
+
+def _finite(v: torch.Tensor) -> bool:
+    """Whether ``v . v`` is finite, as the reference tests a solution
+    (``isfinite(vdot(x, x))``)."""
+    return bool(torch.isfinite(seq_dot(v, v)))
+
+
+@dataclasses.dataclass
+class SolveRequest:
+    id: int
+    handle: str
+    b: torch.Tensor
+    tol: float
+    x0: Optional[torch.Tensor] = None
+    deadline_s: Optional[float] = None  # wall-clock budget from submit()
+    t_submit: float = 0.0               # time.monotonic() at intake
+    tags: object = None                 # per-request precision axis override
+
+
+@dataclasses.dataclass
+class SolveReport:
+    id: int
+    handle: str
+    iters: int
+    relres: float
+    converged: bool
+    tag: int
+    switch_iters: np.ndarray  # (2,)
+    est_bytes: int            # modeled byte share of the batch
+    batch_size: int           # real requests in the slot it ran in
+    # Degradation reporting: the health name (robustness.guards.HEALTH_NAMES,
+    # or "error" when the slot's solve itself raised), the first guard-trip
+    # iteration within the batched run (-1: never), the bounded tag-3
+    # retries this request consumed, and whether its deadline lapsed before
+    # recovery finished.
+    health: str = "ok"
+    trip_iter: int = -1
+    retries: int = 0
+    deadline_exceeded: bool = False
+
+
+@dataclasses.dataclass
+class _Operator:
+    name: str
+    csr: CSR
+    gse: GSECSR      # packed once at registration
+    tags: object = None  # handle-default precision axis: None | int
+
+
+class SolverService:
+    """Request-batching front end for the batched stepped CG.
+
+    ``slots`` is the batch width every bucket is padded to: requests
+    against the same (operator, tol) bucket share one batched solve.
+    ``flush()`` drains the pending requests and returns per-request
+    :class:`SolveReport` s.  The solves run on ``device``.
+    """
+
+    def __init__(self, slots: int = 4,
+                 params: P.MonitorParams | None = None,
+                 maxiter: int = 5000,
+                 guards: GuardParams | None = DEFAULT_GUARDS,
+                 max_retries: int = 1, *, device="cuda"):
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        if max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        self.slots = slots
+        self.params = params or P.MonitorParams.for_cg()
+        self.maxiter = maxiter
+        self.guards = guards
+        self.max_retries = max_retries
+        self.device = torch.device(device)
+        self._ops: Dict[str, _Operator] = {}
+        self._pending: List[SolveRequest] = []
+        self._ids = itertools.count()
+        self._solutions: Dict[int, torch.Tensor] = {}
+        self.stats = dict.fromkeys(
+            ("batches", "requests", "padded_cols", "modeled_bytes",
+             "retries", "errors", "deadline_exceeded"), 0)
+        self.queue_depth = 0
+
+    # -- registration ------------------------------------------------------
+
+    def register(self, name: str, a: CSR, k: int = 8, precond=None,
+                 layout: str = "csr", sharded: bool = False, plan=None,
+                 tune: bool = False, tags=None) -> str:
+        """Pack ``a`` (a ``CSR`` on the service's device) once; returns the
+        handle requests are submitted against.  ``tags`` sets the handle's
+        default start tag (an int), overridable per request at
+        :meth:`submit`."""
+        if name in self._ops:
+            raise ValueError(f"handle {name!r} already registered")
+        if layout not in ("csr", "sell"):
+            raise ValueError(
+                f"unknown layout {layout!r}; expected 'csr' or 'sell'")
+        if layout == "sell":
+            raise NotImplementedError(
+                "layout='sell' is not ported yet (ROADMAP queue 1 item 10)")
+        if sharded:
+            raise NotImplementedError(
+                "sharded handles are not ported yet (ROADMAP queue 1 item 15)")
+        if plan is not None or tune:
+            raise NotImplementedError(
+                "launch plans and tune=True are not ported yet (ROADMAP "
+                "queue 1 item 14)")
+        tags = _normalize_service_tags(tags)
+        if isinstance(precond, str) and precond not in _PRECONDITIONERS:
+            raise ValueError(
+                f"unknown preconditioner {precond!r}; expected one of "
+                f"{sorted(_PRECONDITIONERS)}")
+        if precond is not None:
+            raise NotImplementedError(
+                "preconditioned handles are not ported yet (ROADMAP queue 1 "
+                "item 6)")
+        on_device(self.device, a=a.val)
+        self._ops[name] = _Operator(name=name, csr=a, gse=pack_csr(a, k=k),
+                                    tags=tags)
+        return name
+
+    # -- request intake ----------------------------------------------------
+
+    def submit(self, handle: str, b, tol: float = 1e-8, x0=None,
+               deadline_s: float | None = None, tags=None) -> int:
+        """Queue one solve request; returns its request id.
+
+        ``b`` (and ``x0``) must match the handle's dimension as ``(n,)`` or
+        ``(n, 1)``, have a floating dtype and be entirely finite; the
+        solve runs in float64.  ``deadline_s`` is a wall-clock budget from
+        submission: a lapsed deadline suppresses the tag-3 retry.  ``tags``
+        overrides the handle's start tag for this request; requests bucket
+        by their effective axis."""
+        op = self._ops.get(handle)
+        if op is None:
+            raise KeyError(f"unknown handle {handle!r}")
+        n = op.csr.shape[0]
+        b = torch.as_tensor(b, device=self.device)
+        if b.dim() == 2 and b.shape[1] == 1:
+            b = b[:, 0]
+        if b.dim() != 1 or b.shape[0] != n:
+            raise ValueError(
+                f"b must be ({n},) or ({n}, 1) for handle {handle!r}; got "
+                f"{tuple(b.shape)}")
+        if not b.dtype.is_floating_point:
+            raise ValueError(f"b must have a floating dtype for handle "
+                             f"{handle!r}; got {b.dtype}")
+        if not bool(torch.isfinite(b).all()):
+            raise ValueError(
+                f"b contains non-finite entries (handle {handle!r}); "
+                "rejected at intake")
+        if x0 is not None:
+            x0 = torch.as_tensor(x0, device=self.device)
+            if x0.dim() == 2 and x0.shape[1] == 1:
+                x0 = x0[:, 0]  # same (n, 1) normalization as b
+            if x0.shape != b.shape:
+                raise ValueError(
+                    f"x0 shape {tuple(x0.shape)} != b shape {tuple(b.shape)}")
+            if not bool(torch.isfinite(x0).all()):
+                raise ValueError(
+                    f"x0 contains non-finite entries (handle {handle!r}); "
+                    "rejected at intake")
+            x0 = x0.to(torch.float64).contiguous()
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        tags = _normalize_service_tags(tags)
+        rid = next(self._ids)
+        self._pending.append(SolveRequest(
+            rid, handle, b.to(torch.float64).contiguous(), float(tol), x0,
+            deadline_s=deadline_s, t_submit=time.monotonic(), tags=tags))
+        self.queue_depth = len(self._pending)
+        return rid
+
+    # -- batch execution ---------------------------------------------------
+
+    def flush(self) -> Dict[int, SolveReport]:
+        """Drain pending requests: bucket by (handle, tol, tags), pad to
+        the slot width, run the batched stepped solver, report per request.
+
+        Solutions are kept only until the next flush (claim them with
+        :meth:`solution`).  ``flush`` never raises out of a slot: a slot
+        whose solve throws degrades to error reports (``health="error"``,
+        not converged, no solution) for its requests, and every returned
+        solution is either finite or flagged by a non-ok health."""
+        self._solutions.clear()
+        buckets: Dict[tuple, tuple] = {}
+        for req in self._pending:
+            eff = req.tags if req.tags is not None \
+                else self._ops[req.handle].tags
+            key = (req.handle, req.tol, eff)
+            buckets.setdefault(key, (eff, []))[1].append(req)
+        self._pending = []
+        self.queue_depth = 0
+
+        reports: Dict[int, SolveReport] = {}
+        for (handle, tol, _), (eff, reqs) in buckets.items():
+            op = self._ops[handle]
+            for i in range(0, len(reqs), self.slots):
+                chunk = reqs[i:i + self.slots]
+                try:
+                    reports.update(self._run_slot(op, tol, chunk, tags=eff))
+                except Exception:  # degraded, never propagated
+                    self.stats["errors"] += 1
+                    for req in chunk:
+                        self._solutions.pop(req.id, None)
+                        reports[req.id] = SolveReport(
+                            id=req.id, handle=op.name, iters=0,
+                            relres=float("inf"), converged=False, tag=0,
+                            switch_iters=np.full(2, -1, np.int64),
+                            est_bytes=0, batch_size=len(chunk),
+                            health="error",
+                        )
+        return reports
+
+    def _run_slot(self, op: _Operator, tol: float,
+                  reqs: List[SolveRequest],
+                  tags=None) -> Dict[int, SolveReport]:
+        n = op.csr.shape[0]
+        pad = self.slots - len(reqs)
+        zero = torch.zeros(n, dtype=torch.float64, device=self.device)
+        b = torch.stack([r.b for r in reqs] + [zero] * pad, dim=1)
+        x0 = None
+        if any(r.x0 is not None for r in reqs):
+            x0 = torch.stack(
+                [r.x0 if r.x0 is not None else zero for r in reqs]
+                + [zero] * pad, dim=1)
+        res = solve_cg_batched(op.gse, b, x0=x0, tol=tol,
+                               maxiter=self.maxiter, params=self.params,
+                               guards=self.guards, tags=tags,
+                               device=self.device)
+
+        iters = res.iters.cpu().numpy()
+        sw = res.switch_iters.cpu().numpy()
+        relres = res.relres.tolist()
+        converged = res.converged.tolist()
+        tag = res.tag.tolist()
+        health = np.broadcast_to(res.health.cpu().numpy(),
+                                 iters.shape).astype(np.int64)
+        trip = np.broadcast_to(res.trip_iter.cpu().numpy(),
+                               iters.shape).astype(np.int64)
+        nreal = len(reqs)
+        shares, total_bytes = self._byte_shares(op, iters, sw, tags=tags)
+        self.stats["batches"] += 1
+        self.stats["requests"] += nreal
+        self.stats["padded_cols"] += pad
+        self.stats["modeled_bytes"] += total_bytes
+
+        out = {}
+        for j, req in enumerate(reqs):
+            x = res.x[:, j].contiguous()
+            it_j = int(iters[j])
+            relres_j = relres[j]
+            conv_j = converged[j]
+            tag_j = tag[j]
+            bytes_j = int(shares[j])
+            h_j = int(health[j])
+            trip_j = int(trip[j])
+            retries = 0
+            deadline_hit = False
+            x_finite = _finite(x)
+            # Degraded column: bounded single-RHS retries at tag 3 (the
+            # strongest rung of the escalation ladder).  A lapsed deadline
+            # suppresses them; the report still ships what the batched
+            # pass produced, flagged.
+            while (not conv_j or not x_finite) and retries < self.max_retries:
+                if req.deadline_s is not None and \
+                        time.monotonic() - req.t_submit > req.deadline_s:
+                    deadline_hit = True
+                    self.stats["deadline_exceeded"] += 1
+                    break
+                retries += 1
+                self.stats["retries"] += 1
+                warm = x if x_finite else req.x0
+                r2 = solve_cg(op.gse, req.b, x0=warm, tol=tol,
+                              maxiter=self.maxiter, params=self.params,
+                              guards=self.guards, init_tag=3)
+                rx_finite = _finite(r2.x)
+                r2_trip = int(r2.trip_iter)
+                if trip_j < 0 and r2_trip >= 0:
+                    trip_j = it_j + r2_trip
+                it_j += int(r2.iters)
+                relres_j = float(r2.relres)
+                conv_j = bool(r2.converged)
+                tag_j = int(r2.tag)
+                h_j = int(r2.health)
+                if rx_finite:
+                    x = r2.x
+                x_finite = x_finite or rx_finite
+                sh2, tot2 = self._byte_shares(
+                    op, np.asarray([int(r2.iters)]),
+                    r2.switch_iters.cpu().numpy().reshape(1, -1))
+                bytes_j += int(sh2[0])
+                self.stats["modeled_bytes"] += tot2
+            # A non-finite solution never leaves the service unflagged,
+            # whatever the solver reported.
+            if not x_finite and h_j == HEALTH_OK:
+                h_j = HEALTH_NONFINITE
+                conv_j = False
+            self._solutions[req.id] = x
+            out[req.id] = SolveReport(
+                id=req.id,
+                handle=op.name,
+                iters=it_j,
+                relres=relres_j,
+                converged=conv_j,
+                tag=tag_j,
+                switch_iters=sw[j],
+                est_bytes=bytes_j,
+                batch_size=nreal,
+                health=health_name(h_j),
+                trip_iter=trip_j,
+                retries=retries,
+                deadline_exceeded=deadline_hit,
+            )
+        return out
+
+    def solution(self, request_id: int) -> torch.Tensor:
+        """The solved ``x`` for a flushed request (popped to free memory)."""
+        try:
+            return self._solutions.pop(request_id)
+        except KeyError:
+            raise KeyError(
+                f"no flushed solution for request {request_id!r}") from None
+
+    def _byte_shares(self, op: _Operator, iters, sw, tags=None):
+        """One walk of the per-iteration byte model: the per-column shares
+        and their sum, which is ``batched_run_bytes`` (each iteration adds
+        ``iteration_stream_bytes(..., nrhs=n_active)``, split evenly among
+        the columns sharing the streaming pass).  An int ``tags`` floors
+        the schedule's tag (the batch started there, not at tag 1)."""
+        nrhs = iters.shape[0]
+        shares = np.zeros(nrhs, np.float64)
+        floor = int(tags) if isinstance(tags, (int, np.integer)) else 1
+        for it in range(int(iters.max(initial=0))):
+            col_tags = column_tags_at(iters, sw, it)
+            live = np.nonzero(col_tags > 0)[0]
+            if live.size == 0:
+                continue
+            tag = max(int(col_tags.max()), floor)
+            tot = iteration_stream_bytes(op.gse, tag, nrhs=live.size)
+            shares[live] += tot / live.size
+        return np.rint(shares).astype(np.int64), int(round(shares.sum()))
+
+
+def main(argv=None):
+    import argparse
+
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.spmv import spmv
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--n", type=int, default=24, help="Poisson grid side")
+    ap.add_argument("--tol", type=float, default=1e-8)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    a = G.poisson2d(args.n, device=args.device)
+    host = G.poisson2d(args.n, device="cpu")  # b on the host: deterministic
+    params = P.MonitorParams(t=40, l=60, m=30, rsd_limit=0.5,
+                             reldec_limit=0.45)
+    svc = SolverService(slots=args.slots, params=params, maxiter=20000,
+                        device=args.device)
+    svc.register("poisson", a, k=8)
+
+    rng = np.random.default_rng(0)
+    ids = []
+    for _ in range(args.requests):
+        b = spmv(host, torch.from_numpy(rng.normal(size=a.shape[1])))
+        ids.append(svc.submit("poisson", b, tol=args.tol))
+
+    t0 = time.perf_counter()
+    reports = svc.flush()
+    if svc.device.type == "cuda":
+        torch.cuda.synchronize(svc.device)
+    dt = time.perf_counter() - t0
+    for rid in ids:
+        r = reports[rid]
+        print(
+            f"req {r.id}: iters={r.iters} relres={r.relres:.2e} "
+            f"converged={r.converged} tag={r.tag} "
+            f"switches={r.switch_iters.tolist()} "
+            f"est_bytes={r.est_bytes} batch={r.batch_size}/{args.slots} "
+            f"health={r.health}"
+        )
+    s = svc.stats
+    print(
+        f"served {s['requests']} requests in {s['batches']} batches "
+        f"({s['padded_cols']} padded cols, "
+        f"{s['modeled_bytes'] / 1e6:.2f} MB modeled matrix+vector stream) "
+        f"in {dt:.2f}s on {svc.device}"
+    )
+
+
+if __name__ == "__main__":
+    main()

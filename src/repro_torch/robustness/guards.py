@@ -73,7 +73,9 @@ DEFAULT_GUARDS = GuardParams()
 
 
 def _i32(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.int32, device=like.device)
+    # A fill on the device: ``as_tensor`` of a host scalar would copy it
+    # to the card and wait for the stream, once per constant per step.
+    return torch.full((), v, dtype=torch.int32, device=like.device)
 
 
 def guard_init(relres0: torch.Tensor) -> dict:
@@ -106,7 +108,8 @@ def guard_step(g, it, relres, params: GuardParams, *, denom=None,
                        _i32(HEALTH_STALLED, relres), ok)
     code = torch.where(relres > params.div_factor * g["best"],
                        _i32(HEALTH_DIVERGED, relres), code)
-    bad = torch.as_tensor(breakdown, device=relres.device)
+    bad = breakdown if isinstance(breakdown, torch.Tensor) else torch.full(
+        (), bool(breakdown), device=relres.device)
     if denom is not None:
         bad = bad | (denom <= 0)
         finite = finite & torch.isfinite(denom)

@@ -27,7 +27,7 @@ from typing import Callable, NamedTuple, Union
 import torch
 
 from repro_torch.core import precision as P
-from repro_torch.kernels.vec_f64 import seq_dot
+from repro_torch.kernels.vec_f64 import ref_norm_cols, seq_dot, sqrt_rn
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
     GuardParams,
@@ -91,7 +91,8 @@ def _normalize_b_x0(b, x0, device=None):
 
 
 def _norm(v):
-    return torch.sqrt(seq_dot(v, v))
+    """The reference's ``jnp.linalg.norm(v)``, bit for bit."""
+    return ref_norm_cols(v[None], device=v.device)[0]
 
 
 def _restore_shape(res: CGResult, orig_shape) -> CGResult:
@@ -132,7 +133,7 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
     bnorm = torch.where(bnorm == 0, 1.0, bnorm)
 
     def relres(rs):
-        return torch.sqrt(torch.abs(rs)) / bnorm
+        return sqrt_rn(torch.abs(rs)) / bnorm
 
     mon = P.init(params, dtype=b.dtype, tag=init_tag, device=b.device)
     r0 = b - matvec(x0, mon.tag)

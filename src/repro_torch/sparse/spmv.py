@@ -3,14 +3,19 @@ three GSE-SEM tags.
 
 Port of ``repro/sparse/spmv.py``: ``spmv`` (:32), ``_decode_gsecsr``
 (:40), ``decode_gsecsr``, ``decode_operand`` (the ``GSECSR`` branch),
-``spmv_gse`` (:128) and ``spmv_ell`` (:156).  Values are stored at the
-target precision and multiplied and summed in f64.
+``spmv_gse`` (:128), ``spmv_ell`` (:156), and the multi-RHS twins
+``spmm`` (:170, with ``_spmm_cast`` :164) and ``spmm_gse`` (:204, with
+``_spmm_gse`` :188; the CSR branch -- the SELL branch arrives with the
+SELL-C-sigma layout).  Values are stored at the target precision and
+multiplied and summed in f64.
 
 ``spmv_gse`` is the f64 operator of the stepped solvers.  It runs the
 hand-written CUDA kernel A64 (``kernels.gse_spmv.gse_spmv_csr_f64``) on
 the card; for CPU tensors the kernel's plain version runs instead.  Both
 sum each row sequentially in CSR order from 0.0, which is bitwise what
 the reference ``_decode_gsecsr`` + ``segment_sum`` computes.
+``spmm_gse`` runs kernel C64 (``kernels.gse_spmm.gse_spmm_csr_f64``) the
+same way; its column j is bitwise ``spmv_gse`` on column j.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ import torch
 from repro_torch.core.gse import _pow2_exact
 from repro_torch.sparse.csr import CSR, GSECSR
 
-__all__ = ["spmv", "spmv_gse", "spmv_ell", "decode_gsecsr", "decode_operand"]
+__all__ = ["spmv", "spmv_gse", "spmv_ell", "spmm", "spmm_gse",
+           "decode_gsecsr", "decode_operand"]
 
 
 def spmv(a: CSR, x: torch.Tensor, store_dtype=torch.float64,
@@ -110,3 +116,51 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     """Padded-ELL SpMV over dense (rows, L) arrays."""
     prod = vals.to(acc_dtype) * x.to(acc_dtype)[cols.long()]
     return torch.sum(prod, dim=1)
+
+
+def spmm(a: CSR, x: torch.Tensor, store_dtype=torch.float64,
+         acc_dtype=torch.float64) -> torch.Tensor:
+    """Y = A @ X for a dense ``(n, nrhs)`` block (fixed-format baselines):
+    the value and colidx streams serve every column; column j is
+    :func:`spmv` on column j (the same gather and row reduction)."""
+    if x.dim() != 2:
+        raise ValueError(f"spmm wants a (n, nrhs) block; got {tuple(x.shape)}")
+    v = a.val.to(store_dtype).to(acc_dtype)  # storage round-trip
+    prod = v[:, None] * x.to(acc_dtype)[a.col.long()]  # (nnz, nrhs)
+    y = torch.zeros(a.shape[0], x.shape[1], dtype=acc_dtype,
+                    device=prod.device)
+    return y.index_add_(0, a.row_ids.long(), prod)
+
+
+def spmm_gse(a: GSECSR, x: torch.Tensor, tag=1) -> torch.Tensor:
+    """GSE-SEM SpMM at precision ``tag``: Y = A @ X, X dense ``(n, nrhs)``,
+    in f64 on ``a``'s device.
+
+    One decoded-value pass feeds every column, so the modeled matrix
+    traffic is ``a.bytes_touched(tag)`` once per call however many
+    right-hand sides ride along (``csr.iteration_stream_bytes(...,
+    nrhs=)``).  ``tag`` is an int, an int32 tensor on ``a``'s device, or an
+    ``(nrhs,)`` int32 tensor of per-column tags; column j is bitwise
+    ``spmv_gse(a, x[:, j], tag_j)``.
+    """
+    from repro_torch.kernels.gse_spmm import gse_spmm_csr_f64
+
+    if not isinstance(a, GSECSR):
+        raise NotImplementedError(
+            f"spmm_gse takes a GSECSR; {type(a).__name__} layouts are not "
+            "ported yet (ROADMAP queue 1 item 10)")
+    if x.dim() != 2:
+        raise ValueError(f"spmm_gse wants a (n, nrhs) block; got "
+                         f"{tuple(x.shape)}")
+    if x.shape[0] != a.shape[1]:
+        raise ValueError(f"x has {x.shape[0]} rows, the operand "
+                         f"{a.shape[1]} columns")
+    dev = a.device
+    nrhs = x.shape[1]
+    tags = torch.as_tensor(tag, dtype=torch.int32, device=dev)
+    tags = tags.expand(nrhs).contiguous() if tags.dim() == 0 else tags
+    active = torch.ones(nrhs, dtype=torch.bool, device=dev)
+    y = gse_spmm_csr_f64(a.rowptr, a.colpak, a.head, a.tail1, a.tail2,
+                         a.table, x.to(torch.float64).t().contiguous(), tags,
+                         active, ei_bit=a.ei_bit, device=dev)
+    return y.t()

@@ -44,10 +44,17 @@ def test_port_module_imports_no_jax_and_no_reference(path):
 def _device_defaults():
     from repro_torch import convert
     from repro_torch.core import gse, precision
+    from repro_torch.kernels import gse_spmm, ops, vec_f64
+    from repro_torch.launch.solver_serve import SolverService
+    from repro_torch.solvers.batched import solve_cg_batched
     from repro_torch.sparse import csr, generators
 
     fns = [csr.from_coo, gse.pack, gse.pack_with_table, precision.init,
-           convert.gsecsr_from_repro, convert.csr_from_repro]
+           convert.gsecsr_from_repro, convert.csr_from_repro,
+           SolverService, solve_cg_batched, vec_f64.seq_dot_cols,
+           vec_f64.fma_axpy_cols, vec_f64.ref_norm_cols,
+           gse_spmm.gse_spmm_ell_f32, gse_spmm.gse_spmm_csr_f64,
+           ops.gse_spmm_ell]
     fns += [getattr(generators, n) for n in generators.__all__
             if "device" in inspect.signature(getattr(generators, n)).parameters]
     return fns
@@ -55,7 +62,7 @@ def _device_defaults():
 
 def test_entry_points_default_to_cuda():
     fns = _device_defaults()
-    assert len(fns) >= 15
+    assert len(fns) >= 23
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__qualname__

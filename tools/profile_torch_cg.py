@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Where the time of one stepped-CG iteration goes on the GPU.
 
-    python3 tools/profile_torch_cg.py [--n 1048576] [--iters 128]
+    python3 tools/profile_torch_cg.py [--n 1048576] [--iters 128] [--nrhs 1]
 
 Builds the port's full-size chip_smoke matrix
 (``diag_rescale(random_spd(n, 8, seed=21), 8, 21)``), warms the solver
-up, then runs ``solve_cg`` for ``--iters`` iterations three ways:
+up, then runs ``solve_cg`` (``--nrhs 1``) or the batched
+``solve_cg_batched`` over ``--nrhs`` right-hand sides (the solve
+service's loop) for ``--iters`` iterations three ways:
 
 * wall clock per iteration (host clock around a synchronized solve);
 * ``torch.profiler`` over the same solve: device busy time per
   iteration, the device's idle share, kernel launches per iteration and
   the kernels with the most device time;
-* the shares of A64 (``gse_spmv_csr_f64``) and of the CG dot
-  (``seq_dot_f64``) in the device time.
+* the shares of the SpMV or SpMM (A64 ``gse_spmv_csr_f64``, C64
+  ``gse_spmm_csr_f64``) and of the CG dots (``seq_dot_f64``, one block per
+  column) in the device time.
 
 Prints one JSON object (last line) and writes the Chrome trace to
-``build/profile_torch_cg.json``.  Needs a CUDA device.
+``build/profile_torch_cg[_nrhs<k>].json``.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--iters", type=int, default=128)
+    ap.add_argument("--nrhs", type=int, default=1)
     args = ap.parse_args()
 
     import numpy as np
@@ -44,6 +48,7 @@ def main() -> int:
         raise SystemExit("profile_torch_cg: needs a CUDA device")
     from repro_torch.core.precision import MonitorParams
     from repro_torch.kernels import _build
+    from repro_torch.solvers.batched import solve_cg_batched
     from repro_torch.solvers.cg import solve_cg
     from repro_torch.sparse import generators as G
     from repro_torch.sparse.csr import pack_csr
@@ -52,12 +57,17 @@ def main() -> int:
     _build.build_all()
     g = pack_csr(G.diag_rescale(G.random_spd(args.n, nnz_per_row=8, seed=21,
                                              device="cuda"), 8.0, 21))
-    x_true = torch.from_numpy(np.random.default_rng(1).normal(size=args.n))
-    b = spmv_gse(g, x_true.cuda(), 3)
+    cols = [spmv_gse(g, torch.from_numpy(np.random.default_rng(seed).normal(
+        size=args.n)).cuda(), 3) for seed in range(1, args.nrhs + 1)]
     params = MonitorParams(t=40, l=60, m=30)
 
     def run():
-        res = solve_cg(g, b, tol=1e-8, maxiter=args.iters, params=params)
+        if args.nrhs == 1:
+            res = solve_cg(g, cols[0], tol=1e-8, maxiter=args.iters,
+                           params=params)
+        else:
+            res = solve_cg_batched(g, torch.stack(cols, dim=1), tol=1e-8,
+                                   maxiter=args.iters, params=params)
         torch.cuda.synchronize()
         return res
 
@@ -65,13 +75,14 @@ def main() -> int:
     t0 = time.perf_counter()
     res = run()
     wall = time.perf_counter() - t0
-    iters = int(res.iters)
+    iters = int(res.iters.max())
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out_dir / "profile_torch_cg.json"))
+    suffix = "" if args.nrhs == 1 else f"_nrhs{args.nrhs}"
+    prof.export_chrome_trace(str(out_dir / f"profile_torch_cg{suffix}.json"))
 
     kernels = []
     for evt in prof.key_averages():
@@ -82,15 +93,16 @@ def main() -> int:
     kernels.sort(key=lambda k: -k[1])
     busy_us = sum(k[1] for k in kernels)
     launches = sum(k[2] for k in kernels)
-    a64_us = sum(k[1] for k in kernels if "spmv_csr_f64" in k[0])
+    spmv_us = sum(k[1] for k in kernels
+                  if "spmv_csr_f64" in k[0] or "spmm_csr_f64" in k[0])
     dot_us = sum(k[1] for k in kernels if "seq_dot_f64" in k[0])
     summary = {
-        "n": args.n, "nnz": g.nnz, "iters": iters,
+        "n": args.n, "nnz": g.nnz, "nrhs": args.nrhs, "iters": iters,
         "wall_ms_per_iter": wall / iters * 1e3,
         "device_busy_ms_per_iter": busy_us / iters / 1e3,
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,
         "kernel_launches_per_iter": launches / iters,
-        "a64_share_of_device_time": a64_us / busy_us if busy_us else None,
+        "spmv_share_of_device_time": spmv_us / busy_us if busy_us else None,
         "seq_dot_share_of_device_time": dot_us / busy_us if busy_us else None,
         "top_kernels": [{"name": k[0][:80], "device_ms": k[1] / 1e3,
                          "count": k[2]} for k in kernels[:8]],
