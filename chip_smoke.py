@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` and runs the port's two paths at full size: the main path
+with ``nvcc`` and runs the port's paths at full size: the main path
 (generate an SPD matrix, pack it to GSE-SEM CSR, run the tag-specialized
-SpMV, run stepped CG) and the batched solve service (``SolverService`` ->
-per-column stepped CG on the tag-specialized SpMM).  Every phase prints
+SpMV, run stepped CG), the batched solve service (``SolverService`` ->
+per-column stepped CG on the tag-specialized SpMM) and the SELL-C-sigma
+layout through both (kernels B and C′ on a skewed operator).  Every phase prints
 one line; any mismatch raises and the script exits non-zero.  There is no
 CPU fallback: without a CUDA device, or without the rest of the
 repository beside it, the script fails.
@@ -25,7 +26,11 @@ Phases:
                   C64 with tags [1, 2, 3, 1] and active [T, T, T, F]
                   bitwise its plain version, column j bitwise A64 at tag
                   j+1; seq_dot_cols and fma_axpy_cols bitwise seq_dot and
-                  fma_axpy per column.
+                  fma_axpy per column.  The SELL-C-sigma pack of the same
+                  matrix (every slice 128 wide, so the checks exercise the
+                  row permutation): B32 bitwise A32 and B64 bitwise A64 at
+                  tags 1-3; C′32 bitwise C32 at tags 1-3 and C′64 bitwise
+                  C64 with tags [1, 2, 3, 1], active [T, T, T, F], nrhs 4.
   3. trajectory-- spd_rs8_2k solved on the GPU and on the CPU twin: equal
                   tag and switch_iters, iters within 3%, both converged.
                   The reference's schedule there is [120, 150] in 2791
@@ -47,10 +52,46 @@ Phases:
                   phase 4's solo solve bitwise; all converge, health ok,
                   no retries, no errors; every kernel of the path must
                   have launched.
-  7. kernels   -- CUDA-event times (minimum over repeats) of every kernel
+  7. sell parity -- skewed_spd(8192, seed=0) packed at k=8 (about 1.03M
+                  nonzeros, SELL widths 128/256/8192; its uniform ELL still
+                  fits, so A and C run beside B and C′): B32 against its
+                  plain version (same tolerance, bitwise expected) and
+                  bitwise A32; B64 bitwise A64 and its plain version; C′32
+                  and C′64 likewise against C32 and C64 at nrhs 4 (C′64
+                  with mixed tags); tags 1-3.
+  8. sell trajectory -- sk512_rs8_s0 (diag_rescale(skewed_spd(512,
+                  seed=0), 8, 0)) over its SELL pack: solve_cg on the GPU
+                  and on the CPU twin (1498 iterations, tag 3, [210, 300];
+                  x and relres bitwise); the layout="sell" service at
+                  maxiter 20000 equals the reference's reports below, and
+                  at maxiter 200 the GPU's reports and solutions equal the
+                  CPU twin's bitwise.
+  9. sell      -- diag_rescale(skewed_spd(262144, seed=5), 8, 5) (about
+                  33.2M nonzeros, 4 dense hub rows; its uniform ELL would
+                  need 6.9e10 slots).  First, uncounted, the SELL solve at
+                  n = 32768 of the same construction must end as the
+                  reference's does (STALL_REF: 1026 iterations, [60, 90],
+                  relres and health "stalled" equal), and so must its
+                  layout="sell" service (STALL_SERVE_REF: every request
+                  converges after one tag-3 retry).  B64 bitwise A64 at
+                  tags 1-3 and C′64
+                  bitwise C64 (mixed tags) on it; then, launch counts
+                  zeroed, B32 and C′32 at tags 1-3 against their plain
+                  versions (rtol 2e-5 / atol 1e-4), stepped CG over the SELL pack (tol 1e-8,
+                  maxiter 20000, default guards; it may stall, as the
+                  reference does on this construction from n = 32768 on,
+                  and then the service's tag-3 retry from its x is run
+                  too), the CSR and SELL solves over 256 iterations bitwise
+                  equal, then SolverService(slots=4, maxiter=20000,
+                  layout="sell") with three requests: request 0 bitwise
+                  the solo SELL solve (and retry), all converge, health
+                  ok, no errors; every kernel of the path must have
+                  launched.
+  10. kernels  -- CUDA-event times (minimum over repeats) of every kernel
                   beside its plain version, its bound (HBM bytes or
                   operations) and one PyTorch library call (torch.sparse
-                  CSR, torch.dot, torch.addcmul, torch.linalg.vecdot).
+                  CSR, torch.dot, torch.addcmul, torch.linalg.vecdot); the
+                  SELL kernels and A64 on phase 9's operator.
 
 The line before the last two is the ``{"kernels": [...]}`` JSON record,
 the line before the last the card's name and power limit, the last line
@@ -95,6 +136,46 @@ SERVICE_REF = {
           dict(batches=1, requests=3, padded_cols=1, modeled_bytes=36892480,
                retries=3, errors=0, deadline_exceeded=0)),
 }
+
+# The reference's SolverService with register(..., layout="sell") on
+# sk512_rs8_s0 (diag_rescale(skewed_spd(512, seed=0), 8, 0), three requests
+# b_j = A x_j, x_j = default_rng(j).normal(512), slots=4; JAX on the CPU,
+# x64; tests/test_torch_sell_serve.py holds the port's CPU twin to the
+# same reports), in SERVICE_REF's layout.
+SELL_SERVICE_REF = {
+    20000: ([(1498, 3, [210, 300], "ok", 0, 406957675),
+             (1498, 3, [150, 180], "ok", 0, 406957675),
+             (1678, 3, [120, 150], "ok", 0, 557737195)],
+            dict(batches=1, requests=3, padded_cols=1,
+                 modeled_bytes=1371652544, retries=0, errors=0,
+                 deadline_exceeded=0)),
+    200: ([(400, 3, [-1, -1], "stalled", 1, 121413973),
+           (400, 3, [150, 180], "stalled", 1, 121413973),
+           (400, 3, [120, 150], "stalled", 1, 121413973)],
+          dict(batches=1, requests=3, padded_cols=1, modeled_bytes=364241920,
+               retries=3, errors=0, deadline_exceeded=0)),
+}
+N_SKEW = 1 << 18
+
+# The reference's stepped CG on diag_rescale(skewed_spd(32768, seed=5), 8, 5)
+# packed at k=8 (tol 1e-8, MonitorParams(40, 60, 30), maxiter 20000, default
+# guards, b = A x, x = default_rng(1).normal(32768)), printed by
+# tools/reference/skewed_stall.py 32768 (JAX on the CPU, x64): iters,
+# switch_iters, tag, relres, converged, health.  The smallest n at which the
+# reference stalls on this construction; phase 9 holds the port's SELL solve
+# to it before the full-size run, which stalls too.
+N_STALL = 1 << 15
+STALL_REF = (1026, [60, 90], 3, 0.10751075182831665, False, "stalled")
+# The same, served (tools/reference/skewed_stall.py --serve 32768):
+# SolverService(slots=4, layout="sell") with x from seeds 1, 2, 3; per
+# request (iters, switch_iters, relres, converged, health, retries,
+# trip_iter), then the stats.
+STALL_SERVE_REF = (
+    [(3551, [60, 90], 9.997327638185412e-09, True, "ok", 1, 1025),
+     (3559, [60, 90], 9.774815279656397e-09, True, "ok", 1, 1023),
+     (3671, [60, 90], 9.901405357959755e-09, True, "ok", 1, 1025)],
+    dict(batches=1, requests=3, padded_cols=1, modeled_bytes=262872318816,
+         retries=3, errors=0, deadline_exceeded=0))
 
 
 def log(phase: str, **kv):
@@ -145,22 +226,35 @@ def require_bitwise(name, got, want):
         raise AssertionError(f"{name} is not bitwise equal to its reference")
 
 
-def serve_small(where: str, maxiter: int, params):
-    """rs8_400_s3 through the port's SolverService on ``where``: three
-    requests b_j = A x_j, x_j = default_rng(j).normal(400), slots=4."""
+def rs8_400_s3(device):
+    from repro_torch.sparse import generators as G
+
+    return G.diag_rescale(G.random_spd(400, seed=3, device=device), 8.0, 3)
+
+
+def sk512_rs8_s0(device):
+    from repro_torch.sparse import generators as G
+
+    return G.diag_rescale(G.skewed_spd(512, seed=0, device=device), 8.0, 0)
+
+
+def serve_small(where: str, maxiter: int, params, case=rs8_400_s3,
+                layout="csr"):
+    """``case`` (rs8_400_s3 or sk512_rs8_s0) through the port's
+    SolverService on ``where``: three requests b_j = A x_j,
+    x_j = default_rng(j).normal(n), slots=4."""
     import numpy as np
     import torch
 
     from repro_torch.launch.solver_serve import SolverService
-    from repro_torch.sparse import generators as G
 
-    host = G.diag_rescale(G.random_spd(400, seed=3, device="cpu"), 8.0, 3)
+    host = case("cpu")
+    n = host.shape[0]
     svc = SolverService(slots=NRHS, params=params, maxiter=maxiter,
                         device=where)
-    svc.register("op", G.diag_rescale(G.random_spd(400, seed=3, device=where),
-                                      8.0, 3), k=8)
+    svc.register("op", case(where), k=8, layout=layout)
     ids = [svc.submit("op", torch.from_numpy(host_spmv(
-        host, np.random.default_rng(j).normal(size=400))), tol=1e-8)
+        host, np.random.default_rng(j).normal(size=n))), tol=1e-8)
         for j in range(3)]
     t0 = time.perf_counter()
     reports = svc.flush()
@@ -178,6 +272,555 @@ def report_fields(r) -> dict:
     d = dataclasses.asdict(r)
     d["switch_iters"] = r.switch_iters.tolist()
     return d
+
+
+def sell_against_uniform(case, g, ell, sell, x32, x64, x32c, x64c, scales):
+    """B and C′ over ``sell`` bitwise A and C over the same operator ``g``
+    (uniform ELL ``ell``, CSR) at tags 1-3; C′64 with tags [1, 2, 3, 1] and
+    active [T, T, T, F] at nrhs 4."""
+    import torch
+
+    from repro_torch.kernels import gse_spmm as C, gse_spmv as K, ops
+    from repro_torch.sparse.spmv import spmv_gse
+
+    dev = x32.device
+    segs = (g.rowptr, g.colpak, g.head, g.tail1, g.tail2, g.table)
+    for t in TAGS:
+        t1 = ell[2] if t >= 2 else None
+        t2 = ell[3] if t == 3 else None
+        require_bitwise(f"{case}: B32 tag {t} against A32",
+                        ops.gse_spmv_sell(sell, x32, tag=t),
+                        K.gse_spmv_ell_f32(ell[0], ell[1], t1, t2, x32,
+                                           scales[t], ei_bit=g.ei_bit, tag=t))
+        require_bitwise(f"{case}: B64 tag {t} against A64",
+                        spmv_gse(sell, x64, t), spmv_gse(g, x64, t))
+        require_bitwise(f"{case}: C′32 tag {t} against C32",
+                        ops.gse_spmm_sell(sell, x32c.t(), tag=t, device=dev),
+                        C.gse_spmm_ell_f32(ell[0], ell[1], t1, t2, x32c,
+                                           scales[t], ei_bit=g.ei_bit, tag=t,
+                                           device=dev))
+    tags = torch.tensor([1, 2, 3, 1], dtype=torch.int32, device=dev)
+    active = torch.tensor([True, True, True, False], device=dev)
+    require_bitwise(
+        f"{case}: C′64 against C64",
+        C.gse_spmm_sell_f64(*sell.segments, sell.table, x64c, tags, active,
+                            sell.bucket_table, sell.perm, sell.row_len,
+                            rows=g.shape[0], ei_bit=g.ei_bit, device=dev),
+        C.gse_spmm_csr_f64(*segs, x64c, tags, active, ei_bit=g.ei_bit,
+                           device=dev))
+    log("parity", case=case, layout="sell", widths=list(sell.widths),
+        bucket_rows=list(sell.bucket_rows),
+        b32_bitwise_a32=True, b64_bitwise_a64=True, c32_bitwise=True,
+        c64_tags=[1, 2, 3, 1], c64_bitwise=True)
+
+
+def phase_sell_parity():
+    """Phase 7: B and C′ across width buckets, against their plain versions
+    and against A and C on the uniform ELL of the same operator."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.precision_table import TAG_BITS_USED
+    from repro_torch.kernels import gse_spmm as C, gse_spmv as K, ops, ref
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import ell_layout, pack_csr
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    g = pack_csr(G.skewed_spd(8192, seed=0, device=dev))
+    sell = ops.sell_pack_gsecsr(g)
+    ell = ops.ell_pack_gsecsr(g)
+    torch.cuda.synchronize()
+    log("sell_parity", case="skewed_spd(8192, seed=0)", nnz=g.nnz,
+        widths=list(sell.widths), bucket_rows=list(sell.bucket_rows),
+        sell_padding_ratio=sell.padding_ratio,
+        ell_width=ell[0].shape[1], ell_padding_ratio=ell_layout(g).padding_ratio,
+        pack_s=f"{time.perf_counter() - t0:.2f}")
+    m, n = g.shape
+    rng = np.random.default_rng(7)
+    x32 = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    x64 = torch.from_numpy(rng.normal(size=n)).to(dev)
+    x32c = torch.from_numpy(
+        rng.normal(size=(NRHS, n)).astype(np.float32)).to(dev)
+    x64c = torch.from_numpy(rng.normal(size=(NRHS, n))).to(dev)
+    scales = {t: ref.make_scales(g.table, TAG_BITS_USED[t]) for t in TAGS}
+    sell_against_uniform("skewed_spd(8192)", g, ell, sell, x32, x64, x32c,
+                         x64c, scales)
+    lay = dict(buckets=sell.bucket_table, perm=sell.perm, rows=m,
+               ei_bit=g.ei_bit)
+    segs = sell.segments
+    for t in TAGS:
+        t1 = segs[2] if t >= 2 else None
+        t2 = segs[3] if t == 3 else None
+        got = K.gse_spmv_sell_f32(segs[0], segs[1], t1, t2, x32, scales[t],
+                                  tag=t, **lay)
+        want = K.gse_spmv_sell_f32_plain(segs[0], segs[1], t1, t2, x32,
+                                         scales[t], tag=t, **lay)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-4)
+        got_c = C.gse_spmm_sell_f32(segs[0], segs[1], t1, t2, x32c,
+                                    scales[t], tag=t, device=dev, **lay)
+        want_c = C.gse_spmm_sell_f32_plain(segs[0], segs[1], t1, t2, x32c,
+                                           scales[t], tag=t, **lay)
+        torch.testing.assert_close(got_c, want_c, rtol=2e-5, atol=1e-4)
+        b64 = K.gse_spmv_sell_f64(*segs, g.table, x64, tag=t,
+                                  row_len=sell.row_len, **lay)
+        require_bitwise(f"B64 tag {t} against its plain version", b64,
+                        K.gse_spmv_sell_f64_plain(*segs, g.table, x64, tag=t,
+                                                  row_len=sell.row_len, **lay))
+        log("sell_parity", tag=t, b32_max_abs_err=float(
+            (got - want).abs().max()), b32_tol="rtol 2e-5 atol 1e-4",
+            b32_bitwise_plain=bitwise(got, want),
+            c32_max_abs_err=float((got_c - want_c).abs().max()),
+            c32_bitwise_plain=bitwise(got_c, want_c), b64_bitwise_plain=True)
+    tags = torch.tensor([1, 2, 3, 1], dtype=torch.int32, device=dev)
+    active = torch.tensor([True, True, True, False], device=dev)
+    lay64 = dict(buckets=sell.bucket_table, perm=sell.perm,
+                 row_len=sell.row_len, rows=m, ei_bit=g.ei_bit)
+    require_bitwise("C′64 against its plain version",
+                    C.gse_spmm_sell_f64(*segs, g.table, x64c, tags, active,
+                                        device=dev, **lay64),
+                    C.gse_spmm_sell_f64_plain(*segs, g.table, x64c, tags,
+                                              active, **lay64))
+    log("sell_parity", kernel="gse_spmm_sell_f64", tags=[1, 2, 3, 1],
+        active=[True, True, True, False], bitwise_plain=True)
+
+
+def phase_sell_trajectory(params):
+    """Phase 8: sk512_rs8_s0 over its SELL pack, solo and served, on the
+    GPU against the CPU twin and the reference's reports."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.solvers.cg import solve_cg
+    from repro_torch.sparse.csr import pack_csr
+
+    host = sk512_rs8_s0("cpu")
+    b0 = torch.from_numpy(host_spmv(
+        host, np.random.default_rng(0).normal(size=host.shape[0])))
+    runs = {}
+    for where in ("cuda", "cpu"):
+        sell = ops.sell_pack_gsecsr(pack_csr(sk512_rs8_s0(where)))
+        t0 = time.perf_counter()
+        r = solve_cg(sell, b0.to(where), tol=1e-8, maxiter=20000,
+                     params=params)
+        runs[where] = (r, time.perf_counter() - t0)
+    (rg, tg_s), (rc, tc_s) = runs["cuda"], runs["cpu"]
+    log("sell_trajectory", case="sk512_rs8_s0", layout="sell",
+        gpu_iters=int(rg.iters), cpu_iters=int(rc.iters), tag=int(rg.tag),
+        switch_iters=rg.switch_iters.tolist(), relres=float(rg.relres),
+        gpu_s=f"{tg_s:.2f}", cpu_s=f"{tc_s:.2f}")
+    got = (int(rg.iters), int(rg.tag), rg.switch_iters.tolist())
+    if got != (1498, 3, [210, 300]):
+        raise AssertionError(f"sk512_rs8_s0 over SELL on the GPU: {got}")
+    require_bitwise("sk512_rs8_s0 x against the CPU twin", rg.x, rc.x)
+    require_bitwise("sk512_rs8_s0 relres against the CPU twin", rg.relres,
+                    rc.relres)
+    for maxiter in (20000, 200):
+        svc_g, reps_g, xs_g, wall_g = serve_small(
+            "cuda", maxiter, params, case=sk512_rs8_s0, layout="sell")
+        want, want_stats = SELL_SERVICE_REF[maxiter]
+        got = [report_key(r) for r in reps_g]
+        if got != want or svc_g.stats != want_stats:
+            raise AssertionError(f"sell service at maxiter {maxiter}: {got} "
+                                 f"{svc_g.stats} != {want} {want_stats}")
+        twin = {}
+        if maxiter == 200:  # the tag-3 retry: GPU == CPU twin, bit for bit
+            _, reps_c, xs_c, wall_c = serve_small(
+                "cpu", maxiter, params, case=sk512_rs8_s0, layout="sell")
+            for rg_, rc_, xg_, xc_ in zip(reps_g, reps_c, xs_g, xs_c):
+                if report_fields(rg_) != report_fields(rc_):
+                    raise AssertionError(f"GPU report {rg_} != CPU {rc_}")
+                require_bitwise(f"sell service x of request {rg_.id}", xg_,
+                                xc_)
+            twin = dict(cpu_twin_bitwise=True, cpu_s=f"{wall_c:.2f}")
+        log("sell_trajectory", case="sk512_rs8_s0", service_maxiter=maxiter,
+            iters=[r.iters for r in reps_g],
+            switch_iters=[r.switch_iters.tolist() for r in reps_g],
+            health=[r.health for r in reps_g],
+            est_bytes=[r.est_bytes for r in reps_g],
+            stats=json.dumps(svc_g.stats), matches_reference=True,
+            gpu_s=f"{wall_g:.2f}", **twin)
+
+
+def sell_stall_witness(params):
+    """Phase 9's first check: the port's SELL solve and SELL service on the
+    GPU at n = 32768 end as the reference's do (STALL_REF, STALL_SERVE_REF),
+    so the full-size stall and retry are the construction's and not the
+    port's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.solver_serve import SolverService
+    from repro_torch.robustness.guards import health_name
+    from repro_torch.solvers.cg import solve_cg
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+
+    csr = G.diag_rescale(G.skewed_spd(N_STALL, seed=5, device="cuda"), 8.0, 5)
+    b = torch.from_numpy(host_spmv(
+        csr, np.random.default_rng(1).normal(size=N_STALL))).cuda()
+    sell = ops.sell_pack_gsecsr(pack_csr(csr))
+    t0 = time.perf_counter()
+    r = solve_cg(sell, b, tol=1e-8, maxiter=20000, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (int(r.iters), r.switch_iters.tolist(), int(r.tag),
+           float(r.relres), bool(r.converged), health_name(r.health))
+    log("sell", witness=f"diag_rescale(skewed_spd({N_STALL}, seed=5), 8, 5)",
+        iters=got[0], switch_iters=got[1], tag=got[2], relres=repr(got[3]),
+        converged=got[4], health=got[5], reference=STALL_REF,
+        wall_s=f"{wall:.2f}")
+    if got != STALL_REF:
+        raise AssertionError(f"SELL solve at n = {N_STALL}: {got} != the "
+                             f"reference's {STALL_REF}")
+    svc = SolverService(slots=NRHS, params=params, maxiter=20000,
+                        device="cuda")
+    svc.register("op", csr, k=8, layout="sell")
+    ids = [svc.submit("op", torch.from_numpy(host_spmv(
+        csr, np.random.default_rng(seed).normal(size=N_STALL))).cuda(),
+        tol=1e-8) for seed in (1, 2, 3)]
+    t0 = time.perf_counter()
+    reports = svc.flush()
+    wall = time.perf_counter() - t0
+    got = [(r.iters, r.switch_iters.tolist(), r.relres, r.converged,
+            r.health, r.retries, r.trip_iter) for r in
+           (reports[i] for i in ids)]
+    log("sell", witness="the same, served (layout=sell)",
+        requests=got, stats=json.dumps(svc.stats), flush_s=f"{wall:.2f}")
+    if (got, svc.stats) != STALL_SERVE_REF:
+        raise AssertionError(f"SELL service at n = {N_STALL}: {got} "
+                             f"{svc.stats} != the reference's "
+                             f"{STALL_SERVE_REF}")
+
+
+def phase_sell_full(params):
+    """Phase 9: the SELL path at full size on the skewed operator, counted.
+    Returns what phase 10 times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.precision_table import TAG_BITS_USED
+    from repro_torch.kernels import gse_spmm as C, gse_spmv as K, ops, ref
+    from repro_torch.kernels import vec_f64 as V
+    from repro_torch.launch.solver_serve import SolverService
+    from repro_torch.robustness.guards import health_name
+    from repro_torch.solvers.cg import solve_cg
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import ell_layout, pack_csr
+    from repro_torch.sparse.spmv import spmv_gse
+
+    sell_stall_witness(params)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    csr = G.diag_rescale(G.skewed_spd(N_SKEW, seed=5, device=dev), 8.0, 5)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = pack_csr(csr)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sell = ops.sell_pack_gsecsr(g)
+    torch.cuda.synchronize()
+    sell_s = time.perf_counter() - t0
+    lens = (g.rowptr[1:] - g.rowptr[:-1]).cpu().numpy()
+    longest = int(lens.max())
+    log("sell", case=f"diag_rescale(skewed_spd({N_SKEW}, seed=5), 8, 5)",
+        nnz=g.nnz, longest_row=longest, widths=list(sell.widths),
+        bucket_rows=list(sell.bucket_rows), slots=sell.slots,
+        padding_ratio=sell.padding_ratio,
+        uniform_ell_slots_not_allocated=ell_layout(g).slots,
+        generate_s=f"{gen_s:.2f}", pack_csr_s=f"{pack_s:.2f}",
+        sell_pack_s=f"{sell_s:.2f}")
+    m, n = g.shape
+    rng = np.random.default_rng(11)
+    x32 = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    x32c = torch.from_numpy(
+        rng.normal(size=(NRHS, n)).astype(np.float32)).to(dev)
+    x_true = np.random.default_rng(1).normal(size=n)
+    b = torch.from_numpy(host_spmv(csr, x_true)).to(dev)
+    bs = [b] + [torch.from_numpy(host_spmv(
+        csr, np.random.default_rng(seed).normal(size=n))).to(dev)
+        for seed in (2, 3)]
+    scales = {t: ref.make_scales(g.table, TAG_BITS_USED[t]) for t in TAGS}
+    # The warp rows of B64 and C′64 keep A64's and C64's chains over the
+    # hub rows too (uncounted: before the path's run).
+    x64 = torch.from_numpy(rng.normal(size=n)).to(dev)
+    x64c = torch.from_numpy(rng.normal(size=(NRHS, n))).to(dev)
+    for t in TAGS:
+        require_bitwise(f"full size: B64 tag {t} against A64",
+                        spmv_gse(sell, x64, t), spmv_gse(g, x64, t))
+    mixed = torch.tensor([1, 2, 3, 1], dtype=torch.int32, device=dev)
+    active = torch.tensor([True, True, True, False], device=dev)
+    require_bitwise(
+        "full size: C′64 against C64",
+        C.gse_spmm_sell_f64(*sell.segments, g.table, x64c, mixed, active,
+                            sell.bucket_table, sell.perm, sell.row_len,
+                            rows=m, ei_bit=g.ei_bit, device=dev),
+        C.gse_spmm_csr_f64(g.rowptr, g.colpak, g.head, g.tail1, g.tail2,
+                           g.table, x64c, mixed, active, ei_bit=g.ei_bit,
+                           device=dev))
+    log("sell", b64_bitwise_a64=True, c64_bitwise_c64=True,
+        c64_tags=[1, 2, 3, 1])
+    torch.cuda.synchronize()
+    for mod in (K, C, V):
+        mod.reset_launch_counts()
+    b32_launches, c32_launches, b32_err, c32_err = {}, {}, {}, {}
+    segs = sell.segments
+    for t in TAGS:
+        before = K.gse_spmv_sell_f32.launches
+        y = ops.gse_spmv_sell(sell, x32, tag=t)
+        b32_launches[t] = K.gse_spmv_sell_f32.launches - before
+        want = K.gse_spmv_sell_f32_plain(
+            segs[0], segs[1], segs[2] if t >= 2 else None,
+            segs[3] if t == 3 else None, x32, scales[t], sell.bucket_table,
+            sell.perm, rows=m, ei_bit=g.ei_bit, tag=t)
+        torch.testing.assert_close(y, want, rtol=2e-5, atol=1e-4)
+        b32_err[t] = float((y - want).abs().max())
+        before = C.gse_spmm_sell_f32.launches
+        yc = ops.gse_spmm_sell(sell, x32c.t(), tag=t, device=dev)
+        c32_launches[t] = C.gse_spmm_sell_f32.launches - before
+        want_c = C.gse_spmm_sell_f32_plain(
+            segs[0], segs[1], segs[2] if t >= 2 else None,
+            segs[3] if t == 3 else None, x32c, scales[t], sell.bucket_table,
+            sell.perm, rows=m, ei_bit=g.ei_bit, tag=t)
+        torch.testing.assert_close(yc, want_c, rtol=2e-5, atol=1e-4)
+        c32_err[t] = float((yc - want_c).abs().max())
+        log("sell", kernel="gse_spmv_sell_f32", tag=t,
+            max_abs_err=b32_err[t], tol="rtol 2e-5 atol 1e-4",
+            bitwise_plain=bitwise(y, want))
+        log("sell", kernel="gse_spmm_sell_f32", tag=t, nrhs=NRHS,
+            max_abs_err=c32_err[t], tol="rtol 2e-5 atol 1e-4",
+            bitwise_plain=bitwise(yc, want_c))
+        del want, want_c
+    t0 = time.perf_counter()
+    res = solve_cg(sell, b, tol=1e-8, maxiter=20000, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log("sell", solve="solve_cg(sell)", iters=int(res.iters),
+        switch_iters=res.switch_iters.tolist(), tag=int(res.tag),
+        relres=float(res.relres), converged=bool(res.converged),
+        health=health_name(res.health), trip_iter=int(res.trip_iter),
+        wall_s=f"{wall:.2f}",
+        ms_per_iteration=f"{wall * 1e3 / max(int(res.iters), 1):.3f}")
+    # The stepped solve may stall here: the reference stalls on the same
+    # construction from n = 32768 on (1026 iterations, [60, 90], health
+    # stalled); its service then converges every request with the tag-3
+    # retry.  A breakdown, divergence or non-finite x is a failure.
+    if health_name(res.health) not in ("ok", "stalled"):
+        raise AssertionError(f"full-size SELL solve ended "
+                             f"{health_name(res.health)}")
+    if not bool(torch.isfinite(res.x).all()):
+        raise AssertionError("full-size SELL solve returned a non-finite x")
+    # What the service does with request 0: the batched column (the solo
+    # solve), then, unless it converged, one tag-3 retry from its x.
+    want0 = dict(iters=int(res.iters), relres=float(res.relres),
+                 converged=bool(res.converged), tag=int(res.tag),
+                 health=health_name(res.health), retries=0)
+    x_want0 = res.x
+    if not bool(res.converged):
+        t0 = time.perf_counter()
+        retry = solve_cg(sell, b, x0=res.x, tol=1e-8, maxiter=20000,
+                         params=params, init_tag=3)
+        torch.cuda.synchronize()
+        retry_s = time.perf_counter() - t0
+        want0 = dict(iters=int(res.iters) + int(retry.iters),
+                     relres=float(retry.relres),
+                     converged=bool(retry.converged), tag=int(retry.tag),
+                     health=health_name(retry.health), retries=1)
+        x_want0 = retry.x
+        log("sell", solve="tag-3 retry from the solo x", iters=int(retry.iters),
+            relres=float(retry.relres), converged=bool(retry.converged),
+            health=health_name(retry.health), wall_s=f"{retry_s:.2f}",
+            ms_per_iteration=f"{retry_s * 1e3 / max(int(retry.iters), 1):.3f}")
+    a64_before = K.gse_spmv_csr_f64.launches
+    t0 = time.perf_counter()
+    short_csr = solve_cg(g, b, tol=1e-8, maxiter=256, params=params)
+    torch.cuda.synchronize()
+    csr_s = time.perf_counter() - t0
+    a64_launches = K.gse_spmv_csr_f64.launches - a64_before
+    t0 = time.perf_counter()
+    short_sell = solve_cg(sell, b, tol=1e-8, maxiter=256, params=params)
+    torch.cuda.synchronize()
+    sell256_s = time.perf_counter() - t0
+    require_bitwise("256 SELL iterations against 256 CSR iterations",
+                    short_sell.x, short_csr.x)
+    if short_sell.switch_iters.tolist() != short_csr.switch_iters.tolist():
+        raise AssertionError("SELL and CSR switch at different iterations")
+    log("sell", check="256 iterations, CSR against SELL", x_bitwise=True,
+        switch_iters=short_sell.switch_iters.tolist(),
+        csr_ms_per_iteration=f"{csr_s * 1e3 / 256:.3f}",
+        sell_ms_per_iteration=f"{sell256_s * 1e3 / 256:.3f}")
+    t0 = time.perf_counter()
+    svc = SolverService(slots=NRHS, params=params, maxiter=20000, device=dev)
+    svc.register("skewed", csr, k=8, layout="sell")
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t0
+    ids = [svc.submit("skewed", bj, tol=1e-8) for bj in bs]
+    t0 = time.perf_counter()
+    reports = svc.flush()
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    reps = [reports[i] for i in ids]
+    x_req0 = svc.solution(ids[0])
+    counts = {
+        "b32": b32_launches, "c32": c32_launches,
+        "b64": K.gse_spmv_sell_f64.launches,
+        "c64": C.gse_spmm_sell_f64.launches, "a64": a64_launches,
+        "seq_dot": V.seq_dot.launches,
+        "seq_dot_cols": V.seq_dot_cols.launches}
+    log("sell", service="layout=sell", rows=m, slots=NRHS,
+        requests=len(reps), iters=[r.iters for r in reps],
+        tag=[r.tag for r in reps],
+        switch_iters=[r.switch_iters.tolist() for r in reps],
+        health=[r.health for r in reps], retries=[r.retries for r in reps],
+        relres=[r.relres for r in reps], est_bytes=[r.est_bytes for r in reps],
+        stats=json.dumps(svc.stats), register_s=f"{register_s:.2f}",
+        flush_s=f"{serve_wall:.2f}",
+        b32_launches=sum(b32_launches.values()),
+        c32_launches=sum(c32_launches.values()), b64_launches=counts["b64"],
+        c64_launches=counts["c64"])
+    got0 = {k: getattr(reps[0], k) for k in want0}
+    if got0 != want0 or reps[0].switch_iters.tolist() != \
+            res.switch_iters.tolist():
+        raise AssertionError(f"request 0 {reps[0]} != the solo solve {want0}")
+    require_bitwise("request 0's x against the solo SELL solve", x_req0,
+                    x_want0)
+    for r in reps:
+        if not r.converged or r.health != "ok":
+            raise AssertionError(f"full-size SELL request {r.id}: {r}")
+    if svc.stats["errors"] != 0:
+        raise AssertionError(f"service errors: {svc.stats}")
+    if min(counts["b64"], counts["c64"], *b32_launches.values(),
+           *c32_launches.values()) <= 0:
+        raise AssertionError("a kernel of the SELL path never launched")
+    return dict(csr=csr, g=g, sell=sell, x32=x32, x32c=x32c, counts=counts,
+                b32_err=b32_err, c32_err=c32_err, scales=scales,
+                longest=longest)
+
+
+def sell_entries(ctx, add_entry):
+    """Phase 10's entries for kernels B and C′ (and A64) on phase 9's
+    operator."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import gse_spmm as C, gse_spmv as K, ref
+    from repro_torch.sparse.spmv import decode_gsecsr
+
+    g, sell, counts = ctx["g"], ctx["sell"], ctx["counts"]
+    x32, x32c, scales = ctx["x32"], ctx["x32c"], ctx["scales"]
+    dev = x32.device
+    m, n = g.shape
+    rng = np.random.default_rng(12)
+    x64 = torch.from_numpy(rng.normal(size=n)).to(dev)
+    x64c = torch.from_numpy(rng.normal(size=(NRHS, n))).to(dev)
+    x32n = x32c.t().contiguous()
+    x64n = x64c.t().contiguous()
+    all_on = torch.ones(NRHS, dtype=torch.bool, device=dev)
+    segs = sell.segments
+    lay = dict(buckets=sell.bucket_table, perm=sell.perm, rows=m,
+               ei_bit=g.ei_bit)
+    lay64 = dict(lay, row_len=sell.row_len)
+    csr_args = (g.rowptr, g.colpak, g.head, g.tail1, g.tail2, g.table)
+    src = "src/repro_torch/kernels/csrc/gse_sell.cu"
+    spmv_src = "src/repro_torch/kernels/csrc/gse_spmv.cu"
+    for t in TAGS:
+        t1 = segs[2] if t >= 2 else None
+        t2 = segs[3] if t == 3 else None
+        vals32 = ref.decode_csr_ref(g.colpak, g.head, g.tail1, g.tail2,
+                                    g.table, g.ei_bit, t)
+        vals64, cols = decode_gsecsr(g, t)
+        lib32 = torch.sparse_csr_tensor(g.rowptr, cols.to(torch.int32), vals32,
+                                        (m, n))
+        lib64 = torch.sparse_csr_tensor(g.rowptr, cols.to(torch.int32), vals64,
+                                        (m, n))
+        tags_t = torch.full((NRHS,), t, dtype=torch.int32, device=dev)
+        # The f64 builds repeat their plain versions' sums, so they are held
+        # bitwise; their entries' max_abs_err is then 0.
+        pairs = (
+            ("B64", K.gse_spmv_sell_f64(*segs, g.table, x64, tag=t, **lay64),
+             K.gse_spmv_sell_f64_plain(*segs, g.table, x64, tag=t, **lay64)),
+            ("C′64", C.gse_spmm_sell_f64(*segs, g.table, x64c, tags_t, all_on,
+                                         device=dev, **lay64),
+             C.gse_spmm_sell_f64_plain(*segs, g.table, x64c, tags_t, all_on,
+                                       **lay64)),
+            ("A64 on the skewed CSR",
+             K.gse_spmv_csr_f64(*csr_args, x64, ei_bit=g.ei_bit, tag=t),
+             K.gse_spmv_csr_f64_plain(*csr_args, x64, ei_bit=g.ei_bit,
+                                      tag=t)))
+        errs64 = {}
+        for what, got, want in pairs:
+            require_bitwise(f"full size: {what} tag {t} against its plain "
+                            "version", got, want)
+            errs64[what] = float((got - want).abs().max())
+        del pairs
+        b64_err, c64_err = errs64["B64"], errs64["C′64"]
+        a64_err = errs64["A64 on the skewed CSR"]
+        c32_err = ctx["c32_err"][t]
+        # B32 and C′32 read every padded slot (sell.bytes_touched); B64 and
+        # C′64 read only each row's real slots, so their bound charges the
+        # CSR's per-nonzero bytes, the exponent table and the bucket rows'
+        # perm and row_len (plus the small bucket table).
+        f64_bytes = (g.nnz * g.bytes_per_nnz(t) + g.table.numel() * 4
+                     + sum(a.numel() * a.element_size() for a in
+                           (sell.perm, sell.row_len, sell.bucket_table)))
+        for (name, source, replaces, launch, plain, lib, nbytes, ncols,
+             ops_rate, err, count) in (
+            ("gse_spmv_sell_f32", src, "src/repro/kernels/gse_spmv.py:178",
+             lambda: K.gse_spmv_sell_f32(segs[0], segs[1], t1, t2, x32,
+                                         scales[t], tag=t, **lay),
+             lambda: K.gse_spmv_sell_f32_plain(segs[0], segs[1], t1, t2, x32,
+                                               scales[t], tag=t, **lay),
+             lambda: torch.mv(lib32, x32),
+             sell.bytes_touched(t) + (m + n) * 4, 1, FP32_OPS_PER_S,
+             ctx["b32_err"][t], counts["b32"][t]),
+            ("gse_spmv_sell_f64", src, "src/repro/kernels/gse_spmv.py:178",
+             lambda: K.gse_spmv_sell_f64(*segs, g.table, x64, tag=t, **lay64),
+             lambda: K.gse_spmv_sell_f64_plain(*segs, g.table, x64, tag=t,
+                                               **lay64),
+             lambda: torch.mv(lib64, x64),
+             f64_bytes + (m + n) * 8, 1, FP64_OPS_PER_S, b64_err,
+             counts["b64"]),
+            ("gse_spmm_sell_f32", src, "src/repro/kernels/gse_spmm.py:155",
+             lambda: C.gse_spmm_sell_f32(segs[0], segs[1], t1, t2, x32c,
+                                         scales[t], tag=t, device=dev, **lay),
+             lambda: C.gse_spmm_sell_f32_plain(segs[0], segs[1], t1, t2,
+                                               x32c, scales[t], tag=t, **lay),
+             lambda: torch.mm(lib32, x32n),
+             sell.bytes_touched(t) + NRHS * (m + n) * 4, NRHS,
+             FP32_OPS_PER_S, c32_err, counts["c32"][t]),
+            ("gse_spmm_sell_f64", src, "src/repro/kernels/gse_spmm.py:155",
+             lambda: C.gse_spmm_sell_f64(*segs, g.table, x64c, tags_t, all_on,
+                                         device=dev, **lay64),
+             lambda: C.gse_spmm_sell_f64_plain(*segs, g.table, x64c, tags_t,
+                                               all_on, **lay64),
+             lambda: torch.mm(lib64, x64n),
+             f64_bytes + NRHS * (m + n) * 8, NRHS,
+             FP64_OPS_PER_S, c64_err, counts["c64"]),
+            ("gse_spmv_csr_f64.skewed", spmv_src,
+             "src/repro/kernels/gse_spmv.py:160",
+             lambda: K.gse_spmv_csr_f64(*csr_args, x64, ei_bit=g.ei_bit,
+                                        tag=t),
+             lambda: K.gse_spmv_csr_f64_plain(*csr_args, x64,
+                                              ei_bit=g.ei_bit, tag=t),
+             lambda: torch.mv(lib64, x64),
+             g.bytes_touched(t) + (m + n) * 8, 1, FP64_OPS_PER_S, a64_err,
+             counts["a64"]),
+        ):
+            # The decode once per nonzero, then a product and a sum per
+            # column.
+            nops = g.nnz * (DECODE_OPS[t] - 2 + 2 * ncols)
+            extra = dict(tag=t, nrhs=ncols, launches=count, max_abs_err=err,
+                         longest_row=ctx["longest"])
+            if name.endswith("f64") or name.endswith("skewed"):
+                extra["launches_all_tags"] = True  # the tag is chosen on device
+            add_entry(f"{name}.tag{t}", source, replaces, launch, plain, lib,
+                      nbytes, nops / ops_rate * 1e3, plain_reps=1, reps=5,
+                      inner=4, **extra)
+        del lib32, lib64, vals32, vals64, cols
 
 
 def main() -> int:
@@ -320,6 +963,10 @@ def main() -> int:
         bitwise_per_column=True,
         max_abs_err_vs_plain=[vec_err["seq_dot_cols"],
                               vec_err["fma_axpy_cols"]])
+    sell_main = ops.sell_pack_gsecsr(g)
+    sell_against_uniform("main", g, ell, sell_main, x32, x64, x32c, x64c,
+                         scales)
+    del sell_main
 
     # 3. trajectory parity: GPU against the CPU twin --------------------------
     small = G.diag_rescale(G.random_spd(2000, seed=21, device="cpu"), 8.0, 21)
@@ -479,23 +1126,28 @@ def main() -> int:
            *cols_launches.values()) <= 0:
         raise AssertionError("a kernel of the service path never launched")
 
-    # 7. kernel times ----------------------------------------------------------
+    # 7-9. the SELL-C-sigma layout --------------------------------------------
+    phase_sell_parity()
+    phase_sell_trajectory(params)
+    sell_ctx = phase_sell_full(params)
+
+    # 10. kernel times ---------------------------------------------------------
     m, n = g.shape
     kernels = []
 
     def add_entry(name, source, replaces, launch, plain, lib, nbytes, op_ms,
-                  plain_reps=3, **extra):
+                  plain_reps=3, reps=10, inner=10, **extra):
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         entry = {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "ms": cuda_ms(launch, reps=10, inner=10),
+            "ms": cuda_ms(launch, reps=reps, inner=inner),
             "plain_ms": cuda_ms(plain, reps=plain_reps),
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "library_ms": cuda_ms(lib, reps=10, inner=10),
+            "library_ms": cuda_ms(lib, reps=reps, inner=inner),
             "bytes": nbytes,
             **extra,
         }
@@ -587,6 +1239,7 @@ def main() -> int:
                   2 * N_FULL * ncols / FP64_OPS_PER_S * 1e3,
                   plain_reps=plain_reps, nrhs=ncols, launches=count,
                   max_abs_err=vec_err[name])
+    sell_entries(sell_ctx, add_entry)
     print(json.dumps({"kernels": kernels}), flush=True)
 
     smi = subprocess.run(

@@ -46,12 +46,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gse_decode.cuh"
+#include "gse_rows.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCols = 8;  // right-hand-side columns per pass (registers)
+using gse::kCols;
 
 template <int TAG>
 __global__ void __launch_bounds__(kThreads) spmm_ell_f32_kernel(
@@ -65,65 +65,14 @@ __global__ void __launch_bounds__(kThreads) spmm_ell_f32_kernel(
   if (row >= rows) return;  // uniform across the warp
   const int c0 = blockIdx.y * kCols;
   const int nc = nrhs - c0 < kCols ? nrhs - c0 : kCols;
-  const float* __restrict__ xg = x + (int64_t)c0 * n;
-  const int64_t base = row * (int64_t)width;
   float acc[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
-  for (int j = lane; j < width; j += 32) {
-    const int64_t k = base + j;
-    const uint32_t cp = __ldg(colpak + k);
-    const float val = gse::decode_f32<TAG>(
-        __ldg(head + k), TAG >= 2 ? __ldg(tail1 + k) : 0u,
-        TAG == 3 ? __ldg(tail2 + k) : 0u, __ldg(scales + (cp >> shift)));
-    const int64_t col = cp & mask;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      if (c < nc) acc[c] = __fadd_rn(acc[c], __fmul_rn(val, __ldg(xg + c * n + col)));
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    for (int off = 16; off > 0; off >>= 1) {
-      acc[c] += __shfl_down_sync(0xffffffffu, acc[c], off);
-    }
-  }
+  gse::warp_row_cols_f32<TAG>(row * (int64_t)width, width, lane, colpak, head,
+                              tail1, tail2, x + (int64_t)c0 * n, n, nc,
+                              scales, shift, mask, acc);
   if (lane == 0) {
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       if (c < nc) y[row * nrhs + c0 + c] = acc[c];
-    }
-  }
-}
-
-// One row's CSR walk for the columns of this pass.  tg[c] is column c's
-// tag (0: inactive); `need` has bit t set when some active column runs tag
-// t.  MAXTAG, the highest of them, fixes which segments are loaded.
-template <int MAXTAG>
-__device__ __forceinline__ void row_walk_f64(
-    int64_t begin, int64_t end, const uint32_t* __restrict__ colpak,
-    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
-    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
-    const double* __restrict__ xg, int64_t n, int shift, uint32_t mask,
-    const int (&tg)[kCols], unsigned need, double (&acc)[kCols]) {
-  for (int64_t k = begin; k < end; ++k) {
-    const uint32_t cp = __ldg(colpak + k);
-    const uint32_t h = __ldg(head + k);
-    const uint32_t t1 = MAXTAG >= 2 ? __ldg(tail1 + k) : 0u;
-    const uint32_t t2 = MAXTAG == 3 ? __ldg(tail2 + k) : 0u;
-    const int e_sh = __ldg(table + (cp >> shift)) - 1023;
-    const double v1 = (need & 2u) ? gse::decode_f64<1>(h, t1, t2, e_sh) : 0.0;
-    const double v2 =
-        (MAXTAG >= 2 && (need & 4u)) ? gse::decode_f64<2>(h, t1, t2, e_sh) : 0.0;
-    const double v3 =
-        (MAXTAG == 3 && (need & 8u)) ? gse::decode_f64<3>(h, t1, t2, e_sh) : 0.0;
-    const int64_t col = cp & mask;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      if (tg[c] != 0) {
-        const double v = tg[c] == 1 ? v1 : (tg[c] == 2 ? v2 : v3);
-        acc[c] = __dadd_rn(acc[c], __dmul_rn(v, __ldg(xg + c * n + col)));
-      }
     }
   }
 }
@@ -140,36 +89,13 @@ __global__ void __launch_bounds__(kThreads) spmm_csr_f64_kernel(
   const int c0 = blockIdx.y * kCols;
   const int nc = nrhs - c0 < kCols ? nrhs - c0 : kCols;
   int tg[kCols];
-  unsigned need = 0u;
-  int maxtag = 0;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    tg[c] = 0;
-    if (c < nc && __ldg(active + c0 + c)) {
-      int t = __ldg(tags + c0 + c);
-      t = t < 1 ? 1 : (t > 3 ? 3 : t);  // the reference clips tag - 1 to [0, 2]
-      tg[c] = t;
-      need |= 1u << t;
-      maxtag = t > maxtag ? t : maxtag;
-    }
-  }
-  double acc[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) acc[c] = 0.0;
-  const int64_t b = __ldg(rowptr + row);
-  const int64_t e = __ldg(rowptr + row + 1);
-  const double* __restrict__ xg = x + (int64_t)c0 * n;
+  unsigned need;
   // maxtag is uniform across the grid: no divergence.
-  if (maxtag == 1) {
-    row_walk_f64<1>(b, e, colpak, head, tail1, tail2, table, xg, n, shift,
-                    mask, tg, need, acc);
-  } else if (maxtag == 2) {
-    row_walk_f64<2>(b, e, colpak, head, tail1, tail2, table, xg, n, shift,
-                    mask, tg, need, acc);
-  } else if (maxtag == 3) {
-    row_walk_f64<3>(b, e, colpak, head, tail1, tail2, table, xg, n, shift,
-                    mask, tg, need, acc);
-  }
+  const int maxtag = gse::column_tags(tags, active, c0, nc, tg, need);
+  double acc[kCols];
+  gse::row_walk_f64_at(maxtag, __ldg(rowptr + row), __ldg(rowptr + row + 1),
+                       colpak, head, tail1, tail2, table,
+                       x + (int64_t)c0 * n, n, shift, mask, tg, need, acc);
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     if (c < nc) y[(int64_t)(c0 + c) * rows + row] = acc[c];

@@ -38,28 +38,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gse_decode.cuh"
+#include "gse_rows.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-template <int TAG>
-__device__ __forceinline__ double row_sum_f64(
-    int64_t begin, int64_t end, const uint32_t* __restrict__ colpak,
-    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
-    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
-    const double* __restrict__ x, int shift, uint32_t mask) {
-  double acc = 0.0;
-  for (int64_t k = begin; k < end; ++k) {
-    const uint32_t cp = __ldg(colpak + k);
-    const double val = gse::decode_f64<TAG>(
-        __ldg(head + k), TAG >= 2 ? __ldg(tail1 + k) : 0u,
-        TAG == 3 ? __ldg(tail2 + k) : 0u, __ldg(table + (cp >> shift)) - 1023);
-    acc = __dadd_rn(acc, __dmul_rn(val, __ldg(x + (cp & mask))));
-  }
-  return acc;
-}
 
 __global__ void __launch_bounds__(kThreads) spmv_csr_f64_kernel(
     const int32_t* __restrict__ tag, const int32_t* __restrict__ rowptr,
@@ -69,19 +52,9 @@ __global__ void __launch_bounds__(kThreads) spmv_csr_f64_kernel(
     double* __restrict__ y, int64_t rows, int shift, uint32_t mask) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= rows) return;
-  int t = __ldg(tag);
-  t = t < 1 ? 1 : (t > 3 ? 3 : t);  // the reference clips tag - 1 to [0, 2]
-  const int64_t b = __ldg(rowptr + row);
-  const int64_t e = __ldg(rowptr + row + 1);
-  double acc;
-  if (t == 1) {
-    acc = row_sum_f64<1>(b, e, colpak, head, tail1, tail2, table, x, shift, mask);
-  } else if (t == 2) {
-    acc = row_sum_f64<2>(b, e, colpak, head, tail1, tail2, table, x, shift, mask);
-  } else {
-    acc = row_sum_f64<3>(b, e, colpak, head, tail1, tail2, table, x, shift, mask);
-  }
-  y[row] = acc;
+  y[row] = gse::row_sum_f64_at(tag, __ldg(rowptr + row),
+                               __ldg(rowptr + row + 1), colpak, head, tail1,
+                               tail2, table, x, shift, mask);
 }
 
 template <int TAG>
@@ -93,19 +66,9 @@ __global__ void __launch_bounds__(kThreads) spmv_ell_f32_kernel(
   const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // uniform across the warp
-  const int64_t base = row * (int64_t)width;
-  float acc = 0.0f;
-  for (int j = lane; j < width; j += 32) {
-    const int64_t k = base + j;
-    const uint32_t cp = __ldg(colpak + k);
-    const float val = gse::decode_f32<TAG>(
-        __ldg(head + k), TAG >= 2 ? __ldg(tail1 + k) : 0u,
-        TAG == 3 ? __ldg(tail2 + k) : 0u, __ldg(scales + (cp >> shift)));
-    acc = __fadd_rn(acc, __fmul_rn(val, __ldg(x + (cp & mask))));
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  }
+  const float acc = gse::warp_row_f32<TAG>(row * (int64_t)width, width, lane,
+                                           colpak, head, tail1, tail2, x,
+                                           scales, shift, mask);
   if (lane == 0) y[row] = acc;
 }
 

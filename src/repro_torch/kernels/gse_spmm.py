@@ -1,4 +1,5 @@
-"""Kernel C: the tag-specialized GSE-SEM SpMM, hand-written for Hopper.
+"""Kernels C and C′: the tag-specialized GSE-SEM SpMM, hand-written for
+Hopper.
 
 Replaces the Pallas kernel ``gse_spmm_call`` of
 ``repro/kernels/gse_spmm.py`` (:102; bodies ``_spmm_body_tag1/2/3``
@@ -18,7 +19,21 @@ Replaces the Pallas kernel ``gse_spmm_call`` of
   launch per iteration streams the matrix once for the whole batch.
   Y is ``(nrhs, m)``; inactive columns are 0.0.
 
-Both are bound by HBM bytes: ``bytes_touched(tag)`` of segments plus
+Kernel C′ replaces ``gse_spmm_sell_call`` (``repro/kernels/gse_spmm.py``
+:155, C's ``pallas_call`` once per width bucket, then the ``unperm``
+gather) over the SELL-C-sigma layout.  The CUDA source is
+``csrc/gse_sell.cu``; one launch covers every bucket, the row bodies are
+C's:
+
+* **C′32** -- :func:`gse_spmm_sell_f32` (``ops.gse_spmm_sell``): C32's warp
+  row over each bucket row's width; per column bitwise C32, at nrhs = 1
+  bitwise B32.  Y is ``(m, nrhs)``.
+* **C′64** -- :func:`gse_spmm_sell_f64` (``spmm_gse`` over a ``GSESellC``,
+  the batched CG operator): B64's warp row for every column, with C64's
+  per-column device tags and active flags; column j bitwise B64 at
+  ``tags[j]``, and so C64.  Y is ``(nrhs, m)``.
+
+All are bound by HBM bytes: ``bytes_touched(tag)`` of segments plus
 ``nrhs * (m + n)`` vector elements.  Each wrapper takes ``device=``
 (default ``"cuda"``): it launches its kernel on the card, runs the plain
 version only when the caller asks for the CPU, and raises for tensors
@@ -31,13 +46,18 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gse_spmv import (_check, _raise_on, csr_row_sums,
-                                          gse_spmv_ell_f32_plain)
+from repro_torch.kernels.gse_spmv import (_check, _check_sell, _raise_on,
+                                          csr_row_sums,
+                                          gse_spmv_ell_f32_plain,
+                                          gse_spmv_sell_f32_plain, row_sums,
+                                          sell_row_starts, sell_scatter)
 from repro_torch.kernels.vec_f64 import on_device
 from repro_torch.sparse.spmv import _decode_gsecsr
 
 __all__ = ["gse_spmm_ell_f32", "gse_spmm_ell_f32_plain", "gse_spmm_csr_f64",
-           "gse_spmm_csr_f64_plain", "KERNELS", "reset_launch_counts"]
+           "gse_spmm_csr_f64_plain", "gse_spmm_sell_f32",
+           "gse_spmm_sell_f32_plain", "gse_spmm_sell_f64",
+           "gse_spmm_sell_f64_plain", "KERNELS", "reset_launch_counts"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
@@ -47,14 +67,23 @@ _ARGTYPES = {
     "gse_spmm_csr_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_int, _P],
+    "gse_spmm_sell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
+                          ctypes.c_int, _P, ctypes.c_longlong,
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+    "gse_spmm_sell_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          ctypes.c_int, _P, _P, ctypes.c_longlong,
+                          ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_int, _P],
 }
+_SOURCE = {"gse_spmm_ell_f32": "gse_spmm", "gse_spmm_csr_f64": "gse_spmm",
+           "gse_spmm_sell_f32": "gse_sell", "gse_spmm_sell_f64": "gse_sell"}
 _BOUND = {}
 
 
 def _fn(name: str):
     fn = _BOUND.get(name)
     if fn is None:
-        fn = getattr(_build.load("gse_spmm"), name)
+        fn = getattr(_build.load(_SOURCE[name]), name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _BOUND[name] = fn
@@ -203,7 +232,134 @@ def gse_spmm_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, tags,
     return y
 
 
-KERNELS = (gse_spmm_ell_f32, gse_spmm_csr_f64)
+# --- C′32 / C′64: the SELL-C-sigma layout -------------------------------------
+
+def gse_spmm_sell_f32_plain(colpak, head, tail1, tail2, x, scales, buckets,
+                            perm, *, rows: int, ei_bit: int,
+                            tag: int) -> torch.Tensor:
+    """Plain version of C′32: B32's plain version on each column of the
+    ``(nrhs, n)`` X, stacked to ``(rows, nrhs)``."""
+    cols = [gse_spmv_sell_f32_plain(colpak, head, tail1, tail2, x[j], scales,
+                                    buckets, perm, rows=rows, ei_bit=ei_bit,
+                                    tag=tag)
+            for j in range(x.shape[0])]
+    if not cols:
+        return torch.zeros(rows, 0, dtype=torch.float32, device=colpak.device)
+    return torch.stack(cols, dim=1)
+
+
+def gse_spmm_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
+                      *, rows: int, ei_bit: int, tag: int,
+                      device="cuda") -> torch.Tensor:
+    """Y = A @ X as ``(rows, nrhs)`` f32 from the flat SELL segments at
+    ``tag`` and an ``(nrhs, n)`` f32 X (columns contiguous).
+
+    ``tail1``/``tail2`` may be ``None`` when ``tag`` does not read them.
+    """
+    if tag not in (1, 2, 3):
+        raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
+    dev = on_device(device, colpak=colpak, head=head, x=x, scales=scales,
+                    buckets=buckets, perm=perm,
+                    tail1=tail1 if tag >= 2 else None,
+                    tail2=tail2 if tag == 3 else None)
+    if dev.type == "cpu":
+        return gse_spmm_sell_f32_plain(colpak, head, tail1, tail2, x, scales,
+                                       buckets, perm, rows=rows,
+                                       ei_bit=ei_bit, tag=tag)
+    if dev.type != "cuda":
+        raise ValueError(f"gse_spmm_sell_f32 runs on cuda or cpu, not {dev}")
+    dev = colpak.device
+    _check_sell((("colpak", colpak, torch.uint32), ("head", head, torch.uint16),
+                 ("tail1", tail1 if tag >= 2 else None, torch.uint16),
+                 ("tail2", tail2 if tag == 3 else None, torch.uint32)),
+                buckets, perm, dev)
+    _check(x, "x", torch.float32, dev, 2)
+    scales = scales.reshape(-1)
+    _check(scales, "scales", torch.float32, dev, 1)
+    nrhs, n = x.shape
+    y = torch.empty(rows, nrhs, dtype=torch.float32, device=dev)
+    if perm.shape[0] == 0 or nrhs == 0:
+        return y
+    rc = _fn("gse_spmm_sell_f32")(
+        tag, colpak.data_ptr(), head.data_ptr(),
+        tail1.data_ptr() if tag >= 2 else None,
+        tail2.data_ptr() if tag == 3 else None,
+        x.data_ptr(), scales.data_ptr(), y.data_ptr(), buckets.data_ptr(),
+        buckets.shape[0], perm.data_ptr(), perm.shape[0], n, nrhs, ei_bit,
+        torch.cuda.current_stream(dev).cuda_stream)
+    gse_spmm_sell_f32.launches += 1
+    _raise_on(rc, "gse_spmm_sell_f32")
+    return y
+
+
+def gse_spmm_sell_f64_plain(colpak, head, tail1, tail2, table, x, tags,
+                            active, buckets, perm, row_len, *, rows: int,
+                            ei_bit: int) -> torch.Tensor:
+    """Plain version of C′64: B64's plain version on each active column of
+    the ``(nrhs, n)`` X at that column's tag; 0.0 for the others.  The
+    active columns that share a tag share one decode, and their row sums
+    run side by side (elementwise across columns)."""
+    nrhs = x.shape[0]
+    y = torch.zeros(nrhs, rows, dtype=torch.float64, device=x.device)
+    by_tag = {}
+    for j, (t, on) in enumerate(zip(tags.tolist(), active.tolist())):
+        if on:
+            by_tag.setdefault(min(max(int(t), 1), 3), []).append(j)
+    starts = sell_row_starts(buckets, perm.shape[0], x.device)
+    for t, js in by_tag.items():
+        val, col = _decode_gsecsr(colpak, head, tail1, tail2, table, ei_bit,
+                                  t)
+        prod = val[:, None] * x[js].to(torch.float64)[:, col].t()
+        y[js] = sell_scatter(row_sums(starts, row_len, prod), perm, rows).t()
+    return y
+
+
+def gse_spmm_sell_f64(colpak, head, tail1, tail2, table, x, tags, active,
+                      buckets, perm, row_len, *, rows: int, ei_bit: int,
+                      device="cuda") -> torch.Tensor:
+    """Y = A @ X as ``(nrhs, rows)`` f64 over the flat SELL segments and an
+    ``(nrhs, n)`` f64 X, column j at ``tags[j]`` (int32, clipped to [1, 3])
+    when ``active[j]`` (bool), both on the operand's device; inactive
+    columns are 0.0.  ``row_len`` is each bucket row's real entry count.
+    """
+    dev = on_device(device, colpak=colpak, head=head, tail1=tail1,
+                    tail2=tail2, table=table, x=x, tags=tags, active=active,
+                    buckets=buckets, perm=perm, row_len=row_len)
+    if dev.type == "cpu":
+        return gse_spmm_sell_f64_plain(colpak, head, tail1, tail2, table, x,
+                                       tags, active, buckets, perm, row_len,
+                                       rows=rows, ei_bit=ei_bit)
+    if dev.type != "cuda":
+        raise ValueError(f"gse_spmm_sell_f64 runs on cuda or cpu, not {dev}")
+    dev = colpak.device
+    _check_sell((("colpak", colpak, torch.uint32), ("head", head, torch.uint16),
+                 ("tail1", tail1, torch.uint16),
+                 ("tail2", tail2, torch.uint32)), buckets, perm, dev)
+    _check(row_len, "row_len", torch.int32, dev, 1)
+    _check(table, "table", torch.int32, dev, 1)
+    _check(x, "x", torch.float64, dev, 2)
+    nrhs, n = x.shape
+    _check(tags, "tags", torch.int32, dev, 1)
+    _check(active, "active", torch.bool, dev, 1)
+    if tags.shape[0] != nrhs or active.shape[0] != nrhs:
+        raise ValueError(f"tags/active have {tags.shape[0]}/"
+                         f"{active.shape[0]} entries, x {nrhs} columns")
+    y = torch.empty(nrhs, rows, dtype=torch.float64, device=dev)
+    if perm.shape[0] == 0 or nrhs == 0:
+        return y
+    rc = _fn("gse_spmm_sell_f64")(
+        tags.data_ptr(), active.data_ptr(), colpak.data_ptr(),
+        head.data_ptr(), tail1.data_ptr(), tail2.data_ptr(), table.data_ptr(),
+        x.data_ptr(), y.data_ptr(), buckets.data_ptr(), buckets.shape[0],
+        perm.data_ptr(), row_len.data_ptr(), perm.shape[0], rows, n, nrhs,
+        ei_bit, torch.cuda.current_stream(dev).cuda_stream)
+    gse_spmm_sell_f64.launches += 1
+    _raise_on(rc, "gse_spmm_sell_f64")
+    return y
+
+
+KERNELS = (gse_spmm_ell_f32, gse_spmm_csr_f64, gse_spmm_sell_f32,
+           gse_spmm_sell_f64)
 
 
 def reset_launch_counts():

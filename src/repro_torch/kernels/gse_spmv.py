@@ -1,6 +1,7 @@
-"""Kernel A: the tag-specialized GSE-SEM SpMV, hand-written for Hopper.
+"""Kernels A and B: the tag-specialized GSE-SEM SpMV, hand-written for
+Hopper.
 
-Replaces the Pallas kernel ``gse_spmv_call`` of
+Kernel A replaces the Pallas kernel ``gse_spmv_call`` of
 ``repro/kernels/gse_spmv.py`` (bodies ``_spmv_body_tag1/2/3`` :106-121,
 decode ``decode_tile`` :61, ``pallas_call`` :160).  The CUDA source is
 ``csrc/gse_spmv.cu``; it holds two builds, each with three tag variants:
@@ -14,22 +15,44 @@ decode ``decode_tile`` :61, ``pallas_call`` :160).  The CUDA source is
   is read from a device int32 so the loop never syncs to choose a build.
   Bitwise equal to its plain version and to the reference.
 
-Both are bound by HBM bytes: 6/8/12 B/nnz of segments at tags 1/2/3 plus
-the x gather.  Each wrapper launches its kernel for CUDA tensors (or
-raises) and runs the plain PyTorch version only for CPU tensors.  Each
-wrapper counts its launches in its ``launches`` attribute.
+Kernel B replaces ``gse_spmv_sell_call`` (``repro/kernels/gse_spmv.py``
+:178, A's ``pallas_call`` once per width bucket, then the ``unperm``
+gather) over the SELL-C-sigma layout of ``sparse.csr.pack_sell``.  The
+CUDA source is ``csrc/gse_sell.cu``; one launch covers every bucket, the
+row bodies are A's:
+
+* **B32** -- :func:`gse_spmv_sell_f32` (``ops.gse_spmv_sell``): A32's warp
+  row over each bucket row's width; bitwise A32 for finite x.
+* **B64** -- :func:`gse_spmv_sell_f64` (``spmv_gse`` over a ``GSESellC``,
+  the CG operator): A64's chain over each row's real slots, run by one
+  warp per row (32 slots loaded and decoded at a time, the products added
+  in slot order from shuffle broadcasts); bitwise A64.
+
+The SELL wrappers take the pack's flat ``(slots,)`` segment arrays, its
+``(n_buckets, 3)`` bucket table ``[first row, width, flat offset]`` and
+``perm``; each bucket row writes ``y[perm[r]]``.
+
+All are bound by HBM bytes: 6/8/12 B/nnz (B: per padded slot) of
+segments at tags 1/2/3 plus the x gather.  Each wrapper launches its
+kernel for CUDA tensors (or raises) and runs the plain PyTorch version
+only for CPU tensors.  Each wrapper counts its launches in its
+``launches`` attribute.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.sparse.spmv import _decode_gsecsr
 
 __all__ = ["gse_spmv_ell_f32", "gse_spmv_ell_f32_plain", "gse_spmv_csr_f64",
-           "gse_spmv_csr_f64_plain", "KERNELS", "reset_launch_counts"]
+           "gse_spmv_csr_f64_plain", "gse_spmv_sell_f32",
+           "gse_spmv_sell_f32_plain", "gse_spmv_sell_f64",
+           "gse_spmv_sell_f64_plain", "csr_row_sums", "row_sums",
+           "KERNELS", "reset_launch_counts"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
@@ -37,14 +60,21 @@ _ARGTYPES = {
                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
     "gse_spmv_csr_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          ctypes.c_longlong, ctypes.c_int, _P],
+    "gse_spmv_sell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
+                          ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int,
+                          _P],
+    "gse_spmv_sell_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                          _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
 }
+_SOURCE = {"gse_spmv_ell_f32": "gse_spmv", "gse_spmv_csr_f64": "gse_spmv",
+           "gse_spmv_sell_f32": "gse_sell", "gse_spmv_sell_f64": "gse_sell"}
 _BOUND = {}
 
 
 def _fn(name: str):
     fn = _BOUND.get(name)
     if fn is None:
-        fn = getattr(_build.load("gse_spmv"), name)
+        fn = getattr(_build.load(_SOURCE[name]), name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _BOUND[name] = fn
@@ -160,24 +190,48 @@ def gse_spmv_csr_f64_plain(rowptr, colpak, head, tail1, tail2, table, x, *,
     return csr_row_sums(rowptr, prod[:, None])[:, 0]
 
 
-def csr_row_sums(rowptr, prod) -> torch.Tensor:
-    """``(rows, k)`` sums of the ``(nnz, k)`` CSR-ordered terms ``prod``:
-    each row's terms added in CSR order from 0.0, one slot of the
-    row-padded layout at a time, vectorised over rows and the k columns
-    (elementwise, so column c is the sum of ``prod[:, c]`` alone).  Padded
-    slots are never read.  (``index_add_`` would not promise the order.)"""
-    rp = rowptr.to(torch.int64)
-    starts, lens = rp[:-1], rp[1:] - rp[:-1]
+def serial_sums(terms) -> torch.Tensor:
+    """``(rows, k)`` sums of the ``(rows, w, k)`` terms, each row's ``w``
+    terms added one after another from 0.0 (numpy's ``cumsum`` is a
+    sequential accumulate; the leading 0.0 makes its first step the
+    kernel's ``0.0 + t0``).  Runs on the host, returns on ``terms``'s
+    device."""
+    host = terms.detach().cpu().numpy()
+    chain = np.concatenate([np.zeros_like(host[:, :1]), host], axis=1)
+    return torch.from_numpy(np.ascontiguousarray(
+        np.cumsum(chain, axis=1)[:, -1])).to(terms.device)
+
+
+def row_sums(starts, lens, prod) -> torch.Tensor:
+    """``(rows, k)`` sums of the ``(slots, k)`` terms ``prod``: row i adds
+    ``prod[starts[i]:starts[i] + lens[i]]`` in order from 0.0 (elementwise
+    across the k columns), the f64 kernels' chain.  Rows are grouped by the
+    power of two above their length and each group's terms padded with
+    +0.0, which leaves every chain's bits unchanged (a chain from +0.0
+    never holds -0.0).  Slots past a row's length are never read.
+    (``index_add_`` would not promise the order.)"""
+    dev = prod.device
     y = torch.zeros(lens.shape[0], prod.shape[1], dtype=prod.dtype,
-                    device=prod.device)
-    if prod.shape[0] == 0:
-        return y
-    slot = torch.arange(int(lens.max()), device=prod.device)
-    has = slot[None, :] < lens[:, None]
-    terms = prod[torch.where(has, starts[:, None] + slot[None, :], 0)]
-    for j in range(slot.shape[0]):
-        y = torch.where(has[:, j, None], y + terms[:, j], y)
+                    device=dev)
+    host_lens = lens.cpu().numpy().astype(np.int64)
+    group = np.where(host_lens > 0, 1 << np.ceil(np.log2(
+        np.maximum(host_lens, 1))).astype(np.int64), 0)
+    starts = starts.to(torch.int64)
+    lens = lens.to(torch.int64)
+    for w in np.unique(group[group > 0]).tolist():
+        rows = torch.from_numpy(np.nonzero(group == w)[0]).to(dev)
+        slot = torch.arange(w, device=dev)
+        has = slot[None, :] < lens[rows, None]
+        pos = torch.where(has, starts[rows, None] + slot[None, :], 0)
+        y[rows] = serial_sums(torch.where(has[..., None], prod[pos], 0.0))
     return y
+
+
+def csr_row_sums(rowptr, prod) -> torch.Tensor:
+    """``(rows, k)`` sums of the ``(nnz, k)`` CSR-ordered terms ``prod``,
+    each row in CSR order from 0.0 (:func:`row_sums`)."""
+    rp = rowptr.to(torch.int64)
+    return row_sums(rp[:-1], rp[1:] - rp[:-1], prod)
 
 
 def gse_spmv_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, *,
@@ -222,7 +276,157 @@ def gse_spmv_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, *,
     return y
 
 
-KERNELS = (gse_spmv_ell_f32, gse_spmv_csr_f64)
+# --- B32 / B64: the SELL-C-sigma layout ---------------------------------------
+
+def sell_rows(buckets, rows_pad: int):
+    """Host-side ``[(first row, rows, width, flat offset), ...]`` of the
+    ``(n_buckets, 3)`` bucket table of a pack with ``rows_pad`` rows."""
+    tab = buckets.tolist()
+    ends = [r0 for r0, _, _ in tab[1:]] + [rows_pad]
+    return [(r0, end - r0, w, off) for (r0, w, off), end in zip(tab, ends)]
+
+
+def sell_row_starts(buckets, rows_pad: int, device) -> torch.Tensor:
+    """Flat first slot of every bucket row, ``(rows_pad,)`` int64."""
+    parts = [off + torch.arange(rows, dtype=torch.int64, device=device) * w
+             for _, rows, w, off in sell_rows(buckets, rows_pad)]
+    return torch.cat(parts) if parts else torch.zeros(
+        0, dtype=torch.int64, device=device)
+
+
+def sell_scatter(rows_y, perm, rows: int):
+    """Rows of the concatenated buckets put back in the original order:
+    ``y[perm[r]] = rows_y[r]`` for every real row (the reference's
+    ``unperm`` gather)."""
+    real = perm >= 0
+    y = rows_y.new_zeros((rows,) + tuple(rows_y.shape[1:]))
+    y[perm[real].to(torch.int64)] = rows_y[real]
+    return y
+
+
+def _check_sell(segs, buckets, perm, dev):
+    for name, t, dt in segs:
+        if t is not None:
+            _check(t, name, dt, dev, 1)
+    _check(buckets, "buckets", torch.int64, dev, 2)
+    if buckets.shape[1] != 3:
+        raise ValueError(f"buckets must be (n_buckets, 3), got "
+                         f"{tuple(buckets.shape)}")
+    _check(perm, "perm", torch.int32, dev, 1)
+
+
+def gse_spmv_sell_f32_plain(colpak, head, tail1, tail2, x, scales, buckets,
+                            perm, *, rows: int, ei_bit: int,
+                            tag: int) -> torch.Tensor:
+    """Plain version of B32: A32's plain version on each bucket's
+    ``(rows_b, w_b)`` view of the flat segments, the bucket rows then put
+    back in the original order."""
+    outs = []
+    for _, nrows, w, off in sell_rows(buckets, perm.shape[0]):
+        def view(t):
+            return None if t is None else t[off:off + nrows * w].view(nrows, w)
+        outs.append(gse_spmv_ell_f32_plain(
+            view(colpak), view(head), view(tail1), view(tail2), x, scales,
+            ei_bit=ei_bit, tag=tag))
+    rows_y = torch.cat(outs) if outs else x.new_zeros(0, dtype=torch.float32)
+    return sell_scatter(rows_y, perm, rows)
+
+
+def gse_spmv_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
+                      *, rows: int, ei_bit: int, tag: int) -> torch.Tensor:
+    """y = A @ x as (rows,) f32 from the flat SELL segments at ``tag``.
+
+    ``tail1``/``tail2`` may be ``None`` when ``tag`` does not read them;
+    ``scales`` is the (k,) or (1, k) f32 table ``ref.make_scales`` gives.
+    """
+    if tag not in (1, 2, 3):
+        raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
+    if colpak.device.type == "cpu":
+        return gse_spmv_sell_f32_plain(colpak, head, tail1, tail2, x, scales,
+                                       buckets, perm, rows=rows,
+                                       ei_bit=ei_bit, tag=tag)
+    dev = colpak.device
+    if dev.type != "cuda":
+        raise ValueError(f"gse_spmv_sell_f32 runs on cuda or cpu, not {dev}")
+    _check_sell((("colpak", colpak, torch.uint32), ("head", head, torch.uint16),
+                 ("tail1", tail1 if tag >= 2 else None, torch.uint16),
+                 ("tail2", tail2 if tag == 3 else None, torch.uint32)),
+                buckets, perm, dev)
+    _check(x, "x", torch.float32, dev, 1)
+    scales = scales.reshape(-1)
+    _check(scales, "scales", torch.float32, dev, 1)
+    y = torch.empty(rows, dtype=torch.float32, device=dev)
+    if perm.shape[0] == 0:
+        return y
+    rc = _fn("gse_spmv_sell_f32")(
+        tag, colpak.data_ptr(), head.data_ptr(),
+        tail1.data_ptr() if tag >= 2 else None,
+        tail2.data_ptr() if tag == 3 else None,
+        x.data_ptr(), scales.data_ptr(), y.data_ptr(), buckets.data_ptr(),
+        buckets.shape[0], perm.data_ptr(), perm.shape[0], ei_bit,
+        torch.cuda.current_stream(dev).cuda_stream)
+    gse_spmv_sell_f32.launches += 1
+    _raise_on(rc, "gse_spmv_sell_f32")
+    return y
+
+
+def gse_spmv_sell_f64_plain(colpak, head, tail1, tail2, table, x, buckets,
+                            perm, row_len, *, rows: int, ei_bit: int,
+                            tag) -> torch.Tensor:
+    """Plain version of B64: the f64 decode of ``_decode_gsecsr`` over the
+    flat slots, then each bucket row's ``row_len`` real slots added in
+    slot order from 0.0 (:func:`row_sums`), put back in the original
+    order.  Padded slots are never added."""
+    tag = min(max(int(tag), 1), 3)
+    val, col = _decode_gsecsr(colpak, head, tail1, tail2, table, ei_bit, tag)
+    prod = val * x.to(torch.float64)[col]
+    starts = sell_row_starts(buckets, perm.shape[0], prod.device)
+    rows_y = row_sums(starts, row_len, prod[:, None])[:, 0]
+    return sell_scatter(rows_y, perm, rows)
+
+
+def gse_spmv_sell_f64(colpak, head, tail1, tail2, table, x, buckets, perm,
+                      row_len, *, rows: int, ei_bit: int,
+                      tag) -> torch.Tensor:
+    """y = A @ x as (rows,) f64 over the flat SELL segments.
+
+    ``tag`` is an int or an int32 tensor on the operand's device (clipped
+    to [1, 3]); all three segment arrays are passed because the tag is
+    chosen on the device.  ``row_len`` is each bucket row's real entry
+    count.
+    """
+    if colpak.device.type == "cpu":
+        return gse_spmv_sell_f64_plain(colpak, head, tail1, tail2, table, x,
+                                       buckets, perm, row_len, rows=rows,
+                                       ei_bit=ei_bit, tag=tag)
+    dev = colpak.device
+    if dev.type != "cuda":
+        raise ValueError(f"gse_spmv_sell_f64 runs on cuda or cpu, not {dev}")
+    _check_sell((("colpak", colpak, torch.uint32), ("head", head, torch.uint16),
+                 ("tail1", tail1, torch.uint16),
+                 ("tail2", tail2, torch.uint32)), buckets, perm, dev)
+    _check(row_len, "row_len", torch.int32, dev, 1)
+    _check(table, "table", torch.int32, dev, 1)
+    _check(x, "x", torch.float64, dev, 1)
+    if not isinstance(tag, torch.Tensor):
+        tag = torch.full((), int(tag), dtype=torch.int32, device=dev)
+    _check(tag.reshape(1), "tag", torch.int32, dev, 1)
+    y = torch.empty(rows, dtype=torch.float64, device=dev)
+    if perm.shape[0] == 0:
+        return y
+    rc = _fn("gse_spmv_sell_f64")(
+        tag.data_ptr(), colpak.data_ptr(), head.data_ptr(), tail1.data_ptr(),
+        tail2.data_ptr(), table.data_ptr(), x.data_ptr(), y.data_ptr(),
+        buckets.data_ptr(), buckets.shape[0], perm.data_ptr(),
+        row_len.data_ptr(), perm.shape[0], ei_bit,
+        torch.cuda.current_stream(dev).cuda_stream)
+    gse_spmv_sell_f64.launches += 1
+    _raise_on(rc, "gse_spmv_sell_f64")
+    return y
+
+
+KERNELS = (gse_spmv_ell_f32, gse_spmv_csr_f64, gse_spmv_sell_f32,
+           gse_spmv_sell_f64)
 
 
 def reset_launch_counts():

@@ -2,12 +2,19 @@
 cache and the tag-specialized dispatch.
 
 Port of ``repro/kernels/ops.py``: ``_cached_pack`` (:72),
-``ell_pack_gsecsr`` (:172), ``spmv_kernel_for`` (:349),
-``spmm_kernel_for`` (:387), ``gse_spmm_ell`` (:427) and
-``gse_spmv_ell`` (:660).  The reference pads rows to its (8, 128) grid
-block; the CUDA kernel takes any row count, so only the lane width (128,
-the reference's default plan) is padded.  ``PACK_STATS`` is a plain dict
-until the metrics registry is ported.
+``ell_pack_gsecsr`` (:172), ``sell_pack_gsecsr`` (:198),
+``spmv_kernel_for`` (:349), ``spmm_kernel_for`` (:387), ``gse_spmm_ell``
+(:427), ``sell_kernel_for`` (:535), ``sell_spmm_kernel_for`` (:558),
+``_sell_buckets`` (:572), ``gse_spmv_sell`` (:613), ``gse_spmm_sell``
+(:637) and ``gse_spmv_ell`` (:660).  The reference pads rows to its
+(8, 128) grid block; the CUDA kernels take any row count, so only the
+lane width (128, the reference's default plan) is padded.  The port keeps
+its own copy of the reference plan's SELL defaults (``perf/plan.py``
+:58-62).  Launch plans (``blocks=``, ``plan=``, ``planned_spmv``,
+``planned_spmm``) are ROADMAP queue 1 item 14 and per-group TagMaps
+(``_gse_sell_tagmap``, ``_sell_mixed_cached``) item 11; both raise
+``NotImplementedError``.  ``PACK_STATS`` is a plain dict until the
+metrics registry is ported.
 """
 from __future__ import annotations
 
@@ -20,13 +27,18 @@ import torch
 
 from repro_torch.core.precision_table import TAG_BITS_USED
 from repro_torch.kernels import ref
-from repro_torch.kernels.gse_spmm import gse_spmm_ell_f32
-from repro_torch.kernels.gse_spmv import gse_spmv_ell_f32
-from repro_torch.sparse.csr import GSECSR, scatter_rows
+from repro_torch.core.precision_table import TAG_SEGMENTS
+from repro_torch.kernels.gse_spmm import gse_spmm_ell_f32, gse_spmm_sell_f32
+from repro_torch.kernels.gse_spmv import gse_spmv_ell_f32, gse_spmv_sell_f32
+from repro_torch.sparse.csr import (GSECSR, GSESellC, _int_tag, pack_sell,
+                                    scatter_rows)
 
 __all__ = ["gse_spmv_ell", "gse_spmm_ell", "ell_pack_gsecsr",
-           "spmv_kernel_for", "spmm_kernel_for", "PACK_STATS",
-           "PACK_CACHE_MAX", "LANE"]
+           "sell_pack_gsecsr", "gse_spmv_sell", "gse_spmm_sell",
+           "spmv_kernel_for", "spmm_kernel_for", "sell_kernel_for",
+           "sell_spmm_kernel_for", "planned_spmv", "planned_spmm",
+           "PACK_STATS", "PACK_CACHE_MAX", "LANE", "SELL_C", "SELL_SIGMA",
+           "SELL_BUCKET"]
 
 # Operand-pack cache accounting: ``hits``/``misses`` let callers assert
 # that repeated solves re-pack nothing; ``evictions`` counts LRU drops and
@@ -39,8 +51,30 @@ PACK_CACHE_MAX = 8
 # ELL row width alignment (the reference's default launch plan lane).
 LANE = 128
 
+# The reference plan's SELL-C-sigma defaults: slice height, sort window
+# (None: a full sort) and width-bucket granularity.
+SELL_C = 8
+SELL_SIGMA = None
+SELL_BUCKET = "pow2"
+
+
+def _no_plans(blocks=None, plan=None):
+    if blocks is not None or plan is not None:
+        raise NotImplementedError(
+            "launch plans (blocks=, plan=) are not ported yet (ROADMAP queue "
+            "1 item 14)")
+
+
+def _sell_tag(tag) -> int:
+    tag = _int_tag(tag)
+    if tag not in (1, 2, 3):
+        raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
+    return tag
+
 
 def _leaves(entry):
+    if isinstance(entry, GSESellC):
+        entry = entry.arrays()
     if isinstance(entry, (tuple, list)):
         for e in entry:
             yield from _leaves(e)
@@ -115,6 +149,23 @@ def ell_pack_gsecsr(a: GSECSR, lane: int = LANE):
         return tuple(torch.from_numpy(o).to(a.device) for o in outs)
 
     return _cached_pack(a, ("ell", lane), build)
+
+
+def sell_pack_gsecsr(a: GSECSR, c: int | None = None,
+                     sigma: int | None = None, lane: int | None = None,
+                     bucket: str | None = None, plan=None) -> GSESellC:
+    """GSE-SEM CSR -> SELL-C-sigma packed layout on ``a``'s device,
+    memoized on the operator instance under ``("sell", c, sigma, lane,
+    bucket)``.  Parameters left ``None`` take the defaults (C=8, a full
+    sort, lane 128, pow2 width buckets)."""
+    _no_plans(plan=plan)
+    c = SELL_C if c is None else c
+    sigma = SELL_SIGMA if sigma is None else sigma
+    lane = LANE if lane is None else lane
+    bucket = SELL_BUCKET if bucket is None else bucket
+    return _cached_pack(
+        a, ("sell", c, sigma, lane, bucket),
+        lambda: pack_sell(a, c=c, sigma=sigma, lane=lane, bucket=bucket))
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,3 +256,96 @@ def gse_spmm_ell(ell, table, x: torch.Tensor, ei_bit: int, tag: int = 1, *,
         operands.append(t2)
     xt = x.to(torch.float32).t().contiguous()
     return spmm_kernel_for(tag, ei_bit)(*operands, xt, scales, device=device)
+
+
+def _sell_buckets(sell: GSESellC, tag: int):
+    """Per-bucket operand tuples holding only the segments ``tag`` reads
+    (``TAG_SEGMENTS`` is the one source of truth for the tail list)."""
+    segs = (sell.colpak, sell.head) + tuple(
+        getattr(sell, name) for name in TAG_SEGMENTS[tag])
+    return tuple(zip(*segs))
+
+
+@functools.lru_cache(maxsize=None)
+def _sell_dispatch(kernel, tag: int, ei_bit: int):
+    """Shared body of ``sell_kernel_for``/``sell_spmm_kernel_for``: the
+    returned callable takes the tag's flat segments ``(colpak, head[,
+    tail1[, tail2]])`` positionally, then ``x, scales`` and the layout
+    keywords ``buckets``, ``perm``, ``rows`` (and the kernel's own)."""
+    if tag not in (1, 2, 3):
+        raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
+
+    def call(*args, **kw):
+        segs, (x, scales) = args[:-2], args[-2:]
+        if len(segs) != 2 + len(TAG_SEGMENTS[tag]):
+            raise TypeError(f"tag {tag} takes {2 + len(TAG_SEGMENTS[tag])} "
+                            f"segment arrays, got {len(segs)}")
+        full = tuple(segs) + (None,) * (4 - len(segs))
+        return kernel(*full, x, scales, ei_bit=ei_bit, tag=tag, **kw)
+
+    return call
+
+
+def sell_kernel_for(tag: int, ei_bit: int, blocks=None):
+    """Tag-specialized SELL-C-sigma SpMV dispatch (kernel B32), the twin of
+    :func:`spmv_kernel_for`: the callable takes exactly the flat segments
+    ``tag`` streams -- ``(colpak, head)`` for tag 1, ``+ tail1`` for tag 2,
+    ``+ tail2`` for tag 3 -- then ``x, scales`` and the keywords
+    ``buckets``, ``perm``, ``rows``.  One launch covers every bucket."""
+    _no_plans(blocks)
+    return _sell_dispatch(gse_spmv_sell_f32, tag, ei_bit)
+
+
+def sell_spmm_kernel_for(tag: int, ei_bit: int, blocks=None):
+    """Multi-RHS twin of :func:`sell_kernel_for` (kernel C′32): ``x`` is an
+    ``(nrhs, n)`` block, and a ``device=`` keyword (default ``"cuda"``)
+    follows the layout keywords."""
+    _no_plans(blocks)
+    return _sell_dispatch(gse_spmm_sell_f32, tag, ei_bit)
+
+
+def gse_spmv_sell(sell: GSESellC, x: torch.Tensor, tag: int = 1,
+                  blocks=None, plan=None) -> torch.Tensor:
+    """y = A @ x (f32) from a SELL-C-sigma packed operand (kernel B32).
+
+    One launch streams each slice at its own lane-aligned width, so the
+    modeled traffic is ``sell.bytes_touched(tag)``, the actual padded
+    slots.  For finite x the result is bitwise :func:`gse_spmv_ell` on the
+    same operator.
+    """
+    _no_plans(blocks, plan)
+    tag = _sell_tag(tag)
+    scales = ref.make_scales(sell.table, TAG_BITS_USED[tag])
+    segs = sell.segments[:2 + len(TAG_SEGMENTS[tag])]
+    return sell_kernel_for(tag, sell.ei_bit)(
+        *segs, x, scales, buckets=sell.bucket_table, perm=sell.perm,
+        rows=sell.shape[0])
+
+
+def gse_spmm_sell(sell: GSESellC, x: torch.Tensor, tag: int = 1,
+                  blocks=None, plan=None, *, device="cuda") -> torch.Tensor:
+    """Y = A @ X (f32, ``(m, nrhs)``) from a SELL-C-sigma packed operand
+    (kernel C′32), X a dense ``(n, nrhs)`` block; each bucket's segments
+    are streamed once for every column.  Bitwise :func:`gse_spmm_ell` on
+    the same operator for finite X."""
+    _no_plans(blocks, plan)
+    tag = _sell_tag(tag)
+    if x.dim() != 2:
+        raise ValueError(f"gse_spmm_sell wants a (n, nrhs) block; got "
+                         f"{tuple(x.shape)}")
+    scales = ref.make_scales(sell.table, TAG_BITS_USED[tag])
+    segs = sell.segments[:2 + len(TAG_SEGMENTS[tag])]
+    xt = x.to(torch.float32).t().contiguous()
+    return sell_spmm_kernel_for(tag, sell.ei_bit)(
+        *segs, xt, scales, buckets=sell.bucket_table, perm=sell.perm,
+        rows=sell.shape[0], device=device)
+
+
+def planned_spmv(*args, **kwargs):
+    """Launch-plan SpMV dispatch: not ported yet."""
+    _no_plans(plan=True)
+
+
+def planned_spmm(*args, **kwargs):
+    """Launch-plan SpMM dispatch: not ported yet."""
+    _no_plans(plan=True)

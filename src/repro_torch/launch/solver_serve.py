@@ -20,13 +20,18 @@ converges at iteration 0 and never perturbs a real request.
 
 ``stats`` is a plain dict with the reference's seven keys and
 ``queue_depth`` an int; the flush-latency and byte histograms and the
-spans arrive with ``obs/`` (ROADMAP queue 1 item 12).  Not yet ported:
-preconditioners (item 6), ``layout="sell"`` (item 10), per-group TagMaps
-and ``tags="adaptive"`` (item 11), launch plans and tuning (item 14) and
+spans arrive with ``obs/`` (ROADMAP queue 1 item 12).  ``layout="sell"``
+packs the operator into the SELL-C-sigma layout
+(``kernels.ops.sell_pack_gsecsr``): the batched operator is then kernel
+C′64 and the retry's B64, the trajectories are bitwise the ``"csr"``
+handle's, and the byte reports charge the layout's padded slots.  Not yet
+ported: preconditioners (item 6), per-group TagMaps and
+``tags="adaptive"`` (item 11), launch plans and tuning (item 14) and
 sharded handles (item 15); each raises ``NotImplementedError``.
 
 Usage (demo, on the card):
   PYTHONPATH=src python -m repro_torch.launch.solver_serve --requests 6 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.solver_serve --layout sell
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import precision as P
+from repro_torch.kernels.ops import sell_pack_gsecsr
 from repro_torch.kernels.vec_f64 import on_device, seq_dot
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
@@ -49,7 +55,7 @@ from repro_torch.robustness.guards import (
 )
 from repro_torch.solvers.batched import column_tags_at, solve_cg_batched
 from repro_torch.solvers.cg import solve_cg
-from repro_torch.sparse.csr import CSR, GSECSR, iteration_stream_bytes, pack_csr
+from repro_torch.sparse.csr import CSR, iteration_stream_bytes, pack_csr
 
 __all__ = ["SolveRequest", "SolveReport", "SolverService"]
 
@@ -121,7 +127,7 @@ class SolveReport:
 class _Operator:
     name: str
     csr: CSR
-    gse: GSECSR      # packed once at registration
+    gse: object      # GSECSR or GSESellC, packed once at registration
     tags: object = None  # handle-default precision axis: None | int
 
 
@@ -164,17 +170,21 @@ class SolverService:
                  layout: str = "csr", sharded: bool = False, plan=None,
                  tune: bool = False, tags=None) -> str:
         """Pack ``a`` (a ``CSR`` on the service's device) once; returns the
-        handle requests are submitted against.  ``tags`` sets the handle's
-        default start tag (an int), overridable per request at
+        handle requests are submitted against.  ``layout="sell"`` also
+        packs the SELL-C-sigma layout (cached on the packed instance):
+        trajectories are bitwise the ``"csr"`` default's, and the byte
+        reports charge the layout's padded slots.  ``tags`` sets the
+        handle's default start tag (an int), overridable per request at
         :meth:`submit`."""
         if name in self._ops:
             raise ValueError(f"handle {name!r} already registered")
         if layout not in ("csr", "sell"):
             raise ValueError(
                 f"unknown layout {layout!r}; expected 'csr' or 'sell'")
-        if layout == "sell":
-            raise NotImplementedError(
-                "layout='sell' is not ported yet (ROADMAP queue 1 item 10)")
+        if sharded and layout == "sell":
+            raise ValueError(
+                "sharded=True serves through the row-sharded CSR decode; "
+                "the SELL layout is single-device (pick one)")
         if sharded:
             raise NotImplementedError(
                 "sharded handles are not ported yet (ROADMAP queue 1 item 15)")
@@ -192,8 +202,10 @@ class SolverService:
                 "preconditioned handles are not ported yet (ROADMAP queue 1 "
                 "item 6)")
         on_device(self.device, a=a.val)
-        self._ops[name] = _Operator(name=name, csr=a, gse=pack_csr(a, k=k),
-                                    tags=tags)
+        gse = pack_csr(a, k=k)
+        if layout == "sell":
+            gse = sell_pack_gsecsr(gse)
+        self._ops[name] = _Operator(name=name, csr=a, gse=gse, tags=tags)
         return name
 
     # -- request intake ----------------------------------------------------
@@ -429,6 +441,9 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--n", type=int, default=24, help="Poisson grid side")
+    ap.add_argument("--layout", default="csr", choices=["csr", "sell"],
+                    help="operator pack: 'sell' rides the SELL-C-sigma "
+                         "sliced layout (padding-honest byte reports)")
     ap.add_argument("--tol", type=float, default=1e-8)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -439,7 +454,7 @@ def main(argv=None):
                              reldec_limit=0.45)
     svc = SolverService(slots=args.slots, params=params, maxiter=20000,
                         device=args.device)
-    svc.register("poisson", a, k=8)
+    svc.register("poisson", a, k=8, layout=args.layout)
 
     rng = np.random.default_rng(0)
     ids = []

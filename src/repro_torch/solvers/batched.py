@@ -8,7 +8,8 @@ Port of ``repro/solvers/batched.py``: ``BatchedCGResult`` (:93),
 ``batched_run_bytes`` (:727) without a preconditioner.
 
 With ``nrhs`` right-hand sides one streaming pass over the packed matrix
-serves every column (kernel C64, ``kernels.gse_spmm.gse_spmm_csr_f64``),
+serves every column (kernel C64, ``kernels.gse_spmm.gse_spmm_csr_f64``,
+or over a SELL-C-sigma ``GSESellC`` kernel C′64, ``gse_spmm_sell_f64``),
 so the matrix stream is charged once per iteration however wide the batch
 is.  Each column carries its own residual monitor, tag schedule, switch
 log and guard state, and stops on its own.
@@ -47,7 +48,7 @@ import torch
 
 from repro_torch.core import precision as P
 from repro_torch.core.gse import _np
-from repro_torch.kernels.gse_spmm import gse_spmm_csr_f64
+from repro_torch.kernels.gse_spmm import gse_spmm_csr_f64, gse_spmm_sell_f64
 from repro_torch.kernels.vec_f64 import (fma_axpy_cols, on_device,
                                          ref_norm_cols, seq_dot_cols, sqrt_rn)
 from repro_torch.robustness.guards import (
@@ -59,7 +60,7 @@ from repro_torch.robustness.guards import (
     guard_step,
 )
 from repro_torch.solvers.cg import CHUNK, _freeze, _record_switch
-from repro_torch.sparse.csr import GSECSR, iteration_stream_bytes
+from repro_torch.sparse.csr import GSECSR, GSESellC, iteration_stream_bytes
 
 __all__ = ["BatchedCGResult", "solve_cg_batched", "batched_run_bytes",
            "column_tags_at"]
@@ -215,11 +216,17 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
     )
 
 
-def _solve_cg_batched_fused(a: GSECSR, b, x0, tol, maxiter, params,
-                            init_tag=1, guards=None, device="cuda"):
-    """Fused path: one C64 launch per iteration serves every column."""
+def _solve_cg_batched_fused(a, b, x0, tol, maxiter, params, init_tag=1,
+                            guards=None, device="cuda"):
+    """Fused path: one C64 (``GSECSR``) or C′64 (``GSESellC``) launch per
+    iteration serves every column."""
 
     def matvec(v, tags, active):
+        if isinstance(a, GSESellC):
+            return gse_spmm_sell_f64(*a.segments, a.table, v, tags, active,
+                                     a.bucket_table, a.perm, a.row_len,
+                                     rows=a.shape[0], ei_bit=a.ei_bit,
+                                     device=device)
         return gse_spmm_csr_f64(a.rowptr, a.colpak, a.head, a.tail1, a.tail2,
                                 a.table, v, tags, active, ei_bit=a.ei_bit,
                                 device=device)
@@ -260,7 +267,7 @@ def _batched_init_tag(tags) -> int:
 
 
 def solve_cg_batched(
-    apply_a: Union[Callable, GSECSR],
+    apply_a: Union[Callable, GSECSR, GSESellC],
     b,
     x0=None,
     tol: float = 1e-6,
@@ -279,8 +286,9 @@ def solve_cg_batched(
     own tag, deactivating when it converges.  Column ``j`` is bitwise
     ``solve_cg(apply_a, b[:, j], ...)`` with the same parameters.
 
-    Passing a ``GSECSR`` (which must lie on ``device``) selects the fused
-    path: one C64 launch per iteration for the whole block.  A callable
+    Passing a ``GSECSR`` or a ``GSESellC`` (which must lie on ``device``)
+    selects the fused path: one C64 (C′64) launch per iteration for the
+    whole block.  A callable
     ``apply_a(x, tag)`` (e.g. ``make_gse_operator(a)``) is applied column
     by column.  The two paths give identical results.  ``guards`` attaches
     per-column breakdown/divergence/non-finite/stall detection; a tripped
@@ -293,14 +301,14 @@ def solve_cg_batched(
         raise NotImplementedError(
             "flight= is not ported yet (ROADMAP queue 1 item 12)")
     init_tag = _batched_init_tag(tags)
-    fused = isinstance(apply_a, GSECSR)
+    fused = isinstance(apply_a, (GSECSR, GSESellC))
     if not fused and not callable(apply_a):
         raise NotImplementedError(
-            f"solve_cg_batched takes a GSECSR or a callable; "
+            f"solve_cg_batched takes a GSECSR, a GSESellC or a callable; "
             f"{type(apply_a).__name__} operands (sharded) are not ported yet "
             "(ROADMAP queue 1 item 15)")
     if fused:
-        on_device(device, operand=apply_a.colpak)
+        on_device(device, operand=apply_a.table)
     b, x0 = _normalize_block(b, x0, device)
     if b.dtype != torch.float64:
         raise TypeError(f"b must be float64, got {b.dtype}")

@@ -2,8 +2,10 @@
 
 Port of ``repro/solvers/cg.py``: ``CGResult``, ``_normalize_b_x0``,
 ``_record_switch`` (:295), ``_finish_with_correction`` (:593) and
-``solve_cg`` (:853) with the fused ``GSECSR`` path (``_solve_cg_fused``,
-:310) and the generic-callable path (``_solve_cg``, :214).
+``solve_cg`` (:853) with the fused path over a ``GSECSR`` or a SELL-C-sigma
+``GSESellC`` (``_solve_cg_fused``, :310; the reference's :791/:825) and
+the generic-callable path (``_solve_cg``, :214).  The two layouts give
+bitwise the same trajectory.
 
 The reference loop is a device ``while_loop`` that tests convergence
 before every iteration.  Here the loop state -- x, r, p, the residual
@@ -38,7 +40,7 @@ from repro_torch.robustness.guards import (
     run_with_recovery,
 )
 from repro_torch.solvers.fused_cg import cg_update, fused_cg_step_g, gse_matvec
-from repro_torch.sparse.csr import GSECSR
+from repro_torch.sparse.csr import GSECSR, GSESellC
 
 __all__ = ["CGResult", "solve_cg", "CHUNK"]
 
@@ -182,9 +184,9 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
     return res, (state["ckpt"] if guards is not None else state["x"])
 
 
-def _solve_cg_fused(a: GSECSR, b, x0, tol, maxiter, params, init_tag=1,
+def _solve_cg_fused(a, b, x0, tol, maxiter, params, init_tag=1,
                     guards=None):
-    """Fused-path CG over a ``GSECSR``: each iteration is one
+    """Fused-path CG over a ``GSECSR`` or ``GSESellC``: each iteration is one
     ``fused_cg_step_g`` (the curvature it returns feeds the guards)."""
 
     def step(s):
@@ -230,7 +232,7 @@ def _finish_with_correction(res, b, tol, maxiter, apply3, resume):
 
 
 def solve_cg(
-    apply_a: Union[Callable, GSECSR],
+    apply_a: Union[Callable, GSECSR, GSESellC],
     b,
     x0=None,
     tol: float = 1e-6,
@@ -245,8 +247,10 @@ def solve_cg(
 ) -> CGResult:
     """CG for SPD systems with stepped mixed precision.
 
-    Passing a ``GSECSR`` as ``apply_a`` selects the fused iteration path
-    and runs on the operand's device; a callable ``apply_a(x, tag)`` (for
+    Passing a ``GSECSR`` or a SELL-C-sigma ``GSESellC`` (from
+    ``kernels.ops.sell_pack_gsecsr``) as ``apply_a`` selects the fused
+    iteration path and runs on the operand's device (bitwise alike: the
+    layouts differ only in what the kernels stream); a callable ``apply_a(x, tag)`` (for
     example ``make_gse_operator(a)``) runs on ``b``'s device.  The two
     paths give identical results.
 
@@ -268,10 +272,10 @@ def solve_cg(
                 f"tags= takes an int tag; {type(tags).__name__} (TagMap or "
                 "'adaptive') is not ported yet (ROADMAP queue 1 item 11)")
         init_tag = tags
-    fused = isinstance(apply_a, GSECSR)
+    fused = isinstance(apply_a, (GSECSR, GSESellC))
     if not fused and not callable(apply_a):
         raise NotImplementedError(
-            f"solve_cg takes a GSECSR or a callable; {type(apply_a).__name__} "
+            f"solve_cg takes a GSECSR, a GSESellC or a callable; {type(apply_a).__name__} "
             "operands (sharded) are not ported yet (ROADMAP queue 1 item 15)")
     b, x0, orig_shape = _normalize_b_x0(b, x0,
                                         apply_a.device if fused else None)

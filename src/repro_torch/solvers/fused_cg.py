@@ -1,4 +1,4 @@
-"""Fused stepped-CG iteration over a GSE-SEM CSR operand.
+"""Fused stepped-CG iteration over a GSE-SEM CSR or SELL-C-sigma operand.
 
 Port of ``repro/solvers/fused_cg.py``: ``fused_cg_step``,
 ``fused_cg_step_g`` (:37-101) and ``gse_matvec`` (:169).
@@ -6,7 +6,8 @@ Port of ``repro/solvers/fused_cg.py``: ``fused_cg_step``,
 One CG iteration is one SpMV plus two dots, two axpys and one xpby.  The
 reference picks one of three tag-specialized branches with
 ``lax.switch``; here the precision tag stays a device tensor and the
-SpMV kernel (A64) branches on it itself, so a step never syncs.  The
+SpMV kernel (A64 over a ``GSECSR``, B64 over a ``GSESellC``; bitwise
+alike) branches on it itself, so a step never syncs.  The
 operations run in the order of the reference's ``_step_at_tag`` and
 round as XLA rounds them there (``kernels.vec_f64``: FMA-chain dots and
 FMA updates), so the iterates are bitwise the reference's.
@@ -54,6 +55,6 @@ def fused_cg_step_g(a, x, r, p, rs, tag):
 
 
 def gse_matvec(a, x, tag):
-    """Tag-dispatched ``A @ x`` over a ``GSECSR`` (initial residual,
-    checks)."""
+    """Tag-dispatched ``A @ x`` over a ``GSECSR`` or ``GSESellC`` operand
+    (initial residual, checks); ``spmv_gse`` dispatches on the layout."""
     return spmv_gse(a, x, tag)

@@ -11,15 +11,16 @@ from typing import Callable
 
 import torch
 
-from repro_torch.sparse.csr import CSR, GSECSR
+from repro_torch.sparse.csr import CSR
 from repro_torch.sparse.spmv import spmv, spmv_gse
 
 __all__ = ["make_gse_operator", "make_fixed_operator"]
 
 
-def make_gse_operator(a: GSECSR) -> Callable:
+def make_gse_operator(a) -> Callable:
     """Three-precision f64 operator over one stored copy (the paper's
-    A1/A2/A3); the SpMV kernel picks the tag on the device."""
+    A1/A2/A3); ``a`` is a ``GSECSR`` or a SELL-C-sigma ``GSESellC``, and
+    the SpMV kernel picks the tag on the device."""
 
     def apply(x, tag):
         return spmv_gse(a, x, tag)

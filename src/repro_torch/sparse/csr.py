@@ -1,11 +1,14 @@
 """Sparse matrix containers: CSR and GSE-SEM CSR.
 
-Port of ``repro/sparse/csr.py``: ``CSR``, ``GSECSR``, ``from_coo``
-(:346), ``pack_csr`` (:372), ``scatter_rows`` (:482), ``to_ell`` (:528),
-the byte models ``bytes_per_nnz``/``bytes_touched``/``nbytes``,
-``vector_stream_bytes`` and ``iteration_stream_bytes`` (int tags only;
-the preconditioner and SELL/ELL-layout accounts arrive with PCG and
-SELL).
+Port of ``repro/sparse/csr.py``: ``CSR``, ``GSECSR`` (with
+``bytes_touched(tag, layout=)`` :129), ``ELLLayout`` (:173),
+``GSESellC`` (:218), ``from_coo`` (:346), ``pack_csr`` (:372),
+``vector_stream_bytes``, ``iteration_stream_bytes`` (:433, with
+``layout=``), ``scatter_rows`` (:482), ``to_ell`` (:528), ``ell_layout``
+(:543), ``sell_slices`` (:558) and ``pack_sell`` (:610).  The byte
+models take int tags; per-group TagMaps (and ``GSESellC.bucket_tags``)
+arrive with ROADMAP queue 1 item 11, the preconditioner charge with
+item 6.
 
 Paper Section III.C.1: shared-exponent indices ride the top ``EI_BIT``
 bits of the 32-bit column indices, so the SEM head keeps all 15 non-sign
@@ -25,13 +28,29 @@ from repro_torch.core import gse, precision_table
 __all__ = [
     "CSR",
     "GSECSR",
+    "ELLLayout",
+    "GSESellC",
     "from_coo",
     "pack_csr",
     "to_ell",
+    "ell_layout",
+    "sell_slices",
+    "pack_sell",
     "scatter_rows",
     "iteration_stream_bytes",
     "vector_stream_bytes",
 ]
+
+_SLOT_BYTES = precision_table.SLOT_BYTES
+
+
+def _int_tag(tag) -> int:
+    """``tag`` as an int; a per-group TagMap is item 11."""
+    if isinstance(tag, bool) or not isinstance(tag, (int, np.integer)):
+        raise NotImplementedError(
+            f"an int tag is needed; {type(tag).__name__} (TagMap) is not "
+            "ported yet (ROADMAP queue 1 item 11)")
+    return int(tag)
 
 
 @dataclasses.dataclass
@@ -102,12 +121,133 @@ class GSECSR:
         pt = precision_table
         return pt.TAG_VALUE_BYTES[tag] + pt.COLIDX_BYTES
 
-    def bytes_touched(self, tag: int) -> int:
+    def bytes_touched(self, tag: int, layout=None) -> int:
         """Modeled HBM bytes one tag-``tag`` SpMV touches in the matrix
         streams: per-nnz segments + rowptr + the shared-exponent table.
-        Dense x/y traffic is format-independent and excluded."""
+        Dense x/y traffic is format-independent and excluded.  A packed
+        ``layout`` (``GSESellC`` or ``ELLLayout``) charges the padded
+        slots that layout streams instead."""
+        if layout is not None:
+            return layout.bytes_touched(tag)
         fixed = int(self.rowptr.numel()) * 4 + int(self.table.numel()) * 4
-        return self.nnz * self.bytes_per_nnz(tag) + fixed
+        return self.nnz * self.bytes_per_nnz(_int_tag(tag)) + fixed
+
+
+@dataclasses.dataclass(frozen=True)
+class ELLLayout:
+    """Padding descriptor of the uniform-ELL pack: every row padded to the
+    longest row's lane-aligned width.  ``bytes_touched(tag)`` charges every
+    padded slot (value segments + packed colidx) plus the shared-exponent
+    table; ``padding_ratio`` is the wasted fraction."""
+
+    rows: int           # padded row count
+    width: int          # lane-aligned uniform row width L
+    nnz: int            # real stored entries
+    table_entries: int  # shared-exponent table length
+
+    @property
+    def slots(self) -> int:
+        return self.rows * self.width
+
+    @property
+    def padding_ratio(self) -> float:
+        """Fraction of streamed slots that are padding, in [0, 1)."""
+        return 1.0 - self.nnz / max(self.slots, 1)
+
+    def bytes_touched(self, tag) -> int:
+        return self.slots * _SLOT_BYTES[_int_tag(tag)] + self.table_entries * 4
+
+
+@dataclasses.dataclass
+class GSESellC:
+    """Sliced-ELL (SELL-C-sigma) view of a :class:`GSECSR`.
+
+    Rows are sorted by descending length inside windows of ``sigma`` rows,
+    grouped into slices of ``c`` rows, and each slice is padded only to its
+    own lane-aligned width; slices are binned by width into a few buckets,
+    each stored as dense row-major ``(rows_b, w_b)`` segment arrays (the
+    reference's arrays, bit for bit).  ``gather`` addresses every CSR-order
+    entry inside the concatenated buckets, ``perm`` is the original row of
+    each concatenated bucket row (-1: slice padding) and ``unperm`` its
+    inverse.  Padded slots hold colpak 0 and head 0.
+
+    Port-private, derived at pack time and not charged by the byte model:
+    ``segments`` -- the flat ``(slots,)`` colpak/head/tail1/tail2 arrays the
+    bucket tuples are views of, which one kernel launch walks for every
+    bucket; ``bucket_table`` -- ``(n_buckets, 3)`` int64 rows ``[first
+    bucket row, width, flat slot offset]``; ``row_len`` -- each bucket
+    row's real entry count, ``rowptr``'s row lengths at ``perm`` (0 for
+    padding rows), so the f64 kernels walk only real slots.
+    """
+
+    colpak: tuple   # per-bucket (rows_b, w_b) uint32
+    head: tuple     # per-bucket (rows_b, w_b) uint16
+    tail1: tuple    # per-bucket (rows_b, w_b) uint16
+    tail2: tuple    # per-bucket (rows_b, w_b) uint32
+    gather: torch.Tensor   # (nnz,) int32
+    perm: torch.Tensor     # (rows_padded,) int32, -1 for padding rows
+    unperm: torch.Tensor   # (m,) int32
+    row_ids: torch.Tensor  # (nnz,) int32
+    table: torch.Tensor    # (k,) int32 biased+1
+    widths: Tuple[int, ...]
+    c: int
+    sigma: int
+    lane: int
+    ei_bit: int
+    shape: Tuple[int, int]
+    segments: tuple            # flat (slots,) colpak, head, tail1, tail2
+    bucket_table: torch.Tensor  # (n_buckets, 3) int64
+    row_len: torch.Tensor      # (rows_padded,) int32
+
+    @property
+    def nnz(self) -> int:
+        return int(self.gather.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.table.device
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.widths)
+
+    @property
+    def bucket_rows(self) -> Tuple[int, ...]:
+        return tuple(int(cp.shape[0]) for cp in self.colpak)
+
+    @property
+    def slots(self) -> int:
+        """Padded slots stored and streamed, across all buckets."""
+        return sum(r * w for r, w in zip(self.bucket_rows, self.widths))
+
+    @property
+    def padding_ratio(self) -> float:
+        """Fraction of streamed slots that are padding, in [0, 1)."""
+        return 1.0 - self.nnz / max(self.slots, 1)
+
+    def bytes_per_nnz(self, tag: int) -> float:
+        """Effective bytes streamed per nonzero: padded slots amortized
+        over the real entries."""
+        return _SLOT_BYTES[_int_tag(tag)] * self.slots / max(self.nnz, 1)
+
+    def bucket_tags(self, tm):
+        raise NotImplementedError(
+            "per-bucket TagMap tags are not ported yet (ROADMAP queue 1 "
+            "item 11)")
+
+    def bytes_touched(self, tag) -> int:
+        """Modeled HBM bytes one tag-``tag`` SpMV streams through this
+        layout: every padded slot's value segments + packed colidx, the
+        output row permutation and the shared-exponent table."""
+        fixed = int(self.perm.shape[0]) * 4 + int(self.table.numel()) * 4
+        return self.slots * _SLOT_BYTES[_int_tag(tag)] + fixed
+
+    def arrays(self) -> tuple:
+        """Every tensor of the pack once (the bucket arrays as views of
+        ``segments``): what the pack cache checksums."""
+        return (*self.colpak, *self.head, *self.tail1, *self.tail2,
+                self.gather, self.perm, self.unperm, self.row_ids,
+                self.table, self.bucket_table, self.row_len)
 
 
 def from_coo(rows, cols, vals, shape, device="cuda") -> CSR:
@@ -193,16 +333,19 @@ def vector_stream_bytes(op, dtype=torch.float64) -> int:
     return (m + n) * dtype.itemsize
 
 
-def iteration_stream_bytes(op, tag, nrhs: int = 1) -> int:
+def iteration_stream_bytes(op, tag, nrhs: int = 1, layout=None) -> int:
     """Modeled HBM bytes one stepped solver iteration streams at ``tag``.
 
     The operator's matrix streams (``op.bytes_touched``) are charged once
     per iteration; each right-hand-side column beyond the first charges
     its own dense x/y stream.  ``tag`` may also be a ``CSR`` store dtype.
+    ``layout`` (a ``GSESellC`` or ``ELLLayout``) charges that layout's
+    padded slots instead of nnz only; a ``GSESellC`` passed as ``op`` is
+    already slot-honest.
     """
     if nrhs < 1:
         raise ValueError(f"nrhs must be >= 1, got {nrhs}")
-    total = op.bytes_touched(tag)
+    total = (layout if layout is not None else op).bytes_touched(tag)
     total += (nrhs - 1) * vector_stream_bytes(op)
     return total
 
@@ -257,3 +400,120 @@ def to_ell(a: CSR, lane: int = 128):
         rowptr, [(a.col, np.int32), (a.val, np.float64)], L
     )
     return cols, vals, L
+
+
+def ell_layout(a, lane: int = 128) -> ELLLayout:
+    """Padding descriptor of the uniform-ELL pack of ``a`` (a ``GSECSR``
+    or ``CSR``): every row padded to the longest row's lane-aligned
+    width."""
+    per_row = np.diff(np.asarray(gse._np(a.rowptr), np.int64))
+    L = int(max(1, per_row.max(initial=0)))
+    L = ((L + lane - 1) // lane) * lane
+    table = getattr(a, "table", None)
+    return ELLLayout(rows=int(a.shape[0]), width=L, nnz=a.nnz,
+                     table_entries=int(table.numel()) if table is not None
+                     else 0)
+
+
+def sell_slices(rowptr, c: int = 8, sigma: int | None = None,
+                lane: int = 128, bucket: str = "pow2"):
+    """Sigma-window sort + slice/bucket plan (host-side numpy).
+
+    Rows are sorted by descending length inside windows of ``sigma`` rows
+    (stable); consecutive runs of ``c`` sorted rows form slices.  Each
+    slice's width is its longest row rounded up to ``lane`` (at least
+    ``lane``); ``bucket="pow2"`` bins the widths into power-of-two lane
+    multiples, ``"exact"`` keeps every distinct width.
+
+    Returns ``(order, slice_bucket_w, sigma)``: the padded row order
+    (length ``ceil(m/c)*c``, -1 marks padding rows), each slice's bucket
+    width and the window actually sorted with (``None`` -> full sort,
+    floor ``c``).
+    """
+    per_row = np.diff(np.asarray(gse._np(rowptr), np.int64))
+    m = per_row.size
+    if c < 1:
+        raise ValueError(f"slice height c must be >= 1, got {c}")
+    sigma = m if sigma is None else max(int(sigma), c)
+    order = np.arange(m, dtype=np.int64)
+    for w0 in range(0, m, sigma):
+        win = order[w0:w0 + sigma]
+        order[w0:w0 + sigma] = win[np.argsort(-per_row[win], kind="stable")]
+    rows_pad = -(-max(m, 1) // c) * c
+    order = np.concatenate([order, np.full(rows_pad - m, -1, np.int64)])
+    lens = np.where(order >= 0, per_row[np.clip(order, 0, None)], 0)
+    slice_max = lens.reshape(-1, c).max(axis=1)
+    slice_w = np.maximum(-(-slice_max // lane) * lane, lane).astype(np.int64)
+    if bucket == "pow2":
+        bucket_w = lane * (
+            2 ** np.ceil(np.log2(slice_w / lane)).astype(np.int64))
+    elif bucket == "exact":
+        bucket_w = slice_w
+    else:
+        raise ValueError(f"bucket must be 'pow2' or 'exact', got {bucket!r}")
+    return order, bucket_w, sigma
+
+
+def pack_sell(a: GSECSR, c: int = 8, sigma: int | None = None,
+              lane: int = 128, bucket: str = "pow2") -> GSESellC:
+    """GSE-SEM CSR -> SELL-C-sigma packed layout on ``a``'s device.
+
+    ``c`` must be a multiple of 8 (the reference's sublane block).  The
+    arrays are bit for bit the reference packer's.  Prefer
+    ``kernels.ops.sell_pack_gsecsr``, which memoizes the pack on the
+    operator instance.
+    """
+    if c % 8 != 0:
+        raise ValueError(f"slice height c must be a multiple of 8, got {c}")
+    m = a.shape[0]
+    rowptr = np.asarray(gse._np(a.rowptr), np.int64)
+    order, bucket_w, sigma_eff = sell_slices(rowptr, c=c, sigma=sigma,
+                                             lane=lane, bucket=bucket)
+    widths = tuple(int(w) for w in sorted(set(bucket_w.tolist())))
+    names = ("colpak", "head", "tail1", "tail2")
+    segs = [(getattr(a, n), d) for n, d in zip(
+        names, (np.uint32, np.uint16, np.uint16, np.uint32))]
+    gather = np.zeros(a.nnz, np.int64)
+    perm_parts, flat_parts, table_rows = [], [], []
+    row0 = flat_off = 0
+    for w in widths:
+        slice_ids = np.nonzero(bucket_w == w)[0]
+        rows_sel = np.concatenate(
+            [order[s * c:(s + 1) * c] for s in slice_ids]
+        ) if slice_ids.size else np.zeros(0, np.int64)
+        arrs, csr_pos, dest = scatter_rows(rowptr, segs, int(w), rows_sel)
+        flat_parts.append([x.reshape(-1) for x in arrs])
+        gather[csr_pos] = flat_off + dest
+        perm_parts.append(rows_sel)
+        table_rows.append((row0, int(w), flat_off))
+        row0 += rows_sel.size
+        flat_off += rows_sel.size * int(w)
+    perm = (np.concatenate(perm_parts) if perm_parts
+            else np.zeros(0, np.int64))
+    unperm = np.zeros(m, np.int64)
+    unperm[perm[perm >= 0]] = np.nonzero(perm >= 0)[0]
+    row_len = np.where(perm >= 0, np.diff(rowptr)[np.maximum(perm, 0)], 0)
+    dev = a.device
+    flat = tuple(
+        torch.from_numpy(np.concatenate([p[i] for p in flat_parts])
+                         if flat_parts else np.zeros(0, d)).to(dev)
+        for i, (_, d) in enumerate(segs))
+    views = [[], [], [], []]
+    for (r0, w, off), rows_b in zip(table_rows, map(len, perm_parts)):
+        for i, f in enumerate(flat):
+            views[i].append(f[off:off + rows_b * w].view(rows_b, w))
+
+    def i32(v):
+        return torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(dev)
+
+    return GSESellC(
+        colpak=tuple(views[0]), head=tuple(views[1]),
+        tail1=tuple(views[2]), tail2=tuple(views[3]),
+        gather=i32(gather), perm=i32(perm), unperm=i32(unperm),
+        row_ids=a.row_ids, table=a.table, widths=widths, c=c,
+        sigma=int(sigma_eff), lane=lane, ei_bit=a.ei_bit, shape=a.shape,
+        segments=flat,
+        bucket_table=torch.tensor(table_rows, dtype=torch.int64,
+                                  device=dev).reshape(-1, 3),
+        row_len=i32(row_len),
+    )

@@ -2,12 +2,12 @@
 three GSE-SEM tags.
 
 Port of ``repro/sparse/spmv.py``: ``spmv`` (:32), ``_decode_gsecsr``
-(:40), ``decode_gsecsr``, ``decode_operand`` (the ``GSECSR`` branch),
-``spmv_gse`` (:128), ``spmv_ell`` (:156), and the multi-RHS twins
-``spmm`` (:170, with ``_spmm_cast`` :164) and ``spmm_gse`` (:204, with
-``_spmm_gse`` :188; the CSR branch -- the SELL branch arrives with the
-SELL-C-sigma layout).  Values are stored at the target precision and
-multiplied and summed in f64.
+(:40), ``decode_gsecsr``, ``_sell_csr_segments`` (:81),
+``decode_operand`` (:97), ``spmv_gse`` (:128, with its ``GSESellC``
+branch :122/:147), ``spmv_ell`` (:156), and the multi-RHS twins ``spmm``
+(:170, with ``_spmm_cast`` :164) and ``spmm_gse`` (:204, with its
+``GSESellC`` branch :198/:220).  Values are stored at the target
+precision and multiplied and summed in f64.
 
 ``spmv_gse`` is the f64 operator of the stepped solvers.  It runs the
 hand-written CUDA kernel A64 (``kernels.gse_spmv.gse_spmv_csr_f64``) on
@@ -15,14 +15,18 @@ the card; for CPU tensors the kernel's plain version runs instead.  Both
 sum each row sequentially in CSR order from 0.0, which is bitwise what
 the reference ``_decode_gsecsr`` + ``segment_sum`` computes.
 ``spmm_gse`` runs kernel C64 (``kernels.gse_spmm.gse_spmm_csr_f64``) the
-same way; its column j is bitwise ``spmv_gse`` on column j.
+same way; its column j is bitwise ``spmv_gse`` on column j.  Over a
+SELL-C-sigma ``GSESellC`` they run kernels B64 and C′64
+(``gse_spmv_sell_f64``, ``gse_spmm_sell_f64``), which walk each row's
+real slots in CSR order: bitwise the ``GSECSR`` result on the same
+operator, as the reference's gather back to CSR order makes it.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.gse import _pow2_exact
-from repro_torch.sparse.csr import CSR, GSECSR
+from repro_torch.sparse.csr import CSR, GSECSR, GSESellC
 
 __all__ = ["spmv", "spmv_gse", "spmv_ell", "spmm", "spmm_gse",
            "decode_gsecsr", "decode_operand"]
@@ -82,31 +86,49 @@ def decode_gsecsr(a: GSECSR, tag: int, acc_dtype=torch.float64):
                           a.ei_bit, tag, acc_dtype)
 
 
-def decode_operand(a: GSECSR, tag: int, acc_dtype=torch.float64):
-    """CSR-order ``(values, columns)`` decode of a ``GSECSR`` (the SELL
-    branch arrives with the SELL-C-sigma layout)."""
+def _sell_csr_segments(a: GSESellC):
+    """CSR-order ``(colpak, head, tail1, tail2)`` gathered out of the flat
+    SELL bucket arrays: bit for bit the ``GSECSR`` segments."""
+    g = a.gather.to(torch.int64)
+    return tuple(flat[g] for flat in a.segments)
+
+
+def decode_operand(a, tag: int, acc_dtype=torch.float64):
+    """CSR-order ``(values, columns)`` decode of a ``GSECSR`` or a packed
+    ``GSESellC`` at precision ``tag``."""
+    if isinstance(a, GSESellC):
+        cp, hd, t1, t2 = _sell_csr_segments(a)
+        return _decode_gsecsr(cp, hd, t1, t2, a.table, a.ei_bit, tag,
+                              acc_dtype)
     if not isinstance(a, GSECSR):
         raise NotImplementedError(
-            f"decode_operand takes a GSECSR; {type(a).__name__} layouts are "
-            "not ported yet (ROADMAP queue 1 item 10)")
+            f"decode_operand takes a GSECSR or a GSESellC; "
+            f"{type(a).__name__} operands (sharded) are not ported yet "
+            "(ROADMAP queue 1 item 15)")
     return decode_gsecsr(a, tag, acc_dtype)
 
 
-def spmv_gse(a: GSECSR, x: torch.Tensor, tag=1) -> torch.Tensor:
+def spmv_gse(a, x: torch.Tensor, tag=1) -> torch.Tensor:
     """Paper Algorithm 2 (+tails): f64 GSE-SEM SpMV at precision ``tag``.
 
-    ``tag`` is an int or an int32 tensor on ``a``'s device; the kernel
-    reads a device tag itself, so the stepped solver loop passes its
-    monitor's tag without a host sync.  Bytes touched for the matrix
-    stream: 2/4/8 value bytes per nnz for tags 1/2/3 plus 4 of packed
-    colidx (``a.bytes_touched(tag)``).
+    ``a`` is a ``GSECSR`` (kernel A64) or a SELL-C-sigma ``GSESellC``
+    (kernel B64); the two give the same bits and differ only in what the
+    byte model charges (``a.bytes_touched(tag)``: nnz only for ``GSECSR``,
+    actual padded slots for ``GSESellC``).  ``tag`` is an int or an int32
+    tensor on ``a``'s device; the kernel reads a device tag itself, so the
+    stepped solver loop passes its monitor's tag without a host sync.
     """
     # Imported here: the kernel module imports this one's decode.
-    from repro_torch.kernels.gse_spmv import gse_spmv_csr_f64
+    from repro_torch.kernels.gse_spmv import (gse_spmv_csr_f64,
+                                              gse_spmv_sell_f64)
 
     if x.shape != (a.shape[1],):
         raise ValueError(f"x has shape {tuple(x.shape)}, the operand "
                          f"{a.shape[1]} columns")
+    if isinstance(a, GSESellC):
+        return gse_spmv_sell_f64(*a.segments, a.table, x, a.bucket_table,
+                                 a.perm, a.row_len, rows=a.shape[0],
+                                 ei_bit=a.ei_bit, tag=tag)
     return gse_spmv_csr_f64(a.rowptr, a.colpak, a.head, a.tail1, a.tail2,
                             a.table, x, ei_bit=a.ei_bit, tag=tag)
 
@@ -132,7 +154,7 @@ def spmm(a: CSR, x: torch.Tensor, store_dtype=torch.float64,
     return y.index_add_(0, a.row_ids.long(), prod)
 
 
-def spmm_gse(a: GSECSR, x: torch.Tensor, tag=1) -> torch.Tensor:
+def spmm_gse(a, x: torch.Tensor, tag=1) -> torch.Tensor:
     """GSE-SEM SpMM at precision ``tag``: Y = A @ X, X dense ``(n, nrhs)``,
     in f64 on ``a``'s device.
 
@@ -141,14 +163,16 @@ def spmm_gse(a: GSECSR, x: torch.Tensor, tag=1) -> torch.Tensor:
     right-hand sides ride along (``csr.iteration_stream_bytes(...,
     nrhs=)``).  ``tag`` is an int, an int32 tensor on ``a``'s device, or an
     ``(nrhs,)`` int32 tensor of per-column tags; column j is bitwise
-    ``spmv_gse(a, x[:, j], tag_j)``.
+    ``spmv_gse(a, x[:, j], tag_j)``.  ``a`` is a ``GSECSR`` (kernel C64) or
+    a ``GSESellC`` (kernel C′64), bitwise alike.
     """
-    from repro_torch.kernels.gse_spmm import gse_spmm_csr_f64
+    from repro_torch.kernels.gse_spmm import (gse_spmm_csr_f64,
+                                              gse_spmm_sell_f64)
 
-    if not isinstance(a, GSECSR):
+    if not isinstance(a, (GSECSR, GSESellC)):
         raise NotImplementedError(
-            f"spmm_gse takes a GSECSR; {type(a).__name__} layouts are not "
-            "ported yet (ROADMAP queue 1 item 10)")
+            f"spmm_gse takes a GSECSR or a GSESellC; {type(a).__name__} "
+            "operands (sharded) are not ported yet (ROADMAP queue 1 item 15)")
     if x.dim() != 2:
         raise ValueError(f"spmm_gse wants a (n, nrhs) block; got "
                          f"{tuple(x.shape)}")
@@ -160,7 +184,13 @@ def spmm_gse(a: GSECSR, x: torch.Tensor, tag=1) -> torch.Tensor:
     tags = torch.as_tensor(tag, dtype=torch.int32, device=dev)
     tags = tags.expand(nrhs).contiguous() if tags.dim() == 0 else tags
     active = torch.ones(nrhs, dtype=torch.bool, device=dev)
+    xt = x.to(torch.float64).t().contiguous()
+    if isinstance(a, GSESellC):
+        return gse_spmm_sell_f64(*a.segments, a.table, xt, tags, active,
+                                 a.bucket_table, a.perm, a.row_len,
+                                 rows=a.shape[0], ei_bit=a.ei_bit,
+                                 device=dev).t()
     y = gse_spmm_csr_f64(a.rowptr, a.colpak, a.head, a.tail1, a.tail2,
-                         a.table, x.to(torch.float64).t().contiguous(), tags,
-                         active, ei_bit=a.ei_bit, device=dev)
+                         a.table, xt, tags, active, ei_bit=a.ei_bit,
+                         device=dev)
     return y.t()

@@ -54,7 +54,8 @@ def _device_defaults():
            SolverService, solve_cg_batched, vec_f64.seq_dot_cols,
            vec_f64.fma_axpy_cols, vec_f64.ref_norm_cols,
            gse_spmm.gse_spmm_ell_f32, gse_spmm.gse_spmm_csr_f64,
-           ops.gse_spmm_ell]
+           ops.gse_spmm_ell, gse_spmm.gse_spmm_sell_f32,
+           gse_spmm.gse_spmm_sell_f64, ops.gse_spmm_sell]
     fns += [getattr(generators, n) for n in generators.__all__
             if "device" in inspect.signature(getattr(generators, n)).parameters]
     return fns
@@ -62,7 +63,7 @@ def _device_defaults():
 
 def test_entry_points_default_to_cuda():
     fns = _device_defaults()
-    assert len(fns) >= 23
+    assert len(fns) >= 26
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__qualname__

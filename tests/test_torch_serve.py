@@ -145,7 +145,7 @@ def test_submit_validation():
 
 @pytest.mark.parametrize("kw, item", [
     (dict(precond="jacobi"), "item 6"),
-    (dict(layout="sell"), "item 10"),
+    (dict(plan=object()), "item 14"),
     (dict(tags="adaptive"), "item 11"),
     (dict(tags=object()), "item 11"),
     (dict(tune=True), "item 14"),

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of one stepped-CG iteration goes on the GPU.
 
-    python3 tools/profile_torch_cg.py [--n 1048576] [--iters 128] [--nrhs 1]
+    python3 tools/profile_torch_cg.py [--cell uniform|skewed] [--n N]
+                                      [--iters 128] [--nrhs 1]
 
-Builds the port's full-size chip_smoke matrix
-(``diag_rescale(random_spd(n, 8, seed=21), 8, 21)``), warms the solver
-up, then runs ``solve_cg`` (``--nrhs 1``) or the batched
+Builds one of the port's full-size chip_smoke operators: the uniform cell
+(``diag_rescale(random_spd(n, 8, seed=21), 8, 21)`` in GSE-SEM CSR, n
+2^20 by default) or the skewed cell (``diag_rescale(skewed_spd(n,
+seed=5), 8, 5)`` in its SELL-C-sigma pack, n 2^18 by default).  It warms
+the solver up, then runs ``solve_cg`` (``--nrhs 1``) or the batched
 ``solve_cg_batched`` over ``--nrhs`` right-hand sides (the solve
 service's loop) for ``--iters`` iterations three ways:
 
@@ -14,11 +17,11 @@ service's loop) for ``--iters`` iterations three ways:
   iteration, the device's idle share, kernel launches per iteration and
   the kernels with the most device time;
 * the shares of the SpMV or SpMM (A64 ``gse_spmv_csr_f64``, C64
-  ``gse_spmm_csr_f64``) and of the CG dots (``seq_dot_f64``, one block per
-  column) in the device time.
+  ``gse_spmm_csr_f64``; over the SELL pack B64 and C′64) and of the CG
+  dots (``seq_dot_f64``, one block per column) in the device time.
 
 Prints one JSON object (last line) and writes the Chrome trace to
-``build/profile_torch_cg[_nrhs<k>].json``.  Needs a CUDA device.
+``build/profile_torch_cg[_skewed][_nrhs<k>].json``.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -35,7 +38,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n", type=int, default=1 << 20)
+    ap.add_argument("--cell", choices=("uniform", "skewed"),
+                    default="uniform")
+    ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--iters", type=int, default=128)
     ap.add_argument("--nrhs", type=int, default=1)
     args = ap.parse_args()
@@ -48,6 +53,7 @@ def main() -> int:
         raise SystemExit("profile_torch_cg: needs a CUDA device")
     from repro_torch.core.precision import MonitorParams
     from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import sell_pack_gsecsr
     from repro_torch.solvers.batched import solve_cg_batched
     from repro_torch.solvers.cg import solve_cg
     from repro_torch.sparse import generators as G
@@ -55,10 +61,16 @@ def main() -> int:
     from repro_torch.sparse.spmv import spmv_gse
 
     _build.build_all()
-    g = pack_csr(G.diag_rescale(G.random_spd(args.n, nnz_per_row=8, seed=21,
-                                             device="cuda"), 8.0, 21))
+    skewed = args.cell == "skewed"
+    n = args.n or (1 << 18 if skewed else 1 << 20)
+    if skewed:
+        g = sell_pack_gsecsr(pack_csr(G.diag_rescale(
+            G.skewed_spd(n, seed=5, device="cuda"), 8.0, 5)))
+    else:
+        g = pack_csr(G.diag_rescale(G.random_spd(n, nnz_per_row=8, seed=21,
+                                                 device="cuda"), 8.0, 21))
     cols = [spmv_gse(g, torch.from_numpy(np.random.default_rng(seed).normal(
-        size=args.n)).cuda(), 3) for seed in range(1, args.nrhs + 1)]
+        size=n)).cuda(), 3) for seed in range(1, args.nrhs + 1)]
     params = MonitorParams(t=40, l=60, m=30)
 
     def run():
@@ -81,7 +93,8 @@ def main() -> int:
         run()
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
-    suffix = "" if args.nrhs == 1 else f"_nrhs{args.nrhs}"
+    suffix = ("_skewed" if skewed else "") + (
+        "" if args.nrhs == 1 else f"_nrhs{args.nrhs}")
     prof.export_chrome_trace(str(out_dir / f"profile_torch_cg{suffix}.json"))
 
     kernels = []
@@ -94,10 +107,12 @@ def main() -> int:
     busy_us = sum(k[1] for k in kernels)
     launches = sum(k[2] for k in kernels)
     spmv_us = sum(k[1] for k in kernels
-                  if "spmv_csr_f64" in k[0] or "spmm_csr_f64" in k[0])
+                  if any(f"{op}_{lay}_f64" in k[0] for op in ("spmv", "spmm")
+                         for lay in ("csr", "sell")))
     dot_us = sum(k[1] for k in kernels if "seq_dot_f64" in k[0])
     summary = {
-        "n": args.n, "nnz": g.nnz, "nrhs": args.nrhs, "iters": iters,
+        "cell": args.cell, "n": n, "nnz": g.nnz, "nrhs": args.nrhs,
+        "iters": iters,
         "wall_ms_per_iter": wall / iters * 1e3,
         "device_busy_ms_per_iter": busy_us / iters / 1e3,
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,
