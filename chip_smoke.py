@@ -11,7 +11,9 @@ per-column stepped CG on the tag-specialized SpMM) and the SELL-C-sigma
 layout through both (kernels B and C′ on a skewed operator).  Every phase prints
 one line; any mismatch raises and the script exits non-zero.  There is no
 CPU fallback: without a CUDA device, or without the rest of the
-repository beside it, the script fails.
+repository beside it, the script fails.  Phases 11-14 drive the LM
+serving path of qwen3_4b (prefill and decode with GSE-SEM packed weights)
+on kernels D, E and F.
 
 Phases:
   1. build     -- nvcc time for every kernel source (all started at once).
@@ -87,11 +89,43 @@ Phases:
                   the solo SELL solve (and retry), all converge, health
                   ok, no errors; every kernel of the path must have
                   launched.
-  10. kernels  -- CUDA-event times (minimum over repeats) of every kernel
-                  beside its plain version, its bound (HBM bytes or
-                  operations) and one PyTorch library call (torch.sparse
-                  CSR, torch.dot, torch.addcmul, torch.linalg.vecdot); the
-                  SELL kernels and A64 on phase 9's operator.
+  11. lm kernels -- kernels D, E and F against their plain versions at
+                  qwen3_4b's full-width shapes: D bitwise (f32 and bf16
+                  out) and E within rtol 1e-5 / atol 1e-4 on gse.pack
+                  packs shaped like wq (2560, 4096) and w_down (9728,
+                  2560) at tags 1-3, E at M = 4 and 2048; E at M = 4 on
+                  bias-127 pack32 segments shaped like the unembedding
+                  (2560, 151936), packed on the card, tags 1-2; F at
+                  B = 4, H = 32, KV = 8, S = T = 2048, hd = 128, causal,
+                  f32 (rtol/atol 2e-5) and bf16 (2e-2).
+  12. lm twin  -- qwen3_4b at full width cut to 2 layers, compute_dtype
+                  float32, params from lm_tree_np (numpy seed LM_SEED),
+                  dense and gse_serve at tags 1 and 2: make_prefill_step
+                  over 128 tokens for 2 requests (filling the KV cache),
+                  then 8 teacher-forced decode steps, on the card and on
+                  its CPU twin: logits within LM_TOL and the greedy tokens
+                  equal, and the card's digest (tokens, first 8 logits,
+                  max |logit| per step) within LM_TOL of the reference's
+                  (LM_REF, printed by tools/reference/lm_serve_ref.py).
+  13. lm full  -- launch counts zeroed; qwen3_4b at full width and depth
+                  (36 layers), gse_serve tag 2, bf16, weights packed on the
+                  card; B = 4, prefill 512 tokens, 32 greedy decode steps:
+                  prefill seconds, ms per decode step, tree_bytes and the
+                  rate it implies; finite logits; kernels E and F must
+                  have launched.
+  14. lm serve -- launch counts zeroed; repro_torch.launch.serve's main
+                  (the smoke config) with --gse-tag 2 on the card: kernel D
+                  must have launched (dequantize_tree), the decoded params
+                  equal the CPU's bitwise, the tokens lie in the vocab.
+  10. kernels  -- run last: CUDA-event times (minimum over repeats) of
+                  every kernel beside its plain version, its bound (HBM
+                  bytes or operations) and one PyTorch library call
+                  (torch.sparse CSR, torch.dot, torch.addcmul,
+                  torch.linalg.vecdot, torch.matmul on the decoded f32
+                  weight with TF32 off, scaled_dot_product_attention; none
+                  for D); the SELL kernels and A64 on phase 9's operator,
+                  D, E and F at phase 11's shapes with the launches of
+                  phases 13 (E, F) and 14 (D).
 
 The line before the last two is the ``{"kernels": [...]}`` JSON record,
 the line before the last the card's name and power limit, the last line
@@ -212,11 +246,13 @@ def host_spmv(csr, x):
 
 
 def bitwise(a, b) -> bool:
-    """Equal shapes and equal bits (f32 or f64), wherever the tensors lie."""
+    """Equal shapes and equal bits (f32, f64 or bf16), wherever the tensors
+    lie."""
     import torch
 
     a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
-    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    view = {torch.float64: torch.int64,
+            torch.bfloat16: torch.int16}.get(a.dtype, torch.int32)
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
         a.view(view), b.view(view))
 
@@ -823,6 +859,648 @@ def sell_entries(ctx, add_entry):
         del lib32, lib64, vals32, vals64, cols
 
 
+# --- the LM serving path (phases 11-14) -------------------------------------
+
+# Phase 12: qwen3_4b at full width cut to two layers, at compute_dtype
+# float32; prefill of PROMPT tokens for BATCH requests, then STEPS
+# teacher-forced decode steps.  Phase 13: full width and depth, bf16.
+LM_SEED = 0
+LM_TWIN = dict(batch=2, prompt=128, steps=8, layers=2)
+LM_FULL = dict(batch=4, prompt=512, steps=32)
+# The card's logits against the CPU twin's and the reference's: absolute,
+# on logits of magnitude up to about 5 (f32 sums in other orders).
+LM_TOL = 1e-3
+# tools/reference/lm_serve_ref.py's output (JAX on the CPU): per variant,
+# per step (prefill, then the decode steps), lm_digest's fields as
+# (tokens, first 8 logits of request 0, max |logit|).
+LM_REF = {
+    "dense": [
+        ([131283, 141201],
+         [0.6140260100364685, 0.22942297160625458, -2.3157002925872803,
+          -0.9319877624511719, -1.0760281085968018, 0.93455570936203,
+          -0.09277591109275818, -0.232222318649292],
+         4.509029388427734),
+        ([38534, 90848],
+         [-0.08564695715904236, 0.8748939633369446, 0.10210439562797546,
+          -1.6415246725082397, -0.14159762859344482, 1.1604872941970825,
+          0.713987410068512, 0.5854827165603638],
+         4.827754497528076),
+        ([112313, 97447],
+         [-1.22428560256958, -0.5515567064285278, -1.8917090892791748,
+          -0.5584970116615295, -0.8099294900894165, 1.017736792564392,
+          -0.16913239657878876, -0.11812159419059753],
+         4.4083662033081055),
+        ([105671, 17205],
+         [0.6857863664627075, 0.3848717212677002, -0.41713833808898926,
+          0.03074115514755249, -0.7431170344352722, 1.3694920539855957,
+          0.26461464166641235, 0.8312472105026245],
+         4.90008544921875),
+        ([130585, 80161],
+         [-0.5687544941902161, 0.22065645456314087, -0.4186614155769348,
+          0.06051984429359436, 0.05868735909461975, -0.699944257736206,
+          -0.41816458106040955, 0.9992611408233643],
+         5.005812168121338),
+        ([150734, 60850],
+         [-0.9694130420684814, 0.8833187222480774, -1.9348756074905396,
+          -0.03756614774465561, 0.5601205825805664, -0.9123438596725464,
+          1.153518557548523, 0.5283415913581848],
+         5.042886734008789),
+        ([131491, 60480],
+         [-0.6420830488204956, 2.1190195083618164, -0.4501276910305023,
+          0.9635499119758606, -0.4377095401287079, 0.46379509568214417,
+          -0.1590016782283783, 1.3740025758743286],
+         4.703145980834961),
+        ([142955, 57384],
+         [0.8058307766914368, 1.4751489162445068, -1.4047346115112305,
+          -0.45781105756759644, -0.2010802924633026, 0.4220302104949951,
+          -1.6885300874710083, 1.3970508575439453],
+         4.629271507263184),
+        ([34818, 11343],
+         [0.6556758880615234, 1.044532060623169, -0.34388983249664307,
+          -0.3113384246826172, -0.32961732149124146, 0.6975972652435303,
+          0.694355309009552, 0.5642027854919434],
+         4.999590873718262),
+    ],
+    "tag1": [
+        ([131283, 141201],
+         [0.6143577098846436, 0.22883537411689758, -2.316152334213257,
+          -0.9329602718353271, -1.0758167505264282, 0.9341071248054504,
+          -0.09270264208316803, -0.23233360052108765],
+         4.507787704467773),
+        ([38534, 90848],
+         [-0.08601987361907959, 0.8748853206634521, 0.10173803567886353,
+          -1.6412736177444458, -0.14149349927902222, 1.1593375205993652,
+          0.7142355442047119, 0.5841876268386841],
+         4.827369689941406),
+        ([112313, 97447],
+         [-1.2236084938049316, -0.5515425801277161, -1.8913944959640503,
+          -0.5590773820877075, -0.8097529411315918, 1.0173861980438232,
+          -0.16947093605995178, -0.11890685558319092],
+         4.407251358032227),
+        ([105671, 17205],
+         [0.6860323548316956, 0.3847983479499817, -0.4172457456588745,
+          0.030397474765777588, -0.7426289319992065, 1.3691399097442627,
+          0.26547563076019287, 0.831211268901825],
+         4.900050163269043),
+        ([130585, 80161],
+         [-0.5692732334136963, 0.21971173584461212, -0.4187389314174652,
+          0.06069791316986084, 0.059089481830596924, -0.7001190185546875,
+          -0.41760215163230896, 0.9995684027671814],
+         5.005374431610107),
+        ([150734, 60850],
+         [-0.9695440530776978, 0.8830251693725586, -1.934117317199707,
+          -0.03864137828350067, 0.5600253343582153, -0.9119307398796082,
+          1.1532292366027832, 0.5274478793144226],
+         5.04196834564209),
+        ([131491, 60480],
+         [-0.6422663927078247, 2.1186609268188477, -0.4502415060997009,
+          0.9630018472671509, -0.43763768672943115, 0.46393585205078125,
+          -0.15938395261764526, 1.3737517595291138],
+         4.7019243240356445),
+        ([142955, 57384],
+         [0.8060187101364136, 1.4744882583618164, -1.4047126770019531,
+          -0.45735645294189453, -0.20135177671909332, 0.42192697525024414,
+          -1.6888437271118164, 1.3966671228408813],
+         4.629016399383545),
+        ([34818, 11343],
+         [0.6552245616912842, 1.0442328453063965, -0.3439328074455261,
+          -0.3115255832672119, -0.329776406288147, 0.697758674621582,
+          0.6947284936904907, 0.5638863444328308],
+         4.999532699584961),
+    ],
+    "tag2": [
+        ([131283, 141201],
+         [0.614025354385376, 0.22942236065864563, -2.315701961517334,
+          -0.9319871664047241, -1.0760276317596436, 0.9345557689666748,
+          -0.0927756130695343, -0.23222249746322632],
+         4.509028911590576),
+        ([38534, 90848],
+         [-0.08564843237400055, 0.8748936653137207, 0.10210517048835754,
+          -1.6415247917175293, -0.14159667491912842, 1.1604876518249512,
+          0.7139875292778015, 0.5854817628860474],
+         4.827755451202393),
+        ([112313, 97447],
+         [-1.2242846488952637, -0.5515553951263428, -1.8917081356048584,
+          -0.5584968328475952, -0.8099294900894165, 1.0177364349365234,
+          -0.16913267970085144, -0.1181207001209259],
+         4.408365726470947),
+        ([105671, 17205],
+         [0.6857865452766418, 0.3848722279071808, -0.41713887453079224,
+          0.030739784240722656, -0.7431177496910095, 1.3694911003112793,
+          0.26461517810821533, 0.8312473297119141],
+         4.900084495544434),
+        ([130585, 80161],
+         [-0.5687536001205444, 0.22065770626068115, -0.4186602234840393,
+          0.060520708560943604, 0.05868843197822571, -0.6999448537826538,
+          -0.4181642532348633, 0.9992604851722717],
+         5.005814075469971),
+        ([150734, 60850],
+         [-0.9694140553474426, 0.8833186626434326, -1.934876799583435,
+          -0.037567101418972015, 0.5601211190223694, -0.9123449325561523,
+          1.1535193920135498, 0.5283421277999878],
+         5.0428876876831055),
+        ([131491, 60480],
+         [-0.6420822143554688, 2.1190197467803955, -0.4501281976699829,
+          0.9635509252548218, -0.43770989775657654, 0.4637937545776367,
+          -0.15900227427482605, 1.374003529548645],
+         4.703146457672119),
+        ([142955, 57384],
+         [0.8058305978775024, 1.475149154663086, -1.4047343730926514,
+          -0.45781058073043823, -0.20108112692832947, 0.4220305383205414,
+          -1.6885302066802979, 1.3970509767532349],
+         4.629270553588867),
+        ([34818, 11343],
+         [0.6556769609451294, 1.0445311069488525, -0.34388983249664307,
+          -0.31133726239204407, -0.3296181857585907, 0.697598397731781,
+          0.6943557858467102, 0.5642030835151672],
+         4.9995927810668945),
+    ],
+}
+LM_LINEAR = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+             ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
+
+
+def lm_tree_np(cfg, seed: int) -> dict:
+    """Params of a dense ``cfg`` in the reference's tree layout (stacked
+    ``(L, ...)`` layer leaves) as numpy f32, drawn from
+    ``default_rng(seed)`` in a fixed order: normal weights scaled by
+    1/sqrt(fan-in), as the reference's init scales them, and unit norms.
+    ``tools/reference/lm_serve_ref.py`` builds the reference's params from
+    this same function."""
+    import math
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, fan_in):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= np.float32(1.0 / math.sqrt(fan_in))
+        return a
+
+    n, d, h, kv = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, ff, vp = cfg.hd, cfg.d_ff, cfg.padded_vocab
+    return {
+        "embed": {"table": normal((vp, d), d)},
+        "final_norm": {"scale": np.ones(d, np.float32)},
+        "unembed": {"w": normal((d, vp), d)},
+        "layers": {
+            "norm1": {"scale": np.ones((n, d), np.float32)},
+            "attn": {"wq": normal((n, d, h * hd), d),
+                     "wk": normal((n, d, kv * hd), d),
+                     "wv": normal((n, d, kv * hd), d),
+                     "wo": normal((n, h * hd, d), h * hd),
+                     "q_norm": np.ones((n, hd), np.float32),
+                     "k_norm": np.ones((n, hd), np.float32)},
+            "norm2": {"scale": np.ones((n, d), np.float32)},
+            "mlp": {"w_gate": normal((n, d, ff), d),
+                    "w_up": normal((n, d, ff), d),
+                    "w_down": normal((n, ff, d), ff)},
+        },
+    }
+
+
+def lm_tokens(cfg, seed: int, batch: int, length: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(batch, length), dtype=np.int32)
+
+
+def lm_digest(logits) -> list:
+    """Per step (prefill, then each decode step): the greedy tokens, the
+    first 8 logits of request 0 and the largest |logit|."""
+    return [{"tokens": [int(t) for t in step.argmax(-1).tolist()],
+             "first": [float(v) for v in step[0, :8].tolist()],
+             "maxabs": float(abs(step).max())} for step in logits]
+
+
+def lm_gse_params(params, cfg):
+    """``params`` with every linear weight packed into ``gse_serve``
+    segments on its device, one table per layer (``init_params``'s
+    layout); the other leaves are shared."""
+    import torch
+
+    from repro_torch.models.modules import pack_linear_weight
+    from repro_torch.tree import tree_map
+
+    out = tree_map(lambda t: t, params)
+    out["unembed"]["w"] = pack_linear_weight(params["unembed"]["w"], cfg)
+    for group, name in LM_LINEAR:
+        w = params["layers"][group][name]
+        per = [pack_linear_weight(w[i], cfg) for i in range(w.shape[0])]
+        out["layers"][group][name] = {f: torch.stack([q[f] for q in per])
+                                      for f in per[0]}
+    return out
+
+
+def lm_run(cfg, params, tokens, device, prompt: int, steps: int):
+    """``make_prefill_step`` over the first ``prompt`` tokens (filling the
+    decode state), then ``steps`` teacher-forced ``decode_step``s; returns
+    the ``(steps + 1, B, V)`` logits on the host and the seconds taken."""
+    import torch
+
+    from repro_torch.models import stepfns, transformer as T
+
+    toks = torch.from_numpy(tokens).to(device)
+    t0 = time.perf_counter()
+    state = T.decode_state_init(cfg, toks.shape[0], prompt + steps,
+                                device=device)
+    logits = [stepfns.make_prefill_step(cfg)(params, toks[:, :prompt],
+                                             state=state)]
+    for i in range(steps):
+        lg, state = T.decode_step(cfg, params, state, toks[:, prompt + i],
+                                  prompt + i)
+        logits.append(lg)
+    out = torch.stack(logits).float().cpu()
+    return out, time.perf_counter() - t0
+
+
+def phase_lm_kernels():
+    """Phase 11: kernels D, E and F against their plain versions at
+    qwen3_4b's full-width shapes; returns their inputs for phase 10."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import gse
+    from repro_torch.core.precision_table import TAG_BITS_USED
+    from repro_torch.kernels import flash_attn as F
+    from repro_torch.kernels import gse_decode as D
+    from repro_torch.kernels import gse_matmul as E
+    from repro_torch.kernels import ref
+    from repro_torch.models.modules import pack_linear_weight, segment_read
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3_4b")
+    d, ff, h, kv, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, \
+        cfg.num_kv_heads, cfg.hd
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    packs = {"wq": gse.pack(rng.standard_normal((d, h * hd)) / math.sqrt(d),
+                            8, device=dev),
+             "w_down": gse.pack(rng.standard_normal((ff, d)) / math.sqrt(ff),
+                                8, device=dev)}
+    log("lm_kernels", host_pack_s=f"{time.perf_counter() - t0:.2f}",
+        shapes={k: list(p.head.shape) for k, p in packs.items()})
+    ctx = {"packs": packs, "x": {}, "scales": {}, "err": {}, "dec": {}}
+    for name, p in packs.items():
+        kk, n = p.head.shape
+        for m in (4, 2048):
+            ctx["x"][name, m] = torch.from_numpy(rng.standard_normal(
+                (m, kk)).astype(np.float32)).to(dev)
+        for t in TAGS:
+            sc = ctx["scales"][name, t] = ref.make_scales(
+                p.table, TAG_BITS_USED[t] - p.ei_bit)
+            segs = (p.head, p.tail1 if t >= 2 else None,
+                    p.tail2 if t == 3 else None, sc)
+            for out in (torch.float32, torch.bfloat16):
+                got = D.gse_decode_dense(*segs, ei_bit=p.ei_bit, tag=t,
+                                         out_dtype=out)
+                want = D.gse_decode_dense_plain(*segs, ei_bit=p.ei_bit,
+                                                tag=t, out_dtype=out)
+                require_bitwise(f"D {name} tag {t} {out}", got, want)
+            ctx["err"]["D", name, t] = float((got.float() - want.float())
+                                             .abs().max())
+            ctx["dec"][name, t] = D.gse_decode_dense_plain(
+                *segs, ei_bit=p.ei_bit, tag=t)
+            errs = {}
+            # x in f32 and in bf16: the model's compute dtype is bf16, so
+            # its linears launch E's bf16-x instantiations.
+            for m in (4, 2048):
+                for xd in (torch.float32, torch.bfloat16):
+                    x = ctx["x"][name, m].to(xd)
+                    got = E.gse_matmul_dense(x, *segs, ei_bit=p.ei_bit,
+                                             tag=t)
+                    want = E.gse_matmul_dense_plain(x, *segs,
+                                                    ei_bit=p.ei_bit, tag=t)
+                    torch.testing.assert_close(got, want, rtol=1e-5,
+                                               atol=1e-4)
+                    errs[m, xd] = ctx["err"]["E", name, m, t, xd] = float(
+                        (got - want).abs().max())
+            log("lm_kernels", weight=name, tag=t, d_bitwise="f32 and bf16",
+                e_max_abs_err={f"M={m} x {str(xd).split('.')[-1]}": e
+                               for (m, xd), e in errs.items()},
+                e_tol="rtol 1e-5 atol 1e-4")
+    # The unembedding's f32-source segments at bias 127, packed on the card.
+    gen = torch.Generator(device=dev).manual_seed(11)
+    vals = torch.randn((d, cfg.padded_vocab), generator=gen, device=dev)
+    vals /= math.sqrt(d)
+    x4 = torch.randn((4, d), generator=gen, device=dev)
+    ctx["unembed_x"] = x4
+    for t in (1, 2):
+        cfg_t = dataclasses.replace(cfg, gse_serve=True, gse_tag=t)
+        w = pack_linear_weight(vals, cfg_t)
+        tag, ei, sc = segment_read(w, cfg_t)
+        segs = (w["head"], w["tail1"] if tag >= 2 else None, None, sc)
+        errs = {}
+        for xd in (torch.float32, torch.bfloat16):
+            got = E.gse_matmul_dense(x4.to(xd), *segs, ei_bit=ei, tag=tag)
+            want = E.gse_matmul_dense_plain(x4.to(xd), *segs, ei_bit=ei,
+                                            tag=tag)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+            errs[str(xd).split(".")[-1]] = ctx["err"][
+                "E", "unembed", 4, t, xd] = float((got - want).abs().max())
+        ctx["unembed", t] = (segs, ei, D.gse_decode_dense_plain(
+            *segs, ei_bit=ei, tag=tag))
+        log("lm_kernels", weight="unembed (pack32, bias 127)",
+            shape=list(w["head"].shape), tag=t, m=4,
+            e_max_abs_err={f"x {k}": e for k, e in errs.items()},
+            e_tol="rtol 1e-5 atol 1e-4")
+    del vals
+    b = 4
+    s = 2048
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dt)
+        got = F.flash_attention_gqa(q, k, v, causal=True)
+        want = F.flash_attention_gqa_plain(q, k, v, causal=True)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        err = ctx["err"]["F", dt] = float((got.float() - want.float()).abs()
+                                          .max())
+        ctx["qkv", dt] = (q, k, v)
+        log("lm_kernels", kernel="flash_attention_gqa", b=b, heads=h,
+            kv_heads=kv, s=s, t=s, hd=hd, causal=True, dtype=str(dt),
+            max_abs_err=err, tol=f"rtol {tol} atol {tol}")
+    return ctx
+
+
+def phase_lm_twin():
+    """Phase 12: qwen3_4b at full width, two layers, compute_dtype float32,
+    on the card and as its CPU twin from the same numpy params, against
+    each other and against the reference's digest (LM_REF)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda")
+    tw = LM_TWIN
+    cfg0 = dataclasses.replace(get_config("qwen3_4b"),
+                               num_layers=tw["layers"],
+                               compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    dense_cpu = convert.params_from_repro(lm_tree_np(cfg0, LM_SEED),
+                                          device="cpu")
+    dense_gpu = tree_map(lambda t: t.to(dev), dense_cpu)
+    toks = lm_tokens(cfg0, LM_SEED + 1, tw["batch"],
+                     tw["prompt"] + tw["steps"])
+    log("lm_twin", layers=tw["layers"], d_model=cfg0.d_model,
+        vocab=cfg0.vocab_size, batch=tw["batch"], prompt=tw["prompt"],
+        steps=tw["steps"], params_s=f"{time.perf_counter() - t0:.2f}")
+    for name, kw in (("dense", {}),
+                     ("tag1", dict(gse_serve=True, gse_tag=1)),
+                     ("tag2", dict(gse_serve=True, gse_tag=2))):
+        cfg = dataclasses.replace(cfg0, **kw)
+        pg = lm_gse_params(dense_gpu, cfg) if kw else dense_gpu
+        pc = tree_map(lambda t: t.cpu(), pg) if kw else dense_cpu
+        lg, sg = lm_run(cfg, pg, toks, dev, tw["prompt"], tw["steps"])
+        lc, sc = lm_run(cfg, pc, toks, "cpu", tw["prompt"], tw["steps"])
+        twin_err = float((lg - lc).abs().max())
+        dg = lm_digest(lg)
+        ref = [dict(tokens=a, first=b, maxabs=c) for a, b, c in LM_REF[name]]
+        ref_err = max(max(abs(a - b) for a, b in zip(x["first"], y["first"]))
+                      for x, y in zip(dg, ref))
+        ref_err = max(ref_err, max(abs(x["maxabs"] - y["maxabs"])
+                                   for x, y in zip(dg, ref)))
+        tokens = [x["tokens"] for x in dg]
+        log("lm_twin", variant=name, gpu_s=f"{sg:.2f}", cpu_s=f"{sc:.2f}",
+            twin_max_abs_err=twin_err, ref_max_abs_err=ref_err,
+            tol=LM_TOL, logits_maxabs=dg[0]["maxabs"],
+            tokens=json.dumps(tokens))
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"lm_twin {name}: non-finite logits")
+        if twin_err > LM_TOL or not torch.equal(lg.argmax(-1), lc.argmax(-1)):
+            raise AssertionError(f"lm_twin {name}: card and CPU twin differ "
+                                 f"by {twin_err} (tol {LM_TOL}) or in tokens")
+        if ref_err > LM_TOL or tokens != [y["tokens"] for y in ref]:
+            raise AssertionError(f"lm_twin {name}: card differs from the "
+                                 f"reference by {ref_err} (tol {LM_TOL}) or "
+                                 "in tokens")
+        del pg, pc
+
+
+def phase_lm_full():
+    """Phase 13: qwen3_4b at full width and depth under gse_serve tag 2,
+    weights packed on the card; prefill then greedy decoding, counted."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as F
+    from repro_torch.kernels import gse_decode as D
+    from repro_torch.kernels import gse_matmul as E
+    from repro_torch.models import stepfns, transformer as T
+    from repro_torch.quant import gse_tensor as Q
+
+    dev = torch.device("cuda")
+    fu = LM_FULL
+    cfg = dataclasses.replace(get_config("qwen3_4b"), gse_serve=True,
+                              gse_tag=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        LM_SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = Q.tree_bytes(params, cfg.gse_tag)
+    toks = torch.from_numpy(lm_tokens(cfg, LM_SEED + 2, fu["batch"],
+                                      fu["prompt"])).to(dev)
+    state = T.decode_state_init(cfg, fu["batch"], fu["prompt"] + fu["steps"],
+                                device=dev)
+    torch.cuda.synchronize()
+    for mod in (D, E, F):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = stepfns.make_prefill_step(cfg)(params, toks, state=state)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(fu["steps"]):
+        logits, state = T.decode_step(cfg, params, state, tok,
+                                      fu["prompt"] + i)
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = {"gse_matmul_dense": E.gse_matmul_dense.launches,
+              "flash_attention_gqa": F.flash_attention_gqa.launches}
+    step_ms = decode_s * 1e3 / fu["steps"]
+    tokens = torch.stack(out, 1).tolist()
+    log("lm_full", layers=cfg.num_layers, gse_tag=cfg.gse_tag,
+        batch=fu["batch"], prompt=fu["prompt"], steps=fu["steps"],
+        init_s=f"{init_s:.2f}", prefill_s=f"{prefill_s:.3f}",
+        prefill_tok_per_s=f"{fu['batch'] * fu['prompt'] / prefill_s:.0f}",
+        ms_per_decode_step=f"{step_ms:.3f}", tree_bytes=nbytes,
+        tree_gb_per_s=f"{nbytes / (step_ms * 1e6):.1f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        e_launches=counts["gse_matmul_dense"],
+        f_launches=counts["flash_attention_gqa"],
+        d_launches=D.gse_decode_dense.launches)
+    log("lm_full", tokens=json.dumps(tokens))
+    if not bool(finite):
+        raise AssertionError("full-depth serve: non-finite logits")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the serving path never launched: "
+                             f"{counts}")
+    del params, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_lm_serve_cli():
+    """Phase 14: ``repro_torch.launch.serve``'s main path (the smoke
+    config, as the reference's CLI always runs it) with --gse-tag 2 on the
+    card, counted: kernel D decodes the quantized tree.  The decoded params
+    must equal the CPU's bit for bit."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import gse_decode as D
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.synchronize()
+    D.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = serve.main(["--gse-tag", "2"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d_launches = D.gse_decode_dense.launches
+    tokens_cpu = serve.main(["--gse-tag", "2", "--device", "cpu"])
+    cfg = configs.get_config("qwen3_4b", smoke=True)
+    trees = [serve.gse_params(T.init_params(
+        cfg, torch.Generator().manual_seed(0), device=where), 2,
+        log=lambda m: None) for where in ("cuda", "cpu")]
+    leaves = list(zip(*(tree_leaves(t) for t in trees)))
+    for a, b in leaves:
+        require_bitwise("dequantized serve params, card against CPU", a, b)
+    log("lm_serve_cli", gse_tag=2, wall_s=f"{wall:.2f}",
+        d_launches=d_launches, params_bitwise_cpu=len(leaves),
+        tokens_equal_cpu=tokens == tokens_cpu)
+    flat = [t for step in tokens for t in step]
+    if not flat or min(flat) < 0 or max(flat) >= cfg.vocab_size:
+        raise AssertionError(f"serve CLI tokens out of range: {tokens}")
+    if d_launches <= 0:
+        raise AssertionError("serve CLI: kernel D never launched")
+    return {"gse_decode_dense": d_launches}
+
+
+def lm_entries(ctx, counts, add_entry):
+    """Phase 10's entries for kernels D, E and F at phase 11's shapes."""
+    import torch
+
+    from repro_torch.core.precision_table import TAG_VALUE_BYTES
+    from repro_torch.kernels import flash_attn as F
+    from repro_torch.kernels import gse_decode as D
+    from repro_torch.kernels import gse_matmul as E
+
+    dense_src = "src/repro_torch/kernels/csrc/gse_dense.cu"
+    p = ctx["packs"]["w_down"]
+    n = p.head.numel()
+    for t in TAGS:
+        sc = ctx["scales"]["w_down", t]
+        segs = (p.head, p.tail1 if t >= 2 else None,
+                p.tail2 if t == 3 else None, sc)
+        add_entry(f"gse_decode_dense.w_down.tag{t}", dense_src,
+                  "src/repro/kernels/gse_decode.py:50",
+                  lambda: D.gse_decode_dense(*segs, ei_bit=p.ei_bit, tag=t),
+                  lambda: D.gse_decode_dense_plain(*segs, ei_bit=p.ei_bit,
+                                                   tag=t), None,
+                  n * (TAG_VALUE_BYTES[t] + 4) + p.table.numel() * 4,
+                  n * DECODE_OPS[t] / FP32_OPS_PER_S * 1e3,
+                  shape=list(p.head.shape), tag=t, out="f32",
+                  launches=counts["gse_decode_dense"],
+                  max_abs_err=ctx["err"]["D", "w_down", t])
+    # f32 x at every tag; bf16 x (the model's compute dtype: phase 13's
+    # instantiation) at phase 13's tag 2.  The library call multiplies the
+    # f32 copy of x, made outside the timed call.
+    cases = [(name, m, xd, t) for xd, tags in ((torch.float32, TAGS),
+                                               (torch.bfloat16, (2,)))
+             for name, m in (("wq", 4), ("w_down", 4), ("w_down", 2048))
+             for t in tags]
+    for name, m, xd, t in cases:
+        p = ctx["packs"][name]
+        kk, n = p.head.shape
+        x32 = ctx["x"][name, m]
+        x = x32.to(xd)
+        sc = ctx["scales"][name, t]
+        segs = (p.head, p.tail1 if t >= 2 else None,
+                p.tail2 if t == 3 else None, sc)
+        w32 = ctx["dec"][name, t]
+        suffix = "" if xd == torch.float32 else ".xbf16"
+        add_entry(f"gse_matmul_dense.{name}.M{m}.tag{t}{suffix}", dense_src,
+                  "src/repro/kernels/gse_matmul.py:52",
+                  lambda: E.gse_matmul_dense(x, *segs, ei_bit=p.ei_bit,
+                                             tag=t),
+                  lambda: E.gse_matmul_dense_plain(x, *segs, ei_bit=p.ei_bit,
+                                                   tag=t),
+                  lambda: torch.matmul(x32, w32),
+                  kk * n * TAG_VALUE_BYTES[t] + p.table.numel() * 4
+                  + m * kk * x.element_size() + m * n * 4,
+                  (2 * m * n * kk + kk * n * DECODE_OPS[t])
+                  / FP32_OPS_PER_S * 1e3,
+                  plain_reps=2, reps=5, inner=3, shape=[m, kk, n], tag=t,
+                  x_dtype=str(xd).split(".")[-1],
+                  launches=counts["gse_matmul_dense"],
+                  max_abs_err=ctx["err"]["E", name, m, t, xd])
+    x4 = ctx["unembed_x"]
+    for xd, t in ((torch.float32, 1), (torch.float32, 2),
+                  (torch.bfloat16, 2)):
+        segs, ei, w32 = ctx["unembed", t]
+        kk, n = segs[0].shape
+        x = x4.to(xd)
+        suffix = "" if xd == torch.float32 else ".xbf16"
+        add_entry(f"gse_matmul_dense.unembed.M4.tag{t}{suffix}", dense_src,
+                  "src/repro/kernels/gse_matmul.py:52",
+                  lambda: E.gse_matmul_dense(x, *segs, ei_bit=ei, tag=t),
+                  lambda: E.gse_matmul_dense_plain(x, *segs, ei_bit=ei,
+                                                   tag=t),
+                  lambda: torch.matmul(x4, w32),
+                  kk * n * TAG_VALUE_BYTES[t] + 8 * 4
+                  + 4 * kk * x.element_size() + 4 * n * 4,
+                  (2 * 4 * n * kk + kk * n * DECODE_OPS[t])
+                  / FP32_OPS_PER_S * 1e3,
+                  plain_reps=2, reps=5, inner=3, shape=[4, kk, n], tag=t,
+                  bias=127, x_dtype=str(xd).split(".")[-1],
+                  launches=counts["gse_matmul_dense"],
+                  max_abs_err=ctx["err"]["E", "unembed", 4, t, xd])
+    flash_src = "src/repro_torch/kernels/csrc/flash_attn.cu"
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = ctx["qkv", dt]
+        b, s, h, hd = q.shape
+        g = h // k.shape[2]
+        # The library yardstick: SDPA over heads-first copies with K and V
+        # repeated per group, made outside the timed call.
+        ql, kl, vl = (q.transpose(1, 2).contiguous(),
+                      k.repeat_interleave(g, dim=2).transpose(1, 2)
+                      .contiguous(),
+                      v.repeat_interleave(g, dim=2).transpose(1, 2)
+                      .contiguous())
+        flops = 4 * b * h * s * s * hd / 2  # causal: half the score matrix
+        add_entry(f"flash_attention_gqa.{str(dt).split('.')[-1]}.causal",
+                  flash_src, "src/repro/kernels/flash_attn.py:76",
+                  lambda: F.flash_attention_gqa(q, k, v, causal=True),
+                  lambda: F.flash_attention_gqa_plain(q, k, v, causal=True),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      ql, kl, vl, is_causal=True),
+                  (q.numel() * 2 + k.numel() * 2) * q.element_size(),
+                  flops / FP32_OPS_PER_S * 1e3, plain_reps=2, reps=3,
+                  inner=2, shape=[b, s, h, k.shape[2], hd],
+                  launches=counts["flash_attention_gqa"],
+                  max_abs_err=ctx["err"]["F", dt])
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -846,6 +1524,7 @@ def main() -> int:
     params = MonitorParams(t=40, l=60, m=30)
 
     # 1. build --------------------------------------------------------------
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     _build.build_all()
     for name, info in _build.BUILD_LOG.items():
@@ -1131,7 +1810,23 @@ def main() -> int:
     phase_sell_trajectory(params)
     sell_ctx = phase_sell_full(params)
 
+    # 11-14. the LM serving path ----------------------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain E: full f32
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lm_ctx = phase_lm_kernels()
+    t1 = time.perf_counter()
+    phase_lm_twin()
+    t2 = time.perf_counter()
+    lm_counts = phase_lm_full()
+    t3 = time.perf_counter()
+    lm_counts.update(phase_lm_serve_cli())
+    log("lm_phases", lm_kernels_s=f"{t1 - t0:.1f}", lm_twin_s=f"{t2 - t1:.1f}",
+        lm_full_s=f"{t3 - t2:.1f}",
+        lm_serve_s=f"{time.perf_counter() - t3:.1f}")
+
     # 10. kernel times ---------------------------------------------------------
+    t_kernels = time.perf_counter()
     m, n = g.shape
     kernels = []
 
@@ -1147,7 +1842,8 @@ def main() -> int:
             "plain_ms": cuda_ms(plain, reps=plain_reps),
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "library_ms": cuda_ms(lib, reps=reps, inner=inner),
+            "library_ms": (cuda_ms(lib, reps=reps, inner=inner)
+                           if lib is not None else None),
             "bytes": nbytes,
             **extra,
         }
@@ -1155,7 +1851,8 @@ def main() -> int:
         log("kernels", name=name, ms=f"{entry['ms']:.4f}",
             plain_ms=f"{entry['plain_ms']:.3f}",
             bound_ms=f"{entry['bound_ms']:.4f}",
-            library_ms=f"{entry['library_ms']:.4f}")
+            library_ms=(f"{entry['library_ms']:.4f}"
+                        if lib is not None else None))
 
     spmv_src = "src/repro_torch/kernels/csrc/gse_spmv.cu"
     spmm_src = "src/repro_torch/kernels/csrc/gse_spmm.cu"
@@ -1240,6 +1937,9 @@ def main() -> int:
                   plain_reps=plain_reps, nrhs=ncols, launches=count,
                   max_abs_err=vec_err[name])
     sell_entries(sell_ctx, add_entry)
+    lm_entries(lm_ctx, lm_counts, add_entry)
+    log("kernels", seconds=f"{time.perf_counter() - t_kernels:.1f}",
+        total_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
 
     smi = subprocess.run(

@@ -1,4 +1,5 @@
-"""repro_torch: the GSE-SEM stepped-precision solvers on PyTorch and CUDA.
+"""repro_torch: the GSE-SEM stepped-precision solvers and GSE-SEM LM
+serving on PyTorch and CUDA.
 
 The port of the JAX package ``repro`` to an NVIDIA H100.  Subpackages
 mirror ``repro``'s names; the Pallas kernels become hand-written CUDA

@@ -3,7 +3,11 @@
 Port of ``repro/core/gse.py``: ``_ei_bit``, ``GSEPacked``,
 ``extract_shared_exponents`` (:136), ``pack_with_table`` (:174), ``pack``,
 ``_decode_parts`` and ``decode`` are host-side numpy, copied so the packed
-bits match ``repro`` exactly; ``_pow2_exact`` (:314) is torch.
+bits match ``repro`` exactly; ``_pow2_exact`` (:314) is torch.  The
+f32-source pack of the LM path is torch on any device, bitwise the
+reference's: ``_decode_jnp``/``decode_jnp`` (:331, :372),
+``extract_shared_exponents_jnp`` (:395), ``pack32_jnp`` (:421), ``pack32``
+(:473) and ``decode32_jnp`` (:499) keep the reference's names.
 
 Format (paper Section III.B): ``k`` shared exponents are extracted from
 the data (top-(k-1) by frequency plus the maximum), each stored as
@@ -37,6 +41,11 @@ __all__ = [
     "pack",
     "pack_with_table",
     "decode",
+    "decode_jnp",
+    "extract_shared_exponents_jnp",
+    "pack32_jnp",
+    "pack32",
+    "decode32_jnp",
 ]
 
 _F64_BIAS = 1023
@@ -273,3 +282,170 @@ def _pow2_exact(n: torch.Tensor, dtype) -> torch.Tensor:
         return (e << _F64_FRAC).view(torch.float64)
     e = torch.clamp(n.to(torch.int32) + _F32_BIAS, 0, 254)
     return (e << _F32_FRAC).view(torch.float32).to(dtype)
+
+
+def _decode_jnp(table, head, tail1, tail2, ei_bit: int, frac_bits: int,
+                tag: int, dtype) -> torch.Tensor:
+    """``sgn * ((mant * 2^half) * 2^(pow - half))`` in ``dtype``, in the
+    reference's order: the tag-3 mantissa is ``m_head * 2^48 + tail1 *
+    2^32 + tail2`` left to right, each term rounded to ``dtype``."""
+    m_h = 15 - ei_bit
+    w = m_h + 48 if frac_bits == _F64_FRAC else m_h + 16
+    h = head.to(torch.int32)
+    sign = (h >> 15) & 0x1
+    exp_idx = ((h >> m_h) & ((1 << ei_bit) - 1)).to(torch.int64)
+    m_head = (h & ((1 << m_h) - 1)).to(dtype)
+    if tag == 1:
+        mant = m_head
+        bits_used = m_h
+    elif tag == 2:
+        mant = m_head * 65536.0 + tail1.to(torch.int32).to(dtype)
+        bits_used = m_h + 16
+    else:
+        mant = (m_head * float(2.0**48)
+                + tail1.to(torch.int32).to(dtype) * float(2.0**32)
+                + tail2.to(torch.int64).to(dtype))
+        bits_used = w
+    e_sh = table.to(torch.int32)[exp_idx] - (
+        _F64_BIAS if frac_bits == _F64_FRAC else _F32_BIAS)
+    pow_ = e_sh - bits_used
+    half = torch.div(pow_, 2, rounding_mode="floor")
+    sgn = 1.0 - 2.0 * sign.to(dtype)
+    return sgn * ((mant * _pow2_exact(half, dtype))
+                  * _pow2_exact(pow_ - half, dtype))
+
+
+def decode_jnp(packed: GSEPacked, tag: int = 3,
+               dtype=torch.float32) -> torch.Tensor:
+    """Decode on the packed tensor's device: int->float convert + scale."""
+    if packed.frac_bits != _F64_FRAC and tag == 3:
+        raise ValueError(
+            "f32-source packs (frac_bits=23) store no tail2; tags 1 and 2 only"
+        )
+    return _decode_jnp(packed.table, packed.head, packed.tail1, packed.tail2,
+                       packed.ei_bit, packed.frac_bits, tag, dtype)
+
+
+def _f32_fields(vals: torch.Tensor):
+    """(sign, biased exponent, fraction) of f32 ``vals`` as int32."""
+    bits = vals.to(torch.float32).contiguous().view(torch.int32)
+    sign = (bits >> 31) & 0x1
+    e_b = (bits >> _F32_FRAC) & 0xFF
+    frac = bits & ((1 << _F32_FRAC) - 1)
+    return sign, e_b, frac
+
+
+def extract_shared_exponents_jnp(vals: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k exponent table of f32 ``vals`` (biased+1, int32, descending),
+    on their device.
+
+    ``jax.lax.top_k`` takes the lower bin first among equal counts; a
+    stable descending sort does the same (``torch.topk`` promises no
+    order on ties).  Bins that win with a zero count become the max entry,
+    as the reference's numpy-parity rule says.
+    """
+    _, e_b, frac = _f32_fields(vals)
+    nonzero = (e_b != 0) | (frac != 0)
+    e_eff = torch.where(e_b != 0, e_b, 1).reshape(-1)
+    counts = torch.zeros(256, dtype=torch.int32, device=vals.device)
+    counts.index_add_(0, e_eff, nonzero.reshape(-1).to(torch.int32))
+    top_counts, top = torch.sort(counts, descending=True, stable=True)
+    top_counts, top = top_counts[: k - 1], top[: k - 1].to(torch.int32)
+    e_max = torch.where(nonzero.reshape(-1), e_eff, 0).max() if \
+        e_eff.numel() else torch.zeros((), dtype=torch.int32,
+                                       device=vals.device)
+    e_max = torch.clamp(e_max, min=1).to(torch.int32)
+    top = torch.where(top_counts > 0, top, e_max)
+    table = torch.cat([top, e_max.reshape(1)]) + 1
+    return torch.sort(table, descending=True).values.to(torch.int32)
+
+
+# Elements packed per pass of ``pack32_jnp``: bounds its int32/int64
+# temporaries (about 40 bytes per element) on a full-width unembedding.
+_PACK32_CHUNK = 1 << 24
+
+
+def _pack32_flat(sign, e_b, frac, table, ei: int):
+    m_h = 15 - ei
+    w = m_h + 16
+    nonzero = (e_b != 0) | (frac != 0)
+    m24 = torch.where(e_b != 0, (1 << _F32_FRAC) | frac, frac).to(torch.int64)
+    e_eff = torch.where(e_b != 0, e_b, 1)
+    # argmin over the table of the positive gaps, first index on ties (a
+    # strict < keeps the earlier entry, as jnp.argmin does).
+    big = 1 << 20
+    best = torch.full_like(e_eff, big)
+    exp_idx = torch.zeros_like(e_eff)
+    for j in range(table.shape[0]):
+        d = table[j] - e_eff
+        d = torch.where(d > 0, d, big)
+        upd = d < best
+        best = torch.where(upd, d, best)
+        exp_idx = torch.where(upd, j, exp_idx)
+    overflow = best >= big
+    min_diff = torch.where(overflow, 1, best)
+    lsh = w - _F32_FRAC - min_diff
+    # Right shifts round to nearest-even on the discarded bits; a carry
+    # past W saturates (the reference's ``pack32_jnp``).
+    rsh = torch.clamp(-lsh, 0, 31).to(torch.int64)
+    floor_ = m24 >> rsh
+    rem = m24 & ((1 << rsh) - 1)
+    half = (1 << rsh) >> 1
+    round_up = (rsh > 0) & ((rem > half) | ((rem == half)
+                                            & ((floor_ & 1) == 1)))
+    rounded = torch.clamp(floor_ + round_up.to(torch.int64), max=(1 << w) - 1)
+    m = torch.where(lsh >= 0, m24 << torch.clamp(lsh, 0, 31).to(torch.int64),
+                    rounded)
+    m = torch.where(nonzero, m, 0)
+    sat = overflow & nonzero
+    m = torch.where(sat, (1 << w) - 1, m)
+    exp_idx = torch.where(sat, torch.argmax(table).to(torch.int32), exp_idx)
+    head = ((sign.to(torch.int64) << 15) | (exp_idx.to(torch.int64) << m_h)
+            | (m >> 16))
+    return head.to(torch.int32).to(torch.uint16), \
+        (m & 0xFFFF).to(torch.int32).to(torch.uint16)
+
+
+def pack32_jnp(vals: torch.Tensor, table: torch.Tensor, k: int):
+    """f32 -> ``(head u16, tail1 u16)`` against a (k,) table, on the
+    device of ``vals``; bitwise the reference's ``pack32_jnp``.
+
+    W = M_H + 16: tags 1 (head) and 2 (head + tail1); tail2 is zero for
+    f32 sources.  Elementwise given the table, so it runs in chunks.
+    """
+    ei = _ei_bit(k)
+    flat = vals.to(torch.float32).reshape(-1)
+    tbl = table.to(torch.int32).to(flat.device)
+    head = torch.empty(flat.shape, dtype=torch.uint16, device=flat.device)
+    tail1 = torch.empty_like(head)
+    for lo in range(0, flat.numel(), _PACK32_CHUNK):
+        sign, e_b, frac = _f32_fields(flat[lo:lo + _PACK32_CHUNK])
+        head[lo:lo + _PACK32_CHUNK], tail1[lo:lo + _PACK32_CHUNK] = \
+            _pack32_flat(sign, e_b, frac, tbl, ei)
+    return head.reshape(vals.shape), tail1.reshape(vals.shape)
+
+
+def pack32(vals, k: int = 8, table=None, device="cuda") -> GSEPacked:
+    """f32-source pack into a ``GSEPacked`` (tags 1/2 only; ``tail2`` is
+    a zero-length leaf, as in the reference).  ``vals`` (a tensor or an
+    array) is moved to ``device`` first."""
+    x = torch.as_tensor(np.asarray(vals, np.float32) if not isinstance(
+        vals, torch.Tensor) else vals, dtype=torch.float32).to(device)
+    if table is None:
+        table = extract_shared_exponents_jnp(x, k)
+    table = torch.as_tensor(table).to(torch.int32).to(device)
+    head, tail1 = pack32_jnp(x, table, k)
+    return GSEPacked(table=table, head=head, tail1=tail1,
+                     tail2=torch.zeros((0,), dtype=torch.uint32,
+                                       device=device),
+                     ei_bit=_ei_bit(k), frac_bits=_F32_FRAC)
+
+
+def decode32_jnp(table, head, tail1, k: int, tag: int = 1,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Decode of an f32-source pack (tags 1 and 2)."""
+    if tag not in (1, 2):
+        raise ValueError("f32-source packs support tags 1 and 2 only")
+    zeros = torch.zeros(head.shape, dtype=torch.uint32, device=head.device)
+    return _decode_jnp(table, head, tail1, zeros, _ei_bit(k), _F32_FRAC, tag,
+                       dtype)

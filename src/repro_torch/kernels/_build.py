@@ -26,7 +26,8 @@ __all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCES", "build_all", "load",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gse_spmv", "gse_spmm", "gse_sell", "vec_f64")
+SOURCES = ("gse_spmv", "gse_spmm", "gse_sell", "vec_f64", "gse_dense",
+           "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,7 +6,8 @@ Port of ``repro/kernels/ops.py``: ``_cached_pack`` (:72),
 ``spmv_kernel_for`` (:349), ``spmm_kernel_for`` (:387), ``gse_spmm_ell``
 (:427), ``sell_kernel_for`` (:535), ``sell_spmm_kernel_for`` (:558),
 ``_sell_buckets`` (:572), ``gse_spmv_sell`` (:613), ``gse_spmm_sell``
-(:637) and ``gse_spmv_ell`` (:660).  The reference pads rows to its
+(:637) and ``gse_spmv_ell`` (:660); the dense kernels' wrappers
+``gse_decode`` (:120, kernel D) and ``gse_matmul`` (:142, kernel E).  The reference pads rows to its
 (8, 128) grid block; the CUDA kernels take any row count, so only the
 lane width (128, the reference's default plan) is padded.  The port keeps
 its own copy of the reference plan's SELL defaults (``perf/plan.py``
@@ -27,13 +28,16 @@ import torch
 
 from repro_torch.core.precision_table import TAG_BITS_USED
 from repro_torch.kernels import ref
+from repro_torch.core.gse import _F64_FRAC, GSEPacked
 from repro_torch.core.precision_table import TAG_SEGMENTS
+from repro_torch.kernels.gse_decode import gse_decode_dense
+from repro_torch.kernels.gse_matmul import gse_matmul_dense
 from repro_torch.kernels.gse_spmm import gse_spmm_ell_f32, gse_spmm_sell_f32
 from repro_torch.kernels.gse_spmv import gse_spmv_ell_f32, gse_spmv_sell_f32
 from repro_torch.sparse.csr import (GSECSR, GSESellC, _int_tag, pack_sell,
                                     scatter_rows)
 
-__all__ = ["gse_spmv_ell", "gse_spmm_ell", "ell_pack_gsecsr",
+__all__ = ["gse_decode", "gse_matmul", "gse_spmv_ell", "gse_spmm_ell", "ell_pack_gsecsr",
            "sell_pack_gsecsr", "gse_spmv_sell", "gse_spmm_sell",
            "spmv_kernel_for", "spmm_kernel_for", "sell_kernel_for",
            "sell_spmm_kernel_for", "planned_spmv", "planned_spmm",
@@ -349,3 +353,59 @@ def planned_spmv(*args, **kwargs):
 def planned_spmm(*args, **kwargs):
     """Launch-plan SpMM dispatch: not ported yet."""
     _no_plans(plan=True)
+
+
+# --- the dense path: kernels D and E ---------------------------------------
+
+def _dense_scales(packed: GSEPacked, tag: int):
+    """The bias-1023 scale table of an f64-source dense pack at ``tag``.
+
+    The reference's wrappers take only ``gse.pack`` packs: on a ``pack32``
+    pack they fail reshaping its zero-length tail2, and their table
+    assumes bias 1023; the port says so with a ValueError.  The model's
+    bias-127 segments go to the kernels directly
+    (``models/modules.py::linear``).
+    """
+    if packed.frac_bits != _F64_FRAC:
+        raise ValueError("ops.gse_decode/gse_matmul take f64-source packs "
+                         "(gse.pack); an f32-source pack (pack32) has no "
+                         "tail2 and a bias-127 table")
+    if tag not in (1, 2, 3):
+        raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
+    return ref.make_scales(packed.table, TAG_BITS_USED[tag] - packed.ei_bit)
+
+
+def gse_decode(packed: GSEPacked, tag: int = 1, block=None,
+               device="cuda") -> torch.Tensor:
+    """Decode a dense 2-D (or 1-D) GSE-SEM tensor to f32 with kernel D.
+
+    The reference pads to its (8, 128) grid block; the CUDA kernel takes
+    any shape, so nothing is padded.  Launch blocks are ROADMAP queue 1
+    item 14.
+    """
+    if block is not None:
+        raise NotImplementedError("launch blocks: ROADMAP queue 1 item 14")
+    if packed.head.dim() not in (1, 2):
+        raise ValueError(f"gse_decode takes a 1-D or 2-D pack, got shape "
+                         f"{tuple(packed.head.shape)}")
+    scales = _dense_scales(packed, tag)
+    return gse_decode_dense(packed.head, packed.tail1, packed.tail2, scales,
+                            ei_bit=packed.ei_bit, tag=tag, device=device)
+
+
+def gse_matmul(x: torch.Tensor, packed: GSEPacked, tag: int = 1,
+               blocks=None, device="cuda") -> torch.Tensor:
+    """x @ decode(W) with the decode fused into kernel E.
+
+    x: (M, K) f32 or bf16; packed: GSE-SEM weights of logical shape
+    (K, N).  Returns (M, N) f32.
+    """
+    if blocks is not None:
+        raise NotImplementedError("launch blocks: ROADMAP queue 1 item 14")
+    if packed.head.dim() != 2:
+        raise ValueError(f"gse_matmul takes a 2-D pack, got shape "
+                         f"{tuple(packed.head.shape)}")
+    scales = _dense_scales(packed, tag)
+    return gse_matmul_dense(x, packed.head, packed.tail1, packed.tail2,
+                            scales, ei_bit=packed.ei_bit, tag=tag,
+                            device=device)

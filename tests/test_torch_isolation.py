@@ -44,8 +44,10 @@ def test_port_module_imports_no_jax_and_no_reference(path):
 def _device_defaults():
     from repro_torch import convert
     from repro_torch.core import gse, precision
-    from repro_torch.kernels import gse_spmm, ops, vec_f64
+    from repro_torch.kernels import (flash_attn, gse_decode, gse_matmul,
+                                     gse_spmm, ops, vec_f64)
     from repro_torch.launch.solver_serve import SolverService
+    from repro_torch.models import attention, transformer
     from repro_torch.solvers.batched import solve_cg_batched
     from repro_torch.sparse import csr, generators
 
@@ -55,7 +57,12 @@ def _device_defaults():
            vec_f64.fma_axpy_cols, vec_f64.ref_norm_cols,
            gse_spmm.gse_spmm_ell_f32, gse_spmm.gse_spmm_csr_f64,
            ops.gse_spmm_ell, gse_spmm.gse_spmm_sell_f32,
-           gse_spmm.gse_spmm_sell_f64, ops.gse_spmm_sell]
+           gse_spmm.gse_spmm_sell_f64, ops.gse_spmm_sell, gse.pack32,
+           gse_decode.gse_decode_dense, gse_matmul.gse_matmul_dense,
+           flash_attn.flash_attention, flash_attn.flash_attention_gqa,
+           ops.gse_decode, ops.gse_matmul, convert.params_from_repro,
+           transformer.init_params, transformer.decode_state_init,
+           attention.cache_init]
     fns += [getattr(generators, n) for n in generators.__all__
             if "device" in inspect.signature(getattr(generators, n)).parameters]
     return fns
@@ -63,7 +70,7 @@ def _device_defaults():
 
 def test_entry_points_default_to_cuda():
     fns = _device_defaults()
-    assert len(fns) >= 26
+    assert len(fns) >= 37
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__qualname__
@@ -95,6 +102,42 @@ def test_asking_for_cpu_runs_the_main_path_on_cpu():
     # CPU tensors take the plain versions: no kernel launched.
     assert K.gse_spmv_ell_f32.launches == K.gse_spmv_csr_f64.launches == 0
     assert V.seq_dot.launches == V.fma_axpy.launches == 0
+
+
+def test_the_lm_path_runs_on_the_cpu_when_asked():
+    """init_params, pack32, params_from_repro and the serve CLI default to
+    the card and run on the CPU with ``device="cpu"``; the CPU takes the
+    plain versions of kernels D, E and F."""
+    import numpy as np
+
+    from repro_torch import configs, convert
+    from repro_torch.core import gse
+    from repro_torch.kernels import flash_attn, gse_decode, gse_matmul
+    from repro_torch.launch import serve
+    from repro_torch.models import stepfns, transformer as T
+
+    for fn in (gse.pack32, convert.params_from_repro, T.init_params):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    p32 = gse.pack32(np.ones((4, 8), np.float32), device="cpu")
+    assert p32.head.device.type == "cpu"
+    tree = convert.params_from_repro({"w": np.ones((2, 3), np.float32)},
+                                     device="cpu")
+    assert tree["w"].device.type == "cpu"
+    cfg = configs.get_config("qwen3_4b", smoke=True)
+    import dataclasses
+    cfg = dataclasses.replace(cfg, gse_serve=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for mod in (gse_decode, gse_matmul, flash_attn):
+        mod.reset_launch_counts()
+    tokens = torch.zeros(2, 5, dtype=torch.int64)
+    logits = stepfns.make_prefill_step(cfg)(params, tokens)
+    assert logits.device.type == "cpu" and logits.shape == (2, 241)
+    assert serve.main(["--device", "cpu", "--gen", "1", "--prompt-len", "2",
+                       "--batch", "1", "--gse-tag", "1"])
+    assert (gse_decode.gse_decode_dense.launches
+            == gse_matmul.gse_matmul_dense.launches
+            == flash_attn.flash_attention_gqa.launches == 0)
+    assert serve.parser().parse_args([]).device == "cuda"
 
 
 def _run_smoke(cwd):
