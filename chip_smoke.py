@@ -91,13 +91,19 @@ Phases:
                   launched.
   11. lm kernels -- kernels D, E and F against their plain versions at
                   qwen3_4b's full-width shapes: D bitwise (f32 and bf16
-                  out) and E within rtol 1e-5 / atol 1e-4 on gse.pack
-                  packs shaped like wq (2560, 4096) and w_down (9728,
-                  2560) at tags 1-3, E at M = 4 and 2048; E at M = 4 on
-                  bias-127 pack32 segments shaped like the unembedding
-                  (2560, 151936), packed on the card, tags 1-2; F at
-                  B = 4, H = 32, KV = 8, S = T = 2048, hd = 128, causal,
-                  f32 (rtol/atol 2e-5) and bf16 (2e-2).
+                  out) on gse.pack packs shaped like wq (2560, 4096) and
+                  w_down (9728, 2560), tags 1-3; E within rtol 1e-5 / atol
+                  1e-4 at tags 1-3, x f32 and bf16, on every decode-step
+                  shape (wq, wk/wv, wo, w_gate/w_up, w_down; runs of the
+                  two packs) and a ragged, unaligned (300, 1001), at M 1,
+                  4 and 8 (the split-K GEMV, bitwise equal across two
+                  calls) and M 2048 on wq and w_down (the tiled body); E
+                  at M 1, 4, 8 on bias-127 pack32 segments shaped like the
+                  unembedding (2560, 151936), packed on the card, tags
+                  1-2; F at B 4, H 32, KV 8, hd 128, causal, S = T = 2048
+                  in f32 (the FFMA body, rtol/atol 2e-5) and bf16 (the
+                  tensor-core body, 2e-2), S = T = 512 in bf16, and S = T
+                  = 1000 at hd 64 and 128, causal and not, in bf16.
   12. lm twin  -- qwen3_4b at full width cut to 2 layers, compute_dtype
                   float32, params from lm_tree_np (numpy seed LM_SEED),
                   dense and gse_serve at tags 1 and 2: make_prefill_step
@@ -107,12 +113,14 @@ Phases:
                   equal, and the card's digest (tokens, first 8 logits,
                   max |logit| per step) within LM_TOL of the reference's
                   (LM_REF, printed by tools/reference/lm_serve_ref.py).
+                  Launch counts zeroed first: the card's E (GEMV and
+                  tiled) and F (FFMA body) must have launched.
   13. lm full  -- launch counts zeroed; qwen3_4b at full width and depth
                   (36 layers), gse_serve tag 2, bf16, weights packed on the
                   card; B = 4, prefill 512 tokens, 32 greedy decode steps:
                   prefill seconds, ms per decode step, tree_bytes and the
-                  rate it implies; finite logits; kernels E and F must
-                  have launched.
+                  rate it implies; finite logits; E's GEMV and tiled
+                  bodies and F's tensor-core body must have launched.
   14. lm serve -- launch counts zeroed; repro_torch.launch.serve's main
                   (the smoke config) with --gse-tag 2 on the card: kernel D
                   must have launched (dequantize_tree), the decoded params
@@ -125,7 +133,13 @@ Phases:
                   weight with TF32 off, scaled_dot_product_attention; none
                   for D); the SELL kernels and A64 on phase 9's operator,
                   D, E and F at phase 11's shapes with the launches of
-                  phases 13 (E, F) and 14 (D).
+                  phases 13 (E, F's tensor-core body), 12 (F's FFMA body)
+                  and 14 (D).  E's GEMV rows at tag 2, x bf16, M 4 and F's
+                  bf16 row at S = 2048 carry `earlier_ms`, the earlier
+                  design's time on the same inputs (E's one block per 64
+                  columns; F's FFMA body); F's bf16 rows are bound by the
+                  bf16 tensor cores (989 TFLOP/s), with `fp32_bound_ms`
+                  beside.
 
 The line before the last two is the ``{"kernels": [...]}`` JSON record,
 the line before the last the card's name and power limit, the last line
@@ -147,6 +161,7 @@ N_FULL = 1 << 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP64_OPS_PER_S = 34e12         # H100 SXM FP64 outside the tensor cores
 FP32_OPS_PER_S = 67e12         # H100 SXM FP32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 on the tensor cores, dense
 # Integer/float operations one decoded nonzero costs per tag (shifts, masks,
 # converts, mantissa splice, two scale multiplies, sign, product, sum).
 DECODE_OPS = {1: 10, 2: 12, 3: 15}
@@ -1116,6 +1131,28 @@ def lm_run(cfg, params, tokens, device, prompt: int, steps: int):
     return out, time.perf_counter() - t0
 
 
+def pack_view(p, shape, offset: int = 0):
+    """The segments of ``p``'s values ``offset .. offset + K * N`` as a
+    ``(K, N)`` pack: any run of a pack is a pack under its table."""
+    kk, n = shape
+
+    def cut(t):
+        return t.reshape(-1)[offset:offset + kk * n].view(kk, n)
+
+    return dataclasses.replace(p, head=cut(p.head), tail1=cut(p.tail1),
+                               tail2=cut(p.tail2))
+
+
+# Phase 11's F cases: (label, B, S = T, H, KV, hd, causal, dtype name, tol).
+LM_FLASH = (("phase11", 4, 2048, 32, 8, 128, True, "float32", 2e-5),
+            ("phase11", 4, 2048, 32, 8, 128, True, "bfloat16", 2e-2),
+            ("phase13", 4, 512, 32, 8, 128, True, "bfloat16", 2e-2),
+            ("ragged", 2, 1000, 32, 8, 128, True, "bfloat16", 2e-2),
+            ("ragged", 2, 1000, 32, 8, 128, False, "bfloat16", 2e-2),
+            ("ragged", 2, 1000, 32, 8, 64, True, "bfloat16", 2e-2),
+            ("ragged", 2, 1000, 32, 8, 64, False, "bfloat16", 2e-2))
+
+
 def phase_lm_kernels():
     """Phase 11: kernels D, E and F against their plain versions at
     qwen3_4b's full-width shapes; returns their inputs for phase 10."""
@@ -1145,12 +1182,21 @@ def phase_lm_kernels():
                                 8, device=dev)}
     log("lm_kernels", host_pack_s=f"{time.perf_counter() - t0:.2f}",
         shapes={k: list(p.head.shape) for k, p in packs.items()})
-    ctx = {"packs": packs, "x": {}, "scales": {}, "err": {}, "dec": {}}
+    # Every (K, N) of a decode step: wq's pack, and runs of w_down's for
+    # the others; "ragged" starts 6 bytes in and has N % 8 != 0, so E's
+    # GEMV takes its scalar loads there.
+    parent = {"wq": "wq", "wk/wv": "w_down", "wo": "w_down",
+              "w_gate/w_up": "w_down", "w_down": "w_down",
+              "ragged": "w_down"}
+    mats = {"wq": packs["wq"],
+            "wk/wv": pack_view(packs["w_down"], (d, kv * hd)),
+            "wo": pack_view(packs["w_down"], (h * hd, d)),
+            "w_gate/w_up": pack_view(packs["w_down"], (d, ff)),
+            "w_down": packs["w_down"],
+            "ragged": pack_view(packs["w_down"], (300, 1001), offset=3)}
+    ctx = {"packs": packs, "mats": mats, "parent": parent, "x": {},
+           "scales": {}, "err": {}, "dec": {}}
     for name, p in packs.items():
-        kk, n = p.head.shape
-        for m in (4, 2048):
-            ctx["x"][name, m] = torch.from_numpy(rng.standard_normal(
-                (m, kk)).astype(np.float32)).to(dev)
         for t in TAGS:
             sc = ctx["scales"][name, t] = ref.make_scales(
                 p.table, TAG_BITS_USED[t] - p.ei_bit)
@@ -1164,68 +1210,95 @@ def phase_lm_kernels():
                 require_bitwise(f"D {name} tag {t} {out}", got, want)
             ctx["err"]["D", name, t] = float((got.float() - want.float())
                                              .abs().max())
-            ctx["dec"][name, t] = D.gse_decode_dense_plain(
-                *segs, ei_bit=p.ei_bit, tag=t)
+    for name, p in mats.items():
+        kk, n = p.head.shape
+        ms = (1, 4, 8, 2048) if name in packs else (1, 4, 8)
+        for m in ms:
+            ctx["x"][name, m] = torch.from_numpy(rng.standard_normal(
+                (m, kk)).astype(np.float32)).to(dev)
+        for t in TAGS:
+            sc = ctx["scales"][parent[name], t]
+            segs = (p.head, p.tail1 if t >= 2 else None,
+                    p.tail2 if t == 3 else None, sc)
+            if name in packs or t == 2:  # phase 10's library yardstick
+                ctx["dec"][name, t] = D.gse_decode_dense_plain(
+                    *segs, ei_bit=p.ei_bit, tag=t)
             errs = {}
             # x in f32 and in bf16: the model's compute dtype is bf16, so
-            # its linears launch E's bf16-x instantiations.
-            for m in (4, 2048):
+            # its linears launch E's bf16-x instantiations.  M <= 8 runs
+            # the split-K GEMV (twice: the same bits), M 2048 the tiled
+            # body.
+            for m in ms:
                 for xd in (torch.float32, torch.bfloat16):
                     x = ctx["x"][name, m].to(xd)
                     got = E.gse_matmul_dense(x, *segs, ei_bit=p.ei_bit,
                                              tag=t)
+                    if m <= E.GEMV_M_MAX:
+                        require_bitwise(f"E {name} M {m} tag {t} {xd}, two "
+                                        "calls", E.gse_matmul_dense(
+                                            x, *segs, ei_bit=p.ei_bit,
+                                            tag=t), got)
                     want = E.gse_matmul_dense_plain(x, *segs,
                                                     ei_bit=p.ei_bit, tag=t)
                     torch.testing.assert_close(got, want, rtol=1e-5,
                                                atol=1e-4)
                     errs[m, xd] = ctx["err"]["E", name, m, t, xd] = float(
                         (got - want).abs().max())
-            log("lm_kernels", weight=name, tag=t, d_bitwise="f32 and bf16",
+            log("lm_kernels", weight=name, shape=[kk, n], tag=t,
+                d_bitwise="f32 and bf16" if name in packs else None,
+                e_gemv_plan_m4=dataclasses.astuple(E.gemv_plan(4, kk, n)),
                 e_max_abs_err={f"M={m} x {str(xd).split('.')[-1]}": e
                                for (m, xd), e in errs.items()},
-                e_tol="rtol 1e-5 atol 1e-4")
+                e_two_calls_bitwise=True, e_tol="rtol 1e-5 atol 1e-4")
     # The unembedding's f32-source segments at bias 127, packed on the card.
     gen = torch.Generator(device=dev).manual_seed(11)
     vals = torch.randn((d, cfg.padded_vocab), generator=gen, device=dev)
     vals /= math.sqrt(d)
-    x4 = torch.randn((4, d), generator=gen, device=dev)
-    ctx["unembed_x"] = x4
+    ctx["unembed_x"] = {m: torch.randn((m, d), generator=gen, device=dev)
+                        for m in (1, 4, 8)}
     for t in (1, 2):
         cfg_t = dataclasses.replace(cfg, gse_serve=True, gse_tag=t)
         w = pack_linear_weight(vals, cfg_t)
         tag, ei, sc = segment_read(w, cfg_t)
         segs = (w["head"], w["tail1"] if tag >= 2 else None, None, sc)
         errs = {}
-        for xd in (torch.float32, torch.bfloat16):
-            got = E.gse_matmul_dense(x4.to(xd), *segs, ei_bit=ei, tag=tag)
-            want = E.gse_matmul_dense_plain(x4.to(xd), *segs, ei_bit=ei,
-                                            tag=tag)
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-            errs[str(xd).split(".")[-1]] = ctx["err"][
-                "E", "unembed", 4, t, xd] = float((got - want).abs().max())
+        for m, x in ctx["unembed_x"].items():
+            for xd in (torch.float32, torch.bfloat16):
+                got = E.gse_matmul_dense(x.to(xd), *segs, ei_bit=ei, tag=tag)
+                require_bitwise(f"E unembed M {m} tag {t} {xd}, two calls",
+                                E.gse_matmul_dense(x.to(xd), *segs,
+                                                   ei_bit=ei, tag=tag), got)
+                want = E.gse_matmul_dense_plain(x.to(xd), *segs, ei_bit=ei,
+                                                tag=tag)
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+                errs[f"M={m} x {str(xd).split('.')[-1]}"] = ctx["err"][
+                    "E", "unembed", m, t, xd] = float((got - want).abs()
+                                                      .max())
         ctx["unembed", t] = (segs, ei, D.gse_decode_dense_plain(
             *segs, ei_bit=ei, tag=tag))
         log("lm_kernels", weight="unembed (pack32, bias 127)",
-            shape=list(w["head"].shape), tag=t, m=4,
-            e_max_abs_err={f"x {k}": e for k, e in errs.items()},
-            e_tol="rtol 1e-5 atol 1e-4")
+            shape=list(w["head"].shape), tag=t, e_max_abs_err=errs,
+            e_two_calls_bitwise=True, e_tol="rtol 1e-5 atol 1e-4")
     del vals
-    b = 4
-    s = 2048
-    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
-        k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dt)
-        v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dt)
-        got = F.flash_attention_gqa(q, k, v, causal=True)
-        want = F.flash_attention_gqa_plain(q, k, v, causal=True)
+    for label, b, s, h_, kv_, hd_, causal, dt, tol in LM_FLASH:
+        dt = getattr(torch, dt)
+        q = torch.randn((b, s, h_, hd_), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, kv_, hd_), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, kv_, hd_), generator=gen, device=dev).to(dt)
+        got = F.flash_attention_gqa(q, k, v, causal=causal)
+        want = F.flash_attention_gqa_plain(q, k, v, causal=causal)
+        diff = (got.float() - want.float()).abs()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
-        err = ctx["err"]["F", dt] = float((got.float() - want.float()).abs()
-                                          .max())
-        ctx["qkv", dt] = (q, k, v)
-        log("lm_kernels", kernel="flash_attention_gqa", b=b, heads=h,
-            kv_heads=kv, s=s, t=s, hd=hd, causal=True, dtype=str(dt),
-            max_abs_err=err, tol=f"rtol {tol} atol {tol}")
+        # The share of the tolerance used: |got - want| / (tol + tol |want|).
+        used = float((diff / (tol + tol * want.float().abs())).max())
+        err = ctx["err"]["F", label, dt] = float(diff.max())
+        if label != "ragged":
+            ctx["qkv", label, dt] = (q, k, v)
+        log("lm_kernels", kernel="flash_attention_gqa", case=label,
+            body=F.flash_body(dt, hd_), b=b, heads=h_, kv_heads=kv_, s=s,
+            t=s, hd=hd_, causal=causal, dtype=str(dt), max_abs_err=err,
+            tol=f"rtol {tol} atol {tol}", tol_used=f"{used:.3f}")
     return ctx
 
 
@@ -1239,6 +1312,9 @@ def phase_lm_twin():
     from repro_torch import convert
     from repro_torch.configs import get_config
     from repro_torch.tree import tree_map
+
+    from repro_torch.kernels import flash_attn as F
+    from repro_torch.kernels import gse_matmul as E
 
     dev = torch.device("cuda")
     tw = LM_TWIN
@@ -1254,6 +1330,9 @@ def phase_lm_twin():
     log("lm_twin", layers=tw["layers"], d_model=cfg0.d_model,
         vocab=cfg0.vocab_size, batch=tw["batch"], prompt=tw["prompt"],
         steps=tw["steps"], params_s=f"{time.perf_counter() - t0:.2f}")
+    torch.cuda.synchronize()
+    for mod in (E, F):
+        mod.reset_launch_counts()
     for name, kw in (("dense", {}),
                      ("tag1", dict(gse_serve=True, gse_tag=1)),
                      ("tag2", dict(gse_serve=True, gse_tag=2))):
@@ -1284,6 +1363,17 @@ def phase_lm_twin():
                                  f"reference by {ref_err} (tol {LM_TOL}) or "
                                  "in tokens")
         del pg, pc
+    # The card's launches (the CPU twin launches none): E at M = 2 and
+    # 256, F on its FFMA body (f32).
+    counts = {"e_" + k: v for k, v in E.gse_matmul_dense.body_launches
+              .items()}
+    counts.update({"f_" + k: v for k, v in
+                   F.flash_attention_gqa.body_launches.items()})
+    log("lm_twin", launches=json.dumps(counts))
+    if min(counts["e_gemv"], counts["e_tiled"], counts["f_ffma"]) <= 0:
+        raise AssertionError(f"a kernel body of the f32 twin never "
+                             f"launched: {counts}")
+    return counts
 
 
 def phase_lm_full():
@@ -1334,6 +1424,10 @@ def phase_lm_full():
     decode_s = time.perf_counter() - t0
     counts = {"gse_matmul_dense": E.gse_matmul_dense.launches,
               "flash_attention_gqa": F.flash_attention_gqa.launches}
+    counts.update({"e_" + k: v for k, v in E.gse_matmul_dense.body_launches
+                   .items()})
+    counts.update({"f_" + k: v for k, v in
+                   F.flash_attention_gqa.body_launches.items()})
     step_ms = decode_s * 1e3 / fu["steps"]
     tokens = torch.stack(out, 1).tolist()
     log("lm_full", layers=cfg.num_layers, gse_tag=cfg.gse_tag,
@@ -1343,13 +1437,13 @@ def phase_lm_full():
         ms_per_decode_step=f"{step_ms:.3f}", tree_bytes=nbytes,
         tree_gb_per_s=f"{nbytes / (step_ms * 1e6):.1f}",
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-        e_launches=counts["gse_matmul_dense"],
-        f_launches=counts["flash_attention_gqa"],
-        d_launches=D.gse_decode_dense.launches)
+        e_launches=counts["gse_matmul_dense"], e_gemv=counts["e_gemv"],
+        e_tiled=counts["e_tiled"], f_launches=counts["flash_attention_gqa"],
+        f_mma=counts["f_mma"], d_launches=D.gse_decode_dense.launches)
     log("lm_full", tokens=json.dumps(tokens))
     if not bool(finite):
         raise AssertionError("full-depth serve: non-finite logits")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in ("e_gemv", "e_tiled", "f_mma")) <= 0:
         raise AssertionError(f"a kernel of the serving path never launched: "
                              f"{counts}")
     del params, state
@@ -1396,8 +1490,10 @@ def phase_lm_serve_cli():
     return {"gse_decode_dense": d_launches}
 
 
-def lm_entries(ctx, counts, add_entry):
-    """Phase 10's entries for kernels D, E and F at phase 11's shapes."""
+def lm_entries(ctx, counts, twin_counts, add_entry):
+    """Phase 10's entries for kernels D, E and F at phase 11's shapes.
+    Launches: E's GEMV and tiled bodies and F's tensor-core body from
+    phase 13, F's FFMA body from phase 12 (the f32 twin), D from 14."""
     import torch
 
     from repro_torch.core.precision_table import TAG_VALUE_BYTES
@@ -1422,64 +1518,64 @@ def lm_entries(ctx, counts, add_entry):
                   shape=list(p.head.shape), tag=t, out="f32",
                   launches=counts["gse_decode_dense"],
                   max_abs_err=ctx["err"]["D", "w_down", t])
-    # f32 x at every tag; bf16 x (the model's compute dtype: phase 13's
-    # instantiation) at phase 13's tag 2.  The library call multiplies the
-    # f32 copy of x, made outside the timed call.
-    cases = [(name, m, xd, t) for xd, tags in ((torch.float32, TAGS),
-                                               (torch.bfloat16, (2,)))
-             for name, m in (("wq", 4), ("w_down", 4), ("w_down", 2048))
-             for t in tags]
-    for name, m, xd, t in cases:
-        p = ctx["packs"][name]
-        kk, n = p.head.shape
-        x32 = ctx["x"][name, m]
+    def matmul_entry(name, m, xd, t, segs, ei, w32, x32, n_table, err):
+        kk, n = segs[0].shape
         x = x32.to(xd)
-        sc = ctx["scales"][name, t]
-        segs = (p.head, p.tail1 if t >= 2 else None,
-                p.tail2 if t == 3 else None, sc)
-        w32 = ctx["dec"][name, t]
+        gemv = m <= E.GEMV_M_MAX
+        extra = {}
+        if gemv and xd == torch.bfloat16 and t == 2:
+            # The earlier GEMV design on the same inputs, this card.
+            extra["earlier_ms"] = cuda_ms(
+                lambda: E.gse_matmul_dense_gemv64(x, *segs, ei_bit=ei,
+                                                  tag=t), reps=5, inner=3)
+            extra["earlier_design"] = "matmul_gemv64_kernel"
         suffix = "" if xd == torch.float32 else ".xbf16"
         add_entry(f"gse_matmul_dense.{name}.M{m}.tag{t}{suffix}", dense_src,
                   "src/repro/kernels/gse_matmul.py:52",
-                  lambda: E.gse_matmul_dense(x, *segs, ei_bit=p.ei_bit,
-                                             tag=t),
-                  lambda: E.gse_matmul_dense_plain(x, *segs, ei_bit=p.ei_bit,
+                  lambda: E.gse_matmul_dense(x, *segs, ei_bit=ei, tag=t),
+                  lambda: E.gse_matmul_dense_plain(x, *segs, ei_bit=ei,
                                                    tag=t),
                   lambda: torch.matmul(x32, w32),
-                  kk * n * TAG_VALUE_BYTES[t] + p.table.numel() * 4
+                  kk * n * TAG_VALUE_BYTES[t] + n_table * 4
                   + m * kk * x.element_size() + m * n * 4,
                   (2 * m * n * kk + kk * n * DECODE_OPS[t])
                   / FP32_OPS_PER_S * 1e3,
                   plain_reps=2, reps=5, inner=3, shape=[m, kk, n], tag=t,
                   x_dtype=str(xd).split(".")[-1],
-                  launches=counts["gse_matmul_dense"],
-                  max_abs_err=ctx["err"]["E", name, m, t, xd])
-    x4 = ctx["unembed_x"]
+                  body="gemv" if gemv else "tiled",
+                  launches=counts["e_gemv" if gemv else "e_tiled"],
+                  max_abs_err=err, **extra)
+
+    # f32 x at every tag on wq and w_down (M 4 and 2048); bf16 x (the
+    # model's compute dtype: phase 13's instantiation) at phase 13's tag 2
+    # on every decode-step shape.  The library call multiplies the f32
+    # copy of x, made outside the timed call.
+    cases = [(name, m, torch.float32, t) for name in ("wq", "w_down")
+             for m in (4, 2048) for t in TAGS]
+    cases += [(name, 4, torch.bfloat16, 2) for name in
+              ("wq", "wk/wv", "wo", "w_gate/w_up", "w_down")]
+    cases += [("w_down", 2048, torch.bfloat16, 2)]
+    for name, m, xd, t in cases:
+        p = ctx["mats"][name]
+        sc = ctx["scales"][ctx["parent"][name], t]
+        segs = (p.head, p.tail1 if t >= 2 else None,
+                p.tail2 if t == 3 else None, sc)
+        matmul_entry(name.replace("/", "_"), m, xd, t, segs, p.ei_bit,
+                     ctx["dec"][name, t], ctx["x"][name, m],
+                     p.table.numel(), ctx["err"]["E", name, m, t, xd])
+    x4 = ctx["unembed_x"][4]
     for xd, t in ((torch.float32, 1), (torch.float32, 2),
                   (torch.bfloat16, 2)):
         segs, ei, w32 = ctx["unembed", t]
-        kk, n = segs[0].shape
-        x = x4.to(xd)
-        suffix = "" if xd == torch.float32 else ".xbf16"
-        add_entry(f"gse_matmul_dense.unembed.M4.tag{t}{suffix}", dense_src,
-                  "src/repro/kernels/gse_matmul.py:52",
-                  lambda: E.gse_matmul_dense(x, *segs, ei_bit=ei, tag=t),
-                  lambda: E.gse_matmul_dense_plain(x, *segs, ei_bit=ei,
-                                                   tag=t),
-                  lambda: torch.matmul(x4, w32),
-                  kk * n * TAG_VALUE_BYTES[t] + 8 * 4
-                  + 4 * kk * x.element_size() + 4 * n * 4,
-                  (2 * 4 * n * kk + kk * n * DECODE_OPS[t])
-                  / FP32_OPS_PER_S * 1e3,
-                  plain_reps=2, reps=5, inner=3, shape=[4, kk, n], tag=t,
-                  bias=127, x_dtype=str(xd).split(".")[-1],
-                  launches=counts["gse_matmul_dense"],
-                  max_abs_err=ctx["err"]["E", "unembed", 4, t, xd])
+        matmul_entry("unembed", 4, xd, t, segs, ei, w32, x4, 8,
+                     ctx["err"]["E", "unembed", 4, t, xd])
     flash_src = "src/repro_torch/kernels/csrc/flash_attn.cu"
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v = ctx["qkv", dt]
+    for label, dt in (("phase11", torch.float32), ("phase11", torch.bfloat16),
+                      ("phase13", torch.bfloat16)):
+        q, k, v = ctx["qkv", label, dt]
         b, s, h, hd = q.shape
         g = h // k.shape[2]
+        body = F.flash_body(dt, hd)
         # The library yardstick: SDPA over heads-first copies with K and V
         # repeated per group, made outside the timed call.
         ql, kl, vl = (q.transpose(1, 2).contiguous(),
@@ -1488,17 +1584,33 @@ def lm_entries(ctx, counts, add_entry):
                       v.repeat_interleave(g, dim=2).transpose(1, 2)
                       .contiguous())
         flops = 4 * b * h * s * s * hd / 2  # causal: half the score matrix
-        add_entry(f"flash_attention_gqa.{str(dt).split('.')[-1]}.causal",
+        fp32_ms = flops / FP32_OPS_PER_S * 1e3
+        extra = {}
+        if body == "mma":
+            # Bound by the bf16 tensor cores; the FP32 bound beside it is
+            # what the FFMA body (the earlier design for bf16) can reach.
+            extra["fp32_bound_ms"] = fp32_ms
+            if label == "phase11":
+                extra["earlier_ms"] = cuda_ms(
+                    lambda: F.flash_attention_gqa(q, k, v, causal=True,
+                                                  body="ffma"), reps=2)
+                extra["earlier_design"] = "flash_fwd_kernel (FFMA)"
+        add_entry(f"flash_attention_gqa.{str(dt).split('.')[-1]}.causal"
+                  f"{'' if label == 'phase11' else '.s' + str(s)}",
                   flash_src, "src/repro/kernels/flash_attn.py:76",
                   lambda: F.flash_attention_gqa(q, k, v, causal=True),
                   lambda: F.flash_attention_gqa_plain(q, k, v, causal=True),
                   lambda: torch.nn.functional.scaled_dot_product_attention(
                       ql, kl, vl, is_causal=True),
                   (q.numel() * 2 + k.numel() * 2) * q.element_size(),
-                  flops / FP32_OPS_PER_S * 1e3, plain_reps=2, reps=3,
-                  inner=2, shape=[b, s, h, k.shape[2], hd],
-                  launches=counts["flash_attention_gqa"],
-                  max_abs_err=ctx["err"]["F", dt])
+                  flops / (BF16_TC_OPS_PER_S if body == "mma"
+                           else FP32_OPS_PER_S) * 1e3,
+                  plain_reps=2, reps=3, inner=2,
+                  shape=[b, s, h, k.shape[2], hd], body=body,
+                  launches=(counts["f_mma"] if body == "mma"
+                            else twin_counts["f_ffma"]),
+                  launches_from="phase 13" if body == "mma" else "phase 12",
+                  max_abs_err=ctx["err"]["F", label, dt], **extra)
 
 
 def main() -> int:
@@ -1816,7 +1928,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_ctx = phase_lm_kernels()
     t1 = time.perf_counter()
-    phase_lm_twin()
+    twin_counts = phase_lm_twin()
     t2 = time.perf_counter()
     lm_counts = phase_lm_full()
     t3 = time.perf_counter()
@@ -1937,7 +2049,7 @@ def main() -> int:
                   plain_reps=plain_reps, nrhs=ncols, launches=count,
                   max_abs_err=vec_err[name])
     sell_entries(sell_ctx, add_entry)
-    lm_entries(lm_ctx, lm_counts, add_entry)
+    lm_entries(lm_ctx, lm_counts, twin_counts, add_entry)
     log("kernels", seconds=f"{time.perf_counter() - t_kernels:.1f}",
         total_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

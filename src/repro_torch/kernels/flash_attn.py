@@ -18,13 +18,27 @@ repeating K and V (the grouping of ``models/attention.py::_attend``).
 :func:`flash_attention` is the reference's ``(BH, S, hd)`` signature.
 Any S and T run (no padding upstream); hd <= 128.
 
-Bound by FP32 operations: ``4 * S * T * hd`` per (batch, head), halved
-when causal.  Sums and exponentials run in another order than the plain
-version's softmax, so the kernel is held to it within the reference kernel
-tests' tolerances (rtol/atol 2e-5 in f32, 2e-2 in bf16).  The wrapper
-launches the kernel for CUDA tensors (or raises) and runs
+Two CUDA bodies, chosen by :func:`flash_body` from the dtype and hd
+before launch (never after a failed launch or build):
+
+* ``"mma"``: bf16 q, k, v with hd a multiple of 16 -- the model's bf16
+  prefill.  Both products on the tensor cores (``mma.sync`` m16n8k16, bf16
+  in, f32 sums): q . k is the reference's f32 dot of bf16 values (each
+  product exact in f32, the sum in another order) and ``p @ v`` takes p
+  rounded to bf16.  Bound by 4 * S * T * hd operations per (batch, head),
+  halved when causal, at the bf16 tensor-core rate.  Its rows are read
+  with 16-byte copies: a q, k or v whose pointer or strides are not
+  16-byte multiples is copied to a fresh contiguous tensor first.
+* ``"ffma"``: f32 (the f32 twin's model), and bf16 with another hd.  The
+  same operations in FP32 FFMA from shared memory.
+
+Sums and exponentials run in another order than the plain version's
+softmax, so the kernel is held to it within the reference kernel tests'
+tolerances (rtol/atol 2e-5 in f32, 2e-2 in bf16).  The wrapper launches
+the kernel for CUDA tensors (or raises) and runs
 :func:`flash_attention_gqa_plain` only for CPU tensors; it counts its
-launches in its ``launches`` attribute.
+launches in its ``launches`` attribute and per body in
+``body_launches``.
 """
 from __future__ import annotations
 
@@ -39,12 +53,13 @@ from repro_torch.kernels.gse_spmv import _raise_on
 from repro_torch.kernels.vec_f64 import on_device
 
 __all__ = ["flash_attention", "flash_attention_gqa",
-           "flash_attention_gqa_plain", "KERNELS", "reset_launch_counts",
-           "HD_MAX", "NEG_INF"]
+           "flash_attention_gqa_plain", "flash_body", "BODIES", "KERNELS",
+           "reset_launch_counts", "HD_MAX", "NEG_INF"]
 
 NEG_INF = -1e30
 HD_MAX = 128
 _DTYPES = (torch.float32, torch.bfloat16)
+BODIES = ("mma", "ffma")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _BOUND = {}
@@ -54,8 +69,8 @@ def _fn():
     fn = _BOUND.get("flash")
     if fn is None:
         fn = _build.load("flash_attn").flash_attention_fwd
-        fn.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
-                       ctypes.c_float, _P]
+        fn.argtypes = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                       _I, ctypes.c_float, _P]
         fn.restype = ctypes.c_int
         _BOUND["flash"] = fn
     return fn
@@ -64,6 +79,23 @@ def _fn():
 def _scale(hd: int) -> float:
     """``1/sqrt(hd)`` rounded to f32, as the Pallas kernel uses it."""
     return float(np.float32(1.0 / math.sqrt(hd)))
+
+
+def flash_body(dtype, hd: int) -> str:
+    """The CUDA body F launches for q, k, v of ``dtype`` and head dim
+    ``hd``: ``"mma"`` (tensor cores) for bf16 with hd a multiple of 16 up
+    to ``HD_MAX``, ``"ffma"`` otherwise."""
+    if dtype == torch.bfloat16 and hd % 16 == 0 and 0 < hd <= HD_MAX:
+        return "mma"
+    return "ffma"
+
+
+def _rows16(t):
+    """t itself if every row starts on 16 bytes (the tensor-core body's
+    copies), else a contiguous copy."""
+    if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_gqa_plain(q, k, v, *, causal: bool = True):
@@ -83,11 +115,13 @@ def flash_attention_gqa_plain(q, k, v, *, causal: bool = True):
     return out.reshape(b, s, h, hd).to(q.dtype)
 
 
-def flash_attention_gqa(q, k, v, *, causal: bool = True,
-                        device="cuda") -> torch.Tensor:
+def flash_attention_gqa(q, k, v, *, causal: bool = True, device="cuda",
+                        body: str | None = None) -> torch.Tensor:
     """Softmax attention of q ``(B, S, H, hd)`` over k, v ``(B, T, KV,
     hd)`` with H a multiple of KV; returns ``(B, S, H, hd)`` in q's
-    dtype."""
+    dtype.  ``body`` (CUDA only) overrides :func:`flash_body`'s choice, to
+    time one body against the other; "mma" still needs bf16 and hd % 16
+    == 0."""
     dev = on_device(device, q=q, k=k, v=v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("expected q (B, S, H, hd) and k, v (B, T, KV, hd)")
@@ -109,16 +143,23 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True,
         raise ValueError("q, k, v need a contiguous last dimension")
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k, v must share one device")
+    chosen = flash_body(q.dtype, hd)
+    body = body or chosen
+    if body not in BODIES or (body == "mma" and chosen != "mma"):
+        raise ValueError(f"body {body!r} does not take {q.dtype} at hd {hd}")
     out = torch.empty(b, s, h, hd, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if body == "mma":
+        q, k, v = _rows16(q), _rows16(k), _rows16(v)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
-    rc = _fn()(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(), b, s, t, h, kvh, hd, strides,
-               int(causal), _scale(hd),
+    rc = _fn()(int(body == "mma"), int(q.dtype == torch.bfloat16),
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+               t, h, kvh, hd, strides, int(causal), _scale(hd),
                torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention_gqa.launches += 1
+    flash_attention_gqa.body_launches[body] += 1
     _raise_on(rc, "flash_attention_gqa")
     return out
 
@@ -136,8 +177,10 @@ KERNELS = (flash_attention_gqa,)
 
 
 def reset_launch_counts():
+    """Zero ``launches`` and the per-body ``body_launches``."""
     for k in KERNELS:
         k.launches = 0
+    flash_attention_gqa.body_launches = dict.fromkeys(BODIES, 0)
 
 
 reset_launch_counts()

@@ -39,7 +39,10 @@ _ARGTYPES = {
     "gse_decode_dense": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _LL,
                          ctypes.c_int, _P],
     "gse_matmul_dense": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
-                         _LL, _LL, _LL, ctypes.c_int, _P],
+                         _LL, _LL, _LL, ctypes.c_int, _P, _P, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "gse_matmul_dense_gemv64": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                                _P, _P, _LL, _LL, _LL, ctypes.c_int, _P],
 }
 _BOUND = {}
 OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -81,7 +84,8 @@ def check_segments(head, tail1, tail2, tag: int, dev):
 
 
 def check_scales(scales, dev):
-    scales = scales.reshape(-1)
+    if scales.dim() != 1:
+        scales = scales.reshape(-1)
     if scales.dtype != torch.float32 or scales.device != dev \
             or not scales.is_contiguous():
         raise ValueError(f"scales must be a contiguous f32 tensor on {dev}")

@@ -11,19 +11,36 @@ shared with kernel D; the decode is D's, in the Pallas body's order.
 X is ``(M, K)`` f32 or bf16, W ``(K, N)`` head-split segments with a (k,)
 f32 scale table (bias 1023 for ``gse.pack`` packs, 127 for the model's
 segments); Y is ``(M, N)`` f32, summed in f32 with FFMA (no TF32: the
-oracle ``ref.matmul_ref`` is a full-f32 product).  At M <= 8 (the decode
-steps, M = batch) a GEMV body reads each weight once, bound by the weight
-stream (2/4/8 bytes per weight at tags 1/2/3); above it (prefill, M = B *
-S) 64 x 64 tiles reuse each decoded W tile for 64 rows, bound by FP32
-operations.  Any M, N, K run without padding.  Sums run in another order
-than ``torch.matmul``'s, so the kernel is held to its plain version within
-the reference kernel tests' tolerance (rtol 1e-5 / atol 1e-4).
+oracle ``ref.matmul_ref`` is a full-f32 product).  Any M, N, K run
+without padding.  Sums run in another order than ``torch.matmul``'s, so
+the kernel is held to its plain version within the reference kernel
+tests' tolerance (rtol 1e-5 / atol 1e-4).  Two bodies:
+
+* M <= 8 (the decode steps, M = batch): the split-K GEMV, bound by the
+  weight stream (2/4/8 bytes per weight at tags 1/2/3).  A block owns
+  ``GEMV_COLS`` columns (64 on narrow matrices) and one K split;
+  :func:`gemv_plan` picks the splits so that every decode-step shape
+  launches at least two blocks per SM, in one wave where it can.  Each lane reads 16 bytes of each
+  segment per row.  The K splits are added in split order inside the
+  launch (the last block of a column tile sums them), so the result is
+  the same bits on every call.  The wrapper owns the scratch: the splits'
+  partial sums and one counter per column tile, kept per device and
+  stream (:func:`_gemv_scratch`).  The 16-byte loads need every segment
+  pointer 16-byte aligned and N % 8 == 0 (the model's stacked layers are
+  views at an offset, so this is checked per call); otherwise the same
+  kernel takes scalar loads.
+* M > 8 (prefill, M = B * S): 64 x 64 tiles reuse each decoded W tile
+  for 64 rows, bound by FP32 operations.
 
 :func:`gse_matmul_dense` launches the kernel for CUDA tensors (or raises)
 and runs :func:`gse_matmul_dense_plain` only for CPU tensors; it counts its
-launches in its ``launches`` attribute.
+launches in its ``launches`` attribute and per body in ``body_launches``.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
+import math
 
 import torch
 
@@ -32,13 +49,121 @@ from repro_torch.kernels.gse_decode import (check_scales, check_segments,
 from repro_torch.kernels.gse_spmv import _raise_on
 from repro_torch.kernels.vec_f64 import on_device
 
-__all__ = ["gse_matmul_dense", "gse_matmul_dense_plain", "KERNELS",
-           "reset_launch_counts", "X_DTYPES"]
+__all__ = ["gse_matmul_dense", "gse_matmul_dense_plain",
+           "gse_matmul_dense_gemv64", "gemv_plan", "GemvPlan", "KERNELS",
+           "reset_launch_counts", "X_DTYPES", "GEMV_M_MAX", "GEMV_COLS",
+           "GEMV_X_FLOATS", "GEMV_SPLITS", "gemv_rows_max"]
 
 X_DTYPES = (torch.float32, torch.bfloat16)
 
 # Weights decoded per pass of the plain version (columns of W at a time).
 _CHUNK = 1 << 24
+
+GEMV_M_MAX = 8         # rows of x up to which the GEMV body runs
+GEMV_COLS = 256        # columns per block: 32 lanes x 8
+GEMV_X_FLOATS = 8192   # a block's staged x: M (1, 2, 4, 8) x its K rows
+GEMV_SPLITS = 8        # K splits above which the plan narrows the tiles
+_GRID_Y_MAX = 65535
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """The GEMV grid: ``tiles`` column tiles of ``GEMV_COLS // rw`` by
+    ``splits`` K splits of ``rows`` rows (the last may hold fewer).  A
+    block's warps load ``rw`` rows at a time, so it sums its rows as
+    ``8 * rw`` sub-warps."""
+    rw: int
+    tiles: int
+    splits: int
+    rows: int
+
+    @property
+    def cols(self) -> int:
+        return GEMV_COLS // self.rw
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def ranges(self, k: int, n: int):
+        """Each block's ``(k0, k1, c0, c1)``: rows ``[k0, k1)`` of W and
+        columns ``[c0, c1)``, splits in the order their sums are added."""
+        for t in range(self.tiles):
+            c0 = t * self.cols
+            for s in range(self.splits):
+                k0 = s * self.rows
+                yield k0, min(k0 + self.rows, k), c0, min(c0 + self.cols, n)
+
+
+def gemv_rows_max(m: int) -> int:
+    """K rows a block can take at M = m: its x fills at most
+    ``GEMV_X_FLOATS`` of shared memory, M rounded up to 1, 2, 4 or 8."""
+    return GEMV_X_FLOATS // (1 << max(0, m - 1).bit_length())
+
+
+def gemv_plan(m: int, k: int, n: int, sms: int = H100_SMS,
+              narrow: bool = True) -> GemvPlan:
+    """Split K so that the grid holds at least ``2 * sms`` blocks where K
+    allows it (so just under three blocks per SM, which the kernel's
+    registers allow at M <= 4: one wave), with at most
+    :func:`gemv_rows_max` and at least one row per split and no empty
+    split.  Tiles of 256 columns, or of 64 (``rw`` 4, only with
+    ``narrow``: the vector loads) where 256 would need more than
+    ``GEMV_SPLITS`` splits: the last block of a tile adds its splits, so
+    fewer splits shorten the launch's tail.  ``m`` in 1..8, ``k``, ``n``
+    > 0."""
+    if not 0 < m <= GEMV_M_MAX or k <= 0 or n <= 0:
+        raise ValueError(f"gemv_plan needs 0 < m <= {GEMV_M_MAX} and k, "
+                         f"n > 0, got {m}, {k}, {n}")
+    for rw in (1, 4) if narrow else (1,):
+        tiles = math.ceil(n / (GEMV_COLS // rw))
+        splits = max(math.ceil(2 * sms / tiles),
+                     math.ceil(k / gemv_rows_max(m)))
+        rows = math.ceil(k / min(splits, k))
+        splits = math.ceil(k / rows)
+        if splits <= GEMV_SPLITS:
+            break
+    if splits > _GRID_Y_MAX:
+        raise ValueError(f"K = {k} needs {splits} splits of {rows} rows; "
+                         f"the grid takes {_GRID_Y_MAX}")
+    return GemvPlan(rw, tiles, splits, rows)
+
+
+_plan = functools.lru_cache(maxsize=256)(gemv_plan)
+_SMS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    sms = _SMS.get(dev.index)
+    if sms is None:
+        sms = _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return sms
+
+
+# (device index, stream) -> (partial sums, tile counters): grown, never
+# shrunk.  Launches on one stream run in order and each leaves its
+# counters at zero, so the next one can reuse them.
+_SCRATCH: dict = {}
+
+
+def _gemv_scratch(dev, stream: int, parts: int, tiles: int):
+    key = (dev.index, stream)
+    part, count = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < parts:
+        part = torch.empty(max(parts, 1), dtype=torch.float32, device=dev)
+    if count is None or count.numel() < tiles:
+        count = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    _SCRATCH[key] = (part, count)
+    return part, count
+
+
+def _vec_ok(n: int, *segs) -> bool:
+    """The 16-byte loads' condition: N % 8 == 0 and every segment read
+    16-byte aligned (row pitches then are too)."""
+    return n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in segs
+                              if t is not None)
 
 
 def gse_matmul_dense_plain(x, head, tail1, tail2, scales, *, ei_bit: int,
@@ -88,23 +213,70 @@ def gse_matmul_dense(x, head, tail1, tail2, scales, *, ei_bit: int, tag: int,
     y = torch.empty(m, n, dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return y
+    if kk == 0:
+        return y.zero_()
+    t1 = tail1 if tag >= 2 else None
+    t2 = tail2 if tag == 3 else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if m <= GEMV_M_MAX:
+        body = "gemv"
+        vec = _vec_ok(n, head, t1, t2)
+        plan = _plan(m, kk, n, _sm_count(dev), vec)
+        part, count = _gemv_scratch(
+            dev, stream, plan.splits * m * n if plan.splits > 1 else 0,
+            plan.tiles)
+        extra = (part.data_ptr(), count.data_ptr(), plan.rows, plan.splits,
+                 plan.rw, int(vec))
+    else:
+        body = "tiled"
+        extra = (None, None, 0, 0, 0, 0)
     rc = dense_fn("gse_matmul_dense")(
+        tag, int(x.dtype == torch.bfloat16), x.data_ptr(), head.data_ptr(),
+        t1.data_ptr() if t1 is not None else None,
+        t2.data_ptr() if t2 is not None else None, scales.data_ptr(),
+        y.data_ptr(), m, kk, n, ei_bit, *extra, stream)
+    gse_matmul_dense.launches += 1
+    gse_matmul_dense.body_launches[body] += 1
+    _raise_on(rc, "gse_matmul_dense")
+    return y
+
+
+def gse_matmul_dense_gemv64(x, head, tail1, tail2, scales, *, ei_bit: int,
+                            tag: int) -> torch.Tensor:
+    """The earlier GEMV design of E on CUDA tensors, M <= 8: a block per
+    64 columns, K split over its eight warps only.  No model path calls
+    it; ``chip_smoke.py`` times it beside the split-K body, on one card."""
+    dev = head.device
+    if dev.type != "cuda":
+        raise ValueError(f"gse_matmul_dense_gemv64 runs on cuda, not {dev}")
+    check_segments(head, tail1, tail2, tag, dev)
+    scales = check_scales(scales, dev)
+    (m, kk), n = x.shape, head.shape[1]
+    if not 0 < m <= GEMV_M_MAX or x.device != dev or not x.is_contiguous() \
+            or x.dtype not in X_DTYPES or kk != head.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} must be (M <= 8, K), "
+                         f"contiguous, f32 or bf16, on {dev}")
+    y = torch.empty(m, n, dtype=torch.float32, device=dev)
+    rc = dense_fn("gse_matmul_dense_gemv64")(
         tag, int(x.dtype == torch.bfloat16), x.data_ptr(), head.data_ptr(),
         tail1.data_ptr() if tag >= 2 else None,
         tail2.data_ptr() if tag == 3 else None, scales.data_ptr(),
         y.data_ptr(), m, kk, n, ei_bit,
         torch.cuda.current_stream(dev).cuda_stream)
-    gse_matmul_dense.launches += 1
-    _raise_on(rc, "gse_matmul_dense")
+    gse_matmul_dense_gemv64.launches += 1
+    _raise_on(rc, "gse_matmul_dense_gemv64")
     return y
 
 
-KERNELS = (gse_matmul_dense,)
+KERNELS = (gse_matmul_dense, gse_matmul_dense_gemv64)
 
 
 def reset_launch_counts():
+    """Zero every wrapper's ``launches``; ``gse_matmul_dense`` also
+    counts per body in ``body_launches`` ("gemv", "tiled")."""
     for k in KERNELS:
         k.launches = 0
+    gse_matmul_dense.body_launches = {"gemv": 0, "tiled": 0}
 
 
 reset_launch_counts()

@@ -105,15 +105,31 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+# device argument -> (torch.device, test of a tensor's device)
+_DEVICES: dict = {}
+
+
+def _device_test(dev: torch.device):
+    if dev.index is not None:
+        return lambda t: t.device == dev
+    if dev.type in ("cuda", "cpu"):  # the flags are cheaper than .device
+        flag = f"is_{dev.type}"
+        return lambda t: getattr(t, flag)
+    return lambda t: t.device.type == dev.type
+
+
 def on_device(device, **tensors) -> torch.device:
     """``torch.device(device)`` after checking that every tensor lies there
-    (a device without an index matches any index of its type)."""
-    dev = torch.device(device)
+    (a device without an index matches any index of its type).  Every
+    kernel wrapper calls it on every launch, so the device and its test
+    are built once per distinct ``device`` argument."""
+    hit = _DEVICES.get(device)
+    if hit is None:
+        dev = torch.device(device)
+        hit = _DEVICES[device] = (dev, _device_test(dev))
+    dev, test = hit
     for name, t in tensors.items():
-        if t is None:
-            continue
-        if t.device.type != dev.type or (dev.index is not None
-                                         and t.device.index != dev.index):
+        if t is not None and not test(t):
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
     return dev
 

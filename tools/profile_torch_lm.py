@@ -13,10 +13,11 @@ steps:
 
 * wall clock (host clock around synchronized work);
 * ``torch.profiler``: device busy time, the device's idle share, kernel
-  launches, and the shares of kernel E (``matmul_gemv_kernel``: the
-  decode steps' GEMV body; ``matmul_tiled_kernel``: prefill) and kernel F
-  (``flash_fwd_kernel``) in the device time, with the kernels that take
-  the most of it.
+  launches, and the device ms and shares of kernel E
+  (``matmul_gemv_kernel``: the decode steps' split-K GEMV body;
+  ``matmul_tiled_kernel``: prefill) and kernel F (``flash_fwd_mma_kernel``
+  in bf16, ``flash_fwd_kernel`` in f32) in the device time, with the
+  kernels that take the most of it.
 
 Prints one JSON object (last line) and writes the Chrome traces to
 ``build/profile_torch_lm_{prefill,decode}.json``.  Needs a CUDA device.
@@ -45,18 +46,23 @@ def _summary(prof, wall: float, per: int) -> dict:
     kernels.sort(key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
 
-    def share(*names):
-        us = sum(k[1] for k in kernels if any(n in k[0] for n in names))
-        return us / busy if busy else None
+    def device_us(name):
+        return sum(k[1] for k in kernels if name in k[0])
+
+    def share(name):
+        return device_us(name) / busy if busy else None
 
     return {
         "wall_ms": wall / per * 1e3,
         "device_busy_ms": busy / per / 1e3,
         "device_idle_share": 1.0 - (busy / 1e6) / wall,
         "kernel_launches": sum(k[2] for k in kernels) / per,
+        "e_gemv_ms": device_us("matmul_gemv_kernel") / per / 1e3,
         "e_gemv_share": share("matmul_gemv_kernel"),
+        "e_tiled_ms": device_us("matmul_tiled_kernel") / per / 1e3,
         "e_tiled_share": share("matmul_tiled_kernel"),
-        "f_share": share("flash_fwd_kernel"),
+        "f_ms": device_us("flash_fwd") / per / 1e3,
+        "f_share": share("flash_fwd"),
         "top_kernels": [{"name": k[0][:80], "device_ms": k[1] / per / 1e3,
                          "count": k[2] / per} for k in kernels[:8]],
     }
