@@ -93,34 +93,47 @@ Phases:
                   qwen3_4b's full-width shapes: D bitwise (f32 and bf16
                   out) on gse.pack packs shaped like wq (2560, 4096) and
                   w_down (9728, 2560), tags 1-3; E within rtol 1e-5 / atol
-                  1e-4 at tags 1-3, x f32 and bf16, on every decode-step
-                  shape (wq, wk/wv, wo, w_gate/w_up, w_down; runs of the
-                  two packs) and a ragged, unaligned (300, 1001), at M 1,
-                  4 and 8 (the split-K GEMV, bitwise equal across two
-                  calls) and M 2048 on wq and w_down (the tiled body); E
+                  1e-4 at tags 1-3, x f32 and bf16, bitwise equal across
+                  two calls, on every decode-step and prefill shape (wq,
+                  wk/wv, wo, w_gate/w_up, w_down; runs of the two packs)
+                  at M 1, 4 and 8 (the split-K GEMV) and M 2048 (the tiled
+                  body, split TF32 on the tensor cores), on a ragged,
+                  unaligned (300, 1001) at M 1, 4 and 8 and a ragged,
+                  unaligned (1001, 999) at M 300 (the tiled body); E
                   at M 1, 4, 8 on bias-127 pack32 segments shaped like the
                   unembedding (2560, 151936), packed on the card, tags
                   1-2; F at B 4, H 32, KV 8, hd 128, causal, S = T = 2048
                   in f32 (the FFMA body, rtol/atol 2e-5) and bf16 (the
                   tensor-core body, 2e-2), S = T = 512 in bf16, and S = T
                   = 1000 at hd 64 and 128, causal and not, in bf16.
-  12. lm twin  -- qwen3_4b at full width cut to 2 layers, compute_dtype
-                  float32, params from lm_tree_np (numpy seed LM_SEED),
-                  dense and gse_serve at tags 1 and 2: make_prefill_step
-                  over 128 tokens for 2 requests (filling the KV cache),
-                  then 8 teacher-forced decode steps, on the card and on
-                  its CPU twin: logits within LM_TOL and the greedy tokens
-                  equal, and the card's digest (tokens, first 8 logits,
-                  max |logit| per step) within LM_TOL of the reference's
-                  (LM_REF, printed by tools/reference/lm_serve_ref.py).
-                  Launch counts zeroed first: the card's E (GEMV and
-                  tiled) and F (FFMA body) must have launched.
+  12. lm twin  -- qwen3_4b at full width cut to 2 layers, params from
+                  lm_tree_np (numpy seed LM_SEED), compute_dtype float32
+                  for dense and gse_serve at tags 1 and 2:
+                  make_prefill_step over 128 tokens for 2 requests
+                  (filling the KV cache), then 8 teacher-forced decode
+                  steps, on the card and on its CPU twin: logits within
+                  LM_TOL and the greedy tokens equal, and the card's
+                  digest (tokens, first 8 logits, max |logit| per step)
+                  within LM_TOL of the reference's (LM_REF, printed by
+                  tools/reference/lm_serve_ref.py).  Then the served
+                  configuration, gse_serve tag 2 at bfloat16 (E's tiled
+                  body on a bf16 x at M 256, E's GEMV, F's tensor-core
+                  body): logits within BF16_TOL of the CPU twin's and of
+                  the reference's bf16 digest, the greedy tokens equal to
+                  both wherever the CPU twin's top-2 margin exceeds twice
+                  the atol (the positions below it, and how many of them
+                  differ, are printed).  Launch counts zeroed before each
+                  variant: at f32 the card's E (GEMV and tiled) and F
+                  (FFMA body) must have launched, at bf16 E (GEMV and
+                  tiled) and F's tensor-core body.
   13. lm full  -- launch counts zeroed; qwen3_4b at full width and depth
                   (36 layers), gse_serve tag 2, bf16, weights packed on the
                   card; B = 4, prefill 512 tokens, 32 greedy decode steps:
                   prefill seconds, ms per decode step, tree_bytes and the
                   rate it implies; finite logits; E's GEMV and tiled
                   bodies and F's tensor-core body must have launched.
+                  One more prefill, uncounted, under torch.profiler: the
+                  device's busy ms and E's tiled body's device ms.
   14. lm serve -- launch counts zeroed; repro_torch.launch.serve's main
                   (the smoke config) with --gse-tag 2 on the card: kernel D
                   must have launched (dequantize_tree), the decoded params
@@ -134,12 +147,21 @@ Phases:
                   for D); the SELL kernels and A64 on phase 9's operator,
                   D, E and F at phase 11's shapes with the launches of
                   phases 13 (E, F's tensor-core body), 12 (F's FFMA body)
-                  and 14 (D).  E's GEMV rows at tag 2, x bf16, M 4 and F's
-                  bf16 row at S = 2048 carry `earlier_ms`, the earlier
-                  design's time on the same inputs (E's one block per 64
-                  columns; F's FFMA body); F's bf16 rows are bound by the
+                  and 14 (D).  E's GEMV rows at tag 2, x bf16, M 4, E's
+                  tiled rows (every prefill shape at M 2048, tags 1-3, x
+                  bf16 and f32), B64's rows and F's bf16 row at S = 2048
+                  carry `earlier_ms`, the earlier design's time on the
+                  same inputs (E's one block per 64 columns, E's 64 x 64
+                  FFMA tile, B64 with every row on one warp, F's FFMA
+                  body); E's tiled rows are bound by the TF32 tensor cores
+                  (495 TFLOP/s per TF32 term) and F's bf16 rows by the
                   bf16 tensor cores (989 TFLOP/s), with `fp32_bound_ms`
-                  beside.
+                  beside.  First a probe times a dependent FP64 add chain
+                  and FMA chain from registers (vec_f64.chain_latency);
+                  the f64 kernels held to the reference's summation order
+                  (A64, B64, C64, C′64, seq_dot, seq_dot_cols) carry
+                  `chain_bound_ms`: their longest chain times that
+                  latency.
 
 The line before the last two is the ``{"kernels": [...]}`` JSON record,
 the line before the last the card's name and power limit, the last line
@@ -162,6 +184,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP64_OPS_PER_S = 34e12         # H100 SXM FP64 outside the tensor cores
 FP32_OPS_PER_S = 67e12         # H100 SXM FP32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 on the tensor cores, dense
+TF32_TC_OPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
 # Integer/float operations one decoded nonzero costs per tag (shifts, masks,
 # converts, mantissa splice, two scale multiplies, sign, product, sum).
 DECODE_OPS = {1: 10, 2: 12, 3: 15}
@@ -414,7 +437,8 @@ def phase_sell_parity():
                                            scales[t], tag=t, **lay)
         torch.testing.assert_close(got_c, want_c, rtol=2e-5, atol=1e-4)
         b64 = K.gse_spmv_sell_f64(*segs, g.table, x64, tag=t,
-                                  row_len=sell.row_len, **lay)
+                                  row_len=sell.row_len,
+                                  long_from=sell.long_from, **lay)
         require_bitwise(f"B64 tag {t} against its plain version", b64,
                         K.gse_spmv_sell_f64_plain(*segs, g.table, x64, tag=t,
                                                   row_len=sell.row_len, **lay))
@@ -752,9 +776,11 @@ def phase_sell_full(params):
                 longest=longest)
 
 
-def sell_entries(ctx, add_entry):
+def sell_entries(ctx, add_entry, chain_bound_ms):
     """Phase 10's entries for kernels B and C′ (and A64) on phase 9's
-    operator."""
+    operator; ``chain_bound_ms`` is the f64 kernels' chain bound there
+    (the longest row's dependent adds).  B64 carries ``earlier_ms``, the
+    earlier design (every row on one warp) on the same inputs."""
     import numpy as np
     import torch
 
@@ -775,6 +801,7 @@ def sell_entries(ctx, add_entry):
     lay = dict(buckets=sell.bucket_table, perm=sell.perm, rows=m,
                ei_bit=g.ei_bit)
     lay64 = dict(lay, row_len=sell.row_len)
+    long_from = sell.long_from
     csr_args = (g.rowptr, g.colpak, g.head, g.tail1, g.tail2, g.table)
     src = "src/repro_torch/kernels/csrc/gse_sell.cu"
     spmv_src = "src/repro_torch/kernels/csrc/gse_spmv.cu"
@@ -792,7 +819,11 @@ def sell_entries(ctx, add_entry):
         # The f64 builds repeat their plain versions' sums, so they are held
         # bitwise; their entries' max_abs_err is then 0.
         pairs = (
-            ("B64", K.gse_spmv_sell_f64(*segs, g.table, x64, tag=t, **lay64),
+            ("B64", K.gse_spmv_sell_f64(*segs, g.table, x64, tag=t,
+                                        long_from=long_from, **lay64),
+             K.gse_spmv_sell_f64_plain(*segs, g.table, x64, tag=t, **lay64)),
+            ("B64's earlier design",
+             K.gse_spmv_sell_f64_warp(*segs, g.table, x64, tag=t, **lay64),
              K.gse_spmv_sell_f64_plain(*segs, g.table, x64, tag=t, **lay64)),
             ("C′64", C.gse_spmm_sell_f64(*segs, g.table, x64c, tags_t, all_on,
                                          device=dev, **lay64),
@@ -829,7 +860,8 @@ def sell_entries(ctx, add_entry):
              sell.bytes_touched(t) + (m + n) * 4, 1, FP32_OPS_PER_S,
              ctx["b32_err"][t], counts["b32"][t]),
             ("gse_spmv_sell_f64", src, "src/repro/kernels/gse_spmv.py:178",
-             lambda: K.gse_spmv_sell_f64(*segs, g.table, x64, tag=t, **lay64),
+             lambda: K.gse_spmv_sell_f64(*segs, g.table, x64, tag=t,
+                                         long_from=long_from, **lay64),
              lambda: K.gse_spmv_sell_f64_plain(*segs, g.table, x64, tag=t,
                                                **lay64),
              lambda: torch.mv(lib64, x64),
@@ -868,6 +900,13 @@ def sell_entries(ctx, add_entry):
                          longest_row=ctx["longest"])
             if name.endswith("f64") or name.endswith("skewed"):
                 extra["launches_all_tags"] = True  # the tag is chosen on device
+                extra["chain_bound_ms"] = chain_bound_ms
+            if name == "gse_spmv_sell_f64":
+                extra["earlier_ms"] = cuda_ms(
+                    lambda: K.gse_spmv_sell_f64_warp(*segs, g.table, x64,
+                                                     tag=t, **lay64),
+                    reps=5, inner=4)
+                extra["earlier_design"] = "spmv_sell_f64_warp_kernel"
             add_entry(f"{name}.tag{t}", source, replaces, launch, plain, lib,
                       nbytes, nops / ops_rate * 1e3, plain_reps=1, reps=5,
                       inner=4, **extra)
@@ -881,10 +920,21 @@ def sell_entries(ctx, add_entry):
 # teacher-forced decode steps.  Phase 13: full width and depth, bf16.
 LM_SEED = 0
 LM_TWIN = dict(batch=2, prompt=128, steps=8, layers=2)
+# Phase 12's variants, by LM_REF key: config fields over qwen3_4b at
+# LM_TWIN's depth, compute dtype float32 unless named.  "tag2_bf16" is
+# the served configuration (gse_serve tag 2 at bfloat16).
+LM_TWIN_VARIANTS = {"dense": {}, "tag1": dict(gse_serve=True, gse_tag=1),
+                    "tag2": dict(gse_serve=True, gse_tag=2),
+                    "tag2_bf16": dict(gse_serve=True, gse_tag=2,
+                                      compute_dtype="bfloat16")}
 LM_FULL = dict(batch=4, prompt=512, steps=32)
 # The card's logits against the CPU twin's and the reference's: absolute,
 # on logits of magnitude up to about 5 (f32 sums in other orders).
 LM_TOL = 1e-3
+# At bfloat16, tests/test_torch_lm.py's tolerance: the reference rounds
+# attention scores, probabilities and products to bf16 where the port's
+# plain E and F keep f32, and F's tensor-core body rounds P to bf16.
+BF16_TOL = dict(rtol=0.02, atol=0.075)
 # tools/reference/lm_serve_ref.py's output (JAX on the CPU): per variant,
 # per step (prefill, then the decode steps), lm_digest's fields as
 # (tokens, first 8 logits of request 0, max |logit|).
@@ -1030,6 +1080,53 @@ LM_REF = {
           0.6943557858467102, 0.5642030835151672],
          4.9995927810668945),
     ],
+    "tag2_bf16": [
+        ([131283, 141201],
+         [0.6045197248458862, 0.24348855018615723, -2.325235605239868,
+          -0.9490013122558594, -1.0704585313796997, 0.9315356016159058,
+          -0.10582494735717773, -0.24826344847679138],
+         4.532994270324707),
+        ([38534, 90848],
+         [-0.07547645270824432, 0.8691698908805847, 0.1296466886997223,
+          -1.6543623208999634, -0.1497960090637207, 1.1529688835144043,
+          0.7120586633682251, 0.5531372427940369],
+         4.8315019607543945),
+        ([112313, 97447],
+         [-1.2029629945755005, -0.5452677607536316, -1.8975260257720947,
+          -0.5690811276435852, -0.8306881189346313, 1.0150188207626343,
+          -0.1643010675907135, -0.129415363073349],
+         4.415778636932373),
+        ([105671, 17205],
+         [0.7041227221488953, 0.3962932229042053, -0.4302141070365906,
+          0.025162875652313232, -0.7271292209625244, 1.3788906335830688,
+          0.24877476692199707, 0.8546591997146606],
+         4.914181709289551),
+        ([130585, 80161],
+         [-0.5736770629882812, 0.20117264986038208, -0.4072100818157196,
+          0.05270028114318848, 0.06593945622444153, -0.7068548202514648,
+          -0.4275321066379547, 0.9752110242843628],
+         5.005084991455078),
+        ([150734, 60850],
+         [-0.947987973690033, 0.8781462907791138, -1.9366750717163086,
+          -0.040864743292331696, 0.575913667678833, -0.8875852227210999,
+          1.1435716152191162, 0.5210291743278503],
+         5.06195592880249),
+        ([131491, 60480],
+         [-0.6275439262390137, 2.109684944152832, -0.44175422191619873,
+          0.9869725704193115, -0.444014310836792, 0.4699774384498596,
+          -0.15670859813690186, 1.3535219430923462],
+         4.703441619873047),
+        ([142955, 57384],
+         [0.8119810819625854, 1.4757047891616821, -1.4065662622451782,
+          -0.4451258182525635, -0.20686206221580505, 0.41859951615333557,
+          -1.684121012687683, 1.3715152740478516],
+         4.6296586990356445),
+        ([70585, 11343],
+         [0.6440043449401855, 1.0496108531951904, -0.36887866258621216,
+          -0.35138314962387085, -0.3370366096496582, 0.6808407306671143,
+          0.6986963152885437, 0.5779379606246948],
+         4.994083404541016),
+    ],
 }
 LM_LINEAR = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
              ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
@@ -1073,6 +1170,27 @@ def lm_tree_np(cfg, seed: int) -> dict:
                     "w_down": normal((n, ff, d), ff)},
         },
     }
+
+
+def device_ms(fn, names) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: the device's busy ms
+    ("busy") and the device ms of the kernels whose names contain each of
+    ``names``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, getattr(e, "self_device_time_total", 0.0))
+               for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    out = {"busy": sum(us for _, us in kernels) / 1e3}
+    for name in names:
+        out[name] = sum(us for key, us in kernels if name in key) / 1e3
+    return out
 
 
 def lm_tokens(cfg, seed: int, batch: int, length: int):
@@ -1182,18 +1300,27 @@ def phase_lm_kernels():
                                 8, device=dev)}
     log("lm_kernels", host_pack_s=f"{time.perf_counter() - t0:.2f}",
         shapes={k: list(p.head.shape) for k, p in packs.items()})
-    # Every (K, N) of a decode step: wq's pack, and runs of w_down's for
-    # the others; "ragged" starts 6 bytes in and has N % 8 != 0, so E's
-    # GEMV takes its scalar loads there.
+    # Every (K, N) of a decode step and of prefill: wq's pack, and runs of
+    # w_down's for the others; "ragged" and "ragged_tiled" start 6 bytes
+    # in and have N % 8 != 0 (and K % 8 != 0), so E's GEMV and tiled
+    # bodies take their scalar loads there.
     parent = {"wq": "wq", "wk/wv": "w_down", "wo": "w_down",
               "w_gate/w_up": "w_down", "w_down": "w_down",
-              "ragged": "w_down"}
+              "ragged": "w_down", "ragged_tiled": "w_down"}
     mats = {"wq": packs["wq"],
             "wk/wv": pack_view(packs["w_down"], (d, kv * hd)),
             "wo": pack_view(packs["w_down"], (h * hd, d)),
             "w_gate/w_up": pack_view(packs["w_down"], (d, ff)),
             "w_down": packs["w_down"],
-            "ragged": pack_view(packs["w_down"], (300, 1001), offset=3)}
+            "ragged": pack_view(packs["w_down"], (300, 1001), offset=3),
+            "ragged_tiled": pack_view(packs["w_down"], (1001, 999),
+                                      offset=3)}
+    # Rows of x per shape: the decode steps' M (the GEMV) and prefill's
+    # B * S = 2048 (the tiled body); M 300 on the ragged tiled shape.
+    rows = {name: (1, 4, 8, LM_FULL["batch"] * LM_FULL["prompt"])
+            for name in mats}
+    rows["ragged"] = (1, 4, 8)
+    rows["ragged_tiled"] = (300,)
     ctx = {"packs": packs, "mats": mats, "parent": parent, "x": {},
            "scales": {}, "err": {}, "dec": {}}
     for name, p in packs.items():
@@ -1212,7 +1339,7 @@ def phase_lm_kernels():
                                              .abs().max())
     for name, p in mats.items():
         kk, n = p.head.shape
-        ms = (1, 4, 8, 2048) if name in packs else (1, 4, 8)
+        ms = rows[name]
         for m in ms:
             ctx["x"][name, m] = torch.from_numpy(rng.standard_normal(
                 (m, kk)).astype(np.float32)).to(dev)
@@ -1220,35 +1347,40 @@ def phase_lm_kernels():
             sc = ctx["scales"][parent[name], t]
             segs = (p.head, p.tail1 if t >= 2 else None,
                     p.tail2 if t == 3 else None, sc)
-            if name in packs or t == 2:  # phase 10's library yardstick
+            if not name.startswith("ragged"):  # phase 10's yardstick
                 ctx["dec"][name, t] = D.gse_decode_dense_plain(
                     *segs, ei_bit=p.ei_bit, tag=t)
-            errs = {}
+            errs, used = {}, {}
             # x in f32 and in bf16: the model's compute dtype is bf16, so
             # its linears launch E's bf16-x instantiations.  M <= 8 runs
-            # the split-K GEMV (twice: the same bits), M 2048 the tiled
-            # body.
+            # the split-K GEMV, M 2048 and 300 the tiled body; each twice:
+            # the same bits.
             for m in ms:
                 for xd in (torch.float32, torch.bfloat16):
                     x = ctx["x"][name, m].to(xd)
                     got = E.gse_matmul_dense(x, *segs, ei_bit=p.ei_bit,
                                              tag=t)
-                    if m <= E.GEMV_M_MAX:
-                        require_bitwise(f"E {name} M {m} tag {t} {xd}, two "
-                                        "calls", E.gse_matmul_dense(
-                                            x, *segs, ei_bit=p.ei_bit,
-                                            tag=t), got)
+                    require_bitwise(f"E {name} M {m} tag {t} {xd}, two "
+                                    "calls", E.gse_matmul_dense(
+                                        x, *segs, ei_bit=p.ei_bit, tag=t),
+                                    got)
                     want = E.gse_matmul_dense_plain(x, *segs,
                                                     ei_bit=p.ei_bit, tag=t)
                     torch.testing.assert_close(got, want, rtol=1e-5,
                                                atol=1e-4)
+                    diff = (got - want).abs()
                     errs[m, xd] = ctx["err"]["E", name, m, t, xd] = float(
-                        (got - want).abs().max())
+                        diff.max())
+                    used[m, xd] = float((diff / (1e-4 + 1e-5 * want.abs()))
+                                        .max())
             log("lm_kernels", weight=name, shape=[kk, n], tag=t,
                 d_bitwise="f32 and bf16" if name in packs else None,
-                e_gemv_plan_m4=dataclasses.astuple(E.gemv_plan(4, kk, n)),
+                e_gemv_plan_m4=(dataclasses.astuple(E.gemv_plan(4, kk, n))
+                                if 4 in ms else None),
                 e_max_abs_err={f"M={m} x {str(xd).split('.')[-1]}": e
                                for (m, xd), e in errs.items()},
+                e_tol_used={f"M={m} x {str(xd).split('.')[-1]}": round(u, 4)
+                            for (m, xd), u in used.items()},
                 e_two_calls_bitwise=True, e_tol="rtol 1e-5 atol 1e-4")
     # The unembedding's f32-source segments at bias 127, packed on the card.
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1303,10 +1435,12 @@ def phase_lm_kernels():
 
 
 def phase_lm_twin():
-    """Phase 12: qwen3_4b at full width, two layers, compute_dtype float32,
-    on the card and as its CPU twin from the same numpy params, against
-    each other and against the reference's digest (LM_REF)."""
-    import numpy as np
+    """Phase 12: qwen3_4b at full width, two layers, on the card and as its
+    CPU twin from the same numpy params, against each other and against
+    the reference's digest (LM_REF): dense and gse_serve tags 1-2 at
+    compute_dtype float32, and the served configuration, gse_serve tag 2
+    at bfloat16.  Returns the launches per kernel body, summed over the
+    f32 variants and (key "bf16") of the bf16 one."""
     import torch
 
     from repro_torch import convert
@@ -1330,20 +1464,35 @@ def phase_lm_twin():
     log("lm_twin", layers=tw["layers"], d_model=cfg0.d_model,
         vocab=cfg0.vocab_size, batch=tw["batch"], prompt=tw["prompt"],
         steps=tw["steps"], params_s=f"{time.perf_counter() - t0:.2f}")
-    torch.cuda.synchronize()
-    for mod in (E, F):
-        mod.reset_launch_counts()
-    for name, kw in (("dense", {}),
-                     ("tag1", dict(gse_serve=True, gse_tag=1)),
-                     ("tag2", dict(gse_serve=True, gse_tag=2))):
+    counts = {}
+    for name, kw in LM_TWIN_VARIANTS.items():
+        kw = dict(kw, compute_dtype=getattr(
+            torch, kw.get("compute_dtype", "float32")))
+        bf16 = kw["compute_dtype"] == torch.bfloat16
         cfg = dataclasses.replace(cfg0, **kw)
-        pg = lm_gse_params(dense_gpu, cfg) if kw else dense_gpu
-        pc = tree_map(lambda t: t.cpu(), pg) if kw else dense_cpu
+        pg = lm_gse_params(dense_gpu, cfg) if cfg.gse_serve else dense_gpu
+        pc = tree_map(lambda t: t.cpu(), pg) if cfg.gse_serve else dense_cpu
+        torch.cuda.synchronize()
+        for mod in (E, F):
+            mod.reset_launch_counts()
         lg, sg = lm_run(cfg, pg, toks, dev, tw["prompt"], tw["steps"])
+        got = {"e_" + k: v for k, v in E.gse_matmul_dense.body_launches
+               .items()}
+        got.update({"f_" + k: v for k, v in
+                    F.flash_attention_gqa.body_launches.items()})
         lc, sc = lm_run(cfg, pc, toks, "cpu", tw["prompt"], tw["steps"])
-        twin_err = float((lg - lc).abs().max())
         dg = lm_digest(lg)
         ref = [dict(tokens=a, first=b, maxabs=c) for a, b, c in LM_REF[name]]
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"lm_twin {name}: non-finite logits")
+        if bf16:
+            counts["bf16"] = got
+            lm_twin_bf16_check(name, lg, lc, dg, ref, sg, sc, got)
+            del pg, pc
+            continue
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        twin_err = float((lg - lc).abs().max())
         ref_err = max(max(abs(a - b) for a, b in zip(x["first"], y["first"]))
                       for x, y in zip(dg, ref))
         ref_err = max(ref_err, max(abs(x["maxabs"] - y["maxabs"])
@@ -1352,9 +1501,7 @@ def phase_lm_twin():
         log("lm_twin", variant=name, gpu_s=f"{sg:.2f}", cpu_s=f"{sc:.2f}",
             twin_max_abs_err=twin_err, ref_max_abs_err=ref_err,
             tol=LM_TOL, logits_maxabs=dg[0]["maxabs"],
-            tokens=json.dumps(tokens))
-        if not bool(torch.isfinite(lg).all()):
-            raise AssertionError(f"lm_twin {name}: non-finite logits")
+            tokens=json.dumps(tokens), launches=json.dumps(got))
         if twin_err > LM_TOL or not torch.equal(lg.argmax(-1), lc.argmax(-1)):
             raise AssertionError(f"lm_twin {name}: card and CPU twin differ "
                                  f"by {twin_err} (tol {LM_TOL}) or in tokens")
@@ -1363,17 +1510,64 @@ def phase_lm_twin():
                                  f"reference by {ref_err} (tol {LM_TOL}) or "
                                  "in tokens")
         del pg, pc
-    # The card's launches (the CPU twin launches none): E at M = 2 and
-    # 256, F on its FFMA body (f32).
-    counts = {"e_" + k: v for k, v in E.gse_matmul_dense.body_launches
-              .items()}
-    counts.update({"f_" + k: v for k, v in
-                   F.flash_attention_gqa.body_launches.items()})
-    log("lm_twin", launches=json.dumps(counts))
+    # The card's launches (the CPU twin launches none): at f32, E at M = 2
+    # and 256 and F on its FFMA body; at bf16, E's tiled body on a bf16 x
+    # and F's tensor-core body.
+    log("lm_twin", launches_f32=json.dumps({k: v for k, v in counts.items()
+                                            if k != "bf16"}),
+        launches_bf16=json.dumps(counts["bf16"]))
     if min(counts["e_gemv"], counts["e_tiled"], counts["f_ffma"]) <= 0:
         raise AssertionError(f"a kernel body of the f32 twin never "
                              f"launched: {counts}")
+    if min(counts["bf16"][k] for k in ("e_gemv", "e_tiled", "f_mma")) <= 0:
+        raise AssertionError(f"a kernel body of the bf16 twin never "
+                             f"launched: {counts['bf16']}")
     return counts
+
+
+def lm_twin_bf16_check(name, lg, lc, dg, ref, sg, sc, launches):
+    """Phase 12's bf16 variant: the card's logits ``lg`` within BF16_TOL
+    of the CPU twin's ``lc`` and of the reference's digest ``ref``, and
+    the greedy tokens equal to both wherever the CPU twin's top-2 margin
+    exceeds twice the atol (below it, bf16 roundings may flip a token)."""
+    import torch
+
+    rtol, atol = BF16_TOL["rtol"], BF16_TOL["atol"]
+    excess = ((lg - lc).abs() - (atol + rtol * lc.abs())).max()
+    twin_err = float((lg - lc).abs().max())
+    ref_excess, ref_err = -float("inf"), 0.0
+    for x, y in zip(dg, ref):
+        for a, b in list(zip(x["first"], y["first"])) + [(x["maxabs"],
+                                                          y["maxabs"])]:
+            ref_err = max(ref_err, abs(a - b))
+            ref_excess = max(ref_excess, abs(a - b) - (atol + rtol * abs(b)))
+    top2 = lc.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * atol
+    tok_g, tok_c = lg.argmax(-1), lc.argmax(-1)
+    tok_r = torch.tensor([y["tokens"] for y in ref])
+    close = ~sure
+    log("lm_twin", variant=name, gpu_s=f"{sg:.2f}", cpu_s=f"{sc:.2f}",
+        twin_max_abs_err=twin_err, ref_max_abs_err=ref_err,
+        tol=f"rtol {rtol} atol {atol}",
+        within_tol_twin=bool(excess <= 0), within_tol_ref=ref_excess <= 0,
+        positions=int(sure.numel()),
+        below_margin=int(close.sum()),
+        below_margin_differ_cpu=int((close & (tok_g != tok_c)).sum()),
+        below_margin_differ_ref=int((close & (tok_g != tok_r)).sum()),
+        tokens_equal_cpu=bool(torch.equal(tok_g, tok_c)),
+        tokens_equal_ref=bool(torch.equal(tok_g, tok_r)),
+        tokens=json.dumps([x["tokens"] for x in dg]),
+        launches=json.dumps(launches))
+    if excess > 0:
+        raise AssertionError(f"lm_twin {name}: card and CPU twin differ by "
+                             f"{twin_err}, beyond {BF16_TOL}")
+    if ref_excess > 0:
+        raise AssertionError(f"lm_twin {name}: card differs from the "
+                             f"reference's digest by {ref_err}, beyond "
+                             f"{BF16_TOL}")
+    if bool((sure & ((tok_g != tok_c) | (tok_g != tok_r))).any()):
+        raise AssertionError(f"lm_twin {name}: a greedy token differs where "
+                             f"the CPU twin's margin exceeds {2 * atol}")
 
 
 def phase_lm_full():
@@ -1430,10 +1624,18 @@ def phase_lm_full():
                    F.flash_attention_gqa.body_launches.items()})
     step_ms = decode_s * 1e3 / fu["steps"]
     tokens = torch.stack(out, 1).tolist()
+    # One more prefill (uncounted, untimed) under the profiler: the device
+    # ms of E's tiled body and the device's busy ms.
+    state = T.decode_state_init(cfg, fu["batch"], fu["prompt"] + fu["steps"],
+                                device=dev)
+    dev_ms = device_ms(lambda: stepfns.make_prefill_step(cfg)(
+        params, toks, state=state), ("matmul_tc_kernel",))
     log("lm_full", layers=cfg.num_layers, gse_tag=cfg.gse_tag,
         batch=fu["batch"], prompt=fu["prompt"], steps=fu["steps"],
         init_s=f"{init_s:.2f}", prefill_s=f"{prefill_s:.3f}",
         prefill_tok_per_s=f"{fu['batch'] * fu['prompt'] / prefill_s:.0f}",
+        prefill_busy_ms=f"{dev_ms['busy']:.1f}",
+        prefill_e_tiled_ms=f"{dev_ms['matmul_tc_kernel']:.1f}",
         ms_per_decode_step=f"{step_ms:.3f}", tree_bytes=nbytes,
         tree_gb_per_s=f"{nbytes / (step_ms * 1e6):.1f}",
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
@@ -1523,12 +1725,22 @@ def lm_entries(ctx, counts, twin_counts, add_entry):
         x = x32.to(xd)
         gemv = m <= E.GEMV_M_MAX
         extra = {}
-        if gemv and xd == torch.bfloat16 and t == 2:
-            # The earlier GEMV design on the same inputs, this card.
+        ops = 2 * m * n * kk + kk * n * DECODE_OPS[t]
+        op_ms = ops / FP32_OPS_PER_S * 1e3
+        if not gemv:
+            # The earlier tiled design (FFMA) on the same inputs, this card.
             extra["earlier_ms"] = cuda_ms(
-                lambda: E.gse_matmul_dense_gemv64(x, *segs, ei_bit=ei,
-                                                  tag=t), reps=5, inner=3)
-            extra["earlier_design"] = "matmul_gemv64_kernel"
+                lambda: E.gse_matmul_dense_tiled64(x, *segs, ei_bit=ei,
+                                                   tag=t), reps=3, inner=2)
+            extra["earlier_design"] = "matmul_tiled64_kernel (FFMA)"
+            # Bound by the TF32 tensor cores, one pass per TF32 term (the
+            # decode's FP32 operations run beside them); the FP32 bound is
+            # what an FFMA body can reach.
+            extra["tf32_terms"] = E.tiled_terms(xd)
+            extra["fp32_bound_ms"] = op_ms
+            op_ms = max(extra["tf32_terms"] * 2 * m * n * kk
+                        / TF32_TC_OPS_PER_S,
+                        kk * n * DECODE_OPS[t] / FP32_OPS_PER_S) * 1e3
         suffix = "" if xd == torch.float32 else ".xbf16"
         add_entry(f"gse_matmul_dense.{name}.M{m}.tag{t}{suffix}", dense_src,
                   "src/repro/kernels/gse_matmul.py:52",
@@ -1537,24 +1749,25 @@ def lm_entries(ctx, counts, twin_counts, add_entry):
                                                    tag=t),
                   lambda: torch.matmul(x32, w32),
                   kk * n * TAG_VALUE_BYTES[t] + n_table * 4
-                  + m * kk * x.element_size() + m * n * 4,
-                  (2 * m * n * kk + kk * n * DECODE_OPS[t])
-                  / FP32_OPS_PER_S * 1e3,
+                  + m * kk * x.element_size() + m * n * 4, op_ms,
                   plain_reps=2, reps=5, inner=3, shape=[m, kk, n], tag=t,
                   x_dtype=str(xd).split(".")[-1],
                   body="gemv" if gemv else "tiled",
                   launches=counts["e_gemv" if gemv else "e_tiled"],
                   max_abs_err=err, **extra)
 
-    # f32 x at every tag on wq and w_down (M 4 and 2048); bf16 x (the
+    # The GEMV (M 4): f32 x at every tag on wq and w_down, bf16 x (the
     # model's compute dtype: phase 13's instantiation) at phase 13's tag 2
-    # on every decode-step shape.  The library call multiplies the f32
-    # copy of x, made outside the timed call.
-    cases = [(name, m, torch.float32, t) for name in ("wq", "w_down")
-             for m in (4, 2048) for t in TAGS]
-    cases += [(name, 4, torch.bfloat16, 2) for name in
-              ("wq", "wk/wv", "wo", "w_gate/w_up", "w_down")]
-    cases += [("w_down", 2048, torch.bfloat16, 2)]
+    # on every decode-step shape.  The tiled body (M 2048): every prefill
+    # shape at every tag, x in bf16 and in f32.  The library call
+    # multiplies the f32 copy of x, made outside the timed call.
+    linears = ("wq", "wk/wv", "wo", "w_gate/w_up", "w_down")
+    prefill_m = LM_FULL["batch"] * LM_FULL["prompt"]
+    cases = [(name, 4, torch.float32, t) for name in ("wq", "w_down")
+             for t in TAGS]
+    cases += [(name, 4, torch.bfloat16, 2) for name in linears]
+    cases += [(name, prefill_m, xd, t) for name in linears for t in TAGS
+              for xd in (torch.bfloat16, torch.float32)]
     for name, m, xd, t in cases:
         p = ctx["mats"][name]
         sc = ctx["scales"][ctx["parent"][name], t]
@@ -1941,6 +2154,20 @@ def main() -> int:
     t_kernels = time.perf_counter()
     m, n = g.shape
     kernels = []
+    # The chain bound of the f64 kernels held to the reference's order:
+    # one dependent FP64 add (the rows) or FMA (the dots) per element of
+    # the longest chain, at the latency this card shows for a chain from
+    # registers.
+    chain = {op: V.chain_latency(op) for op in ("add", "fma")}
+    log("kernels", probe="dependent FP64 chain, one thread, 2^22 steps",
+        dadd_ns=f"{chain['add']['ns']:.4f}",
+        dadd_clocks=f"{chain['add']['clocks']:.3f}",
+        dfma_ns=f"{chain['fma']['ns']:.4f}",
+        dfma_clocks=f"{chain['fma']['clocks']:.3f}")
+    longest_uniform = int((g.rowptr[1:] - g.rowptr[:-1]).max())
+
+    def chain_ms(steps: int, op: str) -> float:
+        return steps * chain[op]["ns"] * 1e-6
 
     def add_entry(name, source, replaces, launch, plain, lib, nbytes, op_ms,
                   plain_reps=3, reps=10, inner=10, **extra):
@@ -2019,6 +2246,8 @@ def main() -> int:
             extra = dict(tag=t, nrhs=ncols, launches=count, max_abs_err=err_t)
             if name.endswith("csr_f64"):
                 extra["launches_all_tags"] = True  # the tag is chosen on device
+                extra["chain_bound_ms"] = chain_ms(longest_uniform, "add")
+                extra["longest_row"] = longest_uniform
             add_entry(f"{name}.tag{t}", src, replaces, launch, plain, lib,
                       g.bytes_touched(t) + ncols * (m + n) * xb,
                       nops / ops_rate * 1e3, **extra)
@@ -2041,14 +2270,16 @@ def main() -> int:
          cols_launches["fma_axpy_cols"]),
     ):
         dot = name.startswith("seq_dot")
+        # A dot is one FMA chain per column (the columns side by side).
+        extra = dict(chain_bound_ms=chain_ms(N_FULL, "fma")) if dot else {}
         add_entry(name, vec_src,
                   "src/repro/solvers/fused_cg.py:51" if dot
                   else "src/repro/solvers/fused_cg.py:53",
                   launch, plain, lib, (16 if dot else 24) * N_FULL * ncols,
                   2 * N_FULL * ncols / FP64_OPS_PER_S * 1e3,
                   plain_reps=plain_reps, nrhs=ncols, launches=count,
-                  max_abs_err=vec_err[name])
-    sell_entries(sell_ctx, add_entry)
+                  max_abs_err=vec_err[name], **extra)
+    sell_entries(sell_ctx, add_entry, chain_ms(sell_ctx["longest"], "add"))
     lm_entries(lm_ctx, lm_counts, twin_counts, add_entry)
     log("kernels", seconds=f"{time.perf_counter() - t_kernels:.1f}",
         total_s=f"{time.perf_counter() - t_start:.1f}")

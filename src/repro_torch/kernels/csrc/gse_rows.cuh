@@ -10,8 +10,14 @@
 // * row_sum_f64 / row_walk_f64 (A64 / C64): one thread walks the row's
 //   real slots in stored order (CSR order) from 0.0 with
 //   __dmul_rn/__dadd_rn, so no FMA contraction changes a bit.
-// * warp_chain_f64 / warp_walk_f64 (B64 / C'64): the same chain, one warp
-//   per row.  Lane l decodes and multiplies slot j0 + l of each 32-slot
+// * block_chain_f64 (B64's long rows): the same chain, one block per row,
+//   off the shuffles.  Warps 1..7 decode and multiply the row's slots a
+//   chunk at a time into shared memory, double-buffered one chunk ahead;
+//   thread 0 reads the chunk back in slot order with loads that do not
+//   depend on the sum and adds it, so the chain waits on one __dadd_rn
+//   per slot and on nothing else.
+// * warp_chain_f64 / warp_walk_f64 (B64's other rows / C'64): the same
+//   chain, one warp per row.  Lane l decodes and multiplies slot j0 + l of each 32-slot
 //   chunk (coalesced loads, all lanes at once), then every lane adds the
 //   chunk's products in slot order from __shfl_sync broadcasts: the sums
 //   are row_sum_f64's / row_walk_f64's bit for bit, and a long row's chain
@@ -261,6 +267,121 @@ __device__ __forceinline__ double warp_chain_f64(
     s1 = s2;
   }
   return acc;
+}
+
+// Products per chunk of block_chain_f64 (two buffers: 16 KB of shared
+// memory), and its producer threads (warps 1..7 of a 256-thread block).
+constexpr int kChainChunk = 1024;
+constexpr int kChainThreads = 256;
+constexpr int kChainProducers = kChainThreads - 32;
+constexpr int kChainPer = (kChainChunk + kChainProducers - 1) / kChainProducers;
+
+// Products [c0, c0 + kChainChunk) of the row into buf (+0.0 past its end),
+// by the producer threads: each loads all its slots' segments first, so
+// its kChainPer gathers are in flight together.
+template <int TAG>
+__device__ __forceinline__ void chain_produce(
+    double* buf, int64_t base, int len, int c0,
+    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
+    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
+    const int32_t* __restrict__ table, const double* __restrict__ x,
+    int shift, uint32_t mask) {
+  const int p = threadIdx.x - 32;
+  Slot sl[kChainPer];
+#pragma unroll
+  for (int u = 0; u < kChainPer; ++u) {
+    const int j = p + u * kChainProducers;
+    sl[u] = load_slot<TAG>(base + c0 + j, j < kChainChunk && c0 + j < len,
+                           colpak, head, tail1, tail2);
+  }
+#pragma unroll
+  for (int u = 0; u < kChainPer; ++u) {
+    const int j = p + u * kChainProducers;
+    if (j >= kChainChunk) continue;
+    double v = 0.0;
+    if (c0 + j < len) {
+      v = __dmul_rn(decode_f64<TAG>(sl[u].h, sl[u].t1, sl[u].t2,
+                                    __ldg(table + (sl[u].cp >> shift)) - 1023),
+                    __ldg(x + (sl[u].cp & mask)));
+    }
+    buf[j] = v;
+  }
+}
+
+// row_sum_f64 on one block of kChainThreads (see the top of the file);
+// valid in thread 0.  Every thread of the block must call it.  The chain
+// adds each chunk in full, the +0.0 past the row's end included: a chain
+// from +0.0 never holds -0.0, so adding +0.0 changes no bit.
+template <int TAG>
+__device__ __forceinline__ double block_chain_f64(
+    double* buf, int64_t base, int len, const uint32_t* __restrict__ colpak,
+    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
+    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
+    const double* __restrict__ x, int shift, uint32_t mask) {
+  double acc = 0.0;
+  const int chunks = (len + kChainChunk - 1) / kChainChunk;
+  const bool producer = threadIdx.x >= 32;
+  if (producer && chunks > 0) {
+    chain_produce<TAG>(buf, base, len, 0, colpak, head, tail1, tail2, table,
+                       x, shift, mask);
+  }
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    double* cur = buf + (c & 1) * kChainChunk;
+    if (producer) {
+      if (c + 1 < chunks) {
+        chain_produce<TAG>(buf + ((c + 1) & 1) * kChainChunk, base, len,
+                           (c + 1) * kChainChunk, colpak, head, tail1, tail2,
+                           table, x, shift, mask);
+      }
+    } else if (threadIdx.x == 0) {
+      // Two register groups of 16: one is loaded while the other is added.
+      double2 a[8], b[8];
+      const double2* src = reinterpret_cast<const double2*>(cur);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) a[u] = src[u];
+      for (int j = 0; j < kChainChunk / 2; j += 16) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) b[u] = src[j + 8 + u];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          acc = __dadd_rn(acc, a[u].x);
+          acc = __dadd_rn(acc, a[u].y);
+        }
+        if (j + 16 < kChainChunk / 2) {
+#pragma unroll
+          for (int u = 0; u < 8; ++u) a[u] = src[j + 16 + u];
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          acc = __dadd_rn(acc, b[u].x);
+          acc = __dadd_rn(acc, b[u].y);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  return acc;
+}
+
+// block_chain_f64 at the device tag `*tag` (clipped to [1, 3]).
+__device__ __forceinline__ double block_chain_f64_at(
+    const int32_t* __restrict__ tag, double* buf, int64_t base, int len,
+    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
+    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
+    const int32_t* __restrict__ table, const double* __restrict__ x,
+    int shift, uint32_t mask) {
+  int t = __ldg(tag);
+  t = t < 1 ? 1 : (t > 3 ? 3 : t);
+  if (t == 1) {
+    return block_chain_f64<1>(buf, base, len, colpak, head, tail1, tail2,
+                              table, x, shift, mask);
+  } else if (t == 2) {
+    return block_chain_f64<2>(buf, base, len, colpak, head, tail1, tail2,
+                              table, x, shift, mask);
+  }
+  return block_chain_f64<3>(buf, base, len, colpak, head, tail1, tail2,
+                            table, x, shift, mask);
 }
 
 // warp_chain_f64 at the device tag `*tag` (clipped to [1, 3]).

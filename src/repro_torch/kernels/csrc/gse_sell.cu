@@ -21,11 +21,16 @@
 //   them (column 0, head 0): with a non-finite x[0] the NaN rows are the
 //   reference SELL kernel's.
 // * B64 (`gse_spmv_sell_f64`, spmv_gse over a GSESellC, the CG operator):
-//   one warp per bucket row.  The lanes decode and multiply 32 consecutive
-//   real slots at once (coalesced), and the warp adds the products in slot
-//   order, which is CSR order, from 0.0 with A64's __dmul_rn/__dadd_rn
-//   chain, read from shuffle broadcasts, at a device tag: each row is
-//   bitwise A64's, and padded slots are never read.
+//   each row's products added in slot order, which is CSR order, from 0.0
+//   with A64's __dmul_rn/__dadd_rn chain, at a device tag: each row is
+//   bitwise A64's, and padded slots are never read.  Rows of the buckets
+//   at least B64_BLOCK_WIDTH (sparse/csr.py) wide (the pack's `long_from` on: the
+//   widths ascend, so they are the last bucket rows) get a block each,
+//   launched first: block_chain_f64 (gse_rows.cuh) keeps the chain off the
+//   shuffles, so a dense row costs one dependent add per slot.  The other
+//   rows get a warp each, eight to a block (warp_chain_f64: the lanes
+//   decode and multiply 32 consecutive slots at once, and every lane adds
+//   them from shuffle broadcasts).
 // * C'32 (`gse_spmm_sell_f32`, ops.gse_spmm_sell): C32's warp row over the
 //   bucket width, each slot decoded once for every column; Y is (m, nrhs).
 //   Per column bitwise C32, at nrhs = 1 bitwise B32.
@@ -42,15 +47,18 @@
 // (B64), nrhs * (m + n) * 4 | 8 for C'.  The f64 builds read only real
 // slots, so they stream less than that model charges.
 //
-// The simple orders are kept for parity with A and C; making them fast is
-// later work.  A dense row (the skewed operators' hubs, 262,144 entries)
-// is one serial chain of dependent adds: bitwise parity with the CSR
-// reference requires it, and no row's sum is split.  A64's one thread per
-// row waited on a load for every step of that chain (45-67 ms per SpMV on
-// the full-size skewed operator on an H100); the warp row of B64 and C'64
-// keeps the chain but loads and decodes 32 slots at a time.  A dense row's
-// warp is then bound by its shuffles, so the f64 kernels run two warps per
-// block (the hub rows spread over SMs) and C'64 shuffles four columns.
+// The simple orders are kept for parity with A and C.  A dense row (the
+// skewed operators' hubs, 262,144 entries) is one serial chain of
+// dependent adds: bitwise parity with the CSR reference requires it, and
+// no row's sum is split, so its bound is the chain, one __dadd_rn latency
+// per slot, not the bytes.  A64's one thread per row waited on a load for
+// every step of that chain (45-67 ms per SpMV on the full-size skewed
+// operator; NVIDIA H100 80GB HBM3, 700 W); the warp row keeps the chain
+// but loads and decodes 32 slots at a time and is then bound by its
+// shuffles (about 15 ns a slot, 4.1-5.4 ms for B64 there).  B64's long
+// rows run block_chain_f64, which leaves the add as the chain's only
+// step; C'64 runs the warp row, two warps per block (the hub rows spread
+// over SMs), and shuffles four columns.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -64,10 +72,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-// The f64 warp rows run in blocks of two warps, so the few rows of a dense
-// bucket (the hubs) land on different SMs instead of sharing one SM's
-// shuffle unit.
+// C'64's warp rows (and B64's earlier design) run in blocks of two warps,
+// so the few rows of a dense bucket (the hubs) land on different SMs
+// instead of sharing one SM's shuffle unit.
 constexpr int kThreadsWarp = 64;
+using gse::kChainThreads;
 using gse::kCols;
 using gse::kColsWarp;
 
@@ -110,7 +119,49 @@ __global__ void __launch_bounds__(kThreads) spmv_sell_f32_kernel(
   if (lane == 0) y[dst] = acc;
 }
 
-__global__ void __launch_bounds__(kThreadsWarp) spmv_sell_f64_kernel(
+// Blocks [0, rows_pad - long_from) take bucket rows long_from, ... one
+// each (block_chain_f64); the blocks after them take rows [0, long_from),
+// one per warp (warp_chain_f64).
+__global__ void __launch_bounds__(kChainThreads) spmv_sell_f64_kernel(
+    const int32_t* __restrict__ tag, const uint32_t* __restrict__ colpak,
+    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
+    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
+    const double* __restrict__ x, double* __restrict__ y,
+    const int64_t* __restrict__ tab, int nb, const int32_t* __restrict__ perm,
+    const int32_t* __restrict__ row_len, int64_t rows_pad, int64_t long_from,
+    int shift, uint32_t mask) {
+  __shared__ __align__(16) double buf[2 * gse::kChainChunk];
+  const int64_t n_long = rows_pad - long_from;
+  if ((int64_t)blockIdx.x < n_long) {
+    const int64_t row = long_from + blockIdx.x;
+    const int dst = __ldg(perm + row);
+    if (dst < 0) return;  // uniform across the block
+    int width;
+    const int64_t base = locate(tab, nb, row, width);
+    const double acc = gse::block_chain_f64_at(
+        tag, buf, base, __ldg(row_len + row), colpak, head, tail1, tail2,
+        table, x, shift, mask);
+    if (threadIdx.x == 0) y[dst] = acc;
+    return;
+  }
+  const int64_t row = ((int64_t)blockIdx.x - n_long) * (kChainThreads / 32) +
+                      (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= long_from) return;  // uniform across the warp
+  const int dst = __ldg(perm + row);
+  if (dst < 0) return;
+  int width;
+  const int64_t base = locate(tab, nb, row, width);
+  const double acc = gse::warp_chain_f64_at(
+      tag, base, __ldg(row_len + row), lane, colpak, head, tail1, tail2,
+      table, x, shift, mask);
+  if (lane == 0) y[dst] = acc;
+}
+
+// The earlier B64 design, kept only as the yardstick chip_smoke.py times
+// the block chain against (no solver path launches it): every row on one
+// warp (warp_chain_f64), two warps per block.
+__global__ void __launch_bounds__(kThreadsWarp) spmv_sell_f64_warp_kernel(
     const int32_t* __restrict__ tag, const uint32_t* __restrict__ colpak,
     const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
     const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
@@ -232,22 +283,55 @@ extern "C" int gse_spmv_sell_f32(int tag, const void* colpak, const void* head,
 }
 
 // y (m,) f64 = A x over the SELL buckets at the device tag; x is (n,) f64.
+// Bucket rows [long_from, rows_pad) run a block each.
 extern "C" int gse_spmv_sell_f64(const void* tag, const void* colpak,
                                  const void* head, const void* tail1,
                                  const void* tail2, const void* table,
                                  const void* x, void* y, const void* tab,
                                  int nb, const void* perm, const void* row_len,
-                                 long long rows_pad, int ei_bit,
-                                 void* stream) {
+                                 long long rows_pad, long long long_from,
+                                 int ei_bit, void* stream) {
+  if (long_from < 0 || long_from > rows_pad) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int shift = 32 - ei_bit;
+  const uint32_t mask = (1u << shift) - 1u;
+  const long long warps = kChainThreads / 32;
+  const long long blocks = (rows_pad - long_from) +
+                           (long_from + warps - 1) / warps;
+  if (blocks > 0) {
+    spmv_sell_f64_kernel<<<(unsigned)blocks, kChainThreads, 0,
+                           (cudaStream_t)stream>>>(
+        (const int32_t*)tag, (const uint32_t*)colpak, (const uint16_t*)head,
+        (const uint16_t*)tail1, (const uint32_t*)tail2,
+        (const int32_t*)table, (const double*)x, (double*)y,
+        (const int64_t*)tab, nb, (const int32_t*)perm,
+        (const int32_t*)row_len, rows_pad, long_from, shift, mask);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The earlier B64 design (spmv_sell_f64_warp_kernel): timed beside
+// gse_spmv_sell_f64 only.
+extern "C" int gse_spmv_sell_f64_warp(const void* tag, const void* colpak,
+                                      const void* head, const void* tail1,
+                                      const void* tail2, const void* table,
+                                      const void* x, void* y, const void* tab,
+                                      int nb, const void* perm,
+                                      const void* row_len, long long rows_pad,
+                                      int ei_bit, void* stream) {
   const int shift = 32 - ei_bit;
   const uint32_t mask = (1u << shift) - 1u;
   const long long blocks = (rows_pad * 32 + kThreadsWarp - 1) / kThreadsWarp;
-  spmv_sell_f64_kernel<<<(unsigned)blocks, kThreadsWarp, 0,
-                         (cudaStream_t)stream>>>(
-      (const int32_t*)tag, (const uint32_t*)colpak, (const uint16_t*)head,
-      (const uint16_t*)tail1, (const uint32_t*)tail2, (const int32_t*)table,
-      (const double*)x, (double*)y, (const int64_t*)tab, nb,
-      (const int32_t*)perm, (const int32_t*)row_len, rows_pad, shift, mask);
+  if (blocks > 0) {
+    spmv_sell_f64_warp_kernel<<<(unsigned)blocks, kThreadsWarp, 0,
+                                (cudaStream_t)stream>>>(
+        (const int32_t*)tag, (const uint32_t*)colpak, (const uint16_t*)head,
+        (const uint16_t*)tail1, (const uint32_t*)tail2,
+        (const int32_t*)table, (const double*)x, (double*)y,
+        (const int64_t*)tab, nb, (const int32_t*)perm,
+        (const int32_t*)row_len, rows_pad, shift, mask);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -171,7 +171,44 @@ cudaError_t launch_axpy(const void* alpha, const void* x, const void* y,
   return cudaGetLastError();
 }
 
+// The chain-latency probe: one thread runs n dependent steps from
+// registers, acc = __dadd_rn(acc, b) (op 0) or acc = __fma_rn(acc, a, b)
+// (op 1), n a multiple of 8.  out[0] = acc (so nothing is dead code),
+// out[1] = the SM clocks the loop took.  A dependent chain cannot go
+// faster than one step per latency, so n times the latency is the bound
+// of seq_dot (an FMA chain) and of the f64 SpMV rows (an add chain).
+__global__ void chain_probe_kernel(int op, long long n, double a, double b,
+                                   double* __restrict__ out) {
+  double acc = a;
+  const long long t0 = clock64();
+  if (op == 0) {
+    for (long long i = 0; i < n; i += 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc = __dadd_rn(acc, b);
+    }
+  } else {
+    for (long long i = 0; i < n; i += 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc = __fma_rn(acc, a, b);
+    }
+  }
+  const long long t1 = clock64();
+  out[0] = acc;
+  out[1] = (double)(t1 - t0);
+}
+
 }  // namespace
+
+// The chain-latency probe (chain_probe_kernel): one thread, n steps.
+extern "C" int chain_probe_f64(int op, long long n, double a, double b,
+                               void* out, void* stream) {
+  if ((op != 0 && op != 1) || n <= 0 || n % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  chain_probe_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(op, n, a, b,
+                                                        (double*)out);
+  return (int)cudaGetLastError();
+}
 
 // out[0] = a . b over n f64 elements, rounded as the reference's vdot (0.0 for n = 0).
 extern "C" int seq_dot_f64(const void* a, const void* b, long long n, void* out,

@@ -24,9 +24,13 @@ row bodies are A's:
 * **B32** -- :func:`gse_spmv_sell_f32` (``ops.gse_spmv_sell``): A32's warp
   row over each bucket row's width; bitwise A32 for finite x.
 * **B64** -- :func:`gse_spmv_sell_f64` (``spmv_gse`` over a ``GSESellC``,
-  the CG operator): A64's chain over each row's real slots, run by one
-  warp per row (32 slots loaded and decoded at a time, the products added
-  in slot order from shuffle broadcasts); bitwise A64.
+  the CG operator): A64's chain over each row's real slots; bitwise A64.
+  A dense row's sum is one chain of dependent adds, so the rows of the
+  buckets at least ``sparse.csr.B64_BLOCK_WIDTH`` wide (from the pack's
+  ``long_from`` on) get a block each, whose other warps decode and multiply the slots into
+  shared memory ahead of the one thread that adds them; the other rows
+  get one warp each (32 slots loaded and decoded at a time, the products
+  added in slot order from shuffle broadcasts).
 
 The SELL wrappers take the pack's flat ``(slots,)`` segment arrays, its
 ``(n_buckets, 3)`` bucket table ``[first row, width, flat offset]`` and
@@ -52,7 +56,7 @@ __all__ = ["gse_spmv_ell_f32", "gse_spmv_ell_f32_plain", "gse_spmv_csr_f64",
            "gse_spmv_csr_f64_plain", "gse_spmv_sell_f32",
            "gse_spmv_sell_f32_plain", "gse_spmv_sell_f64",
            "gse_spmv_sell_f64_plain", "csr_row_sums", "row_sums",
-           "KERNELS", "reset_launch_counts"]
+           "KERNELS", "reset_launch_counts", "gse_spmv_sell_f64_warp"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
@@ -64,10 +68,15 @@ _ARGTYPES = {
                           ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int,
                           _P],
     "gse_spmv_sell_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
-                          _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+                          _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                          ctypes.c_int, _P],
+    "gse_spmv_sell_f64_warp": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               ctypes.c_int, _P, _P, ctypes.c_longlong,
+                               ctypes.c_int, _P],
 }
 _SOURCE = {"gse_spmv_ell_f32": "gse_spmv", "gse_spmv_csr_f64": "gse_spmv",
-           "gse_spmv_sell_f32": "gse_sell", "gse_spmv_sell_f64": "gse_sell"}
+           "gse_spmv_sell_f32": "gse_sell", "gse_spmv_sell_f64": "gse_sell",
+           "gse_spmv_sell_f64_warp": "gse_sell"}
 _BOUND = {}
 
 
@@ -386,14 +395,15 @@ def gse_spmv_sell_f64_plain(colpak, head, tail1, tail2, table, x, buckets,
 
 
 def gse_spmv_sell_f64(colpak, head, tail1, tail2, table, x, buckets, perm,
-                      row_len, *, rows: int, ei_bit: int,
-                      tag) -> torch.Tensor:
+                      row_len, *, rows: int, ei_bit: int, tag,
+                      long_from: int | None = None) -> torch.Tensor:
     """y = A @ x as (rows,) f64 over the flat SELL segments.
 
     ``tag`` is an int or an int32 tensor on the operand's device (clipped
     to [1, 3]); all three segment arrays are passed because the tag is
     chosen on the device.  ``row_len`` is each bucket row's real entry
-    count.
+    count.  ``long_from`` (required on the card) is the pack's
+    ``GSESellC.long_from``.
     """
     if colpak.device.type == "cpu":
         return gse_spmv_sell_f64_plain(colpak, head, tail1, tail2, table, x,
@@ -411,6 +421,9 @@ def gse_spmv_sell_f64(colpak, head, tail1, tail2, table, x, buckets, perm,
     if not isinstance(tag, torch.Tensor):
         tag = torch.full((), int(tag), dtype=torch.int32, device=dev)
     _check(tag.reshape(1), "tag", torch.int32, dev, 1)
+    if long_from is None or not 0 <= long_from <= perm.shape[0]:
+        raise ValueError(f"long_from must be the pack's long_from, in "
+                         f"[0, {perm.shape[0]}], got {long_from}")
     y = torch.empty(rows, dtype=torch.float64, device=dev)
     if perm.shape[0] == 0:
         return y
@@ -418,15 +431,45 @@ def gse_spmv_sell_f64(colpak, head, tail1, tail2, table, x, buckets, perm,
         tag.data_ptr(), colpak.data_ptr(), head.data_ptr(), tail1.data_ptr(),
         tail2.data_ptr(), table.data_ptr(), x.data_ptr(), y.data_ptr(),
         buckets.data_ptr(), buckets.shape[0], perm.data_ptr(),
-        row_len.data_ptr(), perm.shape[0], ei_bit,
+        row_len.data_ptr(), perm.shape[0], long_from, ei_bit,
         torch.cuda.current_stream(dev).cuda_stream)
     gse_spmv_sell_f64.launches += 1
     _raise_on(rc, "gse_spmv_sell_f64")
     return y
 
 
+def gse_spmv_sell_f64_warp(colpak, head, tail1, tail2, table, x, buckets,
+                           perm, row_len, *, rows: int, ei_bit: int,
+                           tag) -> torch.Tensor:
+    """The earlier design of B64 on CUDA tensors: every row on one warp,
+    two warps per block.  No solver path calls it; ``chip_smoke.py`` times
+    it beside :func:`gse_spmv_sell_f64`, on one card."""
+    dev = colpak.device
+    if dev.type != "cuda":
+        raise ValueError(f"gse_spmv_sell_f64_warp runs on cuda, not {dev}")
+    _check_sell((("colpak", colpak, torch.uint32), ("head", head, torch.uint16),
+                 ("tail1", tail1, torch.uint16),
+                 ("tail2", tail2, torch.uint32)), buckets, perm, dev)
+    _check(row_len, "row_len", torch.int32, dev, 1)
+    _check(table, "table", torch.int32, dev, 1)
+    _check(x, "x", torch.float64, dev, 1)
+    if not isinstance(tag, torch.Tensor):
+        tag = torch.full((), int(tag), dtype=torch.int32, device=dev)
+    _check(tag.reshape(1), "tag", torch.int32, dev, 1)
+    y = torch.empty(rows, dtype=torch.float64, device=dev)
+    rc = _fn("gse_spmv_sell_f64_warp")(
+        tag.data_ptr(), colpak.data_ptr(), head.data_ptr(), tail1.data_ptr(),
+        tail2.data_ptr(), table.data_ptr(), x.data_ptr(), y.data_ptr(),
+        buckets.data_ptr(), buckets.shape[0], perm.data_ptr(),
+        row_len.data_ptr(), perm.shape[0], ei_bit,
+        torch.cuda.current_stream(dev).cuda_stream)
+    gse_spmv_sell_f64_warp.launches += 1
+    _raise_on(rc, "gse_spmv_sell_f64_warp")
+    return y
+
+
 KERNELS = (gse_spmv_ell_f32, gse_spmv_csr_f64, gse_spmv_sell_f32,
-           gse_spmv_sell_f64)
+           gse_spmv_sell_f64, gse_spmv_sell_f64_warp)
 
 
 def reset_launch_counts():

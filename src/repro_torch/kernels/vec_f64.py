@@ -55,7 +55,7 @@ from repro_torch.kernels import _build
 __all__ = ["seq_dot", "seq_dot_plain", "fma_axpy", "fma_axpy_plain",
            "seq_dot_cols", "seq_dot_cols_plain", "fma_axpy_cols",
            "fma_axpy_cols_plain", "ref_norm_cols", "sqrt_rn", "KERNELS",
-           "reset_launch_counts"]
+           "reset_launch_counts", "chain_latency"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
@@ -64,6 +64,8 @@ _ARGTYPES = {
     "seq_dot_cols_f64": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P],
     "fma_axpy_cols_f64": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                           _P],
+    "chain_probe_f64": [ctypes.c_int, ctypes.c_longlong, ctypes.c_double,
+                        ctypes.c_double, _P, _P],
 }
 _BOUND = {}
 _SPLIT = 134217729.0  # 2**27 + 1: Veltkamp's splitter for f64
@@ -378,6 +380,39 @@ def ref_norm_cols(v: torch.Tensor, *, device="cuda") -> torch.Tensor:
     for i in range(s.shape[1]):
         acc = acc + s[:, i]
     return sqrt_rn(acc)
+
+
+def chain_latency(op: str, n: int = 1 << 22, reps: int = 3) -> dict:
+    """One dependent FP64 chain of ``n`` steps from registers on the card
+    (one thread): ``op`` "add" (``__dadd_rn``, the f64 SpMV rows' chain)
+    or "fma" (``__fma_rn``, ``seq_dot``'s).  Returns the fastest of
+    ``reps`` runs as ``ns`` per step (CUDA events around one launch) and
+    ``clocks`` per step (the SM's clock64).  A measurement, not a kernel
+    of any path; there is no CPU version."""
+    if op not in ("add", "fma"):
+        raise ValueError(f"op must be 'add' or 'fma', got {op!r}")
+    if n <= 0 or n % 8:
+        raise ValueError(f"n must be a positive multiple of 8, got {n}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("chain_latency measures the card: no CUDA device")
+    out = torch.empty(2, dtype=torch.float64, device="cuda")
+    stream = torch.cuda.current_stream()
+    best = None
+    for _ in range(reps + 1):  # the first run loads the module
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = _fn("chain_probe_f64")(0 if op == "add" else 1, n,
+                                    0.999999999, 1e-3, out.data_ptr(),
+                                    stream.cuda_stream)
+        end.record()
+        _raise_on(rc, "chain_probe_f64")
+        end.synchronize()
+        ns = start.elapsed_time(end) * 1e6 / n
+        clocks = float(out[1]) / n
+        if best is None or ns < best["ns"]:
+            best = {"ns": ns, "clocks": clocks}
+    return best
 
 
 KERNELS = (seq_dot, fma_axpy, seq_dot_cols, fma_axpy_cols)

@@ -177,7 +177,9 @@ class GSESellC:
     bucket; ``bucket_table`` -- ``(n_buckets, 3)`` int64 rows ``[first
     bucket row, width, flat slot offset]``; ``row_len`` -- each bucket
     row's real entry count, ``rowptr``'s row lengths at ``perm`` (0 for
-    padding rows), so the f64 kernels walk only real slots.
+    padding rows), so the f64 kernels walk only real slots; ``long_from``
+    -- :func:`sell_long_from` of the buckets, the first bucket row that
+    kernel B64 runs with a block of its own.
     """
 
     colpak: tuple   # per-bucket (rows_b, w_b) uint32
@@ -198,6 +200,7 @@ class GSESellC:
     segments: tuple            # flat (slots,) colpak, head, tail1, tail2
     bucket_table: torch.Tensor  # (n_buckets, 3) int64
     row_len: torch.Tensor      # (rows_padded,) int32
+    long_from: int
 
     @property
     def nnz(self) -> int:
@@ -454,6 +457,25 @@ def sell_slices(rowptr, c: int = 8, sigma: int | None = None,
     return order, bucket_w, sigma
 
 
+# Bucket widths from which kernel B64 (csrc/gse_sell.cu) gives each row a
+# block of its own.  Unmeasured between the widths the cells hold: a block
+# beats a warp at 262,144 slots, and a warp is kept at 256 and below.
+B64_BLOCK_WIDTH = 2048
+
+
+def sell_long_from(widths, bucket_rows) -> int:
+    """The first bucket row of the buckets at least ``B64_BLOCK_WIDTH``
+    wide (the total of ``bucket_rows`` if none is): B64 runs the rows from
+    there on with a block each.  ``widths`` ascend, as ``pack_sell``
+    orders its buckets, so those rows are the last ones."""
+    widths, bucket_rows = tuple(widths), tuple(bucket_rows)
+    if len(widths) != len(bucket_rows) or list(widths) != sorted(widths):
+        raise ValueError(f"widths {widths} must ascend, one per bucket of "
+                         f"{bucket_rows}")
+    return sum(r for w, r in zip(widths, bucket_rows)
+               if w < B64_BLOCK_WIDTH)
+
+
 def pack_sell(a: GSECSR, c: int = 8, sigma: int | None = None,
               lane: int = 128, bucket: str = "pow2") -> GSESellC:
     """GSE-SEM CSR -> SELL-C-sigma packed layout on ``a``'s device.
@@ -516,4 +538,5 @@ def pack_sell(a: GSECSR, c: int = 8, sigma: int | None = None,
         bucket_table=torch.tensor(table_rows, dtype=torch.int64,
                                   device=dev).reshape(-1, 3),
         row_len=i32(row_len),
+        long_from=sell_long_from(widths, [len(p) for p in perm_parts]),
     )

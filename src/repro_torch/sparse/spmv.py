@@ -126,9 +126,10 @@ def spmv_gse(a, x: torch.Tensor, tag=1) -> torch.Tensor:
         raise ValueError(f"x has shape {tuple(x.shape)}, the operand "
                          f"{a.shape[1]} columns")
     if isinstance(a, GSESellC):
-        return gse_spmv_sell_f64(*a.segments, a.table, x, a.bucket_table,
-                                 a.perm, a.row_len, rows=a.shape[0],
-                                 ei_bit=a.ei_bit, tag=tag)
+        return gse_spmv_sell_f64(
+            *a.segments, a.table, x, a.bucket_table, a.perm, a.row_len,
+            rows=a.shape[0], ei_bit=a.ei_bit, tag=tag,
+            long_from=a.long_from)
     return gse_spmv_csr_f64(a.rowptr, a.colpak, a.head, a.tail1, a.tail2,
                             a.table, x, ei_bit=a.ei_bit, tag=tag)
 

@@ -6,8 +6,9 @@ to.
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference/lm_serve_ref.py
 
 JAX on the CPU at ``compute_dtype=float32``, for the dense model and for
-``gse_serve`` at tags 1 and 2.  The params are ``chip_smoke.lm_tree_np``'s
-numpy tree (seed ``LM_SEED``); under ``gse_serve`` each layer's linear
+``gse_serve`` at tags 1 and 2, and at ``compute_dtype=bfloat16`` (the
+served dtype) for ``gse_serve`` at tag 2 (``tag2_bf16``).  The params
+are ``chip_smoke.lm_tree_np``'s numpy tree (seed ``LM_SEED``); under ``gse_serve`` each layer's linear
 weights are packed with the reference's ``extract_shared_exponents_jnp``
 and ``pack32_jnp``, one table per layer, as its ``init_params`` does.
 Two requests of ``LM_TWIN["prompt"]`` tokens go through
@@ -42,7 +43,9 @@ from repro.models import stepfns  # noqa: E402
 from repro.models import transformer as T  # noqa: E402
 
 VARIANTS = {"dense": {}, "tag1": dict(gse_serve=True, gse_tag=1),
-            "tag2": dict(gse_serve=True, gse_tag=2)}
+            "tag2": dict(gse_serve=True, gse_tag=2),
+            "tag2_bf16": dict(gse_serve=True, gse_tag=2,
+                              compute_dtype=jnp.bfloat16)}
 ROWS = 256  # rows of a weight packed per pack32_jnp call
 
 

@@ -16,8 +16,13 @@ script separates the two, on the card:
 E (``gse_matmul_dense``) at M = ``--batch`` with bf16 x on every linear of
 a decode step and the unembedding, on the model's own segments (weights
 drawn on the card from a seed and packed by ``pack_linear_weight`` at
-``--gse-tag``), beside the earlier GEMV design (``gse_matmul_dense_gemv64``)
-and ``torch.matmul`` on the decoded f32 weight (TF32 off); F
+``--gse-tag``), beside ``torch.matmul`` on the decoded f32 weight (TF32
+off); E's tiled body (``matmul_tc_kernel``, split TF32 on the tensor
+cores) at prefill's M = ``PREFILL_ROWS`` (B 4 x S 512, as
+``chip_smoke.py`` serves) on every linear of a layer, bf16 x,
+beside the earlier FFMA tile (``gse_matmul_dense_tiled64``) and the same
+``torch.matmul``, with its bound on the TF32 tensor cores (495 TFLOP/s
+times the two TF32 terms of a bf16 x) and the FP32 bound (67 TFLOP/s); F
 (``flash_attention_gqa``) in bf16 at B 4, H 32, KV 8, hd 128, causal, S = T
 2048 and 512, beside scaled_dot_product_attention.  Prints one JSON object
 (last line).  Needs a CUDA device.
@@ -35,6 +40,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+
+PREFILL_ROWS = 4 * 512  # M of prefill's linears: batch 4 x prompt 512
 
 
 def _event_ms(fn, reps: int, inner: int = 10) -> float:
@@ -129,7 +136,8 @@ def main() -> int:
     shapes = {"wq": (d, q_n), "wk_wv": (d, kv_n), "wo": (q_n, d),
               "w_gate_w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d),
               "unembed": (d, cfg.padded_vocab)}
-    out = {"gse_tag": args.gse_tag, "batch": args.batch, "e": {}, "f": {}}
+    out = {"gse_tag": args.gse_tag, "batch": args.batch, "e": {},
+           "e_tiled": {}, "f": {}}
     for name, (kk, n) in shapes.items():
         vals = torch.randn((kk, n), generator=gen, device=dev) / math.sqrt(kk)
         w = pack_linear_weight(vals, cfg)
@@ -149,12 +157,32 @@ def main() -> int:
                          + args.batch * (kk * 2 + n * 4)) / 3.35e12 * 1e3,
             "kernel": _times(lambda: E.gse_matmul_dense(
                 x, *segs, ei_bit=ei, tag=tag), args.reps, host=True),
-            "earlier": _times(lambda: E.gse_matmul_dense_gemv64(
-                x, *segs, ei_bit=ei, tag=tag), args.reps),
             "library": _times(lambda: torch.matmul(x32, w32), args.reps,
                               host=True),
         }
         print(json.dumps({name: out["e"][name]}), flush=True)
+        if name != "unembed":
+            m = PREFILL_ROWS
+            xp32 = torch.randn((m, kk), generator=gen, device=dev)
+            xp = xp32.to(torch.bfloat16)
+            ops = 2 * m * n * kk
+            nbytes = (kk * n * TAG_VALUE_BYTES[tag] + sc.numel() * 4
+                      + m * (kk * 2 + n * 4))
+            out["e_tiled"][name] = {
+                "shape": [m, kk, n],
+                "bound_ms": max(E.tiled_terms(xp.dtype) * ops / 495e12,
+                                nbytes / 3.35e12) * 1e3,
+                "fp32_bound_ms": ops / 67e12 * 1e3,
+                "kernel": _times(lambda: E.gse_matmul_dense(
+                    xp, *segs, ei_bit=ei, tag=tag), args.reps, host=True),
+                "earlier": _times(lambda: E.gse_matmul_dense_tiled64(
+                    xp, *segs, ei_bit=ei, tag=tag), args.reps),
+                "library": _times(lambda: torch.matmul(xp32, w32),
+                                  args.reps),
+            }
+            print(json.dumps({f"tiled_{name}": out["e_tiled"][name]}),
+                  flush=True)
+            del xp, xp32
         del w, w32
     for s in (2048, 512):
         q = torch.randn((4, s, 32, 128), generator=gen, device=dev).to(
