@@ -21,7 +21,8 @@ Phases:
                   (about 17.8M nonzeros): A32 against its plain version
                   within rtol 2e-5 / atol 1e-4 (the plain version repeats
                   the kernel's sum order, so it is expected bitwise), A64
-                  bitwise, tags 1-3; the CG loop's dot (seq_dot) and
+                  bitwise (every row in row blocks: the longest has 35
+                  entries), tags 1-3; the CG loop's dot (seq_dot) and
                   update (fma_axpy) bitwise on 2^20-long vectors.  Kernel
                   C at nrhs = 4: C32 against its plain version (same
                   tolerance, bitwise expected) and at nrhs = 1 bitwise A32;
@@ -40,7 +41,8 @@ Phases:
   4. main path -- launch counts zeroed; the f32 SpMV at tags 1-3 and
                   stepped CG (tol 1e-8, MonitorParams(40, 60, 30),
                   maxiter 20000, default guards) on the full-size matrix;
-                  every kernel must have launched.
+                  every kernel must have launched, and every body of A64
+                  that the pack's row plan holds.
   5. service trajectory -- rs8_400_s3 (diag_rescale(random_spd(400, seed=3),
                   8, 3), three requests, slots=4) through SolverService on
                   the GPU: at maxiter 20000 the reports equal the
@@ -60,7 +62,10 @@ Phases:
                   plain version (same tolerance, bitwise expected) and
                   bitwise A32; B64 bitwise A64 and its plain version; C′32
                   and C′64 likewise against C32 and C64 at nrhs 4 (C′64
-                  with mixed tags); tags 1-3.
+                  with mixed tags); A64 bitwise its plain version; tags
+                  1-3.  A64's three bodies (row blocks, warp rows, the
+                  hubs' block chains) and C′64's two (the hubs' block
+                  chains, warp rows) must have launched.
   8. sell trajectory -- sk512_rs8_s0 (diag_rescale(skewed_spd(512,
                   seed=0), 8, 0)) over its SELL pack: solve_cg on the GPU
                   and on the CPU twin (1498 iterations, tag 3, [210, 300];
@@ -88,7 +93,9 @@ Phases:
                   layout="sell") with three requests: request 0 bitwise
                   the solo SELL solve (and retry), all converge, health
                   ok, no errors; every kernel of the path must have
-                  launched.
+                  launched, and every body of A64 (in the 256 CSR
+                  iterations) and of C′64 (in the service) that the
+                  row plan and the SELL pack hold.
   11. lm kernels -- kernels D, E and F against their plain versions at
                   qwen3_4b's full-width shapes: D bitwise (f32 and bf16
                   out) on gse.pack packs shaped like wq (2560, 4096) and
@@ -147,21 +154,26 @@ Phases:
                   for D); the SELL kernels and A64 on phase 9's operator,
                   D, E and F at phase 11's shapes with the launches of
                   phases 13 (E, F's tensor-core body), 12 (F's FFMA body)
-                  and 14 (D).  E's GEMV rows at tag 2, x bf16, M 4, E's
-                  tiled rows (every prefill shape at M 2048, tags 1-3, x
-                  bf16 and f32), B64's rows and F's bf16 row at S = 2048
-                  carry `earlier_ms`, the earlier design's time on the
-                  same inputs (E's one block per 64 columns, E's 64 x 64
-                  FFMA tile, B64 with every row on one warp, F's FFMA
-                  body); E's tiled rows are bound by the TF32 tensor cores
-                  (495 TFLOP/s per TF32 term) and F's bf16 rows by the
-                  bf16 tensor cores (989 TFLOP/s), with `fp32_bound_ms`
-                  beside.  First a probe times a dependent FP64 add chain
+                  and 14 (D).  F's bf16 row at S = 2048 carries
+                  `earlier_ms`, the FFMA body's time on the same inputs;
+                  A64's and C′64's rows carry their launches per body
+                  (`body_launches`); E's tiled rows are bound by the
+                  TF32 tensor cores (495 TFLOP/s per TF32 term) and F's
+                  bf16 rows by the bf16 tensor cores (989 TFLOP/s), with
+                  `fp32_bound_ms` beside.  First a probe times a dependent FP64 add chain
                   and FMA chain from registers (vec_f64.chain_latency);
                   the f64 kernels held to the reference's summation order
                   (A64, B64, C64, C′64, seq_dot, seq_dot_cols) carry
                   `chain_bound_ms`: their longest chain times that
-                  latency.
+                  latency.  Then the width sweep: a synthetic GSE CSR
+                  of 2^22 entries per row length (and of 8 rows at the
+                  block lengths), every row on one body of A64 at a time
+                  (the bodies B64 shares), each held bitwise to the plain
+                  version at tags 1-3, then timed at tags 1 and 3: the
+                  block body against the warp body at 512-65,536
+                  entries, the row-block body against the warp body at
+                  8-512; the crossovers set sparse/csr.py's
+                  A64_WARP_LEN, A64_BLOCK_LEN and B64_BLOCK_WIDTH.
 
 The line before the last two is the ``{"kernels": [...]}`` JSON record,
 the line before the last the card's name and power limit, the last line
@@ -300,6 +312,29 @@ def require_bitwise(name, got, want):
         raise AssertionError(f"{name} is not bitwise equal to its reference")
 
 
+def a64_bodies(g) -> list:
+    """The bodies of kernel A64 that the row plan of ``g`` runs."""
+    from repro_torch.kernels.gse_spmv import A64_BODIES
+
+    plan = g.row_plan
+    parts = (plan.long_rows, plan.warp_rows, plan.row_blocks)
+    return [b for b, t in zip(A64_BODIES, parts) if t.shape[0]]
+
+
+def c64_bodies(sell) -> list:
+    """The bodies of kernel C′64 that the SELL pack ``sell`` runs."""
+    return [b for b, n in (("block", sell.perm.shape[0] - sell.long_from),
+                           ("warp", sell.long_from)) if n]
+
+
+def require_bodies(where, launched: dict, bodies):
+    """Every body in ``bodies`` launched (``launched``: body_launches)."""
+    missing = [b for b in bodies if launched[b] <= 0]
+    if missing:
+        raise AssertionError(f"{where}: bodies {missing} never launched "
+                             f"({launched})")
+
+
 def rs8_400_s3(device):
     from repro_torch.sparse import generators as G
 
@@ -379,7 +414,8 @@ def sell_against_uniform(case, g, ell, sell, x32, x64, x32c, x64c, scales):
         f"{case}: C′64 against C64",
         C.gse_spmm_sell_f64(*sell.segments, sell.table, x64c, tags, active,
                             sell.bucket_table, sell.perm, sell.row_len,
-                            rows=g.shape[0], ei_bit=g.ei_bit, device=dev),
+                            rows=g.shape[0], ei_bit=g.ei_bit,
+                            long_from=sell.long_from, device=dev),
         C.gse_spmm_csr_f64(*segs, x64c, tags, active, ei_bit=g.ei_bit,
                            device=dev))
     log("parity", case=case, layout="sell", widths=list(sell.widths),
@@ -398,8 +434,11 @@ def phase_sell_parity():
     from repro_torch.kernels import gse_spmm as C, gse_spmv as K, ops, ref
     from repro_torch.sparse import generators as G
     from repro_torch.sparse.csr import ell_layout, pack_csr
+    from repro_torch.sparse.spmv import spmv_gse
 
     dev = torch.device("cuda")
+    K.reset_launch_counts()
+    C.reset_launch_counts()
     t0 = time.perf_counter()
     g = pack_csr(G.skewed_spd(8192, seed=0, device=dev))
     sell = ops.sell_pack_gsecsr(g)
@@ -453,11 +492,24 @@ def phase_sell_parity():
                  row_len=sell.row_len, rows=m, ei_bit=g.ei_bit)
     require_bitwise("C′64 against its plain version",
                     C.gse_spmm_sell_f64(*segs, g.table, x64c, tags, active,
-                                        device=dev, **lay64),
+                                        long_from=sell.long_from, device=dev,
+                                        **lay64),
                     C.gse_spmm_sell_f64_plain(*segs, g.table, x64c, tags,
                                               active, **lay64))
+    for t in TAGS:
+        require_bitwise(f"A64 tag {t} against its plain version",
+                        spmv_gse(g, x64, t),
+                        K.gse_spmv_csr_f64_plain(
+                            g.rowptr, g.colpak, g.head, g.tail1, g.tail2,
+                            g.table, x64, ei_bit=g.ei_bit, tag=t))
+    a64_launched = dict(K.gse_spmv_csr_f64.body_launches)
+    c64_launched = dict(C.gse_spmm_sell_f64.body_launches)
+    require_bodies("phase 7: A64", a64_launched, a64_bodies(g))
+    require_bodies("phase 7: C′64", c64_launched, c64_bodies(sell))
     log("sell_parity", kernel="gse_spmm_sell_f64", tags=[1, 2, 3, 1],
-        active=[True, True, True, False], bitwise_plain=True)
+        active=[True, True, True, False], bitwise_plain=True,
+        a64_bitwise_plain=True, a64_body_launches=json.dumps(a64_launched),
+        c64_body_launches=json.dumps(c64_launched))
 
 
 def phase_sell_trajectory(params):
@@ -633,7 +685,8 @@ def phase_sell_full(params):
         "full size: C′64 against C64",
         C.gse_spmm_sell_f64(*sell.segments, g.table, x64c, mixed, active,
                             sell.bucket_table, sell.perm, sell.row_len,
-                            rows=m, ei_bit=g.ei_bit, device=dev),
+                            rows=m, ei_bit=g.ei_bit, long_from=sell.long_from,
+                            device=dev),
         C.gse_spmm_csr_f64(g.rowptr, g.colpak, g.head, g.tail1, g.tail2,
                            g.table, x64c, mixed, active, ei_bit=g.ei_bit,
                            device=dev))
@@ -744,6 +797,8 @@ def phase_sell_full(params):
         "b32": b32_launches, "c32": c32_launches,
         "b64": K.gse_spmv_sell_f64.launches,
         "c64": C.gse_spmm_sell_f64.launches, "a64": a64_launches,
+        "gse_spmv_csr_f64_bodies": dict(K.gse_spmv_csr_f64.body_launches),
+        "gse_spmm_sell_f64_bodies": dict(C.gse_spmm_sell_f64.body_launches),
         "seq_dot": V.seq_dot.launches,
         "seq_dot_cols": V.seq_dot_cols.launches}
     log("sell", service="layout=sell", rows=m, slots=NRHS,
@@ -756,7 +811,10 @@ def phase_sell_full(params):
         flush_s=f"{serve_wall:.2f}",
         b32_launches=sum(b32_launches.values()),
         c32_launches=sum(c32_launches.values()), b64_launches=counts["b64"],
-        c64_launches=counts["c64"])
+        c64_launches=counts["c64"],
+        c64_body_launches=json.dumps(counts["gse_spmm_sell_f64_bodies"]),
+        a64_launches=counts["a64"],
+        a64_body_launches=json.dumps(counts["gse_spmv_csr_f64_bodies"]))
     got0 = {k: getattr(reps[0], k) for k in want0}
     if got0 != want0 or reps[0].switch_iters.tolist() != \
             res.switch_iters.tolist():
@@ -768,9 +826,13 @@ def phase_sell_full(params):
             raise AssertionError(f"full-size SELL request {r.id}: {r}")
     if svc.stats["errors"] != 0:
         raise AssertionError(f"service errors: {svc.stats}")
-    if min(counts["b64"], counts["c64"], *b32_launches.values(),
-           *c32_launches.values()) <= 0:
+    if min(counts["b64"], counts["c64"], counts["a64"],
+           *b32_launches.values(), *c32_launches.values()) <= 0:
         raise AssertionError("a kernel of the SELL path never launched")
+    require_bodies("phase 9: A64 (256 CSR iterations)",
+                   counts["gse_spmv_csr_f64_bodies"], a64_bodies(g))
+    require_bodies("phase 9: C′64 (the service)",
+                   counts["gse_spmm_sell_f64_bodies"], c64_bodies(sell))
     return dict(csr=csr, g=g, sell=sell, x32=x32, x32c=x32c, counts=counts,
                 b32_err=b32_err, c32_err=c32_err, scales=scales,
                 longest=longest)
@@ -779,12 +841,16 @@ def phase_sell_full(params):
 def sell_entries(ctx, add_entry, chain_bound_ms):
     """Phase 10's entries for kernels B and C′ (and A64) on phase 9's
     operator; ``chain_bound_ms`` is the f64 kernels' chain bound there
-    (the longest row's dependent adds).  B64 carries ``earlier_ms``, the
-    earlier design (every row on one warp) on the same inputs."""
+    (the longest row's dependent adds).  A64 and C′64 carry their launches
+    per body in phase 9's run (``body_launches``).  A64, B64 and C′64 also
+    carry their time split by body: ``long_rows_ms`` (the long rows' block
+    chains alone), ``other_rows_ms`` (every other row alone), and C′64
+    ``one_column_ms`` (every row, one active column of four)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import gse_spmm as C, gse_spmv as K, ref
+    from repro_torch.sparse.csr import RowPlan
     from repro_torch.sparse.spmv import decode_gsecsr
 
     g, sell, counts = ctx["g"], ctx["sell"], ctx["counts"]
@@ -803,6 +869,18 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
     lay64 = dict(lay, row_len=sell.row_len)
     long_from = sell.long_from
     csr_args = (g.rowptr, g.colpak, g.head, g.tail1, g.tail2, g.table)
+    # The parts of the split: A64 under a plan holding only some rows,
+    # B64 and C′64 with the other rows' perm set to -1 (skipped).
+    plan, none = g.row_plan, g.row_plan.long_rows[:0]
+    perm_long, perm_other = sell.perm.clone(), sell.perm.clone()
+    perm_long[:long_from] = -1
+    perm_other[long_from:] = -1
+    parts = {"long_rows": (RowPlan(plan.long_rows, none, plan.row_blocks[:0],
+                                   plan.rows), perm_long),
+             "other_rows": (RowPlan(none, plan.warp_rows, plan.row_blocks,
+                                    plan.rows), perm_other)}
+    one_on = torch.zeros(NRHS, dtype=torch.bool, device=dev)
+    one_on[0] = True
     src = "src/repro_torch/kernels/csrc/gse_sell.cu"
     spmv_src = "src/repro_torch/kernels/csrc/gse_spmv.cu"
     for t in TAGS:
@@ -822,15 +900,14 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
             ("B64", K.gse_spmv_sell_f64(*segs, g.table, x64, tag=t,
                                         long_from=long_from, **lay64),
              K.gse_spmv_sell_f64_plain(*segs, g.table, x64, tag=t, **lay64)),
-            ("B64's earlier design",
-             K.gse_spmv_sell_f64_warp(*segs, g.table, x64, tag=t, **lay64),
-             K.gse_spmv_sell_f64_plain(*segs, g.table, x64, tag=t, **lay64)),
             ("C′64", C.gse_spmm_sell_f64(*segs, g.table, x64c, tags_t, all_on,
-                                         device=dev, **lay64),
+                                         long_from=long_from, device=dev,
+                                         **lay64),
              C.gse_spmm_sell_f64_plain(*segs, g.table, x64c, tags_t, all_on,
                                        **lay64)),
             ("A64 on the skewed CSR",
-             K.gse_spmv_csr_f64(*csr_args, x64, ei_bit=g.ei_bit, tag=t),
+             K.gse_spmv_csr_f64(*csr_args, x64, ei_bit=g.ei_bit, tag=t,
+                                plan=g.row_plan),
              K.gse_spmv_csr_f64_plain(*csr_args, x64, ei_bit=g.ei_bit,
                                       tag=t)))
         errs64 = {}
@@ -839,6 +916,24 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
                             "version", got, want)
             errs64[what] = float((got - want).abs().max())
         del pairs
+        split = {}
+        for part, (plan_p, perm_p) in parts.items():
+            lay_p = dict(lay64, perm=perm_p)
+            for name, fn in (
+                ("gse_spmv_csr_f64.skewed", lambda: K.gse_spmv_csr_f64(
+                    *csr_args, x64, ei_bit=g.ei_bit, tag=t, plan=plan_p)),
+                ("gse_spmv_sell_f64", lambda: K.gse_spmv_sell_f64(
+                    *segs, g.table, x64, tag=t, long_from=long_from,
+                    **lay_p)),
+                ("gse_spmm_sell_f64", lambda: C.gse_spmm_sell_f64(
+                    *segs, g.table, x64c, tags_t, all_on,
+                    long_from=long_from, device=dev, **lay_p))):
+                split.setdefault(name, {})[f"{part}_ms"] = cuda_ms(
+                    fn, reps=5, inner=4)
+        split["gse_spmm_sell_f64"]["one_column_ms"] = cuda_ms(
+            lambda: C.gse_spmm_sell_f64(*segs, g.table, x64c, tags_t, one_on,
+                                        long_from=long_from, device=dev,
+                                        **lay64), reps=5, inner=4)
         b64_err, c64_err = errs64["B64"], errs64["C′64"]
         a64_err = errs64["A64 on the skewed CSR"]
         c32_err = ctx["c32_err"][t]
@@ -877,7 +972,8 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
              FP32_OPS_PER_S, c32_err, counts["c32"][t]),
             ("gse_spmm_sell_f64", src, "src/repro/kernels/gse_spmm.py:155",
              lambda: C.gse_spmm_sell_f64(*segs, g.table, x64c, tags_t, all_on,
-                                         device=dev, **lay64),
+                                         long_from=long_from, device=dev,
+                                         **lay64),
              lambda: C.gse_spmm_sell_f64_plain(*segs, g.table, x64c, tags_t,
                                                all_on, **lay64),
              lambda: torch.mm(lib64, x64n),
@@ -886,7 +982,7 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
             ("gse_spmv_csr_f64.skewed", spmv_src,
              "src/repro/kernels/gse_spmv.py:160",
              lambda: K.gse_spmv_csr_f64(*csr_args, x64, ei_bit=g.ei_bit,
-                                        tag=t),
+                                        tag=t, plan=g.row_plan),
              lambda: K.gse_spmv_csr_f64_plain(*csr_args, x64,
                                               ei_bit=g.ei_bit, tag=t),
              lambda: torch.mv(lib64, x64),
@@ -901,16 +997,124 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
             if name.endswith("f64") or name.endswith("skewed"):
                 extra["launches_all_tags"] = True  # the tag is chosen on device
                 extra["chain_bound_ms"] = chain_bound_ms
-            if name == "gse_spmv_sell_f64":
-                extra["earlier_ms"] = cuda_ms(
-                    lambda: K.gse_spmv_sell_f64_warp(*segs, g.table, x64,
-                                                     tag=t, **lay64),
-                    reps=5, inner=4)
-                extra["earlier_design"] = "spmv_sell_f64_warp_kernel"
+            if name in ("gse_spmm_sell_f64", "gse_spmv_csr_f64.skewed"):
+                extra["body_launches"] = counts[name.split(".")[0] +
+                                                "_bodies"]
+            extra.update(split.get(name, {}))
             add_entry(f"{name}.tag{t}", source, replaces, launch, plain, lib,
                       nbytes, nops / ops_rate * 1e3, plain_reps=1, reps=5,
                       inner=4, **extra)
         del lib32, lib64, vals32, vals64, cols
+
+
+# Phase 10's width sweep: one synthetic operator per row length, each row
+# run by one of A64's bodies (and B64's, which share them) at a time.
+SWEEP_BLOCK = (512, 1024, 2048, 4096, 8192, 16384, 65536)  # block vs warp
+SWEEP_SHORT = (8, 16, 32, 64, 128, 256, 512)  # row block vs warp
+SWEEP_SLOTS = 1 << 22  # entries of each synthetic operator
+SWEEP_FEW = 8  # rows of the few-row operators (a skewed operator's hubs)
+SWEEP_TAGS = (1, 3)
+
+
+def sweep_operator(length: int, seed: int, dev, rows: int | None = None):
+    """A synthetic GSE-SEM CSR of ``rows`` (default ``SWEEP_SLOTS //
+    length``) rows of ``length`` entries each, over 2^20 columns at k = 8:
+    columns, exponent indices and segments drawn from numpy's
+    ``default_rng(seed)``, the table's exponents near 1023.  Returns
+    (rowptr, segments, table, x)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rows = SWEEP_SLOTS // length if rows is None else rows
+    n, ei_bit = N_FULL, 3
+    nnz = rows * length
+    colpak = (rng.integers(0, 1 << ei_bit, nnz, dtype=np.uint32)
+              << np.uint32(32 - ei_bit)) | rng.integers(0, n, nnz,
+                                                      dtype=np.uint32)
+    segs = (colpak, rng.integers(0, 1 << 16, nnz, dtype=np.uint16),
+            rng.integers(0, 1 << 16, nnz, dtype=np.uint16),
+            rng.integers(0, 1 << 32, nnz, dtype=np.uint32))
+    rowptr = np.arange(rows + 1, dtype=np.int32) * length
+    table = rng.integers(1020, 1028, 1 << ei_bit, dtype=np.int32)
+
+    def dev_t(a):
+        return torch.from_numpy(a).to(dev)
+
+    return (dev_t(rowptr), tuple(dev_t(a) for a in segs), dev_t(table),
+            dev_t(rng.normal(size=n)))
+
+
+def width_sweep(dev) -> dict:
+    """Phase 10's width sweep: A64 with every row on one body, the block
+    body against the warp body at SWEEP_BLOCK's lengths (on 2^22 entries,
+    and on SWEEP_FEW rows, where a row's chain is the whole call) and the
+    row-block body against the warp body at SWEEP_SHORT's, tags 1 and 3,
+    each held bitwise to the plain version at tags 1-3 first.  Returns
+    ``{(length, rows): {tag: {body: ms}}}`` and logs the crossovers."""
+    from repro_torch.kernels import gse_spmv as K
+    from repro_torch.sparse.csr import ROW_BLOCK_SLOTS, csr_row_plan
+
+    never = 1 << 31
+    plans = {"block": dict(warp_len=1, block_len=1),
+             "warp": dict(warp_len=1, block_len=never),
+             "row_block": dict(warp_len=ROW_BLOCK_SLOTS + 1, block_len=never)}
+    out = {}
+    cases = [(length, SWEEP_SLOTS // length) for length in
+             sorted(set(SWEEP_BLOCK) | set(SWEEP_SHORT))]
+    cases += [(length, SWEEP_FEW) for length in SWEEP_BLOCK]
+    for length, rows in cases:
+        rowptr, segs, table, x = sweep_operator(length, length, dev, rows)
+        bodies = ["warp"] + (["block"] if length in SWEEP_BLOCK else []) + (
+            ["row_block"] if length in SWEEP_SHORT and rows > SWEEP_FEW
+            else [])
+        res = out[length, rows] = {}
+        for t in TAGS:
+            want = K.gse_spmv_csr_f64_plain(rowptr, *segs, table, x,
+                                            ei_bit=3, tag=t)
+            res[t] = {}
+            for body in bodies:
+                plan = csr_row_plan(rowptr, **plans[body])
+
+                def run():
+                    return K.gse_spmv_csr_f64(rowptr, *segs, table, x,
+                                              ei_bit=3, tag=t, plan=plan)
+
+                require_bitwise(f"sweep: A64's {body} body at length "
+                                f"{length}, {rows} rows, tag {t}", run(),
+                                want)
+                if t in SWEEP_TAGS:
+                    res[t][body] = cuda_ms(run, reps=5, inner=4)
+            log("sweep", length=length, rows=rows, tag=t, bitwise_plain=True,
+                **{f"{b}_ms": f"{ms:.4f}" for b, ms in res[t].items()})
+            del want
+
+    def wins(lengths, rows, body):
+        return [length for length in lengths
+                if all(out[length, rows(length)][t][body] <
+                       out[length, rows(length)][t]["warp"]
+                       for t in SWEEP_TAGS)]
+
+    # The shortest length from which the block beats the warp at every
+    # longer length of the sweep, and the longest up to which the row block
+    # does, at both tags.
+    def block_from(rows):
+        won = wins(SWEEP_BLOCK, rows, "block")
+        return next((length for length in SWEEP_BLOCK
+                     if all(m in won for m in SWEEP_BLOCK if m >= length)),
+                    None)
+
+    short_won = wins(SWEEP_SHORT, lambda length: SWEEP_SLOTS // length,
+                     "row_block")
+    log("sweep", block_beats_warp_from=block_from(
+            lambda length: SWEEP_SLOTS // length),
+        block_beats_warp_from_few_rows=block_from(lambda length: SWEEP_FEW),
+        row_block_beats_warp_up_to=max(
+            (length for length in SWEEP_SHORT
+             if all(m in short_won for m in SWEEP_SHORT if m <= length)),
+            default=None),
+        slots=SWEEP_SLOTS, few_rows=SWEEP_FEW, tags=list(SWEEP_TAGS))
+    return out
 
 
 # --- the LM serving path (phases 11-14) -------------------------------------
@@ -1728,11 +1932,6 @@ def lm_entries(ctx, counts, twin_counts, add_entry):
         ops = 2 * m * n * kk + kk * n * DECODE_OPS[t]
         op_ms = ops / FP32_OPS_PER_S * 1e3
         if not gemv:
-            # The earlier tiled design (FFMA) on the same inputs, this card.
-            extra["earlier_ms"] = cuda_ms(
-                lambda: E.gse_matmul_dense_tiled64(x, *segs, ei_bit=ei,
-                                                   tag=t), reps=3, inner=2)
-            extra["earlier_design"] = "matmul_tiled64_kernel (FFMA)"
             # Bound by the TF32 tensor cores, one pass per TF32 term (the
             # decode's FP32 operations run beside them); the FP32 bound is
             # what an FFMA body can reach.
@@ -1884,7 +2083,8 @@ def main() -> int:
         a32_err[t] = float((got - want).abs().max())
         a32_bitwise = torch.equal(got.view(torch.int32), want.view(torch.int32))
         args = (g.rowptr, g.colpak, g.head, g.tail1, g.tail2, g.table, x64)
-        got = K.gse_spmv_csr_f64(*args, ei_bit=g.ei_bit, tag=t)
+        got = K.gse_spmv_csr_f64(*args, ei_bit=g.ei_bit, tag=t,
+                                 plan=g.row_plan)
         want = K.gse_spmv_csr_f64_plain(*args, ei_bit=g.ei_bit, tag=t)
         if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
             bad = int((got.view(torch.int64) != want.view(torch.int64)).sum())
@@ -1943,7 +2143,7 @@ def main() -> int:
     for j in range(3):
         require_bitwise(f"C64 column {j} against A64 at tag {j + 1}", got[j],
                         K.gse_spmv_csr_f64(*segs, x64c[j], ei_bit=g.ei_bit,
-                                           tag=j + 1))
+                                           tag=j + 1, plan=g.row_plan))
     if not bool((got[3] == 0).all()):
         raise AssertionError("C64 wrote an inactive column")
     log("parity", kernel="gse_spmm_csr_f64", tags=[1, 2, 3, 1],
@@ -2016,6 +2216,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     a64_launches = K.gse_spmv_csr_f64.launches
+    a64_body_launches = dict(K.gse_spmv_csr_f64.body_launches)
     vec_launches = {"seq_dot": V.seq_dot.launches,
                     "fma_axpy": V.fma_axpy.launches}
     true_rel = float(torch.linalg.norm(b - spmv_gse(g, res.x, 3))
@@ -2026,11 +2227,14 @@ def main() -> int:
         switch_iters=res.switch_iters.tolist(), converged=bool(res.converged),
         health=health_name(res.health), relres=float(res.relres),
         true_relres_tag3=true_rel, x_rel_err=err, wall_s=f"{wall:.2f}",
-        a64_launches=a64_launches, a32_launches=sum(a32_launches.values()),
+        a64_launches=a64_launches,
+        a64_body_launches=json.dumps(a64_body_launches),
+        a32_launches=sum(a32_launches.values()),
         seq_dot_launches=vec_launches["seq_dot"],
         fma_axpy_launches=vec_launches["fma_axpy"])
     if min(a64_launches, *a32_launches.values(), *vec_launches.values()) <= 0:
         raise AssertionError("a kernel of the main path never launched")
+    require_bodies("phase 4: A64", a64_body_launches, a64_bodies(g))
     if res.x.shape != (N_FULL,) or not bool(torch.isfinite(res.x).all()):
         raise AssertionError("full-size solve returned a non-finite x")
     # The recursive residual meets tol; the true one sits higher because
@@ -2165,6 +2369,9 @@ def main() -> int:
         dfma_ns=f"{chain['fma']['ns']:.4f}",
         dfma_clocks=f"{chain['fma']['clocks']:.3f}")
     longest_uniform = int((g.rowptr[1:] - g.rowptr[:-1]).max())
+    t0 = time.perf_counter()
+    width_sweep(dev)
+    log("sweep", seconds=f"{time.perf_counter() - t0:.1f}")
 
     def chain_ms(steps: int, op: str) -> float:
         return steps * chain[op]["ns"] * 1e-6
@@ -2221,7 +2428,8 @@ def main() -> int:
              lambda: torch.mv(lib32, x32), 4, 1, FP32_OPS_PER_S, a32_err[t],
              a32_launches[t]),
             ("gse_spmv_csr_f64", spmv_src, "src/repro/kernels/gse_spmv.py:160",
-             lambda: K.gse_spmv_csr_f64(*args64, ei_bit=g.ei_bit, tag=t),
+             lambda: K.gse_spmv_csr_f64(*args64, ei_bit=g.ei_bit, tag=t,
+                                        plan=g.row_plan),
              lambda: K.gse_spmv_csr_f64_plain(*args64, ei_bit=g.ei_bit, tag=t),
              lambda: torch.mv(lib64, x64), 8, 1, FP64_OPS_PER_S, a64_err[t],
              a64_launches),
@@ -2248,6 +2456,8 @@ def main() -> int:
                 extra["launches_all_tags"] = True  # the tag is chosen on device
                 extra["chain_bound_ms"] = chain_ms(longest_uniform, "add")
                 extra["longest_row"] = longest_uniform
+            if name == "gse_spmv_csr_f64":
+                extra["body_launches"] = a64_body_launches
             add_entry(f"{name}.tag{t}", src, replaces, launch, plain, lib,
                       g.bytes_touched(t) + ncols * (m + n) * xb,
                       nops / ops_rate * 1e3, **extra)

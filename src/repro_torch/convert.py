@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core.gse import GSEPacked
 from repro_torch.core.precision import MonitorParams
-from repro_torch.sparse.csr import CSR, GSECSR
+from repro_torch.sparse.csr import CSR, GSECSR, csr_row_plan
 
 __all__ = ["gsecsr_from_repro", "csr_from_repro", "monitor_params_from_repro",
            "params_from_repro"]
@@ -40,9 +40,11 @@ def _tensors(arrays: dict, dtypes: dict, device) -> dict:
 
 def gsecsr_from_repro(arrays: dict, ei_bit: int, shape, device="cuda") -> GSECSR:
     """A port ``GSECSR`` from the numpy arrays of a reference ``GSECSR``
-    (keys ``rowptr colpak head tail1 tail2 table row_ids``)."""
-    return GSECSR(**_tensors(arrays, _GSECSR_DTYPES, device),
-                  ei_bit=int(ei_bit), shape=tuple(int(s) for s in shape))
+    (keys ``rowptr colpak head tail1 tail2 table row_ids``), with the row
+    plan of kernel A64 (``csr_row_plan``), as ``pack_csr`` gives it."""
+    t = _tensors(arrays, _GSECSR_DTYPES, device)
+    return GSECSR(**t, ei_bit=int(ei_bit), shape=tuple(int(s) for s in shape),
+                  row_plan=csr_row_plan(t["rowptr"]))
 
 
 def csr_from_repro(arrays: dict, shape, device="cuda") -> CSR:

@@ -49,9 +49,7 @@
 //     each W tile is decoded once per block into shared memory, split
 //     there into two TF32 terms per weight, and serves all 128 rows of the
 //     block's X tile through mma.sync m16n8k8.  Bound by the TF32 tensor
-//     cores at prefill sizes (2 M N K operations per term).  The earlier
-//     FFMA tile (64 x 64, 4 x 4 per thread) is kept as
-//     gse_matmul_dense_tiled64, timed beside it only.
+//     cores at prefill sizes (2 M N K operations per term).
 //   Both read only the segments the tag needs (the TPU kernel streams all
 //   three) and check every bound, so any M, N and K run without padding.
 //
@@ -348,82 +346,13 @@ __global__ void __launch_bounds__(kThreads, MR == 8 ? 2 : 3)
   if (threadIdx.x == 0) count[blockIdx.x] = 0u;
 }
 
-// --- E, M > 8: the earlier tiled body (FFMA) ---------------------------------
-//
-// The earlier design, kept only as the yardstick chip_smoke.py times the
-// tensor-core body against (no model path launches it): 64 x 64 tiles, K
-// in steps of 16, single-buffered, a 4 x 4 block of FFMA sums per thread.
-
-constexpr int kBM = 64, kBN = 64, kBK = 16;
-
-template <int TAG, typename XT>
-__global__ void __launch_bounds__(kThreads) matmul_tiled64_kernel(
-    const XT* __restrict__ x, const uint16_t* __restrict__ head,
-    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
-    const float* __restrict__ scales, float* __restrict__ y, int64_t m,
-    int64_t kk, int64_t n, int m_h, uint32_t ei_mask) {
-  __shared__ float as[kBK][kBM];  // X tile, transposed
-  __shared__ float ws[kBK][kBN];  // decoded W tile
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t row0 = (int64_t)blockIdx.y * kBM;
-  const int64_t col0 = (int64_t)blockIdx.x * kBN;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int64_t k0 = 0; k0 < kk; k0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < (kBM * kBK) / kThreads; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int r = e / kBK, c = e % kBK;
-      const int64_t row = row0 + r, k = k0 + c;
-      as[c][r] = (row < m && k < kk) ? to_f32(x[row * kk + k]) : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < (kBK * kBN) / kThreads; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int r = e / kBN, c = e % kBN;
-      const int64_t k = k0 + r, col = col0 + c;
-      ws[r][c] = (k < kk && col < n)
-                     ? load_decode<TAG>(head, tail1, tail2, k * n + col, m_h,
-                                        ei_mask, scales)
-                     : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < kBK; ++c) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[c][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[c][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __fmaf_rn(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t row = row0 + ty * 4 + i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t col = col0 + tx * 4 + j;
-      if (col < n) y[row * n + col] = acc[i][j];
-    }
-  }
-}
-
 // --- E, M > 8: the tiled body on the tensor cores (split TF32) ---------------
 //
 // What bounds it: operations.  At prefill sizes (M = B * S = 2048) each
 // decoded weight serves M rows, far above the card's ~295 operations per
-// byte, so the multiply-adds are the limit, not the weight stream.  The
-// FFMA tile above reached about a quarter of the FP32 peak (67 TFLOP/s);
-// the TF32 tensor cores offer 495 TFLOP/s.
+// byte, so the multiply-adds are the limit, not the weight stream.  An
+// FFMA tile (64 x 64, 4 x 4 sums a thread) reached about a quarter of the
+// FP32 peak (67 TFLOP/s); the TF32 tensor cores offer 495 TFLOP/s.
 //
 // Accuracy, and why design (a), split TF32.  The oracle is a full-f32
 // product held at rtol 1e-5 / atol 1e-4 up to K = 9728 (w_down), so one
@@ -863,19 +792,6 @@ void launch_matmul(const void* x, const void* head, const void* tail1,
   }
 }
 
-template <int TAG, typename XT>
-void launch_tiled64(const void* x, const void* head, const void* tail1,
-                    const void* tail2, const float* scales, float* y,
-                    int64_t m, int64_t kk, int64_t n, int ei_bit,
-                    cudaStream_t st) {
-  const dim3 grid((unsigned)((n + kBN - 1) / kBN),
-                  (unsigned)((m + kBM - 1) / kBM));
-  matmul_tiled64_kernel<TAG, XT><<<grid, kThreads, 0, st>>>(
-      (const XT*)x, (const uint16_t*)head, (const uint16_t*)tail1,
-      (const uint32_t*)tail2, scales, y, m, kk, n, 15 - ei_bit,
-      (1u << ei_bit) - 1u);
-}
-
 }  // namespace
 
 extern "C" int gse_decode_dense(int tag, int out_bf16, const void* head,
@@ -940,32 +856,6 @@ extern "C" int gse_matmul_dense(int tag, int x_bf16, const void* x,
       if (tag == 1) launch_matmul<1, float>(x, head, tail1, tail2, scales, y, m, kk, n, ei_bit, part, count, rows, splits, rw, vec != 0, st);
       else if (tag == 2) launch_matmul<2, float>(x, head, tail1, tail2, scales, y, m, kk, n, ei_bit, part, count, rows, splits, rw, vec != 0, st);
       else launch_matmul<3, float>(x, head, tail1, tail2, scales, y, m, kk, n, ei_bit, part, count, rows, splits, rw, vec != 0, st);
-    }
-  }
-  return (int)cudaGetLastError();
-}
-
-// The earlier tiled design (matmul_tiled64_kernel), m > 8: timed beside
-// the tensor-core body only.
-extern "C" int gse_matmul_dense_tiled64(int tag, int x_bf16, const void* x,
-                                        const void* head, const void* tail1,
-                                        const void* tail2, const float* scales,
-                                        float* y, long long m, long long kk,
-                                        long long n, int ei_bit,
-                                        void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (m <= 8 || (m + kBM - 1) / kBM > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n > 0) {
-    if (x_bf16) {
-      if (tag == 1) launch_tiled64<1, __nv_bfloat16>(x, head, tail1, tail2, scales, y, m, kk, n, ei_bit, st);
-      else if (tag == 2) launch_tiled64<2, __nv_bfloat16>(x, head, tail1, tail2, scales, y, m, kk, n, ei_bit, st);
-      else launch_tiled64<3, __nv_bfloat16>(x, head, tail1, tail2, scales, y, m, kk, n, ei_bit, st);
-    } else {
-      if (tag == 1) launch_tiled64<1, float>(x, head, tail1, tail2, scales, y, m, kk, n, ei_bit, st);
-      else if (tag == 2) launch_tiled64<2, float>(x, head, tail1, tail2, scales, y, m, kk, n, ei_bit, st);
-      else launch_tiled64<3, float>(x, head, tail1, tail2, scales, y, m, kk, n, ei_bit, st);
     }
   }
   return (int)cudaGetLastError();

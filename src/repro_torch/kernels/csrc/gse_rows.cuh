@@ -7,25 +7,33 @@
 // * warp_row_f32 / warp_row_cols_f32 (A32, B32 / C32, C'32): one warp per
 //   row, lane l adds slots l, l+32, ... of the row's `width` from 0.0, then
 //   the warp's shuffle tree; the result is valid in lane 0.
-// * row_sum_f64 / row_walk_f64 (A64 / C64): one thread walks the row's
-//   real slots in stored order (CSR order) from 0.0 with
-//   __dmul_rn/__dadd_rn, so no FMA contraction changes a bit.
-// * block_chain_f64 (B64's long rows): the same chain, one block per row,
-//   off the shuffles.  Warps 1..7 decode and multiply the row's slots a
-//   chunk at a time into shared memory, double-buffered one chunk ahead;
-//   thread 0 reads the chunk back in slot order with loads that do not
-//   depend on the sum and adds it, so the chain waits on one __dadd_rn
-//   per slot and on nothing else.
-// * warp_chain_f64 / warp_walk_f64 (B64's other rows / C'64): the same
-//   chain, one warp per row.  Lane l decodes and multiplies slot j0 + l of each 32-slot
-//   chunk (coalesced loads, all lanes at once), then every lane adds the
-//   chunk's products in slot order from __shfl_sync broadcasts: the sums
-//   are row_sum_f64's / row_walk_f64's bit for bit, and a long row's chain
-//   waits on one add per slot instead of a load (the next chunks' loads
-//   are in flight while a chunk is added).  Lanes past the row's end (and
-//   inactive columns) hold +0.0, which the chain adds unconditionally: a
-//   chain from +0.0 never holds -0.0, so adding +0.0 changes no bit, and
-//   the adds need no predicate.
+// * The f64 bodies (A64, B64, C64, C'64) all add a row's products in stored
+//   order (CSR order) from 0.0 with __dmul_rn/__dadd_rn, so no FMA
+//   contraction changes a bit and every body gives the same sums; they
+//   differ only in which threads load, decode and multiply, and which
+//   thread adds:
+//   - row_walk_f64 (C64): one thread walks its row, a load per step.
+//   - row_block_f64 (A64's short rows): a block stages the products of a
+//     run of consecutive short rows in shared memory, every thread taking
+//     slots t, t + 256, ... of the run (coalesced loads); then thread i
+//     adds row i's products.
+//   - block_chain_f64 (A64's and B64's long rows): one block per row.
+//     Warps 1..7 decode and multiply the row's slots a chunk at a time
+//     into shared memory, double-buffered one chunk ahead; thread 0 reads
+//     the chunk back in slot order with loads that do not depend on the
+//     sum and adds it, so the chain waits on one __dadd_rn per slot and
+//     on nothing else.
+//   - block_chain_cols_f64 (C'64's long rows): the same for kColsWarp
+//     columns; lane c of warp 0 adds column c, the four chains in
+//     lockstep.
+//   - warp_chain_f64 / warp_walk_f64 (A64's rows in between, B64's other
+//     rows / C'64's other rows): one warp per row.  Lane l decodes and
+//     multiplies slot j0 + l of each 32-slot chunk (coalesced loads, all
+//     lanes at once), then every lane adds the chunk's products in slot
+//     order from __shfl_sync broadcasts.
+//   Slots past a row's end (and inactive columns) hold +0.0, which the
+//   chains add unconditionally: a chain from +0.0 never holds -0.0, so
+//   adding +0.0 changes no bit, and the adds need no predicate.
 
 #pragma once
 
@@ -37,10 +45,10 @@
 namespace gse {
 
 constexpr int kCols = 8;  // right-hand-side columns per SpMM pass (registers)
-// Columns per pass of the warp-row SpMM (C'64): the solve service's slot
-// width.  The warp row broadcasts every product with a shuffle, and a
-// dense row's warp is bound by the shuffles it issues, so a pass carries
-// no column it does not need.
+// Columns per pass of C'64: the solve service's slot width.  A warp row
+// broadcasts every product with a shuffle per column, and a long row's
+// block chain adds each column on a lane of its own, so a pass carries no
+// column it does not need.
 constexpr int kColsWarp = 4;
 
 template <int TAG>
@@ -95,45 +103,6 @@ __device__ __forceinline__ void warp_row_cols_f32(
       acc[c] = __fadd_rn(acc[c], __shfl_down_sync(0xffffffffu, acc[c], off));
     }
   }
-}
-
-template <int TAG>
-__device__ __forceinline__ double row_sum_f64(
-    int64_t begin, int64_t end, const uint32_t* __restrict__ colpak,
-    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
-    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
-    const double* __restrict__ x, int shift, uint32_t mask) {
-  double acc = 0.0;
-  for (int64_t k = begin; k < end; ++k) {
-    const uint32_t cp = __ldg(colpak + k);
-    const double val = decode_f64<TAG>(
-        __ldg(head + k), TAG >= 2 ? __ldg(tail1 + k) : 0u,
-        TAG == 3 ? __ldg(tail2 + k) : 0u, __ldg(table + (cp >> shift)) - 1023);
-    acc = __dadd_rn(acc, __dmul_rn(val, __ldg(x + (cp & mask))));
-  }
-  return acc;
-}
-
-// y = A x at the device tag `*tag` (clipped to [1, 3] as the reference's
-// lax.switch clips tag - 1): the branch is uniform across the grid and the
-// tag-1 branch never loads a tail.
-__device__ __forceinline__ double row_sum_f64_at(
-    const int32_t* __restrict__ tag, int64_t begin, int64_t end,
-    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
-    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
-    const int32_t* __restrict__ table, const double* __restrict__ x,
-    int shift, uint32_t mask) {
-  int t = __ldg(tag);
-  t = t < 1 ? 1 : (t > 3 ? 3 : t);
-  if (t == 1) {
-    return row_sum_f64<1>(begin, end, colpak, head, tail1, tail2, table, x,
-                          shift, mask);
-  } else if (t == 2) {
-    return row_sum_f64<2>(begin, end, colpak, head, tail1, tail2, table, x,
-                          shift, mask);
-  }
-  return row_sum_f64<3>(begin, end, colpak, head, tail1, tail2, table, x,
-                        shift, mask);
 }
 
 // Per-column tags of one SpMM pass: tg[c] is column c0 + c's tag (clipped
@@ -231,7 +200,7 @@ __device__ __forceinline__ Slot load_slot(
   return s;
 }
 
-// row_sum_f64 on one warp (see the top of the file); valid in every lane.
+// One row's sum on one warp (see the top of the file); valid in every lane.
 // Software-pipelined so a long row's chain does not wait on memory: while
 // the warp adds chunk c, the segments of chunk c + 2 and the x values of
 // chunk c + 1 are in flight.
@@ -269,37 +238,38 @@ __device__ __forceinline__ double warp_chain_f64(
   return acc;
 }
 
-// Products per chunk of block_chain_f64 (two buffers: 16 KB of shared
-// memory), and its producer threads (warps 1..7 of a 256-thread block).
-constexpr int kChainChunk = 1024;
+// Threads of a chain block (block_chain_f64, block_chain_cols_f64 and
+// row_block_f64), its producer threads (warps 1..7), and the products per
+// chunk of block_chain_f64 (two buffers: 16 KB of shared memory).
 constexpr int kChainThreads = 256;
 constexpr int kChainProducers = kChainThreads - 32;
+constexpr int kChainChunk = 1024;
 constexpr int kChainPer = (kChainChunk + kChainProducers - 1) / kChainProducers;
 
-// Products [c0, c0 + kChainChunk) of the row into buf (+0.0 past its end),
-// by the producer threads: each loads all its slots' segments first, so
-// its kChainPer gathers are in flight together.
-template <int TAG>
-__device__ __forceinline__ void chain_produce(
-    double* buf, int64_t base, int len, int c0,
+// Products j = t, t + STRIDE, ... (PER of them, j < limit) of the slots
+// [base, base + len) into buf[j], +0.0 for len <= j < limit: each thread
+// loads all its slots' segments first, so its PER gathers are in flight
+// together.
+template <int TAG, int PER, int STRIDE>
+__device__ __forceinline__ void stage_products(
+    double* buf, int t, int limit, int64_t base, int len,
     const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
     const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
     const int32_t* __restrict__ table, const double* __restrict__ x,
     int shift, uint32_t mask) {
-  const int p = threadIdx.x - 32;
-  Slot sl[kChainPer];
+  Slot sl[PER];
 #pragma unroll
-  for (int u = 0; u < kChainPer; ++u) {
-    const int j = p + u * kChainProducers;
-    sl[u] = load_slot<TAG>(base + c0 + j, j < kChainChunk && c0 + j < len,
-                           colpak, head, tail1, tail2);
+  for (int u = 0; u < PER; ++u) {
+    const int j = t + u * STRIDE;
+    sl[u] = load_slot<TAG>(base + j, j < limit && j < len, colpak, head,
+                           tail1, tail2);
   }
 #pragma unroll
-  for (int u = 0; u < kChainPer; ++u) {
-    const int j = p + u * kChainProducers;
-    if (j >= kChainChunk) continue;
+  for (int u = 0; u < PER; ++u) {
+    const int j = t + u * STRIDE;
+    if (j >= limit) continue;
     double v = 0.0;
-    if (c0 + j < len) {
+    if (j < len) {
       v = __dmul_rn(decode_f64<TAG>(sl[u].h, sl[u].t1, sl[u].t2,
                                     __ldg(table + (sl[u].cp >> shift)) - 1023),
                     __ldg(x + (sl[u].cp & mask)));
@@ -308,10 +278,39 @@ __device__ __forceinline__ void chain_produce(
   }
 }
 
-// row_sum_f64 on one block of kChainThreads (see the top of the file);
+// acc plus the N products at src (16-byte aligned, N a multiple of 16),
+// added in order.  Two register groups of 8: one is loaded while the
+// other is added, so each add waits on the previous add only.
+template <int N>
+__device__ __forceinline__ double chain_add(const double* src_d, double acc) {
+  double2 a[4], b[4];
+  const double2* src = reinterpret_cast<const double2*>(src_d);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) a[u] = src[u];
+  for (int j = 0; j < N / 2; j += 8) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) b[u] = src[j + 4 + u];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      acc = __dadd_rn(acc, a[u].x);
+      acc = __dadd_rn(acc, a[u].y);
+    }
+    if (j + 8 < N / 2) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) a[u] = src[j + 8 + u];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      acc = __dadd_rn(acc, b[u].x);
+      acc = __dadd_rn(acc, b[u].y);
+    }
+  }
+  return acc;
+}
+
+// One row's sum on one block of kChainThreads (see the top of the file);
 // valid in thread 0.  Every thread of the block must call it.  The chain
-// adds each chunk in full, the +0.0 past the row's end included: a chain
-// from +0.0 never holds -0.0, so adding +0.0 changes no bit.
+// adds each chunk in full, the +0.0 past the row's end included.
 template <int TAG>
 __device__ __forceinline__ double block_chain_f64(
     double* buf, int64_t base, int len, const uint32_t* __restrict__ colpak,
@@ -321,43 +320,23 @@ __device__ __forceinline__ double block_chain_f64(
   double acc = 0.0;
   const int chunks = (len + kChainChunk - 1) / kChainChunk;
   const bool producer = threadIdx.x >= 32;
+  const int p = threadIdx.x - 32;
   if (producer && chunks > 0) {
-    chain_produce<TAG>(buf, base, len, 0, colpak, head, tail1, tail2, table,
-                       x, shift, mask);
+    stage_products<TAG, kChainPer, kChainProducers>(
+        buf, p, kChainChunk, base, len, colpak, head, tail1, tail2, table, x,
+        shift, mask);
   }
   __syncthreads();
   for (int c = 0; c < chunks; ++c) {
-    double* cur = buf + (c & 1) * kChainChunk;
     if (producer) {
       if (c + 1 < chunks) {
-        chain_produce<TAG>(buf + ((c + 1) & 1) * kChainChunk, base, len,
-                           (c + 1) * kChainChunk, colpak, head, tail1, tail2,
-                           table, x, shift, mask);
+        const int c1 = (c + 1) * kChainChunk;
+        stage_products<TAG, kChainPer, kChainProducers>(
+            buf + ((c + 1) & 1) * kChainChunk, p, kChainChunk, base + c1,
+            len - c1, colpak, head, tail1, tail2, table, x, shift, mask);
       }
     } else if (threadIdx.x == 0) {
-      // Two register groups of 16: one is loaded while the other is added.
-      double2 a[8], b[8];
-      const double2* src = reinterpret_cast<const double2*>(cur);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) a[u] = src[u];
-      for (int j = 0; j < kChainChunk / 2; j += 16) {
-#pragma unroll
-        for (int u = 0; u < 8; ++u) b[u] = src[j + 8 + u];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          acc = __dadd_rn(acc, a[u].x);
-          acc = __dadd_rn(acc, a[u].y);
-        }
-        if (j + 16 < kChainChunk / 2) {
-#pragma unroll
-          for (int u = 0; u < 8; ++u) a[u] = src[j + 16 + u];
-        }
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          acc = __dadd_rn(acc, b[u].x);
-          acc = __dadd_rn(acc, b[u].y);
-        }
-      }
+      acc = chain_add<kChainChunk>(buf + (c & 1) * kChainChunk, acc);
     }
     __syncthreads();
   }
@@ -382,6 +361,76 @@ __device__ __forceinline__ double block_chain_f64_at(
   }
   return block_chain_f64<3>(buf, base, len, colpak, head, tail1, tail2,
                             table, x, shift, mask);
+}
+
+// Most slots and rows of a row block (sparse/csr.py's ROW_BLOCK_SLOTS and
+// ROW_BLOCK_ROWS): its products fill block_chain_f64's two buffers, and
+// each thread adds one row.
+constexpr int kRowBlockSlots = 2 * kChainChunk;
+constexpr int kRowBlockRows = kChainThreads;
+
+// Rows [r0, r1) of a CSR on one block of kChainThreads (see the top of the
+// file): every thread stages products t, t + kChainThreads, ... of the
+// slots [rowptr[r0], rowptr[r1]) (at most kRowBlockSlots) in buf, then
+// thread i (i < r1 - r0 <= kRowBlockRows) adds row r0 + i's products in
+// CSR order from 0.0 and writes y[r0 + i].  Thread i loads its row's
+// bounds before the staging, so they arrive with the segments.  Every
+// thread of the block must call it.
+template <int TAG>
+__device__ __forceinline__ void row_block_f64(
+    double* buf, const int32_t* __restrict__ rowptr, int r0, int r1,
+    int base, int len, const uint32_t* __restrict__ colpak,
+    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
+    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
+    const double* __restrict__ x, double* __restrict__ y, int shift,
+    uint32_t mask) {
+  const int r = r0 + (int)threadIdx.x;
+  const int beg = r < r1 ? __ldg(rowptr + r) - base : 0;
+  const int end = r < r1 ? __ldg(rowptr + r + 1) - base : 0;
+  stage_products<TAG, kRowBlockSlots / kChainThreads, kChainThreads>(
+      buf, threadIdx.x, len, base, len, colpak, head, tail1, tail2, table, x,
+      shift, mask);
+  __syncthreads();
+  if (r < r1) {
+    double acc = 0.0;
+#pragma unroll 4
+    for (int j = beg; j < end; ++j) {
+      acc = __dadd_rn(acc, buf[j]);
+    }
+    y[r] = acc;
+  }
+}
+
+// row_block_f64 at the device tag `*tag` (clipped to [1, 3]).  A row block
+// over its budgets is not one that sparse/csr.py's plan builds: its rows
+// get NaN rather than overrun shared memory.
+__device__ __forceinline__ void row_block_f64_at(
+    const int32_t* __restrict__ tag, double* buf,
+    const int32_t* __restrict__ rowptr, int r0, int r1,
+    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
+    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
+    const int32_t* __restrict__ table, const double* __restrict__ x,
+    double* __restrict__ y, int shift, uint32_t mask) {
+  const int base = __ldg(rowptr + r0);
+  const int len = __ldg(rowptr + r1) - base;
+  if (r1 < r0 || r1 - r0 > kRowBlockRows || len < 0 ||
+      len > kRowBlockSlots) {
+    const int r = r0 + (int)threadIdx.x;
+    if (r < r1) y[r] = __longlong_as_double(0x7ff8000000000000LL);
+    return;
+  }
+  int t = __ldg(tag);
+  t = t < 1 ? 1 : (t > 3 ? 3 : t);
+  if (t == 1) {
+    row_block_f64<1>(buf, rowptr, r0, r1, base, len, colpak, head, tail1,
+                     tail2, table, x, y, shift, mask);
+  } else if (t == 2) {
+    row_block_f64<2>(buf, rowptr, r0, r1, base, len, colpak, head, tail1,
+                     tail2, table, x, y, shift, mask);
+  } else {
+    row_block_f64<3>(buf, rowptr, r0, r1, base, len, colpak, head, tail1,
+                     tail2, table, x, y, shift, mask);
+  }
 }
 
 // warp_chain_f64 at the device tag `*tag` (clipped to [1, 3]).
@@ -491,6 +540,118 @@ __device__ __forceinline__ void warp_walk_f64_at(
     warp_walk_f64<3, N>(base, len, lane, colpak, head, tail1, tail2, table, xg,
                      n, shift, mask, tg, need, acc);
   }
+}
+
+// Products per column per chunk of block_chain_cols_f64, and a column's
+// stride in a buffer: two buffers of kColsWarp columns take 32.9 KB of
+// shared memory (under the 48 KB static limit), and the stride of 514
+// doubles puts consecutive columns 4 banks apart, so lanes 0-3 read their
+// columns' 16-byte pairs without a bank conflict.
+constexpr int kColsChunk = 512;
+constexpr int kColsStride = kColsChunk + 2;
+constexpr int kColsPer = (kColsChunk + kChainProducers - 1) / kChainProducers;
+
+// Products [0, kColsChunk) of the slots [base, base + len) for the N
+// columns of the pass into buf[c * kColsStride + j] (+0.0 past len and for
+// inactive columns), by producer t: each slot is decoded once per tag
+// that some active column runs (slot_products).
+template <int MAXTAG, int N>
+__device__ __forceinline__ void stage_products_cols(
+    double* buf, int t, int64_t base, int len,
+    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
+    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
+    const int32_t* __restrict__ table, const double* __restrict__ xg,
+    int64_t n, int shift, uint32_t mask, const int (&tg)[N],
+    unsigned need) {
+  Slot sl[kColsPer];
+#pragma unroll
+  for (int u = 0; u < kColsPer; ++u) {
+    const int j = t + u * kChainProducers;
+    sl[u] = load_slot<MAXTAG>(base + j, j < kColsChunk && j < len, colpak,
+                              head, tail1, tail2);
+  }
+#pragma unroll
+  for (int u = 0; u < kColsPer; ++u) {
+    const int j = t + u * kChainProducers;
+    if (j >= kColsChunk) continue;
+    const bool ok = j < len;
+    double xv[N], p[N];
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      xv[c] = (tg[c] != 0 && ok) ? __ldg(xg + c * n + (sl[u].cp & mask))
+                                 : 0.0;
+    }
+    slot_products<MAXTAG, N>(
+        sl[u], ok ? __ldg(table + (sl[u].cp >> shift)) - 1023 : 0, tg, need,
+        xv, p);
+#pragma unroll
+    for (int c = 0; c < N; ++c) buf[c * kColsStride + j] = ok ? p[c] : 0.0;
+  }
+}
+
+// One row's walk for the N columns of the pass on one block of
+// kChainThreads (see the top of the file): block_chain_f64's producers
+// and double buffer, and lane c of warp 0 adding column c's products, the
+// N chains in lockstep.  Returns column threadIdx.x's sum in threads
+// 0..N-1.  Every thread of the block must call it.
+template <int MAXTAG, int N>
+__device__ __forceinline__ double block_chain_cols_f64(
+    double* buf, int64_t base, int len, const uint32_t* __restrict__ colpak,
+    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
+    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
+    const double* __restrict__ xg, int64_t n, int shift, uint32_t mask,
+    const int (&tg)[N], unsigned need) {
+  double acc = 0.0;
+  const int chunks = (len + kColsChunk - 1) / kColsChunk;
+  const bool producer = threadIdx.x >= 32;
+  const int p = threadIdx.x - 32;
+  if (producer && chunks > 0) {
+    stage_products_cols<MAXTAG, N>(buf, p, base, len, colpak, head, tail1,
+                                   tail2, table, xg, n, shift, mask, tg,
+                                   need);
+  }
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    if (producer) {
+      if (c + 1 < chunks) {
+        const int c1 = (c + 1) * kColsChunk;
+        stage_products_cols<MAXTAG, N>(
+            buf + ((c + 1) & 1) * N * kColsStride, p, base + c1, len - c1,
+            colpak, head, tail1, tail2, table, xg, n, shift, mask, tg, need);
+      }
+    } else if (threadIdx.x < N) {
+      acc = chain_add<kColsChunk>(
+          buf + (c & 1) * N * kColsStride + threadIdx.x * kColsStride, acc);
+    }
+    __syncthreads();
+  }
+  return acc;
+}
+
+// block_chain_cols_f64 at the pass's highest active tag (uniform across
+// the grid); 0.0 when no column is active.
+template <int N>
+__device__ __forceinline__ double block_chain_cols_f64_at(
+    int maxtag, double* buf, int64_t base, int len,
+    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
+    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
+    const int32_t* __restrict__ table, const double* __restrict__ xg,
+    int64_t n, int shift, uint32_t mask, const int (&tg)[N],
+    unsigned need) {
+  if (maxtag == 1) {
+    return block_chain_cols_f64<1, N>(buf, base, len, colpak, head, tail1,
+                                      tail2, table, xg, n, shift, mask, tg,
+                                      need);
+  } else if (maxtag == 2) {
+    return block_chain_cols_f64<2, N>(buf, base, len, colpak, head, tail1,
+                                      tail2, table, xg, n, shift, mask, tg,
+                                      need);
+  } else if (maxtag == 3) {
+    return block_chain_cols_f64<3, N>(buf, base, len, colpak, head, tail1,
+                                      tail2, table, xg, n, shift, mask, tg,
+                                      need);
+  }
+  return 0.0;
 }
 
 }  // namespace gse

@@ -35,11 +35,21 @@
 //   bucket width, each slot decoded once for every column; Y is (m, nrhs).
 //   Per column bitwise C32, at nrhs = 1 bitwise B32.
 // * C'64 (`gse_spmm_sell_f64`, spmm_gse over a GSESellC, the batched CG
-//   operator): B64's warp row for every column, C64's per-column device
+//   operator): B64's bodies for every column, with C64's per-column device
 //   tags and active flags, the segments of the highest active tag loaded
 //   once per pass of four columns (the service's slot width); column j
 //   bitwise B64 at tags[j], and so C64; Y is (nrhs, m), inactive columns
-//   0.0.
+//   0.0.  The long rows (from the pack's `long_from`, as B64) get a block
+//   each, launched first (block_chain_cols_f64): its producer warps decode
+//   each slot once per tag an active column runs and stage the four
+//   columns' products in shared memory a chunk ahead; lanes 0-3 of warp 0
+//   each add one column in lockstep, so four columns cost one column's
+//   chain.  The other rows get a warp each, eight to a block
+//   (warp_walk_f64: B64's warp row, a shuffle per column and slot): the
+//   long rows' block shape, since one launch runs both and keeps the
+//   hubs' chains running beside the warp rows.  Alone, these rows run
+//   slightly faster in 2-warp blocks, but a second launch for them costs
+//   more than that (PERF.md).
 //
 // What bounds it: HBM bytes.  The byte bound of one call is
 // sell.bytes_touched(tag) (every padded slot's segments and colidx, perm,
@@ -47,18 +57,13 @@
 // (B64), nrhs * (m + n) * 4 | 8 for C'.  The f64 builds read only real
 // slots, so they stream less than that model charges.
 //
-// The simple orders are kept for parity with A and C.  A dense row (the
-// skewed operators' hubs, 262,144 entries) is one serial chain of
-// dependent adds: bitwise parity with the CSR reference requires it, and
-// no row's sum is split, so its bound is the chain, one __dadd_rn latency
-// per slot, not the bytes.  A64's one thread per row waited on a load for
-// every step of that chain (45-67 ms per SpMV on the full-size skewed
-// operator; NVIDIA H100 80GB HBM3, 700 W); the warp row keeps the chain
-// but loads and decodes 32 slots at a time and is then bound by its
-// shuffles (about 15 ns a slot, 4.1-5.4 ms for B64 there).  B64's long
-// rows run block_chain_f64, which leaves the add as the chain's only
-// step; C'64 runs the warp row, two warps per block (the hub rows spread
-// over SMs), and shuffles four columns.
+// A dense row (the skewed operators' hubs, 262,144 entries) is one serial
+// chain of dependent adds in the f64 builds: bitwise parity with the CSR
+// reference requires it, and no row's sum is split, so its bound is the
+// chain, one __dadd_rn latency per slot, not the bytes.  A warp row keeps
+// the chain but is bound by its shuffles on the chain's path (about 15 ns
+// a slot for one column, 32-71 ns for C'64's four; NVIDIA H100 80GB HBM3,
+// 700 W); the block chains leave the add as the chain's only step.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -72,10 +77,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-// C'64's warp rows (and B64's earlier design) run in blocks of two warps,
-// so the few rows of a dense bucket (the hubs) land on different SMs
-// instead of sharing one SM's shuffle unit.
-constexpr int kThreadsWarp = 64;
 using gse::kChainThreads;
 using gse::kCols;
 using gse::kColsWarp;
@@ -158,30 +159,6 @@ __global__ void __launch_bounds__(kChainThreads) spmv_sell_f64_kernel(
   if (lane == 0) y[dst] = acc;
 }
 
-// The earlier B64 design, kept only as the yardstick chip_smoke.py times
-// the block chain against (no solver path launches it): every row on one
-// warp (warp_chain_f64), two warps per block.
-__global__ void __launch_bounds__(kThreadsWarp) spmv_sell_f64_warp_kernel(
-    const int32_t* __restrict__ tag, const uint32_t* __restrict__ colpak,
-    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
-    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
-    const double* __restrict__ x, double* __restrict__ y,
-    const int64_t* __restrict__ tab, int nb, const int32_t* __restrict__ perm,
-    const int32_t* __restrict__ row_len, int64_t rows_pad, int shift,
-    uint32_t mask) {
-  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows_pad) return;  // uniform across the warp
-  const int dst = __ldg(perm + row);
-  if (dst < 0) return;
-  int width;
-  const int64_t base = locate(tab, nb, row, width);
-  const double acc = gse::warp_chain_f64_at(
-      tag, base, __ldg(row_len + row), lane, colpak, head, tail1, tail2,
-      table, x, shift, mask);
-  if (lane == 0) y[dst] = acc;
-}
-
 template <int TAG>
 __global__ void __launch_bounds__(kThreads) spmm_sell_f32_kernel(
     const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
@@ -211,32 +188,52 @@ __global__ void __launch_bounds__(kThreads) spmm_sell_f32_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreadsWarp) spmm_sell_f64_kernel(
+// Blocks [0, rows_pad - long_from) take bucket rows long_from, ... one
+// each (block_chain_cols_f64); the blocks after them take rows
+// [0, long_from), one per warp (warp_walk_f64).  grid.y walks the passes
+// of kColsWarp columns.
+__global__ void __launch_bounds__(kChainThreads) spmm_sell_f64_kernel(
     const int32_t* __restrict__ tags, const uint8_t* __restrict__ active,
     const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
     const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
     const int32_t* __restrict__ table, const double* __restrict__ x,
     double* __restrict__ y, const int64_t* __restrict__ tab, int nb,
     const int32_t* __restrict__ perm, const int32_t* __restrict__ row_len,
-    int64_t rows_pad, int64_t m, int64_t n, int nrhs, int shift,
-    uint32_t mask) {
-  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows_pad) return;  // uniform across the warp
-  const int dst = __ldg(perm + row);
-  if (dst < 0) return;
+    int64_t rows_pad, int64_t long_from, int64_t m, int64_t n, int nrhs,
+    int shift, uint32_t mask) {
+  __shared__ __align__(16) double buf[2 * kColsWarp * gse::kColsStride];
   const int c0 = blockIdx.y * kColsWarp;
   const int nc = nrhs - c0 < kColsWarp ? nrhs - c0 : kColsWarp;
   int tg[kColsWarp];
   unsigned need;
   // maxtag is uniform across the grid: no divergence.
   const int maxtag = gse::column_tags(tags, active, c0, nc, tg, need);
+  const double* xg = x + (int64_t)c0 * n;
+  const int64_t n_long = rows_pad - long_from;
+  if ((int64_t)blockIdx.x < n_long) {
+    const int64_t row = long_from + blockIdx.x;
+    const int dst = __ldg(perm + row);
+    if (dst < 0) return;  // uniform across the block
+    int width;
+    const int64_t base = locate(tab, nb, row, width);
+    const double acc = gse::block_chain_cols_f64_at(
+        maxtag, buf, base, __ldg(row_len + row), colpak, head, tail1, tail2,
+        table, xg, n, shift, mask, tg, need);
+    if ((int)threadIdx.x < nc) y[(int64_t)(c0 + threadIdx.x) * m + dst] = acc;
+    return;
+  }
+  const int64_t row = ((int64_t)blockIdx.x - n_long) * (kChainThreads / 32) +
+                      (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= long_from) return;  // uniform across the warp
+  const int dst = __ldg(perm + row);
+  if (dst < 0) return;
   int width;
   const int64_t base = locate(tab, nb, row, width);
   double acc[kColsWarp];
   gse::warp_walk_f64_at(maxtag, base, __ldg(row_len + row), lane, colpak,
-                        head, tail1, tail2, table, x + (int64_t)c0 * n, n,
-                        shift, mask, tg, need, acc);
+                        head, tail1, tail2, table, xg, n, shift, mask, tg,
+                        need, acc);
   if (lane == 0) {
 #pragma unroll
     for (int c = 0; c < kColsWarp; ++c) {
@@ -311,30 +308,6 @@ extern "C" int gse_spmv_sell_f64(const void* tag, const void* colpak,
   return (int)cudaGetLastError();
 }
 
-// The earlier B64 design (spmv_sell_f64_warp_kernel): timed beside
-// gse_spmv_sell_f64 only.
-extern "C" int gse_spmv_sell_f64_warp(const void* tag, const void* colpak,
-                                      const void* head, const void* tail1,
-                                      const void* tail2, const void* table,
-                                      const void* x, void* y, const void* tab,
-                                      int nb, const void* perm,
-                                      const void* row_len, long long rows_pad,
-                                      int ei_bit, void* stream) {
-  const int shift = 32 - ei_bit;
-  const uint32_t mask = (1u << shift) - 1u;
-  const long long blocks = (rows_pad * 32 + kThreadsWarp - 1) / kThreadsWarp;
-  if (blocks > 0) {
-    spmv_sell_f64_warp_kernel<<<(unsigned)blocks, kThreadsWarp, 0,
-                                (cudaStream_t)stream>>>(
-        (const int32_t*)tag, (const uint32_t*)colpak, (const uint16_t*)head,
-        (const uint16_t*)tail1, (const uint32_t*)tail2,
-        (const int32_t*)table, (const double*)x, (double*)y,
-        (const int64_t*)tab, nb, (const int32_t*)perm,
-        (const int32_t*)row_len, rows_pad, shift, mask);
-  }
-  return (int)cudaGetLastError();
-}
-
 // Y (m, nrhs) f32 = A X over the SELL buckets at `tag`; X is (nrhs, n) f32.
 extern "C" int gse_spmm_sell_f32(int tag, const void* colpak, const void* head,
                                  const void* tail1, const void* tail2,
@@ -375,24 +348,34 @@ extern "C" int gse_spmm_sell_f32(int tag, const void* colpak, const void* head,
 }
 
 // Y (nrhs, m) f64 = A X over the SELL buckets, column j at tags[j] when
-// active[j]; X is (nrhs, n) f64.
+// active[j]; X is (nrhs, n) f64.  Bucket rows [long_from, rows_pad) run a
+// block each.
 extern "C" int gse_spmm_sell_f64(const void* tags, const void* active,
                                  const void* colpak, const void* head,
                                  const void* tail1, const void* tail2,
                                  const void* table, const void* x, void* y,
                                  const void* tab, int nb, const void* perm,
                                  const void* row_len, long long rows_pad,
-                                 long long m, long long n, int nrhs,
-                                 int ei_bit, void* stream) {
+                                 long long long_from, long long m,
+                                 long long n, int nrhs, int ei_bit,
+                                 void* stream) {
+  if (long_from < 0 || long_from > rows_pad) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int shift = 32 - ei_bit;
   const uint32_t mask = (1u << shift) - 1u;
-  const dim3 grid((unsigned)((rows_pad * 32 + kThreadsWarp - 1) / kThreadsWarp),
-                  (unsigned)((nrhs + kColsWarp - 1) / kColsWarp));
-  spmm_sell_f64_kernel<<<grid, kThreadsWarp, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)tags, (const uint8_t*)active, (const uint32_t*)colpak,
-      (const uint16_t*)head, (const uint16_t*)tail1, (const uint32_t*)tail2,
-      (const int32_t*)table, (const double*)x, (double*)y,
-      (const int64_t*)tab, nb, (const int32_t*)perm, (const int32_t*)row_len,
-      rows_pad, m, n, nrhs, shift, mask);
+  const long long warps = kChainThreads / 32;
+  const dim3 grid(
+      (unsigned)((rows_pad - long_from) + (long_from + warps - 1) / warps),
+      (unsigned)((nrhs + kColsWarp - 1) / kColsWarp));
+  if (grid.x > 0 && grid.y > 0) {
+    spmm_sell_f64_kernel<<<grid, kChainThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)tags, (const uint8_t*)active, (const uint32_t*)colpak,
+        (const uint16_t*)head, (const uint16_t*)tail1, (const uint32_t*)tail2,
+        (const int32_t*)table, (const double*)x, (double*)y,
+        (const int64_t*)tab, nb, (const int32_t*)perm,
+        (const int32_t*)row_len, rows_pad, long_from, m, n, nrhs, shift,
+        mask);
+  }
   return (int)cudaGetLastError();
 }

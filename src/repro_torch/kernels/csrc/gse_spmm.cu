@@ -35,9 +35,12 @@
 //   A64 at tags[j] on column j of X.  Inactive columns read nothing and get
 //   0.0.  Y is (nrhs, m).
 //
-// The simple one-warp-per-row (C32) and one-thread-per-row (C64) orders are
-// kept for parity with A; A64's uncoalesced row walk is already 6.3-14.5x
-// its byte bound, and a faster order that keeps the bits is later work.
+// C32 keeps A32's warp row.  C64 still walks a row on one thread
+// (row_walk_f64), the design A64 had before its row plan: a warp's loads
+// touch 32 rows some 17 slots apart, 18.5-19.4x its byte bound on the
+// uniform operator (NVIDIA H100 80GB HBM3, 700 W).  A64's row bodies
+// (gse_rows.cuh: row blocks, warp rows, block chains) keep the same sums
+// and are C64's next design (ROADMAP R4).
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused

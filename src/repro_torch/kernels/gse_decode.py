@@ -41,8 +41,6 @@ _ARGTYPES = {
     "gse_matmul_dense": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
                          _LL, _LL, _LL, ctypes.c_int, _P, _P, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
-    "gse_matmul_dense_tiled64": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-                                 _P, _P, _LL, _LL, _LL, ctypes.c_int, _P],
 }
 _BOUND = {}
 OUT_DTYPES = (torch.float32, torch.bfloat16)

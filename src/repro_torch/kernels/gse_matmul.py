@@ -43,9 +43,7 @@ tests' tolerance (rtol 1e-5 / atol 1e-4).  Two bodies:
   adds the splits in order, in the same launch (the GEMV's scheme and
   scratch).  16-byte loads need K and N multiples of 8
   and x and every segment 16-byte aligned (:func:`tiled_vec_ok`);
-  otherwise the same kernel takes scalar loads.  The earlier FFMA tile
-  (64 x 64) stays as :func:`gse_matmul_dense_tiled64`, for timing beside
-  it only.
+  otherwise the same kernel takes scalar loads.
 
 :func:`gse_matmul_dense` launches the kernel for CUDA tensors (or raises)
 and runs :func:`gse_matmul_dense_plain` only for CPU tensors; it counts its
@@ -65,7 +63,7 @@ from repro_torch.kernels.gse_spmv import _raise_on
 from repro_torch.kernels.vec_f64 import on_device
 
 __all__ = ["gse_matmul_dense", "gse_matmul_dense_plain",
-           "gse_matmul_dense_tiled64", "gemv_plan", "GemvPlan", "KERNELS",
+           "gemv_plan", "GemvPlan", "KERNELS",
            "reset_launch_counts", "X_DTYPES", "GEMV_M_MAX", "GEMV_COLS",
            "GEMV_X_FLOATS", "GEMV_SPLITS", "gemv_rows_max", "TILE_M",
            "TILE_N", "SUM_K", "tiled_vec_ok", "tiled_terms", "tiled_plan",
@@ -338,34 +336,7 @@ def gse_matmul_dense(x, head, tail1, tail2, scales, *, ei_bit: int, tag: int,
     return y
 
 
-def gse_matmul_dense_tiled64(x, head, tail1, tail2, scales, *, ei_bit: int,
-                             tag: int) -> torch.Tensor:
-    """The earlier tiled design of E on CUDA tensors, M > 8: 64 x 64 FFMA
-    tiles.  No model path calls it; ``chip_smoke.py`` times it beside the
-    tensor-core body, on one card."""
-    dev = head.device
-    if dev.type != "cuda":
-        raise ValueError(f"gse_matmul_dense_tiled64 runs on cuda, not {dev}")
-    check_segments(head, tail1, tail2, tag, dev)
-    scales = check_scales(scales, dev)
-    (m, kk), n = x.shape, head.shape[1]
-    if m <= GEMV_M_MAX or x.device != dev or not x.is_contiguous() \
-            or x.dtype not in X_DTYPES or kk != head.shape[0]:
-        raise ValueError(f"x {tuple(x.shape)} must be (M > 8, K), "
-                         f"contiguous, f32 or bf16, on {dev}")
-    y = torch.empty(m, n, dtype=torch.float32, device=dev)
-    rc = dense_fn("gse_matmul_dense_tiled64")(
-        tag, int(x.dtype == torch.bfloat16), x.data_ptr(), head.data_ptr(),
-        tail1.data_ptr() if tag >= 2 else None,
-        tail2.data_ptr() if tag == 3 else None, scales.data_ptr(),
-        y.data_ptr(), m, kk, n, ei_bit,
-        torch.cuda.current_stream(dev).cuda_stream)
-    gse_matmul_dense_tiled64.launches += 1
-    _raise_on(rc, "gse_matmul_dense_tiled64")
-    return y
-
-
-KERNELS = (gse_matmul_dense, gse_matmul_dense_tiled64)
+KERNELS = (gse_matmul_dense,)
 
 
 def reset_launch_counts():

@@ -29,9 +29,13 @@ C's:
   row over each bucket row's width; per column bitwise C32, at nrhs = 1
   bitwise B32.  Y is ``(m, nrhs)``.
 * **C′64** -- :func:`gse_spmm_sell_f64` (``spmm_gse`` over a ``GSESellC``,
-  the batched CG operator): B64's warp row for every column, with C64's
+  the batched CG operator): B64's bodies for every column, with C64's
   per-column device tags and active flags; column j bitwise B64 at
-  ``tags[j]``, and so C64.  Y is ``(nrhs, m)``.
+  ``tags[j]``, and so C64.  Y is ``(nrhs, m)``.  The rows from the
+  pack's ``long_from`` on get a block each, whose producer warps stage
+  the four columns' products in shared memory ahead of four adding lanes,
+  one a column; the other rows get a warp each.  The launches per body
+  are counted in ``body_launches`` ("block", "warp").
 
 All are bound by HBM bytes: ``bytes_touched(tag)`` of segments plus
 ``nrhs * (m + n)`` vector elements.  Each wrapper takes ``device=``
@@ -72,8 +76,8 @@ _ARGTYPES = {
                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
     "gse_spmm_sell_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_int, _P, _P, ctypes.c_longlong,
-                          ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_int, _P],
+                          ctypes.c_longlong, ctypes.c_longlong,
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
 }
 _SOURCE = {"gse_spmm_ell_f32": "gse_spmm", "gse_spmm_csr_f64": "gse_spmm",
            "gse_spmm_sell_f32": "gse_sell", "gse_spmm_sell_f64": "gse_sell"}
@@ -316,11 +320,14 @@ def gse_spmm_sell_f64_plain(colpak, head, tail1, tail2, table, x, tags,
 
 def gse_spmm_sell_f64(colpak, head, tail1, tail2, table, x, tags, active,
                       buckets, perm, row_len, *, rows: int, ei_bit: int,
+                      long_from: int | None = None,
                       device="cuda") -> torch.Tensor:
     """Y = A @ X as ``(nrhs, rows)`` f64 over the flat SELL segments and an
     ``(nrhs, n)`` f64 X, column j at ``tags[j]`` (int32, clipped to [1, 3])
     when ``active[j]`` (bool), both on the operand's device; inactive
     columns are 0.0.  ``row_len`` is each bucket row's real entry count.
+    ``long_from`` (required on the card) is the pack's
+    ``GSESellC.long_from``.
     """
     dev = on_device(device, colpak=colpak, head=head, tail1=tail1,
                     tail2=tail2, table=table, x=x, tags=tags, active=active,
@@ -344,16 +351,23 @@ def gse_spmm_sell_f64(colpak, head, tail1, tail2, table, x, tags, active,
     if tags.shape[0] != nrhs or active.shape[0] != nrhs:
         raise ValueError(f"tags/active have {tags.shape[0]}/"
                          f"{active.shape[0]} entries, x {nrhs} columns")
+    rows_pad = perm.shape[0]
+    if long_from is None or not 0 <= long_from <= rows_pad:
+        raise ValueError(f"long_from must be the pack's long_from, in "
+                         f"[0, {rows_pad}], got {long_from}")
     y = torch.empty(nrhs, rows, dtype=torch.float64, device=dev)
-    if perm.shape[0] == 0 or nrhs == 0:
+    if rows_pad == 0 or nrhs == 0:
         return y
     rc = _fn("gse_spmm_sell_f64")(
         tags.data_ptr(), active.data_ptr(), colpak.data_ptr(),
         head.data_ptr(), tail1.data_ptr(), tail2.data_ptr(), table.data_ptr(),
         x.data_ptr(), y.data_ptr(), buckets.data_ptr(), buckets.shape[0],
-        perm.data_ptr(), row_len.data_ptr(), perm.shape[0], rows, n, nrhs,
-        ei_bit, torch.cuda.current_stream(dev).cuda_stream)
+        perm.data_ptr(), row_len.data_ptr(), rows_pad, long_from, rows, n,
+        nrhs, ei_bit, torch.cuda.current_stream(dev).cuda_stream)
     gse_spmm_sell_f64.launches += 1
+    for body, count in (("block", rows_pad - long_from), ("warp", long_from)):
+        if count:
+            gse_spmm_sell_f64.body_launches[body] += 1
     _raise_on(rc, "gse_spmm_sell_f64")
     return y
 
@@ -363,8 +377,11 @@ KERNELS = (gse_spmm_ell_f32, gse_spmm_csr_f64, gse_spmm_sell_f32,
 
 
 def reset_launch_counts():
+    """Zero every wrapper's ``launches``; ``gse_spmm_sell_f64`` also counts
+    per body in ``body_launches`` ("block", "warp")."""
     for k in KERNELS:
         k.launches = 0
+    gse_spmm_sell_f64.body_launches = {"block": 0, "warp": 0}
 
 
 reset_launch_counts()

@@ -13,7 +13,14 @@ decode ``decode_tile`` :61, ``pallas_call`` :160).  The CUDA source is
 * **A64** -- :func:`gse_spmv_csr_f64`: f64 over the CSR rows, what
   ``spmv_gse`` computes; the operator inside the stepped CG loop.  The tag
   is read from a device int32 so the loop never syncs to choose a build.
-  Bitwise equal to its plain version and to the reference.
+  Bitwise equal to its plain version and to the reference: each row's
+  products are added in CSR order from 0.0.  The pack's row plan
+  (``GSECSR.row_plan``, ``sparse.csr.csr_row_plan``) picks each row's
+  body by its length, in one launch: long rows a block each (B64's block
+  chain), rows in between a warp each (B64's warp row), and runs of short
+  rows a block each, whose threads stage the run's products in shared
+  memory with coalesced loads before each thread adds one row.  The
+  launches per body are counted in ``body_launches``.
 
 Kernel B replaces ``gse_spmv_sell_call`` (``repro/kernels/gse_spmv.py``
 :178, A's ``pallas_call`` once per width bucket, then the ``unperm``
@@ -27,10 +34,10 @@ row bodies are A's:
   the CG operator): A64's chain over each row's real slots; bitwise A64.
   A dense row's sum is one chain of dependent adds, so the rows of the
   buckets at least ``sparse.csr.B64_BLOCK_WIDTH`` wide (from the pack's
-  ``long_from`` on) get a block each, whose other warps decode and multiply the slots into
-  shared memory ahead of the one thread that adds them; the other rows
-  get one warp each (32 slots loaded and decoded at a time, the products
-  added in slot order from shuffle broadcasts).
+  ``long_from`` on) get a block each, whose other warps decode and
+  multiply the slots into shared memory ahead of the one thread that adds
+  them; the other rows get one warp each (32 slots loaded and decoded at
+  a time, the products added in slot order from shuffle broadcasts).
 
 The SELL wrappers take the pack's flat ``(slots,)`` segment arrays, its
 ``(n_buckets, 3)`` bucket table ``[first row, width, flat offset]`` and
@@ -56,13 +63,14 @@ __all__ = ["gse_spmv_ell_f32", "gse_spmv_ell_f32_plain", "gse_spmv_csr_f64",
            "gse_spmv_csr_f64_plain", "gse_spmv_sell_f32",
            "gse_spmv_sell_f32_plain", "gse_spmv_sell_f64",
            "gse_spmv_sell_f64_plain", "csr_row_sums", "row_sums",
-           "KERNELS", "reset_launch_counts", "gse_spmv_sell_f64_warp"]
+           "KERNELS", "reset_launch_counts", "A64_BODIES"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "gse_spmv_ell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
-    "gse_spmv_csr_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "gse_spmv_csr_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         ctypes.c_longlong, _P, ctypes.c_longlong, _P,
                          ctypes.c_longlong, ctypes.c_int, _P],
     "gse_spmv_sell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int,
@@ -70,13 +78,9 @@ _ARGTYPES = {
     "gse_spmv_sell_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                           _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                           ctypes.c_int, _P],
-    "gse_spmv_sell_f64_warp": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               ctypes.c_int, _P, _P, ctypes.c_longlong,
-                               ctypes.c_int, _P],
 }
 _SOURCE = {"gse_spmv_ell_f32": "gse_spmv", "gse_spmv_csr_f64": "gse_spmv",
-           "gse_spmv_sell_f32": "gse_sell", "gse_spmv_sell_f64": "gse_sell",
-           "gse_spmv_sell_f64_warp": "gse_sell"}
+           "gse_spmv_sell_f32": "gse_sell", "gse_spmv_sell_f64": "gse_sell"}
 _BOUND = {}
 
 
@@ -243,13 +247,20 @@ def csr_row_sums(rowptr, prod) -> torch.Tensor:
     return row_sums(rp[:-1], rp[1:] - rp[:-1], prod)
 
 
+# A64's bodies, in the order of RowPlan's fields: "block" runs the long
+# rows, "warp" the rows in between, "row_block" the runs of short rows.
+A64_BODIES = ("block", "warp", "row_block")
+
+
 def gse_spmv_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, *,
-                     ei_bit: int, tag) -> torch.Tensor:
+                     ei_bit: int, tag, plan=None) -> torch.Tensor:
     """y = A @ x as (M,) f64 over GSE-SEM CSR segments.
 
     ``tag`` is an int or an int32 tensor on the operand's device (clipped
     to [1, 3] as the reference's ``lax.switch`` clips it); all three
     segment arrays are passed because the tag is chosen on the device.
+    ``plan`` (required on the card) is the pack's ``GSECSR.row_plan``, a
+    ``sparse.csr.RowPlan`` of these rows.
     """
     if colpak.device.type == "cpu":
         return gse_spmv_csr_f64_plain(rowptr, colpak, head, tail1, tail2,
@@ -271,16 +282,33 @@ def gse_spmv_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, *,
     if not isinstance(tag, torch.Tensor):
         tag = torch.full((), int(tag), dtype=torch.int32, device=dev)
     _check(tag.reshape(1), "tag", torch.int32, dev, 1)
+    if plan is None:
+        raise ValueError("gse_spmv_csr_f64 needs the pack's row plan "
+                         "(GSECSR.row_plan) on the card")
+    parts = (plan.long_rows, plan.warp_rows, plan.row_blocks)
+    for body, t, ndim in zip(A64_BODIES, parts, (1, 1, 2)):
+        _check(t, f"plan's {body} rows", torch.int32, dev, ndim)
+    if plan.row_blocks.shape[1] != 2:
+        raise ValueError(f"row_blocks must be (n_blocks, 2), got "
+                         f"{tuple(plan.row_blocks.shape)}")
     rows = rowptr.shape[0] - 1
+    if plan.rows != rows:
+        raise ValueError(f"the row plan is for {plan.rows} rows, rowptr has "
+                         f"{rows}")
     y = torch.empty(rows, dtype=torch.float64, device=dev)
     if rows == 0:
         return y
+    counts = [t.shape[0] for t in parts]
     rc = _fn("gse_spmv_csr_f64")(
         tag.data_ptr(), rowptr.data_ptr(), colpak.data_ptr(), head.data_ptr(),
         tail1.data_ptr(), tail2.data_ptr(), table.data_ptr(), x.data_ptr(),
-        y.data_ptr(), rows, ei_bit,
+        y.data_ptr(), parts[0].data_ptr(), counts[0], parts[1].data_ptr(),
+        counts[1], parts[2].data_ptr(), counts[2], ei_bit,
         torch.cuda.current_stream(dev).cuda_stream)
     gse_spmv_csr_f64.launches += 1
+    for body, count in zip(A64_BODIES, counts):
+        if count:
+            gse_spmv_csr_f64.body_launches[body] += 1
     _raise_on(rc, "gse_spmv_csr_f64")
     return y
 
@@ -438,43 +466,16 @@ def gse_spmv_sell_f64(colpak, head, tail1, tail2, table, x, buckets, perm,
     return y
 
 
-def gse_spmv_sell_f64_warp(colpak, head, tail1, tail2, table, x, buckets,
-                           perm, row_len, *, rows: int, ei_bit: int,
-                           tag) -> torch.Tensor:
-    """The earlier design of B64 on CUDA tensors: every row on one warp,
-    two warps per block.  No solver path calls it; ``chip_smoke.py`` times
-    it beside :func:`gse_spmv_sell_f64`, on one card."""
-    dev = colpak.device
-    if dev.type != "cuda":
-        raise ValueError(f"gse_spmv_sell_f64_warp runs on cuda, not {dev}")
-    _check_sell((("colpak", colpak, torch.uint32), ("head", head, torch.uint16),
-                 ("tail1", tail1, torch.uint16),
-                 ("tail2", tail2, torch.uint32)), buckets, perm, dev)
-    _check(row_len, "row_len", torch.int32, dev, 1)
-    _check(table, "table", torch.int32, dev, 1)
-    _check(x, "x", torch.float64, dev, 1)
-    if not isinstance(tag, torch.Tensor):
-        tag = torch.full((), int(tag), dtype=torch.int32, device=dev)
-    _check(tag.reshape(1), "tag", torch.int32, dev, 1)
-    y = torch.empty(rows, dtype=torch.float64, device=dev)
-    rc = _fn("gse_spmv_sell_f64_warp")(
-        tag.data_ptr(), colpak.data_ptr(), head.data_ptr(), tail1.data_ptr(),
-        tail2.data_ptr(), table.data_ptr(), x.data_ptr(), y.data_ptr(),
-        buckets.data_ptr(), buckets.shape[0], perm.data_ptr(),
-        row_len.data_ptr(), perm.shape[0], ei_bit,
-        torch.cuda.current_stream(dev).cuda_stream)
-    gse_spmv_sell_f64_warp.launches += 1
-    _raise_on(rc, "gse_spmv_sell_f64_warp")
-    return y
-
-
 KERNELS = (gse_spmv_ell_f32, gse_spmv_csr_f64, gse_spmv_sell_f32,
-           gse_spmv_sell_f64, gse_spmv_sell_f64_warp)
+           gse_spmv_sell_f64)
 
 
 def reset_launch_counts():
+    """Zero every wrapper's ``launches``; ``gse_spmv_csr_f64`` also counts
+    per body in ``body_launches`` (:data:`A64_BODIES`)."""
     for k in KERNELS:
         k.launches = 0
+    gse_spmv_csr_f64.body_launches = dict.fromkeys(A64_BODIES, 0)
 
 
 reset_launch_counts()

@@ -226,7 +226,7 @@ def _solve_cg_batched_fused(a, b, x0, tol, maxiter, params, init_tag=1,
             return gse_spmm_sell_f64(*a.segments, a.table, v, tags, active,
                                      a.bucket_table, a.perm, a.row_len,
                                      rows=a.shape[0], ei_bit=a.ei_bit,
-                                     device=device)
+                                     long_from=a.long_from, device=device)
         return gse_spmm_csr_f64(a.rowptr, a.colpak, a.head, a.tail1, a.tail2,
                                 a.table, v, tags, active, ei_bit=a.ei_bit,
                                 device=device)

@@ -14,6 +14,9 @@ Paper Section III.C.1: shared-exponent indices ride the top ``EI_BIT``
 bits of the 32-bit column indices, so the SEM head keeps all 15 non-sign
 bits as mantissa.  Packing runs on the host in numpy (bit-for-bit the
 reference packer); the containers hold torch tensors on ``device``.
+The port's own kernel plans ride the packs, built once at pack time:
+``GSECSR.row_plan`` (:func:`csr_row_plan`, kernel A64's body per row)
+and ``GSESellC.long_from`` (:func:`sell_long_from`, B64's and C′64's).
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from repro_torch.core import gse, precision_table
 __all__ = [
     "CSR",
     "GSECSR",
+    "RowPlan",
+    "csr_row_plan",
     "ELLLayout",
     "GSESellC",
     "from_coo",
@@ -81,8 +86,35 @@ class CSR:
 
 
 @dataclasses.dataclass
+class RowPlan:
+    """Which body of kernel A64 (``csrc/gse_spmv.cu``) runs each CSR row,
+    by :func:`csr_row_plan`: every row is in exactly one of the three.
+
+    ``long_rows`` -- rows of at least ``A64_BLOCK_LEN`` entries, a block
+    each; ``warp_rows`` -- rows of ``A64_WARP_LEN`` up to that, a warp
+    each; ``row_blocks`` -- ``(n_blocks, 2)`` ``[first row, end row)`` runs
+    of consecutive shorter rows, at most ``ROW_BLOCK_ROWS`` rows and
+    ``ROW_BLOCK_SLOTS`` entries a run, one block each.  All int32 on the
+    operand's device.  ``rows`` is the row count of the CSR the plan was
+    built for; A64 refuses a plan of another.  A plan that leaves rows out
+    (``chip_smoke.py`` times the bodies apart that way) leaves their
+    outputs unwritten: it is for timing only.
+    """
+
+    long_rows: torch.Tensor   # (n_long,) int32
+    warp_rows: torch.Tensor   # (n_warp,) int32
+    row_blocks: torch.Tensor  # (n_blocks, 2) int32
+    rows: int
+
+
+@dataclasses.dataclass
 class GSECSR:
-    """CSR with GSE-SEM values; expIdx lives in the top bits of ``colpak``."""
+    """CSR with GSE-SEM values; expIdx lives in the top bits of ``colpak``.
+
+    Port-private, derived at pack time: ``row_plan`` -- the
+    :class:`RowPlan` kernel A64 launches by (:func:`csr_row_plan` of
+    ``rowptr``); the reference has no counterpart.
+    """
 
     rowptr: torch.Tensor   # (m+1,) int32
     colpak: torch.Tensor   # (nnz,) uint32: [expIdx : EI_BIT][col : 32-EI_BIT]
@@ -93,6 +125,7 @@ class GSECSR:
     row_ids: torch.Tensor  # (nnz,) int32
     ei_bit: int
     shape: Tuple[int, int]
+    row_plan: RowPlan
 
     @property
     def m_h(self) -> int:
@@ -179,7 +212,7 @@ class GSESellC:
     row's real entry count, ``rowptr``'s row lengths at ``perm`` (0 for
     padding rows), so the f64 kernels walk only real slots; ``long_from``
     -- :func:`sell_long_from` of the buckets, the first bucket row that
-    kernel B64 runs with a block of its own.
+    kernels B64 and C′64 run with a block of its own.
     """
 
     colpak: tuple   # per-bucket (rows_b, w_b) uint32
@@ -326,7 +359,71 @@ def pack_csr(a: CSR, k: int = 8) -> GSECSR:
         row_ids=a.row_ids,
         ei_bit=ei,
         shape=a.shape,
+        row_plan=csr_row_plan(a.rowptr),
     )
+
+
+# Kernel A64's bodies by row length (csrc/gse_spmv.cu): rows of at least
+# A64_BLOCK_LEN entries get a block each, rows of at least A64_WARP_LEN a
+# warp each, the others run in row blocks.  A row block holds at most
+# ROW_BLOCK_ROWS consecutive rows and ROW_BLOCK_SLOTS entries
+# (csrc/gse_rows.cuh kRowBlockRows, kRowBlockSlots; tests/
+# test_torch_row_plans.py holds them equal).  The lengths are
+# chip_smoke.py's width sweep (phase 10; PERF.md): on 2^22 entries of rows
+# of one length, the row blocks beat the warps up to 64 entries and lose
+# from 128 on; the block loses by 9-29% at 1024, ties the warp at 2048
+# (within 7% either way) and wins from 4096 on; on 8 rows, where a row's
+# chain is the whole call, it is ahead from 2048 on.
+A64_WARP_LEN = 128
+A64_BLOCK_LEN = 2048
+ROW_BLOCK_SLOTS = 2048
+ROW_BLOCK_ROWS = 256
+
+
+def csr_row_plan(rowptr, warp_len: int = None,
+                 block_len: int = None) -> RowPlan:
+    """The :class:`RowPlan` of the CSR rows ``rowptr`` on its device (host
+    numpy, once per pack).  ``warp_len`` and ``block_len`` default to
+    ``A64_WARP_LEN`` and ``A64_BLOCK_LEN``; rows shorter than ``warp_len``
+    must fit a row block, so ``warp_len <= ROW_BLOCK_SLOTS + 1``.
+
+    Row blocks: the short rows of one run between longer rows whose first
+    entries share a window of ``ROW_BLOCK_SLOTS - longest + 1`` slots
+    (``longest`` the longest short row) form a block, so its entries end
+    within ``ROW_BLOCK_SLOTS`` of its first one; a block of more than
+    ``ROW_BLOCK_ROWS`` rows is cut into several.
+    """
+    warp_len = A64_WARP_LEN if warp_len is None else int(warp_len)
+    block_len = A64_BLOCK_LEN if block_len is None else int(block_len)
+    if not 1 <= warp_len <= block_len or warp_len > ROW_BLOCK_SLOTS + 1:
+        raise ValueError(f"need 1 <= warp_len {warp_len} <= block_len "
+                         f"{block_len} and warp_len <= {ROW_BLOCK_SLOTS + 1}")
+    rp = np.asarray(gse._np(rowptr), np.int64)
+    lens = np.diff(rp)
+    is_long = lens >= block_len
+    is_warp = ~is_long & (lens >= warp_len)
+    is_short = ~(is_long | is_warp)
+    short = np.flatnonzero(is_short)
+    blocks = np.zeros((0, 2), np.int64)
+    if short.size:
+        span = ROW_BLOCK_SLOTS - int(lens[short].max()) + 1
+        run = np.cumsum(~is_short)[short]
+        key = rp[short] // span
+        brk = np.ones(short.size, bool)
+        brk[1:] = (run[1:] != run[:-1]) | (key[1:] != key[:-1])
+        starts = np.flatnonzero(brk)
+        rank = np.arange(short.size) - starts[np.cumsum(brk) - 1]
+        first = np.flatnonzero(rank % ROW_BLOCK_ROWS == 0)
+        last = np.append(first[1:] - 1, short.size - 1)
+        blocks = np.stack([short[first], short[last] + 1], axis=1)
+    dev = rowptr.device if isinstance(rowptr, torch.Tensor) else "cpu"
+
+    def i32(v):
+        return torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(dev)
+
+    return RowPlan(long_rows=i32(np.flatnonzero(is_long)),
+                   warp_rows=i32(np.flatnonzero(is_warp)),
+                   row_blocks=i32(blocks), rows=int(lens.size))
 
 
 def vector_stream_bytes(op, dtype=torch.float64) -> int:
@@ -457,16 +554,19 @@ def sell_slices(rowptr, c: int = 8, sigma: int | None = None,
     return order, bucket_w, sigma
 
 
-# Bucket widths from which kernel B64 (csrc/gse_sell.cu) gives each row a
-# block of its own.  Unmeasured between the widths the cells hold: a block
-# beats a warp at 262,144 slots, and a warp is kept at 256 and below.
-B64_BLOCK_WIDTH = 2048
+# Bucket widths from which kernels B64 and C′64 (csrc/gse_sell.cu) give
+# each row a block of its own.  The crossover is A64's (A64_BLOCK_LEN):
+# a pow2 bucket of width 2 * A64_BLOCK_LEN holds rows of A64_BLOCK_LEN + 1
+# to 2 * A64_BLOCK_LEN entries, where the width sweep's blocks tie the
+# warps or win, and the one of width A64_BLOCK_LEN rows of half that up
+# to it, where the warps win or tie.
+B64_BLOCK_WIDTH = 2 * A64_BLOCK_LEN
 
 
 def sell_long_from(widths, bucket_rows) -> int:
     """The first bucket row of the buckets at least ``B64_BLOCK_WIDTH``
-    wide (the total of ``bucket_rows`` if none is): B64 runs the rows from
-    there on with a block each.  ``widths`` ascend, as ``pack_sell``
+    wide (the total of ``bucket_rows`` if none is): B64 and C′64 run the
+    rows from there on with a block each.  ``widths`` ascend, as ``pack_sell``
     orders its buckets, so those rows are the last ones."""
     widths, bucket_rows = tuple(widths), tuple(bucket_rows)
     if len(widths) != len(bucket_rows) or list(widths) != sorted(widths):

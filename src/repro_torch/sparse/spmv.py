@@ -131,7 +131,8 @@ def spmv_gse(a, x: torch.Tensor, tag=1) -> torch.Tensor:
             rows=a.shape[0], ei_bit=a.ei_bit, tag=tag,
             long_from=a.long_from)
     return gse_spmv_csr_f64(a.rowptr, a.colpak, a.head, a.tail1, a.tail2,
-                            a.table, x, ei_bit=a.ei_bit, tag=tag)
+                            a.table, x, ei_bit=a.ei_bit, tag=tag,
+                            plan=a.row_plan)
 
 
 def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
@@ -190,7 +191,7 @@ def spmm_gse(a, x: torch.Tensor, tag=1) -> torch.Tensor:
         return gse_spmm_sell_f64(*a.segments, a.table, xt, tags, active,
                                  a.bucket_table, a.perm, a.row_len,
                                  rows=a.shape[0], ei_bit=a.ei_bit,
-                                 device=dev).t()
+                                 long_from=a.long_from, device=dev).t()
     y = gse_spmm_csr_f64(a.rowptr, a.colpak, a.head, a.tail1, a.tail2,
                          a.table, xt, tags, active, ei_bit=a.ei_bit,
                          device=dev)

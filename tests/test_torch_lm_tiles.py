@@ -267,12 +267,15 @@ def test_tiled_vector_loads_need_k_and_n_multiples_of_8_and_alignment():
 # --- B64: the long-row plan ---------------------------------------------------
 
 def test_sell_long_from_picks_the_widest_buckets():
+    w = T_csr.B64_BLOCK_WIDTH  # 4096: chip_smoke.py's width sweep
+    assert w == 4096
     assert T_csr.sell_long_from((128, 256, 262144), (259992, 2144, 8)) == \
         259992 + 2144
     assert T_csr.sell_long_from((128, 256), (30, 2)) == 32  # none is long
-    assert T_csr.sell_long_from((2048, 4096), (8, 8)) == 0  # all are
-    assert T_csr.sell_long_from((128, 2047), (8, 8)) == 16  # 2048 is long
-    assert T_csr.sell_long_from((128, 2048), (8, 8)) == 8
+    assert T_csr.sell_long_from((w, 2 * w), (8, 8)) == 0  # all are
+    assert T_csr.sell_long_from((128, w - 1), (8, 8)) == 16  # w is long
+    assert T_csr.sell_long_from((128, w), (8, 8)) == 8
+    assert T_csr.sell_long_from((2048, w), (8, 8)) == 8  # 2048 is not
     assert T_csr.sell_long_from((), ()) == 0
 
 

@@ -20,8 +20,7 @@ drawn on the card from a seed and packed by ``pack_linear_weight`` at
 off); E's tiled body (``matmul_tc_kernel``, split TF32 on the tensor
 cores) at prefill's M = ``PREFILL_ROWS`` (B 4 x S 512, as
 ``chip_smoke.py`` serves) on every linear of a layer, bf16 x,
-beside the earlier FFMA tile (``gse_matmul_dense_tiled64``) and the same
-``torch.matmul``, with its bound on the TF32 tensor cores (495 TFLOP/s
+beside the same ``torch.matmul``, with its bound on the TF32 tensor cores (495 TFLOP/s
 times the two TF32 terms of a bf16 x) and the FP32 bound (67 TFLOP/s); F
 (``flash_attention_gqa``) in bf16 at B 4, H 32, KV 8, hd 128, causal, S = T
 2048 and 512, beside scaled_dot_product_attention.  Prints one JSON object
@@ -175,8 +174,6 @@ def main() -> int:
                 "fp32_bound_ms": ops / 67e12 * 1e3,
                 "kernel": _times(lambda: E.gse_matmul_dense(
                     xp, *segs, ei_bit=ei, tag=tag), args.reps, host=True),
-                "earlier": _times(lambda: E.gse_matmul_dense_tiled64(
-                    xp, *segs, ei_bit=ei, tag=tag), args.reps),
                 "library": _times(lambda: torch.matmul(xp32, w32),
                                   args.reps),
             }
