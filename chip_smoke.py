@@ -28,8 +28,9 @@ Phases:
                   tolerance, bitwise expected) and at nrhs = 1 bitwise A32;
                   C64 with tags [1, 2, 3, 1] and active [T, T, T, F]
                   bitwise its plain version, column j bitwise A64 at tag
-                  j+1; seq_dot_cols and fma_axpy_cols bitwise seq_dot and
-                  fma_axpy per column.  The SELL-C-sigma pack of the same
+                  j+1, every body of C64 the row plan holds launched (row
+                  blocks); seq_dot_cols and fma_axpy_cols bitwise seq_dot
+                  and fma_axpy per column.  The SELL-C-sigma pack of the same
                   matrix (every slice 128 wide, so the checks exercise the
                   row permutation): B32 bitwise A32 and B64 bitwise A64 at
                   tags 1-3; C′32 bitwise C32 at tags 1-3 and C′64 bitwise
@@ -55,7 +56,8 @@ Phases:
                   at tol 1e-8 flushed.  Request 0 (phase 4's b) must equal
                   phase 4's solo solve bitwise; all converge, health ok,
                   no retries, no errors; every kernel of the path must
-                  have launched.
+                  have launched, and every body of C64 that the row plan
+                  holds.
   7. sell parity -- skewed_spd(8192, seed=0) packed at k=8 (about 1.03M
                   nonzeros, SELL widths 128/256/8192; its uniform ELL still
                   fits, so A and C run beside B and C′): B32 against its
@@ -63,9 +65,9 @@ Phases:
                   bitwise A32; B64 bitwise A64 and its plain version; C′32
                   and C′64 likewise against C32 and C64 at nrhs 4 (C′64
                   with mixed tags); A64 bitwise its plain version; tags
-                  1-3.  A64's three bodies (row blocks, warp rows, the
-                  hubs' block chains) and C′64's two (the hubs' block
-                  chains, warp rows) must have launched.
+                  1-3.  A64's and C64's three bodies (row blocks, warp
+                  rows, the hubs' block chains) and B32's and C′64's two
+                  (the hubs' blocks, warp rows) must have launched.
   8. sell trajectory -- sk512_rs8_s0 (diag_rescale(skewed_spd(512,
                   seed=0), 8, 0)) over its SELL pack: solve_cg on the GPU
                   and on the CPU twin (1498 iterations, tag 3, [210, 300];
@@ -81,8 +83,9 @@ Phases:
                   relres and health "stalled" equal), and so must its
                   layout="sell" service (STALL_SERVE_REF: every request
                   converges after one tag-3 retry).  B64 bitwise A64 at
-                  tags 1-3 and C′64
-                  bitwise C64 (mixed tags) on it; then, launch counts
+                  tags 1-3 and C′64 bitwise C64 (mixed tags) on it, C64
+                  bitwise its plain version and, per column, A64, all
+                  three of its bodies launched; then, launch counts
                   zeroed, B32 and C′32 at tags 1-3 against their plain
                   versions (rtol 2e-5 / atol 1e-4), stepped CG over the SELL pack (tol 1e-8,
                   maxiter 20000, default guards; it may stall, as the
@@ -94,8 +97,8 @@ Phases:
                   the solo SELL solve (and retry), all converge, health
                   ok, no errors; every kernel of the path must have
                   launched, and every body of A64 (in the 256 CSR
-                  iterations) and of C′64 (in the service) that the
-                  row plan and the SELL pack hold.
+                  iterations), of B32 and of C′64 (in the service) that
+                  the row plan and the SELL pack hold.
   11. lm kernels -- kernels D, E and F against their plain versions at
                   qwen3_4b's full-width shapes: D bitwise (f32 and bf16
                   out) on gse.pack packs shaped like wq (2560, 4096) and
@@ -154,14 +157,16 @@ Phases:
                   for D); the SELL kernels and A64 on phase 9's operator,
                   D, E and F at phase 11's shapes with the launches of
                   phases 13 (E, F's tensor-core body), 12 (F's FFMA body)
-                  and 14 (D).  F's bf16 row at S = 2048 carries
-                  `earlier_ms`, the FFMA body's time on the same inputs;
-                  A64's and C′64's rows carry their launches per body
-                  (`body_launches`); E's tiled rows are bound by the
-                  TF32 tensor cores (495 TFLOP/s per TF32 term) and F's
-                  bf16 rows by the bf16 tensor cores (989 TFLOP/s), with
-                  `fp32_bound_ms` beside.  First a probe times a dependent FP64 add chain
-                  and FMA chain from registers (vec_f64.chain_latency);
+                  and 14 (D); C64 also on phase 9's skewed CSR, with the
+                  launch of its full-size check.  F's bf16 row at S =
+                  2048 carries `earlier_ms`, the FFMA body's time on the
+                  same inputs; A64's, B32's, C64's and C′64's rows carry
+                  their launches per body (`body_launches`); E's tiled
+                  rows are bound by the TF32 tensor cores (495 TFLOP/s
+                  per TF32 term) and F's bf16 rows by the bf16 tensor
+                  cores (989 TFLOP/s), with `fp32_bound_ms` beside.
+                  First a probe times a dependent FP64 add chain and FMA
+                  chain from registers (vec_f64.chain_latency);
                   the f64 kernels held to the reference's summation order
                   (A64, B64, C64, C′64, seq_dot, seq_dot_cols) carry
                   `chain_bound_ms`: their longest chain times that
@@ -312,8 +317,8 @@ def require_bitwise(name, got, want):
         raise AssertionError(f"{name} is not bitwise equal to its reference")
 
 
-def a64_bodies(g) -> list:
-    """The bodies of kernel A64 that the row plan of ``g`` runs."""
+def plan_bodies(g) -> list:
+    """The bodies of kernels A64 and C64 that the row plan of ``g`` runs."""
     from repro_torch.kernels.gse_spmv import A64_BODIES
 
     plan = g.row_plan
@@ -321,8 +326,9 @@ def a64_bodies(g) -> list:
     return [b for b, t in zip(A64_BODIES, parts) if t.shape[0]]
 
 
-def c64_bodies(sell) -> list:
-    """The bodies of kernel C′64 that the SELL pack ``sell`` runs."""
+def sell_bodies(sell) -> list:
+    """The bodies of kernels B32 and C′64 (split at the pack's
+    ``long_from``) that the SELL pack ``sell`` runs."""
     return [b for b, n in (("block", sell.perm.shape[0] - sell.long_from),
                            ("warp", sell.long_from)) if n]
 
@@ -417,7 +423,7 @@ def sell_against_uniform(case, g, ell, sell, x32, x64, x32c, x64c, scales):
                             rows=g.shape[0], ei_bit=g.ei_bit,
                             long_from=sell.long_from, device=dev),
         C.gse_spmm_csr_f64(*segs, x64c, tags, active, ei_bit=g.ei_bit,
-                           device=dev))
+                           plan=g.row_plan, device=dev))
     log("parity", case=case, layout="sell", widths=list(sell.widths),
         bucket_rows=list(sell.bucket_rows),
         b32_bitwise_a32=True, b64_bitwise_a64=True, c32_bitwise=True,
@@ -466,7 +472,7 @@ def phase_sell_parity():
         t1 = segs[2] if t >= 2 else None
         t2 = segs[3] if t == 3 else None
         got = K.gse_spmv_sell_f32(segs[0], segs[1], t1, t2, x32, scales[t],
-                                  tag=t, **lay)
+                                  tag=t, long_from=sell.long_from, **lay)
         want = K.gse_spmv_sell_f32_plain(segs[0], segs[1], t1, t2, x32,
                                          scales[t], tag=t, **lay)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-4)
@@ -502,14 +508,17 @@ def phase_sell_parity():
                         K.gse_spmv_csr_f64_plain(
                             g.rowptr, g.colpak, g.head, g.tail1, g.tail2,
                             g.table, x64, ei_bit=g.ei_bit, tag=t))
-    a64_launched = dict(K.gse_spmv_csr_f64.body_launches)
-    c64_launched = dict(C.gse_spmm_sell_f64.body_launches)
-    require_bodies("phase 7: A64", a64_launched, a64_bodies(g))
-    require_bodies("phase 7: C′64", c64_launched, c64_bodies(sell))
+    launched = {"A64": dict(K.gse_spmv_csr_f64.body_launches),
+                "C64": dict(C.gse_spmm_csr_f64.body_launches),
+                "B32": dict(K.gse_spmv_sell_f32.body_launches),
+                "C′64": dict(C.gse_spmm_sell_f64.body_launches)}
+    for name in ("A64", "C64"):
+        require_bodies(f"phase 7: {name}", launched[name], plan_bodies(g))
+    for name in ("B32", "C′64"):
+        require_bodies(f"phase 7: {name}", launched[name], sell_bodies(sell))
     log("sell_parity", kernel="gse_spmm_sell_f64", tags=[1, 2, 3, 1],
         active=[True, True, True, False], bitwise_plain=True,
-        a64_bitwise_plain=True, a64_body_launches=json.dumps(a64_launched),
-        c64_body_launches=json.dumps(c64_launched))
+        a64_bitwise_plain=True, body_launches=json.dumps(launched))
 
 
 def phase_sell_trajectory(params):
@@ -681,17 +690,33 @@ def phase_sell_full(params):
                         spmv_gse(sell, x64, t), spmv_gse(g, x64, t))
     mixed = torch.tensor([1, 2, 3, 1], dtype=torch.int32, device=dev)
     active = torch.tensor([True, True, True, False], device=dev)
-    require_bitwise(
-        "full size: C′64 against C64",
-        C.gse_spmm_sell_f64(*sell.segments, g.table, x64c, mixed, active,
-                            sell.bucket_table, sell.perm, sell.row_len,
-                            rows=m, ei_bit=g.ei_bit, long_from=sell.long_from,
-                            device=dev),
-        C.gse_spmm_csr_f64(g.rowptr, g.colpak, g.head, g.tail1, g.tail2,
-                           g.table, x64c, mixed, active, ei_bit=g.ei_bit,
-                           device=dev))
+    C.reset_launch_counts()
+    csr_args = (g.rowptr, g.colpak, g.head, g.tail1, g.tail2, g.table)
+    c64 = C.gse_spmm_csr_f64(*csr_args, x64c, mixed, active, ei_bit=g.ei_bit,
+                             plan=g.row_plan, device=dev)
+    c64_parity = {"launches": C.gse_spmm_csr_f64.launches,
+                  "bodies": dict(C.gse_spmm_csr_f64.body_launches)}
+    require_bodies("phase 9: C64 (full size)", c64_parity["bodies"],
+                   plan_bodies(g))
+    require_bitwise("full size: C′64 against C64",
+                    C.gse_spmm_sell_f64(*sell.segments, g.table, x64c, mixed,
+                                        active, sell.bucket_table, sell.perm,
+                                        sell.row_len, rows=m, ei_bit=g.ei_bit,
+                                        long_from=sell.long_from, device=dev),
+                    c64)
+    require_bitwise("full size: C64 against its plain version", c64,
+                    C.gse_spmm_csr_f64_plain(*csr_args, x64c, mixed, active,
+                                             ei_bit=g.ei_bit))
+    for j in range(3):
+        require_bitwise(f"full size: C64 column {j} against A64 at tag "
+                        f"{j + 1}", c64[j],
+                        K.gse_spmv_csr_f64(*csr_args, x64c[j], ei_bit=g.ei_bit,
+                                           tag=j + 1, plan=g.row_plan))
+    del c64
     log("sell", b64_bitwise_a64=True, c64_bitwise_c64=True,
-        c64_tags=[1, 2, 3, 1])
+        c64_bitwise_plain=True, c64_columns_bitwise_a64=True,
+        c64_tags=[1, 2, 3, 1],
+        c64_body_launches=json.dumps(c64_parity["bodies"]))
     torch.cuda.synchronize()
     for mod in (K, C, V):
         mod.reset_launch_counts()
@@ -799,6 +824,8 @@ def phase_sell_full(params):
         "c64": C.gse_spmm_sell_f64.launches, "a64": a64_launches,
         "gse_spmv_csr_f64_bodies": dict(K.gse_spmv_csr_f64.body_launches),
         "gse_spmm_sell_f64_bodies": dict(C.gse_spmm_sell_f64.body_launches),
+        "gse_spmv_sell_f32_bodies": dict(K.gse_spmv_sell_f32.body_launches),
+        "c64_parity": c64_parity,
         "seq_dot": V.seq_dot.launches,
         "seq_dot_cols": V.seq_dot_cols.launches}
     log("sell", service="layout=sell", rows=m, slots=NRHS,
@@ -810,6 +837,7 @@ def phase_sell_full(params):
         stats=json.dumps(svc.stats), register_s=f"{register_s:.2f}",
         flush_s=f"{serve_wall:.2f}",
         b32_launches=sum(b32_launches.values()),
+        b32_body_launches=json.dumps(counts["gse_spmv_sell_f32_bodies"]),
         c32_launches=sum(c32_launches.values()), b64_launches=counts["b64"],
         c64_launches=counts["c64"],
         c64_body_launches=json.dumps(counts["gse_spmm_sell_f64_bodies"]),
@@ -830,22 +858,26 @@ def phase_sell_full(params):
            *b32_launches.values(), *c32_launches.values()) <= 0:
         raise AssertionError("a kernel of the SELL path never launched")
     require_bodies("phase 9: A64 (256 CSR iterations)",
-                   counts["gse_spmv_csr_f64_bodies"], a64_bodies(g))
+                   counts["gse_spmv_csr_f64_bodies"], plan_bodies(g))
     require_bodies("phase 9: C′64 (the service)",
-                   counts["gse_spmm_sell_f64_bodies"], c64_bodies(sell))
+                   counts["gse_spmm_sell_f64_bodies"], sell_bodies(sell))
+    require_bodies("phase 9: B32", counts["gse_spmv_sell_f32_bodies"],
+                   sell_bodies(sell))
     return dict(csr=csr, g=g, sell=sell, x32=x32, x32c=x32c, counts=counts,
                 b32_err=b32_err, c32_err=c32_err, scales=scales,
                 longest=longest)
 
 
 def sell_entries(ctx, add_entry, chain_bound_ms):
-    """Phase 10's entries for kernels B and C′ (and A64) on phase 9's
-    operator; ``chain_bound_ms`` is the f64 kernels' chain bound there
-    (the longest row's dependent adds).  A64 and C′64 carry their launches
-    per body in phase 9's run (``body_launches``).  A64, B64 and C′64 also
-    carry their time split by body: ``long_rows_ms`` (the long rows' block
-    chains alone), ``other_rows_ms`` (every other row alone), and C′64
-    ``one_column_ms`` (every row, one active column of four)."""
+    """Phase 10's entries for kernels B and C′ (and A64 and C64 on the
+    CSR) on phase 9's operator; ``chain_bound_ms`` is the f64 kernels'
+    chain bound there (the longest row's dependent adds).  A64, B32, C′64
+    and C64 carry their launches per body in phase 9's run
+    (``body_launches``; C64's in its full-size check, its one launch
+    there).  A64, B32, B64, C′64 and C64 also carry their time split by
+    body: ``long_rows_ms`` (the long rows' blocks alone),
+    ``other_rows_ms`` (every other row alone), and C′64 ``one_column_ms``
+    (every row, one active column of four)."""
     import numpy as np
     import torch
 
@@ -883,6 +915,11 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
     one_on[0] = True
     src = "src/repro_torch/kernels/csrc/gse_sell.cu"
     spmv_src = "src/repro_torch/kernels/csrc/gse_spmv.cu"
+    spmm_src = "src/repro_torch/kernels/csrc/gse_spmm.cu"
+    bodies = {"gse_spmv_csr_f64.skewed": counts["gse_spmv_csr_f64_bodies"],
+              "gse_spmv_sell_f32": counts["gse_spmv_sell_f32_bodies"],
+              "gse_spmm_sell_f64": counts["gse_spmm_sell_f64_bodies"],
+              "gse_spmm_csr_f64.skewed": counts["c64_parity"]["bodies"]}
     for t in TAGS:
         t1 = segs[2] if t >= 2 else None
         t2 = segs[3] if t == 3 else None
@@ -909,7 +946,12 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
              K.gse_spmv_csr_f64(*csr_args, x64, ei_bit=g.ei_bit, tag=t,
                                 plan=g.row_plan),
              K.gse_spmv_csr_f64_plain(*csr_args, x64, ei_bit=g.ei_bit,
-                                      tag=t)))
+                                      tag=t)),
+            ("C64 on the skewed CSR",
+             C.gse_spmm_csr_f64(*csr_args, x64c, tags_t, all_on,
+                                ei_bit=g.ei_bit, plan=g.row_plan, device=dev),
+             C.gse_spmm_csr_f64_plain(*csr_args, x64c, tags_t, all_on,
+                                      ei_bit=g.ei_bit)))
         errs64 = {}
         for what, got, want in pairs:
             require_bitwise(f"full size: {what} tag {t} against its plain "
@@ -922,6 +964,12 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
             for name, fn in (
                 ("gse_spmv_csr_f64.skewed", lambda: K.gse_spmv_csr_f64(
                     *csr_args, x64, ei_bit=g.ei_bit, tag=t, plan=plan_p)),
+                ("gse_spmm_csr_f64.skewed", lambda: C.gse_spmm_csr_f64(
+                    *csr_args, x64c, tags_t, all_on, ei_bit=g.ei_bit,
+                    plan=plan_p, device=dev)),
+                ("gse_spmv_sell_f32", lambda: K.gse_spmv_sell_f32(
+                    segs[0], segs[1], t1, t2, x32, scales[t], tag=t,
+                    long_from=long_from, **dict(lay, perm=perm_p))),
                 ("gse_spmv_sell_f64", lambda: K.gse_spmv_sell_f64(
                     *segs, g.table, x64, tag=t, long_from=long_from,
                     **lay_p)),
@@ -936,6 +984,7 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
                                         **lay64), reps=5, inner=4)
         b64_err, c64_err = errs64["B64"], errs64["C′64"]
         a64_err = errs64["A64 on the skewed CSR"]
+        c64_csr_err = errs64["C64 on the skewed CSR"]
         c32_err = ctx["c32_err"][t]
         # B32 and C′32 read every padded slot (sell.bytes_touched); B64 and
         # C′64 read only each row's real slots, so their bound charges the
@@ -948,7 +997,8 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
              ops_rate, err, count) in (
             ("gse_spmv_sell_f32", src, "src/repro/kernels/gse_spmv.py:178",
              lambda: K.gse_spmv_sell_f32(segs[0], segs[1], t1, t2, x32,
-                                         scales[t], tag=t, **lay),
+                                         scales[t], tag=t,
+                                         long_from=long_from, **lay),
              lambda: K.gse_spmv_sell_f32_plain(segs[0], segs[1], t1, t2, x32,
                                                scales[t], tag=t, **lay),
              lambda: torch.mv(lib32, x32),
@@ -988,6 +1038,16 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
              lambda: torch.mv(lib64, x64),
              g.bytes_touched(t) + (m + n) * 8, 1, FP64_OPS_PER_S, a64_err,
              counts["a64"]),
+            ("gse_spmm_csr_f64.skewed", spmm_src,
+             "src/repro/kernels/gse_spmm.py:137",
+             lambda: C.gse_spmm_csr_f64(*csr_args, x64c, tags_t, all_on,
+                                        ei_bit=g.ei_bit, plan=g.row_plan,
+                                        device=dev),
+             lambda: C.gse_spmm_csr_f64_plain(*csr_args, x64c, tags_t, all_on,
+                                              ei_bit=g.ei_bit),
+             lambda: torch.mm(lib64, x64n),
+             g.bytes_touched(t) + NRHS * (m + n) * 8, NRHS, FP64_OPS_PER_S,
+             c64_csr_err, counts["c64_parity"]["launches"]),
         ):
             # The decode once per nonzero, then a product and a sum per
             # column.
@@ -997,9 +1057,8 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
             if name.endswith("f64") or name.endswith("skewed"):
                 extra["launches_all_tags"] = True  # the tag is chosen on device
                 extra["chain_bound_ms"] = chain_bound_ms
-            if name in ("gse_spmm_sell_f64", "gse_spmv_csr_f64.skewed"):
-                extra["body_launches"] = counts[name.split(".")[0] +
-                                                "_bodies"]
+            if name in bodies:
+                extra["body_launches"] = bodies[name]
             extra.update(split.get(name, {}))
             add_entry(f"{name}.tag{t}", source, replaces, launch, plain, lib,
                       nbytes, nops / ops_rate * 1e3, plain_reps=1, reps=5,
@@ -2134,8 +2193,11 @@ def main() -> int:
     c64_tags = torch.tensor([1, 2, 3, 1], dtype=torch.int32, device=dev)
     c64_active = torch.tensor([True, True, True, False], device=dev)
     segs = (g.rowptr, g.colpak, g.head, g.tail1, g.tail2, g.table)
+    C.reset_launch_counts()
     got = C.gse_spmm_csr_f64(*segs, x64c, c64_tags, c64_active,
-                             ei_bit=g.ei_bit)
+                             ei_bit=g.ei_bit, plan=g.row_plan)
+    require_bodies("phase 2: C64", C.gse_spmm_csr_f64.body_launches,
+                   plan_bodies(g))
     want = C.gse_spmm_csr_f64_plain(*segs, x64c, c64_tags, c64_active,
                                     ei_bit=g.ei_bit)
     require_bitwise("C64 against its plain version", got, want)
@@ -2234,7 +2296,7 @@ def main() -> int:
         fma_axpy_launches=vec_launches["fma_axpy"])
     if min(a64_launches, *a32_launches.values(), *vec_launches.values()) <= 0:
         raise AssertionError("a kernel of the main path never launched")
-    require_bodies("phase 4: A64", a64_body_launches, a64_bodies(g))
+    require_bodies("phase 4: A64", a64_body_launches, plan_bodies(g))
     if res.x.shape != (N_FULL,) or not bool(torch.isfinite(res.x).all()):
         raise AssertionError("full-size solve returned a non-finite x")
     # The recursive residual meets tol; the true one sits higher because
@@ -2301,6 +2363,7 @@ def main() -> int:
     torch.cuda.synchronize()
     serve_wall = time.perf_counter() - t0
     c64_launches = C.gse_spmm_csr_f64.launches
+    c64_body_launches = dict(C.gse_spmm_csr_f64.body_launches)
     cols_launches = {"seq_dot_cols": V.seq_dot_cols.launches,
                      "fma_axpy_cols": V.fma_axpy_cols.launches}
     reps = [reports[i] for i in ids]
@@ -2315,7 +2378,9 @@ def main() -> int:
         wall_s=f"{serve_wall:.2f}",
         ms_per_iteration=f"{serve_wall * 1e3 / loop_iters:.3f}",
         solo_ms_per_iteration=f"{wall * 1e3 / int(res.iters):.3f}",
-        c64_launches=c64_launches, c32_launches=sum(c32_launches.values()),
+        c64_launches=c64_launches,
+        c64_body_launches=json.dumps(c64_body_launches),
+        c32_launches=sum(c32_launches.values()),
         seq_dot_cols_launches=cols_launches["seq_dot_cols"],
         fma_axpy_cols_launches=cols_launches["fma_axpy_cols"])
     solo = (int(res.iters), res.switch_iters.tolist(), int(res.tag))
@@ -2333,6 +2398,7 @@ def main() -> int:
     if min(c64_launches, *c32_launches.values(),
            *cols_launches.values()) <= 0:
         raise AssertionError("a kernel of the service path never launched")
+    require_bodies("phase 6: C64", c64_body_launches, plan_bodies(g))
 
     # 7-9. the SELL-C-sigma layout --------------------------------------------
     phase_sell_parity()
@@ -2443,7 +2509,7 @@ def main() -> int:
              c32_err[t], c32_launches[t]),
             ("gse_spmm_csr_f64", spmm_src, "src/repro/kernels/gse_spmm.py:137",
              lambda: C.gse_spmm_csr_f64(*segs, x64c, tags_t, all_on,
-                                        ei_bit=g.ei_bit),
+                                        ei_bit=g.ei_bit, plan=g.row_plan),
              lambda: C.gse_spmm_csr_f64_plain(*segs, x64c, tags_t, all_on,
                                               ei_bit=g.ei_bit),
              lambda: torch.mm(lib64, x64n), 8, NRHS, FP64_OPS_PER_S, c64_err,
@@ -2458,6 +2524,8 @@ def main() -> int:
                 extra["longest_row"] = longest_uniform
             if name == "gse_spmv_csr_f64":
                 extra["body_launches"] = a64_body_launches
+            if name == "gse_spmm_csr_f64":
+                extra["body_launches"] = c64_body_launches
             add_entry(f"{name}.tag{t}", src, replaces, launch, plain, lib,
                       g.bytes_touched(t) + ncols * (m + n) * xb,
                       nops / ops_rate * 1e3, **extra)

@@ -4,36 +4,51 @@
 // flat slot `base`; the callers differ only in how they find a row's slots
 // and where they write its result, so B cannot drift from A, nor C' from C.
 //
-// * warp_row_f32 / warp_row_cols_f32 (A32, B32 / C32, C'32): one warp per
-//   row, lane l adds slots l, l+32, ... of the row's `width` from 0.0, then
-//   the warp's shuffle tree; the result is valid in lane 0.
+// * warp_row_f32 / warp_row_cols_f32 (A32, B32's other rows / C32, C'32):
+//   one warp per row, lane l adds slots l, l+32, ... of the row's `width`
+//   from 0.0, then the warp's shuffle tree; the result is valid in lane 0.
+// * block_lanes_f32 (B32's long rows): the same 32 lane chains and shuffle
+//   tree on one block.  Warps 1..7 decode and multiply the row's slots a
+//   chunk ahead into shared memory (double-buffered); the 32 lanes of
+//   warp 0 then take slots l, l+32, ... of each chunk back in order, so a
+//   lane's chain waits on one __fadd_rn per slot it adds, not on a load
+//   (a 262,144-slot hub in 0.19-0.23 ms; with a warp a row the whole
+//   kernel took 1.8-4 ms; NVIDIA H100 80GB HBM3, 700 W).
 // * The f64 bodies (A64, B64, C64, C'64) all add a row's products in stored
 //   order (CSR order) from 0.0 with __dmul_rn/__dadd_rn, so no FMA
 //   contraction changes a bit and every body gives the same sums; they
 //   differ only in which threads load, decode and multiply, and which
-//   thread adds:
-//   - row_walk_f64 (C64): one thread walks its row, a load per step.
+//   thread adds.  No f64 body walks a row on one thread:
 //   - row_block_f64 (A64's short rows): a block stages the products of a
 //     run of consecutive short rows in shared memory, every thread taking
 //     slots t, t + 256, ... of the run (coalesced loads); then thread i
 //     adds row i's products.
+//   - row_block_cols_f64 (C64's short rows): the same for kColsWarp
+//     columns, the run's products staged a chunk of 1024 slots at a time;
+//     thread i's chains carry over from one chunk to the next (the
+//     uniform operator at nrhs 4 in 0.36-0.40 ms, where one thread a row
+//     took 0.98-1.65 ms).
 //   - block_chain_f64 (A64's and B64's long rows): one block per row.
 //     Warps 1..7 decode and multiply the row's slots a chunk at a time
 //     into shared memory, double-buffered one chunk ahead; thread 0 reads
 //     the chunk back in slot order with loads that do not depend on the
 //     sum and adds it, so the chain waits on one __dadd_rn per slot and
 //     on nothing else.
-//   - block_chain_cols_f64 (C'64's long rows): the same for kColsWarp
-//     columns; lane c of warp 0 adds column c, the four chains in
-//     lockstep.
+//   - block_chain_cols_f64 (C64's and C'64's long rows): the same for
+//     kColsWarp columns; lane c of warp 0 adds column c, the four chains
+//     in lockstep.
 //   - warp_chain_f64 / warp_walk_f64 (A64's rows in between, B64's other
-//     rows / C'64's other rows): one warp per row.  Lane l decodes and
-//     multiplies slot j0 + l of each 32-slot chunk (coalesced loads, all
-//     lanes at once), then every lane adds the chunk's products in slot
-//     order from __shfl_sync broadcasts.
+//     rows / C64's rows in between, C'64's other rows): one warp per row.
+//     Lane l decodes and multiplies slot j0 + l of each 32-slot chunk
+//     (coalesced loads, all lanes at once), then every lane adds the
+//     chunk's products in slot order from __shfl_sync broadcasts.
+//   The column bodies read X as (columns, n) (C'64) or, in C64, as an
+//   interleaved copy whose four values of a matrix column share a
+//   32-byte sector (x_values).
 //   Slots past a row's end (and inactive columns) hold +0.0, which the
 //   chains add unconditionally: a chain from +0.0 never holds -0.0, so
-//   adding +0.0 changes no bit, and the adds need no predicate.
+//   adding +0.0 changes no bit, and the adds need no predicate.  The same
+//   holds for the f32 lane chains of block_lanes_f32.
 
 #pragma once
 
@@ -126,60 +141,6 @@ __device__ __forceinline__ int column_tags(
     }
   }
   return maxtag;
-}
-
-// One row's walk for the columns of this pass.  MAXTAG, the highest active
-// tag, fixes which segments are loaded; each slot is decoded once per tag
-// that some active column runs.
-template <int MAXTAG>
-__device__ __forceinline__ void row_walk_f64(
-    int64_t begin, int64_t end, const uint32_t* __restrict__ colpak,
-    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
-    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
-    const double* __restrict__ xg, int64_t n, int shift, uint32_t mask,
-    const int (&tg)[kCols], unsigned need, double (&acc)[kCols]) {
-  for (int64_t k = begin; k < end; ++k) {
-    const uint32_t cp = __ldg(colpak + k);
-    const uint32_t h = __ldg(head + k);
-    const uint32_t t1 = MAXTAG >= 2 ? __ldg(tail1 + k) : 0u;
-    const uint32_t t2 = MAXTAG == 3 ? __ldg(tail2 + k) : 0u;
-    const int e_sh = __ldg(table + (cp >> shift)) - 1023;
-    const double v1 = (need & 2u) ? decode_f64<1>(h, t1, t2, e_sh) : 0.0;
-    const double v2 =
-        (MAXTAG >= 2 && (need & 4u)) ? decode_f64<2>(h, t1, t2, e_sh) : 0.0;
-    const double v3 =
-        (MAXTAG == 3 && (need & 8u)) ? decode_f64<3>(h, t1, t2, e_sh) : 0.0;
-    const int64_t col = cp & mask;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      if (tg[c] != 0) {
-        const double v = tg[c] == 1 ? v1 : (tg[c] == 2 ? v2 : v3);
-        acc[c] = __dadd_rn(acc[c], __dmul_rn(v, __ldg(xg + c * n + col)));
-      }
-    }
-  }
-}
-
-// row_walk_f64 at the pass's highest active tag (uniform across the grid).
-__device__ __forceinline__ void row_walk_f64_at(
-    int maxtag, int64_t begin, int64_t end,
-    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
-    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
-    const int32_t* __restrict__ table, const double* __restrict__ xg,
-    int64_t n, int shift, uint32_t mask, const int (&tg)[kCols],
-    unsigned need, double (&acc)[kCols]) {
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) acc[c] = 0.0;
-  if (maxtag == 1) {
-    row_walk_f64<1>(begin, end, colpak, head, tail1, tail2, table, xg, n,
-                    shift, mask, tg, need, acc);
-  } else if (maxtag == 2) {
-    row_walk_f64<2>(begin, end, colpak, head, tail1, tail2, table, xg, n,
-                    shift, mask, tg, need, acc);
-  } else if (maxtag == 3) {
-    row_walk_f64<3>(begin, end, colpak, head, tail1, tail2, table, xg, n,
-                    shift, mask, tg, need, acc);
-  }
 }
 
 // The segments of one slot, loaded ahead of their use (zeros past the row).
@@ -472,10 +433,40 @@ __device__ __forceinline__ void slot_products(
   }
 }
 
-// row_walk_f64 on one warp: each column's chain as in warp_chain_f64, with
-// the same software pipeline.  tg[] is uniform across the warp, so every
-// shuffle is warp-wide.
-template <int MAXTAG, int N>
+// The pass's N x values at matrix column `col` into xv (0.0 unless `ok`).
+// XI false: X as (columns, n), column c at xg + c * n, inactive columns
+// not read.  XI true: C64's interleaved copy, the N values of column `col`
+// side by side at xg + col * N (inactive columns hold 0.0), so with N ==
+// kColsWarp one slot's gathers read one 32-byte sector, as two 16-byte
+// loads.
+template <bool XI, int N>
+__device__ __forceinline__ void x_values(const double* __restrict__ xg,
+                                         int64_t n, uint32_t col, bool ok,
+                                         const int (&tg)[N],
+                                         double (&xv)[N]) {
+  static_assert(!XI || N % 2 == 0, "interleaved columns load in pairs");
+  if (XI) {
+    const double2* src =
+        reinterpret_cast<const double2*>(xg + (int64_t)col * N);
+#pragma unroll
+    for (int h = 0; h < N / 2; ++h) {
+      const double2 v = ok ? __ldg(src + h) : make_double2(0.0, 0.0);
+      xv[2 * h] = v.x;
+      xv[2 * h + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      xv[c] = (tg[c] != 0 && ok) ? __ldg(xg + c * n + col) : 0.0;
+    }
+  }
+}
+
+// One row's sums for the N columns of the pass on one warp: each column's
+// chain as in warp_chain_f64, with the same software pipeline.  tg[] is
+// uniform across the warp, so every shuffle is warp-wide.  XI: the layout
+// of X (x_values).
+template <int MAXTAG, int N, bool XI>
 __device__ __forceinline__ void warp_walk_f64(
     int64_t base, int len, int lane, const uint32_t* __restrict__ colpak,
     const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
@@ -488,20 +479,13 @@ __device__ __forceinline__ void warp_walk_f64(
                                     tail1, tail2);
   Slot s1 = load_slot<MAXTAG>(base + 32 + lane, 32 + lane < len, colpak,
                               head, tail1, tail2);
-#pragma unroll
-  for (int c = 0; c < N; ++c) {
-    xv[c] = (tg[c] != 0 && lane < len) ? __ldg(xg + c * n + (s0.cp & mask))
-                                       : 0.0;
-  }
+  x_values<XI, N>(xg, n, s0.cp & mask, lane < len, tg, xv);
   slot_products<MAXTAG, N>(s0, lane < len ? __ldg(table + (s0.cp >> shift)) -
                                              1023 : 0,
                         tg, need, xv, p);
   for (int j0 = 0; j0 < len; j0 += 32) {
     const bool ok1 = j0 + 32 + lane < len;
-#pragma unroll
-    for (int c = 0; c < N; ++c) {
-      xv[c] = (tg[c] != 0 && ok1) ? __ldg(xg + c * n + (s1.cp & mask)) : 0.0;
-    }
+    x_values<XI, N>(xg, n, s1.cp & mask, ok1, tg, xv);
     const int e1 = ok1 ? __ldg(table + (s1.cp >> shift)) - 1023 : 0;
     const Slot s2 = load_slot<MAXTAG>(base + j0 + 64 + lane,
                                       j0 + 64 + lane < len, colpak, head,
@@ -520,7 +504,7 @@ __device__ __forceinline__ void warp_walk_f64(
 }
 
 // warp_walk_f64 at the pass's highest active tag (uniform across the grid).
-template <int N>
+template <bool XI, int N>
 __device__ __forceinline__ void warp_walk_f64_at(
     int maxtag, int64_t base, int len, int lane,
     const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
@@ -531,14 +515,14 @@ __device__ __forceinline__ void warp_walk_f64_at(
 #pragma unroll
   for (int c = 0; c < N; ++c) acc[c] = 0.0;
   if (maxtag == 1) {
-    warp_walk_f64<1, N>(base, len, lane, colpak, head, tail1, tail2, table, xg,
-                     n, shift, mask, tg, need, acc);
+    warp_walk_f64<1, N, XI>(base, len, lane, colpak, head, tail1, tail2,
+                             table, xg, n, shift, mask, tg, need, acc);
   } else if (maxtag == 2) {
-    warp_walk_f64<2, N>(base, len, lane, colpak, head, tail1, tail2, table, xg,
-                     n, shift, mask, tg, need, acc);
+    warp_walk_f64<2, N, XI>(base, len, lane, colpak, head, tail1, tail2,
+                             table, xg, n, shift, mask, tg, need, acc);
   } else if (maxtag == 3) {
-    warp_walk_f64<3, N>(base, len, lane, colpak, head, tail1, tail2, table, xg,
-                     n, shift, mask, tg, need, acc);
+    warp_walk_f64<3, N, XI>(base, len, lane, colpak, head, tail1, tail2,
+                             table, xg, n, shift, mask, tg, need, acc);
   }
 }
 
@@ -551,11 +535,16 @@ constexpr int kColsChunk = 512;
 constexpr int kColsStride = kColsChunk + 2;
 constexpr int kColsPer = (kColsChunk + kChainProducers - 1) / kChainProducers;
 
-// Products [0, kColsChunk) of the slots [base, base + len) for the N
-// columns of the pass into buf[c * kColsStride + j] (+0.0 past len and for
-// inactive columns), by producer t: each slot is decoded once per tag
-// that some active column runs (slot_products).
-template <int MAXTAG, int N>
+// Products [0, CHUNK) of the slots [base, base + len) for the N columns of
+// the pass into buf[c * STRIDE + j] (+0.0 past len and for inactive
+// columns), by thread t of THREADS taking slots t, t + THREADS, ... (PER
+// of them, PER * THREADS >= CHUNK): each slot is decoded once per tag
+// that some active column runs (slot_products).  Each thread loads all
+// its slots' segments, then all their scale exponents and x values
+// (x_values, layout XI), then multiplies, so its loads of each kind are
+// in flight together.
+template <int MAXTAG, int N, int CHUNK, int PER, int THREADS, int STRIDE,
+          bool XI>
 __device__ __forceinline__ void stage_products_cols(
     double* buf, int t, int64_t base, int len,
     const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
@@ -563,29 +552,30 @@ __device__ __forceinline__ void stage_products_cols(
     const int32_t* __restrict__ table, const double* __restrict__ xg,
     int64_t n, int shift, uint32_t mask, const int (&tg)[N],
     unsigned need) {
-  Slot sl[kColsPer];
+  Slot sl[PER];
 #pragma unroll
-  for (int u = 0; u < kColsPer; ++u) {
-    const int j = t + u * kChainProducers;
-    sl[u] = load_slot<MAXTAG>(base + j, j < kColsChunk && j < len, colpak,
-                              head, tail1, tail2);
+  for (int u = 0; u < PER; ++u) {
+    const int j = t + u * THREADS;
+    sl[u] = load_slot<MAXTAG>(base + j, j < CHUNK && j < len, colpak, head,
+                              tail1, tail2);
+  }
+  int e_sh[PER];
+  double xv[PER][N];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int j = t + u * THREADS;
+    const bool ok = j < CHUNK && j < len;
+    e_sh[u] = ok ? __ldg(table + (sl[u].cp >> shift)) - 1023 : 0;
+    x_values<XI, N>(xg, n, sl[u].cp & mask, ok, tg, xv[u]);
   }
 #pragma unroll
-  for (int u = 0; u < kColsPer; ++u) {
-    const int j = t + u * kChainProducers;
-    if (j >= kColsChunk) continue;
-    const bool ok = j < len;
-    double xv[N], p[N];
+  for (int u = 0; u < PER; ++u) {
+    const int j = t + u * THREADS;
+    if (j >= CHUNK) continue;
+    double p[N];
+    slot_products<MAXTAG, N>(sl[u], e_sh[u], tg, need, xv[u], p);
 #pragma unroll
-    for (int c = 0; c < N; ++c) {
-      xv[c] = (tg[c] != 0 && ok) ? __ldg(xg + c * n + (sl[u].cp & mask))
-                                 : 0.0;
-    }
-    slot_products<MAXTAG, N>(
-        sl[u], ok ? __ldg(table + (sl[u].cp >> shift)) - 1023 : 0, tg, need,
-        xv, p);
-#pragma unroll
-    for (int c = 0; c < N; ++c) buf[c * kColsStride + j] = ok ? p[c] : 0.0;
+    for (int c = 0; c < N; ++c) buf[c * STRIDE + j] = j < len ? p[c] : 0.0;
   }
 }
 
@@ -593,8 +583,9 @@ __device__ __forceinline__ void stage_products_cols(
 // kChainThreads (see the top of the file): block_chain_f64's producers
 // and double buffer, and lane c of warp 0 adding column c's products, the
 // N chains in lockstep.  Returns column threadIdx.x's sum in threads
-// 0..N-1.  Every thread of the block must call it.
-template <int MAXTAG, int N>
+// 0..N-1.  Every thread of the block must call it.  XI: the layout of X
+// (x_values).
+template <int MAXTAG, int N, bool XI>
 __device__ __forceinline__ double block_chain_cols_f64(
     double* buf, int64_t base, int len, const uint32_t* __restrict__ colpak,
     const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
@@ -606,16 +597,18 @@ __device__ __forceinline__ double block_chain_cols_f64(
   const bool producer = threadIdx.x >= 32;
   const int p = threadIdx.x - 32;
   if (producer && chunks > 0) {
-    stage_products_cols<MAXTAG, N>(buf, p, base, len, colpak, head, tail1,
-                                   tail2, table, xg, n, shift, mask, tg,
-                                   need);
+    stage_products_cols<MAXTAG, N, kColsChunk, kColsPer, kChainProducers,
+                        kColsStride, XI>(
+        buf, p, base, len, colpak, head, tail1, tail2, table, xg, n, shift,
+        mask, tg, need);
   }
   __syncthreads();
   for (int c = 0; c < chunks; ++c) {
     if (producer) {
       if (c + 1 < chunks) {
         const int c1 = (c + 1) * kColsChunk;
-        stage_products_cols<MAXTAG, N>(
+        stage_products_cols<MAXTAG, N, kColsChunk, kColsPer, kChainProducers,
+                            kColsStride, XI>(
             buf + ((c + 1) & 1) * N * kColsStride, p, base + c1, len - c1,
             colpak, head, tail1, tail2, table, xg, n, shift, mask, tg, need);
       }
@@ -630,7 +623,7 @@ __device__ __forceinline__ double block_chain_cols_f64(
 
 // block_chain_cols_f64 at the pass's highest active tag (uniform across
 // the grid); 0.0 when no column is active.
-template <int N>
+template <bool XI, int N>
 __device__ __forceinline__ double block_chain_cols_f64_at(
     int maxtag, double* buf, int64_t base, int len,
     const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
@@ -639,19 +632,220 @@ __device__ __forceinline__ double block_chain_cols_f64_at(
     int64_t n, int shift, uint32_t mask, const int (&tg)[N],
     unsigned need) {
   if (maxtag == 1) {
-    return block_chain_cols_f64<1, N>(buf, base, len, colpak, head, tail1,
-                                      tail2, table, xg, n, shift, mask, tg,
-                                      need);
+    return block_chain_cols_f64<1, N, XI>(buf, base, len, colpak, head,
+                                          tail1, tail2, table, xg, n, shift,
+                                          mask, tg, need);
   } else if (maxtag == 2) {
-    return block_chain_cols_f64<2, N>(buf, base, len, colpak, head, tail1,
-                                      tail2, table, xg, n, shift, mask, tg,
-                                      need);
+    return block_chain_cols_f64<2, N, XI>(buf, base, len, colpak, head,
+                                          tail1, tail2, table, xg, n, shift,
+                                          mask, tg, need);
   } else if (maxtag == 3) {
-    return block_chain_cols_f64<3, N>(buf, base, len, colpak, head, tail1,
-                                      tail2, table, xg, n, shift, mask, tg,
-                                      need);
+    return block_chain_cols_f64<3, N, XI>(buf, base, len, colpak, head,
+                                          tail1, tail2, table, xg, n, shift,
+                                          mask, tg, need);
   }
   return 0.0;
+}
+
+// Products per chunk of row_block_cols_f64: kColsWarp columns of a chunk
+// fit in block_chain_cols_f64's two buffers, so one static buffer of 32.9
+// KB serves both bodies of C64's launch (the whole row block's 2048 slots
+// would need 64 KB, past the 48 KB a block has without opting in to
+// dynamic shared memory, and fewer blocks would fit an SM).
+constexpr int kRowColsChunk = kRowBlockSlots / 2;
+constexpr int kRowColsPer = kRowColsChunk / kChainThreads;
+static_assert(kColsWarp * kRowColsChunk <= 2 * kColsWarp * kColsStride,
+              "row_block_cols_f64's chunk must fit the block chain's buffers");
+static_assert(kRowColsPer * kChainThreads == kRowColsChunk,
+              "every thread stages the same number of a chunk's slots");
+
+// Rows [r0, r1) of a CSR for the N columns of the pass on one block of
+// kChainThreads (see the top of the file): for each chunk of
+// kRowColsChunk slots of [rowptr[r0], rowptr[r1]) (at most
+// kRowBlockSlots), every thread stages products t, t + kChainThreads, ...
+// of the chunk in buf (stage_products_cols), then thread i
+// (i < r1 - r0 <= kRowBlockRows) adds row r0 + i's products in the chunk
+// to its N chains in CSR order; the chains start from 0.0 and carry over
+// from chunk to chunk.  Writes yg[c * m + r0 + i] for c < nc.  Every
+// thread of the block must call it.  XI: the layout of X (x_values).
+template <int MAXTAG, int N, bool XI>
+__device__ __forceinline__ void row_block_cols_f64(
+    double* buf, const int32_t* __restrict__ rowptr, int r0, int r1,
+    int base, int len, const uint32_t* __restrict__ colpak,
+    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
+    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
+    const double* __restrict__ xg, int64_t n, int shift, uint32_t mask,
+    const int (&tg)[N], unsigned need, double* __restrict__ yg, int64_t m,
+    int nc) {
+  const int r = r0 + (int)threadIdx.x;
+  const int beg = r < r1 ? __ldg(rowptr + r) - base : 0;
+  const int end = r < r1 ? __ldg(rowptr + r + 1) - base : 0;
+  double acc[N];
+#pragma unroll
+  for (int c = 0; c < N; ++c) acc[c] = 0.0;
+  for (int c0 = 0; c0 < len; c0 += kRowColsChunk) {
+    if (c0 > 0) __syncthreads();  // every thread is done with the last chunk
+    stage_products_cols<MAXTAG, N, kRowColsChunk, kRowColsPer, kChainThreads,
+                        kRowColsChunk, XI>(buf, threadIdx.x, base + c0,
+                                           len - c0, colpak, head, tail1,
+                                           tail2, table, xg, n, shift, mask,
+                                           tg, need);
+    __syncthreads();
+    const int j1 = (end < c0 + kRowColsChunk ? end : c0 + kRowColsChunk) - c0;
+#pragma unroll 4
+    for (int j = (beg > c0 ? beg : c0) - c0; j < j1; ++j) {
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        acc[c] = __dadd_rn(acc[c], buf[c * kRowColsChunk + j]);
+      }
+    }
+  }
+  if (r < r1) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      if (c < nc) yg[(int64_t)c * m + r] = acc[c];
+    }
+  }
+}
+
+// row_block_cols_f64 at the pass's highest active tag (uniform across the
+// grid); 0.0 when no column is active.  A row block over its budgets is
+// not one that sparse/csr.py's plan builds: its rows get NaN rather than
+// overrun shared memory.
+template <bool XI, int N>
+__device__ __forceinline__ void row_block_cols_f64_at(
+    int maxtag, double* buf, const int32_t* __restrict__ rowptr, int r0,
+    int r1, const uint32_t* __restrict__ colpak,
+    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
+    const uint32_t* __restrict__ tail2, const int32_t* __restrict__ table,
+    const double* __restrict__ xg, int64_t n, int shift, uint32_t mask,
+    const int (&tg)[N], unsigned need, double* __restrict__ yg, int64_t m,
+    int nc) {
+  const int base = __ldg(rowptr + r0);
+  const int len = __ldg(rowptr + r1) - base;
+  const bool bad = r1 < r0 || r1 - r0 > kRowBlockRows || len < 0 ||
+                   len > kRowBlockSlots;
+  if (bad || maxtag == 0) {
+    const int r = r0 + (int)threadIdx.x;
+    const double v = bad ? __longlong_as_double(0x7ff8000000000000LL) : 0.0;
+    for (int c = 0; c < nc && r < r1; ++c) yg[(int64_t)c * m + r] = v;
+    return;
+  }
+  if (maxtag == 1) {
+    row_block_cols_f64<1, N, XI>(buf, rowptr, r0, r1, base, len, colpak,
+                                   head, tail1, tail2, table, xg, n, shift,
+                                   mask, tg, need, yg, m, nc);
+  } else if (maxtag == 2) {
+    row_block_cols_f64<2, N, XI>(buf, rowptr, r0, r1, base, len, colpak,
+                                   head, tail1, tail2, table, xg, n, shift,
+                                   mask, tg, need, yg, m, nc);
+  } else {
+    row_block_cols_f64<3, N, XI>(buf, rowptr, r0, r1, base, len, colpak,
+                                   head, tail1, tail2, table, xg, n, shift,
+                                   mask, tg, need, yg, m, nc);
+  }
+}
+
+// f32 products per chunk of block_lanes_f32 (two buffers: 16 KB of shared
+// memory); a multiple of 32, so every chunk starts at lane 0.
+constexpr int kLanesChunk = 2048;
+constexpr int kLanesPer = (kLanesChunk + kChainProducers - 1) / kChainProducers;
+static_assert(kLanesChunk % 32 == 0, "a chunk must start at lane 0");
+
+// The segments of producer t's slots of the chunk [base, base + len)
+// (zeros past len).
+template <int TAG>
+__device__ __forceinline__ void load_slots_f32(
+    Slot (&sl)[kLanesPer], int t, int64_t base, int len,
+    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
+    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2) {
+#pragma unroll
+  for (int u = 0; u < kLanesPer; ++u) {
+    const int j = t + u * kChainProducers;
+    sl[u] = load_slot<TAG>(base + j, j < kLanesChunk && j < len, colpak,
+                           head, tail1, tail2);
+  }
+}
+
+// The f32 products [0, kLanesChunk) of a chunk of `len` slots whose
+// segments producer t holds in sl, into buf[j] (+0.0 for len <= j): each
+// is warp_row_f32's product of its slot.  All the scales and x values are
+// loaded before the first product, so they are in flight together.
+template <int TAG>
+__device__ __forceinline__ void finish_products_f32(
+    float* buf, const Slot (&sl)[kLanesPer], int t, int len,
+    const float* __restrict__ x, const float* __restrict__ scales, int shift,
+    uint32_t mask) {
+  float sc[kLanesPer], xv[kLanesPer];
+#pragma unroll
+  for (int u = 0; u < kLanesPer; ++u) {
+    const int j = t + u * kChainProducers;
+    const bool ok = j < kLanesChunk && j < len;
+    sc[u] = ok ? __ldg(scales + (sl[u].cp >> shift)) : 0.0f;
+    xv[u] = ok ? __ldg(x + (sl[u].cp & mask)) : 0.0f;
+  }
+#pragma unroll
+  for (int u = 0; u < kLanesPer; ++u) {
+    const int j = t + u * kChainProducers;
+    if (j >= kLanesChunk) continue;
+    buf[j] = j < len ? __fmul_rn(decode_f32<TAG>(sl[u].h, sl[u].t1, sl[u].t2,
+                                                 sc[u]),
+                                 xv[u])
+                     : 0.0f;
+  }
+}
+
+// warp_row_f32's sum of one row of `width` slots on one block of
+// kChainThreads (see the top of the file): the producers (warps 1..7)
+// stage the products a chunk ahead, lane l of warp 0 adds slots l, l+32,
+// ... of each chunk in order from 0.0 (the +0.0 past the row's end
+// included), then warp 0's shuffle tree.  Valid in thread 0.  Every
+// thread of the block must call it.  While a producer finishes chunk
+// c + 1's products, the segments of chunk c + 2 are already in flight.
+template <int TAG>
+__device__ __forceinline__ float block_lanes_f32(
+    float* buf, int64_t base, int width, const uint32_t* __restrict__ colpak,
+    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
+    const uint32_t* __restrict__ tail2, const float* __restrict__ x,
+    const float* __restrict__ scales, int shift, uint32_t mask) {
+  float acc = 0.0f;
+  const int chunks = (width + kLanesChunk - 1) / kLanesChunk;
+  const bool producer = threadIdx.x >= 32;
+  const int p = threadIdx.x - 32;
+  Slot sl[kLanesPer];
+  if (producer && chunks > 0) {
+    load_slots_f32<TAG>(sl, p, base, width, colpak, head, tail1, tail2);
+    finish_products_f32<TAG>(buf, sl, p, width, x, scales, shift, mask);
+    load_slots_f32<TAG>(sl, p, base + kLanesChunk, width - kLanesChunk,
+                        colpak, head, tail1, tail2);
+  }
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    if (producer) {
+      if (c + 1 < chunks) {
+        const int c1 = (c + 1) * kLanesChunk;
+        Slot next[kLanesPer];  // zeros past the row's last chunk
+        load_slots_f32<TAG>(next, p, base + c1 + kLanesChunk,
+                            width - c1 - kLanesChunk, colpak, head, tail1,
+                            tail2);
+        finish_products_f32<TAG>(buf + ((c + 1) & 1) * kLanesChunk, sl, p,
+                                 width - c1, x, scales, shift, mask);
+#pragma unroll
+        for (int u = 0; u < kLanesPer; ++u) sl[u] = next[u];
+      }
+    } else {
+      const float* src = buf + (c & 1) * kLanesChunk + threadIdx.x;
+#pragma unroll 16
+      for (int k = 0; k < kLanesChunk; k += 32) acc = __fadd_rn(acc, src[k]);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < 32) {
+    for (int off = 16; off > 0; off >>= 1) {
+      acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
+    }
+  }
+  return acc;
 }
 
 }  // namespace gse

@@ -14,12 +14,26 @@
 // buckets runs on the solver path.  The row bodies are A's and C's
 // (gse_rows.cuh), so:
 //
-// * B32 (`gse_spmv_sell_f32`, ops.gse_spmv_sell): one warp per bucket row,
-//   A32's lane order over the row's bucket width.  The slots uniform ELL
-//   adds beyond that width decode to exact zeros, so for finite x each row
-//   is bitwise A32's.  Padded slots are read, as the reference kernel reads
-//   them (column 0, head 0): with a non-finite x[0] the NaN rows are the
-//   reference SELL kernel's.
+// * B32 (`gse_spmv_sell_f32`, ops.gse_spmv_sell): A32's lane order over
+//   the row's bucket width: lane l adds slots l, l+32, ... from 0.0, then
+//   the warp's shuffle tree.  The slots uniform ELL adds beyond that width
+//   decode to exact zeros, so for finite x each row is bitwise A32's.
+//   Padded slots are read, as the reference kernel reads them (column 0,
+//   head 0): with a non-finite x[0] the NaN rows are the reference SELL
+//   kernel's.  Rows from the pack's `long_from` on (B64's long rows) get a
+//   block each, launched first (block_lanes_f32): producer warps decode and
+//   multiply the row a chunk of 2048 slots ahead into shared memory, and
+//   the 32 lanes of warp 0 add each chunk in that lane order, so a lane
+//   waits on one __fadd_rn per slot it adds, not on a load round.  A
+//   producer holds the next chunk's segments in registers while it
+//   finishes this one's products, so a chunk costs about one memory
+//   latency, not two.  The other rows get a warp each (warp_row_f32),
+//   eight to a block.  Measured on the skewed operator (NVIDIA H100 80GB
+//   HBM3, 700 W, tags 1/2/3): 0.23/0.26/0.28 ms, 2.1-2.5x cuSPARSE; the
+//   hubs alone 0.19-0.23 ms.  At tags 2-3 the producers' registers leave
+//   two blocks an SM, which doubles the warp rows' time beside them.  The
+//   first design gave a hub row (262,144 slots) one warp, 8192 dependent
+//   load rounds: 1.78/3.50/3.99 ms, 16-37x cuSPARSE.
 // * B64 (`gse_spmv_sell_f64`, spmv_gse over a GSESellC, the CG operator):
 //   each row's products added in slot order, which is CSR order, from 0.0
 //   with A64's __dmul_rn/__dadd_rn chain, at a device tag: each row is
@@ -99,17 +113,35 @@ __device__ __forceinline__ int64_t locate(const int64_t* __restrict__ tab,
   return __ldg(tab + 3 * lo + 2) + (r - __ldg(tab + 3 * lo)) * w;
 }
 
+// Blocks [0, rows_pad - long_from) take bucket rows long_from, ... one
+// each (block_lanes_f32); the blocks after them take rows [0, long_from),
+// one per warp (warp_row_f32).
 template <int TAG>
-__global__ void __launch_bounds__(kThreads) spmv_sell_f32_kernel(
+__global__ void __launch_bounds__(kChainThreads) spmv_sell_f32_kernel(
     const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
     const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
     const float* __restrict__ x, const float* __restrict__ scales,
     float* __restrict__ y, const int64_t* __restrict__ tab, int nb,
-    const int32_t* __restrict__ perm, int64_t rows_pad, int shift,
-    uint32_t mask) {
-  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int32_t* __restrict__ perm, int64_t rows_pad, int64_t long_from,
+    int shift, uint32_t mask) {
+  __shared__ __align__(16) float buf[2 * gse::kLanesChunk];
+  const int64_t n_long = rows_pad - long_from;
+  if ((int64_t)blockIdx.x < n_long) {
+    const int64_t row = long_from + blockIdx.x;
+    const int dst = __ldg(perm + row);
+    if (dst < 0) return;  // uniform across the block
+    int width;
+    const int64_t base = locate(tab, nb, row, width);
+    const float acc = gse::block_lanes_f32<TAG>(buf, base, width, colpak,
+                                                head, tail1, tail2, x, scales,
+                                                shift, mask);
+    if (threadIdx.x == 0) y[dst] = acc;
+    return;
+  }
+  const int64_t row = ((int64_t)blockIdx.x - n_long) * (kChainThreads / 32) +
+                      (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (row >= rows_pad) return;  // uniform across the warp
+  if (row >= long_from) return;  // uniform across the warp
   const int dst = __ldg(perm + row);
   if (dst < 0) return;  // slice padding row, uniform across the warp
   int width;
@@ -216,7 +248,7 @@ __global__ void __launch_bounds__(kChainThreads) spmm_sell_f64_kernel(
     if (dst < 0) return;  // uniform across the block
     int width;
     const int64_t base = locate(tab, nb, row, width);
-    const double acc = gse::block_chain_cols_f64_at(
+    const double acc = gse::block_chain_cols_f64_at<false>(
         maxtag, buf, base, __ldg(row_len + row), colpak, head, tail1, tail2,
         table, xg, n, shift, mask, tg, need);
     if ((int)threadIdx.x < nc) y[(int64_t)(c0 + threadIdx.x) * m + dst] = acc;
@@ -231,9 +263,9 @@ __global__ void __launch_bounds__(kChainThreads) spmm_sell_f64_kernel(
   int width;
   const int64_t base = locate(tab, nb, row, width);
   double acc[kColsWarp];
-  gse::warp_walk_f64_at(maxtag, base, __ldg(row_len + row), lane, colpak,
-                        head, tail1, tail2, table, xg, n, shift, mask, tg,
-                        need, acc);
+  gse::warp_walk_f64_at<false>(maxtag, base, __ldg(row_len + row), lane,
+                               colpak, head, tail1, tail2, table, xg, n, shift,
+                               mask, tg, need, acc);
   if (lane == 0) {
 #pragma unroll
     for (int c = 0; c < kColsWarp; ++c) {
@@ -244,16 +276,23 @@ __global__ void __launch_bounds__(kChainThreads) spmm_sell_f64_kernel(
 
 }  // namespace
 
-// y (m,) f32 = A x over the SELL buckets at `tag`; x is (n,) f32.
+// y (m,) f32 = A x over the SELL buckets at `tag`; x is (n,) f32.  Bucket
+// rows [long_from, rows_pad) run a block each.
 extern "C" int gse_spmv_sell_f32(int tag, const void* colpak, const void* head,
                                  const void* tail1, const void* tail2,
                                  const void* x, const void* scales, void* y,
                                  const void* tab, int nb, const void* perm,
-                                 long long rows_pad, int ei_bit,
-                                 void* stream) {
+                                 long long rows_pad, long long long_from,
+                                 int ei_bit, void* stream) {
+  if (long_from < 0 || long_from > rows_pad) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int shift = 32 - ei_bit;
   const uint32_t mask = (1u << shift) - 1u;
-  const long long blocks = (rows_pad * 32 + kThreads - 1) / kThreads;
+  const long long warps = kChainThreads / 32;
+  const long long blocks = (rows_pad - long_from) +
+                           (long_from + warps - 1) / warps;
+  if (blocks <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   const uint32_t* cp = (const uint32_t*)colpak;
   const uint16_t* hd = (const uint16_t*)head;
@@ -265,14 +304,17 @@ extern "C" int gse_spmv_sell_f32(int tag, const void* colpak, const void* head,
   const int64_t* tb = (const int64_t*)tab;
   const int32_t* pm = (const int32_t*)perm;
   if (tag == 1) {
-    spmv_sell_f32_kernel<1><<<(unsigned)blocks, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, shift, mask);
+    spmv_sell_f32_kernel<1><<<(unsigned)blocks, kChainThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, shift,
+        mask);
   } else if (tag == 2) {
-    spmv_sell_f32_kernel<2><<<(unsigned)blocks, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, shift, mask);
+    spmv_sell_f32_kernel<2><<<(unsigned)blocks, kChainThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, shift,
+        mask);
   } else if (tag == 3) {
-    spmv_sell_f32_kernel<3><<<(unsigned)blocks, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, shift, mask);
+    spmv_sell_f32_kernel<3><<<(unsigned)blocks, kChainThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, shift,
+        mask);
   } else {
     return (int)cudaErrorInvalidValue;
   }

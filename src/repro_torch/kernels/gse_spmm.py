@@ -16,8 +16,14 @@ Replaces the Pallas kernel ``gse_spmm_call`` of
   of the batched stepped CG loop.  Column j runs at its own tag
   (``tags[j]``, a device int32) when ``active[j]`` (a device bool), so
   column j of Y is bitwise A64 at ``tags[j]`` on column j of X, and one
-  launch per iteration streams the matrix once for the whole batch.
-  Y is ``(nrhs, m)``; inactive columns are 0.0.
+  launch per iteration streams the matrix once for a pass of four
+  columns.  Y is ``(nrhs, m)``; inactive columns are 0.0.  It runs by
+  A64's row plan (``plan=``, the pack's ``GSECSR.row_plan``), one launch
+  for three bodies: long rows a block each (C′64's four adding lanes),
+  rows in between a warp each (C′64's warp rows), and runs of short rows
+  a block each, whose threads stage the run's products for the four
+  columns in shared memory before each thread adds one row.  The launches
+  per body are counted in ``body_launches``.
 
 Kernel C′ replaces ``gse_spmm_sell_call`` (``repro/kernels/gse_spmm.py``
 :155, C's ``pallas_call`` once per width bucket, then the ``unperm``
@@ -50,7 +56,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gse_spmv import (_check, _check_sell, _raise_on,
+from repro_torch.kernels.gse_spmv import (A64_BODIES, SELL_BODIES, _check,
+                                          _check_long_from, _check_sell,
+                                          _raise_on, check_plan, count_bodies,
                                           csr_row_sums,
                                           gse_spmv_ell_f32_plain,
                                           gse_spmv_sell_f32_plain, row_sums,
@@ -68,9 +76,10 @@ _ARGTYPES = {
     "gse_spmm_ell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
                          ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_int, ctypes.c_int, _P],
-    "gse_spmm_csr_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                         ctypes.c_int, _P],
+    "gse_spmm_csr_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P,
+                         ctypes.c_longlong, ctypes.c_longlong,
+                         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
     "gse_spmm_sell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_int, _P, ctypes.c_longlong,
                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
@@ -79,6 +88,8 @@ _ARGTYPES = {
                           ctypes.c_longlong, ctypes.c_longlong,
                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
 }
+# Columns per pass of C64 and C′64 (csrc/gse_rows.cuh kColsWarp).
+C64_PASS = 4
 _SOURCE = {"gse_spmm_ell_f32": "gse_spmm", "gse_spmm_csr_f64": "gse_spmm",
            "gse_spmm_sell_f32": "gse_sell", "gse_spmm_sell_f64": "gse_sell"}
 _BOUND = {}
@@ -185,7 +196,8 @@ def gse_spmm_csr_f64_plain(rowptr, colpak, head, tail1, tail2, table, x,
 
 
 def gse_spmm_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, tags,
-                     active, *, ei_bit: int, device="cuda") -> torch.Tensor:
+                     active, *, ei_bit: int, plan=None,
+                     device="cuda") -> torch.Tensor:
     """Y = A @ X as ``(nrhs, m)`` f64 over GSE-SEM CSR segments and an
     ``(nrhs, n)`` f64 X (columns contiguous).
 
@@ -194,8 +206,11 @@ def gse_spmm_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, tags,
     bool tensor, both on the operand's device, so the batched loop passes
     its monitors' tags and its live columns without a host sync.  All
     three segment arrays are passed because the tags are read on the
-    device.
+    device.  ``plan`` (required on the card) is the pack's
+    ``GSECSR.row_plan``, a ``sparse.csr.RowPlan`` of these rows; a plan of
+    another row count is refused on the CPU too.
     """
+    check_plan(plan, rowptr.shape[0] - 1, "gse_spmm_csr_f64")
     dev = on_device(device, rowptr=rowptr, colpak=colpak, head=head,
                     tail1=tail1, tail2=tail2, table=table, x=x, tags=tags,
                     active=active)
@@ -223,15 +238,25 @@ def gse_spmm_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, tags,
         raise ValueError(f"tags/active have {tags.shape[0]}/"
                          f"{active.shape[0]} entries, x {nrhs} columns")
     rows = rowptr.shape[0] - 1
+    check_plan(plan, rows, "gse_spmm_csr_f64", dev)
+    parts = (plan.long_rows, plan.warp_rows, plan.row_blocks)
     y = torch.empty(nrhs, rows, dtype=torch.float64, device=dev)
     if rows == 0 or nrhs == 0:
         return y
+    counts = [t.shape[0] for t in parts]
+    # The kernel's scratch: X interleaved, a pass's columns of each matrix
+    # column side by side.
+    passes = -(-nrhs // C64_PASS)
+    xi = torch.empty(passes * n * C64_PASS, dtype=torch.float64, device=dev)
     rc = _fn("gse_spmm_csr_f64")(
         tags.data_ptr(), active.data_ptr(), rowptr.data_ptr(),
         colpak.data_ptr(), head.data_ptr(), tail1.data_ptr(),
-        tail2.data_ptr(), table.data_ptr(), x.data_ptr(), y.data_ptr(), rows,
-        n, nrhs, ei_bit, torch.cuda.current_stream(dev).cuda_stream)
+        tail2.data_ptr(), table.data_ptr(), x.data_ptr(), y.data_ptr(),
+        xi.data_ptr(), parts[0].data_ptr(), counts[0], parts[1].data_ptr(),
+        counts[1], parts[2].data_ptr(), counts[2], rows, n, nrhs, ei_bit,
+        torch.cuda.current_stream(dev).cuda_stream)
     gse_spmm_csr_f64.launches += 1
+    count_bodies(gse_spmm_csr_f64, counts, A64_BODIES)
     _raise_on(rc, "gse_spmm_csr_f64")
     return y
 
@@ -352,9 +377,7 @@ def gse_spmm_sell_f64(colpak, head, tail1, tail2, table, x, tags, active,
         raise ValueError(f"tags/active have {tags.shape[0]}/"
                          f"{active.shape[0]} entries, x {nrhs} columns")
     rows_pad = perm.shape[0]
-    if long_from is None or not 0 <= long_from <= rows_pad:
-        raise ValueError(f"long_from must be the pack's long_from, in "
-                         f"[0, {rows_pad}], got {long_from}")
+    _check_long_from(long_from, rows_pad)
     y = torch.empty(nrhs, rows, dtype=torch.float64, device=dev)
     if rows_pad == 0 or nrhs == 0:
         return y
@@ -365,9 +388,7 @@ def gse_spmm_sell_f64(colpak, head, tail1, tail2, table, x, tags, active,
         perm.data_ptr(), row_len.data_ptr(), rows_pad, long_from, rows, n,
         nrhs, ei_bit, torch.cuda.current_stream(dev).cuda_stream)
     gse_spmm_sell_f64.launches += 1
-    for body, count in (("block", rows_pad - long_from), ("warp", long_from)):
-        if count:
-            gse_spmm_sell_f64.body_launches[body] += 1
+    count_bodies(gse_spmm_sell_f64, (rows_pad - long_from, long_from))
     _raise_on(rc, "gse_spmm_sell_f64")
     return y
 
@@ -377,11 +398,13 @@ KERNELS = (gse_spmm_ell_f32, gse_spmm_csr_f64, gse_spmm_sell_f32,
 
 
 def reset_launch_counts():
-    """Zero every wrapper's ``launches``; ``gse_spmm_sell_f64`` also counts
-    per body in ``body_launches`` ("block", "warp")."""
+    """Zero every wrapper's ``launches`` and, where a wrapper counts its
+    launches per body, its ``body_launches``: ``gse_spmm_csr_f64``
+    (``A64_BODIES``) and ``gse_spmm_sell_f64`` (``SELL_BODIES``)."""
     for k in KERNELS:
         k.launches = 0
-    gse_spmm_sell_f64.body_launches = {"block": 0, "warp": 0}
+    gse_spmm_csr_f64.body_launches = dict.fromkeys(A64_BODIES, 0)
+    gse_spmm_sell_f64.body_launches = dict.fromkeys(SELL_BODIES, 0)
 
 
 reset_launch_counts()

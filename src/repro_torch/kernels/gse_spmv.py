@@ -28,8 +28,12 @@ gather) over the SELL-C-sigma layout of ``sparse.csr.pack_sell``.  The
 CUDA source is ``csrc/gse_sell.cu``; one launch covers every bucket, the
 row bodies are A's:
 
-* **B32** -- :func:`gse_spmv_sell_f32` (``ops.gse_spmv_sell``): A32's warp
-  row over each bucket row's width; bitwise A32 for finite x.
+* **B32** -- :func:`gse_spmv_sell_f32` (``ops.gse_spmv_sell``): A32's lane
+  order over each bucket row's width; bitwise A32 for finite x.  The rows
+  from the pack's ``long_from`` on (B64's long rows) get a block each,
+  whose other warps decode and multiply the slots into shared memory ahead
+  of the 32 adding lanes; the other rows get A32's warp row.  The launches
+  per body are counted in ``body_launches`` ("block", "warp").
 * **B64** -- :func:`gse_spmv_sell_f64` (``spmv_gse`` over a ``GSESellC``,
   the CG operator): A64's chain over each row's real slots; bitwise A64.
   A dense row's sum is one chain of dependent adds, so the rows of the
@@ -63,7 +67,8 @@ __all__ = ["gse_spmv_ell_f32", "gse_spmv_ell_f32_plain", "gse_spmv_csr_f64",
            "gse_spmv_csr_f64_plain", "gse_spmv_sell_f32",
            "gse_spmv_sell_f32_plain", "gse_spmv_sell_f64",
            "gse_spmv_sell_f64_plain", "csr_row_sums", "row_sums",
-           "KERNELS", "reset_launch_counts", "A64_BODIES"]
+           "KERNELS", "reset_launch_counts", "A64_BODIES", "SELL_BODIES",
+           "check_plan", "count_bodies"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
@@ -73,8 +78,8 @@ _ARGTYPES = {
                          ctypes.c_longlong, _P, ctypes.c_longlong, _P,
                          ctypes.c_longlong, ctypes.c_int, _P],
     "gse_spmv_sell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
-                          ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int,
-                          _P],
+                          ctypes.c_int, _P, ctypes.c_longlong,
+                          ctypes.c_longlong, ctypes.c_int, _P],
     "gse_spmv_sell_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                           _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                           ctypes.c_int, _P],
@@ -252,6 +257,28 @@ def csr_row_sums(rowptr, prod) -> torch.Tensor:
 A64_BODIES = ("block", "warp", "row_block")
 
 
+def check_plan(plan, rows: int, name: str, device=None):
+    """Raise unless ``plan`` is a row plan of ``rows`` rows; with
+    ``device`` (the card's launch), also unless it is given and its int32
+    parts lie there."""
+    if plan is None:
+        if device is not None:
+            raise ValueError(f"{name} needs the pack's row plan "
+                             "(GSECSR.row_plan) on the card")
+        return
+    if plan.rows != rows:
+        raise ValueError(f"the row plan is for {plan.rows} rows, rowptr has "
+                         f"{rows}")
+    if device is None:
+        return
+    parts = (plan.long_rows, plan.warp_rows, plan.row_blocks)
+    for body, t, ndim in zip(A64_BODIES, parts, (1, 1, 2)):
+        _check(t, f"plan's {body} rows", torch.int32, device, ndim)
+    if plan.row_blocks.shape[1] != 2:
+        raise ValueError(f"row_blocks must be (n_blocks, 2), got "
+                         f"{tuple(plan.row_blocks.shape)}")
+
+
 def gse_spmv_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, *,
                      ei_bit: int, tag, plan=None) -> torch.Tensor:
     """y = A @ x as (M,) f64 over GSE-SEM CSR segments.
@@ -260,8 +287,10 @@ def gse_spmv_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, *,
     to [1, 3] as the reference's ``lax.switch`` clips it); all three
     segment arrays are passed because the tag is chosen on the device.
     ``plan`` (required on the card) is the pack's ``GSECSR.row_plan``, a
-    ``sparse.csr.RowPlan`` of these rows.
+    ``sparse.csr.RowPlan`` of these rows; a plan of another row count is
+    refused on the CPU too.
     """
+    check_plan(plan, rowptr.shape[0] - 1, "gse_spmv_csr_f64")
     if colpak.device.type == "cpu":
         return gse_spmv_csr_f64_plain(rowptr, colpak, head, tail1, tail2,
                                       table, x, ei_bit=ei_bit, tag=tag)
@@ -282,19 +311,9 @@ def gse_spmv_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, *,
     if not isinstance(tag, torch.Tensor):
         tag = torch.full((), int(tag), dtype=torch.int32, device=dev)
     _check(tag.reshape(1), "tag", torch.int32, dev, 1)
-    if plan is None:
-        raise ValueError("gse_spmv_csr_f64 needs the pack's row plan "
-                         "(GSECSR.row_plan) on the card")
-    parts = (plan.long_rows, plan.warp_rows, plan.row_blocks)
-    for body, t, ndim in zip(A64_BODIES, parts, (1, 1, 2)):
-        _check(t, f"plan's {body} rows", torch.int32, dev, ndim)
-    if plan.row_blocks.shape[1] != 2:
-        raise ValueError(f"row_blocks must be (n_blocks, 2), got "
-                         f"{tuple(plan.row_blocks.shape)}")
     rows = rowptr.shape[0] - 1
-    if plan.rows != rows:
-        raise ValueError(f"the row plan is for {plan.rows} rows, rowptr has "
-                         f"{rows}")
+    check_plan(plan, rows, "gse_spmv_csr_f64", dev)
+    parts = (plan.long_rows, plan.warp_rows, plan.row_blocks)
     y = torch.empty(rows, dtype=torch.float64, device=dev)
     if rows == 0:
         return y
@@ -306,9 +325,7 @@ def gse_spmv_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, *,
         counts[1], parts[2].data_ptr(), counts[2], ei_bit,
         torch.cuda.current_stream(dev).cuda_stream)
     gse_spmv_csr_f64.launches += 1
-    for body, count in zip(A64_BODIES, counts):
-        if count:
-            gse_spmv_csr_f64.body_launches[body] += 1
+    count_bodies(gse_spmv_csr_f64, counts, A64_BODIES)
     _raise_on(rc, "gse_spmv_csr_f64")
     return y
 
@@ -341,6 +358,25 @@ def sell_scatter(rows_y, perm, rows: int):
     return y
 
 
+# The bodies of the SELL kernels that split at the pack's ``long_from``:
+# "block" runs the bucket rows from there on, "warp" the rows before.
+SELL_BODIES = ("block", "warp")
+
+
+def count_bodies(kernel, counts, bodies=SELL_BODIES):
+    """One more launch of each body of ``kernel`` (``body_launches``) whose
+    count of rows or row blocks in ``counts`` is not 0."""
+    for body, count in zip(bodies, counts):
+        if count:
+            kernel.body_launches[body] += 1
+
+
+def _check_long_from(long_from, rows_pad: int):
+    if long_from is None or not 0 <= long_from <= rows_pad:
+        raise ValueError(f"long_from must be the pack's long_from, in "
+                         f"[0, {rows_pad}], got {long_from}")
+
+
 def _check_sell(segs, buckets, perm, dev):
     for name, t, dt in segs:
         if t is not None:
@@ -370,11 +406,14 @@ def gse_spmv_sell_f32_plain(colpak, head, tail1, tail2, x, scales, buckets,
 
 
 def gse_spmv_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
-                      *, rows: int, ei_bit: int, tag: int) -> torch.Tensor:
+                      *, rows: int, ei_bit: int, tag: int,
+                      long_from: int | None = None) -> torch.Tensor:
     """y = A @ x as (rows,) f32 from the flat SELL segments at ``tag``.
 
     ``tail1``/``tail2`` may be ``None`` when ``tag`` does not read them;
     ``scales`` is the (k,) or (1, k) f32 table ``ref.make_scales`` gives.
+    ``long_from`` (required on the card) is the pack's
+    ``GSESellC.long_from``.
     """
     if tag not in (1, 2, 3):
         raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
@@ -392,17 +431,20 @@ def gse_spmv_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
     _check(x, "x", torch.float32, dev, 1)
     scales = scales.reshape(-1)
     _check(scales, "scales", torch.float32, dev, 1)
+    rows_pad = perm.shape[0]
+    _check_long_from(long_from, rows_pad)
     y = torch.empty(rows, dtype=torch.float32, device=dev)
-    if perm.shape[0] == 0:
+    if rows_pad == 0:
         return y
     rc = _fn("gse_spmv_sell_f32")(
         tag, colpak.data_ptr(), head.data_ptr(),
         tail1.data_ptr() if tag >= 2 else None,
         tail2.data_ptr() if tag == 3 else None,
         x.data_ptr(), scales.data_ptr(), y.data_ptr(), buckets.data_ptr(),
-        buckets.shape[0], perm.data_ptr(), perm.shape[0], ei_bit,
+        buckets.shape[0], perm.data_ptr(), rows_pad, long_from, ei_bit,
         torch.cuda.current_stream(dev).cuda_stream)
     gse_spmv_sell_f32.launches += 1
+    count_bodies(gse_spmv_sell_f32, (rows_pad - long_from, long_from))
     _raise_on(rc, "gse_spmv_sell_f32")
     return y
 
@@ -449,9 +491,7 @@ def gse_spmv_sell_f64(colpak, head, tail1, tail2, table, x, buckets, perm,
     if not isinstance(tag, torch.Tensor):
         tag = torch.full((), int(tag), dtype=torch.int32, device=dev)
     _check(tag.reshape(1), "tag", torch.int32, dev, 1)
-    if long_from is None or not 0 <= long_from <= perm.shape[0]:
-        raise ValueError(f"long_from must be the pack's long_from, in "
-                         f"[0, {perm.shape[0]}], got {long_from}")
+    _check_long_from(long_from, perm.shape[0])
     y = torch.empty(rows, dtype=torch.float64, device=dev)
     if perm.shape[0] == 0:
         return y
@@ -471,11 +511,13 @@ KERNELS = (gse_spmv_ell_f32, gse_spmv_csr_f64, gse_spmv_sell_f32,
 
 
 def reset_launch_counts():
-    """Zero every wrapper's ``launches``; ``gse_spmv_csr_f64`` also counts
-    per body in ``body_launches`` (:data:`A64_BODIES`)."""
+    """Zero every wrapper's ``launches`` and, where a wrapper counts its
+    launches per body, its ``body_launches``: ``gse_spmv_csr_f64``
+    (:data:`A64_BODIES`) and ``gse_spmv_sell_f32`` (:data:`SELL_BODIES`)."""
     for k in KERNELS:
         k.launches = 0
     gse_spmv_csr_f64.body_launches = dict.fromkeys(A64_BODIES, 0)
+    gse_spmv_sell_f32.body_launches = dict.fromkeys(SELL_BODIES, 0)
 
 
 reset_launch_counts()

@@ -295,7 +295,8 @@ def sell_kernel_for(tag: int, ei_bit: int, blocks=None):
     :func:`spmv_kernel_for`: the callable takes exactly the flat segments
     ``tag`` streams -- ``(colpak, head)`` for tag 1, ``+ tail1`` for tag 2,
     ``+ tail2`` for tag 3 -- then ``x, scales`` and the keywords
-    ``buckets``, ``perm``, ``rows``.  One launch covers every bucket."""
+    ``buckets``, ``perm``, ``rows`` (and, on the card, ``long_from``).  One
+    launch covers every bucket."""
     _no_plans(blocks)
     return _sell_dispatch(gse_spmv_sell_f32, tag, ei_bit)
 
@@ -323,7 +324,7 @@ def gse_spmv_sell(sell: GSESellC, x: torch.Tensor, tag: int = 1,
     segs = sell.segments[:2 + len(TAG_SEGMENTS[tag])]
     return sell_kernel_for(tag, sell.ei_bit)(
         *segs, x, scales, buckets=sell.bucket_table, perm=sell.perm,
-        rows=sell.shape[0])
+        rows=sell.shape[0], long_from=sell.long_from)
 
 
 def gse_spmm_sell(sell: GSESellC, x: torch.Tensor, tag: int = 1,

@@ -229,7 +229,7 @@ def _solve_cg_batched_fused(a, b, x0, tol, maxiter, params, init_tag=1,
                                      long_from=a.long_from, device=device)
         return gse_spmm_csr_f64(a.rowptr, a.colpak, a.head, a.tail1, a.tail2,
                                 a.table, v, tags, active, ei_bit=a.ei_bit,
-                                device=device)
+                                plan=a.row_plan, device=device)
 
     return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag, matvec,
                                 guards, device)

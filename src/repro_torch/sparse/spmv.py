@@ -194,5 +194,5 @@ def spmm_gse(a, x: torch.Tensor, tag=1) -> torch.Tensor:
                                  long_from=a.long_from, device=dev).t()
     y = gse_spmm_csr_f64(a.rowptr, a.colpak, a.head, a.tail1, a.tail2,
                          a.table, xt, tags, active, ei_bit=a.ei_bit,
-                         device=dev)
+                         plan=a.row_plan, device=dev)
     return y.t()

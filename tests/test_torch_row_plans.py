@@ -1,5 +1,5 @@
-"""Kernel A64's row plan and the sum orders of A64's and C′64's bodies, as
-the CPU can check them.
+"""Kernel A64's row plan and the sum orders of the bodies of A64, C64,
+C′64 and B32's long rows, as the CPU can check them.
 
 A64 (``csrc/gse_spmv.cu``) runs each CSR row on one of three bodies, by
 the pack's row plan (``GSECSR.row_plan``, ``sparse.csr.csr_row_plan``):
@@ -9,18 +9,25 @@ rows of at least ``A64_WARP_LEN`` a warp each, in chunks of 32; the others
 in row blocks of consecutive rows, staged in shared memory and added one
 row per thread.  C′64 (``csrc/gse_sell.cu``) runs the SELL rows from the
 pack's ``long_from`` on with a block each, four columns in chunks of 512,
-and the others on a warp.  These tests hold the plan to its contract
-(every row once, on the body its length picks, row blocks within their
-budgets, which are the kernel's; ``pack_csr`` and ``convert`` agree)
-and hold a model of each body's order -- products staged by torch, each
-chain a left fold in f64 (``np.add.accumulate``) -- bitwise to the plain
-versions and to the reference's ``spmv_gse``.  Such a fold from 0.0,
-padded with +0.0, is the plain row sum for any chunking, so the model
-cases alone could not fail; each is paired with planted faults (chunks
-added out of order, a row block's thread on its neighbour's row, columns
-crossed) that must break the bitwise equality on the rows of the body
-they touch, and only there.  ``chip_smoke.py`` phases 2, 7, 9 and 10
-hold the CUDA bodies to the plain versions on the card.
+and the others on a warp.  C64 (``csrc/gse_spmm.cu``) runs A64's plan on
+C′64's two column bodies and row blocks of four columns staged 1024
+slots at a time, each thread's chains carried across the chunks.  B32
+(``csrc/gse_sell.cu``) runs the SELL rows from ``long_from`` on with a
+block each whose 32 adding lanes keep A32's lane order over chunks of
+2048 products.  These tests hold the plan to its contract (every row
+once, on the body its length picks, row blocks within their budgets,
+which are the kernel's; ``pack_csr`` and ``convert`` agree) and hold a
+model of each body's order -- products staged by torch, each chain a
+left fold (``np.add.accumulate``) -- bitwise to the plain versions and to
+the reference (``spmv_gse``, ``spmm_gse``; B32 within the JAX tests'
+tolerance of the Pallas SELL kernel in interpret mode).  Such a fold from
+0.0, padded with +0.0, is the plain row sum for any chunking, so the
+model cases alone could not fail; each is paired with planted faults
+(chunks added out of order, a row block's thread on its neighbour's row,
+columns crossed, lanes taking the wrong slots) that must break the
+bitwise equality on the rows of the body they touch, and only there.
+``chip_smoke.py`` phases 2, 7, 9 and 10 hold the CUDA bodies to the plain
+versions on the card.
 """
 import re
 from pathlib import Path
@@ -32,14 +39,17 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ops as J_ops  # noqa: E402
 from repro.sparse import csr as J_csr  # noqa: E402
 from repro.sparse import generators as J_gen  # noqa: E402
 from repro.sparse import spmv as J_spmv  # noqa: E402
 
 from repro_torch.convert import gsecsr_from_repro  # noqa: E402
+from repro_torch.core.precision_table import TAG_BITS_USED  # noqa: E402
 from repro_torch.kernels import gse_spmm as T_c  # noqa: E402
 from repro_torch.kernels import gse_spmv as T_k  # noqa: E402
 from repro_torch.kernels import ops as T_ops  # noqa: E402
+from repro_torch.kernels import ref as T_ref  # noqa: E402
 from repro_torch.sparse import csr as T_csr  # noqa: E402
 from repro_torch.sparse import generators as T_gen  # noqa: E402
 from repro_torch.sparse.spmv import decode_gsecsr  # noqa: E402
@@ -120,11 +130,16 @@ def test_every_row_runs_once_on_the_body_its_length_picks(case, limits):
 def test_row_block_budgets_are_the_kernels():
     """The plan's row-block budgets are the shared memory and threads the
     kernel's row block has (gse_rows.cuh), and its chunk sizes are the
-    ones the order models here use."""
+    ones the order models here use: C64's row block stages its run in two
+    chunks, which fit the block chain's buffers of four columns, and its
+    wrapper sizes the interleaved copy of X by the kernel's pass."""
     assert T_csr.ROW_BLOCK_SLOTS == CUDA["kRowBlockSlots"]
     assert T_csr.ROW_BLOCK_ROWS == CUDA["kRowBlockRows"]
     assert CUDA["kChainThreads"] == CUDA["kRowBlockRows"]
     assert T_csr.B64_BLOCK_WIDTH == 2 * T_csr.A64_BLOCK_LEN
+    assert 2 * CUDA["kRowColsChunk"] == T_csr.ROW_BLOCK_SLOTS
+    assert CUDA["kRowColsChunk"] <= 2 * CUDA["kColsStride"]
+    assert T_c.C64_PASS == CUDA["kColsWarp"]
 
 
 @pytest.mark.parametrize("limits", sorted(THRESHOLDS))
@@ -278,12 +293,13 @@ MIXED_TAGS = [1, 2, 3, 1]
 MIXED_ACTIVE = [True, True, True, False]
 
 
-def _c64_emulated(tg, sell, x, fault=None) -> np.ndarray:
+def _cprime64_emulated(tg, sell, x, fault=None) -> np.ndarray:
     """C′64's order on the SELL pack: bucket rows from ``long_from`` on
     add each column in chunks of COLS_CHUNK (the block's four adding
     lanes), the others in chunks of 32 (the warp row); inactive columns
-    are 0.0.  ``fault`` plants a wrong order (C64_FAULTS): "columns_crossed"
-    has lane c of a long row's block add column c + 1's products."""
+    are 0.0.  ``fault`` plants a wrong order (CPRIME64_FAULTS):
+    "columns_crossed" has lane c of a long row's block add column c + 1's
+    products."""
     m, n = tg.shape
     xt = torch.from_numpy(x)
     rowptr = tg.rowptr.numpy().astype(np.int64)
@@ -311,12 +327,10 @@ def _c64_emulated(tg, sell, x, fault=None) -> np.ndarray:
     return y
 
 
-MIXED_TAGS = [1, 2, 3, 1]
-MIXED_ACTIVE = [True, True, True, False]
-C64_FAULTS = ("chunks_reversed", "columns_crossed")
+CPRIME64_FAULTS = ("chunks_reversed", "columns_crossed")
 
 
-def _c64_plain(tg, sell, x):
+def _cprime64_plain(tg, sell, x):
     return T_c.gse_spmm_sell_f64(
         *sell.segments, sell.table, torch.from_numpy(x),
         torch.tensor(MIXED_TAGS, dtype=torch.int32),
@@ -338,8 +352,8 @@ def test_c64_column_chains_are_bitwise_the_plain_version_and_reference(
         operators, skewed_sell, seed):
     jg, tg = operators["skewed_8192"]
     x = np.random.default_rng(seed).normal(size=(4, tg.shape[1]))
-    want = _c64_emulated(tg, skewed_sell, x)
-    plain = _c64_plain(tg, skewed_sell, x)
+    want = _cprime64_emulated(tg, skewed_sell, x)
+    plain = _cprime64_plain(tg, skewed_sell, x)
     assert np.array_equal(want.view(np.uint64), plain.view(np.uint64))
     for j, t in enumerate(MIXED_TAGS[:3]):
         ref = np.asarray(J_spmv.spmv_gse(jg, jnp.asarray(x[j]), tag=t))
@@ -347,7 +361,7 @@ def test_c64_column_chains_are_bitwise_the_plain_version_and_reference(
     assert np.all(want[3] == 0.0)
 
 
-@pytest.mark.parametrize("fault", C64_FAULTS)
+@pytest.mark.parametrize("fault", CPRIME64_FAULTS)
 def test_c64_order_model_sees_a_misordered_block(operators, skewed_sell,
                                                  fault):
     """Each planted fault in the long rows' block breaks the bitwise
@@ -356,8 +370,8 @@ def test_c64_order_model_sees_a_misordered_block(operators, skewed_sell,
     row."""
     _, tg = operators["skewed_8192"]
     x = np.random.default_rng(5).normal(size=(4, tg.shape[1]))
-    bad = (_c64_emulated(tg, skewed_sell, x, fault).view(np.uint64)
-           != _c64_plain(tg, skewed_sell, x).view(np.uint64))
+    bad = (_cprime64_emulated(tg, skewed_sell, x, fault).view(np.uint64)
+           != _cprime64_plain(tg, skewed_sell, x).view(np.uint64))
     perm = skewed_sell.perm.numpy()
     rows = perm[skewed_sell.long_from:]
     rows = rows[rows >= 0]
@@ -365,3 +379,251 @@ def test_c64_order_model_sees_a_misordered_block(operators, skewed_sell,
         rows = rows[np.diff(tg.rowptr.numpy())[rows] > COLS_CHUNK]
     assert rows.size and bad[:3][:, rows].all()
     assert not np.delete(bad, rows, axis=1).any()
+
+
+# --- C64 on A64's row plan ---------------------------------------------------
+
+ROW_COLS_CHUNK = CUDA["kRowColsChunk"]
+LANES_CHUNK = CUDA["kLanesChunk"]
+C64_ROW_FAULTS = ("rows_crossed", "columns_crossed", "chunks_reversed")
+
+
+def _column_products(tg, x, tags, active) -> np.ndarray:
+    """``(nrhs, nnz)`` products of column j at ``tags[j]`` (0.0 where the
+    column is inactive), as the bodies stage them."""
+    prods = np.zeros((len(tags), tg.nnz))
+    for j, (t, on) in enumerate(zip(tags, active)):
+        if on:
+            vals, cols = decode_gsecsr(tg, t)
+            prods[j] = (vals * torch.from_numpy(x[j])[cols]).numpy()
+    return prods
+
+
+def _c64_rows_emulated(tg, x, fault=None) -> np.ndarray:
+    """C64's order under the pack's row plan, columns MIXED_TAGS /
+    MIXED_ACTIVE: long rows each column in chunks of COLS_CHUNK (the block
+    chain's four adding lanes), warp rows in chunks of 32, row blocks
+    staged ROW_COLS_CHUNK slots at a time with each thread's chains
+    carried from chunk to chunk.  ``fault`` plants a wrong order in the
+    row blocks (C64_ROW_FAULTS): a thread on its neighbour's row, column c
+    adding column c + 1's products, or a row's two chunks added second
+    first."""
+    prods = _column_products(tg, x, MIXED_TAGS, MIXED_ACTIVE)
+    rowptr = tg.rowptr.numpy().astype(np.int64)
+    y = np.full((4, tg.shape[0]), np.nan)
+    long_rows, warp_rows, blocks = _plan_rows(tg.row_plan)
+    for rows, chunk in ((long_rows, COLS_CHUNK), (warp_rows, WARP_CHUNK)):
+        for r in rows:
+            for j in range(4):
+                y[j, r] = _fold(prods[j, rowptr[r]:rowptr[r + 1]], chunk)
+    for r0, r1 in blocks:
+        base = rowptr[r0]
+        staged = prods[:, base:rowptr[r1]].copy()  # the block's chunks
+        for r in range(r0, r1):
+            rr = min(r + 1, r1 - 1) if fault == "rows_crossed" else r
+            beg, end = rowptr[rr] - base, rowptr[rr + 1] - base
+            for j in range(4):
+                src = (j + 1) % 4 if fault == "columns_crossed" else j
+                row = staged[src, beg:end]
+                if fault == "chunks_reversed":
+                    cut = max(ROW_COLS_CHUNK - beg, 0)
+                    row = np.concatenate([row[cut:], row[:cut]])
+                y[j, r] = _fold(row, 1)
+    return y
+
+
+def _c64_csr_plain(tg, x, plan=None):
+    return T_c.gse_spmm_csr_f64(
+        tg.rowptr, tg.colpak, tg.head, tg.tail1, tg.tail2, tg.table,
+        torch.from_numpy(x), torch.tensor(MIXED_TAGS, dtype=torch.int32),
+        torch.tensor(MIXED_ACTIVE), ei_bit=tg.ei_bit,
+        plan=tg.row_plan if plan is None else plan, device=CPU).numpy()
+
+
+def _row_block_rows(plan) -> np.ndarray:
+    *_, blocks = _plan_rows(plan)
+    return np.concatenate([np.arange(r0, r1) for r0, r1 in blocks])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["spd_rs8_2k", "skewed_8192"])
+def test_c64_rows_order_is_bitwise_the_plain_version_and_reference(
+        operators, name, seed):
+    """C64's three bodies under the pack's row plan, mixed tags and an
+    inactive column: bitwise the plain version, and per column bitwise
+    the reference's ``spmm_gse`` at that column's tag."""
+    jg, tg = operators[name]
+    x = np.random.default_rng(seed).normal(size=(4, tg.shape[1]))
+    want = _c64_rows_emulated(tg, x)
+    plain = _c64_csr_plain(tg, x)
+    assert np.array_equal(want.view(np.uint64), plain.view(np.uint64))
+    for j, t in enumerate(MIXED_TAGS[:3]):
+        ref = np.asarray(J_spmv.spmm_gse(jg, jnp.asarray(x[j][:, None]),
+                                         tag=t))[:, 0]
+        assert np.array_equal(want[j].view(np.uint64), ref.view(np.uint64))
+    assert np.all(want[3] == 0.0)
+
+
+@pytest.mark.parametrize("fault", C64_ROW_FAULTS)
+@pytest.mark.parametrize("name", ["spd_rs8_2k", "skewed_8192"])
+def test_c64_rows_order_model_sees_a_misordered_row_block(operators, name,
+                                                          fault):
+    """Each planted fault in the row blocks breaks the bitwise equality
+    on the rows it reorders (for "chunks_reversed" the rows that span a
+    block's two chunks) and on no other row."""
+    _, tg = operators[name]
+    x = np.random.default_rng(9).normal(size=(4, tg.shape[1]))
+    bad = (_c64_rows_emulated(tg, x, fault).view(np.uint64)
+           != _c64_csr_plain(tg, x).view(np.uint64)).any(axis=0)
+    rows = _row_block_rows(tg.row_plan)
+    if fault == "chunks_reversed":
+        rowptr = tg.rowptr.numpy().astype(np.int64)
+        *_, blocks = _plan_rows(tg.row_plan)
+        base = np.repeat(rowptr[blocks[:, 0]], blocks[:, 1] - blocks[:, 0])
+        rows = rows[(rowptr[rows] - base < ROW_COLS_CHUNK)
+                    & (rowptr[rows + 1] - base > ROW_COLS_CHUNK)]
+    assert rows.size and bad[rows].any()
+    assert not np.delete(bad, rows).any()
+
+
+@pytest.mark.parametrize("wrapper", ["gse_spmv_csr_f64", "gse_spmm_csr_f64"])
+def test_csr_kernels_refuse_a_plan_for_another_row_count(operators,
+                                                         wrapper):
+    _, tg = operators["spd_rs8_2k"]
+    other = T_csr.csr_row_plan(tg.rowptr[:-1])
+    segs = (tg.rowptr, tg.colpak, tg.head, tg.tail1, tg.tail2, tg.table)
+    with pytest.raises(ValueError, match="row plan is for"):
+        if wrapper == "gse_spmv_csr_f64":
+            T_k.gse_spmv_csr_f64(*segs, torch.zeros(tg.shape[1],
+                                                    dtype=torch.float64),
+                                 ei_bit=tg.ei_bit, tag=1, plan=other)
+        else:
+            T_c.gse_spmm_csr_f64(*segs, torch.zeros(2, tg.shape[1],
+                                                    dtype=torch.float64),
+                                 torch.ones(2, dtype=torch.int32),
+                                 torch.ones(2, dtype=torch.bool),
+                                 ei_bit=tg.ei_bit, plan=other, device=CPU)
+
+
+# --- B32's long rows ---------------------------------------------------------
+
+B32_FAULTS = ("chunks_reversed", "lanes_transposed")
+
+
+def _f32_products(sell, x, scales, tag) -> list:
+    """Each bucket's ``(rows_b, w_b)`` f32 products, padded slots
+    included, in the order of ``gse_spmv_ell_f32_plain``'s decode."""
+    segs = sell.segments
+    shift = 32 - sell.ei_bit
+    out = []
+    for _, rows, w, off in T_k.sell_rows(sell.bucket_table,
+                                         sell.perm.shape[0]):
+        def part(i):
+            return segs[i][off:off + rows * w].view(rows, w).to(torch.int64)
+        cp, h = part(0), part(1)
+        sgn = 1.0 - 2.0 * ((h >> 15) & 0x1).to(torch.float32)
+        mant = (h & 0x7FFF).to(torch.float32)
+        if tag >= 2:
+            mant = mant * 65536.0 + part(2).to(torch.float32)
+        if tag == 3:
+            mant = mant * float(2.0**32) + part(3).to(torch.float32)
+        vals = sgn * mant * scales.reshape(-1)[cp >> shift]
+        out.append((vals * x[cp & ((1 << shift) - 1)]).numpy())
+    return out
+
+
+def _lanes(products, chunk: int, fault=None) -> np.float32:
+    """32 lane chains over ``products`` padded with +0.0 to whole chunks
+    (lane l adds slots l, l+32, ... from 0.0 in f32), then the warp's
+    shuffle tree; ``fault`` (B32_FAULTS) adds the chunks last to first or
+    has lane l add slots l * chunk / 32, ... of a chunk, one after
+    another.  (A fault that permutes whole lanes alike at every level of
+    the tree, as lane l on lane l + 1's slots does, leaves the sum's bits
+    as they are.)"""
+    pad = np.concatenate([products, np.zeros((-len(products)) % chunk,
+                                             np.float32)])
+    chunks = pad.reshape(-1, chunk)
+    if fault == "chunks_reversed":
+        chunks = chunks[::-1]
+    if fault == "lanes_transposed":
+        chunks = chunks.reshape(-1, 32, chunk // 32).transpose(0, 2, 1)
+    lanes = chunks.reshape(-1, 32)
+    chain = np.concatenate([np.zeros((1, 32), np.float32), lanes])
+    acc = np.add.accumulate(chain, axis=0, dtype=np.float32)[-1]
+    for off in (16, 8, 4, 2, 1):
+        acc = acc[:off] + acc[off:2 * off]
+    return acc[0]
+
+
+def _b32_emulated(sell, x, scales, tag, fault=None) -> np.ndarray:
+    """B32's order: bucket rows from ``long_from`` on in the block's
+    chunks of LANES_CHUNK, the others as one warp (chunks of 32); ``fault``
+    plants a wrong order in the long rows only."""
+    perm = sell.perm.numpy()
+    y = np.zeros(sell.shape[0], np.float32)
+    r = 0
+    for prods in _f32_products(sell, x, scales, tag):
+        for row in prods:
+            if perm[r] >= 0:
+                long = r >= sell.long_from
+                y[perm[r]] = _lanes(row, LANES_CHUNK if long else WARP_CHUNK,
+                                    fault if long else None)
+            r += 1
+    return y
+
+
+@pytest.fixture(scope="module")
+def skewed_sell_ref(operators):
+    jg, _ = operators["skewed_8192"]
+    return J_ops.sell_pack_gsecsr(jg)
+
+
+def _b32_case(tg, tag, seed=4):
+    x = np.random.default_rng(seed).normal(size=tg.shape[1]).astype(
+        np.float32)
+    scales = T_ref.make_scales(tg.table, TAG_BITS_USED[tag])
+    return x, scales
+
+
+def _b32_plain(sell, x, scales, tag):
+    segs = sell.segments
+    return T_k.gse_spmv_sell_f32_plain(
+        segs[0], segs[1], segs[2] if tag >= 2 else None,
+        segs[3] if tag == 3 else None, torch.from_numpy(x), scales,
+        sell.bucket_table, sell.perm, rows=sell.shape[0], ei_bit=sell.ei_bit,
+        tag=tag).numpy()
+
+
+@pytest.mark.parametrize("tag", [1, 2, 3])
+def test_b32_long_row_order_is_bitwise_the_plain_version(
+        operators, skewed_sell, skewed_sell_ref, tag):
+    """B32's block order on the bucket rows from ``long_from`` on (a
+    bucket of 8192, at least B64_BLOCK_WIDTH): bitwise the plain version
+    (A32's order), and within the JAX tests' tolerance of the reference's
+    Pallas SELL kernel in interpret mode."""
+    _, tg = operators["skewed_8192"]
+    assert max(skewed_sell.widths) >= T_csr.B64_BLOCK_WIDTH
+    x, scales = _b32_case(tg, tag)
+    want = _b32_emulated(skewed_sell, torch.from_numpy(x), scales, tag)
+    plain = _b32_plain(skewed_sell, x, scales, tag)
+    assert np.array_equal(want.view(np.uint32), plain.view(np.uint32))
+    ref = np.asarray(J_ops.gse_spmv_sell(skewed_sell_ref, jnp.asarray(x),
+                                         tag=tag))
+    np.testing.assert_allclose(want, ref, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("fault", B32_FAULTS)
+def test_b32_order_model_sees_a_misordered_long_row(operators, skewed_sell,
+                                                    fault):
+    """Each planted fault in the long rows' block breaks the bitwise
+    equality on some of those rows and on no other row."""
+    _, tg = operators["skewed_8192"]
+    x, scales = _b32_case(tg, 3, seed=6)
+    bad = (_b32_emulated(skewed_sell, torch.from_numpy(x), scales, 3,
+                         fault).view(np.uint32)
+           != _b32_plain(skewed_sell, x, scales, 3).view(np.uint32))
+    perm = skewed_sell.perm.numpy()
+    rows = perm[skewed_sell.long_from:]
+    rows = rows[rows >= 0]
+    assert rows.size and bad[rows].any()
+    assert not np.delete(bad, rows).any()
