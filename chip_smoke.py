@@ -66,8 +66,9 @@ Phases:
                   and C′64 likewise against C32 and C64 at nrhs 4 (C′64
                   with mixed tags); A64 bitwise its plain version; tags
                   1-3.  A64's and C64's three bodies (row blocks, warp
-                  rows, the hubs' block chains) and B32's and C′64's two
-                  (the hubs' blocks, warp rows) must have launched.
+                  rows, the hubs' block chains) and B32's, C′32's and
+                  C′64's two (the hubs' blocks, warp rows) must have
+                  launched.
   8. sell trajectory -- sk512_rs8_s0 (diag_rescale(skewed_spd(512,
                   seed=0), 8, 0)) over its SELL pack: solve_cg on the GPU
                   and on the CPU twin (1498 iterations, tag 3, [210, 300];
@@ -97,8 +98,8 @@ Phases:
                   the solo SELL solve (and retry), all converge, health
                   ok, no errors; every kernel of the path must have
                   launched, and every body of A64 (in the 256 CSR
-                  iterations), of B32 and of C′64 (in the service) that
-                  the row plan and the SELL pack hold.
+                  iterations), of B32 and C′32 and of C′64 (in the
+                  service) that the row plan and the SELL pack hold.
   11. lm kernels -- kernels D, E and F against their plain versions at
                   qwen3_4b's full-width shapes: D bitwise (f32 and bf16
                   out) on gse.pack packs shaped like wq (2560, 4096) and
@@ -115,7 +116,9 @@ Phases:
                   1-2; F at B 4, H 32, KV 8, hd 128, causal, S = T = 2048
                   in f32 (the FFMA body, rtol/atol 2e-5) and bf16 (the
                   tensor-core body, 2e-2), S = T = 512 in bf16, and S = T
-                  = 1000 at hd 64 and 128, causal and not, in bf16.
+                  = 1000 at hd 64 and 128, causal and not, in bf16, and
+                  on F's FFMA body at S = T = 1000: hd 16 (causal) and 72
+                  (not) in f32, hd 72 (causal) in bf16.
   12. lm twin  -- qwen3_4b at full width cut to 2 layers, params from
                   lm_tree_np (numpy seed LM_SEED), compute_dtype float32
                   for dense and gse_serve at tags 1 and 2:
@@ -160,8 +163,14 @@ Phases:
                   and 14 (D); C64 also on phase 9's skewed CSR, with the
                   launch of its full-size check.  F's bf16 row at S =
                   2048 carries `earlier_ms`, the FFMA body's time on the
-                  same inputs; A64's, B32's, C64's and C′64's rows carry
-                  their launches per body (`body_launches`); E's tiled
+                  same inputs, and the f32 row the FFMA body's earlier
+                  design's (`ffma_rows`); C′32's rows carry its earlier
+                  design's (`gse_spmm_sell_f32_earlier`), both parts
+                  launched one after the other (`two_launches_ms`), eight
+                  columns (`nrhs8_ms`) and the copy of X its earlier op
+                  made (`x_copy_ms`); A64's, B32's, C′32's, C64's and
+                  C′64's rows carry their launches per body
+                  (`body_launches`); E's tiled
                   rows are bound by the TF32 tensor cores (495 TFLOP/s
                   per TF32 term) and F's bf16 rows by the bf16 tensor
                   cores (989 TFLOP/s), with `fp32_bound_ms` beside.
@@ -327,7 +336,7 @@ def plan_bodies(g) -> list:
 
 
 def sell_bodies(sell) -> list:
-    """The bodies of kernels B32 and C′64 (split at the pack's
+    """The bodies of kernels B32, C′32 and C′64 (split at the pack's
     ``long_from``) that the SELL pack ``sell`` runs."""
     return [b for b, n in (("block", sell.perm.shape[0] - sell.long_from),
                            ("warp", sell.long_from)) if n]
@@ -468,6 +477,7 @@ def phase_sell_parity():
     lay = dict(buckets=sell.bucket_table, perm=sell.perm, rows=m,
                ei_bit=g.ei_bit)
     segs = sell.segments
+    x32n = x32c.t().contiguous()  # C′32 reads X as (n, nrhs)
     for t in TAGS:
         t1 = segs[2] if t >= 2 else None
         t2 = segs[3] if t == 3 else None
@@ -476,9 +486,10 @@ def phase_sell_parity():
         want = K.gse_spmv_sell_f32_plain(segs[0], segs[1], t1, t2, x32,
                                          scales[t], tag=t, **lay)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-4)
-        got_c = C.gse_spmm_sell_f32(segs[0], segs[1], t1, t2, x32c,
-                                    scales[t], tag=t, device=dev, **lay)
-        want_c = C.gse_spmm_sell_f32_plain(segs[0], segs[1], t1, t2, x32c,
+        got_c = C.gse_spmm_sell_f32(segs[0], segs[1], t1, t2, x32n,
+                                    scales[t], tag=t, long_from=sell.long_from,
+                                    device=dev, **lay)
+        want_c = C.gse_spmm_sell_f32_plain(segs[0], segs[1], t1, t2, x32n,
                                            scales[t], tag=t, **lay)
         torch.testing.assert_close(got_c, want_c, rtol=2e-5, atol=1e-4)
         b64 = K.gse_spmv_sell_f64(*segs, g.table, x64, tag=t,
@@ -511,10 +522,11 @@ def phase_sell_parity():
     launched = {"A64": dict(K.gse_spmv_csr_f64.body_launches),
                 "C64": dict(C.gse_spmm_csr_f64.body_launches),
                 "B32": dict(K.gse_spmv_sell_f32.body_launches),
+                "C′32": dict(C.gse_spmm_sell_f32.body_launches),
                 "C′64": dict(C.gse_spmm_sell_f64.body_launches)}
     for name in ("A64", "C64"):
         require_bodies(f"phase 7: {name}", launched[name], plan_bodies(g))
-    for name in ("B32", "C′64"):
+    for name in ("B32", "C′32", "C′64"):
         require_bodies(f"phase 7: {name}", launched[name], sell_bodies(sell))
     log("sell_parity", kernel="gse_spmm_sell_f64", tags=[1, 2, 3, 1],
         active=[True, True, True, False], bitwise_plain=True,
@@ -737,8 +749,8 @@ def phase_sell_full(params):
         c32_launches[t] = C.gse_spmm_sell_f32.launches - before
         want_c = C.gse_spmm_sell_f32_plain(
             segs[0], segs[1], segs[2] if t >= 2 else None,
-            segs[3] if t == 3 else None, x32c, scales[t], sell.bucket_table,
-            sell.perm, rows=m, ei_bit=g.ei_bit, tag=t)
+            segs[3] if t == 3 else None, x32c.t(), scales[t],
+            sell.bucket_table, sell.perm, rows=m, ei_bit=g.ei_bit, tag=t)
         torch.testing.assert_close(yc, want_c, rtol=2e-5, atol=1e-4)
         c32_err[t] = float((yc - want_c).abs().max())
         log("sell", kernel="gse_spmv_sell_f32", tag=t,
@@ -825,6 +837,7 @@ def phase_sell_full(params):
         "gse_spmv_csr_f64_bodies": dict(K.gse_spmv_csr_f64.body_launches),
         "gse_spmm_sell_f64_bodies": dict(C.gse_spmm_sell_f64.body_launches),
         "gse_spmv_sell_f32_bodies": dict(K.gse_spmv_sell_f32.body_launches),
+        "gse_spmm_sell_f32_bodies": dict(C.gse_spmm_sell_f32.body_launches),
         "c64_parity": c64_parity,
         "seq_dot": V.seq_dot.launches,
         "seq_dot_cols": V.seq_dot_cols.launches}
@@ -838,7 +851,9 @@ def phase_sell_full(params):
         flush_s=f"{serve_wall:.2f}",
         b32_launches=sum(b32_launches.values()),
         b32_body_launches=json.dumps(counts["gse_spmv_sell_f32_bodies"]),
-        c32_launches=sum(c32_launches.values()), b64_launches=counts["b64"],
+        c32_launches=sum(c32_launches.values()),
+        c32_body_launches=json.dumps(counts["gse_spmm_sell_f32_bodies"]),
+        b64_launches=counts["b64"],
         c64_launches=counts["c64"],
         c64_body_launches=json.dumps(counts["gse_spmm_sell_f64_bodies"]),
         a64_launches=counts["a64"],
@@ -863,6 +878,8 @@ def phase_sell_full(params):
                    counts["gse_spmm_sell_f64_bodies"], sell_bodies(sell))
     require_bodies("phase 9: B32", counts["gse_spmv_sell_f32_bodies"],
                    sell_bodies(sell))
+    require_bodies("phase 9: C′32", counts["gse_spmm_sell_f32_bodies"],
+                   sell_bodies(sell))
     return dict(csr=csr, g=g, sell=sell, x32=x32, x32c=x32c, counts=counts,
                 b32_err=b32_err, c32_err=c32_err, scales=scales,
                 longest=longest)
@@ -871,13 +888,17 @@ def phase_sell_full(params):
 def sell_entries(ctx, add_entry, chain_bound_ms):
     """Phase 10's entries for kernels B and C′ (and A64 and C64 on the
     CSR) on phase 9's operator; ``chain_bound_ms`` is the f64 kernels'
-    chain bound there (the longest row's dependent adds).  A64, B32, C′64
-    and C64 carry their launches per body in phase 9's run
+    chain bound there (the longest row's dependent adds).  A64, B32, C′32,
+    C′64 and C64 carry their launches per body in phase 9's run
     (``body_launches``; C64's in its full-size check, its one launch
-    there).  A64, B32, B64, C′64 and C64 also carry their time split by
-    body: ``long_rows_ms`` (the long rows' blocks alone),
+    there).  A64, B32, B64, C′32, C′64 and C64 also carry their time split
+    by body: ``long_rows_ms`` (the long rows' blocks alone),
     ``other_rows_ms`` (every other row alone), and C′64 ``one_column_ms``
-    (every row, one active column of four)."""
+    (every row, one active column of four).  C′32 also carries
+    ``two_launches_ms`` (the two parts launched one after the other),
+    ``nrhs8_ms`` (eight columns, two passes), ``x_copy_ms`` (the copy of X
+    its earlier op made) and ``earlier_ms`` (its earlier design,
+    ``gse_spmm_sell_f32_earlier``, on the same inputs)."""
     import numpy as np
     import torch
 
@@ -918,8 +939,11 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
     spmm_src = "src/repro_torch/kernels/csrc/gse_spmm.cu"
     bodies = {"gse_spmv_csr_f64.skewed": counts["gse_spmv_csr_f64_bodies"],
               "gse_spmv_sell_f32": counts["gse_spmv_sell_f32_bodies"],
+              "gse_spmm_sell_f32": counts["gse_spmm_sell_f32_bodies"],
               "gse_spmm_sell_f64": counts["gse_spmm_sell_f64_bodies"],
               "gse_spmm_csr_f64.skewed": counts["c64_parity"]["bodies"]}
+    x32n8 = torch.from_numpy(rng.normal(size=(n, 2 * NRHS)).astype(
+        np.float32)).to(dev)
     for t in TAGS:
         t1 = segs[2] if t >= 2 else None
         t2 = segs[3] if t == 3 else None
@@ -970,6 +994,10 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
                 ("gse_spmv_sell_f32", lambda: K.gse_spmv_sell_f32(
                     segs[0], segs[1], t1, t2, x32, scales[t], tag=t,
                     long_from=long_from, **dict(lay, perm=perm_p))),
+                ("gse_spmm_sell_f32", lambda: C.gse_spmm_sell_f32(
+                    segs[0], segs[1], t1, t2, x32n, scales[t], tag=t,
+                    long_from=long_from, device=dev,
+                    **dict(lay, perm=perm_p))),
                 ("gse_spmv_sell_f64", lambda: K.gse_spmv_sell_f64(
                     *segs, g.table, x64, tag=t, long_from=long_from,
                     **lay_p)),
@@ -978,6 +1006,27 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
                     long_from=long_from, device=dev, **lay_p))):
                 split.setdefault(name, {})[f"{part}_ms"] = cuda_ms(
                     fn, reps=5, inner=4)
+        c32 = split["gse_spmm_sell_f32"]
+        parts_c32 = [dict(lay, perm=perm_p) for _, perm_p in parts.values()]
+        # The parts as two launches, one after the other, against the one
+        # launch that runs both.
+        c32["two_launches_ms"] = cuda_ms(lambda: [C.gse_spmm_sell_f32(
+            segs[0], segs[1], t1, t2, x32n, scales[t], tag=t,
+            long_from=long_from, device=dev, **lay_p) for lay_p in parts_c32],
+            reps=5, inner=4)
+        # Eight columns in two passes of four (the pass width).
+        c32["nrhs8_ms"] = cuda_ms(lambda: C.gse_spmm_sell_f32(
+            segs[0], segs[1], t1, t2, x32n8, scales[t], tag=t,
+            long_from=long_from, device=dev, **lay), reps=5, inner=4)
+        # The (nrhs, n) -> (n, nrhs) copy that the earlier op made, and
+        # that an interleaved copy of X (C64's) would make.
+        c32["x_copy_ms"] = cuda_ms(lambda: x32c.t().contiguous(), reps=5,
+                                   inner=4)
+        c32["earlier_ms"] = cuda_ms(lambda: C.gse_spmm_sell_f32_earlier(
+            segs[0], segs[1], t1, t2, x32c, scales[t], tag=t, **lay), reps=2,
+            inner=2)
+        c32["earlier_design"] = ("gse_spmm_sell_f32_earlier: every row on a "
+                                 "warp, X (nrhs, n)")
         split["gse_spmm_sell_f64"]["one_column_ms"] = cuda_ms(
             lambda: C.gse_spmm_sell_f64(*segs, g.table, x64c, tags_t, one_on,
                                         long_from=long_from, device=dev,
@@ -1013,10 +1062,11 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
              f64_bytes + (m + n) * 8, 1, FP64_OPS_PER_S, b64_err,
              counts["b64"]),
             ("gse_spmm_sell_f32", src, "src/repro/kernels/gse_spmm.py:155",
-             lambda: C.gse_spmm_sell_f32(segs[0], segs[1], t1, t2, x32c,
-                                         scales[t], tag=t, device=dev, **lay),
+             lambda: C.gse_spmm_sell_f32(segs[0], segs[1], t1, t2, x32n,
+                                         scales[t], tag=t, long_from=long_from,
+                                         device=dev, **lay),
              lambda: C.gse_spmm_sell_f32_plain(segs[0], segs[1], t1, t2,
-                                               x32c, scales[t], tag=t, **lay),
+                                               x32n, scales[t], tag=t, **lay),
              lambda: torch.mm(lib32, x32n),
              sell.bytes_touched(t) + NRHS * (m + n) * 4, NRHS,
              FP32_OPS_PER_S, c32_err, counts["c32"][t]),
@@ -1531,7 +1581,10 @@ LM_FLASH = (("phase11", 4, 2048, 32, 8, 128, True, "float32", 2e-5),
             ("ragged", 2, 1000, 32, 8, 128, True, "bfloat16", 2e-2),
             ("ragged", 2, 1000, 32, 8, 128, False, "bfloat16", 2e-2),
             ("ragged", 2, 1000, 32, 8, 64, True, "bfloat16", 2e-2),
-            ("ragged", 2, 1000, 32, 8, 64, False, "bfloat16", 2e-2))
+            ("ragged", 2, 1000, 32, 8, 64, False, "bfloat16", 2e-2),
+            ("ragged", 2, 1000, 32, 8, 16, True, "float32", 2e-5),
+            ("ragged", 2, 1000, 32, 8, 72, False, "float32", 2e-5),
+            ("ragged", 2, 1000, 32, 8, 72, True, "bfloat16", 2e-2))
 
 
 def phase_lm_kernels():
@@ -2065,7 +2118,14 @@ def lm_entries(ctx, counts, twin_counts, add_entry):
                 extra["earlier_ms"] = cuda_ms(
                     lambda: F.flash_attention_gqa(q, k, v, causal=True,
                                                   body="ffma"), reps=2)
-                extra["earlier_design"] = "flash_fwd_kernel (FFMA)"
+                extra["earlier_design"] = ("flash_fwd_kernel (FFMA, "
+                                           "register tiles) on bf16")
+        else:
+            extra["earlier_ms"] = cuda_ms(
+                lambda: F.flash_attention_gqa(q, k, v, causal=True,
+                                              body="ffma_rows"), reps=2)
+            extra["earlier_design"] = ("flash_fwd_rows_kernel (FFMA, four "
+                                       "threads a query row)")
         add_entry(f"flash_attention_gqa.{str(dt).split('.')[-1]}.causal"
                   f"{'' if label == 'phase11' else '.s' + str(s)}",
                   flash_src, "src/repro/kernels/flash_attn.py:76",

@@ -34,15 +34,22 @@
 //   TFLOP/s.
 //
 // * The FFMA body (`flash_fwd_kernel`): f32 (the f32 twin's model), and
-//   bf16 with hd not a multiple of 16.  One block per (query tile of 64,
-//   batch * head): it keeps its Q tile, one K and one V tile of 64 keys and
-//   the probabilities in shared memory as f32 (rows padded by one word
-//   against bank conflicts), walks the key tiles in order, and skips the
-//   tiles above the diagonal when causal.  Four threads own a query row:
-//   each computes 16 of the tile's 64 scores and hd / 4 of the row's
-//   accumulator; the row's max and sum go over the four lanes with
-//   shuffles.  Bound by FP32 operations (67 TFLOP/s): it does the same
-//   4 * S * T * hd in FFMA from shared memory, as the f32 oracle does.
+//   bf16 with hd not a multiple of 16.  The products run from register
+//   tiles, as an SGEMM runs them: one block of 256 threads per (batch *
+//   head, query tile of 128); thread (ty, tx) owns 8 queries x 4 keys of
+//   each 64-key tile of S and 8 queries x hd / 16 dims of O.  Q stays in
+//   shared memory; the K and V tiles are double-buffered there (cp.async
+//   for f32 whose rows start on 16 bytes; bf16 is converted on load), and
+//   every operand is read four floats at a time: 128 FMAs per 12 shared
+//   loads in S, 256 per 16 in P V, where the earlier design (four threads
+//   a query row, kept as `flash_fwd_rows_kernel` to time against) paced
+//   each FMA by one or two scalar shared loads (15.6 ms on qwen3_4b's f32
+//   prefill shape, 7.6x its FP32 bound; NVIDIA H100 80GB HBM3, 700 W).
+//   hd is zero-padded to 16, 32, 64 or 128, each compiled.  A row's max
+//   and sum go over its 16 threads with shuffles; the probabilities go
+//   through shared memory, each warp reading back its own rows.  Bound by
+//   FP32 operations (67 TFLOP/s): 4 * S * T * hd per (batch, head), halved
+//   when causal.
 //
 // Both: any S and T run (keys past T get probability 0, queries past S are
 // not written); skipping a tile above the diagonal changes nothing, since
@@ -56,7 +63,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+// --- the FFMA body's earlier design (timing only) --------------------------
+//
+// Four threads a query row, 64-query tiles, every operand a scalar shared
+// load, K and V loaded between two barriers: kept as body "ffma_rows" so
+// that chip_smoke.py can time flash_fwd_kernel against it; no path runs it.
 
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
@@ -76,7 +91,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+__global__ void __launch_bounds__(kThreads) flash_fwd_rows_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, int s_len, int t_len, int heads, int kv_heads, int hd,
     int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
@@ -443,8 +458,313 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
   }
 }
 
+// --- the FFMA body: f32, or bf16 at another hd ------------------------------
+
+constexpr int kFBQ = 128;     // queries per block
+constexpr int kFBK = 64;      // keys per tile
+constexpr int kFThreads = 256;
+constexpr int kFRows = 8;     // queries per thread: ty * 8 + ii
+constexpr int kFKeys = 4;     // keys per thread in S: tx + 16 * jj
+
+// Shared-memory shape of the FFMA body at a padded head dim HDP (16, 32,
+// 64 or 128; hd zero-padded up to it).  K rows are padded to kLdK floats
+// (HDP + 4: the 16-byte loads of eight consecutive rows hit eight
+// distinct bank groups); Q and V rows are read by a whole quarter warp at
+// once (one row, or one dim range of one row) and stay unpadded.  P is
+// the tile's probabilities, kFBQ x kFBK.  At HDP 128: 231,424 bytes.
+template <int HDP>
+struct FTile {
+  static constexpr int kLdK = HDP + 4;
+  static constexpr int kKBuf = kFBK * kLdK;
+  static constexpr int kVBuf = kFBK * HDP;
+  static constexpr int kFloats =
+      kFBQ * HDP + 2 * kKBuf + 2 * kVBuf + kFBQ * kFBK;
+  // O's dims per thread: kNv vectors of kVec, dim h * 16 * kVec + tx * kVec
+  // + e, so a quarter warp's V loads are consecutive 16-byte words.
+  static constexpr int kVec = HDP >= 64 ? 4 : HDP / 16;
+  static constexpr int kNv = HDP / (16 * kVec);
+};
+
+template <int V>
+__device__ __forceinline__ void lds_vec(float (&r)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    r[0] = v.x;
+    r[1] = v.y;
+    r[2] = v.z;
+    r[3] = v.w;
+  } else if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    r[0] = v.x;
+    r[1] = v.y;
+  } else {
+    r[0] = *p;
+  }
+}
+
+// Rows [r0, r0 + R) of a (rows, hd) view with a pitch of `ld` elements into
+// shared rows of LD floats, zero past hd (up to HDP) and for rows at or
+// past `limit`.  async (f32 only; hd, the pitch and the row starts in
+// multiples of four floats): 16-byte cp.async, waited on by the caller;
+// otherwise loads converted to f32 and stored by the threads.
+template <int R, int HDP, int LD, typename T>
+__device__ __forceinline__ void ffma_load(float* dst, const T* src,
+                                          int64_t ld, int r0, int limit,
+                                          int hd, bool async) {
+  constexpr int kChunks = HDP / 4;
+  for (int e = threadIdx.x; e < R * kChunks; e += kFThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * 4;
+    const bool row = r0 + r < limit;
+    const T* g = src + (int64_t)(r0 + r) * ld + c;
+    if (std::is_same<T, float>::value && async) {
+      const bool ok = row && c < hd;
+      cp_async16(dst + r * LD + c, ok ? (const void*)g : (const void*)src,
+                 ok);
+    } else {
+      float4 v;
+      v.x = row && c < hd ? to_f32(g[0]) : 0.0f;
+      v.y = row && c + 1 < hd ? to_f32(g[1]) : 0.0f;
+      v.z = row && c + 2 < hd ? to_f32(g[2]) : 0.0f;
+      v.w = row && c + 3 < hd ? to_f32(g[3]) : 0.0f;
+      *reinterpret_cast<float4*>(dst + r * LD + c) = v;
+    }
+  }
+}
+
+// One block per (batch * head, query tile of 128), the longest causal tiles
+// first; 256 threads, thread (ty, tx) = (t / 16, t % 16).  Per key tile of
+// 64 (double-buffered, cp.async for f32), after one barrier:
+// * S = Q K^T from register tiles: the thread's 8 queries (ty * 8 + ii)
+//   against its 4 keys (tx + 16 jj), Q and K rows in shared memory read
+//   four dims at a time (16-byte loads), 128 FMAs per 12 loads;
+// * the scale, the masks (-1e30 above the diagonal on global indices, -inf
+//   past T), and the online softmax per query row, its max and sum over
+//   the 16 threads of the row (shuffles within a half warp); corr per row;
+// * P (f32) into shared memory; each warp writes and reads back only its
+//   own 16 rows, so a __syncwarp orders them;
+// * O = O * corr + P V from register tiles: 8 queries x HDP / 16 dims, 256
+//   FMAs per 16 loads (HDP 128).
+// A warp skips a tile whose keys all lie above its 16 queries (its
+// probabilities there are exact zeros).  out = O / max(l, 1e-30).
+template <typename T, int HDP>
+__global__ void __launch_bounds__(kFThreads, 1) flash_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int s_len, int t_len, int heads, int kv_heads, int hd,
+    int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
+    int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int causal,
+    float scale, int async) {
+  using Tl = FTile<HDP>;
+  constexpr int kLdK = Tl::kLdK, kVec = Tl::kVec, kNv = Tl::kNv;
+  constexpr int kDims = kVec * kNv;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                     // kFBQ rows of HDP
+  float* ks = qs + kFBQ * HDP;         // 2 x K tile
+  float* vs = ks + 2 * Tl::kKBuf;      // 2 x V tile
+  float* ps = vs + 2 * Tl::kVBuf;      // P
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int kvh = h / (heads / kv_heads);
+  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * kFBQ;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int wq0 = q0 + (threadIdx.x >> 5) * 16;  // the warp's first query
+  const bool as = async != 0;
+  const T* qb = q + (int64_t)b * q_sb + (int64_t)h * q_sh;
+  const T* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
+  const T* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
+
+  ffma_load<kFBQ, HDP, HDP>(qs, qb, q_ss, q0, s_len, hd, as);
+  const int kv_end = causal ? min(t_len, q0 + kFBQ) : t_len;
+  const int ntiles = (kv_end + kFBK - 1) / kFBK;
+  if (ntiles > 0) {
+    ffma_load<kFBK, HDP, kLdK>(ks, kb, k_ss, 0, t_len, hd, as);
+    ffma_load<kFBK, HDP, HDP>(vs, vb, v_ss, 0, t_len, hd, as);
+  }
+  cp_async_commit();
+
+  float m_i[kFRows], l_i[kFRows], acc[kFRows][kDims];
+#pragma unroll
+  for (int ii = 0; ii < kFRows; ++ii) {
+    m_i[ii] = kNegInf;
+    l_i[ii] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < kDims; ++d) acc[ii][d] = 0.0f;
+  }
+  const float* qrow = qs + ty * kFRows * HDP;
+  float* prow = ps + ty * kFRows * kFBK;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int kv0 = t * kFBK;
+    const float* kt = ks + (t & 1) * Tl::kKBuf;
+    const float* vt = vs + (t & 1) * Tl::kVBuf;
+    cp_async_wait<0>();  // tile t has landed ...
+    __syncthreads();     // ... for every thread, and tile t - 1 is read
+    if (t + 1 < ntiles) {
+      ffma_load<kFBK, HDP, kLdK>(ks + ((t + 1) & 1) * Tl::kKBuf, kb, k_ss,
+                                 kv0 + kFBK, t_len, hd, as);
+      ffma_load<kFBK, HDP, HDP>(vs + ((t + 1) & 1) * Tl::kVBuf, vb, v_ss,
+                                kv0 + kFBK, t_len, hd, as);
+    }
+    cp_async_commit();
+    if (causal && kv0 > wq0 + 15) continue;
+    float s[kFRows][kFKeys];
+#pragma unroll
+    for (int ii = 0; ii < kFRows; ++ii) {
+#pragma unroll
+      for (int jj = 0; jj < kFKeys; ++jj) s[ii][jj] = 0.0f;
+    }
+#pragma unroll 2
+    for (int d = 0; d < HDP; d += 4) {
+      float4 kf[kFKeys];
+#pragma unroll
+      for (int jj = 0; jj < kFKeys; ++jj) {
+        kf[jj] = *reinterpret_cast<const float4*>(
+            kt + (tx + 16 * jj) * kLdK + d);
+      }
+#pragma unroll
+      for (int ii = 0; ii < kFRows; ++ii) {
+        const float4 qf =
+            *reinterpret_cast<const float4*>(qrow + ii * HDP + d);
+#pragma unroll
+        for (int jj = 0; jj < kFKeys; ++jj) {
+          s[ii][jj] = __fmaf_rn(qf.x, kf[jj].x, s[ii][jj]);
+          s[ii][jj] = __fmaf_rn(qf.y, kf[jj].y, s[ii][jj]);
+          s[ii][jj] = __fmaf_rn(qf.z, kf[jj].z, s[ii][jj]);
+          s[ii][jj] = __fmaf_rn(qf.w, kf[jj].w, s[ii][jj]);
+        }
+      }
+    }
+    __syncwarp();  // the warp has read its rows of the previous tile's P
+#pragma unroll
+    for (int ii = 0; ii < kFRows; ++ii) {
+      const int qi = q0 + ty * kFRows + ii;
+      float mx = kNegInf;
+#pragma unroll
+      for (int jj = 0; jj < kFKeys; ++jj) {
+        const int kj = kv0 + tx + 16 * jj;
+        float sc = __fmul_rn(s[ii][jj], scale);
+        if (kj >= t_len) sc = -INFINITY;           // no such key: p = 0
+        else if (causal && kj > qi) sc = kNegInf;  // the reference's fill
+        s[ii][jj] = sc;
+        mx = fmaxf(mx, sc);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+      const float m_new = fmaxf(m_i[ii], mx);
+      const float corr = expf(m_i[ii] - m_new);
+      m_i[ii] = m_new;
+      float rs = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < kFKeys; ++jj) {
+        const float p = expf(s[ii][jj] - m_new);
+        prow[ii * kFBK + tx + 16 * jj] = p;
+        rs += p;
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      }
+      l_i[ii] = l_i[ii] * corr + rs;
+#pragma unroll
+      for (int d = 0; d < kDims; ++d) acc[ii][d] *= corr;
+    }
+    __syncwarp();  // the warp's 16 rows of P are written
+#pragma unroll 2
+    for (int j = 0; j < kFBK; j += 4) {
+      float4 pf[kFRows];
+#pragma unroll
+      for (int ii = 0; ii < kFRows; ++ii) {
+        pf[ii] = *reinterpret_cast<const float4*>(prow + ii * kFBK + j);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vrow = vt + (j + u) * HDP + tx * kVec;
+#pragma unroll
+        for (int hv = 0; hv < kNv; ++hv) {
+          float vf[kVec];
+          lds_vec<kVec>(vf, vrow + hv * 16 * kVec);
+#pragma unroll
+          for (int ii = 0; ii < kFRows; ++ii) {
+            const float p = u == 0 ? pf[ii].x
+                          : u == 1 ? pf[ii].y
+                          : u == 2 ? pf[ii].z : pf[ii].w;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) {
+              acc[ii][hv * kVec + e] =
+                  __fmaf_rn(p, vf[e], acc[ii][hv * kVec + e]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int ii = 0; ii < kFRows; ++ii) {
+    const int qi = q0 + ty * kFRows + ii;
+    if (qi >= s_len) continue;
+    const float denom = fmaxf(l_i[ii], 1e-30f);
+    T* ob = o + (((int64_t)b * s_len + qi) * heads + h) * hd;
+#pragma unroll
+    for (int hv = 0; hv < kNv; ++hv) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const int d = hv * 16 * kVec + tx * kVec + e;
+        if (d < hd) store(ob + d, acc[ii][hv * kVec + e] / denom);
+      }
+    }
+  }
+}
+
+template <typename T, int HDP>
+int launch_ffma_tiles(const void* q, const void* k, const void* v, void* o,
+                      int batch, int s_len, int t_len, int heads,
+                      int kv_heads, int hd, const long long* st, int causal,
+                      float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)FTile<HDP>::kFloats;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // cp.async for f32 whose rows all start on 16 bytes.
+  bool async = sizeof(T) == 4 && hd % 4 == 0 && (uintptr_t)q % 16 == 0 &&
+               (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
+  for (int i = 0; i < 9; ++i) async = async && st[i] % 4 == 0;
+  const dim3 grid((unsigned)(batch * heads),
+                  (unsigned)((s_len + kFBQ - 1) / kFBQ));
+  flash_fwd_kernel<T, HDP><<<grid, kFThreads, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, s_len, t_len, heads,
+      kv_heads, hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], causal, scale, (int)async);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
-int launch_ffma(const void* q, const void* k, const void* v, void* o,
+int launch_ffma_hd(const void* q, const void* k, const void* v, void* o,
+                   int batch, int s_len, int t_len, int heads, int kv_heads,
+                   int hd, const long long* st, int causal, float scale,
+                   cudaStream_t stream) {
+  if (hd <= 0 || hd > kHdMax) return (int)cudaErrorInvalidValue;
+  if (hd <= 16) {
+    return launch_ffma_tiles<T, 16>(q, k, v, o, batch, s_len, t_len, heads,
+                                    kv_heads, hd, st, causal, scale, stream);
+  }
+  if (hd <= 32) {
+    return launch_ffma_tiles<T, 32>(q, k, v, o, batch, s_len, t_len, heads,
+                                    kv_heads, hd, st, causal, scale, stream);
+  }
+  if (hd <= 64) {
+    return launch_ffma_tiles<T, 64>(q, k, v, o, batch, s_len, t_len, heads,
+                                    kv_heads, hd, st, causal, scale, stream);
+  }
+  return launch_ffma_tiles<T, 128>(q, k, v, o, batch, s_len, t_len, heads,
+                                   kv_heads, hd, st, causal, scale, stream);
+}
+
+template <typename T>
+int launch_ffma_rows(const void* q, const void* k, const void* v, void* o,
                 int batch, int s_len, int t_len, int heads, int kv_heads,
                 int hd, const long long* st, int causal, float scale,
                 cudaStream_t stream) {
@@ -453,12 +773,12 @@ int launch_ffma(const void* q, const void* k, const void* v, void* o,
       ((size_t)kBQ * (hd + 1) + (size_t)kBK * (hd + 1) + (size_t)kBK * hd +
        (size_t)kBQ * (kBK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((s_len + kBQ - 1) / kBQ),
                   (unsigned)(batch * heads));
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_rows_kernel<T><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, s_len, t_len, heads,
       kv_heads, hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], causal, scale);
@@ -489,7 +809,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
 
 // body 0: the FFMA body (f32, or bf16 with is_bf16 = 1); body 1: the tensor-core
 // body (bf16 only, hd a multiple of 16 up to 128, every row 16-byte aligned:
-// pointers at 16 bytes, strides in multiples of 8 elements).
+// pointers at 16 bytes, strides in multiples of 8 elements); body 2: the
+// FFMA body's earlier design (timing only).
 // strides: q (batch, seq, head), k (...), v (...) in elements, nine values;
 // scale is the f32 of 1/sqrt(hd), as the Pallas kernel rounds it.
 extern "C" int flash_attention_fwd(int body, int is_bf16, const void* q,
@@ -515,11 +836,21 @@ extern "C" int flash_attention_fwd(int body, int is_bf16, const void* q,
       default: return launch_mma<128>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, scale, st);
     }
   }
-  if (is_bf16) {
-    return launch_ffma<__nv_bfloat16>(q, k, v, o, batch, s_len, t_len, heads,
-                                      kv_heads, hd, strides, causal, scale,
-                                      st);
+  if (body == 2) {
+    if (is_bf16) {
+      return launch_ffma_rows<__nv_bfloat16>(q, k, v, o, batch, s_len, t_len,
+                                             heads, kv_heads, hd, strides,
+                                             causal, scale, st);
+    }
+    return launch_ffma_rows<float>(q, k, v, o, batch, s_len, t_len, heads,
+                                   kv_heads, hd, strides, causal, scale, st);
   }
-  return launch_ffma<float>(q, k, v, o, batch, s_len, t_len, heads, kv_heads,
-                            hd, strides, causal, scale, st);
+  if (body != 0) return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    return launch_ffma_hd<__nv_bfloat16>(q, k, v, o, batch, s_len, t_len,
+                                         heads, kv_heads, hd, strides, causal,
+                                         scale, st);
+  }
+  return launch_ffma_hd<float>(q, k, v, o, batch, s_len, t_len, heads,
+                               kv_heads, hd, strides, causal, scale, st);
 }

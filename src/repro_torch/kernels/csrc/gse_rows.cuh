@@ -4,16 +4,22 @@
 // flat slot `base`; the callers differ only in how they find a row's slots
 // and where they write its result, so B cannot drift from A, nor C' from C.
 //
-// * warp_row_f32 / warp_row_cols_f32 (A32, B32's other rows / C32, C'32):
-//   one warp per row, lane l adds slots l, l+32, ... of the row's `width`
-//   from 0.0, then the warp's shuffle tree; the result is valid in lane 0.
-// * block_lanes_f32 (B32's long rows): the same 32 lane chains and shuffle
-//   tree on one block.  Warps 1..7 decode and multiply the row's slots a
-//   chunk ahead into shared memory (double-buffered); the 32 lanes of
-//   warp 0 then take slots l, l+32, ... of each chunk back in order, so a
-//   lane's chain waits on one __fadd_rn per slot it adds, not on a load
-//   (a 262,144-slot hub in 0.19-0.23 ms; with a warp a row the whole
-//   kernel took 1.8-4 ms; NVIDIA H100 80GB HBM3, 700 W).
+// * warp_row_f32 / warp_row_cols_f32 (A32, B32's other rows / C32, C'32's
+//   other rows): one warp per row, lane l adds slots l, l+32, ... of the
+//   row's `width` from 0.0, then the warp's shuffle tree; the result is
+//   valid in lane 0.  The column body reads C32's X as (columns, n) and
+//   C'32's as (n, nrhs) row-major, a slot's four columns in one 16-byte
+//   load.
+// * block_lanes_f32 / block_lanes_cols_f32 (B32's / C'32's long rows): the
+//   same 32 lane chains and shuffle tree on one block.  Warps 1..7 decode
+//   and multiply the row's slots a chunk ahead into shared memory
+//   (double-buffered; C'32 stages a slot's four products side by side);
+//   the 32 lanes of warp 0 then take slots l, l+32, ... of each chunk back
+//   in order, so a lane's chain waits on one __fadd_rn per slot it adds,
+//   not on a load (a 262,144-slot hub in 0.19-0.23 ms; with a warp a row
+//   the whole kernel took 1.8-4 ms; NVIDIA H100 80GB HBM3, 700 W).  In
+//   C'32 a lane's four column chains are independent, so four columns
+//   cost one column's chain.
 // * The f64 bodies (A64, B64, C64, C'64) all add a row's products in stored
 //   order (CSR order) from 0.0 with __dmul_rn/__dadd_rn, so no FMA
 //   contraction changes a bit and every body gives the same sums; they
@@ -87,33 +93,74 @@ __device__ __forceinline__ float warp_row_f32(
   return acc;
 }
 
-// The same walk for the `nc` (<= kCols) columns of X that start at `xg`,
-// each column n long; each slot is decoded once for every column.
-template <int TAG>
+// C'32's x values of a pass's N columns at matrix column `col` of an
+// (n, ldx) row-major X whose pass starts at xg, into xv (0.0 for the
+// columns past nc, and for all of them unless `ok`): a slot's columns
+// share one 32-byte sector.  `vec` (N % 4 == 0, every pass full and every
+// row 16-byte aligned) loads four columns at once.
+template <int N>
+__device__ __forceinline__ void x_row_f32(const float* __restrict__ xg,
+                                          int64_t ldx, uint32_t col, int nc,
+                                          bool vec, bool ok, float (&xv)[N]) {
+  const float* src = xg + (int64_t)col * ldx;
+  if (N % 4 == 0 && vec) {
+#pragma unroll
+    for (int h = 0; h < N / 4; ++h) {
+      const float4 v = ok ? __ldg(reinterpret_cast<const float4*>(src) + h)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      xv[4 * h] = v.x;
+      xv[4 * h + 1] = v.y;
+      xv[4 * h + 2] = v.z;
+      xv[4 * h + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < N; ++c) xv[c] = (ok && c < nc) ? __ldg(src + c) : 0.0f;
+  }
+}
+
+// warp_row_f32's walk for the `nc` (<= N) columns of a pass; each slot is
+// decoded once for every column.  Column c's x at matrix column `col` is
+// xg[col * ldc + c * ldr]: C32 reads X as (columns, n) (ldc 1, ldr n),
+// C'32 as (n, nrhs) row-major (ldc nrhs, ldr 1; with `vec`, x_row_f32's
+// 16-byte loads).
+template <int TAG, int N>
 __device__ __forceinline__ void warp_row_cols_f32(
     int64_t base, int width, int lane, const uint32_t* __restrict__ colpak,
     const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
     const uint32_t* __restrict__ tail2, const float* __restrict__ xg,
-    int64_t n, int nc, const float* __restrict__ scales, int shift,
-    uint32_t mask, float (&acc)[kCols]) {
+    int64_t ldc, int64_t ldr, int nc, bool vec,
+    const float* __restrict__ scales, int shift, uint32_t mask,
+    float (&acc)[N]) {
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) acc[c] = 0.0f;
+  for (int c = 0; c < N; ++c) acc[c] = 0.0f;
   for (int j = lane; j < width; j += 32) {
     const int64_t k = base + j;
     const uint32_t cp = __ldg(colpak + k);
     const float val = decode_f32<TAG>(
         __ldg(head + k), TAG >= 2 ? __ldg(tail1 + k) : 0u,
         TAG == 3 ? __ldg(tail2 + k) : 0u, __ldg(scales + (cp >> shift)));
-    const int64_t col = cp & mask;
+    if (N % 4 == 0 && vec) {
+      float xv[N];
+      x_row_f32<N>(xg, ldc, cp & mask, nc, true, true, xv);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      if (c < nc) {
-        acc[c] = __fadd_rn(acc[c], __fmul_rn(val, __ldg(xg + c * n + col)));
+      for (int c = 0; c < N; ++c) {
+        acc[c] = __fadd_rn(acc[c], __fmul_rn(val, xv[c]));
+      }
+    } else {
+      // Only the pass's columns: C32 carries kCols, most of them idle at
+      // the service's four.
+      const float* src = xg + (int64_t)(cp & mask) * ldc;
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        if (c < nc) {
+          acc[c] = __fadd_rn(acc[c], __fmul_rn(val, __ldg(src + c * ldr)));
+        }
       }
     }
   }
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
+  for (int c = 0; c < N; ++c) {
     for (int off = 16; off > 0; off >>= 1) {
       acc[c] = __fadd_rn(acc[c], __shfl_down_sync(0xffffffffu, acc[c], off));
     }
@@ -752,18 +799,18 @@ constexpr int kLanesChunk = 2048;
 constexpr int kLanesPer = (kLanesChunk + kChainProducers - 1) / kChainProducers;
 static_assert(kLanesChunk % 32 == 0, "a chunk must start at lane 0");
 
-// The segments of producer t's slots of the chunk [base, base + len)
-// (zeros past len).
-template <int TAG>
+// The segments of producer t's slots of the chunk [base, base + len) of
+// CHUNK slots (zeros past len).
+template <int TAG, int CHUNK = kLanesChunk, int PER = kLanesPer>
 __device__ __forceinline__ void load_slots_f32(
-    Slot (&sl)[kLanesPer], int t, int64_t base, int len,
+    Slot (&sl)[PER], int t, int64_t base, int len,
     const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
     const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2) {
 #pragma unroll
-  for (int u = 0; u < kLanesPer; ++u) {
+  for (int u = 0; u < PER; ++u) {
     const int j = t + u * kChainProducers;
-    sl[u] = load_slot<TAG>(base + j, j < kLanesChunk && j < len, colpak,
-                           head, tail1, tail2);
+    sl[u] = load_slot<TAG>(base + j, j < CHUNK && j < len, colpak, head,
+                           tail1, tail2);
   }
 }
 
@@ -846,6 +893,127 @@ __device__ __forceinline__ float block_lanes_f32(
     }
   }
   return acc;
+}
+
+// --- C'32's long rows: block_lanes_f32 for the columns of a pass ------------
+
+// f32 values staged per buffer of block_lanes_cols_f32 (two buffers: 32 KB
+// of shared memory); a chunk holds kLanesColsFloats / N slots, each
+// slot's N products side by side.
+constexpr int kLanesColsFloats = 4096;
+
+// The N-column products [0, CHUNK) of a chunk of `len` slots whose
+// segments producer t holds in sl, into buf[j * N + c] (+0.0 for len <=
+// j): each is warp_row_cols_f32's product of its slot and column, stored
+// with 16-byte writes.  The scales and x values are all loaded before the
+// first product.
+template <int TAG, int N, int CHUNK, int PER>
+__device__ __forceinline__ void finish_products_cols_f32(
+    float* buf, const Slot (&sl)[PER], int t, int len,
+    const float* __restrict__ xg, int64_t ldx, int nc, bool vec,
+    const float* __restrict__ scales, int shift, uint32_t mask) {
+  static_assert(N % 4 == 0, "a slot's products are stored as float4");
+  float sc[PER], xv[PER][N];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int j = t + u * kChainProducers;
+    const bool ok = j < CHUNK && j < len;
+    sc[u] = ok ? __ldg(scales + (sl[u].cp >> shift)) : 0.0f;
+    x_row_f32<N>(xg, ldx, sl[u].cp & mask, nc, vec, ok, xv[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int j = t + u * kChainProducers;
+    if (j >= CHUNK) continue;
+    const bool ok = j < len;
+    const float val = decode_f32<TAG>(sl[u].h, sl[u].t1, sl[u].t2, sc[u]);
+    float4* dst = reinterpret_cast<float4*>(buf + j * N);
+#pragma unroll
+    for (int h = 0; h < N / 4; ++h) {
+      dst[h] = ok ? make_float4(__fmul_rn(val, xv[u][4 * h]),
+                                __fmul_rn(val, xv[u][4 * h + 1]),
+                                __fmul_rn(val, xv[u][4 * h + 2]),
+                                __fmul_rn(val, xv[u][4 * h + 3]))
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+}
+
+// warp_row_cols_f32's sums of one row of `width` slots for the `nc` (<= N)
+// columns of a pass of an (n, ldx) row-major X, on one block of
+// kChainThreads: block_lanes_f32 with each slot's N products staged side by
+// side.  The producers (warps 1..7) decode each slot once, multiply it by
+// each column's x and stage a chunk ahead; lane l of warp 0 takes slot l,
+// l+32, ... of each chunk back with one 16-byte shared load per four
+// columns and adds it to its N chains (independent of each other), from
+// 0.0, then warp 0's shuffle tree per column.  So each column is bitwise
+// warp_row_cols_f32's, and a lone column block_lanes_f32's.  Valid in
+// thread 0.  Every thread of the block must call it.
+template <int TAG, int N>
+__device__ __forceinline__ void block_lanes_cols_f32(
+    float* buf, int64_t base, int width, const uint32_t* __restrict__ colpak,
+    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
+    const uint32_t* __restrict__ tail2, const float* __restrict__ xg,
+    int64_t ldx, int nc, bool vec, const float* __restrict__ scales,
+    int shift, uint32_t mask, float (&acc)[N]) {
+  constexpr int kChunk = kLanesColsFloats / N;
+  constexpr int kPer = (kChunk + kChainProducers - 1) / kChainProducers;
+  static_assert(kChunk % 32 == 0, "a chunk must start at lane 0");
+#pragma unroll
+  for (int c = 0; c < N; ++c) acc[c] = 0.0f;
+  const int chunks = (width + kChunk - 1) / kChunk;
+  const bool producer = threadIdx.x >= 32;
+  const int p = threadIdx.x - 32;
+  Slot sl[kPer];
+  if (producer && chunks > 0) {
+    load_slots_f32<TAG, kChunk, kPer>(sl, p, base, width, colpak, head,
+                                      tail1, tail2);
+    finish_products_cols_f32<TAG, N, kChunk, kPer>(
+        buf, sl, p, width, xg, ldx, nc, vec, scales, shift, mask);
+    load_slots_f32<TAG, kChunk, kPer>(sl, p, base + kChunk, width - kChunk,
+                                      colpak, head, tail1, tail2);
+  }
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    if (producer) {
+      if (c + 1 < chunks) {
+        const int c1 = (c + 1) * kChunk;
+        Slot next[kPer];  // zeros past the row's last chunk
+        load_slots_f32<TAG, kChunk, kPer>(next, p, base + c1 + kChunk,
+                                          width - c1 - kChunk, colpak, head,
+                                          tail1, tail2);
+        finish_products_cols_f32<TAG, N, kChunk, kPer>(
+            buf + ((c + 1) & 1) * kLanesColsFloats, sl, p, width - c1, xg,
+            ldx, nc, vec, scales, shift, mask);
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) sl[u] = next[u];
+      }
+    } else {
+      const float4* src = reinterpret_cast<const float4*>(
+                              buf + (c & 1) * kLanesColsFloats) +
+                          threadIdx.x * (N / 4);
+#pragma unroll 8
+      for (int k = 0; k < kChunk; k += 32) {
+#pragma unroll
+        for (int h = 0; h < N / 4; ++h) {
+          const float4 v = src[k * (N / 4) + h];
+          acc[4 * h] = __fadd_rn(acc[4 * h], v.x);
+          acc[4 * h + 1] = __fadd_rn(acc[4 * h + 1], v.y);
+          acc[4 * h + 2] = __fadd_rn(acc[4 * h + 2], v.z);
+          acc[4 * h + 3] = __fadd_rn(acc[4 * h + 3], v.w);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < 32) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      for (int off = 16; off > 0; off >>= 1) {
+        acc[c] = __fadd_rn(acc[c], __shfl_down_sync(0xffffffffu, acc[c], off));
+      }
+    }
+  }
 }
 
 }  // namespace gse

@@ -45,9 +45,21 @@
 //   rows get a warp each, eight to a block (warp_chain_f64: the lanes
 //   decode and multiply 32 consecutive slots at once, and every lane adds
 //   them from shuffle broadcasts).
-// * C'32 (`gse_spmm_sell_f32`, ops.gse_spmm_sell): C32's warp row over the
-//   bucket width, each slot decoded once for every column; Y is (m, nrhs).
-//   Per column bitwise C32, at nrhs = 1 bitwise B32.
+// * C'32 (`gse_spmm_sell_f32`, ops.gse_spmm_sell): B32's two bodies for a
+//   pass of kColsWarp columns, each slot decoded once for every column; X
+//   is (n, nrhs) row-major, as the caller holds it, so a slot's columns
+//   share one 32-byte sector (one 16-byte load when nrhs % 4 == 0); Y is
+//   (m, nrhs).  The rows from the pack's `long_from` on get a block each,
+//   launched first (block_lanes_cols_f32): the producers stage each slot's
+//   four products side by side a chunk of 1024 slots ahead, and lane l of
+//   warp 0 adds slots l, l+32, ... of each column, four independent
+//   chains, from one 16-byte shared load a slot.  The other rows get a
+//   warp each (warp_row_cols_f32).  Every column keeps A32's lane order,
+//   so per column bitwise C32, at nrhs = 1 bitwise B32.  The earlier design
+//   (every row on a warp, X as (nrhs, n), a slot's columns in four
+//   sectors) is kept as gse_spmm_sell_f32_earlier, only to time against:
+//   13.34/7.29/7.77 ms on the skewed operator at nrhs 4 (NVIDIA H100 80GB
+//   HBM3, 700 W), 5-10x cuSPARSE.
 // * C'64 (`gse_spmm_sell_f64`, spmm_gse over a GSESellC, the batched CG
 //   operator): B64's bodies for every column, with C64's per-column device
 //   tags and active flags, the segments of the highest active tag loaded
@@ -191,8 +203,64 @@ __global__ void __launch_bounds__(kChainThreads) spmv_sell_f64_kernel(
   if (lane == 0) y[dst] = acc;
 }
 
+// Blocks [0, rows_pad - long_from) take bucket rows long_from, ... one
+// each (block_lanes_cols_f32); the blocks after them take rows
+// [0, long_from), one per warp (warp_row_cols_f32).  grid.y walks the
+// passes of kColsWarp columns of the (n, nrhs) row-major X.
 template <int TAG>
-__global__ void __launch_bounds__(kThreads) spmm_sell_f32_kernel(
+__global__ void __launch_bounds__(kChainThreads) spmm_sell_f32_kernel(
+    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
+    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
+    const float* __restrict__ x, const float* __restrict__ scales,
+    float* __restrict__ y, const int64_t* __restrict__ tab, int nb,
+    const int32_t* __restrict__ perm, int64_t rows_pad, int64_t long_from,
+    int nrhs, int vec, int shift, uint32_t mask) {
+  __shared__ __align__(16) float buf[2 * gse::kLanesColsFloats];
+  const int c0 = blockIdx.y * kColsWarp;
+  const int nc = nrhs - c0 < kColsWarp ? nrhs - c0 : kColsWarp;
+  const float* xg = x + c0;
+  float acc[kColsWarp];
+  const int64_t n_long = rows_pad - long_from;
+  if ((int64_t)blockIdx.x < n_long) {
+    const int64_t row = long_from + blockIdx.x;
+    const int dst = __ldg(perm + row);
+    if (dst < 0) return;  // uniform across the block
+    int width;
+    const int64_t base = locate(tab, nb, row, width);
+    gse::block_lanes_cols_f32<TAG, kColsWarp>(
+        buf, base, width, colpak, head, tail1, tail2, xg, nrhs, nc, vec != 0,
+        scales, shift, mask, acc);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int c = 0; c < kColsWarp; ++c) {
+        if (c < nc) y[(int64_t)dst * nrhs + c0 + c] = acc[c];
+      }
+    }
+    return;
+  }
+  const int64_t row = ((int64_t)blockIdx.x - n_long) * (kChainThreads / 32) +
+                      (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= long_from) return;  // uniform across the warp
+  const int dst = __ldg(perm + row);
+  if (dst < 0) return;
+  int width;
+  const int64_t base = locate(tab, nb, row, width);
+  gse::warp_row_cols_f32<TAG, kColsWarp>(base, width, lane, colpak, head,
+                                         tail1, tail2, xg, nrhs, 1, nc,
+                                         vec != 0, scales, shift, mask, acc);
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < kColsWarp; ++c) {
+      if (c < nc) y[(int64_t)dst * nrhs + c0 + c] = acc[c];
+    }
+  }
+}
+
+// C'32's earlier design, kept only to time the one above against it: every
+// row on a warp (the hubs too), X read as (nrhs, n), passes of kCols.
+template <int TAG>
+__global__ void __launch_bounds__(kThreads) spmm_sell_f32_earlier_kernel(
     const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
     const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
     const float* __restrict__ x, const float* __restrict__ scales,
@@ -209,9 +277,9 @@ __global__ void __launch_bounds__(kThreads) spmm_sell_f32_kernel(
   int width;
   const int64_t base = locate(tab, nb, row, width);
   float acc[kCols];
-  gse::warp_row_cols_f32<TAG>(base, width, lane, colpak, head, tail1, tail2,
-                              x + (int64_t)c0 * n, n, nc, scales, shift, mask,
-                              acc);
+  gse::warp_row_cols_f32<TAG, kCols>(base, width, lane, colpak, head, tail1,
+                                     tail2, x + (int64_t)c0 * n, 1, n, nc,
+                                     false, scales, shift, mask, acc);
   if (lane == 0) {
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -350,13 +418,62 @@ extern "C" int gse_spmv_sell_f64(const void* tag, const void* colpak,
   return (int)cudaGetLastError();
 }
 
-// Y (m, nrhs) f32 = A X over the SELL buckets at `tag`; X is (nrhs, n) f32.
+// Y (m, nrhs) f32 = A X over the SELL buckets at `tag`; X is (n, nrhs) f32,
+// row-major.  Bucket rows [long_from, rows_pad) run a block each.
 extern "C" int gse_spmm_sell_f32(int tag, const void* colpak, const void* head,
                                  const void* tail1, const void* tail2,
                                  const void* x, const void* scales, void* y,
                                  const void* tab, int nb, const void* perm,
-                                 long long rows_pad, long long n, int nrhs,
-                                 int ei_bit, void* stream) {
+                                 long long rows_pad, long long long_from,
+                                 int nrhs, int ei_bit, void* stream) {
+  if (long_from < 0 || long_from > rows_pad || nrhs <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int shift = 32 - ei_bit;
+  const uint32_t mask = (1u << shift) - 1u;
+  const long long warps = kChainThreads / 32;
+  const dim3 grid(
+      (unsigned)((rows_pad - long_from) + (long_from + warps - 1) / warps),
+      (unsigned)((nrhs + kColsWarp - 1) / kColsWarp));
+  if (grid.x == 0) return (int)cudaGetLastError();
+  // Four columns of a slot in one 16-byte load: every pass full, every row
+  // of X 16-byte aligned.
+  const int vec = nrhs % kColsWarp == 0 && (uintptr_t)x % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t* cp = (const uint32_t*)colpak;
+  const uint16_t* hd = (const uint16_t*)head;
+  const uint16_t* t1 = (const uint16_t*)tail1;
+  const uint32_t* t2 = (const uint32_t*)tail2;
+  const float* xs = (const float*)x;
+  const float* sc = (const float*)scales;
+  float* out = (float*)y;
+  const int64_t* tb = (const int64_t*)tab;
+  const int32_t* pm = (const int32_t*)perm;
+  if (tag == 1) {
+    spmm_sell_f32_kernel<1><<<grid, kChainThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, nrhs,
+        vec, shift, mask);
+  } else if (tag == 2) {
+    spmm_sell_f32_kernel<2><<<grid, kChainThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, nrhs,
+        vec, shift, mask);
+  } else if (tag == 3) {
+    spmm_sell_f32_kernel<3><<<grid, kChainThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, nrhs,
+        vec, shift, mask);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The earlier design of gse_spmm_sell_f32 (timing only): Y (m, nrhs) f32,
+// X (nrhs, n) f32.
+extern "C" int gse_spmm_sell_f32_earlier(
+    int tag, const void* colpak, const void* head, const void* tail1,
+    const void* tail2, const void* x, const void* scales, void* y,
+    const void* tab, int nb, const void* perm, long long rows_pad,
+    long long n, int nrhs, int ei_bit, void* stream) {
   const int shift = 32 - ei_bit;
   const uint32_t mask = (1u << shift) - 1u;
   const dim3 grid((unsigned)((rows_pad * 32 + kThreads - 1) / kThreads),
@@ -372,15 +489,15 @@ extern "C" int gse_spmm_sell_f32(int tag, const void* colpak, const void* head,
   const int64_t* tb = (const int64_t*)tab;
   const int32_t* pm = (const int32_t*)perm;
   if (tag == 1) {
-    spmm_sell_f32_kernel<1><<<grid, kThreads, 0, s>>>(
+    spmm_sell_f32_earlier_kernel<1><<<grid, kThreads, 0, s>>>(
         cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, n, nrhs, shift,
         mask);
   } else if (tag == 2) {
-    spmm_sell_f32_kernel<2><<<grid, kThreads, 0, s>>>(
+    spmm_sell_f32_earlier_kernel<2><<<grid, kThreads, 0, s>>>(
         cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, n, nrhs, shift,
         mask);
   } else if (tag == 3) {
-    spmm_sell_f32_kernel<3><<<grid, kThreads, 0, s>>>(
+    spmm_sell_f32_earlier_kernel<3><<<grid, kThreads, 0, s>>>(
         cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, n, nrhs, shift,
         mask);
   } else {

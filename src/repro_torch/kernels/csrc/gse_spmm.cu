@@ -100,9 +100,10 @@ __global__ void __launch_bounds__(kThreads) spmm_ell_f32_kernel(
   const int c0 = blockIdx.y * kCols;
   const int nc = nrhs - c0 < kCols ? nrhs - c0 : kCols;
   float acc[kCols];
-  gse::warp_row_cols_f32<TAG>(row * (int64_t)width, width, lane, colpak, head,
-                              tail1, tail2, x + (int64_t)c0 * n, n, nc,
-                              scales, shift, mask, acc);
+  gse::warp_row_cols_f32<TAG, kCols>(row * (int64_t)width, width, lane,
+                                     colpak, head, tail1, tail2,
+                                     x + (int64_t)c0 * n, 1, n, nc, false,
+                                     scales, shift, mask, acc);
   if (lane == 0) {
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {

@@ -30,7 +30,14 @@ before launch (never after a failed launch or build):
   with 16-byte copies: a q, k or v whose pointer or strides are not
   16-byte multiples is copied to a fresh contiguous tensor first.
 * ``"ffma"``: f32 (the f32 twin's model), and bf16 with another hd.  The
-  same operations in FP32 FFMA from shared memory.
+  same operations in FP32 FFMA from register tiles, as an SGEMM computes:
+  a block of 256 threads per 128 queries, each thread 8 queries x 4 keys
+  of S and 8 queries x hd / 16 dims of O, Q and the double-buffered K and
+  V tiles (64 keys, ``cp.async`` for f32) in shared memory read 16 bytes
+  at a time; hd is zero-padded to 16, 32, 64 or 128, each compiled.
+* ``"ffma_rows"``: the FFMA body's earlier design (four threads a query
+  row, scalar shared loads), kept only for ``chip_smoke.py`` to time the
+  one above against; :func:`flash_body` never picks it.
 
 Sums and exponentials run in another order than the plain version's
 softmax, so the kernel is held to it within the reference kernel tests'
@@ -59,7 +66,8 @@ __all__ = ["flash_attention", "flash_attention_gqa",
 NEG_INF = -1e30
 HD_MAX = 128
 _DTYPES = (torch.float32, torch.bfloat16)
-BODIES = ("mma", "ffma")
+BODIES = ("mma", "ffma", "ffma_rows")
+_BODY_ID = {"ffma": 0, "mma": 1, "ffma_rows": 2}  # flash_attention_fwd's
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _BOUND = {}
@@ -120,7 +128,7 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, device="cuda",
     """Softmax attention of q ``(B, S, H, hd)`` over k, v ``(B, T, KV,
     hd)`` with H a multiple of KV; returns ``(B, S, H, hd)`` in q's
     dtype.  ``body`` (CUDA only) overrides :func:`flash_body`'s choice, to
-    time one body against the other; "mma" still needs bf16 and hd % 16
+    time one body against another; "mma" still needs bf16 and hd % 16
     == 0."""
     dev = on_device(device, q=q, k=k, v=v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -154,7 +162,7 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, device="cuda",
         q, k, v = _rows16(q), _rows16(k), _rows16(v)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
-    rc = _fn()(int(body == "mma"), int(q.dtype == torch.bfloat16),
+    rc = _fn()(_BODY_ID[body], int(q.dtype == torch.bfloat16),
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
                t, h, kvh, hd, strides, int(causal), _scale(hd),
                torch.cuda.current_stream(q.device).cuda_stream)

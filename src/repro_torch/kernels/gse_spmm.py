@@ -31,9 +31,17 @@ gather) over the SELL-C-sigma layout.  The CUDA source is
 ``csrc/gse_sell.cu``; one launch covers every bucket, the row bodies are
 C's:
 
-* **C′32** -- :func:`gse_spmm_sell_f32` (``ops.gse_spmm_sell``): C32's warp
-  row over each bucket row's width; per column bitwise C32, at nrhs = 1
-  bitwise B32.  Y is ``(m, nrhs)``.
+* **C′32** -- :func:`gse_spmm_sell_f32` (``ops.gse_spmm_sell``): B32's
+  two bodies for a pass of four columns of an ``(n, nrhs)`` row-major X
+  (a slot's columns in one sector): the rows from the pack's
+  ``long_from`` on get a block each, whose producer warps stage each
+  slot's four products side by side ahead of warp 0's 32 lanes, each lane
+  adding four chains in A32's lane order; the other rows get a warp each.
+  Per column bitwise C32, at nrhs = 1 bitwise B32.  Y is ``(m, nrhs)``.
+  The launches per body are counted in ``body_launches`` ("block",
+  "warp").  :func:`gse_spmm_sell_f32_earlier` keeps the earlier design
+  (every row on a warp, X ``(nrhs, n)``) for ``chip_smoke.py`` to time
+  against.
 * **C′64** -- :func:`gse_spmm_sell_f64` (``spmm_gse`` over a ``GSESellC``,
   the batched CG operator): B64's bodies for every column, with C64's
   per-column device tags and active flags; column j bitwise B64 at
@@ -68,7 +76,8 @@ from repro_torch.sparse.spmv import _decode_gsecsr
 
 __all__ = ["gse_spmm_ell_f32", "gse_spmm_ell_f32_plain", "gse_spmm_csr_f64",
            "gse_spmm_csr_f64_plain", "gse_spmm_sell_f32",
-           "gse_spmm_sell_f32_plain", "gse_spmm_sell_f64",
+           "gse_spmm_sell_f32_plain", "gse_spmm_sell_f32_earlier",
+           "gse_spmm_sell_f64",
            "gse_spmm_sell_f64_plain", "KERNELS", "reset_launch_counts"]
 
 _P = ctypes.c_void_p
@@ -83,6 +92,10 @@ _ARGTYPES = {
     "gse_spmm_sell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_int, _P, ctypes.c_longlong,
                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+    "gse_spmm_sell_f32_earlier": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, ctypes.c_int, _P, ctypes.c_longlong,
+                                  ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int, _P],
     "gse_spmm_sell_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_int, _P, _P, ctypes.c_longlong,
                           ctypes.c_longlong, ctypes.c_longlong,
@@ -91,7 +104,9 @@ _ARGTYPES = {
 # Columns per pass of C64 and C′64 (csrc/gse_rows.cuh kColsWarp).
 C64_PASS = 4
 _SOURCE = {"gse_spmm_ell_f32": "gse_spmm", "gse_spmm_csr_f64": "gse_spmm",
-           "gse_spmm_sell_f32": "gse_sell", "gse_spmm_sell_f64": "gse_sell"}
+           "gse_spmm_sell_f32": "gse_sell",
+           "gse_spmm_sell_f32_earlier": "gse_sell",
+           "gse_spmm_sell_f64": "gse_sell"}
 _BOUND = {}
 
 
@@ -267,24 +282,20 @@ def gse_spmm_sell_f32_plain(colpak, head, tail1, tail2, x, scales, buckets,
                             perm, *, rows: int, ei_bit: int,
                             tag: int) -> torch.Tensor:
     """Plain version of C′32: B32's plain version on each column of the
-    ``(nrhs, n)`` X, stacked to ``(rows, nrhs)``."""
-    cols = [gse_spmv_sell_f32_plain(colpak, head, tail1, tail2, x[j], scales,
-                                    buckets, perm, rows=rows, ei_bit=ei_bit,
-                                    tag=tag)
-            for j in range(x.shape[0])]
+    ``(n, nrhs)`` X, stacked to ``(rows, nrhs)``."""
+    cols = [gse_spmv_sell_f32_plain(colpak, head, tail1, tail2, x[:, j],
+                                    scales, buckets, perm, rows=rows,
+                                    ei_bit=ei_bit, tag=tag)
+            for j in range(x.shape[1])]
     if not cols:
         return torch.zeros(rows, 0, dtype=torch.float32, device=colpak.device)
     return torch.stack(cols, dim=1)
 
 
-def gse_spmm_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
-                      *, rows: int, ei_bit: int, tag: int,
-                      device="cuda") -> torch.Tensor:
-    """Y = A @ X as ``(rows, nrhs)`` f32 from the flat SELL segments at
-    ``tag`` and an ``(nrhs, n)`` f32 X (columns contiguous).
-
-    ``tail1``/``tail2`` may be ``None`` when ``tag`` does not read them.
-    """
+def _sell_f32_args(name, tag, colpak, head, tail1, tail2, x, scales,
+                   buckets, perm, device):
+    """The device of a C′32 call (``on_device``); on the card, its operands
+    checked."""
     if tag not in (1, 2, 3):
         raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
     dev = on_device(device, colpak=colpak, head=head, x=x, scales=scales,
@@ -292,32 +303,80 @@ def gse_spmm_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
                     tail1=tail1 if tag >= 2 else None,
                     tail2=tail2 if tag == 3 else None)
     if dev.type == "cpu":
-        return gse_spmm_sell_f32_plain(colpak, head, tail1, tail2, x, scales,
-                                       buckets, perm, rows=rows,
-                                       ei_bit=ei_bit, tag=tag)
+        return dev
     if dev.type != "cuda":
-        raise ValueError(f"gse_spmm_sell_f32 runs on cuda or cpu, not {dev}")
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
     dev = colpak.device
     _check_sell((("colpak", colpak, torch.uint32), ("head", head, torch.uint16),
                  ("tail1", tail1 if tag >= 2 else None, torch.uint16),
                  ("tail2", tail2 if tag == 3 else None, torch.uint32)),
                 buckets, perm, dev)
     _check(x, "x", torch.float32, dev, 2)
-    scales = scales.reshape(-1)
-    _check(scales, "scales", torch.float32, dev, 1)
-    nrhs, n = x.shape
+    _check(scales.reshape(-1), "scales", torch.float32, dev, 1)
+    return dev
+
+
+def gse_spmm_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
+                      *, rows: int, ei_bit: int, tag: int,
+                      long_from: int | None = None,
+                      device="cuda") -> torch.Tensor:
+    """Y = A @ X as ``(rows, nrhs)`` f32 from the flat SELL segments at
+    ``tag`` and an ``(n, nrhs)`` f32 X (row-major, as
+    ``ops.gse_spmm_sell``'s caller holds it).
+
+    ``tail1``/``tail2`` may be ``None`` when ``tag`` does not read them.
+    ``long_from`` (required on the card) is the pack's
+    ``GSESellC.long_from``: the bucket rows from there on run a block
+    each.  The launches per body are counted in ``body_launches``
+    ("block", "warp").
+    """
+    dev = _sell_f32_args("gse_spmm_sell_f32", tag, colpak, head, tail1,
+                         tail2, x, scales, buckets, perm, device)
+    if dev.type == "cpu":
+        return gse_spmm_sell_f32_plain(colpak, head, tail1, tail2, x, scales,
+                                       buckets, perm, rows=rows,
+                                       ei_bit=ei_bit, tag=tag)
+    n, nrhs = x.shape
+    rows_pad = perm.shape[0]
+    _check_long_from(long_from, rows_pad)
     y = torch.empty(rows, nrhs, dtype=torch.float32, device=dev)
-    if perm.shape[0] == 0 or nrhs == 0:
+    if rows_pad == 0 or nrhs == 0:
         return y
     rc = _fn("gse_spmm_sell_f32")(
         tag, colpak.data_ptr(), head.data_ptr(),
         tail1.data_ptr() if tag >= 2 else None,
         tail2.data_ptr() if tag == 3 else None,
         x.data_ptr(), scales.data_ptr(), y.data_ptr(), buckets.data_ptr(),
-        buckets.shape[0], perm.data_ptr(), perm.shape[0], n, nrhs, ei_bit,
+        buckets.shape[0], perm.data_ptr(), rows_pad, long_from, nrhs, ei_bit,
         torch.cuda.current_stream(dev).cuda_stream)
     gse_spmm_sell_f32.launches += 1
+    count_bodies(gse_spmm_sell_f32, (rows_pad - long_from, long_from))
     _raise_on(rc, "gse_spmm_sell_f32")
+    return y
+
+
+def gse_spmm_sell_f32_earlier(colpak, head, tail1, tail2, x, scales, buckets,
+                              perm, *, rows: int, ei_bit: int,
+                              tag: int) -> torch.Tensor:
+    """C′32's earlier design, kept only so ``chip_smoke.py`` can time the
+    current one against it (``earlier_ms``); no path of the port runs it.
+    Every bucket row on one warp, X ``(nrhs, n)``; the same result as
+    :func:`gse_spmm_sell_f32` on ``X.t()``.  CUDA tensors only."""
+    dev = _sell_f32_args("gse_spmm_sell_f32_earlier", tag, colpak, head,
+                         tail1, tail2, x, scales, buckets, perm, "cuda")
+    nrhs, n = x.shape
+    y = torch.empty(rows, nrhs, dtype=torch.float32, device=dev)
+    if perm.shape[0] == 0 or nrhs == 0:
+        return y
+    rc = _fn("gse_spmm_sell_f32_earlier")(
+        tag, colpak.data_ptr(), head.data_ptr(),
+        tail1.data_ptr() if tag >= 2 else None,
+        tail2.data_ptr() if tag == 3 else None,
+        x.data_ptr(), scales.data_ptr(), y.data_ptr(), buckets.data_ptr(),
+        buckets.shape[0], perm.data_ptr(), perm.shape[0], n, nrhs, ei_bit,
+        torch.cuda.current_stream(dev).cuda_stream)
+    gse_spmm_sell_f32_earlier.launches += 1
+    _raise_on(rc, "gse_spmm_sell_f32_earlier")
     return y
 
 
@@ -394,16 +453,18 @@ def gse_spmm_sell_f64(colpak, head, tail1, tail2, table, x, tags, active,
 
 
 KERNELS = (gse_spmm_ell_f32, gse_spmm_csr_f64, gse_spmm_sell_f32,
-           gse_spmm_sell_f64)
+           gse_spmm_sell_f64, gse_spmm_sell_f32_earlier)
 
 
 def reset_launch_counts():
     """Zero every wrapper's ``launches`` and, where a wrapper counts its
     launches per body, its ``body_launches``: ``gse_spmm_csr_f64``
-    (``A64_BODIES``) and ``gse_spmm_sell_f64`` (``SELL_BODIES``)."""
+    (``A64_BODIES``), ``gse_spmm_sell_f32`` and ``gse_spmm_sell_f64``
+    (``SELL_BODIES``)."""
     for k in KERNELS:
         k.launches = 0
     gse_spmm_csr_f64.body_launches = dict.fromkeys(A64_BODIES, 0)
+    gse_spmm_sell_f32.body_launches = dict.fromkeys(SELL_BODIES, 0)
     gse_spmm_sell_f64.body_launches = dict.fromkeys(SELL_BODIES, 0)
 
 

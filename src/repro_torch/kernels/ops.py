@@ -303,8 +303,9 @@ def sell_kernel_for(tag: int, ei_bit: int, blocks=None):
 
 def sell_spmm_kernel_for(tag: int, ei_bit: int, blocks=None):
     """Multi-RHS twin of :func:`sell_kernel_for` (kernel C′32): ``x`` is an
-    ``(nrhs, n)`` block, and a ``device=`` keyword (default ``"cuda"``)
-    follows the layout keywords."""
+    ``(n, nrhs)`` row-major block, and the keywords ``long_from`` (on the
+    card) and ``device=`` (default ``"cuda"``) follow the layout
+    keywords."""
     _no_plans(blocks)
     return _sell_dispatch(gse_spmm_sell_f32, tag, ei_bit)
 
@@ -330,9 +331,10 @@ def gse_spmv_sell(sell: GSESellC, x: torch.Tensor, tag: int = 1,
 def gse_spmm_sell(sell: GSESellC, x: torch.Tensor, tag: int = 1,
                   blocks=None, plan=None, *, device="cuda") -> torch.Tensor:
     """Y = A @ X (f32, ``(m, nrhs)``) from a SELL-C-sigma packed operand
-    (kernel C′32), X a dense ``(n, nrhs)`` block; each bucket's segments
-    are streamed once for every column.  Bitwise :func:`gse_spmm_ell` on
-    the same operator for finite X."""
+    (kernel C′32), X a dense ``(n, nrhs)`` block, read as it lies (a
+    contiguous copy only if it is not row-major f32); each bucket's
+    segments are streamed once for every pass of four columns.  Bitwise
+    :func:`gse_spmm_ell` on the same operator for finite X."""
     _no_plans(blocks, plan)
     tag = _sell_tag(tag)
     if x.dim() != 2:
@@ -340,10 +342,10 @@ def gse_spmm_sell(sell: GSESellC, x: torch.Tensor, tag: int = 1,
                          f"{tuple(x.shape)}")
     scales = ref.make_scales(sell.table, TAG_BITS_USED[tag])
     segs = sell.segments[:2 + len(TAG_SEGMENTS[tag])]
-    xt = x.to(torch.float32).t().contiguous()
     return sell_spmm_kernel_for(tag, sell.ei_bit)(
-        *segs, xt, scales, buckets=sell.bucket_table, perm=sell.perm,
-        rows=sell.shape[0], device=device)
+        *segs, x.to(torch.float32).contiguous(), scales,
+        buckets=sell.bucket_table, perm=sell.perm, rows=sell.shape[0],
+        long_from=sell.long_from, device=device)
 
 
 def planned_spmv(*args, **kwargs):

@@ -14,6 +14,8 @@ the f32 softmax.  ``chip_smoke.py`` phase 11 holds the CUDA bodies
 themselves to the plain versions on the card.
 """
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import gse as J_gse  # noqa: E402
 from repro.kernels import ops as J_ops  # noqa: E402
+from repro.kernels.flash_attn import flash_attention_pallas  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import gse as T_gse  # noqa: E402
@@ -253,3 +256,152 @@ def test_bf16_probabilities_stay_within_the_bf16_tolerance(heads, hd):
                                rtol=2e-2, atol=2e-2)
     # The rounding is visible: the model is not the plain version.
     assert not torch.equal(model, plain)
+
+
+# --- F's FFMA body: the tile walk --------------------------------------------
+
+FLASH_CU = (Path(T_f.__file__).resolve().parent / "csrc" / "flash_attn.cu")
+
+
+def _flash_constants() -> dict:
+    """The FFMA body's namespace-level ``constexpr int kF*`` constants of
+    ``csrc/flash_attn.cu``."""
+    return {name: int(val) for name, val in re.findall(
+        r"^constexpr int (kF\w+) = (\d+);", FLASH_CU.read_text(), re.M)}
+
+
+FC = _flash_constants()
+
+
+def _hdp(hd: int) -> int:
+    """The padded head dim the FFMA body is compiled for."""
+    return next(p for p in (16, 32, 64, 128) if hd <= p)
+
+
+def _o_dims(hdp: int, tx: int) -> list:
+    """The dims of O that thread column ``tx`` owns: kNv vectors of kVec,
+    dim h * 16 * kVec + tx * kVec + e (``FTile``)."""
+    vec = 4 if hdp >= 64 else hdp // 16
+    return [h * 16 * vec + tx * vec + e for h in range(hdp // (16 * vec))
+            for e in range(vec)]
+
+
+def test_ffma_tile_constants():
+    assert FC["kFThreads"] == (FC["kFBQ"] // FC["kFRows"]) * 16
+    assert FC["kFBK"] == 16 * FC["kFKeys"]
+    assert FC["kFBK"] % 4 == 0  # P V reads four keys at a time
+
+
+@pytest.mark.parametrize("hdp", [16, 32, 64, 128])
+def test_ffma_micro_tiles_cover_each_score_and_dim_once(hdp):
+    """Thread (ty, tx) owns queries ty * 8 + ii, keys tx + 16 jj of S and
+    the dims _o_dims(hdp, tx) of O: every score of a tile and every
+    output of a query tile exactly once."""
+    rows = FC["kFThreads"] // 16
+    scores = np.zeros((FC["kFBQ"], FC["kFBK"]), int)
+    out = np.zeros((FC["kFBQ"], hdp), int)
+    for ty in range(rows):
+        for tx in range(16):
+            qs = [ty * FC["kFRows"] + ii for ii in range(FC["kFRows"])]
+            for qi in qs:
+                for jj in range(FC["kFKeys"]):
+                    scores[qi, tx + 16 * jj] += 1
+                for d in _o_dims(hdp, tx):
+                    out[qi, d] += 1
+    assert (scores == 1).all() and (out == 1).all()
+
+
+def _half_warp_sum(v):
+    """The FFMA body's row sum: each thread's keys added in order from 0.0,
+    then the xor-shuffle tree over the 16 threads of a row (last dim)."""
+    lanes = torch.arange(16)
+    for off in (1, 2, 4, 8):
+        v = v + v[..., lanes ^ off]
+    return v[..., 0]
+
+
+def ffma_walk(q, k, v, *, causal=True):
+    """A torch emulation of F's FFMA body (``flash_fwd_kernel``): query
+    tiles of kFBQ, key tiles of kFBK up to the diagonal when causal, a warp
+    (16 queries) skipping a tile whose keys all lie above its queries, the
+    masks on global indices (-1e30 above the diagonal, -inf past T, rows
+    past S not written), the online softmax per tile with each row's sum
+    in the body's order, hd zero-padded to its class.  The products' own
+    sums run in torch's order."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    hdp, bq, bk = _hdp(hd), FC["kFBQ"], FC["kFBK"]
+    scale = T_f._scale(hd)
+    out = torch.empty(b, s, h, hd)
+    pad = torch.nn.functional.pad
+    for bi in range(b):
+        for hi in range(h):
+            kv = hi // (h // kvh)
+            qf = pad(q[bi, :, hi].float(), (0, hdp - hd, 0, -s % bq))
+            kf = pad(k[bi, :, kv].float(), (0, hdp - hd, 0, -t % bk))
+            vf = pad(v[bi, :, kv].float(), (0, hdp - hd, 0, -t % bk))
+            for q0 in range(0, s, bq):
+                qi = torch.arange(q0, q0 + bq)
+                m = torch.full((bq,), T_f.NEG_INF)
+                l = torch.zeros(bq)
+                acc = torch.zeros(bq, hdp)
+                kv_end = min(t, q0 + bq) if causal else t
+                for kv0 in range(0, kv_end, bk):
+                    kj = torch.arange(kv0, kv0 + bk)
+                    live = ~(causal & (kv0 > (qi // 16) * 16 + 15))
+                    sc = (qf[q0:q0 + bq] @ kf[kv0:kv0 + bk].t()) * scale
+                    sc = sc.masked_fill(causal & (kj[None] > qi[:, None]),
+                                        T_f.NEG_INF)
+                    sc = sc.masked_fill(kj[None] >= t, float("-inf"))
+                    m_new = torch.maximum(m, sc.max(1).values)
+                    corr = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[:, None])
+                    # Thread tx holds keys tx + 16 jj: (rows, jj, tx).
+                    per = p.reshape(bq, FC["kFKeys"], 16)
+                    own = torch.zeros(bq, 16)
+                    for jj in range(FC["kFKeys"]):
+                        own = own + per[:, jj]
+                    rs = _half_warp_sum(own)
+                    m = torch.where(live, m_new, m)
+                    l = torch.where(live, l * corr + rs, l)
+                    acc = torch.where(live[:, None], acc * corr[:, None]
+                                      + p @ vf[kv0:kv0 + bk], acc)
+                rows = slice(q0, min(q0 + bq, s))
+                n = rows.stop - rows.start
+                o = acc[:n, :hd] / torch.clamp(l[:n], min=1e-30)[:, None]
+                out[bi, rows, hi] = o
+    return out.to(q.dtype)
+
+
+FFMA_CASES = [(200, 200, 16, (4, 1), True), (200, 200, 16, (4, 4), False),
+              (200, 200, 128, (4, 1), False), (200, 200, 128, (4, 4), True),
+              (200, 200, 16, (4, 4), True), (200, 200, 128, (4, 1), True),
+              (72, 200, 16, (4, 1), True), (150, 70, 128, (2, 2), False)]
+
+
+@pytest.mark.parametrize("s, t, hd, heads, causal", FFMA_CASES)
+def test_ffma_walk_matches_plain_and_the_pallas_kernel(s, t, hd, heads,
+                                                       causal):
+    """The FFMA body's walk, at hd 16 and 128, S and T not multiples of the
+    tiles (masks past S and T), GQA 4:1 and 1:1, causal or not: within F's
+    f32 tolerance (2e-5) of the plain version and of the reference's
+    Pallas kernel in interpret mode (K and V repeated per group)."""
+    h, kv = heads
+    rng = np.random.default_rng(s + t + hd + h + kv)
+    q = rng.normal(size=(1, s, h, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(1, t, kv, hd)).astype(np.float32)
+            for _ in range(2))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    walk = ffma_walk(qt, kt, vt, causal=causal)
+    plain = T_f.flash_attention_gqa(qt, kt, vt, causal=causal, device=CPU)
+    np.testing.assert_allclose(walk.numpy(), plain.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    g = h // kv
+    heads_first = (np.repeat(a, g, axis=2) if a is not q else a
+                   for a in (q, k, v))
+    qj, kj, vj = (jnp.asarray(a[0].transpose(1, 0, 2)) for a in heads_first)
+    ref = flash_attention_pallas(qj, kj, vj, causal=causal,
+                                 blocks=(math.gcd(s, 40), math.gcd(t, 40)))
+    np.testing.assert_allclose(
+        walk.numpy()[0], np.asarray(ref).transpose(1, 0, 2), rtol=2e-5,
+        atol=2e-5)

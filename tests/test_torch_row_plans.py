@@ -59,11 +59,12 @@ ROWS_CUH = (Path(T_k.__file__).resolve().parent / "csrc" / "gse_rows.cuh")
 
 
 def _cuda_constants() -> dict:
-    """The ``constexpr int`` constants of ``csrc/gse_rows.cuh``, evaluated
-    in order (integer arithmetic over the earlier ones)."""
+    """The namespace-level ``constexpr int`` constants of
+    ``csrc/gse_rows.cuh`` (those at the start of a line), evaluated in
+    order (integer arithmetic over the earlier ones)."""
     out = {}
-    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);",
-                                 ROWS_CUH.read_text()):
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);",
+                                 ROWS_CUH.read_text(), re.M):
         out[name] = int(eval(expr.replace("/", "//"), {}, dict(out)))
     return out
 
@@ -512,7 +513,9 @@ B32_FAULTS = ("chunks_reversed", "lanes_transposed")
 
 def _f32_products(sell, x, scales, tag) -> list:
     """Each bucket's ``(rows_b, w_b)`` f32 products, padded slots
-    included, in the order of ``gse_spmv_ell_f32_plain``'s decode."""
+    included, in the order of ``gse_spmv_ell_f32_plain``'s decode; for an
+    ``(n, nrhs)`` x, ``(rows_b, w_b, nrhs)``: each slot decoded once and
+    multiplied by every column's x."""
     segs = sell.segments
     shift = 32 - sell.ei_bit
     out = []
@@ -528,31 +531,44 @@ def _f32_products(sell, x, scales, tag) -> list:
         if tag == 3:
             mant = mant * float(2.0**32) + part(3).to(torch.float32)
         vals = sgn * mant * scales.reshape(-1)[cp >> shift]
+        if x.dim() == 2:
+            vals = vals[..., None]
         out.append((vals * x[cp & ((1 << shift) - 1)]).numpy())
     return out
 
 
-def _lanes(products, chunk: int, fault=None) -> np.float32:
+def _lanes(products, chunk: int, fault=None):
     """32 lane chains over ``products`` padded with +0.0 to whole chunks
     (lane l adds slots l, l+32, ... from 0.0 in f32), then the warp's
-    shuffle tree; ``fault`` (B32_FAULTS) adds the chunks last to first or
-    has lane l add slots l * chunk / 32, ... of a chunk, one after
-    another.  (A fault that permutes whole lanes alike at every level of
-    the tree, as lane l on lane l + 1's slots does, leaves the sum's bits
-    as they are.)"""
-    pad = np.concatenate([products, np.zeros((-len(products)) % chunk,
-                                             np.float32)])
-    chunks = pad.reshape(-1, chunk)
+    shuffle tree.  ``products`` is ``(len,)`` (one column, returns a
+    scalar) or ``(len, nc)`` (C′32's block: each column's chains, returns
+    ``(nc,)``).  ``fault`` (B32_FAULTS, C32_FAULTS) adds the chunks last to
+    first, has lane l add slots l * chunk / 32, ... of a chunk one after
+    another, or hands columns 0 and 1 each other's products in every
+    second chunk (a producer staging a slot's columns out of place).  (A
+    fault that permutes whole lanes alike at every level of the tree, as
+    lane l on lane l + 1's slots does, leaves the sum's bits as they
+    are.)"""
+    cols = np.asarray(products, np.float32)
+    one = cols.ndim == 1
+    cols = cols.reshape(len(cols), -1)
+    nc = cols.shape[1]
+    pad = np.concatenate([cols, np.zeros(((-len(cols)) % chunk, nc),
+                                         np.float32)])
+    chunks = pad.reshape(-1, chunk, nc)
     if fault == "chunks_reversed":
         chunks = chunks[::-1]
     if fault == "lanes_transposed":
-        chunks = chunks.reshape(-1, 32, chunk // 32).transpose(0, 2, 1)
-    lanes = chunks.reshape(-1, 32)
-    chain = np.concatenate([np.zeros((1, 32), np.float32), lanes])
+        chunks = chunks.reshape(-1, 32, chunk // 32, nc).transpose(0, 2, 1, 3)
+    if fault == "columns_crossed":
+        chunks = chunks.copy()
+        chunks[1::2, :, :2] = chunks[1::2, :, 1::-1]
+    lanes = chunks.reshape(-1, 32, nc)
+    chain = np.concatenate([np.zeros((1, 32, nc), np.float32), lanes])
     acc = np.add.accumulate(chain, axis=0, dtype=np.float32)[-1]
     for off in (16, 8, 4, 2, 1):
         acc = acc[:off] + acc[off:2 * off]
-    return acc[0]
+    return acc[0, 0] if one else acc[0]
 
 
 def _b32_emulated(sell, x, scales, tag, fault=None) -> np.ndarray:
@@ -622,6 +638,92 @@ def test_b32_order_model_sees_a_misordered_long_row(operators, skewed_sell,
     bad = (_b32_emulated(skewed_sell, torch.from_numpy(x), scales, 3,
                          fault).view(np.uint32)
            != _b32_plain(skewed_sell, x, scales, 3).view(np.uint32))
+    perm = skewed_sell.perm.numpy()
+    rows = perm[skewed_sell.long_from:]
+    rows = rows[rows >= 0]
+    assert rows.size and bad[rows].any()
+    assert not np.delete(bad, rows).any()
+
+
+# --- C′32: B32's bodies for the columns of a pass ----------------------------
+
+C32_FAULTS = ("columns_crossed", "chunks_reversed")
+# Slots per chunk of C′32's long-row block: kLanesColsFloats f32 values, a
+# slot's kColsWarp products side by side.
+LANES_COLS_CHUNK = CUDA["kLanesColsFloats"] // CUDA["kColsWarp"]
+
+
+def _c32_emulated(sell, x, scales, tag, fault=None) -> np.ndarray:
+    """C′32's order on an ``(n, nrhs)`` x: bucket rows from ``long_from`` on
+    in the block's chunks of LANES_COLS_CHUNK, each column on its own 32
+    lane chains, the others as one warp (chunks of 32); ``fault`` plants a
+    wrong order in the long rows only."""
+    perm = sell.perm.numpy()
+    y = np.zeros((sell.shape[0], x.shape[1]), np.float32)
+    r = 0
+    for prods in _f32_products(sell, x, scales, tag):
+        for row in prods:
+            if perm[r] >= 0:
+                long = r >= sell.long_from
+                y[perm[r]] = _lanes(row, LANES_COLS_CHUNK if long
+                                    else WARP_CHUNK, fault if long else None)
+            r += 1
+    return y
+
+
+def _c32_plain(sell, x, scales, tag):
+    segs = sell.segments
+    return T_c.gse_spmm_sell_f32_plain(
+        segs[0], segs[1], segs[2] if tag >= 2 else None,
+        segs[3] if tag == 3 else None, torch.from_numpy(x), scales,
+        sell.bucket_table, sell.perm, rows=sell.shape[0], ei_bit=sell.ei_bit,
+        tag=tag).numpy()
+
+
+def _c32_case(tg, tag, nrhs, seed=8):
+    x = np.random.default_rng(seed + nrhs).normal(
+        size=(tg.shape[1], nrhs)).astype(np.float32)
+    return x, T_ref.make_scales(tg.table, TAG_BITS_USED[tag])
+
+
+def test_c32_long_row_chunk_holds_whole_lane_rounds():
+    assert LANES_COLS_CHUNK % 32 == 0
+    assert LANES_COLS_CHUNK * CUDA["kColsWarp"] == CUDA["kLanesColsFloats"]
+
+
+@pytest.mark.parametrize("nrhs", [1, 3, 4, 9])
+@pytest.mark.parametrize("tag", [1, 2, 3])
+def test_c32_long_row_order_is_bitwise_the_plain_version(
+        operators, skewed_sell, skewed_sell_ref, tag, nrhs):
+    """C′32's order (the long rows' block per column, the other rows'
+    warps): each column bitwise the plain version (A32's lane order), at
+    nrhs 1 bitwise B32's model, and within the JAX tests' tolerance of the
+    reference's Pallas SELL SpMM in interpret mode; nrhs 9 crosses a pass
+    of four columns."""
+    _, tg = operators["skewed_8192"]
+    x, scales = _c32_case(tg, tag, nrhs)
+    want = _c32_emulated(skewed_sell, torch.from_numpy(x), scales, tag)
+    plain = _c32_plain(skewed_sell, x, scales, tag)
+    assert np.array_equal(want.view(np.uint32), plain.view(np.uint32))
+    if nrhs == 1:
+        b32 = _b32_emulated(skewed_sell, torch.from_numpy(x[:, 0].copy()),
+                            scales, tag)
+        assert np.array_equal(want[:, 0].view(np.uint32), b32.view(np.uint32))
+    ref = np.asarray(J_ops.gse_spmm_sell(skewed_sell_ref, jnp.asarray(x),
+                                         tag=tag))
+    np.testing.assert_allclose(want, ref, rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("fault", C32_FAULTS)
+def test_c32_order_model_sees_a_misordered_long_row(operators, skewed_sell,
+                                                    fault):
+    """Each planted fault in the long rows' block breaks the bitwise
+    equality on some of those rows and on no other row."""
+    _, tg = operators["skewed_8192"]
+    x, scales = _c32_case(tg, 3, 4, seed=10)
+    bad = (_c32_emulated(skewed_sell, torch.from_numpy(x), scales, 3,
+                         fault).view(np.uint32)
+           != _c32_plain(skewed_sell, x, scales, 3).view(np.uint32)).any(1)
     perm = skewed_sell.perm.numpy()
     rows = perm[skewed_sell.long_from:]
     rows = rows[rows >= 0]

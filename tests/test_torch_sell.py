@@ -250,6 +250,25 @@ def test_b32_plain_matches_pallas_and_a32(packs, tag):
     assert torch.equal(got.view(torch.int32), a32.view(torch.int32))
 
 
+@pytest.mark.parametrize("layout", ["transposed_view", "float64"])
+def test_c32_takes_the_callers_n_by_nrhs_block(packs, layout):
+    """C′32 reads X as the caller's ``(n, nrhs)`` block: a transposed view
+    of an ``(nrhs, n)`` array, or an f64 block, through
+    ``ops.gse_spmm_sell`` gives the reference's Y, and bitwise what a
+    contiguous f32 copy gives."""
+    jg, tg, js, ts = packs
+    cols = _x(ts.shape[1], 40, 6, dtype=np.float32).T.copy()  # (nrhs, n)
+    x = (torch.from_numpy(cols).t() if layout == "transposed_view"
+         else torch.from_numpy(cols.T.astype(np.float64)))
+    assert x.shape == (ts.shape[1], 6)
+    want = np.asarray(J_ops.gse_spmm_sell(js, jnp.asarray(cols.T), tag=2))
+    got = T_ops.gse_spmm_sell(ts, x, tag=2, device=CPU)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-4)
+    flat = T_ops.gse_spmm_sell(ts, torch.from_numpy(cols.T.copy()), tag=2,
+                               device=CPU)
+    assert torch.equal(got.view(torch.int32), flat.view(torch.int32))
+
+
 @pytest.mark.parametrize("tag", [1, 2, 3])
 @pytest.mark.parametrize("nrhs", [1, 2, 5])
 def test_c32_plain_matches_pallas_and_c32(packs, nrhs, tag):
