@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--earlier DIR]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` and runs the port's paths at full size: the main path
@@ -18,14 +18,16 @@ on kernels D, E and F.
 Phases:
   1. build     -- nvcc time for every kernel source (all started at once).
   2. parity    -- on diag_rescale(random_spd(2^20, 8, seed=21), 8, 21)
-                  (about 17.8M nonzeros): A32 against its plain version
-                  within rtol 2e-5 / atol 1e-4 (the plain version repeats
-                  the kernel's sum order, so it is expected bitwise), A64
-                  bitwise (every row in row blocks: the longest has 35
-                  entries), tags 1-3; the CG loop's dot (seq_dot) and
-                  update (fma_axpy) bitwise on 2^20-long vectors.  Kernel
-                  C at nrhs = 4: C32 against its plain version (same
-                  tolerance, bitwise expected) and at nrhs = 1 bitwise A32;
+                  (about 17.8M nonzeros): A32 (each row's real slots of
+                  the 128-wide ELL) bitwise its plain version (every
+                  padded slot, the same sum order), A64 bitwise (every row
+                  in row blocks: the longest has 35 entries), tags 1-3;
+                  the CG loop's dot (seq_dot) and update (fma_axpy)
+                  bitwise on 2^20-long vectors.  Kernel C at nrhs = 4 (X
+                  (n, nrhs)): C32 bitwise its plain version and at nrhs =
+                  1 bitwise A32; A32 and C32 with x[0] = inf (C32: column
+                  0) give the plain versions' values row for row (NaN in
+                  every padded row);
                   C64 with tags [1, 2, 3, 1] and active [T, T, T, F]
                   bitwise its plain version, column j bitwise A64 at tag
                   j+1, every body of C64 the row plan holds launched (row
@@ -60,7 +62,9 @@ Phases:
                   holds.
   7. sell parity -- skewed_spd(8192, seed=0) packed at k=8 (about 1.03M
                   nonzeros, SELL widths 128/256/8192; its uniform ELL still
-                  fits, so A and C run beside B and C′): B32 against its
+                  fits, so A and C run beside B and C′; the x[0] = inf
+                  check of phase 2 on its ELL, 8192 wide, where the full
+                  rows have no padding): B32 against its
                   plain version (same tolerance, bitwise expected) and
                   bitwise A32; B64 bitwise A64 and its plain version; C′32
                   and C′64 likewise against C32 and C64 at nrhs 4 (C′64
@@ -163,12 +167,17 @@ Phases:
                   and 14 (D); C64 also on phase 9's skewed CSR, with the
                   launch of its full-size check.  F's bf16 row at S =
                   2048 carries `earlier_ms`, the FFMA body's time on the
-                  same inputs, and the f32 row the FFMA body's earlier
-                  design's (`ffma_rows`); C′32's rows carry its earlier
-                  design's (`gse_spmm_sell_f32_earlier`), both parts
-                  launched one after the other (`two_launches_ms`), eight
-                  columns (`nrhs8_ms`) and the copy of X its earlier op
-                  made (`x_copy_ms`); A64's, B32's, C′32's, C64's and
+                  same inputs; C′32's rows carry both parts launched one
+                  after the other (`two_launches_ms`), eight columns
+                  (`nrhs8_ms`) and the copy of X its earlier op made
+                  (`x_copy_ms`); A32's and C32's rows carry the sweep of
+                  the lanes a row runs on (`lanes_ms`, each of
+                  ELL_LANES; `lanes` the default) and, with `--earlier
+                  DIR` (an earlier checkout, e.g. a `git archive` of the
+                  parent commit unpacked under build/), that tree's time
+                  on the same operator (`earlier_ms`, from
+                  tools/time_ell_kernels.py run there in a process of its
+                  own); A64's, B32's, C′32's, C64's and
                   C′64's rows carry their launches per body
                   (`body_launches`); E's tiled
                   rows are bound by the TF32 tensor cores (495 TFLOP/s
@@ -326,6 +335,61 @@ def require_bitwise(name, got, want):
         raise AssertionError(f"{name} is not bitwise equal to its reference")
 
 
+def require_same_values(name, got, want):
+    """Bitwise equal where ``want`` is finite, NaN where it is NaN and the
+    same infinity where it is infinite."""
+    import torch
+
+    got, want = got.detach().cpu(), want.detach().cpu()
+    fin, nan, inf = torch.isfinite(want), torch.isnan(want), torch.isinf(want)
+    if not (got.shape == want.shape and torch.equal(torch.isfinite(got), fin)
+            and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[inf], want[inf])
+            and bitwise(got[fin], want[fin])):
+        raise AssertionError(f"{name} does not give its reference's values")
+
+
+def ell_padding_nan(case, g, ell, x32, x32n, scales):
+    """A32 and C32 with x[0] = inf (C32: column 0 of the (n, nrhs) X) give
+    their plain versions' values row for row: the plain versions read every
+    padded slot (0 * x[0] = NaN), the kernels read only real slots and add
+    a padded slot's product once to each row that has padding."""
+    import torch
+
+    from repro_torch.kernels import gse_spmm as C, gse_spmv as K, ops
+
+    row_len = ops.ell_row_lengths(g)
+    xa, xc = x32.clone(), x32n.clone()
+    xa[0] = float("inf")
+    xc[0, 0] = float("inf")
+    padded = int((row_len < ell[0].shape[1]).sum())
+    rows_nan = {}
+    for t in TAGS:
+        t1 = ell[2] if t >= 2 else None
+        t2 = ell[3] if t == 3 else None
+        a32 = K.gse_spmv_ell_f32(ell[0], ell[1], t1, t2, xa, scales[t],
+                                 ei_bit=g.ei_bit, tag=t, row_len=row_len)
+        require_same_values(f"{case}: A32 tag {t} with x[0] = inf", a32,
+                            K.gse_spmv_ell_f32_plain(
+                                ell[0], ell[1], t1, t2, xa, scales[t],
+                                ei_bit=g.ei_bit, tag=t))
+        c32 = C.gse_spmm_ell_f32(ell[0], ell[1], t1, t2, xc, scales[t],
+                                 ei_bit=g.ei_bit, tag=t, row_len=row_len)
+        require_same_values(f"{case}: C32 tag {t} with X[0, 0] = inf", c32,
+                            C.gse_spmm_ell_f32_plain(
+                                ell[0], ell[1], t1, t2, xc, scales[t],
+                                ei_bit=g.ei_bit, tag=t))
+        rows_nan[t] = [int(torch.isnan(a32).sum()),
+                       int(torch.isnan(c32[:, 0]).sum()),
+                       int(torch.isnan(c32[:, 1:]).sum())]
+        if rows_nan[t][0] < padded or rows_nan[t][2]:
+            raise AssertionError(f"{case}: x[0] = inf gave NaN in "
+                                 f"{rows_nan[t]} rows, {padded} padded")
+    log("parity", case=case, check="x[0] = inf", rows=g.shape[0],
+        padded_rows=padded, nan_rows_a32_c32col0_c32rest=json.dumps(rows_nan),
+        same_as_plain=True)
+
+
 def plan_bodies(g) -> list:
     """The bodies of kernels A64 and C64 that the row plan of ``g`` runs."""
     from repro_torch.kernels.gse_spmv import A64_BODIES
@@ -409,20 +473,23 @@ def sell_against_uniform(case, g, ell, sell, x32, x64, x32c, x64c, scales):
 
     dev = x32.device
     segs = (g.rowptr, g.colpak, g.head, g.tail1, g.tail2, g.table)
+    row_len = ops.ell_row_lengths(g)
+    x32n = x32c.t().contiguous()
     for t in TAGS:
         t1 = ell[2] if t >= 2 else None
         t2 = ell[3] if t == 3 else None
         require_bitwise(f"{case}: B32 tag {t} against A32",
                         ops.gse_spmv_sell(sell, x32, tag=t),
                         K.gse_spmv_ell_f32(ell[0], ell[1], t1, t2, x32,
-                                           scales[t], ei_bit=g.ei_bit, tag=t))
+                                           scales[t], ei_bit=g.ei_bit, tag=t,
+                                           row_len=row_len))
         require_bitwise(f"{case}: B64 tag {t} against A64",
                         spmv_gse(sell, x64, t), spmv_gse(g, x64, t))
         require_bitwise(f"{case}: C′32 tag {t} against C32",
                         ops.gse_spmm_sell(sell, x32c.t(), tag=t, device=dev),
-                        C.gse_spmm_ell_f32(ell[0], ell[1], t1, t2, x32c,
+                        C.gse_spmm_ell_f32(ell[0], ell[1], t1, t2, x32n,
                                            scales[t], ei_bit=g.ei_bit, tag=t,
-                                           device=dev))
+                                           row_len=row_len, device=dev))
     tags = torch.tensor([1, 2, 3, 1], dtype=torch.int32, device=dev)
     active = torch.tensor([True, True, True, False], device=dev)
     require_bitwise(
@@ -474,10 +541,11 @@ def phase_sell_parity():
     scales = {t: ref.make_scales(g.table, TAG_BITS_USED[t]) for t in TAGS}
     sell_against_uniform("skewed_spd(8192)", g, ell, sell, x32, x64, x32c,
                          x64c, scales)
+    x32n = x32c.t().contiguous()  # C32 and C′32 read X as (n, nrhs)
+    ell_padding_nan("skewed_spd(8192)", g, ell, x32, x32n, scales)
     lay = dict(buckets=sell.bucket_table, perm=sell.perm, rows=m,
                ei_bit=g.ei_bit)
     segs = sell.segments
-    x32n = x32c.t().contiguous()  # C′32 reads X as (n, nrhs)
     for t in TAGS:
         t1 = segs[2] if t >= 2 else None
         t2 = segs[3] if t == 3 else None
@@ -896,9 +964,8 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
     ``other_rows_ms`` (every other row alone), and C′64 ``one_column_ms``
     (every row, one active column of four).  C′32 also carries
     ``two_launches_ms`` (the two parts launched one after the other),
-    ``nrhs8_ms`` (eight columns, two passes), ``x_copy_ms`` (the copy of X
-    its earlier op made) and ``earlier_ms`` (its earlier design,
-    ``gse_spmm_sell_f32_earlier``, on the same inputs)."""
+    ``nrhs8_ms`` (eight columns, two passes) and ``x_copy_ms`` (the copy
+    of X its earlier op made)."""
     import numpy as np
     import torch
 
@@ -1022,11 +1089,6 @@ def sell_entries(ctx, add_entry, chain_bound_ms):
         # that an interleaved copy of X (C64's) would make.
         c32["x_copy_ms"] = cuda_ms(lambda: x32c.t().contiguous(), reps=5,
                                    inner=4)
-        c32["earlier_ms"] = cuda_ms(lambda: C.gse_spmm_sell_f32_earlier(
-            segs[0], segs[1], t1, t2, x32c, scales[t], tag=t, **lay), reps=2,
-            inner=2)
-        c32["earlier_design"] = ("gse_spmm_sell_f32_earlier: every row on a "
-                                 "warp, X (nrhs, n)")
         split["gse_spmm_sell_f64"]["one_column_ms"] = cuda_ms(
             lambda: C.gse_spmm_sell_f64(*segs, g.table, x64c, tags_t, one_on,
                                         long_from=long_from, device=dev,
@@ -2120,12 +2182,6 @@ def lm_entries(ctx, counts, twin_counts, add_entry):
                                                   body="ffma"), reps=2)
                 extra["earlier_design"] = ("flash_fwd_kernel (FFMA, "
                                            "register tiles) on bf16")
-        else:
-            extra["earlier_ms"] = cuda_ms(
-                lambda: F.flash_attention_gqa(q, k, v, causal=True,
-                                              body="ffma_rows"), reps=2)
-            extra["earlier_design"] = ("flash_fwd_rows_kernel (FFMA, four "
-                                       "threads a query row)")
         add_entry(f"flash_attention_gqa.{str(dt).split('.')[-1]}.causal"
                   f"{'' if label == 'phase11' else '.s' + str(s)}",
                   flash_src, "src/repro/kernels/flash_attn.py:76",
@@ -2144,10 +2200,35 @@ def lm_entries(ctx, counts, twin_counts, add_entry):
                   max_abs_err=ctx["err"]["F", label, dt], **extra)
 
 
+def ell_earlier(tree) -> dict:
+    """A32's and C32's times in the checkout ``tree`` on phase 2's operator:
+    tools/time_ell_kernels.py run there in a process of its own (it builds
+    that tree's kernels into its own build directory)."""
+    import torch
+
+    torch.cuda.empty_cache()  # room for the other process's operator
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "time_ell_kernels.py"),
+         "--tree", str(tree)], capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"time_ell_kernels.py on {tree} exited "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    log("kernels", earlier_tree=tree, earlier=json.dumps(res))
+    return res
+
+
 def main() -> int:
+    import argparse
+
     import numpy as np
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--earlier", type=Path, default=None,
+                    help="an earlier checkout whose A32 and C32 phase 10 "
+                         "times beside this tree's (earlier_ms)")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs the port on a GPU only")
@@ -2183,8 +2264,10 @@ def main() -> int:
                                       device=dev), 8.0, 21)
     g = pack_csr(csr)
     ell = ops.ell_pack_gsecsr(g)
+    row_len = ops.ell_row_lengths(g)  # A32 and C32 read only these slots
     torch.cuda.synchronize()
     log("parity", rows=g.shape[0], nnz=g.nnz, ell_width=ell[0].shape[1],
+        real_slot_share=g.nnz / ell[0].numel(),
         generate_pack_s=f"{time.perf_counter() - t0:.2f}")
     rng = np.random.default_rng(0)
     x32 = torch.from_numpy(rng.normal(size=N_FULL).astype(np.float32)).to(dev)
@@ -2195,12 +2278,11 @@ def main() -> int:
         t1 = ell[2] if t >= 2 else None
         t2 = ell[3] if t == 3 else None
         got = K.gse_spmv_ell_f32(ell[0], ell[1], t1, t2, x32, scales[t],
-                                 ei_bit=g.ei_bit, tag=t)
+                                 ei_bit=g.ei_bit, tag=t, row_len=row_len)
         want = K.gse_spmv_ell_f32_plain(ell[0], ell[1], t1, t2, x32,
                                         scales[t], ei_bit=g.ei_bit, tag=t)
-        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-4)
+        require_bitwise(f"A32 tag {t} against its plain version", got, want)
         a32_err[t] = float((got - want).abs().max())
-        a32_bitwise = torch.equal(got.view(torch.int32), want.view(torch.int32))
         args = (g.rowptr, g.colpak, g.head, g.tail1, g.tail2, g.table, x64)
         got = K.gse_spmv_csr_f64(*args, ei_bit=g.ei_bit, tag=t,
                                  plan=g.row_plan)
@@ -2209,8 +2291,7 @@ def main() -> int:
             bad = int((got.view(torch.int64) != want.view(torch.int64)).sum())
             raise AssertionError(f"A64 tag {t}: {bad} rows not bitwise equal")
         a64_err[t] = float((got - want).abs().max())
-        log("parity", tag=t, a32_max_abs_err=a32_err[t],
-            a32_tol="rtol 2e-5 atol 1e-4", a32_bitwise=a32_bitwise,
+        log("parity", tag=t, a32_max_abs_err=a32_err[t], a32_bitwise=True,
             a64_bitwise=True)
     u64 = torch.from_numpy(rng.normal(size=N_FULL)).to(dev)
     alpha = torch.tensor(rng.normal(), dtype=torch.float64, device=dev)
@@ -2232,24 +2313,29 @@ def main() -> int:
         rng.normal(size=(NRHS, N_FULL)).astype(np.float32)).to(dev)
     x64c = torch.from_numpy(rng.normal(size=(NRHS, N_FULL))).to(dev)
     y64c = torch.from_numpy(rng.normal(size=(NRHS, N_FULL))).to(dev)
+    x32n = x32c.t().contiguous()  # C32 and C′32 read X as (n, nrhs)
     c32_err = {}
     for t in TAGS:
         t1 = ell[2] if t >= 2 else None
         t2 = ell[3] if t == 3 else None
-        got = C.gse_spmm_ell_f32(ell[0], ell[1], t1, t2, x32c, scales[t],
-                                 ei_bit=g.ei_bit, tag=t)
-        want = C.gse_spmm_ell_f32_plain(ell[0], ell[1], t1, t2, x32c,
+        got = C.gse_spmm_ell_f32(ell[0], ell[1], t1, t2, x32n, scales[t],
+                                 ei_bit=g.ei_bit, tag=t, row_len=row_len)
+        want = C.gse_spmm_ell_f32_plain(ell[0], ell[1], t1, t2, x32n,
                                         scales[t], ei_bit=g.ei_bit, tag=t)
-        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-4)
+        for j in range(NRHS):
+            require_bitwise(f"C32 tag {t} column {j} against its plain "
+                            "version", got[:, j], want[:, j])
         c32_err[t] = float((got - want).abs().max())
-        one = C.gse_spmm_ell_f32(ell[0], ell[1], t1, t2, x32[None], scales[t],
-                                 ei_bit=g.ei_bit, tag=t)
+        one = C.gse_spmm_ell_f32(ell[0], ell[1], t1, t2, x32[:, None],
+                                 scales[t], ei_bit=g.ei_bit, tag=t,
+                                 row_len=row_len)
         a32 = K.gse_spmv_ell_f32(ell[0], ell[1], t1, t2, x32, scales[t],
-                                 ei_bit=g.ei_bit, tag=t)
+                                 ei_bit=g.ei_bit, tag=t, row_len=row_len)
         require_bitwise(f"C32 tag {t} at nrhs=1 against A32", one[:, 0], a32)
         log("parity", kernel="gse_spmm_ell_f32", tag=t, nrhs=NRHS,
-            max_abs_err=c32_err[t], tol="rtol 2e-5 atol 1e-4",
-            bitwise=bitwise(got, want), nrhs1_bitwise_a32=True)
+            max_abs_err=c32_err[t], bitwise_per_column=True,
+            nrhs1_bitwise_a32=True)
+    ell_padding_nan("main", g, ell, x32, x32n, scales)
     c64_tags = torch.tensor([1, 2, 3, 1], dtype=torch.int32, device=dev)
     c64_active = torch.tensor([True, True, True, False], device=dev)
     segs = (g.rowptr, g.colpak, g.head, g.tail1, g.tail2, g.table)
@@ -2329,7 +2415,8 @@ def main() -> int:
     a32_launches = {}
     for t in TAGS:
         before = K.gse_spmv_ell_f32.launches
-        y = ops.gse_spmv_ell(ell_main, g.table, x32, g.ei_bit, tag=t)
+        y = ops.gse_spmv_ell(ell_main, g.table, x32, g.ei_bit, tag=t,
+                             row_len=ops.ell_row_lengths(g))
         a32_launches[t] = K.gse_spmv_ell_f32.launches - before
         if y.shape != (N_FULL,) or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"gse_spmv_ell tag {t}: bad output")
@@ -2408,7 +2495,8 @@ def main() -> int:
     c32_launches = {}
     for t in TAGS:
         before = C.gse_spmm_ell_f32.launches
-        y = ops.gse_spmm_ell(ell_main, g.table, x32c.t(), g.ei_bit, tag=t)
+        y = ops.gse_spmm_ell(ell_main, g.table, x32c.t(), g.ei_bit, tag=t,
+                             row_len=ops.ell_row_lengths(g))
         c32_launches[t] = C.gse_spmm_ell_f32.launches - before
         if y.shape != (N_FULL, NRHS) or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"gse_spmm_ell tag {t}: bad output")
@@ -2528,8 +2616,8 @@ def main() -> int:
 
     spmv_src = "src/repro_torch/kernels/csrc/gse_spmv.cu"
     spmm_src = "src/repro_torch/kernels/csrc/gse_spmm.cu"
-    x32n = x32c.t().contiguous()  # (n, nrhs) blocks for the library SpMM
-    x64n = x64c.t().contiguous()
+    x64n = x64c.t().contiguous()  # an (n, nrhs) block for the library SpMM
+    earlier = ell_earlier(opts.earlier) if opts.earlier else None
     all_on = torch.ones(NRHS, dtype=torch.bool, device=dev)
     for t in TAGS:
         t1 = ell[2] if t >= 2 else None
@@ -2546,8 +2634,9 @@ def main() -> int:
         for (name, src, replaces, launch, plain, lib, xb, ncols, ops_rate,
              err_t, count) in (
             ("gse_spmv_ell_f32", spmv_src, "src/repro/kernels/gse_spmv.py:160",
-             lambda: K.gse_spmv_ell_f32(ell[0], ell[1], t1, t2, x32, scales[t],
-                                        ei_bit=g.ei_bit, tag=t),
+             lambda lanes=K.ELL_LANES_DEFAULT: K.gse_spmv_ell_f32(
+                 ell[0], ell[1], t1, t2, x32, scales[t], ei_bit=g.ei_bit,
+                 tag=t, row_len=row_len, lanes=lanes),
              lambda: K.gse_spmv_ell_f32_plain(ell[0], ell[1], t1, t2, x32,
                                               scales[t], ei_bit=g.ei_bit,
                                               tag=t),
@@ -2560,9 +2649,10 @@ def main() -> int:
              lambda: torch.mv(lib64, x64), 8, 1, FP64_OPS_PER_S, a64_err[t],
              a64_launches),
             ("gse_spmm_ell_f32", spmm_src, "src/repro/kernels/gse_spmm.py:137",
-             lambda: C.gse_spmm_ell_f32(ell[0], ell[1], t1, t2, x32c,
-                                        scales[t], ei_bit=g.ei_bit, tag=t),
-             lambda: C.gse_spmm_ell_f32_plain(ell[0], ell[1], t1, t2, x32c,
+             lambda lanes=K.ELL_LANES_DEFAULT: C.gse_spmm_ell_f32(
+                 ell[0], ell[1], t1, t2, x32n, scales[t], ei_bit=g.ei_bit,
+                 tag=t, row_len=row_len, lanes=lanes),
+             lambda: C.gse_spmm_ell_f32_plain(ell[0], ell[1], t1, t2, x32n,
                                               scales[t], ei_bit=g.ei_bit,
                                               tag=t),
              lambda: torch.mm(lib32, x32n), 4, NRHS, FP32_OPS_PER_S,
@@ -2586,6 +2676,21 @@ def main() -> int:
                 extra["body_launches"] = a64_body_launches
             if name == "gse_spmm_csr_f64":
                 extra["body_launches"] = c64_body_launches
+            if name.endswith("ell_f32"):
+                # The sweep of the lanes a row runs on (the default picked
+                # from it), and the earlier tree's time on this operator.
+                extra["lanes"] = K.ELL_LANES_DEFAULT
+                extra["lanes_ms"] = {
+                    lanes: cuda_ms(lambda lanes=lanes: launch(lanes),
+                                   reps=10, inner=10)
+                    for lanes in K.ELL_LANES}
+                extra["real_slots_only"] = True
+                if earlier is not None:  # the earlier tree's one run
+                    extra["earlier_ms"] = next(iter(
+                        earlier[name].values()))[str(t)]
+                    extra["earlier_design"] = (
+                        "every slot of the 128-wide row on a warp"
+                        + (", X (nrhs, n)" if ncols > 1 else ""))
             add_entry(f"{name}.tag{t}", src, replaces, launch, plain, lib,
                       g.bytes_touched(t) + ncols * (m + n) * xb,
                       nops / ops_rate * 1e3, **extra)

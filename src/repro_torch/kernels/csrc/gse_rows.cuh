@@ -4,12 +4,20 @@
 // flat slot `base`; the callers differ only in how they find a row's slots
 // and where they write its result, so B cannot drift from A, nor C' from C.
 //
-// * warp_row_f32 / warp_row_cols_f32 (A32, B32's other rows / C32, C'32's
-//   other rows): one warp per row, lane l adds slots l, l+32, ... of the
-//   row's `width` from 0.0, then the warp's shuffle tree; the result is
-//   valid in lane 0.  The column body reads C32's X as (columns, n) and
-//   C'32's as (n, nrhs) row-major, a slot's four columns in one 16-byte
-//   load.
+// * group_row_f32 (A32, C32) and warp_row_f32 / warp_row_cols_f32 (B32's
+//   / C'32's other rows, the same walk on 32 lanes): for each
+//   column of a pass, the sum of the warp's 32 lane chains, lane l adding
+//   slots l, l+32, ... from 0.0, then the warp's shuffle tree (offsets 16,
+//   8, 4, 2, 1), on a group of G lanes: lane g of the group carries the
+//   chains of lanes g, g+G, ..., and the tree's offsets of G and more add
+//   within a lane, so the sum is the same on any G.  The SELL warp rows
+//   run 32 lanes over the bucket width (padding included); A32 and C32
+//   run `lanes` lanes over each row's real slots (`len`), and a row with
+//   padding
+//   adds the product a padded slot would (pad_products_f32: +-0.0 for a
+//   finite x[0], so a chain from +0.0 keeps its bits, and NaN otherwise,
+//   as the padded walk gives).  X is (n, nrhs) row-major (A32 and B32:
+//   one column), a slot's four columns in one 16-byte load.
 // * block_lanes_f32 / block_lanes_cols_f32 (B32's / C'32's long rows): the
 //   same 32 lane chains and shuffle tree on one block.  Warps 1..7 decode
 //   and multiply the row's slots a chunk ahead into shared memory
@@ -54,7 +62,8 @@
 //   Slots past a row's end (and inactive columns) hold +0.0, which the
 //   chains add unconditionally: a chain from +0.0 never holds -0.0, so
 //   adding +0.0 changes no bit, and the adds need no predicate.  The same
-//   holds for the f32 lane chains of block_lanes_f32.
+//   holds for the f32 lane chains of block_lanes_f32 and for the +-0.0 a
+//   padded slot adds to group_row_f32's.
 
 #pragma once
 
@@ -65,39 +74,89 @@
 
 namespace gse {
 
-constexpr int kCols = 8;  // right-hand-side columns per SpMM pass (registers)
-// Columns per pass of C'64: the solve service's slot width.  A warp row
-// broadcasts every product with a shuffle per column, and a long row's
-// block chain adds each column on a lane of its own, so a pass carries no
-// column it does not need.
+// Columns per pass of C32, C'32, C64 and C'64: the solve service's slot
+// width.  A warp row broadcasts every product with a shuffle per column,
+// and a long row's block chain adds each column on a lane of its own, so
+// a pass carries no column it does not need; C32 and C'32 read a slot's
+// four x values in one 16-byte load (a pass of eight was slower at nrhs 4).
 constexpr int kColsWarp = 4;
 
-template <int TAG>
-__device__ __forceinline__ float warp_row_f32(
-    int64_t base, int width, int lane, const uint32_t* __restrict__ colpak,
-    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
-    const uint32_t* __restrict__ tail2, const float* __restrict__ x,
-    const float* __restrict__ scales, int shift, uint32_t mask) {
-  float acc = 0.0f;
-  for (int j = lane; j < width; j += 32) {
-    const int64_t k = base + j;
-    const uint32_t cp = __ldg(colpak + k);
-    const float val = decode_f32<TAG>(
-        __ldg(head + k), TAG >= 2 ? __ldg(tail1 + k) : 0u,
-        TAG == 3 ? __ldg(tail2 + k) : 0u, __ldg(scales + (cp >> shift)));
-    acc = __fadd_rn(acc, __fmul_rn(val, __ldg(x + (cp & mask))));
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
-  }
-  return acc;
+// The segments of one slot, loaded ahead of their use (zeros past the row).
+struct Slot {
+  uint32_t cp, h, t1, t2;
+};
+
+// A read-only load; with CS a streaming one (__ldcs, evict first), for
+// segments read once, which leaves the caches to the gathered x.
+template <bool CS, typename T>
+__device__ __forceinline__ T ld_seg(const T* __restrict__ p) {
+  return CS ? __ldcs(p) : __ldg(p);
 }
 
-// C'32's x values of a pass's N columns at matrix column `col` of an
-// (n, ldx) row-major X whose pass starts at xg, into xv (0.0 for the
-// columns past nc, and for all of them unless `ok`): a slot's columns
-// share one 32-byte sector.  `vec` (N % 4 == 0, every pass full and every
-// row 16-byte aligned) loads four columns at once.
+template <int TAG, bool CS = false>
+__device__ __forceinline__ Slot load_slot(
+    int64_t k, bool ok, const uint32_t* __restrict__ colpak,
+    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
+    const uint32_t* __restrict__ tail2) {
+  Slot s;
+  s.cp = ok ? ld_seg<CS>(colpak + k) : 0u;
+  s.h = ok ? (uint32_t)ld_seg<CS>(head + k) : 0u;
+  s.t1 = (TAG >= 2 && ok) ? (uint32_t)ld_seg<CS>(tail1 + k) : 0u;
+  s.t2 = (TAG == 3 && ok) ? ld_seg<CS>(tail2 + k) : 0u;
+  return s;
+}
+
+// The ELL operands of A32 and C32 (gse_spmv.cu, gse_spmm.cu): the (rows,
+// width) row-major segments, x (A32: (n,); C32: (n, nrhs) row-major),
+// the f32 scale table, each row's real slot count `row_len` (the CSR's
+// diff(rowptr)) and y.
+struct EllF32 {
+  const uint32_t* colpak;
+  const uint16_t* head;
+  const uint16_t* tail1;
+  const uint32_t* tail2;
+  const float* x;
+  const float* scales;
+  const int32_t* row_len;
+  float* y;
+  int64_t rows;
+  int width;
+  int shift;
+  uint32_t mask;
+};
+
+// Row `row`'s real slot count (0 past the last row), clipped to the ELL
+// width so a bad length cannot read past its row.
+__device__ __forceinline__ int ell_row_len(const EllF32& a, int64_t row) {
+  if (row >= a.rows) return 0;
+  const int len = __ldg(a.row_len + row);
+  return len < 0 ? 0 : (len > a.width ? a.width : len);
+}
+
+// The warp's shuffle tree (offsets 16, 8, 4, 2, 1) over the 32 lane sums
+// of a row held by a group of G lanes, lane g holding virtual lanes
+// g + G k in acc[k]: the offsets 16 .. G add within the lane, the rest by
+// shuffles within the group.  Valid in the group's lane 0.
+template <int G, int K>
+__device__ __forceinline__ float lane_tree(float (&acc)[K]) {
+  static_assert(G * K == 32, "a group's lanes carry the warp's 32 lanes");
+#pragma unroll
+  for (int h = K / 2; h > 0; h >>= 1) {
+#pragma unroll
+    for (int k = 0; k < h; ++k) acc[k] = __fadd_rn(acc[k], acc[k + h]);
+  }
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    acc[0] = __fadd_rn(acc[0], __shfl_down_sync(0xffffffffu, acc[0], off, G));
+  }
+  return acc[0];
+}
+
+// The x values of a pass's N columns at matrix column `col` of an (n,
+// ldx) row-major X whose pass starts at xg, into xv (0.0 for the columns
+// past nc, and for all of them unless `ok`): a slot's columns share one
+// 32-byte sector.  `vec` (N % 4 == 0, every pass full and every row
+// 16-byte aligned) loads four columns at once.
 template <int N>
 __device__ __forceinline__ void x_row_f32(const float* __restrict__ xg,
                                           int64_t ldx, uint32_t col, int nc,
@@ -119,17 +178,128 @@ __device__ __forceinline__ void x_row_f32(const float* __restrict__ xg,
   }
 }
 
-// warp_row_f32's walk for the `nc` (<= N) columns of a pass; each slot is
-// decoded once for every column.  Column c's x at matrix column `col` is
-// xg[col * ldc + c * ldr]: C32 reads X as (columns, n) (ldc 1, ldr n),
-// C'32 as (n, nrhs) row-major (ldc nrhs, ldr 1; with `vec`, x_row_f32's
-// 16-byte loads).
+// For each of the pass's N columns (x_row_f32's layout), the product a
+// padded ELL slot (colpak 0, head 0) would add when `padded`, else 0.0:
+// the decoded +0.0 times the column's x[0], so +-0.0 when x[0] and
+// scales[0] are finite and NaN otherwise.  Added once to a row that has
+// padding, it gives that row the padded walk's NaN without reading a
+// padded slot.
+template <int TAG, int N>
+__device__ __forceinline__ void pad_products_f32(
+    const float* __restrict__ xg, int64_t ldx, int nc, bool vec,
+    const float* __restrict__ scales, bool padded, float (&pad)[N]) {
+  float x0[N];
+  x_row_f32<N>(xg, ldx, 0u, nc, vec, padded, x0);
+  const float v0 = padded ? decode_f32<TAG>(0u, 0u, 0u, __ldg(scales)) : 0.0f;
+#pragma unroll
+  for (int c = 0; c < N; ++c) pad[c] = padded ? __fmul_rn(v0, x0[c]) : 0.0f;
+}
+
+// One row's sums for the `nc` (<= N) columns of a pass of an (n, ldx)
+// row-major X whose pass starts at xg, each in the lane order of A32's
+// plain version, on a group of G lanes (G a power of two dividing 32, the
+// group aligned in its warp): virtual lane v (0..31) adds the slots v,
+// v+32, ... below `len` from 0.0 (column c's virtual lane 0 from 0.0 +
+// pad[c]), and lane g of the group carries virtual lanes g, g+G, ... (K
+// = 32 / G chains a column), so its slots are g, g+G, g+2G, ... in turn:
+// coalesced across the group, K segment loads and K gathers in flight at
+// once.  Each slot is decoded once for every column (x_row_f32: with
+// `vec`, a slot's four columns in one 16-byte load); each column ends in
+// its own lane_tree.  The segments are streamed (ld_seg's CS: on the
+// uniform operator that cut C32's time and left A32's).  `len` may be
+// below the stored width: the slots past it are never read (pad stands
+// for them).  out[c] is valid in the group's lane 0; every lane of the
+// warp must call it.
+template <int TAG, int G, int N>
+__device__ __forceinline__ void group_row_f32(
+    int64_t base, int len, int g, const float (&pad)[N],
+    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
+    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
+    const float* __restrict__ xg, int64_t ldx, int nc, bool vec,
+    const float* __restrict__ scales, int shift, uint32_t mask,
+    float (&out)[N]) {
+  constexpr int K = 32 / G;
+  float acc[K][N];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) acc[k][c] = 0.0f;
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) acc[0][c] = __fadd_rn(0.0f, pad[c]);
+  }
+  for (int j0 = 0; j0 < len; j0 += 32) {
+    Slot sl[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = j0 + g + G * k;
+      sl[k] = load_slot<TAG, true>(base + j, j < len, colpak, head, tail1,
+                                   tail2);
+    }
+    float sc[K], xv[K][N];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const bool ok = j0 + g + G * k < len;
+      sc[k] = ok ? __ldg(scales + (sl[k].cp >> shift)) : 0.0f;
+      x_row_f32<N>(xg, ldx, sl[k].cp & mask, nc, vec, ok, xv[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (j0 + g + G * k < len) {
+        const float val = decode_f32<TAG>(sl[k].h, sl[k].t1, sl[k].t2, sc[k]);
+#pragma unroll
+        for (int c = 0; c < N; ++c) {
+          acc[k][c] = __fadd_rn(acc[k][c], __fmul_rn(val, xv[k][c]));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    float col[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) col[k] = acc[k][c];
+    out[c] = lane_tree<G, K>(col);
+  }
+}
+
+// B32's and C'32's other rows (gse_sell.cu): group_row_f32's sum on a whole
+// warp (G = 32) over the bucket width, padding included, written for that
+// case.  The SELL warp rows on group_row_f32 itself ran slower at tags 2-3
+// (B32 on the skewed operator 0.30/0.41 ms against 0.26/0.28; NVIDIA H100
+// 80GB HBM3, 700 W), where the long-row blocks' registers leave few warps
+// an SM beside them.
+template <int TAG>
+__device__ __forceinline__ float warp_row_f32(
+    int64_t base, int width, int lane, const uint32_t* __restrict__ colpak,
+    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
+    const uint32_t* __restrict__ tail2, const float* __restrict__ x,
+    const float* __restrict__ scales, int shift, uint32_t mask) {
+  float acc = 0.0f;
+  for (int j = lane; j < width; j += 32) {
+    const int64_t k = base + j;
+    const uint32_t cp = __ldg(colpak + k);
+    const float val = decode_f32<TAG>(
+        __ldg(head + k), TAG >= 2 ? __ldg(tail1 + k) : 0u,
+        TAG == 3 ? __ldg(tail2 + k) : 0u, __ldg(scales + (cp >> shift)));
+    acc = __fadd_rn(acc, __fmul_rn(val, __ldg(x + (cp & mask))));
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
+  }
+  return acc;
+}
+
+// warp_row_f32's walk for the `nc` (<= N) columns of a pass of an (n,
+// ldx) row-major X whose pass starts at xg; each slot is decoded once for
+// every column (with `vec`, x_row_f32's 16-byte loads).
 template <int TAG, int N>
 __device__ __forceinline__ void warp_row_cols_f32(
     int64_t base, int width, int lane, const uint32_t* __restrict__ colpak,
     const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
     const uint32_t* __restrict__ tail2, const float* __restrict__ xg,
-    int64_t ldc, int64_t ldr, int nc, bool vec,
+    int64_t ldx, int nc, bool vec,
     const float* __restrict__ scales, int shift, uint32_t mask,
     float (&acc)[N]) {
 #pragma unroll
@@ -142,19 +312,18 @@ __device__ __forceinline__ void warp_row_cols_f32(
         TAG == 3 ? __ldg(tail2 + k) : 0u, __ldg(scales + (cp >> shift)));
     if (N % 4 == 0 && vec) {
       float xv[N];
-      x_row_f32<N>(xg, ldc, cp & mask, nc, true, true, xv);
+      x_row_f32<N>(xg, ldx, cp & mask, nc, true, true, xv);
 #pragma unroll
       for (int c = 0; c < N; ++c) {
         acc[c] = __fadd_rn(acc[c], __fmul_rn(val, xv[c]));
       }
     } else {
-      // Only the pass's columns: C32 carries kCols, most of them idle at
-      // the service's four.
-      const float* src = xg + (int64_t)(cp & mask) * ldc;
+      // Only the pass's columns.
+      const float* src = xg + (int64_t)(cp & mask) * ldx;
 #pragma unroll
       for (int c = 0; c < N; ++c) {
         if (c < nc) {
-          acc[c] = __fadd_rn(acc[c], __fmul_rn(val, __ldg(src + c * ldr)));
+          acc[c] = __fadd_rn(acc[c], __fmul_rn(val, __ldg(src + c)));
         }
       }
     }
@@ -188,24 +357,6 @@ __device__ __forceinline__ int column_tags(
     }
   }
   return maxtag;
-}
-
-// The segments of one slot, loaded ahead of their use (zeros past the row).
-struct Slot {
-  uint32_t cp, h, t1, t2;
-};
-
-template <int TAG>
-__device__ __forceinline__ Slot load_slot(
-    int64_t k, bool ok, const uint32_t* __restrict__ colpak,
-    const uint16_t* __restrict__ head, const uint16_t* __restrict__ tail1,
-    const uint32_t* __restrict__ tail2) {
-  Slot s;
-  s.cp = ok ? __ldg(colpak + k) : 0u;
-  s.h = ok ? (uint32_t)__ldg(head + k) : 0u;
-  s.t1 = (TAG >= 2 && ok) ? (uint32_t)__ldg(tail1 + k) : 0u;
-  s.t2 = (TAG == 3 && ok) ? __ldg(tail2 + k) : 0u;
-  return s;
 }
 
 // One row's sum on one warp (see the top of the file); valid in every lane.

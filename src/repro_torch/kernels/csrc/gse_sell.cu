@@ -57,9 +57,8 @@
 //   warp each (warp_row_cols_f32).  Every column keeps A32's lane order,
 //   so per column bitwise C32, at nrhs = 1 bitwise B32.  The earlier design
 //   (every row on a warp, X as (nrhs, n), a slot's columns in four
-//   sectors) is kept as gse_spmm_sell_f32_earlier, only to time against:
-//   13.34/7.29/7.77 ms on the skewed operator at nrhs 4 (NVIDIA H100 80GB
-//   HBM3, 700 W), 5-10x cuSPARSE.
+//   sectors) took 13.34/7.29/7.77 ms on the skewed operator at nrhs 4
+//   (NVIDIA H100 80GB HBM3, 700 W), 5-10x cuSPARSE.
 // * C'64 (`gse_spmm_sell_f64`, spmm_gse over a GSESellC, the batched CG
 //   operator): B64's bodies for every column, with C64's per-column device
 //   tags and active flags, the segments of the highest active tag loaded
@@ -102,9 +101,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 using gse::kChainThreads;
-using gse::kCols;
 using gse::kColsWarp;
 
 // First flat slot and width of bucket row r.  `tab` holds one row
@@ -247,42 +244,11 @@ __global__ void __launch_bounds__(kChainThreads) spmm_sell_f32_kernel(
   int width;
   const int64_t base = locate(tab, nb, row, width);
   gse::warp_row_cols_f32<TAG, kColsWarp>(base, width, lane, colpak, head,
-                                         tail1, tail2, xg, nrhs, 1, nc,
+                                         tail1, tail2, xg, nrhs, nc,
                                          vec != 0, scales, shift, mask, acc);
   if (lane == 0) {
 #pragma unroll
     for (int c = 0; c < kColsWarp; ++c) {
-      if (c < nc) y[(int64_t)dst * nrhs + c0 + c] = acc[c];
-    }
-  }
-}
-
-// C'32's earlier design, kept only to time the one above against it: every
-// row on a warp (the hubs too), X read as (nrhs, n), passes of kCols.
-template <int TAG>
-__global__ void __launch_bounds__(kThreads) spmm_sell_f32_earlier_kernel(
-    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
-    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
-    const float* __restrict__ x, const float* __restrict__ scales,
-    float* __restrict__ y, const int64_t* __restrict__ tab, int nb,
-    const int32_t* __restrict__ perm, int64_t rows_pad, int64_t n, int nrhs,
-    int shift, uint32_t mask) {
-  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows_pad) return;  // uniform across the warp
-  const int dst = __ldg(perm + row);
-  if (dst < 0) return;
-  const int c0 = blockIdx.y * kCols;
-  const int nc = nrhs - c0 < kCols ? nrhs - c0 : kCols;
-  int width;
-  const int64_t base = locate(tab, nb, row, width);
-  float acc[kCols];
-  gse::warp_row_cols_f32<TAG, kCols>(base, width, lane, colpak, head, tail1,
-                                     tail2, x + (int64_t)c0 * n, 1, n, nc,
-                                     false, scales, shift, mask, acc);
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
       if (c < nc) y[(int64_t)dst * nrhs + c0 + c] = acc[c];
     }
   }
@@ -461,45 +427,6 @@ extern "C" int gse_spmm_sell_f32(int tag, const void* colpak, const void* head,
     spmm_sell_f32_kernel<3><<<grid, kChainThreads, 0, s>>>(
         cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, nrhs,
         vec, shift, mask);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// The earlier design of gse_spmm_sell_f32 (timing only): Y (m, nrhs) f32,
-// X (nrhs, n) f32.
-extern "C" int gse_spmm_sell_f32_earlier(
-    int tag, const void* colpak, const void* head, const void* tail1,
-    const void* tail2, const void* x, const void* scales, void* y,
-    const void* tab, int nb, const void* perm, long long rows_pad,
-    long long n, int nrhs, int ei_bit, void* stream) {
-  const int shift = 32 - ei_bit;
-  const uint32_t mask = (1u << shift) - 1u;
-  const dim3 grid((unsigned)((rows_pad * 32 + kThreads - 1) / kThreads),
-                  (unsigned)((nrhs + kCols - 1) / kCols));
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t* cp = (const uint32_t*)colpak;
-  const uint16_t* hd = (const uint16_t*)head;
-  const uint16_t* t1 = (const uint16_t*)tail1;
-  const uint32_t* t2 = (const uint32_t*)tail2;
-  const float* xs = (const float*)x;
-  const float* sc = (const float*)scales;
-  float* out = (float*)y;
-  const int64_t* tb = (const int64_t*)tab;
-  const int32_t* pm = (const int32_t*)perm;
-  if (tag == 1) {
-    spmm_sell_f32_earlier_kernel<1><<<grid, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, n, nrhs, shift,
-        mask);
-  } else if (tag == 2) {
-    spmm_sell_f32_earlier_kernel<2><<<grid, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, n, nrhs, shift,
-        mask);
-  } else if (tag == 3) {
-    spmm_sell_f32_earlier_kernel<3><<<grid, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, n, nrhs, shift,
-        mask);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -4,10 +4,8 @@
 // bodies `_spmm_body_tag1/2/3` and `_accumulate`, `pallas_call` :137).  As
 // there, each stored entry is decoded once and the decoded value serves
 // every right-hand-side column; the decode is `gse_decode.cuh`, shared with
-// the SpMV (kernel A) so the two cannot drift.  X arrives as (nrhs, n), so
-// each column's gather reads one contiguous vector, as the Pallas kernel's
-// (nrhs, N) block does.  A pass over the matrix serves kCols (8, C32) or
-// kColsWarp (4, C64) columns; wider batches take one more pass per group
+// the SpMV (kernel A) so the two cannot drift.  A pass over the matrix
+// serves kColsWarp (4) columns; wider batches take one more pass per group
 // (grid.y).
 //
 // What bounds it: HBM bytes.  An SpMM at nrhs columns does 2 * nrhs flops
@@ -19,10 +17,17 @@
 // `iteration_stream_bytes(nrhs=)` made literal.
 //
 // * C32 (`gse_spmm_ell_f32`): f32 over the uniform ELL arrays of
-//   `ell_pack_gsecsr`, the function the Pallas kernel computes.  One warp
-//   per row as in A32; lane l adds slots l, l+32, ... from 0.0 for every
-//   column, then A32's shuffle tree per column, so at nrhs = 1 the result
-//   is bitwise A32's.  Y is (m, nrhs).
+//   `ell_pack_gsecsr`, the function the Pallas kernel computes.  A32's
+//   walk for the columns of a pass (group_row_f32): each row on a
+//   group of `lanes` lanes over its `row_len` real slots, each slot decoded
+//   once for every column, each column on its own lane chains and tree,
+//   so column j is bitwise A32 on column j.  X is (n, nrhs) row-major, as
+//   the caller holds it, so a slot's four x values share one 32-byte
+//   sector and arrive in one 16-byte load (C'32's x_row_f32); Y is (m,
+//   nrhs).  The first design walked all 128 slots of a row on a warp and
+//   read X as (nrhs, n), four sectors a slot: 0.88/0.97/1.08 ms at nrhs 4
+//   on the uniform operator, 20-14x its byte bound and up to 1.065x
+//   cuSPARSE (NVIDIA H100 80GB HBM3, 700 W).
 //
 // * C64 (`gse_spmm_csr_f64`): f64 over the CSR rows, the operator of the
 //   batched stepped CG loop.  Each column j carries its own tag (device
@@ -69,8 +74,6 @@
 //   apart, and a dense row waited on a load at every step): 0.98/1.20/
 //   1.65 ms on the uniform operator, 18.5-19.4x its byte bound.
 //
-// C32 keeps A32's warp row.
-//
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
@@ -84,32 +87,57 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = gse::kChainThreads / 32;  // C64's warp rows a block
-using gse::kCols;
 using gse::kColsWarp;
 
-template <int TAG>
+// C32: rows on groups of G lanes (group_row_f32), 256 / G rows a
+// block; grid.y walks the passes of kColsWarp columns of the (n, nrhs)
+// row-major X.
+template <int TAG, int G>
 __global__ void __launch_bounds__(kThreads) spmm_ell_f32_kernel(
-    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
-    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
-    const float* __restrict__ x, const float* __restrict__ scales,
-    float* __restrict__ y, int64_t rows, int width, int64_t n, int nrhs,
-    int shift, uint32_t mask) {
-  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // uniform across the warp
-  const int c0 = blockIdx.y * kCols;
-  const int nc = nrhs - c0 < kCols ? nrhs - c0 : kCols;
-  float acc[kCols];
-  gse::warp_row_cols_f32<TAG, kCols>(row * (int64_t)width, width, lane,
-                                     colpak, head, tail1, tail2,
-                                     x + (int64_t)c0 * n, 1, n, nc, false,
-                                     scales, shift, mask, acc);
-  if (lane == 0) {
+    const gse::EllF32 a, int nrhs, int vec) {
+  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const int g = threadIdx.x & (G - 1);
+  const int len = gse::ell_row_len(a, row);
+  const int c0 = blockIdx.y * kColsWarp;
+  const int nc = nrhs - c0 < kColsWarp ? nrhs - c0 : kColsWarp;
+  const float* xg = a.x + c0;
+  float pad[kColsWarp], acc[kColsWarp];
+  gse::pad_products_f32<TAG, kColsWarp>(xg, nrhs, nc, vec != 0, a.scales,
+                                        len < a.width, pad);
+  gse::group_row_f32<TAG, G, kColsWarp>(
+      row * (int64_t)a.width, len, g, pad, a.colpak, a.head, a.tail1,
+      a.tail2, xg, nrhs, nc, vec != 0, a.scales, a.shift, a.mask, acc);
+  if (g == 0 && row < a.rows) {
+    float* dst = a.y + row * nrhs + c0;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    } else {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      if (c < nc) y[row * nrhs + c0 + c] = acc[c];
+      for (int c = 0; c < kColsWarp; ++c) {
+        if (c < nc) dst[c] = acc[c];
+      }
     }
   }
+}
+
+template <int G>
+int spmm_ell_f32_on(int tag, const gse::EllF32& a, int nrhs, int vec,
+                    cudaStream_t s) {
+  const long long blocks = (a.rows * G + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks,
+                  (unsigned)((nrhs + kColsWarp - 1) / kColsWarp));
+  if (tag == 1) {
+    spmm_ell_f32_kernel<1, G><<<grid, kThreads, 0, s>>>(a, nrhs, vec);
+  } else if (tag == 2) {
+    spmm_ell_f32_kernel<2, G><<<grid, kThreads, 0, s>>>(a, nrhs, vec);
+  } else if (tag == 3) {
+    spmm_ell_f32_kernel<3, G><<<grid, kThreads, 0, s>>>(a, nrhs, vec);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // X (nrhs, n) into C64's interleaved copy xi: pass p's kColsWarp values of
@@ -199,37 +227,34 @@ __global__ void __launch_bounds__(gse::kChainThreads, 3) spmm_csr_f64_kernel(
 
 }  // namespace
 
-// Y (m, nrhs) = A X over ELL segments at `tag`; X is (nrhs, n) f32.
-extern "C" int gse_spmm_ell_f32(int tag, const void* colpak, const void* head,
-                                const void* tail1, const void* tail2,
-                                const void* x, const void* scales, void* y,
-                                long long rows, int width, long long n,
-                                int nrhs, int ei_bit, void* stream) {
+// Y (m, nrhs) f32 = A X over the (rows, width) ELL segments at `tag`, each
+// row over its row_len[row] real slots, on groups of `lanes` lanes; X is
+// (n, nrhs) f32, row-major.
+extern "C" int gse_spmm_ell_f32(int tag, int lanes, const void* colpak,
+                                const void* head, const void* tail1,
+                                const void* tail2, const void* x,
+                                const void* scales, const void* row_len,
+                                void* y, long long rows, int width, int nrhs,
+                                int ei_bit, void* stream) {
+  if (nrhs <= 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0) return (int)cudaGetLastError();
   const int shift = 32 - ei_bit;
-  const uint32_t mask = (1u << shift) - 1u;
-  const dim3 grid((unsigned)((rows * 32 + kThreads - 1) / kThreads),
-                  (unsigned)((nrhs + kCols - 1) / kCols));
+  const gse::EllF32 a{(const uint32_t*)colpak, (const uint16_t*)head,
+                      (const uint16_t*)tail1, (const uint32_t*)tail2,
+                      (const float*)x, (const float*)scales,
+                      (const int32_t*)row_len, (float*)y, rows, width, shift,
+                      (1u << shift) - 1u};
+  // Four columns of a slot in one 16-byte load: every pass full, every row
+  // of X 16-byte aligned.
+  const int vec = nrhs % kColsWarp == 0 && (uintptr_t)x % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t* cp = (const uint32_t*)colpak;
-  const uint16_t* hd = (const uint16_t*)head;
-  const uint16_t* t1 = (const uint16_t*)tail1;
-  const uint32_t* t2 = (const uint32_t*)tail2;
-  const float* xs = (const float*)x;
-  const float* sc = (const float*)scales;
-  float* out = (float*)y;
-  if (tag == 1) {
-    spmm_ell_f32_kernel<1><<<grid, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, rows, width, n, nrhs, shift, mask);
-  } else if (tag == 2) {
-    spmm_ell_f32_kernel<2><<<grid, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, rows, width, n, nrhs, shift, mask);
-  } else if (tag == 3) {
-    spmm_ell_f32_kernel<3><<<grid, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, rows, width, n, nrhs, shift, mask);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  switch (lanes) {
+    case 4: return spmm_ell_f32_on<4>(tag, a, nrhs, vec, s);
+    case 8: return spmm_ell_f32_on<8>(tag, a, nrhs, vec, s);
+    case 16: return spmm_ell_f32_on<16>(tag, a, nrhs, vec, s);
+    case 32: return spmm_ell_f32_on<32>(tag, a, nrhs, vec, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // Y (nrhs, m) = A X over CSR segments, column j at tags[j] when active[j];

@@ -15,11 +15,24 @@
 //
 // * A32 (`gse_spmv_ell_f32`): f32 decode and sums over the uniform ELL
 //   arrays of `ell_pack_gsecsr`, the same function as the Pallas kernel.
-//   One warp per row, lanes striding along L, so each segment load is
-//   coalesced; a warp shuffle replaces the 128 lane partials the TPU kernel
-//   summed after its grid.  The decode keeps `decode_tile`'s operation
-//   order with round-to-nearest intrinsics; the row sum may use any order.
-//
+//   The sum is the plain version's: 32 lane chains (lane l adds slots l,
+//   l+32, ... from 0.0), then the warp's shuffle tree; the decode keeps
+//   `decode_tile`'s operation order with round-to-nearest intrinsics.
+//   The ELL width is the TPU's: the longest row rounded up to 128 lanes,
+//   so on the uniform operator (17 entries a row, 35 at most) 87% of the
+//   slots are padding.  A warp that walked all of a row's 128 slots
+//   (the first design) streamed 7.5x the bytes the real slots hold, at
+//   80-88% of the HBM rate (0.29/0.40/0.55 ms at tags 1/2/3, 1.9-3.5x
+//   cuSPARSE; NVIDIA H100 80GB HBM3, 700 W).  So each row reads only its
+//   `row_len` real slots (the CSR's diff(rowptr), ops.ell_row_lengths),
+//   and a row with padding adds the product a padded slot would add, once
+//   (+-0.0 for a finite x[0]: no bit changes; NaN otherwise, the padded
+//   walk's NaN).  With 17 slots a row, a warp a row would leave most
+//   lanes idle and one row's chain of dependent loads in flight per warp;
+//   so a row runs on a group of `lanes` (4, 8, 16 or 32) lanes
+//   (group_row_f32): lane g carries the chains of lanes g, g + lanes,
+//   ..., adds the tree's wider offsets within itself and the rest by
+//   shuffles within the group, which is the same sum bit for bit.
 // * A64 (`gse_spmv_csr_f64`): the f64 operator of the stepped CG loop, the
 //   same function as `spmv_gse` (`_decode_gsecsr` plus `segment_sum`).
 //   Each row's products are added in CSR order from 0.0 with
@@ -101,19 +114,36 @@ __global__ void __launch_bounds__(gse::kChainThreads) spmv_csr_f64_kernel(
                         tail2, table, x, y, shift, mask);
 }
 
-template <int TAG>
+// A32: rows on groups of G lanes (group_row_f32), 256 / G rows a block.
+template <int TAG, int G>
 __global__ void __launch_bounds__(kThreads) spmv_ell_f32_kernel(
-    const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
-    const uint16_t* __restrict__ tail1, const uint32_t* __restrict__ tail2,
-    const float* __restrict__ x, const float* __restrict__ scales,
-    float* __restrict__ y, int64_t rows, int width, int shift, uint32_t mask) {
-  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // uniform across the warp
-  const float acc = gse::warp_row_f32<TAG>(row * (int64_t)width, width, lane,
-                                           colpak, head, tail1, tail2, x,
-                                           scales, shift, mask);
-  if (lane == 0) y[row] = acc;
+    const gse::EllF32 a) {
+  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const int g = threadIdx.x & (G - 1);
+  const int len = gse::ell_row_len(a, row);
+  float pad[1], acc[1];
+  gse::pad_products_f32<TAG, 1>(a.x, 1, 1, false, a.scales, len < a.width,
+                                pad);
+  gse::group_row_f32<TAG, G, 1>(row * (int64_t)a.width, len, g, pad,
+                                a.colpak, a.head, a.tail1, a.tail2, a.x, 1,
+                                1, false, a.scales, a.shift, a.mask, acc);
+  if (g == 0 && row < a.rows) a.y[row] = acc[0];
+}
+
+template <int G>
+int spmv_ell_f32_on(int tag, const gse::EllF32& a, cudaStream_t s) {
+  const long long blocks = (a.rows * G + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (tag == 1) {
+    spmv_ell_f32_kernel<1, G><<<(unsigned)blocks, kThreads, 0, s>>>(a);
+  } else if (tag == 2) {
+    spmv_ell_f32_kernel<2, G><<<(unsigned)blocks, kThreads, 0, s>>>(a);
+  } else if (tag == 3) {
+    spmv_ell_f32_kernel<3, G><<<(unsigned)blocks, kThreads, 0, s>>>(a);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -148,33 +178,28 @@ extern "C" int gse_spmv_csr_f64(const void* tag, const void* rowptr,
   return (int)cudaGetLastError();
 }
 
-extern "C" int gse_spmv_ell_f32(int tag, const void* colpak, const void* head,
-                                const void* tail1, const void* tail2,
-                                const void* x, const void* scales, void* y,
-                                long long rows, int width, int ei_bit,
-                                void* stream) {
+// y (rows,) f32 = A x over the (rows, width) ELL segments at `tag`, each
+// row over its row_len[row] real slots, on groups of `lanes` lanes; x is
+// (n,) f32.
+extern "C" int gse_spmv_ell_f32(int tag, int lanes, const void* colpak,
+                                const void* head, const void* tail1,
+                                const void* tail2, const void* x,
+                                const void* scales, const void* row_len,
+                                void* y, long long rows, int width,
+                                int ei_bit, void* stream) {
+  if (rows <= 0) return (int)cudaGetLastError();
   const int shift = 32 - ei_bit;
-  const uint32_t mask = (1u << shift) - 1u;
-  const long long blocks = (rows * 32 + kThreads - 1) / kThreads;
+  const gse::EllF32 a{(const uint32_t*)colpak, (const uint16_t*)head,
+                      (const uint16_t*)tail1, (const uint32_t*)tail2,
+                      (const float*)x, (const float*)scales,
+                      (const int32_t*)row_len, (float*)y, rows, width, shift,
+                      (1u << shift) - 1u};
   cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t* cp = (const uint32_t*)colpak;
-  const uint16_t* hd = (const uint16_t*)head;
-  const uint16_t* t1 = (const uint16_t*)tail1;
-  const uint32_t* t2 = (const uint32_t*)tail2;
-  const float* xs = (const float*)x;
-  const float* sc = (const float*)scales;
-  float* out = (float*)y;
-  if (tag == 1) {
-    spmv_ell_f32_kernel<1><<<(unsigned)blocks, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, rows, width, shift, mask);
-  } else if (tag == 2) {
-    spmv_ell_f32_kernel<2><<<(unsigned)blocks, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, rows, width, shift, mask);
-  } else if (tag == 3) {
-    spmv_ell_f32_kernel<3><<<(unsigned)blocks, kThreads, 0, s>>>(
-        cp, hd, t1, t2, xs, sc, out, rows, width, shift, mask);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  switch (lanes) {
+    case 4: return spmv_ell_f32_on<4>(tag, a, s);
+    case 8: return spmv_ell_f32_on<8>(tag, a, s);
+    case 16: return spmv_ell_f32_on<16>(tag, a, s);
+    case 32: return spmv_ell_f32_on<32>(tag, a, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -35,9 +35,6 @@ before launch (never after a failed launch or build):
   of S and 8 queries x hd / 16 dims of O, Q and the double-buffered K and
   V tiles (64 keys, ``cp.async`` for f32) in shared memory read 16 bytes
   at a time; hd is zero-padded to 16, 32, 64 or 128, each compiled.
-* ``"ffma_rows"``: the FFMA body's earlier design (four threads a query
-  row, scalar shared loads), kept only for ``chip_smoke.py`` to time the
-  one above against; :func:`flash_body` never picks it.
 
 Sums and exponentials run in another order than the plain version's
 softmax, so the kernel is held to it within the reference kernel tests'
@@ -66,8 +63,8 @@ __all__ = ["flash_attention", "flash_attention_gqa",
 NEG_INF = -1e30
 HD_MAX = 128
 _DTYPES = (torch.float32, torch.bfloat16)
-BODIES = ("mma", "ffma", "ffma_rows")
-_BODY_ID = {"ffma": 0, "mma": 1, "ffma_rows": 2}  # flash_attention_fwd's
+BODIES = ("mma", "ffma")
+_BODY_ID = {"ffma": 0, "mma": 1}  # flash_attention_fwd's
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _BOUND = {}

@@ -7,11 +7,14 @@ Replaces the Pallas kernel ``gse_spmm_call`` of
 ``csrc/gse_spmm.cu``; it holds two builds:
 
 * **C32** -- :func:`gse_spmm_ell_f32`: f32 decode and sums over the
-  uniform-ELL arrays of ``ops.ell_pack_gsecsr`` and an ``(nrhs, n)`` f32
-  X, what the Pallas kernel computes; Y is ``(m, nrhs)``.  Each entry is
-  decoded once for every column.  Held to rtol 2e-5 / atol 1e-4 against
-  the Pallas kernel; its plain version is A32's plain version column by
-  column, and at nrhs = 1 the kernel is bitwise A32.
+  uniform-ELL arrays of ``ops.ell_pack_gsecsr`` and an ``(n, nrhs)``
+  row-major f32 X (a slot's four columns in one 16-byte load), what the
+  Pallas kernel computes; Y is ``(m, nrhs)``.  Each entry is decoded once
+  for every column.  A32's walk per column: each row's real slots only
+  (``row_len=``, required on the card) on a group of ``lanes`` lanes.
+  Held to rtol 2e-5 / atol 1e-4 against the Pallas kernel; its plain
+  version is A32's plain version column by column, and at nrhs = 1 the
+  kernel is bitwise A32.
 * **C64** -- :func:`gse_spmm_csr_f64`: f64 over the CSR rows, the operator
   of the batched stepped CG loop.  Column j runs at its own tag
   (``tags[j]``, a device int32) when ``active[j]`` (a device bool), so
@@ -39,9 +42,7 @@ C's:
   adding four chains in A32's lane order; the other rows get a warp each.
   Per column bitwise C32, at nrhs = 1 bitwise B32.  Y is ``(m, nrhs)``.
   The launches per body are counted in ``body_launches`` ("block",
-  "warp").  :func:`gse_spmm_sell_f32_earlier` keeps the earlier design
-  (every row on a warp, X ``(nrhs, n)``) for ``chip_smoke.py`` to time
-  against.
+  "warp").
 * **C′64** -- :func:`gse_spmm_sell_f64` (``spmm_gse`` over a ``GSESellC``,
   the batched CG operator): B64's bodies for every column, with C64's
   per-column device tags and active flags; column j bitwise B64 at
@@ -64,9 +65,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gse_spmv import (A64_BODIES, SELL_BODIES, _check,
-                                          _check_long_from, _check_sell,
-                                          _raise_on, check_plan, count_bodies,
+from repro_torch.kernels.gse_spmv import (A64_BODIES, ELL_LANES_DEFAULT,
+                                          SELL_BODIES, _check, _check_ell,
+                                          _check_lanes, _check_long_from,
+                                          _check_sell, _raise_on, check_plan,
+                                          check_row_len, count_bodies,
                                           csr_row_sums,
                                           gse_spmv_ell_f32_plain,
                                           gse_spmv_sell_f32_plain, row_sums,
@@ -76,14 +79,13 @@ from repro_torch.sparse.spmv import _decode_gsecsr
 
 __all__ = ["gse_spmm_ell_f32", "gse_spmm_ell_f32_plain", "gse_spmm_csr_f64",
            "gse_spmm_csr_f64_plain", "gse_spmm_sell_f32",
-           "gse_spmm_sell_f32_plain", "gse_spmm_sell_f32_earlier",
-           "gse_spmm_sell_f64",
+           "gse_spmm_sell_f32_plain", "gse_spmm_sell_f64",
            "gse_spmm_sell_f64_plain", "KERNELS", "reset_launch_counts"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "gse_spmm_ell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
-                         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+    "gse_spmm_ell_f32": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
+                         _P, _P, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, _P],
     "gse_spmm_csr_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P,
@@ -92,10 +94,6 @@ _ARGTYPES = {
     "gse_spmm_sell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_int, _P, ctypes.c_longlong,
                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
-    "gse_spmm_sell_f32_earlier": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, ctypes.c_int, _P, ctypes.c_longlong,
-                                  ctypes.c_longlong, ctypes.c_int,
-                                  ctypes.c_int, _P],
     "gse_spmm_sell_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_int, _P, _P, ctypes.c_longlong,
                           ctypes.c_longlong, ctypes.c_longlong,
@@ -105,7 +103,6 @@ _ARGTYPES = {
 C64_PASS = 4
 _SOURCE = {"gse_spmm_ell_f32": "gse_spmm", "gse_spmm_csr_f64": "gse_spmm",
            "gse_spmm_sell_f32": "gse_sell",
-           "gse_spmm_sell_f32_earlier": "gse_sell",
            "gse_spmm_sell_f64": "gse_sell"}
 _BOUND = {}
 
@@ -125,10 +122,10 @@ def _fn(name: str):
 def gse_spmm_ell_f32_plain(colpak, head, tail1, tail2, x, scales, *,
                            ei_bit: int, tag: int) -> torch.Tensor:
     """Plain version of C32: A32's plain version on each column of the
-    ``(nrhs, n)`` X, stacked to ``(m, nrhs)``."""
-    cols = [gse_spmv_ell_f32_plain(colpak, head, tail1, tail2, x[j], scales,
-                                   ei_bit=ei_bit, tag=tag)
-            for j in range(x.shape[0])]
+    ``(n, nrhs)`` X, stacked to ``(m, nrhs)``."""
+    cols = [gse_spmv_ell_f32_plain(colpak, head, tail1, tail2, x[:, j],
+                                   scales, ei_bit=ei_bit, tag=tag)
+            for j in range(x.shape[1])]
     if not cols:
         return torch.zeros(colpak.shape[0], 0, dtype=torch.float32,
                            device=colpak.device)
@@ -136,17 +133,25 @@ def gse_spmm_ell_f32_plain(colpak, head, tail1, tail2, x, scales, *,
 
 
 def gse_spmm_ell_f32(colpak, head, tail1, tail2, x, scales, *, ei_bit: int,
-                     tag: int, device="cuda") -> torch.Tensor:
+                     tag: int, row_len=None, lanes: int = ELL_LANES_DEFAULT,
+                     device="cuda") -> torch.Tensor:
     """Y = A @ X as ``(m, nrhs)`` f32 from ``(m, L)`` ELL segments at
-    ``tag`` and an ``(nrhs, n)`` f32 X (columns contiguous).
+    ``tag`` and an ``(n, nrhs)`` f32 X, row-major (as ``ops.gse_spmm_ell``'s
+    caller holds it).
 
     ``tail1``/``tail2`` may be ``None`` when ``tag`` does not read them.
     ``scales`` is the (k,) or (1, k) f32 table ``ref.make_scales`` gives.
+    ``row_len`` (required on the card; a count for another number of rows
+    is refused on the CPU too) is each row's real slot count, an (m,)
+    int32 tensor (``ops.ell_row_lengths``).  ``lanes`` (one of
+    ``ELL_LANES``) is the lanes a row runs on.
     """
     if tag not in (1, 2, 3):
         raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
+    _check_lanes(lanes)
+    check_row_len(row_len, colpak.shape[0], "gse_spmm_ell_f32")
     dev = on_device(device, colpak=colpak, head=head, x=x, scales=scales,
-                    tail1=tail1 if tag >= 2 else None,
+                    row_len=row_len, tail1=tail1 if tag >= 2 else None,
                     tail2=tail2 if tag == 3 else None)
     if dev.type == "cpu":
         return gse_spmm_ell_f32_plain(colpak, head, tail1, tail2, x, scales,
@@ -155,31 +160,22 @@ def gse_spmm_ell_f32(colpak, head, tail1, tail2, x, scales, *, ei_bit: int,
         raise ValueError(f"gse_spmm_ell_f32 runs on cuda or cpu, not {dev}")
     dev = colpak.device
     rows, width = colpak.shape
-    _check(colpak, "colpak", torch.uint32, dev, 2)
-    _check(head, "head", torch.uint16, dev, 2)
-    segs = {"head": head}
-    if tag >= 2:
-        _check(tail1, "tail1", torch.uint16, dev, 2)
-        segs["tail1"] = tail1
-    if tag == 3:
-        _check(tail2, "tail2", torch.uint32, dev, 2)
-        segs["tail2"] = tail2
-    for name, t in segs.items():
-        if tuple(t.shape) != (rows, width):
-            raise ValueError(f"{name} shape {tuple(t.shape)} != colpak's")
+    _check_ell(colpak, head, tail1, tail2, tag, dev)
     _check(x, "x", torch.float32, dev, 2)
     scales = scales.reshape(-1)
     _check(scales, "scales", torch.float32, dev, 1)
-    nrhs, n = x.shape
+    check_row_len(row_len, rows, "gse_spmm_ell_f32", dev)
+    nrhs = x.shape[1]
     y = torch.empty(rows, nrhs, dtype=torch.float32, device=dev)
     if rows == 0 or nrhs == 0:
         return y
     rc = _fn("gse_spmm_ell_f32")(
-        tag, colpak.data_ptr(), head.data_ptr(),
+        tag, lanes, colpak.data_ptr(), head.data_ptr(),
         tail1.data_ptr() if tag >= 2 else None,
         tail2.data_ptr() if tag == 3 else None,
-        x.data_ptr(), scales.data_ptr(), y.data_ptr(), rows, width, n, nrhs,
-        ei_bit, torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), scales.data_ptr(), row_len.data_ptr(), y.data_ptr(),
+        rows, width, nrhs, ei_bit,
+        torch.cuda.current_stream(dev).cuda_stream)
     gse_spmm_ell_f32.launches += 1
     _raise_on(rc, "gse_spmm_ell_f32")
     return y
@@ -355,31 +351,6 @@ def gse_spmm_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
     return y
 
 
-def gse_spmm_sell_f32_earlier(colpak, head, tail1, tail2, x, scales, buckets,
-                              perm, *, rows: int, ei_bit: int,
-                              tag: int) -> torch.Tensor:
-    """C′32's earlier design, kept only so ``chip_smoke.py`` can time the
-    current one against it (``earlier_ms``); no path of the port runs it.
-    Every bucket row on one warp, X ``(nrhs, n)``; the same result as
-    :func:`gse_spmm_sell_f32` on ``X.t()``.  CUDA tensors only."""
-    dev = _sell_f32_args("gse_spmm_sell_f32_earlier", tag, colpak, head,
-                         tail1, tail2, x, scales, buckets, perm, "cuda")
-    nrhs, n = x.shape
-    y = torch.empty(rows, nrhs, dtype=torch.float32, device=dev)
-    if perm.shape[0] == 0 or nrhs == 0:
-        return y
-    rc = _fn("gse_spmm_sell_f32_earlier")(
-        tag, colpak.data_ptr(), head.data_ptr(),
-        tail1.data_ptr() if tag >= 2 else None,
-        tail2.data_ptr() if tag == 3 else None,
-        x.data_ptr(), scales.data_ptr(), y.data_ptr(), buckets.data_ptr(),
-        buckets.shape[0], perm.data_ptr(), perm.shape[0], n, nrhs, ei_bit,
-        torch.cuda.current_stream(dev).cuda_stream)
-    gse_spmm_sell_f32_earlier.launches += 1
-    _raise_on(rc, "gse_spmm_sell_f32_earlier")
-    return y
-
-
 def gse_spmm_sell_f64_plain(colpak, head, tail1, tail2, table, x, tags,
                             active, buckets, perm, row_len, *, rows: int,
                             ei_bit: int) -> torch.Tensor:
@@ -453,7 +424,7 @@ def gse_spmm_sell_f64(colpak, head, tail1, tail2, table, x, tags, active,
 
 
 KERNELS = (gse_spmm_ell_f32, gse_spmm_csr_f64, gse_spmm_sell_f32,
-           gse_spmm_sell_f64, gse_spmm_sell_f32_earlier)
+           gse_spmm_sell_f64)
 
 
 def reset_launch_counts():

@@ -10,6 +10,12 @@ decode ``decode_tile`` :61, ``pallas_call`` :160).  The CUDA source is
   uniform-ELL arrays of ``ops.ell_pack_gsecsr``, what the Pallas kernel
   computes.  Held to rtol 2e-5 / atol 1e-4 against the Pallas kernel; its
   plain version repeats the kernel's sum order, so the two agree bitwise.
+  The kernel reads only each row's real slots (``row_len=``, the CSR's
+  ``diff(rowptr)`` that ``ops.ell_row_lengths`` keeps beside the pack,
+  required on the card), not the 128-lane padding; a row with padding
+  adds the product a padded slot would add once, so a non-finite x[0]
+  gives the padded walk's NaN rows.  Each row runs on a group of
+  ``lanes`` lanes (:data:`ELL_LANES`), the same sum on any of them.
 * **A64** -- :func:`gse_spmv_csr_f64`: f64 over the CSR rows, what
   ``spmv_gse`` computes; the operator inside the stepped CG loop.  The tag
   is read from a device int32 so the loop never syncs to choose a build.
@@ -68,12 +74,14 @@ __all__ = ["gse_spmv_ell_f32", "gse_spmv_ell_f32_plain", "gse_spmv_csr_f64",
            "gse_spmv_sell_f32_plain", "gse_spmv_sell_f64",
            "gse_spmv_sell_f64_plain", "csr_row_sums", "row_sums",
            "KERNELS", "reset_launch_counts", "A64_BODIES", "SELL_BODIES",
-           "check_plan", "count_bodies"]
+           "check_plan", "count_bodies", "check_row_len", "ELL_LANES",
+           "ELL_LANES_DEFAULT"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "gse_spmv_ell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
-                         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+    "gse_spmv_ell_f32": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
+                         _P, _P, ctypes.c_longlong, ctypes.c_int,
+                         ctypes.c_int, _P],
     "gse_spmv_csr_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          ctypes.c_longlong, _P, ctypes.c_longlong, _P,
                          ctypes.c_longlong, ctypes.c_int, _P],
@@ -115,6 +123,34 @@ def _raise_on(rc: int, name: str):
 
 # --- A32: f32 ELL -----------------------------------------------------------
 
+# The lanes a row of A32 and C32 may run on (each instantiated in
+# csrc/gse_spmv.cu and csrc/gse_spmm.cu), and the wrappers' default, from
+# chip_smoke.py's sweep of A32 and C32 on the uniform operator.
+ELL_LANES = (4, 8, 16, 32)
+ELL_LANES_DEFAULT = 8
+
+
+def check_row_len(row_len, rows: int, name: str, device=None):
+    """Raise unless ``row_len`` holds one count for each of the ``rows``
+    ELL rows; with ``device`` (the card's launch), also unless it is given
+    as a contiguous int32 tensor there."""
+    if row_len is None:
+        if device is not None:
+            raise ValueError(f"{name} needs each row's real slot count "
+                             "(row_len=, ops.ell_row_lengths) on the card")
+        return
+    if row_len.dim() != 1 or row_len.shape[0] != rows:
+        raise ValueError(f"row_len has shape {tuple(row_len.shape)}; the "
+                         f"ELL has {rows} rows")
+    if device is not None:
+        _check(row_len, "row_len", torch.int32, device, 1)
+
+
+def _check_lanes(lanes: int):
+    if lanes not in ELL_LANES:
+        raise ValueError(f"lanes must be one of {ELL_LANES}, got {lanes}")
+
+
 def gse_spmv_ell_f32_plain(colpak, head, tail1, tail2, x, scales, *,
                            ei_bit: int, tag: int) -> torch.Tensor:
     """Plain version of A32: ``spmv_ell_ref`` semantics with the decode of
@@ -150,14 +186,21 @@ def gse_spmv_ell_f32_plain(colpak, head, tail1, tail2, x, scales, *,
 
 
 def gse_spmv_ell_f32(colpak, head, tail1, tail2, x, scales, *, ei_bit: int,
-                     tag: int) -> torch.Tensor:
+                     tag: int, row_len=None,
+                     lanes: int = ELL_LANES_DEFAULT) -> torch.Tensor:
     """y = A @ x as (M,) f32 from (M, L) ELL segments at ``tag``.
 
     ``tail1``/``tail2`` may be ``None`` when ``tag`` does not read them.
     ``scales`` is the (k,) or (1, k) f32 table ``ref.make_scales`` gives.
+    ``row_len`` (required on the card; a count for another number of rows
+    is refused on the CPU too) is each row's real slot count, an (M,)
+    int32 tensor (``ops.ell_row_lengths``): the kernel reads no slot past
+    it.  ``lanes`` (one of :data:`ELL_LANES`) is the lanes a row runs on.
     """
     if tag not in (1, 2, 3):
         raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
+    _check_lanes(lanes)
+    check_row_len(row_len, colpak.shape[0], "gse_spmv_ell_f32")
     if colpak.device.type == "cpu":
         return gse_spmv_ell_f32_plain(colpak, head, tail1, tail2, x, scales,
                                       ei_bit=ei_bit, tag=tag)
@@ -165,33 +208,37 @@ def gse_spmv_ell_f32(colpak, head, tail1, tail2, x, scales, *, ei_bit: int,
     if dev.type != "cuda":
         raise ValueError(f"gse_spmv_ell_f32 runs on cuda or cpu, not {dev}")
     rows, width = colpak.shape
-    _check(colpak, "colpak", torch.uint32, dev, 2)
-    _check(head, "head", torch.uint16, dev, 2)
-    segs = {"head": head}
-    if tag >= 2:
-        _check(tail1, "tail1", torch.uint16, dev, 2)
-        segs["tail1"] = tail1
-    if tag == 3:
-        _check(tail2, "tail2", torch.uint32, dev, 2)
-        segs["tail2"] = tail2
-    for name, t in segs.items():
-        if tuple(t.shape) != (rows, width):
-            raise ValueError(f"{name} shape {tuple(t.shape)} != colpak's")
+    _check_ell(colpak, head, tail1, tail2, tag, dev)
     _check(x, "x", torch.float32, dev, 1)
     scales = scales.reshape(-1)
     _check(scales, "scales", torch.float32, dev, 1)
+    check_row_len(row_len, rows, "gse_spmv_ell_f32", dev)
     y = torch.empty(rows, dtype=torch.float32, device=dev)
     if rows == 0:
         return y
     rc = _fn("gse_spmv_ell_f32")(
-        tag, colpak.data_ptr(), head.data_ptr(),
+        tag, lanes, colpak.data_ptr(), head.data_ptr(),
         tail1.data_ptr() if tag >= 2 else None,
         tail2.data_ptr() if tag == 3 else None,
-        x.data_ptr(), scales.data_ptr(), y.data_ptr(), rows, width, ei_bit,
-        torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), scales.data_ptr(), row_len.data_ptr(), y.data_ptr(),
+        rows, width, ei_bit, torch.cuda.current_stream(dev).cuda_stream)
     gse_spmv_ell_f32.launches += 1
     _raise_on(rc, "gse_spmv_ell_f32")
     return y
+
+
+def _check_ell(colpak, head, tail1, tail2, tag: int, dev):
+    """The (rows, width) ELL segments ``tag`` reads, on ``dev``."""
+    _check(colpak, "colpak", torch.uint32, dev, 2)
+    segs = {"head": (head, torch.uint16)}
+    if tag >= 2:
+        segs["tail1"] = (tail1, torch.uint16)
+    if tag == 3:
+        segs["tail2"] = (tail2, torch.uint32)
+    for name, (t, dt) in segs.items():
+        _check(t, name, dt, dev, 2)
+        if t.shape != colpak.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != colpak's")
 
 
 # --- A64: f64 CSR, the solver-loop operator --------------------------------

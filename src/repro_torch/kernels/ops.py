@@ -2,7 +2,8 @@
 cache and the tag-specialized dispatch.
 
 Port of ``repro/kernels/ops.py``: ``_cached_pack`` (:72),
-``ell_pack_gsecsr`` (:172), ``sell_pack_gsecsr`` (:198),
+``ell_pack_gsecsr`` (:172; the port keeps each row's real slot count
+beside it, :func:`ell_row_lengths`), ``sell_pack_gsecsr`` (:198),
 ``spmv_kernel_for`` (:349), ``spmm_kernel_for`` (:387), ``gse_spmm_ell``
 (:427), ``sell_kernel_for`` (:535), ``sell_spmm_kernel_for`` (:558),
 ``_sell_buckets`` (:572), ``gse_spmv_sell`` (:613), ``gse_spmm_sell``
@@ -37,10 +38,11 @@ from repro_torch.kernels.gse_spmv import gse_spmv_ell_f32, gse_spmv_sell_f32
 from repro_torch.sparse.csr import (GSECSR, GSESellC, _int_tag, pack_sell,
                                     scatter_rows)
 
-__all__ = ["gse_decode", "gse_matmul", "gse_spmv_ell", "gse_spmm_ell", "ell_pack_gsecsr",
-           "sell_pack_gsecsr", "gse_spmv_sell", "gse_spmm_sell",
-           "spmv_kernel_for", "spmm_kernel_for", "sell_kernel_for",
-           "sell_spmm_kernel_for", "planned_spmv", "planned_spmm",
+__all__ = ["gse_decode", "gse_matmul", "gse_spmv_ell", "gse_spmm_ell",
+           "ell_pack_gsecsr", "ell_row_lengths", "sell_pack_gsecsr",
+           "gse_spmv_sell", "gse_spmm_sell", "spmv_kernel_for",
+           "spmm_kernel_for", "sell_kernel_for", "sell_spmm_kernel_for",
+           "planned_spmv", "planned_spmm",
            "PACK_STATS", "PACK_CACHE_MAX", "LANE", "SELL_C", "SELL_SIGMA",
            "SELL_BUCKET"]
 
@@ -155,6 +157,16 @@ def ell_pack_gsecsr(a: GSECSR, lane: int = LANE):
     return _cached_pack(a, ("ell", lane), build)
 
 
+def ell_row_lengths(a: GSECSR) -> torch.Tensor:
+    """Each row's real slot count in ``ell_pack_gsecsr``'s arrays (at any
+    lane width): ``diff(rowptr)`` as a (rows,) int32 tensor on ``a``'s
+    device, the ``row_len=`` of kernels A32 and C32, which read no slot
+    past it.  Memoized on the operator instance beside the pack."""
+    return _cached_pack(
+        a, ("ell_row_len",),
+        lambda: (a.rowptr[1:] - a.rowptr[:-1]).to(torch.int32).contiguous())
+
+
 def sell_pack_gsecsr(a: GSECSR, c: int | None = None,
                      sigma: int | None = None, lane: int | None = None,
                      bucket: str | None = None, plan=None) -> GSESellC:
@@ -177,40 +189,44 @@ def spmv_kernel_for(tag: int, ei_bit: int):
     """Tag-specialized SpMV dispatch: the returned callable takes exactly
     the operands ``tag`` streams -- ``(colpak, head, x, scales)`` for tag
     1, ``+ tail1`` for tag 2, ``+ tail2`` for tag 3 -- so the tag-1/-2
-    launches never touch the tail arrays."""
+    launches never touch the tail arrays, and the rows' real slot counts
+    as ``row_len=`` (required on the card, :func:`ell_row_lengths`)."""
     if tag == 1:
-        def call(colpak, head, x, scales):
+        def call(colpak, head, x, scales, *, row_len=None):
             return gse_spmv_ell_f32(colpak, head, None, None, x, scales,
-                                    ei_bit=ei_bit, tag=1)
+                                    ei_bit=ei_bit, tag=1, row_len=row_len)
     elif tag == 2:
-        def call(colpak, head, tail1, x, scales):
+        def call(colpak, head, tail1, x, scales, *, row_len=None):
             return gse_spmv_ell_f32(colpak, head, tail1, None, x, scales,
-                                    ei_bit=ei_bit, tag=2)
+                                    ei_bit=ei_bit, tag=2, row_len=row_len)
     elif tag == 3:
-        def call(colpak, head, tail1, tail2, x, scales):
+        def call(colpak, head, tail1, tail2, x, scales, *, row_len=None):
             return gse_spmv_ell_f32(colpak, head, tail1, tail2, x, scales,
-                                    ei_bit=ei_bit, tag=3)
+                                    ei_bit=ei_bit, tag=3, row_len=row_len)
     else:
         raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
     return call
 
 
-def gse_spmv_ell(ell, table, x: torch.Tensor, ei_bit: int,
-                 tag: int = 1) -> torch.Tensor:
+def _ell_operands(ell, tag: int) -> list:
+    """The ELL segments ``tag`` streams: ``colpak, head[, tail1[, tail2]]``."""
+    colpak, head, t1, t2 = ell
+    return [colpak, head] + [t1, t2][:len(TAG_SEGMENTS[tag])]
+
+
+def gse_spmv_ell(ell, table, x: torch.Tensor, ei_bit: int, tag: int = 1, *,
+                 row_len=None) -> torch.Tensor:
     """y = A @ x (f32) from ELL-packed GSE-SEM segments (kernel A32).
 
-    Only the segment arrays ``tag`` reads are passed and streamed:
-    ``GSECSR.bytes_touched(tag)`` gives the modeled per-call matrix bytes
-    (6/8/12 per nnz for tags 1/2/3 vs 12 for FP64 CSR).
+    Only the segment arrays ``tag`` reads are passed, and of each row only
+    its ``row_len`` real slots (required on the card: the operator's
+    :func:`ell_row_lengths`) are streamed: ``GSECSR.bytes_touched(tag)``
+    gives the modeled per-call matrix bytes (6/8/12 per nnz for tags 1/2/3
+    vs 12 for FP64 CSR).
     """
-    colpak, head, t1, t2 = ell
     scales = ref.make_scales(table, TAG_BITS_USED[tag])
-    operands = [colpak, head]
-    if tag >= 2:
-        operands.append(t1)
-    if tag == 3:
-        operands.append(t2)
-    return spmv_kernel_for(tag, ei_bit)(*operands, x, scales)
+    return spmv_kernel_for(tag, ei_bit)(*_ell_operands(ell, tag), x, scales,
+                                        row_len=row_len)
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,47 +235,50 @@ def spmm_kernel_for(tag: int, ei_bit: int):
     :func:`spmv_kernel_for`: the returned callable takes exactly the
     operands ``tag`` streams -- ``(colpak, head, x, scales)`` for tag 1,
     ``+ tail1`` for tag 2, ``+ tail2`` for tag 3 -- with ``x`` an
-    ``(nrhs, n)`` block, and a ``device=`` keyword (default ``"cuda"``).
-    The segments are streamed once for all ``nrhs`` columns."""
+    ``(n, nrhs)`` row-major block, and the keywords ``row_len=`` (required
+    on the card) and ``device=`` (default ``"cuda"``).  The segments are
+    streamed once for every pass of four columns."""
     if tag == 1:
-        def call(colpak, head, x, scales, *, device="cuda"):
+        def call(colpak, head, x, scales, *, row_len=None, device="cuda"):
             return gse_spmm_ell_f32(colpak, head, None, None, x, scales,
-                                    ei_bit=ei_bit, tag=1, device=device)
+                                    ei_bit=ei_bit, tag=1, row_len=row_len,
+                                    device=device)
     elif tag == 2:
-        def call(colpak, head, tail1, x, scales, *, device="cuda"):
+        def call(colpak, head, tail1, x, scales, *, row_len=None,
+                 device="cuda"):
             return gse_spmm_ell_f32(colpak, head, tail1, None, x, scales,
-                                    ei_bit=ei_bit, tag=2, device=device)
+                                    ei_bit=ei_bit, tag=2, row_len=row_len,
+                                    device=device)
     elif tag == 3:
-        def call(colpak, head, tail1, tail2, x, scales, *, device="cuda"):
+        def call(colpak, head, tail1, tail2, x, scales, *, row_len=None,
+                 device="cuda"):
             return gse_spmm_ell_f32(colpak, head, tail1, tail2, x, scales,
-                                    ei_bit=ei_bit, tag=3, device=device)
+                                    ei_bit=ei_bit, tag=3, row_len=row_len,
+                                    device=device)
     else:
         raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
     return call
 
 
 def gse_spmm_ell(ell, table, x: torch.Tensor, ei_bit: int, tag: int = 1, *,
-                 device="cuda") -> torch.Tensor:
+                 row_len=None, device="cuda") -> torch.Tensor:
     """Y = A @ X (f32, ``(m, nrhs)``) from ELL-packed GSE-SEM segments
-    (kernel C32), X a dense ``(n, nrhs)`` block as in the reference.
+    (kernel C32), X a dense ``(n, nrhs)`` block as in the reference, read
+    as it lies (a contiguous copy only if it is not row-major f32).
 
-    X is passed to the kernel as ``(nrhs, n)``, columns contiguous, as the
-    reference passes it to its Pallas kernel.  Only the segment arrays
-    ``tag`` reads are passed and streamed, once for every column:
-    ``iteration_stream_bytes(a, tag, nrhs=nrhs)`` is the modeled traffic.
+    Only the segment arrays ``tag`` reads are passed, and of each row only
+    its ``row_len`` real slots (required on the card: the operator's
+    :func:`ell_row_lengths`), streamed once for every pass of four
+    columns: ``iteration_stream_bytes(a, tag, nrhs=nrhs)`` is the modeled
+    traffic.
     """
     if x.dim() != 2:
         raise ValueError(f"gse_spmm_ell wants a (n, nrhs) block; got "
                          f"{tuple(x.shape)}")
-    colpak, head, t1, t2 = ell
     scales = ref.make_scales(table, TAG_BITS_USED[tag])
-    operands = [colpak, head]
-    if tag >= 2:
-        operands.append(t1)
-    if tag == 3:
-        operands.append(t2)
-    xt = x.to(torch.float32).t().contiguous()
-    return spmm_kernel_for(tag, ei_bit)(*operands, xt, scales, device=device)
+    return spmm_kernel_for(tag, ei_bit)(
+        *_ell_operands(ell, tag), x.to(torch.float32).contiguous(), scales,
+        row_len=row_len, device=device)
 
 
 def _sell_buckets(sell: GSESellC, tag: int):

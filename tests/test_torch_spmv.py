@@ -134,7 +134,8 @@ def test_spmv_kernel_for_takes_only_the_tag_segments():
                        (3, ["colpak", "head", "tail1", "tail2", "x",
                             "scales"])):
         fn = T_ops.spmv_kernel_for(tag, 3)
-        assert list(inspect.signature(fn).parameters) == names
+        # The segments and vectors, then the rows' real slot counts.
+        assert list(inspect.signature(fn).parameters) == names + ["row_len"]
     with pytest.raises(ValueError):
         T_ops.spmv_kernel_for(4, 3)
 
