@@ -13,7 +13,8 @@ one line; any mismatch raises and the script exits non-zero.  There is no
 CPU fallback: without a CUDA device, or without the rest of the
 repository beside it, the script fails.  Phases 11-14 drive the LM
 serving path of qwen3_4b (prefill and decode with GSE-SEM packed weights)
-on kernels D, E and F.
+on kernels D, E and F; phases 15-18 stepped GMRES (the paper's second
+solver, right-preconditioned) and preconditioned CG.
 
 Phases:
   1. build     -- nvcc time for every kernel source (all started at once).
@@ -155,6 +156,37 @@ Phases:
                   (the smoke config) with --gse-tag 2 on the card: kernel D
                   must have launched (dequantize_tree), the decoded params
                   equal the CPU's bitwise, the tokens lie in the vocab.
+  15. gmres trajectory -- gemv_rows_ref and gemv_cols_ref (with and
+                  without the fused addend) bitwise their plain versions
+                  at n = 2^20 and rows 1, 41, 81; givens_step (j 0, 1, 40,
+                  79) and trsv_upper_ref (j 0, 1, 17, 40, 80) bitwise at
+                  restart 80; then the example's case
+                  (examples/solve_stepped_gmres.py: diag_rescale(
+                  convection_diffusion_2d(32, beta=5), 3, 7), k=8, tol
+                  1e-7, restart 80) and its right-Jacobi twin on the card
+                  and on the CPU twin: the reference's iterations, switches
+                  and tag (GMRES_REF), x and relres bitwise the twin's.
+  16. gmres full -- diag_rescale(convection_diffusion_2d(1024, beta=5), 3,
+                  7) (1,048,576 unknowns, about 5.2M nonzeros), right
+                  Jacobi, GMRES(80) over a fixed budget of 800 inner
+                  iterations (ten cycles; the basis alone is 680 MB).
+                  Uncounted first: the first cycle's recursive residuals
+                  never increase.  Then, launch counts zeroed, the solve:
+                  no guard trip, a finite x, relres below 1, every kernel
+                  of the path launched and every body of A64 the row plan
+                  holds; ms per inner iteration and launches per
+                  iteration printed.
+  17. pcg trajectory -- quickstart section 4's system
+                  (ill_conditioned_spd(32, 8 decades), tol 1e-10, the fast
+                  monitor) with Jacobi, block-Jacobi and SPAI-0 on the card
+                  and the CPU twin: the reference's numbers (PCG_REF), x
+                  and relres bitwise the twin's, and the fused path
+                  bitwise the generic one on the card.
+  18. pcg full -- launch counts zeroed; PCG with make_jacobi on phase 4's
+                  matrix (tol 1e-8, MonitorParams(40, 60, 30), maxiter
+                  20000): converged, health ok, A64's bodies, seq_dot and
+                  fma_axpy launched; iterations and ms per iteration beside
+                  phase 4's plain CG.
   10. kernels  -- run last: CUDA-event times (minimum over repeats) of
                   every kernel beside its plain version, its bound (HBM
                   bytes or operations) and one PyTorch library call
@@ -183,6 +215,10 @@ Phases:
                   rows are bound by the TF32 tensor cores (495 TFLOP/s
                   per TF32 term) and F's bf16 rows by the bf16 tensor
                   cores (989 TFLOP/s), with `fp32_bound_ms` beside.
+                  The GMRES kernels are timed at phase 15's shapes
+                  (their plain versions on the host, `plain_on`), the
+                  GEMVs beside torch.mv and the back substitution beside
+                  torch.linalg.solve_triangular, with phase 16's launches.
                   First a probe times a dependent FP64 add chain and FMA
                   chain from registers (vec_f64.chain_latency);
                   the f64 kernels held to the reference's summation order
@@ -2200,6 +2236,395 @@ def lm_entries(ctx, counts, twin_counts, add_entry):
                   max_abs_err=ctx["err"]["F", label, dt], **extra)
 
 
+# The example's stepped GMRES case (examples/solve_stepped_gmres.py) and its
+# right-Jacobi twin: the reference's (iters, switch_iters, tag) on the CPU,
+# which tests/test_torch_gmres.py holds the port's CPU twin to.
+GMRES_PARAMS = dict(t=40, l=60, m=30, rsd_limit=0.5, reldec_limit=0.45)
+GMRES_REF = {None: (4633, [89, 119], 3), "jacobi": (283, [119, 178], 3)}
+GMRES_RESTART = 80
+GMRES_FULL_ITERS = 800  # phase 16's fixed budget: ten restart cycles
+# quickstart section 4's PCG cases (ill_conditioned_spd(32, 8 decades),
+# tol 1e-10, the fast monitor): the reference's (iters, switch_iters, tag);
+# tests/test_torch_pcg.py holds the CPU twin to them.
+PCG_PARAMS = dict(t=30, l=30, m=15, rsd_limit=0.5, reldec_limit=0.45)
+PCG_REF = {"jacobi": (115, [-1, -1], 1), "block_jacobi": (95, [-1, -1], 1),
+           "spai0": (1107, [120, 135], 3)}
+
+
+def gmres_example(device):
+    """The example's operator ``diag_rescale(convection_diffusion_2d(32,
+    beta=5), 3, 7)`` on ``device`` and its b (the port's CSR SpMV on the
+    host, as the tests make it)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.spmv import spmv
+
+    host = G.diag_rescale(G.convection_diffusion_2d(32, beta=5.0,
+                                                    device="cpu"), 3.0, 7)
+    b = spmv(host, torch.from_numpy(
+        np.random.default_rng(7).normal(size=host.shape[0])))
+    a = G.diag_rescale(G.convection_diffusion_2d(32, beta=5.0, device=device),
+                       3.0, 7)
+    return a, b.to(device)
+
+
+def phase_gmres_trajectory():
+    """Phase 15: the GMRES kernels against their plain versions, then the
+    example's case and its right-Jacobi twin on the card and the CPU twin.
+    Returns the operands phase 10 times the GEMVs on."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.kernels import gmres_f64 as GF
+    from repro_torch.kernels import vec_f64 as V
+    from repro_torch.solvers import make_gse_operator, make_jacobi, solve_gmres
+    from repro_torch.sparse.csr import pack_csr
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15)
+    rows_all = GMRES_RESTART + 1
+    host = {"V": torch.from_numpy(rng.normal(size=(rows_all, N_FULL))),
+            "w": torch.from_numpy(rng.normal(size=N_FULL)),
+            "c": torch.from_numpy(rng.normal(size=rows_all)),
+            "x": torch.from_numpy(rng.normal(size=N_FULL))}
+    card = {k: v.to(dev) for k, v in host.items()}
+    err = {"gemv_rows_ref": 0.0, "gemv_cols_ref": 0.0}
+    for rows in (1, 41, rows_all):
+        for name, got, want in (
+                ("gemv_rows_ref", V.gemv_rows_ref(card["V"], card["w"], rows),
+                 V.gemv_rows_ref_plain(host["V"], host["w"], rows)),
+                ("gemv_cols_ref", V.gemv_cols_ref(card["c"], card["V"], rows),
+                 V.gemv_cols_ref_plain(host["c"], host["V"], rows)),
+                ("gemv_cols_ref", V.gemv_cols_ref(card["c"], card["V"], rows,
+                                                  addend=card["x"]),
+                 V.gemv_cols_ref_plain(host["c"], host["V"], rows,
+                                       addend=host["x"]))):
+            require_bitwise(f"{name} at rows {rows}, n {N_FULL} against its "
+                            "plain version", got, want)
+            err[name] = max(err[name], float((got.cpu() - want).abs().max()))
+    log("gmres_trajectory", kernels="gemv_rows_ref gemv_cols_ref (+addend)",
+        n=N_FULL, rows=[1, 41, rows_all], bitwise=True)
+
+    # The rotations and the back substitution at every cycle length.
+    restart = GMRES_RESTART
+    lsq = {}
+    for j in (0, 1, 40, restart - 1):
+        state = [torch.from_numpy(rng.normal(size=j + 1)),
+                 torch.tensor(abs(rng.normal()), dtype=torch.float64),
+                 torch.from_numpy(rng.normal(size=restart)),
+                 torch.from_numpy(rng.normal(size=restart)),
+                 torch.from_numpy(rng.normal(size=restart + 1)),
+                 torch.from_numpy(rng.normal(size=(restart + 1, restart))),
+                 torch.ones((), dtype=torch.float64)]
+        on_card = [t.to(dev) for t in state]
+        GF.givens_step(*on_card, torch.ones((), dtype=torch.bool, device=dev),
+                       j)
+        GF.givens_step_plain(*state, torch.tensor(True), j)
+        for got, want in zip(on_card, state):
+            require_bitwise(f"givens_step at j {j} against its plain version",
+                            got, want)
+        lsq["givens"] = [t.to(dev) for t in state]
+    tri = torch.from_numpy(np.triu(rng.normal(size=(restart + 1, restart)))
+                           + 3 * np.eye(restart + 1, restart))
+    gvec = torch.from_numpy(rng.normal(size=restart + 1))
+    for j in (0, 1, 17, 40, restart):
+        require_bitwise(f"trsv_upper_ref at j {j} against its plain version",
+                        GF.trsv_upper_ref(tri.to(dev), gvec.to(dev),
+                                          torch.tensor(j, dtype=torch.int32,
+                                                       device=dev)),
+                        GF.trsv_upper_ref_plain(tri, gvec, j))
+    lsq["tri"], lsq["g"] = tri.to(dev), gvec.to(dev)
+    log("gmres_trajectory", kernels="givens_step trsv_upper_ref",
+        restart=restart, j_givens=[0, 1, 40, restart - 1],
+        j_trsv=[0, 1, 17, 40, restart], bitwise=True)
+
+    params = MonitorParams(**GMRES_PARAMS)
+    for pre in (None, "jacobi"):
+        runs = {}
+        for where in ("cuda", "cpu"):
+            a, b = gmres_example(where)
+            kw = dict(tol=1e-7, restart=restart, maxiter=8000, params=params)
+            if pre:
+                kw["precond"] = make_jacobi(a, k=8)
+            t0 = time.perf_counter()
+            r = solve_gmres(make_gse_operator(pack_csr(a, k=8)), b, **kw)
+            runs[where] = (r, time.perf_counter() - t0)
+        (rg, tg_s), (rc, tc_s) = runs["cuda"], runs["cpu"]
+        got = (int(rg.iters), rg.switch_iters.tolist(), int(rg.tag))
+        log("gmres_trajectory", case="example", precond=pre, gpu_iters=got[0],
+            cpu_iters=int(rc.iters), switch_iters=got[1], tag=got[2],
+            relres=float(rg.relres), converged=bool(rg.converged),
+            gpu_s=f"{tg_s:.2f}", cpu_s=f"{tc_s:.2f}",
+            gpu_ms_per_iteration=f"{tg_s * 1e3 / got[0]:.3f}")
+        if got != GMRES_REF[pre]:
+            raise AssertionError(f"GMRES example ({pre}) on the GPU: {got} != "
+                                 f"{GMRES_REF[pre]}")
+        if (int(rc.iters), rc.switch_iters.tolist(), int(rc.tag)) != got:
+            raise AssertionError("GMRES: the GPU and the CPU twin disagree")
+        require_bitwise(f"GMRES example ({pre}) x against the CPU twin",
+                        rg.x, rc.x)
+        require_bitwise(f"GMRES example ({pre}) relres against the CPU twin",
+                        rg.relres, rc.relres)
+        if not bool(rg.converged):
+            raise AssertionError(f"GMRES example ({pre}) did not converge")
+    return dict(card=card, host=host, err=err, lsq=lsq)
+
+
+def phase_gmres_full():
+    """Phase 16: stepped GMRES(80), right-Jacobi, on the example's
+    construction at 2^20 unknowns, over a fixed budget of inner
+    iterations; launch counts zeroed.  Returns the launches of its
+    kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.kernels import gmres_f64 as GF
+    from repro_torch.kernels import gse_spmv as K
+    from repro_torch.kernels import vec_f64 as V
+    from repro_torch.robustness.guards import health_name
+    from repro_torch.solvers import gmres as T_gmres
+    from repro_torch.solvers import make_gse_operator, make_jacobi, solve_gmres
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    a = G.diag_rescale(G.convection_diffusion_2d(1024, beta=5.0, device=dev),
+                       3.0, 7)
+    b = torch.from_numpy(host_spmv(a, np.random.default_rng(16).normal(
+        size=a.shape[0]))).to(dev)
+    g = pack_csr(a, k=8)
+    m = make_jacobi(a, k=8)
+    op = make_gse_operator(g)
+    params = MonitorParams(**GMRES_PARAMS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # Uncounted: the first cycle's recursive residuals, all 80 in the
+    # monitor's window, must never increase (Givens: |g[j+1]| <= |g[j]|).
+    _, _, mon = T_gmres._solve_gmres(
+        op, b, torch.zeros_like(b), torch.tensor(1e-7, dtype=torch.float64,
+                                                 device=dev),
+        GMRES_RESTART, GMRES_RESTART,
+        MonitorParams(t=GMRES_RESTART, l=10_000, m=10_000), apply_m=m.apply)
+    cycle = mon.hist.cpu()
+    if int(mon.count) != GMRES_RESTART or bool((cycle[1:] > cycle[:-1]).any()):
+        raise AssertionError("phase 16: the first cycle's recursive residual "
+                             "increased")
+    torch.cuda.synchronize()
+    for mod in (K, V, GF):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve_gmres(op, b, tol=1e-7, restart=GMRES_RESTART,
+                      maxiter=GMRES_FULL_ITERS, params=params, precond=m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {
+        "gse_spmv_csr_f64": K.gse_spmv_csr_f64.launches,
+        "gemv_rows_ref": V.gemv_rows_ref.launches,
+        "gemv_cols_ref": V.gemv_cols_ref.launches,
+        "givens_step": GF.givens_step.launches,
+        "trsv_upper_ref": GF.trsv_upper_ref.launches,
+        "seq_dot": V.seq_dot.launches}
+    a64_bodies = dict(K.gse_spmv_csr_f64.body_launches)
+    iters = int(res.iters)
+    log("gmres_full", rows=g.shape[0], nnz=g.nnz, restart=GMRES_RESTART,
+        precond="jacobi", iters=iters, switch_iters=res.switch_iters.tolist(),
+        tag=int(res.tag), relres=float(res.relres),
+        converged=bool(res.converged), health=health_name(res.health),
+        trip_iter=int(res.trip_iter), first_cycle_last=float(cycle[-1]),
+        setup_s=f"{setup_s:.2f}", wall_s=f"{wall:.2f}",
+        ms_per_iteration=f"{wall * 1e3 / iters:.3f}",
+        launches_per_iteration=f"{sum(launches.values()) / iters:.2f}",
+        launches=json.dumps(launches), a64_body_launches=json.dumps(a64_bodies))
+    if iters != GMRES_FULL_ITERS and not bool(res.converged):
+        raise AssertionError(f"phase 16 ran {iters} of {GMRES_FULL_ITERS}")
+    # Ten cycles at maxiter end "stalled" by the reference's rule for an
+    # exhausted budget; no guard may have tripped.
+    if int(res.trip_iter) != -1 or health_name(res.health) not in (
+            "ok", "stalled"):
+        raise AssertionError(f"phase 16 ended {health_name(res.health)}, "
+                             f"trip at {int(res.trip_iter)}")
+    # From x0 = 0 the relative residual starts at 1.
+    if not (bool(torch.isfinite(res.x).all()) and 0.0 < float(res.relres) < 1):
+        raise AssertionError(f"phase 16: relres {float(res.relres)!r}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the GMRES path never launched: "
+                             f"{launches}")
+    require_bodies("phase 16: A64", a64_bodies, plan_bodies(g))
+    return launches
+
+
+def pcg_case(kind, device):
+    """quickstart section 4's system on ``device``, its b (the port's CSR
+    SpMV on the host) and ``kind``'s preconditioner."""
+    import numpy as np
+    import torch
+
+    from repro_torch.solvers import precond as PC
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+    from repro_torch.sparse.spmv import spmv
+
+    host = G.ill_conditioned_spd(32, decades=8.0, seed=0, device="cpu")
+    b = spmv(host, torch.from_numpy(
+        np.random.default_rng(0).normal(size=host.shape[0])))
+    a = G.ill_conditioned_spd(32, decades=8.0, seed=0, device=device)
+    return pack_csr(a, k=8), getattr(PC, f"make_{kind}")(a, k=8), b.to(device)
+
+
+def phase_pcg_trajectory():
+    """Phase 17: PCG on quickstart section 4's cases, the card against the
+    CPU twin, and the fused path against the generic one on the card."""
+    import torch
+
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.solvers import (make_gse_operator, make_precond_operator,
+                                     solve_pcg)
+
+    params = MonitorParams(**PCG_PARAMS)
+    kw = dict(tol=1e-10, maxiter=5000, params=params)
+    for kind, want in PCG_REF.items():
+        runs = {}
+        for where in ("cuda", "cpu"):
+            g, m, b = pcg_case(kind, where)
+            t0 = time.perf_counter()
+            runs[where] = (solve_pcg(g, b, m, **kw), time.perf_counter() - t0)
+        (rg, tg_s), (rc, tc_s) = runs["cuda"], runs["cpu"]
+        g, m, b = pcg_case(kind, "cuda")
+        generic = solve_pcg(make_gse_operator(g), b, make_precond_operator(m),
+                            **kw)
+        got = (int(rg.iters), rg.switch_iters.tolist(), int(rg.tag))
+        log("pcg_trajectory", case="illcond_32", precond=kind,
+            iters=got[0], switch_iters=got[1], tag=got[2],
+            relres=float(rg.relres), gpu_s=f"{tg_s:.2f}",
+            cpu_s=f"{tc_s:.2f}", cpu_twin_bitwise=True,
+            fused_bitwise_generic=True)
+        if got != want:
+            raise AssertionError(f"PCG {kind} on the GPU: {got} != {want}")
+        if (int(rc.iters), rc.switch_iters.tolist(), int(rc.tag)) != got:
+            raise AssertionError(f"PCG {kind}: the GPU and the CPU twin "
+                                 "disagree")
+        require_bitwise(f"PCG {kind} x against the CPU twin", rg.x, rc.x)
+        require_bitwise(f"PCG {kind} relres against the CPU twin", rg.relres,
+                        rc.relres)
+        require_bitwise(f"PCG {kind}: fused x against the generic path",
+                        rg.x, generic.x)
+        if int(generic.iters) != got[0] or not bool(rg.converged):
+            raise AssertionError(f"PCG {kind}: generic {int(generic.iters)} "
+                                 f"iterations, converged {bool(rg.converged)}")
+
+
+def phase_pcg_full(csr, g, b, params, cg_res, cg_wall):
+    """Phase 18: stepped PCG with Jacobi on phase 4's matrix, launch counts
+    zeroed, beside phase 4's plain CG."""
+    import torch
+
+    from repro_torch.kernels import gse_spmv as K
+    from repro_torch.kernels import vec_f64 as V
+    from repro_torch.robustness.guards import health_name
+    from repro_torch.solvers import make_jacobi, solve_pcg
+
+    t0 = time.perf_counter()
+    m = make_jacobi(csr, k=8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for mod in (K, V):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve_pcg(g, b, m, tol=1e-8, maxiter=20000, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gse_spmv_csr_f64": K.gse_spmv_csr_f64.launches,
+                "seq_dot": V.seq_dot.launches,
+                "fma_axpy": V.fma_axpy.launches}
+    a64_bodies = dict(K.gse_spmv_csr_f64.body_launches)
+    iters = int(res.iters)
+    log("pcg_full", rows=g.shape[0], nnz=g.nnz, precond="jacobi", iters=iters,
+        switch_iters=res.switch_iters.tolist(), tag=int(res.tag),
+        relres=float(res.relres), converged=bool(res.converged),
+        health=health_name(res.health), setup_s=f"{setup_s:.2f}",
+        wall_s=f"{wall:.2f}", ms_per_iteration=f"{wall * 1e3 / iters:.3f}",
+        cg_iters=int(cg_res.iters), cg_wall_s=f"{cg_wall:.2f}",
+        cg_ms_per_iteration=f"{cg_wall * 1e3 / int(cg_res.iters):.3f}",
+        launches=json.dumps(launches), a64_body_launches=json.dumps(a64_bodies))
+    if not bool(res.converged) or health_name(res.health) != "ok":
+        raise AssertionError(f"phase 18 ended {health_name(res.health)} with "
+                             f"converged={bool(res.converged)}")
+    if not bool(torch.isfinite(res.x).all()) or min(launches.values()) <= 0:
+        raise AssertionError(f"phase 18: non-finite x or a kernel of the "
+                             f"PCG path never launched: {launches}")
+    require_bodies("phase 18: A64", a64_bodies, plan_bodies(g))
+
+
+def gmres_entries(ctx, launches, add_entry, chain_ms):
+    """Phase 10's rows for the GMRES kernels: the GEMVs at n = 2^20 and
+    81 rows (phase 15's operands), the rotations at j = 79 and the back
+    substitution at j = 80 of a restart-80 cycle; launches from phase 16."""
+    import torch
+
+    from repro_torch.kernels import gmres_f64 as GF
+    from repro_torch.kernels import vec_f64 as V
+
+    card, host, err, lsq = ctx["card"], ctx["host"], ctx["err"], ctx["lsq"]
+    rows, n = card["V"].shape
+    vec_src = "src/repro_torch/kernels/csrc/vec_f64.cu"
+    gm_src = "src/repro_torch/kernels/csrc/gmres_f64.cu"
+    basis = rows * n * 8
+    add_entry("gemv_rows_ref", vec_src, "src/repro/solvers/gmres.py:147",
+              lambda: V.gemv_rows_ref(card["V"], card["w"], rows),
+              lambda: V.gemv_rows_ref_plain(host["V"], host["w"], rows),
+              lambda: torch.mv(card["V"], card["w"]),
+              basis + n * 8 + rows * 8,
+              2 * rows * n / FP64_OPS_PER_S * 1e3, plain_reps=1, rows=rows,
+              n=n, launches=launches["gemv_rows_ref"],
+              max_abs_err=err["gemv_rows_ref"],
+              chain_bound_ms=chain_ms(n // V.GEMV_LANES, "fma"),
+              plain_on="host")
+    add_entry("gemv_cols_ref", vec_src, "src/repro/solvers/gmres.py:148",
+              lambda: V.gemv_cols_ref(card["c"], card["V"], rows),
+              lambda: V.gemv_cols_ref_plain(host["c"], host["V"], rows),
+              lambda: torch.mv(card["V"].t(), card["c"]),
+              basis + rows * 8 + n * 8,
+              2 * rows * n / FP64_OPS_PER_S * 1e3, plain_reps=1, rows=rows,
+              n=n, launches=launches["gemv_cols_ref"],
+              max_abs_err=err["gemv_cols_ref"],
+              chain_bound_ms=chain_ms(rows, "fma"), plain_on="host")
+    restart = GMRES_RESTART
+    j = restart - 1
+    st = lsq["givens"]
+    st_host = [t.cpu() for t in st]
+    on = torch.ones((), dtype=torch.bool, device=st[0].device)
+    add_entry("givens_step", gm_src, "src/repro/solvers/gmres.py:154",
+              lambda: GF.givens_step(st[0][:j + 1].contiguous(), *st[1:], on, j),
+              lambda: GF.givens_step_plain(st_host[0][:j + 1], *st_host[1:],
+                                           torch.tensor(True), j),
+              None, (2 * j + 4 * restart + 6) * 8,
+              (6 * j + 20) / FP64_OPS_PER_S * 1e3, plain_reps=3, j=j,
+              restart=restart, launches=launches["givens_step"],
+              max_abs_err=0.0, chain_bound_ms=chain_ms(2 * j + 6, "fma"),
+              plain_on="host")
+    jt = torch.tensor(restart, dtype=torch.int32, device=lsq["tri"].device)
+    tri_host, g_host = lsq["tri"].cpu(), lsq["g"].cpu()
+    dense = torch.triu(lsq["tri"][:restart]).contiguous()
+    add_entry("trsv_upper_ref", gm_src, "src/repro/solvers/gmres.py:219",
+              lambda: GF.trsv_upper_ref(lsq["tri"], lsq["g"], jt),
+              lambda: GF.trsv_upper_ref_plain(tri_host, g_host, restart),
+              lambda: torch.linalg.solve_triangular(
+                  dense, lsq["g"][:restart, None], upper=True),
+              (restart * (restart + 1) // 2 + 2 * restart) * 8,
+              restart * restart / FP64_OPS_PER_S * 1e3, plain_reps=3,
+              restart=restart, j=restart,
+              launches=launches["trsv_upper_ref"], max_abs_err=0.0,
+              chain_bound_ms=chain_ms(sum(
+                  restart - hi + 2 * (hi - lo)
+                  for lo, hi in GF._trsm_blocks(restart)), "fma"),
+              plain_on="host")
+
+
 def ell_earlier(tree) -> dict:
     """A32's and C32's times in the checkout ``tree`` on phase 2's operator:
     tools/time_ell_kernels.py run there in a process of its own (it builds
@@ -2553,6 +2978,19 @@ def main() -> int:
     phase_sell_trajectory(params)
     sell_ctx = phase_sell_full(params)
 
+    # 15-18. stepped GMRES and PCG ---------------------------------------------
+    t0 = time.perf_counter()
+    gmres_ctx = phase_gmres_trajectory()
+    t1 = time.perf_counter()
+    gmres_launches = phase_gmres_full()
+    t2 = time.perf_counter()
+    phase_pcg_trajectory()
+    t3 = time.perf_counter()
+    phase_pcg_full(csr, g, b, params, res, wall)
+    log("solver_phases", gmres_trajectory_s=f"{t1 - t0:.1f}",
+        gmres_full_s=f"{t2 - t1:.1f}", pcg_trajectory_s=f"{t3 - t2:.1f}",
+        pcg_full_s=f"{time.perf_counter() - t3:.1f}")
+
     # 11-14. the LM serving path ----------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain E: full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2722,6 +3160,7 @@ def main() -> int:
                   2 * N_FULL * ncols / FP64_OPS_PER_S * 1e3,
                   plain_reps=plain_reps, nrhs=ncols, launches=count,
                   max_abs_err=vec_err[name], **extra)
+    gmres_entries(gmres_ctx, gmres_launches, add_entry, chain_ms)
     sell_entries(sell_ctx, add_entry, chain_ms(sell_ctx["longest"], "add"))
     lm_entries(lm_ctx, lm_counts, twin_counts, add_entry)
     log("kernels", seconds=f"{time.perf_counter() - t_kernels:.1f}",

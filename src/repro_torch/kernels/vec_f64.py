@@ -30,6 +30,34 @@ right-hand side, and runs the column-batched twins:
 
 Column j of either is bitwise the single-vector op on column j.
 
+Stepped GMRES (``solvers/gmres.py``, the reference's CGS2 at
+``repro/solvers/gmres.py:147-148`` and the cycle's update at :220) runs
+two f64 GEMVs over its Krylov basis ``V`` (rows ``(restart + 1, n)``),
+each rounded as XLA's CPU build of the jitted reference adds it (read
+from its dumped IR and object code, on an AVX-512 host whose XLA emits
+256-bit vectors, ``prefer-vector-width=256``):
+
+* :func:`gemv_rows_ref` -- ``V[:rows] @ w``.  XLA's row-major GEMV keeps
+  :data:`GEMV_LANES` = 4 partial sums per row: lane l takes the elements
+  ``k = l (mod 4)`` of the first ``4 * (n // 4)``, each step one fused
+  multiply-add from 0.0; the lanes then add as ``(l0 + l2) + (l1 + l3)``,
+  and a scalar FMA chain over the ``n % 4`` trailing elements (0.0 when
+  there are none) is added last.  Bound by the lane chains' latency:
+  one block per row carries its four chains.
+* :func:`gemv_cols_ref` -- ``c[:rows] @ V[:rows]`` (optionally ``+ x``).
+  XLA's column-major GEMV runs one FMA chain per column down the rows, in
+  row order, from 0.0 -- or from the addend ``x``, where the reference's
+  ``x + y @ V`` fuses the add into the dot.  Without an addend and with
+  ``n % 4 == 1``, the last column goes through XLA's scalar tail, which
+  starts at ``c[0] * V[0]`` and adds rows 1-7 as separately rounded
+  products before fusing, as :func:`seq_dot` does.  Bound by HBM bytes:
+  one thread per column.
+
+Both products keep the reference's rounding only where the reference
+reads real data: ``rows`` is the count of live basis rows, and the
+reference's extra all-zero rows can change the result only in the sign
+of an exact zero.
+
 :func:`ref_norm_cols` is the reference's ``jnp.linalg.norm`` (the solvers'
 ``||b||``) as XLA's CPU build computes it, in torch operations around
 those kernels, and :func:`sqrt_rn` a square root rounded as the
@@ -54,7 +82,9 @@ from repro_torch.kernels import _build
 
 __all__ = ["seq_dot", "seq_dot_plain", "fma_axpy", "fma_axpy_plain",
            "seq_dot_cols", "seq_dot_cols_plain", "fma_axpy_cols",
-           "fma_axpy_cols_plain", "ref_norm_cols", "sqrt_rn", "KERNELS",
+           "fma_axpy_cols_plain", "gemv_rows_ref", "gemv_rows_ref_plain",
+           "gemv_cols_ref", "gemv_cols_ref_plain", "fma_into",
+           "GEMV_LANES", "ref_norm_cols", "sqrt_rn", "KERNELS",
            "reset_launch_counts", "chain_latency"]
 
 _P = ctypes.c_void_p
@@ -66,11 +96,15 @@ _ARGTYPES = {
                           _P],
     "chain_probe_f64": [ctypes.c_int, ctypes.c_longlong, ctypes.c_double,
                         ctypes.c_double, _P, _P],
+    "gemv_rows_ref_f64": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P],
+    "gemv_cols_ref_f64": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P,
+                          _P],
 }
 _BOUND = {}
 _SPLIT = 134217729.0  # 2**27 + 1: Veltkamp's splitter for f64
 _HEAD = 8  # leading elements of a dot added without fusion
 _WINDOW = 32  # XLA's CPU tree-reduction window
+GEMV_LANES = 4  # partial sums per row of XLA's CPU row-major f64 GEMV
 
 
 def _fn(name: str):
@@ -330,6 +364,144 @@ def fma_axpy_cols(alpha: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
     return out
 
 
+# --- the GMRES basis products ---------------------------------------------
+
+def _addcmul_rounds_once() -> bool:
+    """Whether ``Tensor.addcmul_`` on the CPU rounds ``c + a * b`` once, as
+    a fused multiply-add: true where torch's CPU kernels are built with FMA
+    contraction (checked against :func:`fma_axpy_plain`, which is exact,
+    on operands where the two roundings differ, in the vector body and in
+    the scalar tail)."""
+    gen = torch.Generator().manual_seed(0)
+    a, b, c = (torch.randn(4099, dtype=torch.float64, generator=gen)
+               for _ in range(3))
+    fused = fma_axpy_plain(a, b, c)
+    if torch.equal(fused, c + a * b):
+        return False  # the probe would not tell the two apart
+    return (torch.equal(c.clone().addcmul_(a, b), fused)
+            and torch.equal(c[:7].clone().addcmul_(a[:7], b[:7]), fused[:7]))
+
+
+def fma_into(acc: torch.Tensor):
+    """A callable ``f(a, b)`` that sets ``acc = fma(a, b, acc)`` in place
+    (``a``, ``b`` broadcast), rounded once: ``acc.addcmul_`` for CPU
+    tensors where the host's torch fuses it (checked once per process),
+    else the exact emulation of :func:`fma_axpy_plain`."""
+    fused = _BOUND.get("addcmul_fma")
+    if fused is None:
+        fused = _BOUND["addcmul_fma"] = _addcmul_rounds_once()
+    if fused and acc.device.type == "cpu":
+        return acc.addcmul_
+    return lambda a, b: acc.copy_(fma_axpy_plain(a, b, acc))
+
+
+def _check_rows(V, rows: int):
+    if not 0 < rows <= V.shape[0]:
+        raise ValueError(f"rows must be in [1, {V.shape[0]}], got {rows}")
+
+
+def gemv_rows_ref_plain(V: torch.Tensor, w: torch.Tensor,
+                        rows: int) -> torch.Tensor:
+    """Plain version of :func:`gemv_rows_ref`: the four lane chains of
+    every row stepped together, one fused step (:func:`fma_into`) per
+    four elements, then the lane sum and the tail."""
+    _check_rows(V, rows)
+    n = V.shape[1]
+    m = n - n % GEMV_LANES
+    steps = V[:rows, :m].reshape(rows, m // GEMV_LANES, GEMV_LANES)
+    steps = steps.transpose(0, 1).contiguous().unbind(0)
+    acc = torch.zeros(rows, GEMV_LANES, dtype=V.dtype, device=V.device)
+    step = fma_into(acc)
+    for vk, wk in zip(steps, w[:m].reshape(-1, GEMV_LANES).unbind(0)):
+        step(vk, wk)
+    tail = torch.zeros(rows, dtype=V.dtype, device=V.device)
+    step = fma_into(tail)
+    for k in range(m, n):
+        step(V[:rows, k], w[k])
+    return ((acc[:, 0] + acc[:, 2]) + (acc[:, 1] + acc[:, 3])) + tail
+
+
+def gemv_rows_ref(V: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
+    """``V[:rows] @ w`` of a contiguous ``(R, n)`` f64 basis and an
+    ``(n,)`` f64 vector, as a ``(rows,)`` tensor on their device, rounded
+    as the reference's jitted ``V @ w``."""
+    if V.device.type == "cpu":
+        return gemv_rows_ref_plain(V, w, rows)
+    dev = V.device
+    if dev.type != "cuda":
+        raise ValueError(f"gemv_rows_ref runs on cuda or cpu, not {dev}")
+    _check(V, "V", dev, 2)
+    _check(w, "w", dev, 1)
+    _check_rows(V, rows)
+    if w.shape[0] != V.shape[1]:
+        raise ValueError(f"length mismatch: V has {V.shape[1]} columns, "
+                         f"w {w.shape[0]} entries")
+    out = torch.empty(rows, dtype=torch.float64, device=dev)
+    rc = _fn("gemv_rows_ref_f64")(V.data_ptr(), w.data_ptr(), V.shape[1],
+                                  rows, out.data_ptr(),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    gemv_rows_ref.launches += 1
+    _raise_on(rc, "gemv_rows_ref_f64")
+    return out
+
+
+def gemv_cols_ref_plain(c: torch.Tensor, V: torch.Tensor, rows: int,
+                        addend: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of :func:`gemv_cols_ref`: the column chains stepped
+    together down the rows, one fused step (:func:`fma_into`) per row."""
+    _check_rows(V, rows)
+    n = V.shape[1]
+    if addend is None:
+        acc = torch.zeros(n, dtype=V.dtype, device=V.device)
+    else:
+        acc = addend.clone()
+    step = fma_into(acc)
+    for ci, vi in zip(c[:rows].unbind(0), V[:rows].unbind(0)):
+        step(ci, vi)
+    if n % GEMV_LANES == 1 and addend is None:  # XLA's scalar tail column
+        col = V[:rows, n - 1]
+        t = c[0] * col[0]
+        for i in range(1, min(rows, _HEAD)):
+            t = t + c[i] * col[i]
+        step = fma_into(t)
+        for i in range(_HEAD, rows):
+            step(c[i], col[i])
+        acc[n - 1] = t
+    return acc
+
+
+def gemv_cols_ref(c: torch.Tensor, V: torch.Tensor, rows: int,
+                  addend: torch.Tensor | None = None) -> torch.Tensor:
+    """``c[:rows] @ V[:rows]`` (plus ``addend``, fused as the reference's
+    ``x + y @ V`` fuses it) of an f64 ``(>= rows,)`` vector and a
+    contiguous ``(R, n)`` f64 basis, as an ``(n,)`` tensor on their device,
+    rounded as the reference's jitted product."""
+    if V.device.type == "cpu":
+        return gemv_cols_ref_plain(c, V, rows, addend)
+    dev = V.device
+    if dev.type != "cuda":
+        raise ValueError(f"gemv_cols_ref runs on cuda or cpu, not {dev}")
+    _check(V, "V", dev, 2)
+    _check(c, "c", dev, 1)
+    _check_rows(V, rows)
+    if c.shape[0] < rows:
+        raise ValueError(f"c has {c.shape[0]} entries, rows is {rows}")
+    n = V.shape[1]
+    if addend is not None:
+        _check(addend, "addend", dev, 1)
+        if addend.shape[0] != n:
+            raise ValueError(f"addend has {addend.shape[0]} entries, V {n} "
+                             "columns")
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    rc = _fn("gemv_cols_ref_f64")(
+        c.data_ptr(), V.data_ptr(),
+        addend.data_ptr() if addend is not None else None, n, rows,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    gemv_cols_ref.launches += 1
+    _raise_on(rc, "gemv_cols_ref_f64")
+    return out
+
+
 # --- the reference's norm ----------------------------------------------------
 
 def sqrt_rn(v: torch.Tensor) -> torch.Tensor:
@@ -415,7 +587,8 @@ def chain_latency(op: str, n: int = 1 << 22, reps: int = 3) -> dict:
     return best
 
 
-KERNELS = (seq_dot, fma_axpy, seq_dot_cols, fma_axpy_cols)
+KERNELS = (seq_dot, fma_axpy, seq_dot_cols, fma_axpy_cols, gemv_rows_ref,
+           gemv_cols_ref)
 
 
 def reset_launch_counts():

@@ -1,7 +1,8 @@
 """Fused stepped-CG iteration over a GSE-SEM CSR or SELL-C-sigma operand.
 
 Port of ``repro/solvers/fused_cg.py``: ``fused_cg_step``,
-``fused_cg_step_g`` (:37-101) and ``gse_matvec`` (:169).
+``fused_cg_step_g`` (:37-101), ``fused_pcg_step``, ``fused_pcg_step_g``
+(:104-166) and ``gse_matvec`` (:169).
 
 One CG iteration is one SpMV plus two dots, two axpys and one xpby.  The
 reference picks one of three tag-specialized branches with
@@ -19,7 +20,8 @@ import torch
 from repro_torch.kernels.vec_f64 import fma_axpy, seq_dot
 from repro_torch.sparse.spmv import spmv_gse
 
-__all__ = ["cg_update", "fused_cg_step", "fused_cg_step_g", "gse_matvec"]
+__all__ = ["cg_update", "pcg_update", "fused_cg_step", "fused_cg_step_g",
+           "fused_pcg_step", "fused_pcg_step_g", "gse_matvec"]
 
 
 def cg_update(x, r, p, rs, ap):
@@ -34,6 +36,25 @@ def cg_update(x, r, p, rs, ap):
     beta = rs2 / torch.where(rs == 0, 1.0, rs)
     p2 = fma_axpy(beta, p, r2)
     return x2, r2, p2, rs2, denom
+
+
+def pcg_update(x, r, p, rz, ap, apply_z):
+    """The preconditioned CG recurrence around ``ap = A @ p``, in the
+    order of the reference's ``_pcg_step_at_tag`` (:104-130), with
+    ``apply_z(r') = M^{-1} r'``; returns ``(x', r', p', rz', rr', denom)``
+    with ``rz' = r'.z'`` (the recurrence) and ``rr' = r'.r'`` (what the
+    monitor sees).  The generic-operator PCG loop runs the same
+    function."""
+    denom = seq_dot(p, ap)
+    alpha = rz / torch.where(denom == 0, 1.0, denom)
+    x2 = fma_axpy(alpha, p, x)
+    r2 = fma_axpy(-alpha, ap, r)
+    z2 = apply_z(r2)
+    rz2 = seq_dot(r2, z2)
+    rr2 = seq_dot(r2, r2)
+    beta = rz2 / torch.where(rz == 0, 1.0, rz)
+    p2 = fma_axpy(beta, p, z2)
+    return x2, r2, p2, rz2, rr2, denom
 
 
 def _step_at_tag(a, x, r, p, rs, tag, with_denom=False):
@@ -52,6 +73,27 @@ def fused_cg_step_g(a, x, r, p, rs, tag):
     """``fused_cg_step`` that also returns the curvature ``denom = p.Ap``
     the guards check for breakdown -- same operations, same order."""
     return _step_at_tag(a, x, r, p, rs, tag, with_denom=True)
+
+
+def _pcg_step_at_tag(a, m, x, r, p, rz, tag):
+    """One PCG iteration at the (device) ``tag``: the SpMV and the
+    preconditioner apply read the same tag."""
+    return pcg_update(x, r, p, rz, spmv_gse(a, p, tag),
+                      lambda v: m.apply_at(v, tag))
+
+
+def fused_pcg_step(a, m, x, r, p, rz, tag):
+    """PCG iteration with precision ``tag`` in {1, 2, 3} (int or device
+    int32 tensor) over a ``GSECSR``/``GSESellC`` operand and a
+    preconditioner from ``solvers.precond``.  Returns
+    ``(x', r', p', rz', rr')``."""
+    return _pcg_step_at_tag(a, m, x, r, p, rz, tag)[:5]
+
+
+def fused_pcg_step_g(a, m, x, r, p, rz, tag):
+    """``fused_pcg_step`` that also returns ``denom = p.Ap`` (the guards'
+    breakdown predicate) -- same operations, same order."""
+    return _pcg_step_at_tag(a, m, x, r, p, rz, tag)
 
 
 def gse_matvec(a, x, tag):

@@ -7,8 +7,7 @@ Port of ``repro/sparse/csr.py``: ``CSR``, ``GSECSR`` (with
 ``layout=``), ``scatter_rows`` (:482), ``to_ell`` (:528), ``ell_layout``
 (:543), ``sell_slices`` (:558) and ``pack_sell`` (:610).  The byte
 models take int tags; per-group TagMaps (and ``GSESellC.bucket_tags``)
-arrive with ROADMAP queue 1 item 11, the preconditioner charge with
-item 6.
+arrive with ROADMAP queue 1 item 11.
 
 Paper Section III.C.1: shared-exponent indices ride the top ``EI_BIT``
 bits of the 32-bit column indices, so the SEM head keeps all 15 non-sign
@@ -433,19 +432,29 @@ def vector_stream_bytes(op, dtype=torch.float64) -> int:
     return (m + n) * dtype.itemsize
 
 
-def iteration_stream_bytes(op, tag, nrhs: int = 1, layout=None) -> int:
+def iteration_stream_bytes(op, tag, precond=None, nrhs: int = 1,
+                           layout=None) -> int:
     """Modeled HBM bytes one stepped solver iteration streams at ``tag``.
 
-    The operator's matrix streams (``op.bytes_touched``) are charged once
-    per iteration; each right-hand-side column beyond the first charges
-    its own dense x/y stream.  ``tag`` may also be a ``CSR`` store dtype.
+    The operator's matrix streams (``op.bytes_touched``) plus the
+    preconditioner's stored streams at the same tag (both follow the
+    monitor's schedule; ``precond.bytes_touched``), charged once per
+    iteration; each right-hand-side column beyond the first charges its
+    own dense x/y stream.  Without a preconditioner ``tag`` may also be a
+    ``CSR`` store dtype; charging one needs a GSE tag in {1, 2, 3}.
     ``layout`` (a ``GSESellC`` or ``ELLLayout``) charges that layout's
     padded slots instead of nnz only; a ``GSESellC`` passed as ``op`` is
     already slot-honest.
     """
     if nrhs < 1:
         raise ValueError(f"nrhs must be >= 1, got {nrhs}")
+    if precond is not None and (isinstance(tag, bool)
+                                or tag not in (1, 2, 3)):
+        raise ValueError(f"preconditioner streams need a GSE tag in "
+                         f"{{1, 2, 3}}, got {tag!r}")
     total = (layout if layout is not None else op).bytes_touched(tag)
+    if precond is not None:
+        total += precond.bytes_touched(tag)
     total += (nrhs - 1) * vector_stream_bytes(op)
     return total
 

@@ -35,6 +35,17 @@ from repro_torch.sparse.spmv import spmv_gse  # noqa: E402
 QS = dict(t=40, l=60, m=30)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module: the stepped loops run thousands
+    of tiny ops, which a thread pool shared with the other test workers
+    only slows (about 25x with six workers of eight threads each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _system(gen, x_true, k=8):
     """(reference CSR, reference GSECSR, port GSECSR, b) with b = A x made
     by the reference's f64 spmv; the port's operand is converted from the
