@@ -14,7 +14,9 @@ CPU fallback: without a CUDA device, or without the rest of the
 repository beside it, the script fails.  Phases 11-14 drive the LM
 serving path of qwen3_4b (prefill and decode with GSE-SEM packed weights)
 on kernels D, E and F; phases 15-18 stepped GMRES (the paper's second
-solver, right-preconditioned) and preconditioned CG.
+solver, right-preconditioned) and preconditioned CG; phases 19-20
+stepped iterative refinement, batched PCG and the preconditioned solve
+service.
 
 Phases:
   1. build     -- nvcc time for every kernel source (all started at once).
@@ -158,7 +160,10 @@ Phases:
                   equal the CPU's bitwise, the tokens lie in the vocab.
   15. gmres trajectory -- gemv_rows_ref and gemv_cols_ref (with and
                   without the fused addend) bitwise their plain versions
-                  at n = 2^20 and rows 1, 41, 81; givens_step (j 0, 1, 40,
+                  at n = 2^20 and rows 1, 41, 81, and gemv_cols_sliced_ref
+                  (the right-preconditioned cycle update y @ V[:rows] in
+                  the order of XLA's loop fusion) at rows 30, 60 and 80;
+                  givens_step (j 0, 1, 40,
                   79) and trsv_upper_ref (j 0, 1, 17, 40, 80) bitwise at
                   restart 80; then the example's case
                   (examples/solve_stepped_gmres.py: diag_rescale(
@@ -173,9 +178,9 @@ Phases:
                   Uncounted first: the first cycle's recursive residuals
                   never increase.  Then, launch counts zeroed, the solve:
                   no guard trip, a finite x, relres below 1, every kernel
-                  of the path launched and every body of A64 the row plan
-                  holds; ms per inner iteration and launches per
-                  iteration printed.
+                  of the path launched (the sliced update included) and
+                  every body of A64 the row plan holds; ms per inner
+                  iteration and launches per iteration printed.
   17. pcg trajectory -- quickstart section 4's system
                   (ill_conditioned_spd(32, 8 decades), tol 1e-10, the fast
                   monitor) with Jacobi, block-Jacobi and SPAI-0 on the card
@@ -187,6 +192,37 @@ Phases:
                   20000): converged, health ok, A64's bodies, seq_dot and
                   fma_axpy launched; iterations and ms per iteration beside
                   phase 4's plain CG.
+  19. ir trajectory -- quickstart section 5's case (the system of phase 17,
+                  Jacobi, b and a second draw b'; tol 1e-11, max_outer 10,
+                  inner_tol 1e-4, inner_maxiter 4000): solve_ir with inner
+                  PCG, CG, and right-Jacobi GMRES at restarts 30, 60 and
+                  80 on the card gives the reference's outer and inner
+                  counts and relres (IR_REF, printed by
+                  tools/reference/ir_ref.py), x and relres bitwise the CPU
+                  twin's (inner CG at a cut budget for the twin, IR_CG_CUT);
+                  solve_ir_batched on [b, 2b, b', 0] likewise
+                  (IR_BATCHED_REF).  solve_pcg_batched on [b, b', 0] with
+                  Jacobi, block-Jacobi and SPAI-0: each column bitwise the
+                  solo solve_pcg (column 0 PCG_REF's schedule), the fused
+                  path bitwise the generic one.  SolverService(slots=4,
+                  precond=...) for Jacobi and SPAI-0 on rs8_400_s3: at
+                  maxiter 20000 and at maxiter 4 (every request takes the
+                  tag-3 PCG retry) the reports equal the reference's
+                  (PCG_SERVICE_REF), and at maxiter 4 the card's reports
+                  and solutions equal the CPU twin's bitwise.
+  20. ir full  -- launch counts zeroed; on phase 4's matrix and b
+                  (MonitorParams(40, 60, 30)): solve_ir with inner Jacobi
+                  PCG (tol 1e-10, inner_tol 1e-4, max_outer 10) converges
+                  with health ok; solve_ir_batched on [b, b2, b3, 2b]
+                  (phase 6's right-hand sides and twice phase 4's b):
+                  column 0 bitwise the solo run, column 3 its relres and
+                  twice its x; SolverService(slots=4, maxiter=20000,
+                  precond="jacobi") takes phase 6's three requests: request
+                  0 bitwise phase 18's solo PCG, all converge, no retries,
+                  no errors.  Every body of A64 and C64 the row plan holds
+                  launched, and seq_dot_cols and fma_axpy_cols; outer and
+                  inner counts, seconds, and the inner iterations run
+                  (whole chunks) against those needed printed.
   10. kernels  -- run last: CUDA-event times (minimum over repeats) of
                   every kernel beside its plain version, its bound (HBM
                   bytes or operations) and one PyTorch library call
@@ -216,8 +252,9 @@ Phases:
                   per TF32 term) and F's bf16 rows by the bf16 tensor
                   cores (989 TFLOP/s), with `fp32_bound_ms` beside.
                   The GMRES kernels are timed at phase 15's shapes
-                  (their plain versions on the host, `plain_on`), the
-                  GEMVs beside torch.mv and the back substitution beside
+                  (their plain versions on the host, `plain_on`; the
+                  sliced update at rows 80), the GEMVs beside torch.mv
+                  and the back substitution beside
                   torch.linalg.solve_triangular, with phase 16's launches.
                   First a probe times a dependent FP64 add chain and FMA
                   chain from registers (vec_f64.chain_latency);
@@ -463,10 +500,11 @@ def sk512_rs8_s0(device):
 
 
 def serve_small(where: str, maxiter: int, params, case=rs8_400_s3,
-                layout="csr"):
+                layout="csr", precond=None):
     """``case`` (rs8_400_s3 or sk512_rs8_s0) through the port's
     SolverService on ``where``: three requests b_j = A x_j,
-    x_j = default_rng(j).normal(n), slots=4."""
+    x_j = default_rng(j).normal(n), slots=4, the handle registered with
+    ``precond`` (None, "jacobi" or "spai0")."""
     import numpy as np
     import torch
 
@@ -476,7 +514,7 @@ def serve_small(where: str, maxiter: int, params, case=rs8_400_s3,
     n = host.shape[0]
     svc = SolverService(slots=NRHS, params=params, maxiter=maxiter,
                         device=where)
-    svc.register("op", case(where), k=8, layout=layout)
+    svc.register("op", case(where), k=8, layout=layout, precond=precond)
     ids = [svc.submit("op", torch.from_numpy(host_spmv(
         host, np.random.default_rng(j).normal(size=n))), tol=1e-8)
         for j in range(3)]
@@ -2251,6 +2289,56 @@ PCG_REF = {"jacobi": (115, [-1, -1], 1), "block_jacobi": (95, [-1, -1], 1),
            "spai0": (1107, [120, 135], 3)}
 
 
+# quickstart section 5's refinement (the system of PCG_REF, Jacobi, b and
+# the second draw b'; tools/reference/ir_ref.py, JAX on the CPU, x64):
+# solve_ir's (outer_iters, inner_iters, relres) per inner solver -- the
+# CG rows with PCG_PARAMS, the GMRES rows with the GMRES monitor's
+# defaults -- and solve_ir_batched's per-column outer and inner counts
+# and relres on [b, 2b, b', 0].  tests/test_torch_ir.py holds the CPU twin
+# to them.
+IR_KW = dict(tol=1e-11, max_outer=10, inner_tol=1e-4, inner_maxiter=4000)
+IR_RUNS = {"pcg_jacobi": ("cg", True, 30), "cg": ("cg", False, 30),
+           "gmres_jacobi_r30": ("gmres", True, 30),
+           "gmres_jacobi_r60": ("gmres", True, 60),
+           "gmres_jacobi_r80": ("gmres", True, 80)}
+IR_REF = {"pcg_jacobi": (5, 296, 6.254406590631485e-14),
+          "cg": (4, 10400, 1.4240524747206275e-13),
+          "gmres_jacobi_r30": (5, 385, 9.012640712211029e-14),
+          "gmres_jacobi_r60": (5, 289, 8.130422133075342e-14),
+          "gmres_jacobi_r80": (5, 280, 7.253042026086966e-14)}
+IR_BATCHED_REF = ([5, 5, 5, 0], [296, 296, 289, 0],
+                  [6.254406590631485e-14, 6.254406590631485e-14,
+                   3.8567116799096125e-14, 0.0])
+# The inner-CG row's 10,400 inner iterations take about a minute on the
+# host, so its CPU twin runs a cut budget (the card runs it too).
+IR_CG_CUT = dict(inner_maxiter=500, max_outer=3)
+# The reference's SolverService(slots=4) with register(precond=kind) on
+# rs8_400_s3 (tools/reference/ir_ref.py), in SERVICE_REF's layout; at
+# maxiter 4 every request takes the tag-3 PCG retry (Jacobi undoes the
+# system's diagonal rescale: 7 and 32-35 iterations are enough).
+PCG_SERVICE_REF = {
+    ("jacobi", 20000): ([(7, 1, [-1, -1], "ok", 0, 128837)] * 3,
+                        dict(batches=1, requests=3, padded_cols=1,
+                             modeled_bytes=386512, retries=0, errors=0,
+                             deadline_exceeded=0)),
+    ("jacobi", 4): ([(8, 3, [-1, -1], "ok", 1, 243285)] * 3,
+                    dict(batches=1, requests=3, padded_cols=1,
+                         modeled_bytes=729856, retries=3, errors=0,
+                         deadline_exceeded=0)),
+    ("spai0", 20000): ([(34, 1, [-1, -1], "ok", 0, 637787),
+                        (32, 1, [-1, -1], "ok", 0, 588971),
+                        (35, 1, [-1, -1], "ok", 0, 680203)],
+                       dict(batches=1, requests=3, padded_cols=1,
+                            modeled_bytes=1906960, retries=0, errors=0,
+                            deadline_exceeded=0)),
+    ("spai0", 4): ([(8, 3, [-1, -1], "stalled", 1, 243285)] * 3,
+                   dict(batches=1, requests=3, padded_cols=1,
+                        modeled_bytes=729856, retries=3, errors=0,
+                        deadline_exceeded=0)),
+}
+SLICED_ROWS = (30, 60, 80)  # the cycle update's rows phase 15 checks
+
+
 def gmres_example(device):
     """The example's operator ``diag_rescale(convection_diffusion_2d(32,
     beta=5), 3, 7)`` on ``device`` and its b (the port's CSR SpMV on the
@@ -2307,6 +2395,18 @@ def phase_gmres_trajectory():
             err[name] = max(err[name], float((got.cpu() - want).abs().max()))
     log("gmres_trajectory", kernels="gemv_rows_ref gemv_cols_ref (+addend)",
         n=N_FULL, rows=[1, 41, rows_all], bitwise=True)
+    err["gemv_cols_sliced_ref"] = 0.0
+    for rows in SLICED_ROWS:
+        got = V.gemv_cols_sliced_ref(card["c"], card["V"], rows)
+        want = V.gemv_cols_sliced_ref_plain(host["c"], host["V"], rows)
+        require_bitwise(f"gemv_cols_sliced_ref at rows {rows}, n {N_FULL} "
+                        "against its plain version", got, want)
+        err["gemv_cols_sliced_ref"] = max(err["gemv_cols_sliced_ref"], float(
+            (got.cpu() - want).abs().max()))
+    log("gmres_trajectory", kernel="gemv_cols_sliced_ref", n=N_FULL,
+        rows=list(SLICED_ROWS), plan_steps=[len(V.sliced_plan(r))
+                                            for r in SLICED_ROWS],
+        bitwise=True)
 
     # The rotations and the back substitution at every cycle length.
     restart = GMRES_RESTART
@@ -2426,6 +2526,7 @@ def phase_gmres_full():
         "gse_spmv_csr_f64": K.gse_spmv_csr_f64.launches,
         "gemv_rows_ref": V.gemv_rows_ref.launches,
         "gemv_cols_ref": V.gemv_cols_ref.launches,
+        "gemv_cols_sliced_ref": V.gemv_cols_sliced_ref.launches,
         "givens_step": GF.givens_step.launches,
         "trsv_upper_ref": GF.trsv_upper_ref.launches,
         "seq_dot": V.seq_dot.launches}
@@ -2520,7 +2621,7 @@ def phase_pcg_trajectory():
 
 def phase_pcg_full(csr, g, b, params, cg_res, cg_wall):
     """Phase 18: stepped PCG with Jacobi on phase 4's matrix, launch counts
-    zeroed, beside phase 4's plain CG."""
+    zeroed, beside phase 4's plain CG.  Returns the solve."""
     import torch
 
     from repro_torch.kernels import gse_spmv as K
@@ -2558,6 +2659,285 @@ def phase_pcg_full(csr, g, b, params, cg_res, cg_wall):
         raise AssertionError(f"phase 18: non-finite x or a kernel of the "
                              f"PCG path never launched: {launches}")
     require_bodies("phase 18: A64", a64_bodies, plan_bodies(g))
+    return res
+
+
+def ir_case(device):
+    """quickstart section 5's case on ``device``: the packed system of
+    phase 17, its Jacobi, b and the second draw b' (the port's CSR SpMV
+    on the host)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.solvers import make_jacobi
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+    from repro_torch.sparse.spmv import spmv
+
+    host = G.ill_conditioned_spd(32, decades=8.0, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    bs = [spmv(host, torch.from_numpy(rng.normal(size=host.shape[0])))
+          for _ in range(2)]
+    a = G.ill_conditioned_spd(32, decades=8.0, seed=0, device=device)
+    return pack_csr(a, k=8), make_jacobi(a, k=8), *(b.to(device) for b in bs)
+
+
+def phase_ir_trajectory(params):
+    """Phase 19: iterative refinement, batched PCG and the preconditioned
+    service on the small cases, the card against the reference's numbers
+    and the CPU twin."""
+    import torch
+
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.solvers import (make_gse_operator, make_precond_operator,
+                                     solve_ir, solve_ir_batched, solve_pcg,
+                                     solve_pcg_batched)
+
+    fast = MonitorParams(**PCG_PARAMS)
+
+    def ir(where, name, **cut):
+        inner, pre, restart = IR_RUNS[name]
+        g, m, b, _ = ir_case(where)
+        t0 = time.perf_counter()
+        r = solve_ir(g, b, inner=inner, precond=m if pre else None,
+                     restart=restart, params=fast if inner == "cg" else None,
+                     **dict(IR_KW, **cut))
+        return r, time.perf_counter() - t0
+
+    for name, want in IR_REF.items():
+        rg, tg_s = ir("cuda", name)
+        got = (rg.outer_iters, rg.inner_iters, rg.relres)
+        if got != want or not rg.converged or rg.health != 0:
+            raise AssertionError(f"IR {name} on the GPU: {got} != {want}")
+        cut = IR_CG_CUT if name == "cg" else {}
+        if cut:  # the twin at the cut budget; the card runs it as well
+            rg, _ = ir("cuda", name, **cut)
+        rc, tc_s = ir("cpu", name, **cut)
+        if (rc.outer_iters, rc.inner_iters) != (rg.outer_iters,
+                                                rg.inner_iters):
+            raise AssertionError(f"IR {name}: the GPU and the CPU twin "
+                                 "disagree")
+        require_bitwise(f"IR {name} x against the CPU twin", rg.x, rc.x)
+        if rg.relres != rc.relres:
+            raise AssertionError(f"IR {name} relres {rg.relres!r} != the "
+                                 f"twin's {rc.relres!r}")
+        log("ir_trajectory", case="illcond_32", run=name, outer=got[0],
+            inner=got[1], relres=got[2], matches_reference=True,
+            gpu_s=f"{tg_s:.2f}", cpu_s=f"{tc_s:.2f}",
+            cpu_twin=json.dumps(cut) if cut else "full", cpu_twin_bitwise=True)
+
+    runs = {}
+    for where in ("cuda", "cpu"):
+        g, m, b, b2 = ir_case(where)
+        block = torch.stack([b, 2 * b, b2, torch.zeros_like(b)], dim=1)
+        t0 = time.perf_counter()
+        runs[where] = (solve_ir_batched(g, block, precond=m, params=fast,
+                                        device=where, **IR_KW),
+                       time.perf_counter() - t0)
+    (rg, tg_s), (rc, tc_s) = runs["cuda"], runs["cpu"]
+    got = (rg.outer_iters.tolist(), rg.inner_iters.tolist(),
+           rg.relres.tolist())
+    if got != IR_BATCHED_REF:
+        raise AssertionError(f"solve_ir_batched on the GPU: {got} != "
+                             f"{IR_BATCHED_REF}")
+    require_bitwise("solve_ir_batched x against the CPU twin", rg.x, rc.x)
+    if rg.relres.tolist() != rc.relres.tolist():
+        raise AssertionError("solve_ir_batched: the GPU's relres is not the "
+                             "CPU twin's")
+    log("ir_trajectory", case="illcond_32", run="batched [b, 2b, b', 0]",
+        outer=got[0], inner=got[1], relres=got[2], matches_reference=True,
+        gpu_s=f"{tg_s:.2f}", cpu_s=f"{tc_s:.2f}", cpu_twin_bitwise=True)
+
+    # Batched PCG on quickstart section 4's cases: column j the solo solve.
+    kw = dict(tol=1e-10, maxiter=5000, params=fast)
+    for kind, want in PCG_REF.items():
+        g, m, b = pcg_case(kind, "cuda")
+        _, _, _, b2 = ir_case("cuda")
+        block = torch.stack([b, b2, torch.zeros_like(b)], dim=1)
+        t0 = time.perf_counter()
+        fused = solve_pcg_batched(g, block, m, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        generic = solve_pcg_batched(make_gse_operator(g), block,
+                                    make_precond_operator(m), **kw)
+        for j, bj in enumerate((b, b2)):
+            solo = solve_pcg(g, bj, m, **kw)
+            if j == 0 and (int(solo.iters), solo.switch_iters.tolist(),
+                           int(solo.tag)) != want:
+                raise AssertionError(f"solo PCG {kind}: not {want}")
+            if (int(fused.iters[j]), fused.switch_iters[j].tolist()) != (
+                    int(solo.iters), solo.switch_iters.tolist()):
+                raise AssertionError(f"batched PCG {kind} column {j} is not "
+                                     "the solo solve")
+            require_bitwise(f"batched PCG {kind} column {j} x against the "
+                            "solo solve", fused.x[:, j], solo.x)
+            require_bitwise(f"batched PCG {kind} column {j} relres",
+                            fused.relres[j], solo.relres)
+        for name in ("iters", "switch_iters", "health"):
+            if not torch.equal(getattr(fused, name), getattr(generic, name)):
+                raise AssertionError(f"batched PCG {kind}: fused {name} is "
+                                     "not the generic path's")
+        require_bitwise(f"batched PCG {kind}: fused x against generic",
+                        fused.x, generic.x)
+        log("ir_trajectory", case="illcond_32", batched_pcg=kind,
+            iters=fused.iters.tolist(),
+            switch_iters=fused.switch_iters.tolist(),
+            columns_bitwise_solo=True, fused_bitwise_generic=True,
+            gpu_s=f"{wall:.2f}")
+
+    # The preconditioned service; at maxiter 4 the tag-3 PCG retry.
+    for (kind, maxiter), (want, want_stats) in PCG_SERVICE_REF.items():
+        svc_g, reps_g, xs_g, wall_g = serve_small("cuda", maxiter, params,
+                                                  precond=kind)
+        got = [report_key(r) for r in reps_g]
+        if got != want or svc_g.stats != want_stats:
+            raise AssertionError(f"{kind} service at maxiter {maxiter}: "
+                                 f"{got} {svc_g.stats} != {want} "
+                                 f"{want_stats}")
+        twin = {}
+        if maxiter == 4:
+            _, reps_c, xs_c, wall_c = serve_small("cpu", maxiter, params,
+                                                  precond=kind)
+            for rg_, rc_, xg_, xc_ in zip(reps_g, reps_c, xs_g, xs_c):
+                if report_fields(rg_) != report_fields(rc_):
+                    raise AssertionError(f"GPU report {rg_} != CPU {rc_}")
+                require_bitwise(f"{kind} service x of request {rg_.id}", xg_,
+                                xc_)
+            twin = dict(cpu_twin_bitwise=True, cpu_s=f"{wall_c:.2f}")
+        log("ir_trajectory", case="rs8_400_s3", service_precond=kind,
+            maxiter=maxiter, iters=[r.iters for r in reps_g],
+            health=[r.health for r in reps_g],
+            retries=[r.retries for r in reps_g],
+            est_bytes=[r.est_bytes for r in reps_g], matches_reference=True,
+            gpu_s=f"{wall_g:.2f}", **twin)
+
+
+def phase_ir_full(csr, g, b, bs_full, params, pcg_res):
+    """Phase 20: iterative refinement, batched IR and the preconditioned
+    service on phase 4's matrix, launch counts zeroed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import gse_spmm as C
+    from repro_torch.kernels import gse_spmv as K
+    from repro_torch.kernels import vec_f64 as V
+    from repro_torch.launch.solver_serve import SolverService
+    from repro_torch.robustness.guards import DEFAULT_GUARDS, health_name
+    from repro_torch.solvers import ir as T_ir
+    from repro_torch.solvers import make_jacobi, solve_ir_batched
+    from repro_torch.solvers.cg import CHUNK
+
+    m = make_jacobi(csr, k=8)
+    torch.cuda.synchronize()
+    for mod in (K, C, V):
+        mod.reset_launch_counts()
+    kw = dict(tol=1e-10, max_outer=10, inner_tol=1e-4, inner_maxiter=2000,
+              params=params)
+    # solve_ir's loop, driven a correction at a time to read each inner
+    # solve's iterations.
+    t0 = time.perf_counter()
+    st = T_ir._ir_setup(g, b, inner="cg", precond=m, restart=30,
+                        guards=DEFAULT_GUARDS, flight=None, **kw)
+    each = []
+    while T_ir._ir_active(st):
+        before = st["total_inner"]
+        T_ir._ir_step(st)
+        each.append(st["total_inner"] - before)
+    res = T_ir._ir_result(st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = sum(-(-k // CHUNK) * CHUNK for k in each)
+    log("ir_full", rows=g.shape[0], nnz=g.nnz, run="solve_ir inner PCG "
+        "(jacobi)", outer=res.outer_iters, inner=res.inner_iters,
+        inner_each=each, inner_run=run, relres=res.relres,
+        history=json.dumps(res.history.tolist()),
+        health=health_name(res.health), wall_s=f"{wall:.2f}")
+    if not res.converged or health_name(res.health) != "ok":
+        raise AssertionError(f"phase 20: solve_ir ended "
+                             f"{health_name(res.health)}, relres "
+                             f"{res.relres!r}")
+
+    block = torch.stack([b, bs_full[1], bs_full[2], 2 * b], dim=1)
+    t0 = time.perf_counter()
+    rb = solve_ir_batched(g, block, precond=m, **kw)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    log("ir_full", run="solve_ir_batched [b, b2, b3, 2b]",
+        outer=rb.outer_iters.tolist(), inner=rb.inner_iters.tolist(),
+        relres=rb.relres.tolist(), health=rb.health.tolist(),
+        wall_s=f"{wall_b:.2f}")
+    if (int(rb.outer_iters[0]), int(rb.inner_iters[0])) != (
+            res.outer_iters, res.inner_iters) or rb.relres[0] != res.relres:
+        raise AssertionError("phase 20: batched IR column 0 is not the solo "
+                             "run")
+    require_bitwise("phase 20: batched IR column 0 x against the solo run",
+                    rb.x[:, 0], res.x)
+    if rb.relres[3] != rb.relres[0]:
+        raise AssertionError("phase 20: 2b's relres is not b's")
+    require_bitwise("phase 20: 2b's x against twice b's", rb.x[:, 3],
+                    2 * rb.x[:, 0])
+    if not bool(np.all(rb.converged)):
+        raise AssertionError(f"phase 20: batched IR health {rb.health}")
+
+    t0 = time.perf_counter()
+    svc = SolverService(slots=NRHS, params=params, maxiter=20000)
+    svc.register("full", csr, k=8, precond="jacobi")
+    ids = [svc.submit("full", bj, tol=1e-8) for bj in bs_full]
+    reports = svc.flush()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    reps = [reports[i] for i in ids]
+    x0 = svc.solution(ids[0])
+    log("ir_full", run="SolverService precond=jacobi",
+        iters=[r.iters for r in reps], health=[r.health for r in reps],
+        retries=[r.retries for r in reps],
+        est_bytes=[r.est_bytes for r in reps], stats=json.dumps(svc.stats),
+        wall_s=f"{wall_s:.2f}")
+    if (reps[0].iters, reps[0].switch_iters.tolist(), reps[0].tag) != (
+            int(pcg_res.iters), pcg_res.switch_iters.tolist(),
+            int(pcg_res.tag)) or reps[0].relres != float(pcg_res.relres):
+        raise AssertionError(f"phase 20: request 0 {reps[0]} is not phase "
+                             "18's solo PCG")
+    require_bitwise("phase 20: request 0's x against phase 18's solo PCG",
+                    x0, pcg_res.x)
+    for r in reps:
+        if not r.converged or r.health != "ok" or r.retries != 0:
+            raise AssertionError(f"phase 20: request {r.id}: {r}")
+    if svc.stats["errors"] != 0:
+        raise AssertionError(f"phase 20: service errors {svc.stats}")
+
+    launches = {"gse_spmv_csr_f64": K.gse_spmv_csr_f64.launches,
+                "gse_spmm_csr_f64": C.gse_spmm_csr_f64.launches,
+                "seq_dot": V.seq_dot.launches,
+                "fma_axpy": V.fma_axpy.launches,
+                "seq_dot_cols": V.seq_dot_cols.launches,
+                "fma_axpy_cols": V.fma_axpy_cols.launches}
+    log("ir_full", launches=json.dumps(launches),
+        a64_body_launches=json.dumps(dict(K.gse_spmv_csr_f64.body_launches)),
+        c64_body_launches=json.dumps(dict(C.gse_spmm_csr_f64.body_launches)))
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"phase 20: a kernel of the IR path never "
+                             f"launched: {launches}")
+    require_bodies("phase 20: A64", K.gse_spmv_csr_f64.body_launches,
+                   plan_bodies(g))
+    require_bodies("phase 20: C64", C.gse_spmm_csr_f64.body_launches,
+                   plan_bodies(g))
+
+
+def plan_depth(plan) -> int:
+    """The longest chain of dependent steps of a ``vec_f64.sliced_plan``
+    (an FMA extends its accumulator's chain, an add joins two)."""
+    from repro_torch.kernels import vec_f64 as V
+
+    depth = [0] * V.SLICED_SLOTS
+    for kind, a, b in plan:
+        if kind == V.STEP_FMA:
+            depth[a] += 1
+        elif kind == V.STEP_ADD:
+            depth[a] = max(depth[a], depth[b]) + 1
+        else:
+            depth[a] = 0
+    return depth[0]
 
 
 def gmres_entries(ctx, launches, add_entry, chain_ms):
@@ -2593,6 +2973,21 @@ def gmres_entries(ctx, launches, add_entry, chain_ms):
               n=n, launches=launches["gemv_cols_ref"],
               max_abs_err=err["gemv_cols_ref"],
               chain_bound_ms=chain_ms(rows, "fma"), plain_on="host")
+    rows_s = GMRES_RESTART
+    depth = plan_depth(V.sliced_plan(rows_s))
+    add_entry("gemv_cols_sliced_ref", vec_src,
+              "src/repro/solvers/gmres.py:220",
+              lambda: V.gemv_cols_sliced_ref(card["c"], card["V"], rows_s),
+              lambda: V.gemv_cols_sliced_ref_plain(host["c"], host["V"],
+                                                   rows_s),
+              lambda: torch.mv(card["V"][:rows_s].t(), card["c"][:rows_s]),
+              rows_s * n * 8 + rows_s * 8 + n * 8,
+              2 * rows_s * n / FP64_OPS_PER_S * 1e3, plain_reps=1,
+              rows=rows_s, n=n, plan_steps=len(V.sliced_plan(rows_s)),
+              launches=launches["gemv_cols_sliced_ref"],
+              max_abs_err=err["gemv_cols_sliced_ref"],
+              chain_bound_ms=chain_ms(depth, "fma"), chain_steps=depth,
+              plain_on="host")
     restart = GMRES_RESTART
     j = restart - 1
     st = lsq["givens"]
@@ -2978,7 +3373,7 @@ def main() -> int:
     phase_sell_trajectory(params)
     sell_ctx = phase_sell_full(params)
 
-    # 15-18. stepped GMRES and PCG ---------------------------------------------
+    # 15-20. stepped GMRES, PCG and iterative refinement ------------------------
     t0 = time.perf_counter()
     gmres_ctx = phase_gmres_trajectory()
     t1 = time.perf_counter()
@@ -2986,10 +3381,15 @@ def main() -> int:
     t2 = time.perf_counter()
     phase_pcg_trajectory()
     t3 = time.perf_counter()
-    phase_pcg_full(csr, g, b, params, res, wall)
+    pcg_res = phase_pcg_full(csr, g, b, params, res, wall)
+    t4 = time.perf_counter()
+    phase_ir_trajectory(params)
+    t5 = time.perf_counter()
+    phase_ir_full(csr, g, b, bs_full, params, pcg_res)
     log("solver_phases", gmres_trajectory_s=f"{t1 - t0:.1f}",
         gmres_full_s=f"{t2 - t1:.1f}", pcg_trajectory_s=f"{t3 - t2:.1f}",
-        pcg_full_s=f"{time.perf_counter() - t3:.1f}")
+        pcg_full_s=f"{t4 - t3:.1f}", ir_trajectory_s=f"{t5 - t4:.1f}",
+        ir_full_s=f"{time.perf_counter() - t5:.1f}")
 
     # 11-14. the LM serving path ----------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain E: full f32

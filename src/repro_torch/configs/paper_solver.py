@@ -1,15 +1,14 @@
 """The paper's own workload: stepped mixed-precision CG, PCG and GMRES on
 synthetic sparse systems.
 
-Port of ``repro/configs/paper_solver.py``: ``cg_setup``, ``gmres_setup``
-and ``pcg_setup``; ``ir_setup`` comes with the iterative-refinement
-solver (ROADMAP queue 1 item 8).  Not an LM config: these return solver
+Port of ``repro/configs/paper_solver.py``: ``cg_setup``, ``gmres_setup``,
+``pcg_setup`` and ``ir_setup``.  Not an LM config: these return solver
 inputs, built on ``device``.
 """
 from repro_torch.core.precision import MonitorParams
 from repro_torch.sparse import generators
 
-__all__ = ["cg_setup", "gmres_setup", "pcg_setup"]
+__all__ = ["cg_setup", "gmres_setup", "pcg_setup", "ir_setup"]
 
 
 def cg_setup(name: str = "poisson2d_64", small: bool = True, device="cuda"):
@@ -48,3 +47,14 @@ def pcg_setup(precond: str = "jacobi", n: int = 32, decades: float = 8.0,
     }[precond]
     a = generators.ill_conditioned_spd(n, decades, device=device)
     return a, factory(a), MonitorParams.for_cg()
+
+
+def ir_setup(n: int = 32, decades: float = 8.0, device="cuda"):
+    """Stepped iterative-refinement workload (Carson-Khan shape): outer
+    tag-3 residual and correction, inner stepped PCG.  Returns ``(a, m,
+    params)``; solve with ``solve_ir(pack_csr(a, 8), b, precond=m,
+    params=params)``."""
+    from repro_torch.solvers.precond import make_jacobi
+
+    a = generators.ill_conditioned_spd(n, decades, device=device)
+    return a, make_jacobi(a), MonitorParams.for_cg()

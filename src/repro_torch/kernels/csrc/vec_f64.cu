@@ -68,6 +68,20 @@
 //   starts at c[0] * V[0, k] and adds rows 1-7 as rounded products before
 //   fusing.  Bound by HBM bytes: one thread per column, coalesced rows.
 //
+// The right-preconditioned cycle update `u = y @ V[:rows]` on the
+// (rows + 1, n) basis is XLA's loop fusion of the slice and the dot, whose
+// reduction LLVM vectorizes by `rows` (vec_f64.py `sliced_plan`):
+//
+// * `gemv_cols_sliced_ref_f64`: one thread per column walks the plan, a
+//   host-built table of steps (kind, a, b) over up to 16 accumulators:
+//   FMA acc[a] = fma(y[b], V[b, k], acc[a]), ADD acc[a] = acc[a] + acc[b],
+//   SET acc[a] = -0.0 or +0.0.  The block first copies the table into
+//   shared memory; every thread then takes the same branch at every step,
+//   and the accumulators stay in registers (a switch names each one, so
+//   no step indexes an array).  Bound by HBM bytes like the column GEMV:
+//   one thread per column, coalesced rows, the loads of eight steps
+//   issued together ahead of their arithmetic.
+//
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
@@ -333,6 +347,92 @@ gemv_cols_ref_kernel(const double* __restrict__ c, const double* __restrict__ V,
   out[k] = acc;
 }
 
+// The 16 accumulators of a column, fields of a struct so that, inlined,
+// they stay in registers: every step names its accumulator through a
+// switch, never by an index.
+struct SlicedAcc {
+  double a0, a1, a2, a3, a4, a5, a6, a7, a8, a9, a10, a11, a12, a13, a14, a15;
+};
+
+#define SLICED_SLOTS(X) X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) \
+  X(10) X(11) X(12) X(13) X(14) X(15)
+
+constexpr int kStepFma = 0;
+constexpr int kStepAdd = 1;
+constexpr int kSlicedThreads = 256;
+constexpr int kSlicedAhead = 8;  // steps whose loads are in flight at once
+
+// One step of the plan on a column's accumulators; (cv, vv) = (y[b],
+// V[b, k]) when the step is an FMA.
+__device__ __forceinline__ void sliced_step(SlicedAcc& acc, int kind, int a,
+                                            int b, double cv, double vv) {
+  if (kind == kStepFma) {
+    switch (a) {
+#define FMA(i) case i: acc.a##i = __fma_rn(cv, vv, acc.a##i); break;
+      SLICED_SLOTS(FMA)
+#undef FMA
+    }
+  } else if (kind == kStepAdd) {
+    double v = 0.0;
+    switch (b) {
+#define GET(i) case i: v = acc.a##i; break;
+      SLICED_SLOTS(GET)
+#undef GET
+    }
+    switch (a) {
+#define ADD(i) case i: acc.a##i = __dadd_rn(acc.a##i, v); break;
+      SLICED_SLOTS(ADD)
+#undef ADD
+    }
+  } else {
+    const double v = b ? -0.0 : 0.0;
+    switch (a) {
+#define SET(i) case i: acc.a##i = v; break;
+      SLICED_SLOTS(SET)
+#undef SET
+    }
+  }
+}
+
+// Thread k computes out[k] by the plan's nsteps steps (3 ints each), in
+// groups of kSlicedAhead: the group's loads of y and V are issued
+// together before its steps run, so each thread keeps several rows'
+// loads in flight (the order of the arithmetic is the plan's).
+__global__ void __launch_bounds__(kSlicedThreads)
+gemv_cols_sliced_ref_kernel(const double* __restrict__ c,
+                            const double* __restrict__ V,
+                            const int* __restrict__ plan, int nsteps,
+                            long long n, double* __restrict__ out) {
+  extern __shared__ int steps[];
+  for (int i = threadIdx.x; i < 3 * nsteps; i += blockDim.x) steps[i] = plan[i];
+  __syncthreads();
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  SlicedAcc acc = {};
+  for (int s0 = 0; s0 < nsteps; s0 += kSlicedAhead) {
+    double cv[kSlicedAhead], vv[kSlicedAhead];
+#pragma unroll
+    for (int u = 0; u < kSlicedAhead; ++u) {
+      const int s = s0 + u;
+      cv[u] = 0.0;
+      vv[u] = 0.0;
+      if (s < nsteps && steps[3 * s] == kStepFma) {
+        const int row = steps[3 * s + 2];
+        cv[u] = __ldg(c + row);
+        vv[u] = __ldg(V + (long long)row * n + k);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSlicedAhead; ++u) {
+      const int s = s0 + u;
+      if (s < nsteps)
+        sliced_step(acc, steps[3 * s], steps[3 * s + 1], steps[3 * s + 2],
+                    cv[u], vv[u]);
+    }
+  }
+  out[k] = acc.a0;
+}
+
 // The chain-latency probe: one thread runs n dependent steps from
 // registers, acc = __dadd_rn(acc, b) (op 0) or acc = __fma_rn(acc, a, b)
 // (op 1), n a multiple of 8.  out[0] = acc (so nothing is dead code),
@@ -428,6 +528,22 @@ extern "C" int gemv_cols_ref_f64(const void* c, const void* V,
   const long long blocks = (n + kColThreads - 1) / kColThreads;
   gemv_cols_ref_kernel<<<(unsigned)blocks, kColThreads, 0, (cudaStream_t)stream>>>(
       (const double*)c, (const double*)V, (const double*)addend, n, rows,
+      (double*)out);
+  return (int)cudaGetLastError();
+}
+
+// out[k] = y[:rows] @ V[:rows] over the n columns in the order of the
+// plan (nsteps steps of 3 ints on the card; see gemv_cols_sliced_ref_kernel).
+extern "C" int gemv_cols_sliced_ref_f64(const void* c, const void* V,
+                                        const void* plan, int nsteps,
+                                        long long n, void* out, void* stream) {
+  if (nsteps <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)nsteps * 3 * sizeof(int);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n + kSlicedThreads - 1) / kSlicedThreads;
+  gemv_cols_sliced_ref_kernel<<<(unsigned)blocks, kSlicedThreads, smem,
+                                (cudaStream_t)stream>>>(
+      (const double*)c, (const double*)V, (const int*)plan, nsteps, n,
       (double*)out);
   return (int)cudaGetLastError();
 }

@@ -58,6 +58,27 @@ reads real data: ``rows`` is the count of live basis rows, and the
 reference's extra all-zero rows can change the result only in the sign
 of an exact zero.
 
+The cycle's update under right preconditioning, ``u = y @ V[:restart]``
+on the ``(restart + 1, n)`` basis (``gmres.py:220``), is a third order:
+XLA fuses the slice and the dot into one loop fusion, one output column
+per loop step, and LLVM vectorizes the column's reduction over the rows
+by ``rows`` (read from the dumped IR and object code):
+
+* :func:`gemv_cols_sliced_ref` -- below :data:`SLICED_VECTOR_ROWS` = 50
+  rows the column loop is the vectorized one and every column is one FMA
+  chain down the rows from 0.0.  From 50 rows on, four lanes of 16-row
+  blocks (four rows a block, lane l taking row ``4b + l``) run one FMA
+  chain over the blocks ``0, 4, 8, ..., 5, 1, 9, ..., 6, 2, 10, ...,
+  7, 3, 11, ...`` (the backend's reassociation of four interleaved
+  accumulators; from :data:`SLICED_LOOP_ROWS` = 128 rows on they stay
+  four accumulators, added lane by lane), the lanes add as ``(l0 + l2) +
+  (l1 + l3)``, then the ``rows % 16`` left over run as one more 4-lane
+  chain started from that sum (or a 2-lane step where fewer than four are
+  left) and a scalar FMA chain.  From :data:`SLICED_FUSION_ROWS` = 2048
+  rows on XLA no longer fuses the dot (``y`` reaches 16 KiB) and the
+  product is :func:`gemv_cols_ref`'s.  :func:`sliced_plan` lists the
+  order as steps, which the kernel walks one thread per column.
+
 :func:`ref_norm_cols` is the reference's ``jnp.linalg.norm`` (the solvers'
 ``||b||``) as XLA's CPU build computes it, in torch operations around
 those kernels, and :func:`sqrt_rn` a square root rounded as the
@@ -74,6 +95,7 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import functools
 
 import numpy as np
 import torch
@@ -83,8 +105,10 @@ from repro_torch.kernels import _build
 __all__ = ["seq_dot", "seq_dot_plain", "fma_axpy", "fma_axpy_plain",
            "seq_dot_cols", "seq_dot_cols_plain", "fma_axpy_cols",
            "fma_axpy_cols_plain", "gemv_rows_ref", "gemv_rows_ref_plain",
-           "gemv_cols_ref", "gemv_cols_ref_plain", "fma_into",
-           "GEMV_LANES", "ref_norm_cols", "sqrt_rn", "KERNELS",
+           "gemv_cols_ref", "gemv_cols_ref_plain", "gemv_cols_sliced_ref",
+           "gemv_cols_sliced_ref_plain", "sliced_plan", "fma_into",
+           "GEMV_LANES", "SLICED_VECTOR_ROWS", "SLICED_LOOP_ROWS",
+           "SLICED_FUSION_ROWS", "ref_norm_cols", "sqrt_rn", "KERNELS",
            "reset_launch_counts", "chain_latency"]
 
 _P = ctypes.c_void_p
@@ -99,12 +123,27 @@ _ARGTYPES = {
     "gemv_rows_ref_f64": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P],
     "gemv_cols_ref_f64": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P,
                           _P],
+    "gemv_cols_sliced_ref_f64": [_P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+                                 _P, _P],
 }
 _BOUND = {}
 _SPLIT = 134217729.0  # 2**27 + 1: Veltkamp's splitter for f64
 _HEAD = 8  # leading elements of a dot added without fusion
 _WINDOW = 32  # XLA's CPU tree-reduction window
 GEMV_LANES = 4  # partial sums per row of XLA's CPU row-major f64 GEMV
+# The sliced update y @ V[:rows] (module docstring): from these row counts
+# on, XLA's CPU build vectorizes the column's reduction, keeps its 16-row
+# blocks in a loop, and leaves the dot unfused.
+SLICED_VECTOR_ROWS = 50
+SLICED_LOOP_ROWS = 128
+SLICED_FUSION_ROWS = 2048
+# From SLICED_VECTOR_ROWS rows on, bases of fewer columns compile to
+# another order, not modelled.
+SLICED_MIN_N = 9
+# Step kinds of a sliced_plan: acc[a] = fma(c[b], V[b, k], acc[a]);
+# acc[a] = acc[a] + acc[b]; acc[a] = -0.0 if b else +0.0.
+STEP_FMA, STEP_ADD, STEP_SET = 0, 1, 2
+SLICED_SLOTS = 16  # accumulators a plan uses at most
 
 
 def _fn(name: str):
@@ -502,6 +541,131 @@ def gemv_cols_ref(c: torch.Tensor, V: torch.Tensor, rows: int,
     return out
 
 
+# --- the right-preconditioned cycle update ----------------------------------
+
+def _lane_sum(steps):
+    """``acc[0] = (acc[0] + acc[2]) + (acc[1] + acc[3])``."""
+    steps += [(STEP_ADD, 0, 2), (STEP_ADD, 1, 3), (STEP_ADD, 0, 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def sliced_plan(rows: int) -> tuple:
+    """The order of XLA's CPU loop fusion of ``y @ V[:rows]`` (for rows
+    below :data:`SLICED_FUSION_ROWS`) as steps ``(kind, a, b)`` over up to
+    :data:`SLICED_SLOTS` accumulators of one column: ``STEP_FMA``
+    ``acc[a] = fma(y[b], V[b, k], acc[a])``, ``STEP_ADD`` ``acc[a] =
+    acc[a] + acc[b]``, ``STEP_SET`` ``acc[a] = -0.0 if b else +0.0``.  The
+    column's result is ``acc[0]``."""
+    if not 0 < rows < SLICED_FUSION_ROWS:
+        raise ValueError(f"rows must be in [1, {SLICED_FUSION_ROWS - 1}], "
+                         f"got {rows}")
+    steps = [(STEP_SET, 0, 0)]
+    if rows < SLICED_VECTOR_ROWS:  # the column loop is the vectorized one
+        return tuple(steps + [(STEP_FMA, 0, i) for i in range(rows)])
+    blocks = rows // 16  # 16-row blocks of four 4-row vectors
+    if blocks * 16 < SLICED_LOOP_ROWS:
+        # Unrolled: one chain over the 4-row vectors, accumulator 0's in
+        # order, then 1's, 2's and 3's, each with its first two swapped.
+        steps += [(STEP_SET, s, 1) for s in range(1, 4)]
+        order = [4 * t for t in range(blocks)]
+        for u in range(1, 4):
+            order += [4 + u, u] + [4 * t + u for t in range(2, blocks)]
+        for v in order:
+            steps += [(STEP_FMA, l, 4 * v + l) for l in range(4)]
+    else:  # a loop: four accumulators of four lanes, added lane by lane
+        steps += [(STEP_SET, s, 1) for s in range(1, SLICED_SLOTS)]
+        for t in range(blocks):
+            steps += [(STEP_FMA, s, 16 * t + s) for s in range(16)]
+        for u in range(1, 4):
+            steps += [(STEP_ADD, l, 4 * u + l) for l in range(4)]
+    _lane_sum(steps)
+    i = 16 * blocks
+    left = rows - i
+    if left >= 4:  # the vector epilogue, started from the sum in lane 0
+        steps += [(STEP_SET, s, 1) for s in range(1, 4)]
+        for _ in range(left // 4):
+            steps += [(STEP_FMA, l, i + l) for l in range(4)]
+            i += 4
+        _lane_sum(steps)
+    elif left >= 2:  # a 2-lane epilogue
+        steps += [(STEP_SET, 1, 1), (STEP_FMA, 0, i), (STEP_FMA, 1, i + 1),
+                  (STEP_ADD, 0, 1)]
+        i += 2
+    return tuple(steps + [(STEP_FMA, 0, j) for j in range(i, rows)])
+
+
+def _check_sliced(V, rows: int):
+    _check_rows(V, rows)
+    if rows >= SLICED_VECTOR_ROWS and V.shape[1] < SLICED_MIN_N:
+        raise ValueError(
+            f"the sliced update at rows {rows} is modelled for bases of at "
+            f"least {SLICED_MIN_N} columns, got {V.shape[1]}")
+
+
+def gemv_cols_sliced_ref_plain(c: torch.Tensor, V: torch.Tensor,
+                               rows: int) -> torch.Tensor:
+    """Plain version of :func:`gemv_cols_sliced_ref`: :func:`sliced_plan`'s
+    steps on every column at once, one fused step (:func:`fma_into`) per
+    FMA."""
+    _check_sliced(V, rows)
+    if rows >= SLICED_FUSION_ROWS:
+        return gemv_cols_ref_plain(c, V, rows)
+    n = V.shape[1]
+    acc = [None] * SLICED_SLOTS
+    for kind, a, b in sliced_plan(rows):
+        if kind == STEP_FMA:
+            fma_into(acc[a])(c[b], V[b])
+        elif kind == STEP_ADD:
+            acc[a] = acc[a] + acc[b]
+        else:
+            acc[a] = torch.full((n,), -0.0 if b else 0.0, dtype=V.dtype,
+                                device=V.device)
+    return acc[0]
+
+
+_PLANS: dict = {}
+
+
+def _plan_on(rows: int, dev) -> torch.Tensor:
+    """:func:`sliced_plan` as a flat int32 tensor on ``dev`` (made once)."""
+    key = (rows, str(dev))
+    t = _PLANS.get(key)
+    if t is None:
+        t = _PLANS[key] = torch.tensor(sliced_plan(rows), dtype=torch.int32,
+                                       device=dev).reshape(-1)
+    return t
+
+
+def gemv_cols_sliced_ref(c: torch.Tensor, V: torch.Tensor,
+                         rows: int) -> torch.Tensor:
+    """``c[:rows] @ V[:rows]`` of an f64 ``(>= rows,)`` vector and a
+    contiguous ``(R, n)`` f64 basis with ``R > rows``, as an ``(n,)``
+    tensor on their device, rounded as the reference's jitted ``y @
+    V[:rows]`` (the right-preconditioned cycle update)."""
+    if V.device.type == "cpu":
+        return gemv_cols_sliced_ref_plain(c, V, rows)
+    dev = V.device
+    if dev.type != "cuda":
+        raise ValueError(f"gemv_cols_sliced_ref runs on cuda or cpu, not "
+                         f"{dev}")
+    _check(V, "V", dev, 2)
+    _check(c, "c", dev, 1)
+    _check_sliced(V, rows)
+    if c.shape[0] < rows:
+        raise ValueError(f"c has {c.shape[0]} entries, rows is {rows}")
+    if rows >= SLICED_FUSION_ROWS:
+        return gemv_cols_ref(c, V, rows)
+    plan = _plan_on(rows, dev)
+    n = V.shape[1]
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    rc = _fn("gemv_cols_sliced_ref_f64")(
+        c.data_ptr(), V.data_ptr(), plan.data_ptr(), plan.shape[0] // 3, n,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    gemv_cols_sliced_ref.launches += 1
+    _raise_on(rc, "gemv_cols_sliced_ref_f64")
+    return out
+
+
 # --- the reference's norm ----------------------------------------------------
 
 def sqrt_rn(v: torch.Tensor) -> torch.Tensor:
@@ -588,7 +752,7 @@ def chain_latency(op: str, n: int = 1 << 22, reps: int = 3) -> dict:
 
 
 KERNELS = (seq_dot, fma_axpy, seq_dot_cols, fma_axpy_cols, gemv_rows_ref,
-           gemv_cols_ref)
+           gemv_cols_ref, gemv_cols_sliced_ref)
 
 
 def reset_launch_counts():

@@ -5,13 +5,16 @@ Port of ``repro/launch/solver_serve.py``: ``SolveRequest``,
 ``register``, ``submit``, ``flush``, ``_run_slot``, ``solution``,
 ``_byte_shares``; :105-685) and the ``main`` demo (:688).
 
-The service packs each registered matrix once, buckets incoming requests
-by (operator, tolerance, precision axis), pads each bucket to a fixed
-slot width with all-zero columns and runs the batched stepped CG
-(``solvers.batched.solve_cg_batched``): one streaming pass over the packed
-matrix (kernel C64) feeds every request in a slot, so the matrix traffic
-is charged once per iteration however many requests ride along.  A
-degraded column gets a bounded single-RHS retry at tag 3.  Each request
+The service packs each registered matrix (and its optional
+preconditioner) once, buckets incoming requests by (operator, tolerance,
+precision axis), pads each bucket to a fixed slot width with all-zero
+columns and runs the batched stepped CG or, on a preconditioned handle,
+PCG (``solvers.batched.solve_cg_batched``/``solve_pcg_batched``): one
+streaming pass over the packed matrix (kernel C64) feeds every request
+in a slot, so the matrix (and preconditioner) traffic is charged once per
+iteration however many requests ride along.  A degraded column gets a
+bounded single-RHS retry at tag 3 (``solve_cg``/``solve_pcg``) from its
+warm x.  Each request
 gets a :class:`SolveReport`: iterations, final relative residual, its own
 tag-switch schedule, health, retries and its modeled byte share of the
 batch (matrix bytes split evenly across each iteration's active columns,
@@ -25,13 +28,14 @@ packs the operator into the SELL-C-sigma layout
 (``kernels.ops.sell_pack_gsecsr``): the batched operator is then kernel
 C′64 and the retry's B64, the trajectories are bitwise the ``"csr"``
 handle's, and the byte reports charge the layout's padded slots.  Not yet
-ported: preconditioners (item 6), per-group TagMaps and
-``tags="adaptive"`` (item 11), launch plans and tuning (item 14) and
-sharded handles (item 15); each raises ``NotImplementedError``.
+ported: per-group TagMaps and ``tags="adaptive"`` (item 11), launch plans
+and tuning (item 14) and sharded handles (item 15); each raises
+``NotImplementedError``.
 
 Usage (demo, on the card):
   PYTHONPATH=src python -m repro_torch.launch.solver_serve --requests 6 --slots 4
   PYTHONPATH=src python -m repro_torch.launch.solver_serve --layout sell
+  PYTHONPATH=src python -m repro_torch.launch.solver_serve --precond jacobi
 """
 from __future__ import annotations
 
@@ -53,13 +57,15 @@ from repro_torch.robustness.guards import (
     HEALTH_OK,
     health_name,
 )
-from repro_torch.solvers.batched import column_tags_at, solve_cg_batched
-from repro_torch.solvers.cg import solve_cg
+from repro_torch.solvers.batched import (column_tags_at, solve_cg_batched,
+                                         solve_pcg_batched)
+from repro_torch.solvers.cg import solve_cg, solve_pcg
+from repro_torch.solvers.precond import make_jacobi, make_spai0
 from repro_torch.sparse.csr import CSR, iteration_stream_bytes, pack_csr
 
 __all__ = ["SolveRequest", "SolveReport", "SolverService"]
 
-_PRECONDITIONERS = ("jacobi", "spai0")
+_PRECOND_FACTORY = {"jacobi": make_jacobi, "spai0": make_spai0}
 
 
 def _normalize_service_tags(tags):
@@ -128,11 +134,12 @@ class _Operator:
     name: str
     csr: CSR
     gse: object      # GSECSR or GSESellC, packed once at registration
+    precond: object = None  # preconditioner object, packed once, or None
     tags: object = None  # handle-default precision axis: None | int
 
 
 class SolverService:
-    """Request-batching front end for the batched stepped CG.
+    """Request-batching front end for the batched stepped CG and PCG.
 
     ``slots`` is the batch width every bucket is padded to: requests
     against the same (operator, tol) bucket share one batched solve.
@@ -170,7 +177,11 @@ class SolverService:
                  layout: str = "csr", sharded: bool = False, plan=None,
                  tune: bool = False, tags=None) -> str:
         """Pack ``a`` (a ``CSR`` on the service's device) once; returns the
-        handle requests are submitted against.  ``layout="sell"`` also
+        handle requests are submitted against.  ``precond`` is ``None``,
+        ``"jacobi"``/``"spai0"`` (packed here against ``k`` shared
+        exponents) or a ready :mod:`repro_torch.solvers.precond` object on
+        the service's device: one packed preconditioner serves every
+        request against the handle.  ``layout="sell"`` also
         packs the SELL-C-sigma layout (cached on the packed instance):
         trajectories are bitwise the ``"csr"`` default's, and the byte
         reports charge the layout's padded slots.  ``tags`` sets the
@@ -193,19 +204,19 @@ class SolverService:
                 "launch plans and tune=True are not ported yet (ROADMAP "
                 "queue 1 item 14)")
         tags = _normalize_service_tags(tags)
-        if isinstance(precond, str) and precond not in _PRECONDITIONERS:
-            raise ValueError(
-                f"unknown preconditioner {precond!r}; expected one of "
-                f"{sorted(_PRECONDITIONERS)}")
-        if precond is not None:
-            raise NotImplementedError(
-                "preconditioned handles are not ported yet (ROADMAP queue 1 "
-                "item 6)")
         on_device(self.device, a=a.val)
+        if isinstance(precond, str):
+            try:
+                precond = _PRECOND_FACTORY[precond](a, k=k)
+            except KeyError:
+                raise ValueError(
+                    f"unknown preconditioner {precond!r}; expected one of "
+                    f"{sorted(_PRECOND_FACTORY)}") from None
         gse = pack_csr(a, k=k)
         if layout == "sell":
             gse = sell_pack_gsecsr(gse)
-        self._ops[name] = _Operator(name=name, csr=a, gse=gse, tags=tags)
+        self._ops[name] = _Operator(name=name, csr=a, gse=gse,
+                                    precond=precond, tags=tags)
         return name
 
     # -- request intake ----------------------------------------------------
@@ -313,10 +324,12 @@ class SolverService:
             x0 = torch.stack(
                 [r.x0 if r.x0 is not None else zero for r in reqs]
                 + [zero] * pad, dim=1)
-        res = solve_cg_batched(op.gse, b, x0=x0, tol=tol,
-                               maxiter=self.maxiter, params=self.params,
-                               guards=self.guards, tags=tags,
-                               device=self.device)
+        kw = dict(x0=x0, tol=tol, maxiter=self.maxiter, params=self.params,
+                  guards=self.guards, tags=tags, device=self.device)
+        if op.precond is not None:
+            res = solve_pcg_batched(op.gse, b, op.precond, **kw)
+        else:
+            res = solve_cg_batched(op.gse, b, **kw)
 
         iters = res.iters.cpu().numpy()
         sw = res.switch_iters.cpu().numpy()
@@ -360,9 +373,12 @@ class SolverService:
                 retries += 1
                 self.stats["retries"] += 1
                 warm = x if x_finite else req.x0
-                r2 = solve_cg(op.gse, req.b, x0=warm, tol=tol,
-                              maxiter=self.maxiter, params=self.params,
-                              guards=self.guards, init_tag=3)
+                kw = dict(x0=warm, tol=tol, maxiter=self.maxiter,
+                          params=self.params, guards=self.guards, init_tag=3)
+                if op.precond is not None:
+                    r2 = solve_pcg(op.gse, req.b, op.precond, **kw)
+                else:
+                    r2 = solve_cg(op.gse, req.b, **kw)
                 rx_finite = _finite(r2.x)
                 r2_trip = int(r2.trip_iter)
                 if trip_j < 0 and r2_trip >= 0:
@@ -415,8 +431,10 @@ class SolverService:
         """One walk of the per-iteration byte model: the per-column shares
         and their sum, which is ``batched_run_bytes`` (each iteration adds
         ``iteration_stream_bytes(..., nrhs=n_active)``, split evenly among
-        the columns sharing the streaming pass).  An int ``tags`` floors
-        the schedule's tag (the batch started there, not at tag 1)."""
+        the columns sharing the streaming pass; a preconditioned handle's
+        stored preconditioner is charged beside the matrix).  An int
+        ``tags`` floors the schedule's tag (the batch started there, not
+        at tag 1)."""
         nrhs = iters.shape[0]
         shares = np.zeros(nrhs, np.float64)
         floor = int(tags) if isinstance(tags, (int, np.integer)) else 1
@@ -426,7 +444,8 @@ class SolverService:
             if live.size == 0:
                 continue
             tag = max(int(col_tags.max()), floor)
-            tot = iteration_stream_bytes(op.gse, tag, nrhs=live.size)
+            tot = iteration_stream_bytes(op.gse, tag, op.precond,
+                                         nrhs=live.size)
             shares[live] += tot / live.size
         return np.rint(shares).astype(np.int64), int(round(shares.sum()))
 
@@ -441,6 +460,8 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--n", type=int, default=24, help="Poisson grid side")
+    ap.add_argument("--precond", default="none",
+                    choices=["none", "jacobi", "spai0"])
     ap.add_argument("--layout", default="csr", choices=["csr", "sell"],
                     help="operator pack: 'sell' rides the SELL-C-sigma "
                          "sliced layout (padding-honest byte reports)")
@@ -454,7 +475,9 @@ def main(argv=None):
                              reldec_limit=0.45)
     svc = SolverService(slots=args.slots, params=params, maxiter=20000,
                         device=args.device)
-    svc.register("poisson", a, k=8, layout=args.layout)
+    svc.register("poisson", a, k=8,
+                 precond=None if args.precond == "none" else args.precond,
+                 layout=args.layout)
 
     rng = np.random.default_rng(0)
     ids = []

@@ -1,21 +1,26 @@
 """Iterative solvers with stepped mixed precision (paper Section III.D).
 
 Ported: stepped CG (``solve_cg``) and its batched service loop
-(``solvers.batched``); preconditioned CG (``solve_pcg``, ROADMAP queue 1
-item 6) with the GSE-packed preconditioners of ``solvers.precond``; and
-restarted stepped GMRES (``solve_gmres``, item 7), right-preconditioned
-by the same objects.  Batched PCG and iterative refinement are items 6
-and 8.
+(``solvers.batched``); preconditioned CG, solo and batched (``solve_pcg``,
+``solve_pcg_batched``, ROADMAP queue 1 item 6) with the GSE-packed
+preconditioners of ``solvers.precond``; restarted stepped GMRES
+(``solve_gmres``, item 7), right-preconditioned by the same objects; and
+stepped iterative refinement over any of them (``solve_ir``,
+``solve_ir_batched``, item 8).
 """
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
     GuardParams,
     health_name,
 )
+from repro_torch.solvers.batched import (BatchedCGResult, BatchedIRResult,
+                                         solve_cg_batched, solve_ir_batched,
+                                         solve_pcg_batched)
 from repro_torch.solvers.cg import CGResult, solve_cg, solve_pcg
 from repro_torch.solvers.fused_cg import (fused_cg_step, fused_pcg_step,
                                           gse_matvec)
 from repro_torch.solvers.gmres import GMRESResult, solve_gmres
+from repro_torch.solvers.ir import IRResult, solve_ir
 from repro_torch.solvers.operators import (
     make_dense_operator,
     make_fixed_operator,
@@ -37,6 +42,13 @@ __all__ = [
     "CGResult",
     "solve_cg",
     "solve_pcg",
+    "BatchedCGResult",
+    "BatchedIRResult",
+    "solve_cg_batched",
+    "solve_pcg_batched",
+    "solve_ir_batched",
+    "IRResult",
+    "solve_ir",
     "fused_cg_step",
     "fused_pcg_step",
     "gse_matvec",

@@ -2,10 +2,11 @@
 shared operand.
 
 Port of ``repro/solvers/batched.py``: ``BatchedCGResult`` (:93),
-``_normalize_block`` (:141), ``_batched_krylov_loop`` (:163),
-``_solve_cg_batched_fused`` (:326), ``_solve_cg_batched`` (:354),
-``solve_cg_batched`` (:383), ``column_tags_at`` (:706) and
-``batched_run_bytes`` (:727) without a preconditioner.
+``BatchedIRResult`` (:114), ``_normalize_block`` (:141),
+``_batched_krylov_loop`` (:163), ``_solve_cg_batched_fused`` (:326),
+``_solve_cg_batched`` (:354), ``solve_cg_batched`` (:383), the batched
+PCG and IR (below), ``column_tags_at`` (:706) and ``batched_run_bytes``
+(:727).
 
 With ``nrhs`` right-hand sides one streaming pass over the packed matrix
 serves every column (kernel C64, ``kernels.gse_spmm.gse_spmm_csr_f64``,
@@ -34,10 +35,18 @@ contiguous column per right-hand side; the public API takes and returns
 has ``||b||`` replaced by 1 and relres 0: it is never active and reports
 0 iterations.
 
-Not yet ported (ROADMAP queue 1): ``solve_pcg_batched`` (item 6),
-``solve_ir_batched`` (item 8), ``flight=`` (item 12), TagMap and
-``"adaptive"`` tags (item 11), sharded operands (item 15) and the
-preconditioner charge of ``batched_run_bytes`` (item 6).
+Batched PCG (``_solve_pcg_batched_fused`` :450, ``_solve_pcg_batched``
+:479, ``solve_pcg_batched`` :509) runs the same loop with a column also
+carrying ``z`` and ``rz = r.z``, in the reference's op order (:494-504);
+the preconditioner applies per column at the column's device tag
+(``apply_cols``: a gather of decoded diagonals, or kernel C64 on
+block-Jacobi's inverse).  ``solve_ir_batched`` (:572) is iterative
+refinement's outer loop over a block, its inner solves batched, and
+``batched_run_bytes`` charges a preconditioner beside the matrix
+(:727-748).
+
+Not yet ported (ROADMAP queue 1): ``flight=`` (item 12), TagMap and
+``"adaptive"`` tags (item 11) and sharded operands (item 15).
 """
 from __future__ import annotations
 
@@ -54,15 +63,20 @@ from repro_torch.kernels.vec_f64 import (fma_axpy_cols, on_device,
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
     GuardParams,
+    HEALTH_NONFINITE,
     HEALTH_OK,
+    HEALTH_STALLED,
     finalize_health,
     guard_init,
     guard_step,
 )
-from repro_torch.solvers.cg import CHUNK, _freeze, _record_switch
+from repro_torch.solvers.cg import (CHUNK, _freeze, _gsecsr_operator,
+                                    _record_switch)
+from repro_torch.solvers.ir import check_ir_options
 from repro_torch.sparse.csr import GSECSR, GSESellC, iteration_stream_bytes
 
-__all__ = ["BatchedCGResult", "solve_cg_batched", "batched_run_bytes",
+__all__ = ["BatchedCGResult", "BatchedIRResult", "solve_cg_batched",
+           "solve_pcg_batched", "solve_ir_batched", "batched_run_bytes",
            "column_tags_at"]
 
 
@@ -102,29 +116,43 @@ def _normalize_block(b, x0, device):
     return b, x0
 
 
-def _cg_update_cols(x, r, p, rr, ap, active, device):
-    """``solvers.fused_cg.cg_update`` on ``(nrhs, n)`` blocks, column j
-    bitwise the single-RHS step; returns ``(x', r', p', rr', denom)``."""
+def _cg_update_cols(x, r, p, rs, ap, active, device, apply_z=None):
+    """``solvers.fused_cg.cg_update`` (``pcg_update`` with ``apply_z``, the
+    preconditioner on the block) on ``(nrhs, n)`` blocks, column j bitwise
+    the single-RHS step.  Returns ``(x', r', p', rs', rr', denom)``: ``rs``
+    drives the recurrence (``r.r``, or ``r.z`` with a preconditioner),
+    ``rr = r.r`` feeds the monitor."""
     denom = seq_dot_cols(p, ap, active, device=device)
-    alpha = rr / torch.where(denom == 0, 1.0, denom)
+    alpha = rs / torch.where(denom == 0, 1.0, denom)
     x2 = fma_axpy_cols(alpha, p, x, device=device)
     r2 = fma_axpy_cols(-alpha, ap, r, device=device)
-    rr2 = seq_dot_cols(r2, r2, active, device=device)
-    beta = rr2 / torch.where(rr == 0, 1.0, rr)
-    p2 = fma_axpy_cols(beta, p, r2, device=device)
-    return x2, r2, p2, rr2, denom
+    if apply_z is None:
+        z2 = r2
+        rs2 = rr2 = seq_dot_cols(r2, r2, active, device=device)
+    else:
+        z2 = apply_z(r2)
+        rs2 = seq_dot_cols(r2, z2, active, device=device)
+        rr2 = seq_dot_cols(r2, r2, active, device=device)
+    beta = rs2 / torch.where(rs == 0, 1.0, rs)
+    p2 = fma_axpy_cols(beta, p, z2, device=device)
+    return x2, r2, p2, rs2, rr2, denom
 
 
 def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
                          init_tag: int, matvec: Callable,
-                         guards: GuardParams | None, device):
-    """The batched stepped CG loop over ``(nrhs, n)`` blocks ``b``/``x0``.
+                         guards: GuardParams | None, device,
+                         apply_m: Callable | None = None):
+    """The batched stepped CG and PCG loop over ``(nrhs, n)`` blocks
+    ``b``/``x0``.
 
     ``matvec(v, tags, active)`` returns ``A v`` for the ``(nrhs, n)`` block
     ``v``, column j at the device tag ``tags[j]`` (rows of inactive
-    columns are ignored).  Returns a :class:`BatchedCGResult`.
+    columns are ignored); ``apply_m(v, tags, active)`` (PCG) returns
+    ``M^{-1} v`` the same way, and each column then also carries ``z`` and
+    ``rz = r.z``.  Returns a :class:`BatchedCGResult`.
     """
     nrhs = b.shape[0]
+    pcg = apply_m is not None
     every = torch.ones(nrhs, dtype=torch.bool, device=b.device)
     bn = ref_norm_cols(b, device=device)
     bnorms = torch.where(bn == 0, 1.0, bn)
@@ -134,7 +162,13 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
 
     mons = [P.init(params, dtype=b.dtype, tag=init_tag, device=b.device)
             for _ in range(nrhs)]
-    r0 = b - matvec(x0, torch.stack([m.tag for m in mons]), every)
+    tags0 = torch.stack([m.tag for m in mons])
+    r0 = b - matvec(x0, tags0, every)
+    if pcg:  # the reference's init_col: z0, then r0.z0, then r0.r0
+        p0 = apply_m(r0, tags0, every)
+        rs0 = seq_dot_cols(r0, p0, every, device=device)
+    else:
+        p0 = r0
     rr0 = seq_dot_cols(r0, r0, every, device=device)
     rel0 = relres(rr0)
     cols = []
@@ -144,7 +178,7 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
         if guards is not None:
             c["g"] = guard_init(rel0[j])
         cols.append(c)
-    state = dict(x=x0, r=r0, p=r0, rr=rr0,
+    state = dict(x=x0, r=r0, p=p0, rs=rs0 if pcg else rr0, rr=rr0,
                  it=torch.zeros(nrhs, dtype=torch.int32, device=b.device),
                  cols=cols)
 
@@ -158,8 +192,9 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
     def body(s, act):
         tags = torch.stack([c["mon"].tag for c in s["cols"]])
         ap = matvec(s["p"], tags, act)
-        x, r, p, rr, denom = _cg_update_cols(s["x"], s["r"], s["p"], s["rr"],
-                                             ap, act, device)
+        apply_z = (lambda v: apply_m(v, tags, act)) if pcg else None
+        x, r, p, rs, rr, denom = _cg_update_cols(
+            s["x"], s["r"], s["p"], s["rs"], ap, act, device, apply_z)
         rel = relres(rr)
         cols = []
         for j, c in enumerate(s["cols"]):
@@ -169,14 +204,17 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
             new = dict(mon=mon2, sw=_record_switch(c["sw"], mon1, mon2, it))
             if guards is not None:
                 # After the update arithmetic, which is identical with
-                # guards on or off.
-                new["g"] = guard_step(c["g"], it, rel[j], guards,
-                                      denom=denom[j])
+                # guards on or off.  z.r < 0 breaks PCG's M-SPD contract.
+                new["g"] = guard_step(
+                    c["g"], it, rel[j], guards, denom=denom[j],
+                    breakdown=(rs[j] < 0) if pcg else False,
+                    finite_aux=(rs[j],) if pcg else ())
             cols.append(_freeze(act[j], new, c))
         live = act[:, None]
         return dict(x=torch.where(live, x, s["x"]),
                     r=torch.where(live, r, s["r"]),
                     p=torch.where(live, p, s["p"]),
+                    rs=torch.where(act, rs, s["rs"]),
                     rr=torch.where(act, rr, s["rr"]),
                     it=torch.where(act, s["it"] + 1, s["it"]),
                     cols=cols)
@@ -216,10 +254,9 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
     )
 
 
-def _solve_cg_batched_fused(a, b, x0, tol, maxiter, params, init_tag=1,
-                            guards=None, device="cuda"):
-    """Fused path: one C64 (``GSECSR``) or C′64 (``GSESellC``) launch per
-    iteration serves every column."""
+def _spmm(a, device) -> Callable:
+    """The batched operator ``matvec(v, tags, active)`` over a ``GSECSR``
+    (kernel C64) or a ``GSESellC`` (kernel C′64)."""
 
     def matvec(v, tags, active):
         if isinstance(a, GSESellC):
@@ -231,22 +268,59 @@ def _solve_cg_batched_fused(a, b, x0, tol, maxiter, params, init_tag=1,
                                 a.table, v, tags, active, ei_bit=a.ei_bit,
                                 plan=a.row_plan, device=device)
 
-    return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag, matvec,
-                                guards, device)
+    return matvec
+
+
+def _per_column(apply: Callable) -> Callable:
+    """``apply(v, tag)`` on each column of a block at its device tag.  A
+    frozen column's product is computed and discarded (the reference skips
+    it behind ``lax.cond``; skipping here would need a sync)."""
+
+    def cols(v, tags, active):
+        del active
+        return torch.stack([apply(v[j], tags[j]) for j in range(v.shape[0])])
+
+    return cols
+
+
+def _solve_cg_batched_fused(a, b, x0, tol, maxiter, params, init_tag=1,
+                            guards=None, device="cuda"):
+    """Fused path: one C64 (``GSECSR``) or C′64 (``GSESellC``) launch per
+    iteration serves every column."""
+    return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
+                                _spmm(a, device), guards, device)
 
 
 def _solve_cg_batched(apply_a: Callable, b, x0, tol, maxiter, params,
                       init_tag=1, guards=None, device="cuda"):
-    """Generic path: ``apply_a(v, tag)`` on each column at its device tag.
-    A frozen column's product is computed and discarded (the reference
-    skips it behind ``lax.cond``; skipping here would need a sync)."""
+    """Generic path: ``apply_a(v, tag)`` on each column at its device
+    tag."""
+    return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
+                                _per_column(apply_a), guards, device)
 
-    def matvec(v, tags, active):
-        del active
-        return torch.stack([apply_a(v[j], tags[j]) for j in range(v.shape[0])])
 
-    return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag, matvec,
-                                guards, device)
+def _solve_pcg_batched_fused(a, m, b, x0, tol, maxiter, params, init_tag=1,
+                             guards=None, device="cuda"):
+    """Fused path: per iteration one C64/C′64 launch for the operator and
+    the preconditioner's column apply (a gather of decoded diagonals, or
+    C64 on block-Jacobi's inverse), every column at its own tag."""
+
+    def apply_m(v, tags, active):
+        return m.apply_cols(v, tags, active, device=device)
+
+    return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
+                                _spmm(a, device), guards, device,
+                                apply_m=apply_m)
+
+
+def _solve_pcg_batched(apply_a: Callable, apply_m: Callable, b, x0, tol,
+                       maxiter, params, init_tag=1, guards=None,
+                       device="cuda"):
+    """Generic path: ``apply_a(v, tag)`` and ``apply_m(r, tag)`` on each
+    column at its device tag."""
+    return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
+                                _per_column(apply_a), guards, device,
+                                apply_m=_per_column(apply_m))
 
 
 def _batched_init_tag(tags) -> int:
@@ -321,6 +395,168 @@ def solve_cg_batched(
                  device=device)
 
 
+def solve_pcg_batched(
+    apply_a: Union[Callable, GSECSR, GSESellC],
+    b,
+    precond,
+    x0=None,
+    tol: float = 1e-6,
+    maxiter: int = 5000,
+    params: P.MonitorParams | None = None,
+    guards: GuardParams | None = DEFAULT_GUARDS,
+    flight=None,
+    tags=None,
+    *,
+    device="cuda",
+) -> BatchedCGResult:
+    """Stepped preconditioned CG over an ``(n, nrhs)`` block on ``device``.
+
+    The operator and the GSE-packed preconditioner both follow each
+    column's own tag schedule; the stored segments of both are charged once
+    per iteration however many columns ride along.  Column ``j`` is
+    bitwise ``solve_pcg(apply_a, b[:, j], precond, ...)``.  A ``GSECSR``
+    or ``GSESellC`` operand with a preconditioner object (from
+    :mod:`repro_torch.solvers.precond`) selects the fused path; a callable
+    operator or a callable ``precond(r, tag)`` the generic one; the two
+    give identical results.  ``guards`` work as in
+    :func:`solve_cg_batched` and also flag ``z.r < 0`` per column.
+    """
+    if flight is not None:
+        raise NotImplementedError(
+            "flight= is not ported yet (ROADMAP queue 1 item 12)")
+    init_tag = _batched_init_tag(tags)
+    gse_op = isinstance(apply_a, (GSECSR, GSESellC))
+    if not gse_op and not callable(apply_a):
+        raise NotImplementedError(
+            f"solve_pcg_batched takes a GSECSR, a GSESellC or a callable; "
+            f"{type(apply_a).__name__} operands (sharded) are not ported yet "
+            "(ROADMAP queue 1 item 15)")
+    if gse_op:
+        on_device(device, operand=apply_a.table)
+    b, x0 = _normalize_block(b, x0, device)
+    if b.dtype != torch.float64:
+        raise TypeError(f"b must be float64, got {b.dtype}")
+    if params is None:
+        params = P.MonitorParams.for_cg()
+    tol_ = torch.tensor(tol, dtype=b.dtype, device=b.device)
+    bt, x0t = b.t().contiguous(), x0.t().contiguous()
+    if gse_op and hasattr(precond, "apply_cols"):
+        return _solve_pcg_batched_fused(apply_a, precond, bt, x0t, tol_,
+                                        maxiter, params, init_tag=init_tag,
+                                        guards=guards, device=device)
+    apply_m = precond if callable(precond) else precond.apply
+    op = _gsecsr_operator(apply_a) if gse_op else apply_a
+    return _solve_pcg_batched(op, apply_m, bt, x0t, tol_, maxiter, params,
+                              init_tag=init_tag, guards=guards, device=device)
+
+
+class BatchedIRResult(NamedTuple):
+    x: torch.Tensor            # (n, nrhs)
+    outer_iters: np.ndarray    # (nrhs,) correction steps per column
+    inner_iters: np.ndarray    # (nrhs,) total inner iterations per column
+    relres: np.ndarray         # (nrhs,) final true (tag-3) relative residuals
+    converged: np.ndarray      # (nrhs,) bool
+    history: list              # nrhs arrays of outer residual trajectories
+    health: np.ndarray = None  # (nrhs,) health codes, as IRResult's
+    flight: object = None      # the flight recorder is not ported (item 12)
+
+
+def solve_ir_batched(
+    apply_a: Union[Callable, GSECSR, GSESellC],
+    b,
+    tol: float = 1e-10,
+    max_outer: int = 10,
+    inner_tol: float = 1e-4,
+    inner_maxiter: int = 2000,
+    params: P.MonitorParams | None = None,
+    precond=None,
+    guards: GuardParams | None = DEFAULT_GUARDS,
+    flight=None,
+    tags=None,
+    *,
+    device="cuda",
+) -> BatchedIRResult:
+    """Batched stepped iterative refinement: ``solve_ir``'s outer loop over
+    an ``(n, nrhs)`` block on ``device``, the inner solves batched
+    (:func:`solve_cg_batched`, or :func:`solve_pcg_batched` with
+    ``precond``), every correction starting back at tag 1 (or at an int
+    ``tags``).
+
+    Each column refines until its true residual meets ``tol`` and then
+    drops out: its inner right-hand side is zeroed, so it converges at
+    inner iteration 0.  The tag-3 residuals are applied column by column
+    (A64, or the callable at tag 3, as the reference stacks them) and
+    each column's norm is ``solve_ir``'s, so an active column's
+    trajectory is bitwise the single-RHS ``solve_ir``'s.
+    """
+    check_ir_options(apply_a, flight, tags)
+    gse_op = isinstance(apply_a, (GSECSR, GSESellC))
+    if gse_op:
+        on_device(device, operand=apply_a.table)
+    b, _ = _normalize_block(b, None, device)
+    if params is None:
+        params = P.MonitorParams.for_cg()
+    apply_tagged = _gsecsr_operator(apply_a) if gse_op else apply_a
+    bt = b.t().contiguous()  # (nrhs, n): one contiguous column a row
+    nrhs = bt.shape[0]
+
+    def residual(x):
+        return bt - torch.stack([apply_tagged(x[j], 3) for j in range(nrhs)])
+
+    def col_norms(block):  # each column's norm is solve_ir's, bitwise
+        return ref_norm_cols(block, device=device).cpu().numpy()
+
+    bnorms = col_norms(bt)
+    bnorms = np.where(bnorms == 0, 1.0, bnorms)
+    x = torch.zeros_like(bt)
+    total_inner = np.zeros(nrhs, np.int64)
+    outer = np.zeros(nrhs, np.int64)
+    inner_health = np.zeros(nrhs, np.int64)
+    r = residual(x)
+    relres = col_norms(r) / bnorms
+    history = [[float(v)] for v in relres]
+    active = (relres > tol) & np.isfinite(relres) & (outer < max_outer)
+    kw = dict(tol=inner_tol, maxiter=inner_maxiter, params=params,
+              guards=guards, tags=tags, device=device)
+    while active.any():
+        mask = torch.as_tensor(active, device=bt.device)
+        # Converged columns drop out of the inner batch: a zero column
+        # converges at inner iteration 0.
+        r_in = torch.where(mask[:, None], r, 0.0).t()
+        if precond is not None:
+            res = solve_pcg_batched(apply_a, r_in, precond, **kw)
+        else:
+            res = solve_cg_batched(apply_a, r_in, **kw)
+        inner_health[active] = res.health.cpu().numpy()[active]
+        # A non-finite correction column is never folded into x; that
+        # column stops with its inner health code.
+        col_fin = torch.isfinite(res.x).all(dim=0).cpu().numpy()
+        take = torch.as_tensor(active & col_fin, device=bt.device)
+        x = torch.where(take[:, None], x + res.x.t(), x)
+        iters = res.iters.cpu().numpy()
+        conv = res.converged.cpu().numpy()
+        total_inner[active] += iters[active]
+        outer[active & col_fin] += 1
+        r = residual(x)
+        relres = col_norms(r) / bnorms
+        for j in range(nrhs):
+            if active[j] and col_fin[j]:
+                history[j].append(float(relres[j]))
+        stalled = ~conv & (iters == 0)  # no progress, per column
+        active = (active & (relres > tol) & np.isfinite(relres) & ~stalled
+                  & col_fin & (outer < max_outer))
+    converged = (relres <= tol) & np.isfinite(relres)
+    health = np.where(
+        converged, HEALTH_OK,
+        np.where(~np.isfinite(relres), HEALTH_NONFINITE,
+                 np.where(inner_health != HEALTH_OK, inner_health,
+                          HEALTH_STALLED))).astype(np.int64)
+    return BatchedIRResult(
+        x=x.t(), outer_iters=outer, inner_iters=total_inner, relres=relres,
+        converged=converged, history=[np.asarray(h) for h in history],
+        health=health)
+
+
 def column_tags_at(iters, switch_iters, it: int) -> np.ndarray:
     """Per-column tag at 0-based iteration ``it`` (0 for finished columns).
 
@@ -343,15 +579,12 @@ def column_tags_at(iters, switch_iters, it: int) -> np.ndarray:
 def batched_run_bytes(op, iters, switch_iters, precond=None) -> int:
     """Modeled HBM bytes a whole batched stepped run streams.
 
-    Per iteration the matrix segments are charged once at the widest tag
-    any active column runs, and every active column beyond the first
-    charges its dense x/y stream (``iteration_stream_bytes(...,
-    nrhs=n_active)``).  Converged columns stream nothing.
+    Per iteration the matrix (and preconditioner) segments are charged
+    once at the widest tag any active column runs, and every active column
+    beyond the first charges its dense x/y stream
+    (``iteration_stream_bytes(..., precond, nrhs=n_active)``).  Converged
+    columns stream nothing.
     """
-    if precond is not None:
-        raise NotImplementedError(
-            "the preconditioner charge is not ported yet (ROADMAP queue 1 "
-            "item 6)")
     iters = _np(iters)
     switch_iters = _np(switch_iters)
     total = 0
@@ -360,5 +593,6 @@ def batched_run_bytes(op, iters, switch_iters, precond=None) -> int:
         n_active = int((tags > 0).sum())
         if n_active == 0:
             continue
-        total += iteration_stream_bytes(op, int(tags.max()), nrhs=n_active)
+        total += iteration_stream_bytes(op, int(tags.max()), precond,
+                                        nrhs=n_active)
     return total

@@ -24,13 +24,12 @@ changes.
 Every product rounds as XLA's CPU build of the reference: the CGS2 GEMVs
 (``kernels.vec_f64.gemv_rows_ref``/``gemv_cols_ref``), the rotations and
 the back substitution (``kernels.gmres_f64``), the norms
-(``vec_f64.ref_norm_cols``).  So on the named cases the unpreconditioned
-iterates are bitwise the reference's on the CPU, and the card's are
-bitwise the CPU twin's.  One product differs: with a preconditioner the
-reference's cycle update ``y @ V[:restart]`` becomes an XLA loop fusion
-whose vectorized sum order depends on ``restart`` (ROADMAP queue 3); the
-port keeps the column chain there, and the iterates agree to about 1e-10
-relative, with the reference's iterations, tag and switches.
+(``vec_f64.ref_norm_cols``), and, with a preconditioner, the cycle's
+update ``y @ V[:restart]``, which XLA turns into a loop fusion whose
+vectorized sum order depends on ``restart``
+(``vec_f64.gemv_cols_sliced_ref``).  So on the named cases the iterates
+are bitwise the reference's on the CPU, with or without right
+preconditioning, and the card's are bitwise the CPU twin's.
 
 Not yet ported: the flight recorder (``flight=``, ROADMAP queue 1
 item 12).
@@ -43,7 +42,8 @@ import torch
 
 from repro_torch.core import precision as P
 from repro_torch.kernels.gmres_f64 import givens, givens_step, trsv_upper_ref
-from repro_torch.kernels.vec_f64 import (gemv_cols_ref, gemv_rows_ref,
+from repro_torch.kernels.vec_f64 import (gemv_cols_ref,
+                                         gemv_cols_sliced_ref, gemv_rows_ref,
                                          seq_dot)
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
@@ -174,7 +174,7 @@ def _solve_gmres(apply_a: Callable, b, x0, tol, restart: int, maxiter: int,
         if apply_m is None:
             x_new = gemv_cols_ref(y, V, restart, addend=x)
         else:  # x = x0 + M^{-1} (V y), right preconditioning
-            x_new = x + apply_m(gemv_cols_ref(y, V, restart), mon.tag)
+            x_new = x + apply_m(gemv_cols_sliced_ref(y, V, restart), mon.tag)
         it = it0 + int(j)  # the sync per cycle
         relres = resid / bnorm
         if gd is not None:

@@ -13,6 +13,11 @@ every apply reads them at the residual monitor's current tag:
 * block-Jacobi stores the block-diagonal inverse as a ``GSECSR`` and
   applies it through ``spmv_gse`` -- kernel A64, the operator's own SpMV.
 
+The batched PCG loop applies a preconditioner to an ``(nrhs, n)`` block,
+column j at its own device tag (``apply_cols``): the diagonal gathers one
+decoded row per column, block-Jacobi runs kernel C64 (column j bitwise
+A64 at that tag), so column j is bitwise ``apply_at(r[j], tags[j])``.
+
 The host packers build the reference's arrays exactly: the same numpy
 operations on the same CSR arrays.  Every preconditioner answers
 ``bytes_touched(tag)``, the modeled HBM bytes one apply streams, which
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import gse
+from repro_torch.kernels.gse_spmm import gse_spmm_csr_f64
 from repro_torch.sparse.csr import CSR, GSECSR, from_coo, pack_csr
 from repro_torch.sparse.spmv import spmv_gse
 
@@ -71,6 +77,16 @@ class DiagGSEPrecond:
 
     apply = apply_at
 
+    def apply_cols(self, r: torch.Tensor, tags: torch.Tensor, active=None, *,
+                   device="cuda") -> torch.Tensor:
+        """``z[j] = M^{-1} r[j]`` at ``tags[j]`` for an ``(nrhs, n)`` block
+        (``tags`` int32 on the block's device; ``active`` unused: the
+        product is elementwise and the loop freezes inactive columns)."""
+        del active, device
+        rows = self._decoded()
+        idx = torch.clamp(tags.to(torch.int64) - 1, 0, 2)
+        return rows.index_select(0, idx) * r
+
     def nbytes(self, tag: int) -> int:
         return self.packed.nbytes(tag)
 
@@ -95,6 +111,18 @@ class BlockJacobiGSEPrecond:
         return spmv_gse(self.mat, r, tag)
 
     apply = apply_at
+
+    def apply_cols(self, r: torch.Tensor, tags: torch.Tensor, active=None, *,
+                   device="cuda") -> torch.Tensor:
+        """``z[j] = M^{-1} r[j]`` at ``tags[j]`` for an ``(nrhs, n)``
+        block: one C64 launch over the stored inverse (an inactive column
+        is not read and comes back 0)."""
+        m = self.mat
+        if active is None:
+            active = torch.ones(r.shape[0], dtype=torch.bool, device=r.device)
+        return gse_spmm_csr_f64(m.rowptr, m.colpak, m.head, m.tail1, m.tail2,
+                                m.table, r, tags, active, ei_bit=m.ei_bit,
+                                plan=m.row_plan, device=device)
 
     def nbytes(self, tag: int) -> int:
         return self.mat.nbytes(tag)

@@ -170,5 +170,7 @@ def test_unported_options_raise_not_implemented(rs8):
         T_b.solve_cg_batched(tg, b, tags=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="item 15"):
         T_b.solve_cg_batched(object(), b, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        T_b.batched_run_bytes(tg, [1], [[-1, -1]], precond=object())
+    with pytest.raises(NotImplementedError, match="item 12"):
+        T_b.solve_pcg_batched(tg, b, object(), flight=object(), device=CPU)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        T_b.solve_ir_batched(object(), b, device=CPU)

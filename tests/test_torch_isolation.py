@@ -48,12 +48,15 @@ def _device_defaults():
                                      gse_spmm, ops, vec_f64)
     from repro_torch.launch.solver_serve import SolverService
     from repro_torch.models import attention, transformer
-    from repro_torch.solvers.batched import solve_cg_batched
+    from repro_torch.solvers.batched import (solve_cg_batched,
+                                             solve_ir_batched,
+                                             solve_pcg_batched)
     from repro_torch.sparse import csr, generators
 
     fns = [csr.from_coo, gse.pack, gse.pack_with_table, precision.init,
            convert.gsecsr_from_repro, convert.csr_from_repro,
-           SolverService, solve_cg_batched, vec_f64.seq_dot_cols,
+           SolverService, solve_cg_batched, solve_pcg_batched,
+           solve_ir_batched, vec_f64.seq_dot_cols,
            vec_f64.fma_axpy_cols, vec_f64.ref_norm_cols,
            gse_spmm.gse_spmm_ell_f32, gse_spmm.gse_spmm_csr_f64,
            ops.gse_spmm_ell, gse_spmm.gse_spmm_sell_f32,

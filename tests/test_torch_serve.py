@@ -144,7 +144,7 @@ def test_submit_validation():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(precond="jacobi"), "item 6"),
+    (dict(precond="jacobi", sharded=True), "item 15"),
     (dict(plan=object()), "item 14"),
     (dict(tags="adaptive"), "item 11"),
     (dict(tags=object()), "item 11"),
