@@ -90,6 +90,17 @@
 // a slot for one column, 32-71 ns for C'64's four; NVIDIA H100 80GB HBM3,
 // 700 W); the block chains leave the add as the chain's only step.
 //
+// Per-group precision (a TagMap, ops.masked_for_tagmap and
+// ops.sell_bucket_tags): the reference runs A's (C's) Pallas call once per
+// bucket at the bucket's tag (`_sell_mixed_cached`, src/repro/kernels/
+// ops.py:306).  Here the mixed builds of B32 and C'32 (a negative tag,
+// -(largest bucket tag), when the buckets' tags differ) cover every bucket
+// in one launch: each bucket row reads its bucket's tag from a small
+// device vector and runs that tag's body with that tag's scales, so a
+// tag-1 bucket reads no tail and the launch streams sell.bytes_touched(tm).  A build holds the bodies of the
+// tags up to its largest only.  Bucket for bucket it is bitwise the
+// uniform launch at the bucket's tag over the same masked pack.
+//
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
@@ -104,10 +115,11 @@ namespace {
 using gse::kChainThreads;
 using gse::kColsWarp;
 
-// First flat slot and width of bucket row r.  `tab` holds one row
+// First flat slot, width and bucket of bucket row r.  `tab` holds one row
 // [first row, width, flat offset] per bucket, first rows ascending.
 __device__ __forceinline__ int64_t locate(const int64_t* __restrict__ tab,
-                                          int nb, int64_t r, int& width) {
+                                          int nb, int64_t r, int& width,
+                                          int& bucket) {
   int lo = 0, hi = nb - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
@@ -119,12 +131,50 @@ __device__ __forceinline__ int64_t locate(const int64_t* __restrict__ tab,
   }
   const int64_t w = __ldg(tab + 3 * lo + 1);
   width = (int)w;
+  bucket = lo;
   return __ldg(tab + 3 * lo + 2) + (r - __ldg(tab + 3 * lo)) * w;
+}
+
+__device__ __forceinline__ int64_t locate(const int64_t* __restrict__ tab,
+                                          int nb, int64_t r, int& width) {
+  int bucket;
+  return locate(tab, nb, r, width, bucket);
+}
+
+// The tag bucket `b` runs at: TAG (1-3), or, in a mixed build (TAG = -2
+// or -3, the largest bucket tag negated), the bucket's entry of the device
+// vector `btags` (ops.sell_bucket_tags; the host checks that its largest
+// is -TAG, and runs buckets all at one tag as the uniform build).  A warp row and a long
+// row's block lie within one bucket, so the branch on it is uniform across
+// the warp (the block).  A mixed build holds only the bodies of the tags
+// up to its largest, so its registers are those of that tag's body, as in
+// the uniform build.  In a mixed build `scales` holds the three tags'
+// tables of `k` entries, a row each.
+template <int TAG>
+__device__ __forceinline__ int bucket_tag(const int32_t* __restrict__ btags,
+                                          int b) {
+  return TAG > 0 ? TAG : __ldg(btags + b);
+}
+
+template <int TAG>
+__device__ __forceinline__ const float* tag_scales(
+    const float* __restrict__ scales, int k, int t) {
+  return TAG > 0 ? scales : scales + (int64_t)(t - 1) * k;
+}
+
+// Which body runs tag t in build TAG: 1, 2 or 3 (3 only in builds that
+// reach it).
+template <int TAG>
+__device__ __forceinline__ int body_of(int t) {
+  if (TAG == 1 || (TAG < 0 && t == 1)) return 1;
+  if (TAG == 2 || TAG == -2 || (TAG == -3 && t == 2)) return 2;
+  return 3;
 }
 
 // Blocks [0, rows_pad - long_from) take bucket rows long_from, ... one
 // each (block_lanes_f32); the blocks after them take rows [0, long_from),
-// one per warp (warp_row_f32).
+// one per warp (warp_row_f32).  A negative TAG is a mixed build: each row
+// runs the body of its bucket's tag (bucket_tag).
 template <int TAG>
 __global__ void __launch_bounds__(kChainThreads) spmv_sell_f32_kernel(
     const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
@@ -132,18 +182,28 @@ __global__ void __launch_bounds__(kChainThreads) spmv_sell_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ scales,
     float* __restrict__ y, const int64_t* __restrict__ tab, int nb,
     const int32_t* __restrict__ perm, int64_t rows_pad, int64_t long_from,
-    int shift, uint32_t mask) {
+    int shift, uint32_t mask, const int32_t* __restrict__ btags, int k) {
   __shared__ __align__(16) float buf[2 * gse::kLanesChunk];
   const int64_t n_long = rows_pad - long_from;
   if ((int64_t)blockIdx.x < n_long) {
     const int64_t row = long_from + blockIdx.x;
     const int dst = __ldg(perm + row);
     if (dst < 0) return;  // uniform across the block
-    int width;
-    const int64_t base = locate(tab, nb, row, width);
-    const float acc = gse::block_lanes_f32<TAG>(buf, base, width, colpak,
-                                                head, tail1, tail2, x, scales,
-                                                shift, mask);
+    int width, b;
+    const int64_t base = locate(tab, nb, row, width, b);
+    const int t = bucket_tag<TAG>(btags, b);
+    const float* sc = tag_scales<TAG>(scales, k, t);
+    float acc;
+    if (body_of<TAG>(t) == 1) {
+      acc = gse::block_lanes_f32<1>(buf, base, width, colpak, head, tail1,
+                                    tail2, x, sc, shift, mask);
+    } else if (body_of<TAG>(t) == 2) {
+      acc = gse::block_lanes_f32<2>(buf, base, width, colpak, head, tail1,
+                                    tail2, x, sc, shift, mask);
+    } else {
+      acc = gse::block_lanes_f32<3>(buf, base, width, colpak, head, tail1,
+                                    tail2, x, sc, shift, mask);
+    }
     if (threadIdx.x == 0) y[dst] = acc;
     return;
   }
@@ -153,11 +213,21 @@ __global__ void __launch_bounds__(kChainThreads) spmv_sell_f32_kernel(
   if (row >= long_from) return;  // uniform across the warp
   const int dst = __ldg(perm + row);
   if (dst < 0) return;  // slice padding row, uniform across the warp
-  int width;
-  const int64_t base = locate(tab, nb, row, width);
-  const float acc = gse::warp_row_f32<TAG>(base, width, lane, colpak, head,
-                                           tail1, tail2, x, scales, shift,
-                                           mask);
+  int width, b;
+  const int64_t base = locate(tab, nb, row, width, b);
+  const int t = bucket_tag<TAG>(btags, b);
+  const float* sc = tag_scales<TAG>(scales, k, t);
+  float acc;
+  if (body_of<TAG>(t) == 1) {
+    acc = gse::warp_row_f32<1>(base, width, lane, colpak, head, tail1, tail2,
+                               x, sc, shift, mask);
+  } else if (body_of<TAG>(t) == 2) {
+    acc = gse::warp_row_f32<2>(base, width, lane, colpak, head, tail1, tail2,
+                               x, sc, shift, mask);
+  } else {
+    acc = gse::warp_row_f32<3>(base, width, lane, colpak, head, tail1, tail2,
+                               x, sc, shift, mask);
+  }
   if (lane == 0) y[dst] = acc;
 }
 
@@ -203,7 +273,8 @@ __global__ void __launch_bounds__(kChainThreads) spmv_sell_f64_kernel(
 // Blocks [0, rows_pad - long_from) take bucket rows long_from, ... one
 // each (block_lanes_cols_f32); the blocks after them take rows
 // [0, long_from), one per warp (warp_row_cols_f32).  grid.y walks the
-// passes of kColsWarp columns of the (n, nrhs) row-major X.
+// passes of kColsWarp columns of the (n, nrhs) row-major X.  A negative
+// TAG is a mixed build, as in spmv_sell_f32_kernel.
 template <int TAG>
 __global__ void __launch_bounds__(kChainThreads) spmm_sell_f32_kernel(
     const uint32_t* __restrict__ colpak, const uint16_t* __restrict__ head,
@@ -211,7 +282,8 @@ __global__ void __launch_bounds__(kChainThreads) spmm_sell_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ scales,
     float* __restrict__ y, const int64_t* __restrict__ tab, int nb,
     const int32_t* __restrict__ perm, int64_t rows_pad, int64_t long_from,
-    int nrhs, int vec, int shift, uint32_t mask) {
+    int nrhs, int vec, int shift, uint32_t mask,
+    const int32_t* __restrict__ btags, int k) {
   __shared__ __align__(16) float buf[2 * gse::kLanesColsFloats];
   const int c0 = blockIdx.y * kColsWarp;
   const int nc = nrhs - c0 < kColsWarp ? nrhs - c0 : kColsWarp;
@@ -222,11 +294,23 @@ __global__ void __launch_bounds__(kChainThreads) spmm_sell_f32_kernel(
     const int64_t row = long_from + blockIdx.x;
     const int dst = __ldg(perm + row);
     if (dst < 0) return;  // uniform across the block
-    int width;
-    const int64_t base = locate(tab, nb, row, width);
-    gse::block_lanes_cols_f32<TAG, kColsWarp>(
-        buf, base, width, colpak, head, tail1, tail2, xg, nrhs, nc, vec != 0,
-        scales, shift, mask, acc);
+    int width, b;
+    const int64_t base = locate(tab, nb, row, width, b);
+    const int t = bucket_tag<TAG>(btags, b);
+    const float* sc = tag_scales<TAG>(scales, k, t);
+    if (body_of<TAG>(t) == 1) {
+      gse::block_lanes_cols_f32<1, kColsWarp>(
+          buf, base, width, colpak, head, tail1, tail2, xg, nrhs, nc,
+          vec != 0, sc, shift, mask, acc);
+    } else if (body_of<TAG>(t) == 2) {
+      gse::block_lanes_cols_f32<2, kColsWarp>(
+          buf, base, width, colpak, head, tail1, tail2, xg, nrhs, nc,
+          vec != 0, sc, shift, mask, acc);
+    } else {
+      gse::block_lanes_cols_f32<3, kColsWarp>(
+          buf, base, width, colpak, head, tail1, tail2, xg, nrhs, nc,
+          vec != 0, sc, shift, mask, acc);
+    }
     if (threadIdx.x == 0) {
 #pragma unroll
       for (int c = 0; c < kColsWarp; ++c) {
@@ -241,11 +325,23 @@ __global__ void __launch_bounds__(kChainThreads) spmm_sell_f32_kernel(
   if (row >= long_from) return;  // uniform across the warp
   const int dst = __ldg(perm + row);
   if (dst < 0) return;
-  int width;
-  const int64_t base = locate(tab, nb, row, width);
-  gse::warp_row_cols_f32<TAG, kColsWarp>(base, width, lane, colpak, head,
+  int width, b;
+  const int64_t base = locate(tab, nb, row, width, b);
+  const int t = bucket_tag<TAG>(btags, b);
+  const float* sc = tag_scales<TAG>(scales, k, t);
+  if (body_of<TAG>(t) == 1) {
+    gse::warp_row_cols_f32<1, kColsWarp>(base, width, lane, colpak, head,
                                          tail1, tail2, xg, nrhs, nc,
-                                         vec != 0, scales, shift, mask, acc);
+                                         vec != 0, sc, shift, mask, acc);
+  } else if (body_of<TAG>(t) == 2) {
+    gse::warp_row_cols_f32<2, kColsWarp>(base, width, lane, colpak, head,
+                                         tail1, tail2, xg, nrhs, nc,
+                                         vec != 0, sc, shift, mask, acc);
+  } else {
+    gse::warp_row_cols_f32<3, kColsWarp>(base, width, lane, colpak, head,
+                                         tail1, tail2, xg, nrhs, nc,
+                                         vec != 0, sc, shift, mask, acc);
+  }
   if (lane == 0) {
 #pragma unroll
     for (int c = 0; c < kColsWarp; ++c) {
@@ -311,14 +407,18 @@ __global__ void __launch_bounds__(kChainThreads) spmm_sell_f64_kernel(
 }  // namespace
 
 // y (m,) f32 = A x over the SELL buckets at `tag`; x is (n,) f32.  Bucket
-// rows [long_from, rows_pad) run a block each.
+// rows [long_from, rows_pad) run a block each.  A negative tag is the mixed
+// launch, -(largest bucket tag), -2 or -3: bucket b runs at btags[b]
+// (device int32), with `scales` the (3, k) tables of tags 1-3.
 extern "C" int gse_spmv_sell_f32(int tag, const void* colpak, const void* head,
                                  const void* tail1, const void* tail2,
                                  const void* x, const void* scales, void* y,
                                  const void* tab, int nb, const void* perm,
                                  long long rows_pad, long long long_from,
-                                 int ei_bit, void* stream) {
-  if (long_from < 0 || long_from > rows_pad) {
+                                 int ei_bit, const void* btags, int k,
+                                 void* stream) {
+  if (long_from < 0 || long_from > rows_pad ||
+      (tag < 0 && (btags == nullptr || k <= 0))) {
     return (int)cudaErrorInvalidValue;
   }
   const int shift = 32 - ei_bit;
@@ -337,18 +437,27 @@ extern "C" int gse_spmv_sell_f32(int tag, const void* colpak, const void* head,
   float* out = (float*)y;
   const int64_t* tb = (const int64_t*)tab;
   const int32_t* pm = (const int32_t*)perm;
-  if (tag == 1) {
+  const int32_t* bt = (const int32_t*)btags;
+  if (tag == -2) {
+    spmv_sell_f32_kernel<-2><<<(unsigned)blocks, kChainThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, shift,
+        mask, bt, k);
+  } else if (tag == -3) {
+    spmv_sell_f32_kernel<-3><<<(unsigned)blocks, kChainThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, shift,
+        mask, bt, k);
+  } else if (tag == 1) {
     spmv_sell_f32_kernel<1><<<(unsigned)blocks, kChainThreads, 0, s>>>(
         cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, shift,
-        mask);
+        mask, bt, k);
   } else if (tag == 2) {
     spmv_sell_f32_kernel<2><<<(unsigned)blocks, kChainThreads, 0, s>>>(
         cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, shift,
-        mask);
+        mask, bt, k);
   } else if (tag == 3) {
     spmv_sell_f32_kernel<3><<<(unsigned)blocks, kChainThreads, 0, s>>>(
         cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, shift,
-        mask);
+        mask, bt, k);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -385,14 +494,17 @@ extern "C" int gse_spmv_sell_f64(const void* tag, const void* colpak,
 }
 
 // Y (m, nrhs) f32 = A X over the SELL buckets at `tag`; X is (n, nrhs) f32,
-// row-major.  Bucket rows [long_from, rows_pad) run a block each.
+// row-major.  Bucket rows [long_from, rows_pad) run a block each.  A
+// negative tag is the mixed launch, as in gse_spmv_sell_f32.
 extern "C" int gse_spmm_sell_f32(int tag, const void* colpak, const void* head,
                                  const void* tail1, const void* tail2,
                                  const void* x, const void* scales, void* y,
                                  const void* tab, int nb, const void* perm,
                                  long long rows_pad, long long long_from,
-                                 int nrhs, int ei_bit, void* stream) {
-  if (long_from < 0 || long_from > rows_pad || nrhs <= 0) {
+                                 int nrhs, int ei_bit, const void* btags,
+                                 int k, void* stream) {
+  if (long_from < 0 || long_from > rows_pad || nrhs <= 0 ||
+      (tag < 0 && (btags == nullptr || k <= 0))) {
     return (int)cudaErrorInvalidValue;
   }
   const int shift = 32 - ei_bit;
@@ -415,18 +527,27 @@ extern "C" int gse_spmm_sell_f32(int tag, const void* colpak, const void* head,
   float* out = (float*)y;
   const int64_t* tb = (const int64_t*)tab;
   const int32_t* pm = (const int32_t*)perm;
-  if (tag == 1) {
+  const int32_t* bt = (const int32_t*)btags;
+  if (tag == -2) {
+    spmm_sell_f32_kernel<-2><<<grid, kChainThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, nrhs,
+        vec, shift, mask, bt, k);
+  } else if (tag == -3) {
+    spmm_sell_f32_kernel<-3><<<grid, kChainThreads, 0, s>>>(
+        cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, nrhs,
+        vec, shift, mask, bt, k);
+  } else if (tag == 1) {
     spmm_sell_f32_kernel<1><<<grid, kChainThreads, 0, s>>>(
         cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, nrhs,
-        vec, shift, mask);
+        vec, shift, mask, bt, k);
   } else if (tag == 2) {
     spmm_sell_f32_kernel<2><<<grid, kChainThreads, 0, s>>>(
         cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, nrhs,
-        vec, shift, mask);
+        vec, shift, mask, bt, k);
   } else if (tag == 3) {
     spmm_sell_f32_kernel<3><<<grid, kChainThreads, 0, s>>>(
         cp, hd, t1, t2, xs, sc, out, tb, nb, pm, rows_pad, long_from, nrhs,
-        vec, shift, mask);
+        vec, shift, mask, bt, k);
   } else {
     return (int)cudaErrorInvalidValue;
   }

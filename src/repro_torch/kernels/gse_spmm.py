@@ -42,7 +42,8 @@ C's:
   adding four chains in A32's lane order; the other rows get a warp each.
   Per column bitwise C32, at nrhs = 1 bitwise B32.  Y is ``(m, nrhs)``.
   The launches per body are counted in ``body_launches`` ("block",
-  "warp").
+  "warp").  ``bucket_tags=`` makes the launch mixed, each bucket at its
+  own tag, as B32's (``mixed_launches``).
 * **C′64** -- :func:`gse_spmm_sell_f64` (``spmm_gse`` over a ``GSESellC``,
   the batched CG operator): B64's bodies for every column, with C64's
   per-column device tags and active flags; column j bitwise B64 at
@@ -68,11 +69,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.gse_spmv import (A64_BODIES, ELL_LANES_DEFAULT,
                                           SELL_BODIES, _check, _check_ell,
                                           _check_lanes, _check_long_from,
-                                          _check_sell, _raise_on, check_plan,
+                                          _check_sell, _raise_on,
+                                          bucket_tag_vector, check_plan,
                                           check_row_len, count_bodies,
                                           csr_row_sums,
                                           gse_spmv_ell_f32_plain,
-                                          gse_spmv_sell_f32_plain, row_sums,
+                                          gse_spmv_sell_f32_plain,
+                                          resolve_bucket_tags, row_sums,
                                           sell_row_starts, sell_scatter)
 from repro_torch.kernels.vec_f64 import on_device
 from repro_torch.sparse.spmv import _decode_gsecsr
@@ -93,7 +96,8 @@ _ARGTYPES = {
                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
     "gse_spmm_sell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_int, _P, ctypes.c_longlong,
-                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P],
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P,
+                          ctypes.c_int, _P],
     "gse_spmm_sell_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_int, _P, _P, ctypes.c_longlong,
                           ctypes.c_longlong, ctypes.c_longlong,
@@ -275,13 +279,15 @@ def gse_spmm_csr_f64(rowptr, colpak, head, tail1, tail2, table, x, tags,
 # --- C′32 / C′64: the SELL-C-sigma layout -------------------------------------
 
 def gse_spmm_sell_f32_plain(colpak, head, tail1, tail2, x, scales, buckets,
-                            perm, *, rows: int, ei_bit: int,
-                            tag: int) -> torch.Tensor:
+                            perm, *, rows: int, ei_bit: int, tag: int,
+                            bucket_tags=None) -> torch.Tensor:
     """Plain version of C′32: B32's plain version on each column of the
-    ``(n, nrhs)`` X, stacked to ``(rows, nrhs)``."""
+    ``(n, nrhs)`` X, stacked to ``(rows, nrhs)`` (``bucket_tags``: the
+    mixed launch, as B32's)."""
     cols = [gse_spmv_sell_f32_plain(colpak, head, tail1, tail2, x[:, j],
                                     scales, buckets, perm, rows=rows,
-                                    ei_bit=ei_bit, tag=tag)
+                                    ei_bit=ei_bit, tag=tag,
+                                    bucket_tags=bucket_tags)
             for j in range(x.shape[1])]
     if not cols:
         return torch.zeros(rows, 0, dtype=torch.float32, device=colpak.device)
@@ -314,7 +320,7 @@ def _sell_f32_args(name, tag, colpak, head, tail1, tail2, x, scales,
 
 def gse_spmm_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
                       *, rows: int, ei_bit: int, tag: int,
-                      long_from: int | None = None,
+                      long_from: int | None = None, bucket_tags=None,
                       device="cuda") -> torch.Tensor:
     """Y = A @ X as ``(rows, nrhs)`` f32 from the flat SELL segments at
     ``tag`` and an ``(n, nrhs)`` f32 X (row-major, as
@@ -324,28 +330,37 @@ def gse_spmm_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
     ``long_from`` (required on the card) is the pack's
     ``GSESellC.long_from``: the bucket rows from there on run a block
     each.  The launches per body are counted in ``body_launches``
-    ("block", "warp").
+    ("block", "warp").  ``bucket_tags`` makes the launch mixed, as in
+    ``gse_spmv_sell_f32`` (counted in ``mixed_launches`` too).
     """
     dev = _sell_f32_args("gse_spmm_sell_f32", tag, colpak, head, tail1,
                          tail2, x, scales, buckets, perm, device)
     if dev.type == "cpu":
         return gse_spmm_sell_f32_plain(colpak, head, tail1, tail2, x, scales,
                                        buckets, perm, rows=rows,
-                                       ei_bit=ei_bit, tag=tag)
+                                       ei_bit=ei_bit, tag=tag,
+                                       bucket_tags=bucket_tags)
     n, nrhs = x.shape
     rows_pad = perm.shape[0]
     _check_long_from(long_from, rows_pad)
     y = torch.empty(rows, nrhs, dtype=torch.float32, device=dev)
     if rows_pad == 0 or nrhs == 0:
         return y
+    tags, scales = resolve_bucket_tags(bucket_tags, scales, buckets.shape[0],
+                                       tag)
+    mixed = tags is not None
+    scales = scales.reshape(-1)
     rc = _fn("gse_spmm_sell_f32")(
-        tag, colpak.data_ptr(), head.data_ptr(),
+        -tag if mixed else tag, colpak.data_ptr(), head.data_ptr(),
         tail1.data_ptr() if tag >= 2 else None,
         tail2.data_ptr() if tag == 3 else None,
         x.data_ptr(), scales.data_ptr(), y.data_ptr(), buckets.data_ptr(),
         buckets.shape[0], perm.data_ptr(), rows_pad, long_from, nrhs, ei_bit,
+        bucket_tag_vector(tags, dev).data_ptr() if mixed else None,
+        scales.shape[0] // 3 if mixed else 0,
         torch.cuda.current_stream(dev).cuda_stream)
     gse_spmm_sell_f32.launches += 1
+    gse_spmm_sell_f32.mixed_launches += mixed
     count_bodies(gse_spmm_sell_f32, (rows_pad - long_from, long_from))
     _raise_on(rc, "gse_spmm_sell_f32")
     return y
@@ -436,6 +451,7 @@ def reset_launch_counts():
         k.launches = 0
     gse_spmm_csr_f64.body_launches = dict.fromkeys(A64_BODIES, 0)
     gse_spmm_sell_f32.body_launches = dict.fromkeys(SELL_BODIES, 0)
+    gse_spmm_sell_f32.mixed_launches = 0
     gse_spmm_sell_f64.body_launches = dict.fromkeys(SELL_BODIES, 0)
 
 

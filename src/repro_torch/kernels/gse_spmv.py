@@ -39,7 +39,14 @@ row bodies are A's:
   from the pack's ``long_from`` on (B64's long rows) get a block each,
   whose other warps decode and multiply the slots into shared memory ahead
   of the 32 adding lanes; the other rows get A32's warp row.  The launches
-  per body are counted in ``body_launches`` ("block", "warp").
+  per body are counted in ``body_launches`` ("block", "warp").  With
+  ``bucket_tags=`` (a per-group ``TagMap``'s ``ops.sell_bucket_tags``,
+  over ``ops.masked_for_tagmap``'s pack) the launch is mixed: each bucket
+  row runs the body of its bucket's tag, one launch for every bucket (the
+  reference runs a Pallas call per bucket, ``ops.py:306``), and a tag-1
+  bucket reads no tail; bucket for bucket bitwise the uniform launch at
+  that tag.  Counted in ``mixed_launches`` too.  Buckets all at one tag
+  run the uniform launch.
 * **B64** -- :func:`gse_spmv_sell_f64` (``spmv_gse`` over a ``GSESellC``,
   the CG operator): A64's chain over each row's real slots; bitwise A64.
   A dense row's sum is one chain of dependent adds, so the rows of the
@@ -62,6 +69,7 @@ only for CPU tensors.  Each wrapper counts its launches in its
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -74,7 +82,8 @@ __all__ = ["gse_spmv_ell_f32", "gse_spmv_ell_f32_plain", "gse_spmv_csr_f64",
            "gse_spmv_sell_f32_plain", "gse_spmv_sell_f64",
            "gse_spmv_sell_f64_plain", "csr_row_sums", "row_sums",
            "KERNELS", "reset_launch_counts", "A64_BODIES", "SELL_BODIES",
-           "check_plan", "count_bodies", "check_row_len", "ELL_LANES",
+           "check_plan", "count_bodies", "check_row_len",
+           "resolve_bucket_tags", "bucket_tag_vector", "ELL_LANES",
            "ELL_LANES_DEFAULT"]
 
 _P = ctypes.c_void_p
@@ -87,7 +96,8 @@ _ARGTYPES = {
                          ctypes.c_longlong, ctypes.c_int, _P],
     "gse_spmv_sell_f32": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
                           ctypes.c_int, _P, ctypes.c_longlong,
-                          ctypes.c_longlong, ctypes.c_int, _P],
+                          ctypes.c_longlong, ctypes.c_int, _P, ctypes.c_int,
+                          _P],
     "gse_spmv_sell_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                           _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                           ctypes.c_int, _P],
@@ -435,39 +445,90 @@ def _check_sell(segs, buckets, perm, dev):
     _check(perm, "perm", torch.int32, dev, 1)
 
 
+def resolve_bucket_tags(bucket_tags, scales, n_buckets: int, tag: int):
+    """A SELL f32 launch's ``(tags, scales)``: ``tags`` is ``None`` for a
+    uniform launch at ``tag`` -- no ``bucket_tags``, or every bucket at
+    ``tag``, which then runs the uniform launch on row ``tag - 1`` of the
+    ``(3, k)`` scales, the same bits -- else the host tuple of a mixed
+    launch, with the ``(3, k)`` scales.  ``bucket_tags`` is a host
+    sequence of ints (``ops.sell_bucket_tags``), so checking it syncs
+    nothing: one tag in 1..``tag`` for each of the ``n_buckets`` buckets,
+    the largest ``tag`` (the tails passed are the ones ``tag`` reads)."""
+    if bucket_tags is None:
+        return None, scales
+    if isinstance(bucket_tags, torch.Tensor):
+        raise TypeError("bucket_tags is a host sequence of ints "
+                        "(ops.sell_bucket_tags), not a tensor")
+    tags = tuple(int(t) for t in bucket_tags)
+    if len(tags) != n_buckets:
+        raise ValueError(f"{len(tags)} bucket tags; the pack has "
+                         f"{n_buckets} buckets")
+    if tags and (min(tags) < 1 or max(tags) != tag):
+        raise ValueError(f"bucket tags {list(tags)} must lie in 1..{tag} "
+                         f"and reach tag {tag}")
+    if scales.dim() != 2 or scales.shape[0] != 3:
+        raise ValueError(f"a mixed launch takes the (3, k) scales of tags "
+                         f"1-3, got {tuple(scales.shape)}")
+    if len(set(tags)) <= 1:
+        return None, scales[tag - 1]
+    return tags, scales
+
+
+@functools.lru_cache(maxsize=64)
+def bucket_tag_vector(tags: tuple, device: torch.device) -> torch.Tensor:
+    """The ``(n_buckets,)`` int32 copy of ``tags`` on ``device`` that a
+    mixed launch reads, made once for each tuple."""
+    return torch.tensor(tags, dtype=torch.int32, device=device)
+
+
 def gse_spmv_sell_f32_plain(colpak, head, tail1, tail2, x, scales, buckets,
-                            perm, *, rows: int, ei_bit: int,
-                            tag: int) -> torch.Tensor:
+                            perm, *, rows: int, ei_bit: int, tag: int,
+                            bucket_tags=None) -> torch.Tensor:
     """Plain version of B32: A32's plain version on each bucket's
     ``(rows_b, w_b)`` view of the flat segments, the bucket rows then put
-    back in the original order."""
+    back in the original order.  With ``bucket_tags`` (the mixed launch)
+    bucket b runs at ``bucket_tags[b]`` with row ``bucket_tags[b] - 1`` of
+    the ``(3, k)`` ``scales``."""
+    layout = sell_rows(buckets, perm.shape[0])
+    tags, scales = resolve_bucket_tags(bucket_tags, scales, len(layout), tag)
     outs = []
-    for _, nrows, w, off in sell_rows(buckets, perm.shape[0]):
-        def view(t):
-            return None if t is None else t[off:off + nrows * w].view(nrows, w)
+    for (_, nrows, w, off), t in zip(layout, tags or [tag] * len(layout)):
+        def view(seg):
+            return (None if seg is None else
+                    seg[off:off + nrows * w].view(nrows, w))
         outs.append(gse_spmv_ell_f32_plain(
-            view(colpak), view(head), view(tail1), view(tail2), x, scales,
-            ei_bit=ei_bit, tag=tag))
+            view(colpak), view(head), view(tail1) if t >= 2 else None,
+            view(tail2) if t == 3 else None, x,
+            scales if tags is None else scales[t - 1], ei_bit=ei_bit, tag=t))
     rows_y = torch.cat(outs) if outs else x.new_zeros(0, dtype=torch.float32)
     return sell_scatter(rows_y, perm, rows)
 
 
 def gse_spmv_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
                       *, rows: int, ei_bit: int, tag: int,
-                      long_from: int | None = None) -> torch.Tensor:
+                      long_from: int | None = None,
+                      bucket_tags=None) -> torch.Tensor:
     """y = A @ x as (rows,) f32 from the flat SELL segments at ``tag``.
 
     ``tail1``/``tail2`` may be ``None`` when ``tag`` does not read them;
     ``scales`` is the (k,) or (1, k) f32 table ``ref.make_scales`` gives.
     ``long_from`` (required on the card) is the pack's
     ``GSESellC.long_from``.
+
+    ``bucket_tags`` (a host tuple of ints, ``ops.sell_bucket_tags``)
+    makes the launch mixed: each bucket runs at its own tag (a tag-1
+    bucket reads no tail), ``tag`` is the largest of them and ``scales``
+    the ``(3, k)`` tables of tags 1-3.  When every bucket is at ``tag``
+    the uniform launch runs instead (:func:`resolve_bucket_tags`).  The
+    mixed launches are counted in ``mixed_launches`` too.
     """
     if tag not in (1, 2, 3):
         raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
     if colpak.device.type == "cpu":
         return gse_spmv_sell_f32_plain(colpak, head, tail1, tail2, x, scales,
                                        buckets, perm, rows=rows,
-                                       ei_bit=ei_bit, tag=tag)
+                                       ei_bit=ei_bit, tag=tag,
+                                       bucket_tags=bucket_tags)
     dev = colpak.device
     if dev.type != "cuda":
         raise ValueError(f"gse_spmv_sell_f32 runs on cuda or cpu, not {dev}")
@@ -476,6 +537,9 @@ def gse_spmv_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
                  ("tail2", tail2 if tag == 3 else None, torch.uint32)),
                 buckets, perm, dev)
     _check(x, "x", torch.float32, dev, 1)
+    tags, scales = resolve_bucket_tags(bucket_tags, scales, buckets.shape[0],
+                                       tag)
+    mixed = tags is not None
     scales = scales.reshape(-1)
     _check(scales, "scales", torch.float32, dev, 1)
     rows_pad = perm.shape[0]
@@ -484,13 +548,16 @@ def gse_spmv_sell_f32(colpak, head, tail1, tail2, x, scales, buckets, perm,
     if rows_pad == 0:
         return y
     rc = _fn("gse_spmv_sell_f32")(
-        tag, colpak.data_ptr(), head.data_ptr(),
+        -tag if mixed else tag, colpak.data_ptr(), head.data_ptr(),
         tail1.data_ptr() if tag >= 2 else None,
         tail2.data_ptr() if tag == 3 else None,
         x.data_ptr(), scales.data_ptr(), y.data_ptr(), buckets.data_ptr(),
         buckets.shape[0], perm.data_ptr(), rows_pad, long_from, ei_bit,
+        bucket_tag_vector(tags, dev).data_ptr() if mixed else None,
+        scales.shape[0] // 3 if mixed else 0,
         torch.cuda.current_stream(dev).cuda_stream)
     gse_spmv_sell_f32.launches += 1
+    gse_spmv_sell_f32.mixed_launches += mixed
     count_bodies(gse_spmv_sell_f32, (rows_pad - long_from, long_from))
     _raise_on(rc, "gse_spmv_sell_f32")
     return y
@@ -560,11 +627,13 @@ KERNELS = (gse_spmv_ell_f32, gse_spmv_csr_f64, gse_spmv_sell_f32,
 def reset_launch_counts():
     """Zero every wrapper's ``launches`` and, where a wrapper counts its
     launches per body, its ``body_launches``: ``gse_spmv_csr_f64``
-    (:data:`A64_BODIES`) and ``gse_spmv_sell_f32`` (:data:`SELL_BODIES`)."""
+    (:data:`A64_BODIES`) and ``gse_spmv_sell_f32`` (:data:`SELL_BODIES`,
+    and its ``mixed_launches``)."""
     for k in KERNELS:
         k.launches = 0
     gse_spmv_csr_f64.body_launches = dict.fromkeys(A64_BODIES, 0)
     gse_spmv_sell_f32.body_launches = dict.fromkeys(SELL_BODIES, 0)
+    gse_spmv_sell_f32.mixed_launches = 0
 
 
 reset_launch_counts()

@@ -13,13 +13,26 @@ beside it, :func:`ell_row_lengths`), ``sell_pack_gsecsr`` (:198),
 lane width (128, the reference's default plan) is padded.  The port keeps
 its own copy of the reference plan's SELL defaults (``perf/plan.py``
 :58-62).  Launch plans (``blocks=``, ``plan=``, ``planned_spmv``,
-``planned_spmm``) are ROADMAP queue 1 item 14 and per-group TagMaps
-(``_gse_sell_tagmap``, ``_sell_mixed_cached``) item 11; both raise
+``planned_spmm``) are ROADMAP queue 1 item 14 and raise
 ``NotImplementedError``.  ``PACK_STATS`` is a plain dict until the
 metrics registry is ported.
+
+Per-group precision (``masked_for_tagmap`` :250 with its SELL twin :222,
+``sell_bucket_tags`` :291, and the map case of ``gse_spmv_sell`` and
+``gse_spmm_sell``, :306-346): a ``TagMap`` is applied by zeroing each
+entry's tail segments below its induced tag, on the pack's device with
+integer ``torch.where`` (bitwise the reference's numpy masking); the
+masked pack shares every array but ``tail1``/``tail2`` with the operand,
+the port's kernel plans included, and is cached on the operand under
+``("tagmap", crc32, group_size)``.  The reference runs one Pallas call
+per SELL bucket at the bucket's tag (``_sell_mixed_cached``) over the
+caller's (masked) pack; here one mixed launch of B32 (C′32) covers every
+bucket, each at its ``sell_bucket_tags`` tag (a host tuple kept on the
+pack; buckets all at one tag run the uniform launch).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import zlib
 from collections import OrderedDict
@@ -35,15 +48,16 @@ from repro_torch.kernels.gse_decode import gse_decode_dense
 from repro_torch.kernels.gse_matmul import gse_matmul_dense
 from repro_torch.kernels.gse_spmm import gse_spmm_ell_f32, gse_spmm_sell_f32
 from repro_torch.kernels.gse_spmv import gse_spmv_ell_f32, gse_spmv_sell_f32
-from repro_torch.sparse.csr import (GSECSR, GSESellC, _int_tag, pack_sell,
-                                    scatter_rows)
+from repro_torch.core.tagmap import TagMap
+from repro_torch.sparse.csr import (GSECSR, GSESellC, _col_of, _int_tag,
+                                    entry_tags_t, pack_sell, scatter_rows)
 
 __all__ = ["gse_decode", "gse_matmul", "gse_spmv_ell", "gse_spmm_ell",
            "ell_pack_gsecsr", "ell_row_lengths", "sell_pack_gsecsr",
            "gse_spmv_sell", "gse_spmm_sell", "spmv_kernel_for",
            "spmm_kernel_for", "sell_kernel_for", "sell_spmm_kernel_for",
-           "planned_spmv", "planned_spmm",
-           "PACK_STATS", "PACK_CACHE_MAX", "LANE", "SELL_C", "SELL_SIGMA",
+           "planned_spmv", "planned_spmm", "masked_for_tagmap",
+           "sell_bucket_tags", "PACK_STATS", "PACK_CACHE_MAX", "LANE", "SELL_C", "SELL_SIGMA",
            "SELL_BUCKET"]
 
 # Operand-pack cache accounting: ``hits``/``misses`` let callers assert
@@ -79,7 +93,12 @@ def _sell_tag(tag) -> int:
 
 
 def _leaves(entry):
-    if isinstance(entry, GSESellC):
+    if getattr(entry, "__dict__", {}).get("_masked"):
+        # A masked view (masked_for_tagmap) owns only its tails; the rest
+        # is the operand's, checked under the operand's own key.
+        entry = (entry.segments[2:] if isinstance(entry, GSESellC)
+                 else (entry.tail1, entry.tail2))
+    elif isinstance(entry, GSESellC):
         entry = entry.arrays()
     if isinstance(entry, (tuple, list)):
         for e in entry:
@@ -182,6 +201,105 @@ def sell_pack_gsecsr(a: GSECSR, c: int | None = None,
     return _cached_pack(
         a, ("sell", c, sigma, lane, bucket),
         lambda: pack_sell(a, c=c, sigma=sigma, lane=lane, bucket=bucket))
+
+
+def _masked_tails(tail1, tail2, et):
+    """``tail1``/``tail2`` with the segments below each entry's induced
+    tag ``et`` zeroed (integer ``torch.where`` on the signed views of the
+    unsigned segments, so the bits are the reference's)."""
+    t1 = torch.where(et >= 2, tail1.view(torch.int16),
+                     0).view(torch.uint16)
+    t2 = torch.where(et >= 3, tail2.view(torch.int32),
+                     0).view(torch.uint32)
+    return t1, t2
+
+
+def _mark_masked(view):
+    """Mark a masked view, so the pack cache checksums only its tails."""
+    view.__dict__["_masked"] = True
+    return view
+
+
+def _masked_sell_for_tagmap(sell: GSESellC, tm: TagMap) -> GSESellC:
+    """``GSESellC`` twin of :func:`masked_for_tagmap`: the flat tails
+    masked slot by slot at the induced tag (max of the slot row's and its
+    column's group tags; a padding slot's tails are already zero)."""
+
+    def build():
+        n = sell.shape[0]
+        dev = sell.table.device
+        cp, hd, t1, t2 = sell.segments
+        widths = torch.zeros(sell.perm.shape[0], dtype=torch.int64,
+                             device=dev)
+        for r0, w in sell.bucket_table[:, :2].tolist():
+            widths[r0:] = w  # buckets ascend by first row
+        perm = sell.perm.to(torch.int64)
+        rows = torch.repeat_interleave(perm, widths)
+        # A padding row's slots take row n - 1's group; they hold zeros.
+        rows = torch.where(rows >= 0, rows, n - 1)
+        cols = torch.clamp(_col_of(cp, sell.ei_bit), max=n - 1)
+        m1, m2 = _masked_tails(t1, t2, entry_tags_t(tm, rows, cols))
+        views = ([], [])
+        for (_, w, off), rows_b in zip(sell.bucket_table.tolist(),
+                                       sell.bucket_rows):
+            for flat, out in zip((m1, m2), views):
+                out.append(flat[off:off + rows_b * w].view(rows_b, w))
+        return _mark_masked(dataclasses.replace(
+            sell, tail1=tuple(views[0]), tail2=tuple(views[1]),
+            segments=(cp, hd, m1, m2)))
+
+    return _cached_pack(sell, ("tagmap", tm.crc32, tm.group_size), build)
+
+
+def masked_for_tagmap(a, tm: TagMap):
+    """Per-group-precision view of ``a`` (a ``GSECSR`` or a ``GSESellC``):
+    the tail segments below each entry's induced tag -- the max of its
+    row's and its column's group tags, so a masked SPD operand stays
+    exactly symmetric -- are zeroed.
+
+    Decoding the masked operand at the map's max tag is bitwise decoding
+    each entry at its own tag: a zeroed segment adds exactly 0 and the
+    partial mantissa times the max tag's power-of-two scale is the lower
+    tag's decode exactly.  So every kernel over the packed operand (A64,
+    B64, C64, C′64, B32 and C′32) applies a map with no new body.  The
+    view shares every array but ``tail1``/``tail2`` with ``a`` (the row
+    plan and the SELL plans too) and is cached on ``a`` under the map's
+    crc32, so a promoted map never hits a stale view."""
+    if isinstance(a, GSESellC):
+        return _masked_sell_for_tagmap(a, tm)
+
+    def build():
+        t1, t2 = _masked_tails(a.tail1, a.tail2, a.entry_tags(tm))
+        return _mark_masked(dataclasses.replace(a, tail1=t1, tail2=t2))
+
+    return _cached_pack(a, ("tagmap", tm.crc32, tm.group_size), build)
+
+
+def sell_bucket_tags(sell: GSESellC, tm: TagMap) -> tuple:
+    """Each width bucket's max induced tag under ``tm`` (``sell.bucket_tags``,
+    kept on the pack under the map's crc32): the host tuple the mixed
+    launch of B32 and C′32 takes as ``bucket_tags``.
+
+    A bucket runs at its tag: an all-tag-1 bucket reads no tail, and an
+    entry of a mixed bucket whose groups ask less carries zeroed tails
+    (the operand must come from :func:`masked_for_tagmap`), so the bucket
+    tag changes the bytes streamed, never the values."""
+    return sell.bucket_tags(tm)
+
+
+def _scales_by_tag(table) -> torch.Tensor:
+    """The ``(3, k)`` f32 decode scales of tags 1-3, a row each."""
+    return torch.stack([ref.make_scales(table, TAG_BITS_USED[t]).reshape(-1)
+                        for t in (1, 2, 3)])
+
+
+def _sell_scales(sell: GSESellC) -> torch.Tensor:
+    """``_scales_by_tag(sell.table)``, made once per pack: its ~50 small
+    launches would cost the host more than one SpMV takes on the card."""
+    scales = sell.__dict__.get("_scales_by_tag")
+    if scales is None:
+        scales = sell.__dict__["_scales_by_tag"] = _scales_by_tag(sell.table)
+    return scales
 
 
 @functools.lru_cache(maxsize=None)
@@ -329,37 +447,66 @@ def sell_spmm_kernel_for(tag: int, ei_bit: int, blocks=None):
     return _sell_dispatch(gse_spmm_sell_f32, tag, ei_bit)
 
 
-def gse_spmv_sell(sell: GSESellC, x: torch.Tensor, tag: int = 1,
+def _gse_sell_tagmap(sell: GSESellC, x, tm: TagMap, spmm: bool, device):
+    """Shared map body of ``gse_spmv_sell``/``gse_spmm_sell``: each bucket
+    of ``sell`` at its :func:`sell_bucket_tags` tag, in one launch (the
+    uniform launch when every bucket has the same tag).  As in the
+    reference, ``sell`` is the caller's pack: ``masked_for_tagmap(sell,
+    tm)`` gives each entry its own tag; an unmasked pack runs each bucket
+    at its bucket tag."""
+    btags = sell_bucket_tags(sell, tm)
+    top = max(btags)
+    segs = sell.segments[:2 + len(TAG_SEGMENTS[top])]
+    segs = tuple(segs) + (None,) * (4 - len(segs))
+    kw = dict(rows=sell.shape[0], ei_bit=sell.ei_bit, tag=top,
+              long_from=sell.long_from, bucket_tags=btags)
+    scales = _sell_scales(sell)
+    if spmm:
+        return gse_spmm_sell_f32(*segs, x, scales, sell.bucket_table,
+                                 sell.perm, device=device, **kw)
+    return gse_spmv_sell_f32(*segs, x, scales, sell.bucket_table, sell.perm,
+                             **kw)
+
+
+def gse_spmv_sell(sell: GSESellC, x: torch.Tensor, tag=1,
                   blocks=None, plan=None) -> torch.Tensor:
     """y = A @ x (f32) from a SELL-C-sigma packed operand (kernel B32).
 
     One launch streams each slice at its own lane-aligned width, so the
     modeled traffic is ``sell.bytes_touched(tag)``, the actual padded
     slots.  For finite x the result is bitwise :func:`gse_spmv_ell` on the
-    same operator.
+    same operator.  ``tag`` may be a ``TagMap``: one mixed launch then
+    runs each bucket of ``sell`` -- ``masked_for_tagmap(sell, tag)``, as
+    in the reference -- at its bucket tag.
     """
     _no_plans(blocks, plan)
+    if isinstance(tag, TagMap):
+        return _gse_sell_tagmap(sell, x, tag, spmm=False, device=None)
     tag = _sell_tag(tag)
-    scales = ref.make_scales(sell.table, TAG_BITS_USED[tag])
+    scales = _sell_scales(sell)[tag - 1]
     segs = sell.segments[:2 + len(TAG_SEGMENTS[tag])]
     return sell_kernel_for(tag, sell.ei_bit)(
         *segs, x, scales, buckets=sell.bucket_table, perm=sell.perm,
         rows=sell.shape[0], long_from=sell.long_from)
 
 
-def gse_spmm_sell(sell: GSESellC, x: torch.Tensor, tag: int = 1,
+def gse_spmm_sell(sell: GSESellC, x: torch.Tensor, tag=1,
                   blocks=None, plan=None, *, device="cuda") -> torch.Tensor:
     """Y = A @ X (f32, ``(m, nrhs)``) from a SELL-C-sigma packed operand
     (kernel C′32), X a dense ``(n, nrhs)`` block, read as it lies (a
     contiguous copy only if it is not row-major f32); each bucket's
     segments are streamed once for every pass of four columns.  Bitwise
-    :func:`gse_spmm_ell` on the same operator for finite X."""
+    :func:`gse_spmm_ell` on the same operator for finite X.  ``tag`` may
+    be a ``TagMap``, as in :func:`gse_spmv_sell`."""
     _no_plans(blocks, plan)
-    tag = _sell_tag(tag)
     if x.dim() != 2:
         raise ValueError(f"gse_spmm_sell wants a (n, nrhs) block; got "
                          f"{tuple(x.shape)}")
-    scales = ref.make_scales(sell.table, TAG_BITS_USED[tag])
+    if isinstance(tag, TagMap):
+        return _gse_sell_tagmap(sell, x.to(torch.float32).contiguous(), tag,
+                                spmm=True, device=device)
+    tag = _sell_tag(tag)
+    scales = _sell_scales(sell)[tag - 1]
     segs = sell.segments[:2 + len(TAG_SEGMENTS[tag])]
     return sell_spmm_kernel_for(tag, sell.ei_bit)(
         *segs, x.to(torch.float32).contiguous(), scales,

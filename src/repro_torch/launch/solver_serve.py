@@ -27,10 +27,16 @@ spans arrive with ``obs/`` (ROADMAP queue 1 item 12).  ``layout="sell"``
 packs the operator into the SELL-C-sigma layout
 (``kernels.ops.sell_pack_gsecsr``): the batched operator is then kernel
 C′64 and the retry's B64, the trajectories are bitwise the ``"csr"``
-handle's, and the byte reports charge the layout's padded slots.  Not yet
-ported: per-group TagMaps and ``tags="adaptive"`` (item 11), launch plans
-and tuning (item 14) and sharded handles (item 15); each raises
-``NotImplementedError``.
+handle's, and the byte reports charge the layout's padded slots.  The
+precision axis ``tags=`` (``_normalize_service_tags`` :64, ``_tags_token``
+:96, ``_run_adaptive`` :550, ``_byte_shares`` :645) is an int, a
+``TagMap`` or ``"adaptive"``, per handle at ``register`` and per request
+at ``submit``: requests bucket by their effective axis (a map by its
+crc32); a non-uniform map runs the batched solve on the masked operand
+and its byte shares charge the blended stream; ``"adaptive"`` serves each
+request through ``solvers.adaptive.solve_adaptive`` on a CSR handle, with
+its own byte account.  Not yet ported: launch plans and tuning (item 14)
+and sharded handles (item 15); each raises ``NotImplementedError``.
 
 Usage (demo, on the card):
   PYTHONPATH=src python -m repro_torch.launch.solver_serve --requests 6 --slots 4
@@ -48,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import precision as P
+from repro_torch.core.tagmap import TagMap, normalize_tags
 from repro_torch.kernels.ops import sell_pack_gsecsr
 from repro_torch.kernels.vec_f64 import on_device, seq_dot
 from repro_torch.robustness.guards import (
@@ -61,16 +68,21 @@ from repro_torch.solvers.batched import (column_tags_at, solve_cg_batched,
                                          solve_pcg_batched)
 from repro_torch.solvers.cg import solve_cg, solve_pcg
 from repro_torch.solvers.precond import make_jacobi, make_spai0
-from repro_torch.sparse.csr import CSR, iteration_stream_bytes, pack_csr
+from repro_torch.sparse.csr import (CSR, GSESellC, iteration_stream_bytes,
+                                    pack_csr)
 
 __all__ = ["SolveRequest", "SolveReport", "SolverService"]
 
 _PRECOND_FACTORY = {"jacobi": make_jacobi, "spai0": make_spai0}
 
 
-def _normalize_service_tags(tags):
-    """Validate a service-level ``tags=`` axis: ``None`` (the monitor's
-    default) or an int tag 1/2/3."""
+def _normalize_service_tags(tags, m: int, sharded: bool = False,
+                            sell: bool = False):
+    """Validate and normalize a service-level ``tags=`` axis: ``None`` (the
+    handle's or the monitor's default), an int or a uniform ``TagMap`` (its
+    int tag), a non-uniform map (kept; single-device handles only) or
+    ``"adaptive"`` (the adaptive driver, which reads the flat ``GSECSR``
+    pack: a single-device CSR handle)."""
     if tags is None:
         return None
     if isinstance(tags, str):
@@ -78,15 +90,25 @@ def _normalize_service_tags(tags):
             raise ValueError(
                 f"tags= accepts an int tag, a TagMap, or 'adaptive'; "
                 f"got {tags!r}")
-        raise NotImplementedError(
-            "tags='adaptive' is not ported yet (ROADMAP queue 1 item 11)")
-    if isinstance(tags, bool) or not isinstance(tags, (int, np.integer)):
-        raise NotImplementedError(
-            f"tags= takes an int tag; {type(tags).__name__} (TagMap) is not "
-            "ported yet (ROADMAP queue 1 item 11)")
-    if int(tags) not in (1, 2, 3):
-        raise ValueError(f"tag must be 1, 2 or 3, got {int(tags)}")
-    return int(tags)
+        if sharded or sell:
+            raise ValueError(
+                "tags='adaptive' needs a single-device CSR handle "
+                "(solve_adaptive reads the flat GSECSR pack)")
+        return "adaptive"
+    norm = normalize_tags(tags, m)
+    if isinstance(norm, TagMap) and sharded:
+        raise ValueError(
+            "per-group tag maps are single-device; the sharded serve "
+            "path takes int tags only")
+    return norm
+
+
+def _tags_token(tags):
+    """Hashable bucket token of an effective tags axis (a map buckets by
+    its crc32, so two equal maps share a slot)."""
+    if isinstance(tags, TagMap):
+        return ("map", tags.crc32)
+    return tags
 
 
 def _finite(v: torch.Tensor) -> bool:
@@ -135,7 +157,7 @@ class _Operator:
     csr: CSR
     gse: object      # GSECSR or GSESellC, packed once at registration
     precond: object = None  # preconditioner object, packed once, or None
-    tags: object = None  # handle-default precision axis: None | int
+    tags: object = None  # handle-default axis: None | int | TagMap | "adaptive"
 
 
 class SolverService:
@@ -185,8 +207,10 @@ class SolverService:
         packs the SELL-C-sigma layout (cached on the packed instance):
         trajectories are bitwise the ``"csr"`` default's, and the byte
         reports charge the layout's padded slots.  ``tags`` sets the
-        handle's default start tag (an int), overridable per request at
-        :meth:`submit`."""
+        handle's default precision axis, overridable per request at
+        :meth:`submit`: an int or a uniform ``TagMap`` the start tag, a
+        non-uniform map the masked per-group schedule, ``"adaptive"`` the
+        adaptive driver for every request (CSR handles only)."""
         if name in self._ops:
             raise ValueError(f"handle {name!r} already registered")
         if layout not in ("csr", "sell"):
@@ -203,7 +227,9 @@ class SolverService:
             raise NotImplementedError(
                 "launch plans and tune=True are not ported yet (ROADMAP "
                 "queue 1 item 14)")
-        tags = _normalize_service_tags(tags)
+        tags = _normalize_service_tags(tags, int(a.shape[0]),
+                                       sharded=sharded,
+                                       sell=layout == "sell")
         on_device(self.device, a=a.val)
         if isinstance(precond, str):
             try:
@@ -229,8 +255,8 @@ class SolverService:
         ``(n, 1)``, have a floating dtype and be entirely finite; the
         solve runs in float64.  ``deadline_s`` is a wall-clock budget from
         submission: a lapsed deadline suppresses the tag-3 retry.  ``tags``
-        overrides the handle's start tag for this request; requests bucket
-        by their effective axis."""
+        overrides the handle's precision axis for this request (the values
+        of :meth:`register`); requests bucket by their effective axis."""
         op = self._ops.get(handle)
         if op is None:
             raise KeyError(f"unknown handle {handle!r}")
@@ -263,7 +289,8 @@ class SolverService:
             x0 = x0.to(torch.float64).contiguous()
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
-        tags = _normalize_service_tags(tags)
+        tags = _normalize_service_tags(tags, n,
+                                       sell=isinstance(op.gse, GSESellC))
         rid = next(self._ids)
         self._pending.append(SolveRequest(
             rid, handle, b.to(torch.float64).contiguous(), float(tol), x0,
@@ -287,7 +314,7 @@ class SolverService:
         for req in self._pending:
             eff = req.tags if req.tags is not None \
                 else self._ops[req.handle].tags
-            key = (req.handle, req.tol, eff)
+            key = (req.handle, req.tol, _tags_token(eff))
             buckets.setdefault(key, (eff, []))[1].append(req)
         self._pending = []
         self.queue_depth = 0
@@ -315,6 +342,8 @@ class SolverService:
     def _run_slot(self, op: _Operator, tol: float,
                   reqs: List[SolveRequest],
                   tags=None) -> Dict[int, SolveReport]:
+        if tags == "adaptive":
+            return self._run_adaptive(op, tol, reqs)
         n = op.csr.shape[0]
         pad = self.slots - len(reqs)
         zero = torch.zeros(n, dtype=torch.float64, device=self.device)
@@ -372,13 +401,7 @@ class SolverService:
                     break
                 retries += 1
                 self.stats["retries"] += 1
-                warm = x if x_finite else req.x0
-                kw = dict(x0=warm, tol=tol, maxiter=self.maxiter,
-                          params=self.params, guards=self.guards, init_tag=3)
-                if op.precond is not None:
-                    r2 = solve_pcg(op.gse, req.b, op.precond, **kw)
-                else:
-                    r2 = solve_cg(op.gse, req.b, **kw)
+                r2 = self._retry(op, req, tol, x if x_finite else req.x0)
                 rx_finite = _finite(r2.x)
                 r2_trip = int(r2.trip_iter)
                 if trip_j < 0 and r2_trip >= 0:
@@ -419,6 +442,77 @@ class SolverService:
             )
         return out
 
+    def _retry(self, op: _Operator, req, tol: float, warm):
+        """One single-RHS retry at tag 3 from ``warm``."""
+        kw = dict(x0=warm, tol=tol, maxiter=self.maxiter,
+                  params=self.params, guards=self.guards, init_tag=3)
+        if op.precond is not None:
+            return solve_pcg(op.gse, req.b, op.precond, **kw)
+        return solve_cg(op.gse, req.b, **kw)
+
+    def _run_adaptive(self, op: _Operator, tol: float,
+                      reqs: List[SolveRequest]) -> Dict[int, SolveReport]:
+        """``tags="adaptive"``: the adaptive driver is a host loop over
+        single-RHS segments, so each request runs its own solve (no slot
+        sharing), ``est_bytes`` is the driver's own blended account
+        (``AdaptiveResult.spmv_bytes``) and ``relres`` the true tag-3
+        residual its stop is gated on.  A degraded request gets the
+        batched path's bounded tag-3 retry."""
+        from repro_torch.solvers.adaptive import solve_adaptive
+
+        out = {}
+        self.stats["batches"] += 1
+        self.stats["requests"] += len(reqs)
+        for req in reqs:
+            res = solve_adaptive(op.gse, req.b, precond=op.precond,
+                                 x0=req.x0, tol=tol, maxiter=self.maxiter,
+                                 params=self.params)
+            x = res.x
+            it_j = int(res.iters)
+            relres_j = float(res.true_relres)
+            conv_j = bool(res.converged)
+            tag_j = int(res.tagmap.max_tag)
+            bytes_j = int(res.spmv_bytes)
+            h_j = HEALTH_OK
+            retries = 0
+            deadline_hit = False
+            x_finite = _finite(x)
+            self.stats["modeled_bytes"] += bytes_j
+            while (not conv_j or not x_finite) and retries < self.max_retries:
+                if req.deadline_s is not None and \
+                        time.monotonic() - req.t_submit > req.deadline_s:
+                    deadline_hit = True
+                    self.stats["deadline_exceeded"] += 1
+                    break
+                retries += 1
+                self.stats["retries"] += 1
+                r2 = self._retry(op, req, tol, x if x_finite else req.x0)
+                rx_finite = _finite(r2.x)
+                it_j += int(r2.iters)
+                relres_j = float(r2.relres)
+                conv_j = bool(r2.converged)
+                tag_j = int(r2.tag)
+                h_j = int(r2.health)
+                if rx_finite:
+                    x = r2.x
+                x_finite = x_finite or rx_finite
+                sh2, tot2 = self._byte_shares(
+                    op, np.asarray([int(r2.iters)]),
+                    r2.switch_iters.cpu().numpy().reshape(1, -1))
+                bytes_j += int(sh2[0])
+                self.stats["modeled_bytes"] += tot2
+            if not x_finite and h_j == HEALTH_OK:
+                h_j = HEALTH_NONFINITE
+                conv_j = False
+            self._solutions[req.id] = x
+            out[req.id] = SolveReport(
+                id=req.id, handle=op.name, iters=it_j, relres=relres_j,
+                converged=conv_j, tag=tag_j,
+                switch_iters=np.full(2, -1, np.int64), est_bytes=bytes_j,
+                batch_size=len(reqs), health=health_name(h_j), trip_iter=-1,
+                retries=retries, deadline_exceeded=deadline_hit)
+        return out
+
     def solution(self, request_id: int) -> torch.Tensor:
         """The solved ``x`` for a flushed request (popped to free memory)."""
         try:
@@ -434,14 +528,21 @@ class SolverService:
         the columns sharing the streaming pass; a preconditioned handle's
         stored preconditioner is charged beside the matrix).  An int
         ``tags`` floors the schedule's tag (the batch started there, not
-        at tag 1)."""
+        at tag 1); a non-uniform ``TagMap`` charges every live iteration
+        the blended stream (the map is pinned: no switch schedule)."""
         nrhs = iters.shape[0]
         shares = np.zeros(nrhs, np.float64)
+        tm = tags if isinstance(tags, TagMap) else None
         floor = int(tags) if isinstance(tags, (int, np.integer)) else 1
         for it in range(int(iters.max(initial=0))):
             col_tags = column_tags_at(iters, sw, it)
             live = np.nonzero(col_tags > 0)[0]
             if live.size == 0:
+                continue
+            if tm is not None:
+                tot = iteration_stream_bytes(op.gse, tm, op.precond,
+                                             nrhs=live.size)
+                shares[live] += tot / live.size
                 continue
             tag = max(int(col_tags.max()), floor)
             tot = iteration_stream_bytes(op.gse, tag, op.precond,

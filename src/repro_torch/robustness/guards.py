@@ -1,8 +1,10 @@
 """In-loop solver guardrails and tag-escalation recovery.
 
-Port of ``repro/robustness/guards.py`` :56-248: the ``HEALTH_*`` codes,
+Port of ``repro/robustness/guards.py`` :56-294: the ``HEALTH_*`` codes,
 ``health_name``, ``GuardParams``/``DEFAULT_GUARDS``, ``guard_init``,
-``guard_step``, ``finalize_health`` and ``run_with_recovery``.
+``guard_step``, ``finalize_health``, ``run_with_recovery`` and its
+per-group twin ``run_with_recovery_map``, which raises only the groups of
+a ``TagMap`` below the floor.
 
 The guard runs beside the update and never inside it, so the update
 arithmetic is identical with guards on or off.  Each iteration classifies
@@ -33,6 +35,7 @@ __all__ = [
     "guard_step",
     "finalize_health",
     "run_with_recovery",
+    "run_with_recovery_map",
 ]
 
 # Severity order: when several conditions fire in one iteration the
@@ -185,6 +188,47 @@ def run_with_recovery(run, x0, maxiter: int, init_tag: int = 1,
         health = int(res.health)
         trip = int(res.trip_iter)
         tag = max(int(res.tag), tag)
+    dev = res.switch_iters.device
+    return res._replace(
+        iters=torch.tensor(total, dtype=torch.int32, device=dev),
+        switch_iters=torch.tensor(sw, dtype=torch.int32, device=dev),
+        trip_iter=torch.tensor(first_trip, dtype=torch.int32, device=dev),
+    )
+
+
+def run_with_recovery_map(run, x0, maxiter: int, tm, recover: bool = True):
+    """Per-group twin of :func:`run_with_recovery`.
+
+    ``run(x_start, budget, floor)`` executes the solver with the
+    ``TagMap`` ``tm`` floored at ``floor`` (``TagMap.floored``: every group
+    raised to at least the floor) and returns ``(res, ckpt)``.  A trip
+    raises the floor one rung instead of the whole operator: only the
+    groups below it promote.  The last rung (floor 3) is the uniform exact
+    path.  Each escalation is written into ``switch_iters`` at its global
+    iteration; the inner runs never step (their monitor is pinned at the
+    map's max tag), so there is no inner switch to merge.
+    """
+    floor = tm.min_tag
+    res, ckpt = run(x0, maxiter, floor)
+    if not recover:
+        return res
+    health = int(res.health)
+    trip = int(res.trip_iter)
+    if health == HEALTH_OK or trip < 0:
+        return res
+
+    total = int(res.iters)
+    first_trip = trip
+    sw = [int(s) for s in res.switch_iters.tolist()]
+    while health != HEALTH_OK and trip >= 0 and floor < 3:
+        floor += 1
+        if sw[floor - 2] < 0:
+            sw[floor - 2] = total
+        budget = max(maxiter - total, 1)
+        res, ckpt = run(ckpt, budget, floor)
+        total += int(res.iters)
+        health = int(res.health)
+        trip = int(res.trip_iter)
     dev = res.switch_iters.device
     return res._replace(
         iters=torch.tensor(total, dtype=torch.int32, device=dev),

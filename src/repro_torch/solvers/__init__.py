@@ -6,13 +6,17 @@ Ported: stepped CG (``solve_cg``) and its batched service loop
 preconditioners of ``solvers.precond``; restarted stepped GMRES
 (``solve_gmres``, item 7), right-preconditioned by the same objects; and
 stepped iterative refinement over any of them (``solve_ir``,
-``solve_ir_batched``, item 8).
+``solve_ir_batched``, item 8); and the per-group precision axis (item
+11): ``tags=`` a ``core.tagmap.TagMap`` on every CG-family solver, and the
+adaptive driver ``solve_adaptive`` (``tags="adaptive"``).
 """
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
     GuardParams,
     health_name,
 )
+from repro_torch.solvers.adaptive import (AdaptiveResult, Promotion,
+                                          solve_adaptive)
 from repro_torch.solvers.batched import (BatchedCGResult, BatchedIRResult,
                                          solve_cg_batched, solve_ir_batched,
                                          solve_pcg_batched)
@@ -49,6 +53,9 @@ __all__ = [
     "solve_ir_batched",
     "IRResult",
     "solve_ir",
+    "AdaptiveResult",
+    "Promotion",
+    "solve_adaptive",
     "fused_cg_step",
     "fused_pcg_step",
     "gse_matvec",

@@ -45,8 +45,14 @@ refinement's outer loop over a block, its inner solves batched, and
 ``batched_run_bytes`` charges a preconditioner beside the matrix
 (:727-748).
 
-Not yet ported (ROADMAP queue 1): ``flight=`` (item 12), TagMap and
-``"adaptive"`` tags (item 11) and sharded operands (item 15).
+The ``tags=`` axis (``_batched_tag_axis``, :62-90): an int or a uniform
+``TagMap`` starts every column's monitor at that tag; a non-uniform map
+runs the masked operand (``kernels.ops.masked_for_tagmap``) for the whole
+batch at the map's max tag, the monitor pinned there, as ``solve_cg``
+does; ``"adaptive"`` is single-RHS and refused.
+
+Not yet ported (ROADMAP queue 1): ``flight=`` (item 12) and sharded
+operands (item 15).
 """
 from __future__ import annotations
 
@@ -323,21 +329,31 @@ def _solve_pcg_batched(apply_a: Callable, apply_m: Callable, b, x0, tol,
                                 apply_m=_per_column(apply_m))
 
 
-def _batched_init_tag(tags) -> int:
-    """The int start tag of the batched ``tags=`` axis (``None`` -> 1)."""
-    if tags is None:
-        return 1
+def _batched_tag_axis(tags, apply_a, m: int, params):
+    """The batched ``tags=`` axis as ``(init_tag, apply_a, params)``: an
+    int or a uniform map starts the monitors there on the operand itself
+    (bitwise the int tag); a non-uniform map swaps in the masked operand,
+    read at the map's max tag with the monitor pinned there.  There is no
+    per-group recovery ladder in a batch: flagged columns go through the
+    service's tag-3 retry."""
     if isinstance(tags, str):
         raise ValueError(
             "the batched solvers take an int tag or a TagMap; the "
-            "'adaptive' schedule is single-RHS (repro.solvers.adaptive)")
-    if isinstance(tags, bool) or not isinstance(tags, (int, np.integer)):
-        raise NotImplementedError(
-            f"tags= takes an int tag; {type(tags).__name__} (TagMap) is not "
-            "ported yet (ROADMAP queue 1 item 11)")
-    if int(tags) not in (1, 2, 3):
-        raise ValueError(f"tag must be 1, 2 or 3, got {int(tags)}")
-    return int(tags)
+            "'adaptive' driver is single-RHS (solvers.adaptive)")
+    from repro_torch.solvers.cg import _normalize_tag_axis, _pin_params
+
+    t, tm = _normalize_tag_axis(tags, apply_a, m)
+    if tm is None:
+        return (1 if t is None else t), apply_a, params
+    from repro_torch.kernels.ops import masked_for_tagmap
+
+    return tm.max_tag, masked_for_tagmap(apply_a, tm), _pin_params(
+        params, tm.max_tag)
+
+
+def _rows(b) -> int:
+    """The row count of a right-hand side or block ``b``."""
+    return int(b.shape[0])
 
 
 def solve_cg_batched(
@@ -367,14 +383,18 @@ def solve_cg_batched(
     by column.  The two paths give identical results.  ``guards`` attaches
     per-column breakdown/divergence/non-finite/stall detection; a tripped
     column freezes and reports its health code (no in-batch escalation).
-    An int ``tags`` starts every column's monitor at that tag.  ``b`` and
-    ``x0`` are ``(n,)`` or ``(n, nrhs)`` float64; the solution comes back
-    ``(n, nrhs)``.
+    An int ``tags`` (or a uniform ``TagMap``) starts every column's
+    monitor at that tag; a non-uniform map runs the masked operand at its
+    max tag, the monitor pinned.  ``b`` and ``x0`` are ``(n,)`` or ``(n,
+    nrhs)`` float64; the solution comes back ``(n, nrhs)``.
     """
     if flight is not None:
         raise NotImplementedError(
             "flight= is not ported yet (ROADMAP queue 1 item 12)")
-    init_tag = _batched_init_tag(tags)
+    if params is None:
+        params = P.MonitorParams.for_cg()
+    init_tag, apply_a, params = _batched_tag_axis(
+        tags, apply_a, _rows(b), params)
     fused = isinstance(apply_a, (GSECSR, GSESellC))
     if not fused and not callable(apply_a):
         raise NotImplementedError(
@@ -386,8 +406,6 @@ def solve_cg_batched(
     b, x0 = _normalize_block(b, x0, device)
     if b.dtype != torch.float64:
         raise TypeError(f"b must be float64, got {b.dtype}")
-    if params is None:
-        params = P.MonitorParams.for_cg()
     tol_ = torch.tensor(tol, dtype=b.dtype, device=b.device)
     solve = _solve_cg_batched_fused if fused else _solve_cg_batched
     return solve(apply_a, b.t().contiguous(), x0.t().contiguous(), tol_,
@@ -419,12 +437,16 @@ def solve_pcg_batched(
     :mod:`repro_torch.solvers.precond`) selects the fused path; a callable
     operator or a callable ``precond(r, tag)`` the generic one; the two
     give identical results.  ``guards`` work as in
-    :func:`solve_cg_batched` and also flag ``z.r < 0`` per column.
+    :func:`solve_cg_batched` and also flag ``z.r < 0`` per column;
+    ``tags`` too (a non-uniform map's preconditioner runs at its max tag).
     """
     if flight is not None:
         raise NotImplementedError(
             "flight= is not ported yet (ROADMAP queue 1 item 12)")
-    init_tag = _batched_init_tag(tags)
+    if params is None:
+        params = P.MonitorParams.for_cg()
+    init_tag, apply_a, params = _batched_tag_axis(
+        tags, apply_a, _rows(b), params)
     gse_op = isinstance(apply_a, (GSECSR, GSESellC))
     if not gse_op and not callable(apply_a):
         raise NotImplementedError(
@@ -436,8 +458,6 @@ def solve_pcg_batched(
     b, x0 = _normalize_block(b, x0, device)
     if b.dtype != torch.float64:
         raise TypeError(f"b must be float64, got {b.dtype}")
-    if params is None:
-        params = P.MonitorParams.for_cg()
     tol_ = torch.tensor(tol, dtype=b.dtype, device=b.device)
     bt, x0t = b.t().contiguous(), x0.t().contiguous()
     if gse_op and hasattr(precond, "apply_cols"):
@@ -479,8 +499,10 @@ def solve_ir_batched(
     """Batched stepped iterative refinement: ``solve_ir``'s outer loop over
     an ``(n, nrhs)`` block on ``device``, the inner solves batched
     (:func:`solve_cg_batched`, or :func:`solve_pcg_batched` with
-    ``precond``), every correction starting back at tag 1 (or at an int
-    ``tags``).
+    ``precond``), every correction starting back at tag 1.  ``tags``
+    threads to the inner batched solves only (an int or a uniform map
+    starts their monitors there, a non-uniform map runs the masked
+    operand); the outer tag-3 residual reads the unmasked operand.
 
     Each column refines until its true residual meets ``tol`` and then
     drops out: its inner right-hand side is zeroed, so it converges at
@@ -489,7 +511,7 @@ def solve_ir_batched(
     each column's norm is ``solve_ir``'s, so an active column's
     trajectory is bitwise the single-RHS ``solve_ir``'s.
     """
-    check_ir_options(apply_a, flight, tags)
+    check_ir_options(apply_a, flight)
     gse_op = isinstance(apply_a, (GSECSR, GSESellC))
     if gse_op:
         on_device(device, operand=apply_a.table)

@@ -22,16 +22,34 @@ once per chunk.  The SpMV kernel reads the monitor's tag from device
 memory, so no sync picks a precision.  The tag is switched in place (no
 restart, no residual recomputation), as in Algorithm 3.
 
-Not yet ported (ROADMAP queue 1): the flight recorder (``flight=``),
-per-group TagMaps and ``tags="adaptive"``, and sharded operands.
+The loop takes the reference's chunking hooks (:214-293, :310-406,
+:409-498, :500-591): ``resume`` continues a returned loop state without
+the init, ``stop_at`` joins the loop condition and ``return_state``
+returns the state, which resumes bitwise.  When ``stop_at`` bounds a
+chunk, the last chunk runs only ``stop_at - it`` iterations (the host
+knows ``it`` at its sync), so no frozen tail is paid.
+
+The per-group precision axis (``_normalize_tag_axis`` :45, ``_pin_params``
+:623, ``_tagmap_run_cg``/``_tagmap_run_pcg`` :643/:660 and ``tags=`` in
+``solve_pcg``/``solve_cg`` :763-772/:896-905): an int or a uniform
+``TagMap`` overrides ``init_tag``, bitwise the int-tag solve; a
+non-uniform map runs the masked operand (``kernels.ops.masked_for_tagmap``)
+at the map's max tag with the monitor pinned there, and recovery raises
+the map's floor (``run_with_recovery_map``); ``tags="adaptive"`` hands off
+to ``solvers.adaptive.solve_adaptive``.
+
+Not yet ported (ROADMAP queue 1): the flight recorder (``flight=``) and
+sharded operands.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Union
 
 import torch
 
 from repro_torch.core import precision as P
+from repro_torch.core.tagmap import normalize_tags
 from repro_torch.kernels.vec_f64 import ref_norm_cols, seq_dot, sqrt_rn
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
@@ -41,6 +59,7 @@ from repro_torch.robustness.guards import (
     guard_init,
     guard_step,
     run_with_recovery,
+    run_with_recovery_map,
 )
 from repro_torch.solvers.fused_cg import (cg_update, fused_cg_step_g,
                                           fused_pcg_step_g, gse_matvec,
@@ -129,7 +148,9 @@ def _freeze(active, new, old):
 
 def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
              params: P.MonitorParams, init_tag: int,
-             guards: GuardParams | None, apply_m: Callable | None = None):
+             guards: GuardParams | None, apply_m: Callable | None = None,
+             resume: dict | None = None, stop_at: int | None = None,
+             return_state: bool = False):
     """The stepped CG and PCG loop shared by the fused and generic paths.
 
     ``matvec(v, tag)`` forms the initial residual; ``step(s)`` returns
@@ -137,7 +158,12 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
     drives the recurrence (``r.r``, or ``r.z`` with a preconditioner) and
     ``rr = r.r`` feeds the monitor.  ``apply_m(r, tag)`` (PCG) makes the
     first search direction ``z0 = M^{-1} r0``.  Returns ``(CGResult,
-    ckpt)``.
+    ckpt)``, and the loop state after them with ``return_state``.
+
+    ``resume`` (a state this loop returned) skips the init and continues
+    the exact operations the unchunked loop would run; ``stop_at`` (an
+    iteration count) joins the loop condition, and the chunk it bounds
+    runs only the iterations left before it.
     """
     bnorm = _norm(b)
     bnorm = torch.where(bnorm == 0, 1.0, bnorm)
@@ -145,26 +171,32 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
     def relres(rr):
         return sqrt_rn(torch.abs(rr)) / bnorm
 
-    mon = P.init(params, dtype=b.dtype, tag=init_tag, device=b.device)
-    r0 = b - matvec(x0, mon.tag)
-    if apply_m is None:
-        p0 = r0
-        rs0 = rr0 = seq_dot(r0, r0)
+    if resume is not None:
+        state = resume
     else:
-        p0 = apply_m(r0, mon.tag)
-        rs0, rr0 = seq_dot(r0, p0), seq_dot(r0, r0)
-    state = dict(
-        x=x0, r=r0, p=p0, rs=rs0, rr=rr0,
-        it=torch.zeros((), dtype=torch.int32, device=b.device),
-        mon=mon,
-        switches=torch.full((2,), -1, dtype=torch.int32, device=b.device),
-    )
-    if guards is not None:
-        state["g"] = guard_init(relres(state["rr"]))
-        state["ckpt"] = x0
+        mon = P.init(params, dtype=b.dtype, tag=init_tag, device=b.device)
+        r0 = b - matvec(x0, mon.tag)
+        if apply_m is None:
+            p0 = r0
+            rs0 = rr0 = seq_dot(r0, r0)
+        else:
+            p0 = apply_m(r0, mon.tag)
+            rs0, rr0 = seq_dot(r0, p0), seq_dot(r0, r0)
+        state = dict(
+            x=x0, r=r0, p=p0, rs=rs0, rr=rr0,
+            it=torch.zeros((), dtype=torch.int32, device=b.device),
+            mon=mon,
+            switches=torch.full((2,), -1, dtype=torch.int32,
+                                device=b.device),
+        )
+        if guards is not None:
+            state["g"] = guard_init(relres(state["rr"]))
+            state["ckpt"] = x0
 
     def cond(s):
         ok = (relres(s["rr"]) > tol) & (s["it"] < maxiter)
+        if stop_at is not None:
+            ok = ok & (s["it"] < stop_at)
         if guards is not None:
             ok = ok & (s["g"]["health"] == HEALTH_OK)
         return ok
@@ -189,8 +221,18 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
             out["ckpt"] = torch.where(g["health"] == HEALTH_OK, x, s["ckpt"])
         return out
 
-    while bool(cond(state)):  # the one host sync per chunk
-        for _ in range(CHUNK):
+    while True:  # the one host sync per chunk
+        if stop_at is None:
+            if not bool(cond(state)):
+                break
+            n = CHUNK
+        else:
+            go, it = torch.stack([cond(state).to(torch.int64),
+                                  state["it"].to(torch.int64)]).tolist()
+            if not go:
+                break
+            n = min(CHUNK, int(stop_at) - it)
+        for _ in range(n):
             state = _freeze(cond(state), body(state), state)
 
     rel = relres(state["rr"])
@@ -199,13 +241,18 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
     res = CGResult(x=state["x"], iters=state["it"], relres=rel,
                    tag=state["mon"].tag, switch_iters=state["switches"],
                    converged=conv, health=health, trip_iter=trip)
-    return res, (state["ckpt"] if guards is not None else state["x"])
+    ckpt = state["ckpt"] if guards is not None else state["x"]
+    if return_state:
+        return res, ckpt, state
+    return res, ckpt
 
 
 def _solve_cg_fused(a, b, x0, tol, maxiter, params, init_tag=1,
-                    guards=None):
+                    guards=None, **hooks):
     """Fused-path CG over a ``GSECSR`` or ``GSESellC``: each iteration is one
-    ``fused_cg_step_g`` (the curvature it returns feeds the guards)."""
+    ``fused_cg_step_g`` (the curvature it returns feeds the guards).
+    ``hooks``: ``resume``, ``stop_at``, ``return_state`` of
+    :func:`_cg_loop`."""
 
     def step(s):
         x, r, p, rs, denom = fused_cg_step_g(a, s["x"], s["r"], s["p"],
@@ -213,11 +260,11 @@ def _solve_cg_fused(a, b, x0, tol, maxiter, params, init_tag=1,
         return x, r, p, rs, rs, denom
 
     return _cg_loop(_gsecsr_operator(a), step, b, x0, tol, maxiter, params,
-                    init_tag, guards)
+                    init_tag, guards, **hooks)
 
 
 def _solve_cg(apply_a: Callable, b, x0, tol, maxiter, params, init_tag=1,
-              guards=None):
+              guards=None, **hooks):
     """Generic-operator CG: ``apply_a(v, tag)`` with the device tag."""
 
     def step(s):
@@ -226,11 +273,11 @@ def _solve_cg(apply_a: Callable, b, x0, tol, maxiter, params, init_tag=1,
         return x, r, p, rs, rs, denom
 
     return _cg_loop(apply_a, step, b, x0, tol, maxiter, params, init_tag,
-                    guards)
+                    guards, **hooks)
 
 
 def _solve_pcg_fused(a, m, b, x0, tol, maxiter, params, init_tag=1,
-                     guards=None):
+                     guards=None, **hooks):
     """Fused-path PCG over a ``GSECSR`` or ``GSESellC`` and a preconditioner
     object: each iteration is one ``fused_pcg_step_g`` (operator and
     preconditioner at the same device tag)."""
@@ -240,11 +287,11 @@ def _solve_pcg_fused(a, m, b, x0, tol, maxiter, params, init_tag=1,
                                 s["mon"].tag)
 
     return _cg_loop(_gsecsr_operator(a), step, b, x0, tol, maxiter, params,
-                    init_tag, guards, apply_m=m.apply_at)
+                    init_tag, guards, apply_m=m.apply_at, **hooks)
 
 
 def _solve_pcg(apply_a: Callable, apply_m: Callable, b, x0, tol, maxiter,
-               params, init_tag=1, guards=None):
+               params, init_tag=1, guards=None, **hooks):
     """Generic-operator PCG: ``apply_a(v, tag)`` and ``apply_m(r, tag)``
     with the device tag; the recurrence runs on ``r.z``, the monitor sees
     ``sqrt(r.r) / ||b||``."""
@@ -255,7 +302,7 @@ def _solve_pcg(apply_a: Callable, apply_m: Callable, b, x0, tol, maxiter,
                           apply_a(s["p"], tag), lambda v: apply_m(v, tag))
 
     return _cg_loop(apply_a, step, b, x0, tol, maxiter, params, init_tag,
-                    guards, apply_m=apply_m)
+                    guards, apply_m=apply_m, **hooks)
 
 
 def _gsecsr_operator(a) -> Callable:
@@ -292,24 +339,91 @@ def _finish_with_correction(res, b, tol, maxiter, apply3, resume):
     )
 
 
-def _check_unported(name, apply_a, flight, tags, init_tag) -> int:
-    """Raise for the options not ported yet; returns the start tag (an
-    int ``tags`` overrides ``init_tag``)."""
+def _check_unported(name, apply_a, flight):
+    """Raise for the options not ported yet."""
     if flight is not None:
         raise NotImplementedError(
             "flight= is not ported yet (ROADMAP queue 1 item 12)")
-    if tags is not None:
-        if isinstance(tags, bool) or not isinstance(tags, int):
-            raise NotImplementedError(
-                f"tags= takes an int tag; {type(tags).__name__} (TagMap or "
-                "'adaptive') is not ported yet (ROADMAP queue 1 item 11)")
-        init_tag = tags
     if not isinstance(apply_a, (GSECSR, GSESellC)) and not callable(apply_a):
         raise NotImplementedError(
             f"{name} takes a GSECSR, a GSESellC or a callable; "
             f"{type(apply_a).__name__} operands (sharded) are not ported "
             "yet (ROADMAP queue 1 item 15)")
-    return init_tag
+
+
+def _normalize_tag_axis(tags, apply_a, m):
+    """The public ``tags=`` axis as ``(init_tag_override, tm)``, at most one
+    not ``None``: ``None`` gives ``(None, None)``; an int or a uniform map
+    ``(tag, None)``, the int-tag solve; a non-uniform map ``(None, tm)``,
+    the masked-operand path, which needs a packed operand whose tails it
+    can mask."""
+    norm = normalize_tags(tags, m)
+    if norm is None or isinstance(norm, int):
+        return norm, None
+    if not isinstance(apply_a, (GSECSR, GSESellC)):
+        raise ValueError(
+            "a non-uniform TagMap needs a packed GSE operand (GSECSR/"
+            "GSESellC) whose tail segments it can mask; got a generic "
+            f"apply_a of type {type(apply_a).__name__}")
+    return None, norm
+
+
+def _pin_params(params: P.MonitorParams, max_tag: int) -> P.MonitorParams:
+    """The monitor pinned at the map's max tag: with ``init_tag ==
+    max_tag`` the step predicate (``tag < max_tag``) is always false, so a
+    map is the whole schedule and nothing steps underneath it."""
+    if params.max_tag == max_tag:
+        return params
+    return dataclasses.replace(params, max_tag=max_tag)
+
+
+def _tagmap_run_cg(a, b, tol_, params, guards, tm):
+    """The ``run(x_start, budget, floor)`` the per-group recovery ladder
+    drives for CG: the operand masked at the floored map, decoded at its
+    max tag, the monitor pinned."""
+    from repro_torch.kernels.ops import masked_for_tagmap
+
+    def run(x_start, budget, floor):
+        tme = tm.floored(floor)
+        return _solve_cg_fused(masked_for_tagmap(a, tme), b, x_start, tol_,
+                               budget, _pin_params(params, tme.max_tag),
+                               init_tag=tme.max_tag, guards=guards)
+
+    return run
+
+
+def _tagmap_run_pcg(a, precond, b, tol_, params, guards, fused: bool, tm):
+    """PCG twin of :func:`_tagmap_run_cg`; the preconditioner runs at the
+    map's max tag (the charge ``iteration_stream_bytes`` models)."""
+    from repro_torch.kernels.ops import masked_for_tagmap
+
+    apply_m = None if fused else (precond if callable(precond)
+                                  else precond.apply)
+
+    def run(x_start, budget, floor):
+        tme = tm.floored(floor)
+        masked = masked_for_tagmap(a, tme)
+        pinned = _pin_params(params, tme.max_tag)
+        if fused:
+            return _solve_pcg_fused(masked, precond, b, x_start, tol_,
+                                    budget, pinned, init_tag=tme.max_tag,
+                                    guards=guards)
+        return _solve_pcg(_gsecsr_operator(masked), apply_m, b, x_start,
+                          tol_, budget, pinned, init_tag=tme.max_tag,
+                          guards=guards)
+
+    return run
+
+
+def _adaptive(tags) -> bool:
+    """Whether ``tags`` asks for the adaptive driver (a string other than
+    ``"adaptive"`` is refused)."""
+    if not isinstance(tags, str):
+        return False
+    if tags != "adaptive":
+        raise ValueError(f"tags= accepts an int tag, a TagMap, or "
+                         f"'adaptive'; got {tags!r}")
+    return True
 
 
 def solve_cg(
@@ -343,24 +457,43 @@ def solve_cg(
     tag.  ``init_tag`` (or an int ``tags``) starts the monitor above
     tag 1.  ``b``/``x0`` may be ``(n,)`` or ``(n, 1)``; the solution comes
     back in ``b``'s layout.
+
+    ``tags`` is the precision axis: an int or a uniform ``TagMap``
+    overrides ``init_tag`` (bitwise the int-tag solve); a non-uniform map
+    runs the masked operand at the map's max tag, the monitor pinned, and
+    recovery raises the map's floor instead of the whole operator;
+    ``"adaptive"`` hands off to :func:`solvers.adaptive.solve_adaptive`.
     """
-    init_tag = _check_unported("solve_cg", apply_a, flight, tags, init_tag)
+    _check_unported("solve_cg", apply_a, flight)
+    if _adaptive(tags):
+        from repro_torch.solvers.adaptive import solve_adaptive
+
+        return solve_adaptive(apply_a, b, x0=x0, tol=tol, maxiter=maxiter,
+                              params=params)
     fused = isinstance(apply_a, (GSECSR, GSESellC))
     b, x0, orig_shape = _normalize_b_x0(b, x0,
                                         apply_a.device if fused else None)
+    t_override, tm = _normalize_tag_axis(tags, apply_a, int(b.shape[0]))
+    if t_override is not None:
+        init_tag = t_override
     if x0 is None:
         x0 = torch.zeros_like(b)
     if params is None:
         params = P.MonitorParams.for_cg()
     tol_ = torch.tensor(tol, dtype=b.dtype, device=b.device)
-    solve = _solve_cg_fused if fused else _solve_cg
+    recover = recover and guards is not None
+    if tm is not None:
+        run = _tagmap_run_cg(apply_a, b, tol_, params, guards, tm)
+        res = run_with_recovery_map(run, x0, maxiter, tm, recover=recover)
+    else:
+        solve = _solve_cg_fused if fused else _solve_cg
 
-    def run(x_start, budget, tag):
-        return solve(apply_a, b, x_start, tol_, budget, params,
-                     init_tag=tag, guards=guards)
+        def run(x_start, budget, tag):
+            return solve(apply_a, b, x_start, tol_, budget, params,
+                         init_tag=tag, guards=guards)
 
-    res = run_with_recovery(run, x0, maxiter, init_tag=init_tag,
-                            recover=recover and guards is not None)
+        res = run_with_recovery(run, x0, maxiter, init_tag=init_tag,
+                                recover=recover)
     if not final_correction:
         return _restore_shape(res, orig_shape)
     tag3 = torch.full((), 3, dtype=torch.int32, device=b.device)
@@ -405,35 +538,50 @@ def solve_pcg(
     object selects the fused iteration path (``fused_pcg_step``), bitwise
     the generic path; it runs on the operand's device, a callable on
     ``b``'s.  ``final_correction``, ``guards``, ``recover``, ``init_tag``
-    and an int ``tags`` are as in :func:`solve_cg`; a ``z.r < 0`` is a
+    and ``tags`` are as in :func:`solve_cg` (a non-uniform map's
+    preconditioner runs at the map's max tag); a ``z.r < 0`` is a
     breakdown.  ``b``/``x0`` may be ``(n,)`` or ``(n, 1)``; the solution
     comes back in ``b``'s layout.
     """
-    init_tag = _check_unported("solve_pcg", apply_a, flight, tags, init_tag)
+    _check_unported("solve_pcg", apply_a, flight)
+    if _adaptive(tags):
+        from repro_torch.solvers.adaptive import solve_adaptive
+
+        return solve_adaptive(apply_a, b, precond=precond, x0=x0, tol=tol,
+                              maxiter=maxiter, params=params)
     gse_op = isinstance(apply_a, (GSECSR, GSESellC))
     fused = gse_op and hasattr(precond, "apply_at")
     b, x0, orig_shape = _normalize_b_x0(b, x0,
                                         apply_a.device if gse_op else None)
+    t_override, tm = _normalize_tag_axis(tags, apply_a, int(b.shape[0]))
+    if t_override is not None:
+        init_tag = t_override
     if x0 is None:
         x0 = torch.zeros_like(b)
     if params is None:
         params = P.MonitorParams.for_cg()
     tol_ = torch.tensor(tol, dtype=b.dtype, device=b.device)
     op = _gsecsr_operator(apply_a) if gse_op else apply_a
-    if fused:
-        def run(x_start, budget, tag):
-            return _solve_pcg_fused(apply_a, precond, b, x_start, tol_,
-                                    budget, params, init_tag=tag,
-                                    guards=guards)
+    recover = recover and guards is not None
+    if tm is not None:
+        run = _tagmap_run_pcg(apply_a, precond, b, tol_, params, guards,
+                              fused, tm)
+        res = run_with_recovery_map(run, x0, maxiter, tm, recover=recover)
     else:
-        apply_m = precond if callable(precond) else precond.apply
+        if fused:
+            def run(x_start, budget, tag):
+                return _solve_pcg_fused(apply_a, precond, b, x_start, tol_,
+                                        budget, params, init_tag=tag,
+                                        guards=guards)
+        else:
+            apply_m = precond if callable(precond) else precond.apply
 
-        def run(x_start, budget, tag):
-            return _solve_pcg(op, apply_m, b, x_start, tol_, budget, params,
-                              init_tag=tag, guards=guards)
+            def run(x_start, budget, tag):
+                return _solve_pcg(op, apply_m, b, x_start, tol_, budget,
+                                  params, init_tag=tag, guards=guards)
 
-    res = run_with_recovery(run, x0, maxiter, init_tag=init_tag,
-                            recover=recover and guards is not None)
+        res = run_with_recovery(run, x0, maxiter, init_tag=init_tag,
+                                recover=recover)
     if not final_correction:
         return _restore_shape(res, orig_shape)
     tag3 = torch.full((), 3, dtype=torch.int32, device=b.device)

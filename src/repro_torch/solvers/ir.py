@@ -23,9 +23,15 @@ The loop is split into ``_ir_setup``/``_ir_active``/``_ir_step``/
 ``_ir_result`` as in the reference: a chunked serve layer drives it one
 correction at a time with the same arithmetic.
 
+``tags`` (:100-110) threads to the inner CG/PCG solves: an int or a
+uniform ``TagMap`` starts every correction's monitor there, a non-uniform
+map runs each correction on the masked operand, and ``"adaptive"`` runs
+each correction through ``solvers.adaptive.solve_adaptive``.  The outer
+tag-3 residual always reads the unmasked operand, so the refinement
+target stays the true operator.
+
 Not yet ported (ROADMAP queue 1): the flight recorder (``flight=``, item
-12), per-group TagMaps (item 11) and sharded operands (item 15); each
-raises ``NotImplementedError``.
+12) and sharded operands (item 15); each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -65,17 +71,12 @@ class IRResult(NamedTuple):
     flight: object = None     # the flight recorder is not ported (item 12)
 
 
-def check_ir_options(apply_a, flight, tags):
+def check_ir_options(apply_a, flight):
     """Raise for the options not ported yet (shared with
     ``batched.solve_ir_batched``)."""
     if flight is not None:
         raise NotImplementedError(
             "flight= is not ported yet (ROADMAP queue 1 item 12)")
-    if tags is not None and (isinstance(tags, bool)
-                             or not isinstance(tags, int)):
-        raise NotImplementedError(
-            f"tags= takes an int tag; {type(tags).__name__} (TagMap or "
-            "'adaptive') is not ported yet (ROADMAP queue 1 item 11)")
     if not isinstance(apply_a, (GSECSR, GSESellC)) and not callable(apply_a):
         raise NotImplementedError(
             f"iterative refinement takes a GSECSR, a GSESellC or a callable; "
@@ -106,11 +107,14 @@ def solve_ir(
     or ``"gmres"``; ``precond`` (a :mod:`repro_torch.solvers.precond`
     object or callable) turns the inner solve into PCG or right-
     preconditioned GMRES(``restart``).  ``params`` parameterizes the inner
-    residual monitor; each correction restarts it at tag 1 (or at an int
-    ``tags``, inner CG only).  ``guards`` thread into every inner solve; a
-    non-finite correction is never folded into ``x`` and ``health`` names
-    the failing stage.  ``b`` is ``(n,)`` or ``(n, 1)``; ``x`` comes back
-    in its layout.
+    residual monitor; each correction restarts it at tag 1.  ``tags``
+    (inner CG only) threads to the inner solves: an int or a uniform
+    ``TagMap`` starts their monitors there, a non-uniform map masks their
+    operand, ``"adaptive"`` runs them through the adaptive driver; the
+    outer tag-3 residual reads the unmasked operand.  ``guards`` thread
+    into every inner solve; a non-finite correction is never folded into
+    ``x`` and ``health`` names the failing stage.  ``b`` is ``(n,)`` or
+    ``(n, 1)``; ``x`` comes back in its layout.
     """
     if tags is not None and inner != "cg":
         raise ValueError("tags= requires inner='cg' (the GMRES inner "
@@ -129,7 +133,7 @@ def _ir_setup(apply_a, b, *, tol, max_outer, inner, inner_tol, inner_maxiter,
     """The host-side refinement state of ``solve_ir``: a dict advanced one
     correction at a time by ``_ir_step``; ``_ir_active`` is the loop
     condition and ``_ir_result`` makes the final ``IRResult``."""
-    check_ir_options(apply_a, flight, tags)
+    check_ir_options(apply_a, flight)
     if inner not in ("cg", "gmres"):
         raise ValueError(f"inner must be 'cg' or 'gmres', got {inner}")
     if params is None:
@@ -183,7 +187,7 @@ def _ir_step(st: dict) -> dict:
     else:
         res = solve_gmres(st["apply_tagged"], st["r"],
                           restart=st["restart"], precond=st["precond"], **kw)
-    st["inner_health"] = int(res.health)
+    st["inner_health"] = int(getattr(res, "health", HEALTH_OK))
     st["total_inner"] += int(res.iters)
     st["d"] = res.x
     if not bool(torch.isfinite(seq_dot(res.x, res.x))):

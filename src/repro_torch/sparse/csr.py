@@ -6,8 +6,15 @@ Port of ``repro/sparse/csr.py``: ``CSR``, ``GSECSR`` (with
 ``vector_stream_bytes``, ``iteration_stream_bytes`` (:433, with
 ``layout=``), ``scatter_rows`` (:482), ``to_ell`` (:528), ``ell_layout``
 (:543), ``sell_slices`` (:558) and ``pack_sell`` (:610).  The byte
-models take int tags; per-group TagMaps (and ``GSESellC.bucket_tags``)
-arrive with ROADMAP queue 1 item 11.
+models take an int tag or a per-group ``core.tagmap.TagMap``
+(``GSECSR.bytes_touched`` :141-154 charges each entry at its induced tag,
+``ELLLayout`` :198-207 each row at its group's tag, ``GSESellC``
+:295-328 each width bucket at ``bucket_tags``, the max induced tag of its
+entries; ``iteration_stream_bytes`` :468-471 charges a preconditioner at
+the map's max tag).  The induced entry tags are computed on the pack's
+device (:func:`entry_tags_t`, integer work, bitwise
+``TagMap.entry_tags``) and the counts a map gives are kept on the pack,
+keyed by the map's ``crc32``.
 
 Paper Section III.C.1: shared-exponent indices ride the top ``EI_BIT``
 bits of the 32-bit column indices, so the SEM head keeps all 15 non-sign
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import gse, precision_table
+from repro_torch.core.tagmap import TagMap
 
 __all__ = [
     "CSR",
@@ -43,18 +51,47 @@ __all__ = [
     "scatter_rows",
     "iteration_stream_bytes",
     "vector_stream_bytes",
+    "entry_tags_t",
 ]
 
 _SLOT_BYTES = precision_table.SLOT_BYTES
 
 
 def _int_tag(tag) -> int:
-    """``tag`` as an int; a per-group TagMap is item 11."""
+    """``tag`` as an int, where a per-group map has no meaning (a per-nnz
+    rate); ``bytes_touched`` is what charges a ``TagMap``."""
     if isinstance(tag, bool) or not isinstance(tag, (int, np.integer)):
-        raise NotImplementedError(
-            f"an int tag is needed; {type(tag).__name__} (TagMap) is not "
-            "ported yet (ROADMAP queue 1 item 11)")
+        raise TypeError(f"an int tag is needed here, got "
+                        f"{type(tag).__name__}; bytes_touched(tm) charges a "
+                        "TagMap")
     return int(tag)
+
+
+def entry_tags_t(tm: TagMap, rows: torch.Tensor,
+                 cols: torch.Tensor) -> torch.Tensor:
+    """``tm.entry_tags(rows, cols)`` on the device of ``rows``: each
+    entry's induced tag, the max of its row's and its column's group tags
+    (int32; exact integer work, so bitwise the host's)."""
+    tags = torch.from_numpy(tm.tags.astype(np.int32)).to(rows.device)
+    last = tm.n_groups - 1
+    gr = torch.clamp(rows.to(torch.int64) // tm.group_size, max=last)
+    gc = torch.clamp(cols.to(torch.int64) // tm.group_size, max=last)
+    return torch.maximum(tags[gr], tags[gc])
+
+
+def _col_of(colpak: torch.Tensor, ei_bit: int) -> torch.Tensor:
+    """The column field of packed ``colpak`` entries (uint32, or their
+    int32 view), int64."""
+    return colpak.to(torch.int64) & ((1 << (32 - ei_bit)) - 1)
+
+
+def _map_cached(obj, key, build):
+    """Memoize a map-derived value on ``obj`` under ``key`` (which holds
+    the map's ``crc32``)."""
+    cache = obj.__dict__.setdefault("_map_cache", {})
+    if key not in cache:
+        cache[key] = build()
+    return cache[key]
 
 
 @dataclasses.dataclass
@@ -153,16 +190,49 @@ class GSECSR:
         pt = precision_table
         return pt.TAG_VALUE_BYTES[tag] + pt.COLIDX_BYTES
 
-    def bytes_touched(self, tag: int, layout=None) -> int:
+    def bytes_touched(self, tag, layout=None) -> int:
         """Modeled HBM bytes one tag-``tag`` SpMV touches in the matrix
         streams: per-nnz segments + rowptr + the shared-exponent table.
         Dense x/y traffic is format-independent and excluded.  A packed
         ``layout`` (``GSESellC`` or ``ELLLayout``) charges the padded
-        slots that layout streams instead."""
+        slots that layout streams instead.  A ``TagMap`` charges each
+        entry at its induced tag (what the masked operand holds); a
+        uniform map gives the int tag's figure."""
         if layout is not None:
             return layout.bytes_touched(tag)
         fixed = int(self.rowptr.numel()) * 4 + int(self.table.numel()) * 4
+        if isinstance(tag, TagMap):
+            counts = self.entry_tag_counts(tag)
+            return fixed + sum(counts[t] * self.bytes_per_nnz(t)
+                               for t in (1, 2, 3))
         return self.nnz * self.bytes_per_nnz(_int_tag(tag)) + fixed
+
+    def on_host(self) -> "GSECSR":
+        """This pack with its arrays on the host (the pack itself on the
+        CPU), copied once and kept on the pack: the host planner
+        (``core.precision``) reads it."""
+        if self.colpak.device.type == "cpu":
+            return self
+        return _map_cached(self, ("host",), lambda: dataclasses.replace(
+            self, **{f: getattr(self, f).cpu() for f in (
+                "rowptr", "colpak", "head", "tail1", "tail2", "table",
+                "row_ids")}))
+
+    def entry_tags(self, tm: TagMap) -> torch.Tensor:
+        """Each entry's induced tag under ``tm`` (int32, CSR order, on the
+        pack's device)."""
+        return entry_tags_t(tm, self.row_ids, _col_of(self.colpak,
+                                                      self.ei_bit))
+
+    def entry_tag_counts(self, tm: TagMap) -> dict:
+        """``{tag: entries}`` of the induced tags under ``tm``, kept on
+        the pack under the map's crc32."""
+        def build():
+            c = torch.bincount(self.entry_tags(tm), minlength=4).tolist()
+            return {t: int(c[t]) for t in (1, 2, 3)}
+
+        return _map_cached(self, ("entry_tag_counts", tm.crc32,
+                                  tm.group_size), build)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +257,14 @@ class ELLLayout:
         return 1.0 - self.nnz / max(self.slots, 1)
 
     def bytes_touched(self, tag) -> int:
+        """A ``TagMap`` charges each row's padded slots at its group's tag
+        (the row-side model, as the reference's)."""
+        if isinstance(tag, TagMap):
+            rt = tag.row_tags(self.rows)
+            per = np.array([0] + [_SLOT_BYTES[t] for t in (1, 2, 3)],
+                           np.int64)
+            return (int(per[rt].sum()) * self.width
+                    + self.table_entries * 4)
         return self.slots * _SLOT_BYTES[_int_tag(tag)] + self.table_entries * 4
 
 
@@ -265,16 +343,38 @@ class GSESellC:
         over the real entries."""
         return _SLOT_BYTES[_int_tag(tag)] * self.slots / max(self.nnz, 1)
 
-    def bucket_tags(self, tm):
-        raise NotImplementedError(
-            "per-bucket TagMap tags are not ported yet (ROADMAP queue 1 "
-            "item 11)")
+    def bucket_tags(self, tm: TagMap) -> Tuple[int, ...]:
+        """Each width bucket's max induced entry tag under ``tm`` (the
+        max of its real entries' row and column group tags; 1 for a bucket
+        without real entries): the tag kernels B32 and C′32 run the
+        bucket at.  Kept on the pack under the map's crc32."""
+        def build():
+            gather = self.gather.to(torch.int64)
+            # (the int32 view: CUDA has no gather for uint32)
+            cp = self.segments[0].view(torch.int32)[gather]
+            et = entry_tags_t(tm, self.row_ids, _col_of(cp, self.ei_bit))
+            offs = self.bucket_table[:, 2].contiguous()
+            bidx = torch.searchsorted(offs, gather, right=True) - 1
+            tags = torch.ones(self.n_buckets, dtype=torch.int32,
+                              device=et.device)
+            tags = tags.scatter_reduce(0, bidx, et, reduce="amax")
+            return tuple(int(t) for t in tags.tolist())
+
+        return _map_cached(self, ("bucket_tags", tm.crc32, tm.group_size),
+                           build)
 
     def bytes_touched(self, tag) -> int:
         """Modeled HBM bytes one tag-``tag`` SpMV streams through this
         layout: every padded slot's value segments + packed colidx, the
-        output row permutation and the shared-exponent table."""
+        output row permutation and the shared-exponent table.  A
+        ``TagMap`` charges each bucket's slots at its
+        :meth:`bucket_tags` tag, what the mixed launch of B32 and C′32
+        streams."""
         fixed = int(self.perm.shape[0]) * 4 + int(self.table.numel()) * 4
+        if isinstance(tag, TagMap):
+            return fixed + sum(
+                r * w * _SLOT_BYTES[t] for r, w, t in zip(
+                    self.bucket_rows, self.widths, self.bucket_tags(tag)))
         return self.slots * _SLOT_BYTES[_int_tag(tag)] + fixed
 
     def arrays(self) -> tuple:
@@ -434,7 +534,8 @@ def vector_stream_bytes(op, dtype=torch.float64) -> int:
 
 def iteration_stream_bytes(op, tag, precond=None, nrhs: int = 1,
                            layout=None) -> int:
-    """Modeled HBM bytes one stepped solver iteration streams at ``tag``.
+    """Modeled HBM bytes one stepped solver iteration streams at ``tag``
+    (an int or a ``TagMap``).
 
     The operator's matrix streams (``op.bytes_touched``) plus the
     preconditioner's stored streams at the same tag (both follow the
@@ -448,13 +549,16 @@ def iteration_stream_bytes(op, tag, precond=None, nrhs: int = 1,
     """
     if nrhs < 1:
         raise ValueError(f"nrhs must be >= 1, got {nrhs}")
-    if precond is not None and (isinstance(tag, bool)
-                                or tag not in (1, 2, 3)):
+    # A per-group map charges the preconditioner at the map's max tag: it
+    # follows one scalar schedule, so this is the conservative account.
+    ptag = tag.max_tag if isinstance(tag, TagMap) else tag
+    if precond is not None and (isinstance(ptag, bool)
+                                or ptag not in (1, 2, 3)):
         raise ValueError(f"preconditioner streams need a GSE tag in "
                          f"{{1, 2, 3}}, got {tag!r}")
     total = (layout if layout is not None else op).bytes_touched(tag)
     if precond is not None:
-        total += precond.bytes_touched(tag)
+        total += precond.bytes_touched(ptag)
     total += (nrhs - 1) * vector_stream_bytes(op)
     return total
 

@@ -166,7 +166,7 @@ def test_unported_options_raise_not_implemented(rs8):
     b = torch.from_numpy(rs8["b"])
     with pytest.raises(NotImplementedError, match="item 12"):
         T_b.solve_cg_batched(tg, b, flight=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="TagMap"):  # not a precision axis
         T_b.solve_cg_batched(tg, b, tags=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="item 15"):
         T_b.solve_cg_batched(object(), b, device=CPU)

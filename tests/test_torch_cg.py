@@ -264,9 +264,10 @@ def test_input_shapes_and_unported_options():
         solve_cg(tg, torch.from_numpy(b), x0=torch.zeros(2000), **kw)
     with pytest.raises(NotImplementedError, match="flight"):
         solve_cg(tg, torch.from_numpy(b), flight=object(), **kw)
-    for tags in ("adaptive", object()):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solve_cg(tg, torch.from_numpy(b), tags=tags, **kw)
+    with pytest.raises(TypeError, match="TagMap"):  # not a precision axis
+        solve_cg(tg, torch.from_numpy(b), tags=object(), **kw)
+    with pytest.raises(ValueError, match="'adaptive'"):
+        solve_cg(tg, torch.from_numpy(b), tags="frobnicate", **kw)
     with pytest.raises(NotImplementedError, match="sharded"):
         solve_cg(object(), torch.from_numpy(b), **kw)
 

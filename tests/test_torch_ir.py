@@ -263,7 +263,7 @@ def test_options_and_layouts(quick):
     assert r3.inner_iters == 30 and not torch.equal(r3.x, r1.x)
     with pytest.raises(NotImplementedError, match="item 12"):
         solve_ir(q["tg"], b, flight=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="TagMap"):  # not a precision axis
         solve_ir(q["tg"], b, tags=object())
     with pytest.raises(NotImplementedError, match="item 15"):
         solve_ir(object(), b)
@@ -271,5 +271,5 @@ def test_options_and_layouts(quick):
         solve_ir(q["tg"], b, inner="bicg")
     with pytest.raises(ValueError, match="tags= requires inner='cg'"):
         solve_ir(q["tg"], b, inner="gmres", tags=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="TagMap"):
         solve_ir_batched(q["tg"], b, tags=object(), device=CPU)

@@ -107,6 +107,43 @@ def test_asking_for_cpu_runs_the_main_path_on_cpu():
     assert V.seq_dot.launches == V.fma_axpy.launches == 0
 
 
+def test_the_per_group_path_runs_where_its_operand_lies():
+    """The per-group precision axis adds no device argument: the masked
+    views, the bucket tags, the mixed launch and the adaptive driver run on
+    the operand's device (the CPU's plain versions here, no launch), and
+    the service still defaults to the card, whatever its ``tags``."""
+    from repro_torch.core.tagmap import TagMap
+    from repro_torch.kernels import gse_spmv as K
+    from repro_torch.kernels import ops
+    from repro_torch.launch.solver_serve import SolverService
+    from repro_torch.solvers.adaptive import solve_adaptive
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+
+    a = G.poisson2d(4, device="cpu")
+    g = pack_csr(a)
+    tm = TagMap([1, 2])
+    sell = ops.sell_pack_gsecsr(g)
+    K.reset_launch_counts()
+    assert ops.masked_for_tagmap(g, tm).tail1.device.type == "cpu"
+    masked = ops.masked_for_tagmap(sell, tm)
+    assert masked.segments[2].device.type == "cpu"
+    assert ops.sell_bucket_tags(sell, tm) == sell.bucket_tags(tm)
+    y = ops.gse_spmv_sell(masked, torch.ones(16), tag=tm)
+    assert y.device.type == "cpu"
+    assert K.gse_spmv_sell_f32.launches == K.gse_spmv_sell_f32.mixed_launches \
+        == 0
+    assert "device" not in inspect.signature(solve_adaptive).parameters
+    r = solve_adaptive(g, torch.ones(16, dtype=torch.float64), tol=1e-3,
+                       maxiter=50)
+    assert r.x.device.type == "cpu" and r.converged
+    assert inspect.signature(SolverService).parameters[
+        "device"].default == "cuda"
+    for tags in (2, tm, "adaptive"):
+        with pytest.raises(ValueError, match="expected cuda"):
+            SolverService().register("op", a, tags=tags)
+
+
 def test_the_lm_path_runs_on_the_cpu_when_asked():
     """init_params, pack32, params_from_repro and the serve CLI default to
     the card and run on the CPU with ``device="cpu"``; the CPU takes the

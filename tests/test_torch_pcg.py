@@ -261,8 +261,8 @@ def test_unported_options_raise(illcond):
     m = make_jacobi(ta, k=8)
     with pytest.raises(NotImplementedError, match="item 12"):
         solve_pcg(tg, torch.from_numpy(b), m, flight=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        solve_pcg(tg, torch.from_numpy(b), m, tags="adaptive")
+    with pytest.raises(ValueError, match="'adaptive'"):
+        solve_pcg(tg, torch.from_numpy(b), m, tags="frobnicate")
     with pytest.raises(NotImplementedError, match="sharded"):
         solve_pcg(object(), torch.from_numpy(b), m)
     r2 = solve_pcg(tg, torch.from_numpy(b), m, tags=3, tol=1e-8,

@@ -171,12 +171,20 @@ def test_byte_models_equal_the_reference(packs):
 
 
 def test_tagmaps_and_plans_are_not_ported(packs):
-    _, tg, _, ts = packs
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ts.bucket_tags(object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """Per-group maps are ported (tests/test_torch_tagmap.py): the bucket
+    tags equal the reference's, and a tag that is neither an int nor a
+    map is refused; launch plans are not ported yet."""
+    from repro.core.tagmap import TagMap as JMap
+    from repro_torch.core.tagmap import TagMap as TMap
+
+    jg, tg, js, ts = packs
+    tags = np.ones(-(-ts.shape[0] // 8), np.uint8)
+    tags[::4] = 3
+    assert ts.bucket_tags(TMap(tags)) == js.bucket_tags(JMap(tags))
+    assert ts.bytes_touched(TMap(tags)) == js.bytes_touched(JMap(tags))
+    with pytest.raises(TypeError, match="int tag"):
         ts.bytes_touched(object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="int tag"):
         T_ops.gse_spmv_sell(ts, torch.zeros(ts.shape[1]), tag=object())
     with pytest.raises(NotImplementedError, match="item 14"):
         T_ops.gse_spmv_sell(ts, torch.zeros(ts.shape[1]), blocks=(8, 128))

@@ -146,8 +146,8 @@ def test_submit_validation():
 @pytest.mark.parametrize("kw, item", [
     (dict(precond="jacobi", sharded=True), "item 15"),
     (dict(plan=object()), "item 14"),
-    (dict(tags="adaptive"), "item 11"),
-    (dict(tags=object()), "item 11"),
+    (dict(tags="adaptive", plan=object()), "item 14"),
+    (dict(tags=2, sharded=True), "item 15"),
     (dict(tune=True), "item 14"),
     (dict(sharded=True), "item 15"),
 ])
