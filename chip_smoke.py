@@ -17,10 +17,17 @@ on kernels D, E and F; phases 15-18 stepped GMRES (the paper's second
 solver, right-preconditioned) and preconditioned CG; phases 19-20
 stepped iterative refinement, batched PCG and the preconditioned solve
 service; phases 21-22 per-group precision (TagMap, the masked operands,
-the adaptive driver and the mixed launch of kernels B32 and C′32).
+the adaptive driver and the mixed launch of kernels B32 and C′32); phase
+23 telemetry, faults and checkpoints (the flight recorder, spans, the
+metrics registry, fault injection, checkpoint and resume).  Every CPU
+twin runs in one of two processes of its own (CpuTwins): the small
+solves on one thread, in the order the phases need them, from before the
+build; phase 12's LM from after the build, on the cores the rest leave.
+A phase waits only for a twin that is not done yet.
 
 Phases:
-  1. build     -- nvcc time for every kernel source (all started at once).
+  1. build     -- nvcc time for every kernel source (all started at once,
+                  beside phase 2's matrix generation).
   2. parity    -- on diag_rescale(random_spd(2^20, 8, seed=21), 8, 21)
                   (about 17.8M nonzeros): A32 (each row's real slots of
                   the 128-wide ELL) bitwise its plain version (every
@@ -132,7 +139,9 @@ Phases:
                   for dense and gse_serve at tags 1 and 2:
                   make_prefill_step over 128 tokens for 2 requests
                   (filling the KV cache), then 8 teacher-forced decode
-                  steps, on the card and on its CPU twin: logits within
+                  steps, on the card and on its CPU twin (the linears
+                  packed on the CPU, held bitwise to the card's pack by
+                  tree_digest): logits within
                   LM_TOL and the greedy tokens equal, and the card's
                   digest (tokens, first 8 logits, max |logit| per step)
                   within LM_TOL of the reference's (LM_REF, printed by
@@ -260,7 +269,30 @@ Phases:
                   bodies): bitwise the plain versions and, bucket for
                   bucket, the uniform launch at the bucket's tag; the
                   buckets' tags printed.
-  10. kernels  -- run last: CUDA-event times (minimum over repeats) of
+  23. telemetry -- inside obs.trace.capture: launch counts zeroed; phase
+                  4's solve with flight=FlightParams(4096) run to
+                  iteration 1920, its state saved (checkpoint.ckpt),
+                  restored onto the card by restore_latest_valid (the
+                  tree's CRC32 unchanged) and resumed: x, iters, relres,
+                  tag and switch_iters bitwise phase 4's, A64's and the
+                  dot's launches phase 4's, the flight log consistent
+                  with switches at [120, 150]; a second step with one
+                  blob byte flipped is skipped.  Phase 16's GMRES with
+                  flight on, bitwise phase 16.  The flight rings of
+                  batched CG and Jacobi PCG on rs8_400_s3 and of
+                  quickstart section 5's IR (inner PCG) bitwise the CPU
+                  twin's.  corrupt_gsecsr on the full-size pack's head
+                  and table (verify_gsecsr names each); corrupt_pack_cache
+                  on its ELL cache (the next ell_pack_gsecsr repacks,
+                  the registry's corrupt counter +1); the tag-fault
+                  operator (indefinite, nan; fail_tag 1) on spd_rs8_2k
+                  through solve_cg with guards and recovery: trips at
+                  iteration 0, recovers, the CPU twin's numbers.  The
+                  trace passes validate_jsonl with every solver span and
+                  pack.build; the registry exposes the pack-cache and
+                  service metrics.
+  10. kernels  -- run last: CUDA-event times (minimum over repeats; one
+                  call for a function whose first call takes ONE_CALL_MS) of
                   every kernel beside its plain version, its bound (HBM
                   bytes or operations) and one PyTorch library call
                   (torch.sparse CSR, torch.dot, torch.addcmul,
@@ -325,6 +357,7 @@ from __future__ import annotations
 import dataclasses
 import faulthandler
 import json
+import os
 import subprocess
 import sys
 import time
@@ -344,6 +377,8 @@ TF32_TC_OPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
 DECODE_OPS = {1: 10, 2: 12, 3: 15}
 TAGS = (1, 2, 3)
 NRHS = 4  # the solve service's default slot width
+# A function whose first call takes this long is timed on that one call.
+ONE_CALL_MS = 250.0
 
 # The reference's SolverService on rs8_400_s3 (JAX on the CPU, x64;
 # tests/test_torch_serve.py holds the port's CPU twin to the same reports):
@@ -410,11 +445,21 @@ def log(phase: str, **kv):
 
 
 def cuda_ms(fn, reps: int, inner: int = 1) -> float:
-    """Minimum over ``reps`` of the CUDA-event time of ``inner`` calls."""
+    """Minimum over ``reps`` of the CUDA-event time of ``inner`` calls.
+    The first call warms up; when it alone takes ONE_CALL_MS or more (the
+    plain versions), its time is the measurement."""
     import torch
 
-    fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    first = start.elapsed_time(end)
+    if first >= ONE_CALL_MS:
+        return first
     best = float("inf")
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -721,9 +766,9 @@ def phase_sell_parity():
         a64_bitwise_plain=True, body_launches=json.dumps(launched))
 
 
-def phase_sell_trajectory(params):
-    """Phase 8: sk512_rs8_s0 over its SELL pack, solo and served, on the
-    GPU against the CPU twin and the reference's reports."""
+def sell_solo(where, params):
+    """Phase 8's solo solve: sk512_rs8_s0 over its SELL pack on
+    ``where``; returns the result and the seconds."""
     import numpy as np
     import torch
 
@@ -734,14 +779,17 @@ def phase_sell_trajectory(params):
     host = sk512_rs8_s0("cpu")
     b0 = torch.from_numpy(host_spmv(
         host, np.random.default_rng(0).normal(size=host.shape[0])))
-    runs = {}
-    for where in ("cuda", "cpu"):
-        sell = ops.sell_pack_gsecsr(pack_csr(sk512_rs8_s0(where)))
-        t0 = time.perf_counter()
-        r = solve_cg(sell, b0.to(where), tol=1e-8, maxiter=20000,
-                     params=params)
-        runs[where] = (r, time.perf_counter() - t0)
-    (rg, tg_s), (rc, tc_s) = runs["cuda"], runs["cpu"]
+    sell = ops.sell_pack_gsecsr(pack_csr(sk512_rs8_s0(where)))
+    t0 = time.perf_counter()
+    r = solve_cg(sell, b0.to(where), tol=1e-8, maxiter=20000, params=params)
+    return r, time.perf_counter() - t0
+
+
+def phase_sell_trajectory(params, twins=None):
+    """Phase 8: sk512_rs8_s0 over its SELL pack, solo and served, on the
+    GPU against the CPU twin and the reference's reports."""
+    rg, tg_s = sell_solo("cuda", params)
+    (rc, tc_s), (reps_c, xs_c, wall_c) = twin_of(twins, "sell")
     log("sell_trajectory", case="sk512_rs8_s0", layout="sell",
         gpu_iters=int(rg.iters), cpu_iters=int(rc.iters), tag=int(rg.tag),
         switch_iters=rg.switch_iters.tolist(), relres=float(rg.relres),
@@ -762,8 +810,6 @@ def phase_sell_trajectory(params):
                                  f"{svc_g.stats} != {want} {want_stats}")
         twin = {}
         if maxiter == 200:  # the tag-3 retry: GPU == CPU twin, bit for bit
-            _, reps_c, xs_c, wall_c = serve_small(
-                "cpu", maxiter, params, case=sk512_rs8_s0, layout="sell")
             for rg_, rc_, xg_, xc_ in zip(reps_g, reps_c, xs_g, xs_c):
                 if report_fields(rg_) != report_fields(rc_):
                     raise AssertionError(f"GPU report {rg_} != CPU {rc_}")
@@ -775,7 +821,7 @@ def phase_sell_trajectory(params):
             switch_iters=[r.switch_iters.tolist() for r in reps_g],
             health=[r.health for r in reps_g],
             est_bytes=[r.est_bytes for r in reps_g],
-            stats=json.dumps(svc_g.stats), matches_reference=True,
+            stats=json.dumps(dict(svc_g.stats)), matches_reference=True,
             gpu_s=f"{wall_g:.2f}", **twin)
 
 
@@ -824,7 +870,8 @@ def sell_stall_witness(params):
             r.health, r.retries, r.trip_iter) for r in
            (reports[i] for i in ids)]
     log("sell", witness="the same, served (layout=sell)",
-        requests=got, stats=json.dumps(svc.stats), flush_s=f"{wall:.2f}")
+        requests=got, stats=json.dumps(dict(svc.stats)),
+        flush_s=f"{wall:.2f}")
     if (got, svc.stats) != STALL_SERVE_REF:
         raise AssertionError(f"SELL service at n = {N_STALL}: {got} "
                              f"{svc.stats} != the reference's "
@@ -1035,7 +1082,7 @@ def phase_sell_full(params):
         switch_iters=[r.switch_iters.tolist() for r in reps],
         health=[r.health for r in reps], retries=[r.retries for r in reps],
         relres=[r.relres for r in reps], est_bytes=[r.est_bytes for r in reps],
-        stats=json.dumps(svc.stats), register_s=f"{register_s:.2f}",
+        stats=json.dumps(dict(svc.stats)), register_s=f"{register_s:.2f}",
         flush_s=f"{serve_wall:.2f}",
         b32_launches=sum(b32_launches.values()),
         b32_body_launches=json.dumps(counts["gse_spmv_sell_f32_bodies"]),
@@ -1932,17 +1979,94 @@ def phase_lm_kernels():
     return ctx
 
 
-def phase_lm_twin():
+def lm_twin_config():
+    """Phase 12's qwen3_4b: full width, LM_TWIN's depth, float32."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen3_4b"),
+                               num_layers=LM_TWIN["layers"],
+                               compute_dtype=torch.float32)
+
+
+def lm_variant(cfg0, kw):
+    """``cfg0`` with one of LM_TWIN_VARIANTS' fields."""
+    import torch
+
+    kw = dict(kw, compute_dtype=getattr(
+        torch, kw.get("compute_dtype", "float32")))
+    return dataclasses.replace(cfg0, **kw)
+
+
+def tree_digest(tree, memo=None) -> list:
+    """Per leaf: its dtype, shape and the sum of its words (as signed
+    integers of the leaf's width) weighted by position, wrapped to 64
+    bits -- the same on any device for the same bits.  ``memo`` spares
+    leaves that several trees share (it holds them, so no id is reused)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    words_of = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}
+    memo = {} if memo is None else memo
+    out = []
+    for leaf in tree_leaves(tree):
+        if id(leaf) not in memo:
+            words = leaf.contiguous().view(-1).view(
+                words_of[leaf.element_size()])
+            h = torch.zeros((), dtype=torch.int64, device=leaf.device)
+            for s in range(0, words.numel(), 1 << 24):
+                w = words[s:s + (1 << 24)].to(torch.int64)
+                pos = torch.arange(s, s + w.numel(), dtype=torch.int64,
+                                   device=w.device)
+                h += (w * (pos * 2654435761 + 1)).sum()
+            memo[id(leaf)] = (leaf, (str(leaf.dtype), tuple(leaf.shape),
+                                     int(h)))
+        out.append(memo[id(leaf)][1])
+    return out
+
+
+def lm_twin_cpu():
+    """Phase 12's CPU twin, from the same numpy params as the card's run:
+    per variant the logits, the seconds and the digest of the params it
+    ran (the linears packed on the CPU)."""
+    from repro_torch import convert
+
+    tw = LM_TWIN
+    cfg0 = lm_twin_config()
+    dense = convert.params_from_repro(lm_tree_np(cfg0, LM_SEED), device="cpu")
+    toks = lm_tokens(cfg0, LM_SEED + 1, tw["batch"],
+                     tw["prompt"] + tw["steps"])
+    out, packed, memo = {}, {}, {}
+    for name, kw in LM_TWIN_VARIANTS.items():
+        cfg = lm_variant(cfg0, kw)
+        pc = dense
+        if cfg.gse_serve:
+            # pack_linear_weight's segments depend only on k and on
+            # whether the tag keeps a third segment.
+            key = (cfg.gse_k, cfg.gse_tag >= 3)
+            if key not in packed:
+                packed = {key: lm_gse_params(dense, cfg)}
+            pc = packed[key]
+        lc, sc = lm_run(cfg, pc, toks, "cpu", tw["prompt"], tw["steps"])
+        out[name] = (lc, sc, tree_digest(pc, memo))
+    return out
+
+
+def phase_lm_twin(twins=None):
     """Phase 12: qwen3_4b at full width, two layers, on the card and as its
-    CPU twin from the same numpy params, against each other and against
-    the reference's digest (LM_REF): dense and gse_serve tags 1-2 at
-    compute_dtype float32, and the served configuration, gse_serve tag 2
-    at bfloat16.  Returns the launches per kernel body, summed over the
-    f32 variants and (key "bf16") of the bf16 one."""
+    CPU twin (from ``twins``) from the same numpy params, against each
+    other and against the reference's digest (LM_REF): dense and
+    gse_serve tags 1-2 at compute_dtype float32, and the served
+    configuration, gse_serve tag 2 at bfloat16.  The params each variant
+    ran must be the CPU twin's bit for bit (tree_digest).  Returns the
+    launches per kernel body, summed over the f32 variants and (key
+    "bf16") of the bf16 one."""
     import torch
 
     from repro_torch import convert
-    from repro_torch.configs import get_config
     from repro_torch.tree import tree_map
 
     from repro_torch.kernels import flash_attn as F
@@ -1950,26 +2074,19 @@ def phase_lm_twin():
 
     dev = torch.device("cuda")
     tw = LM_TWIN
-    cfg0 = dataclasses.replace(get_config("qwen3_4b"),
-                               num_layers=tw["layers"],
-                               compute_dtype=torch.float32)
+    cfg0 = lm_twin_config()
     t0 = time.perf_counter()
-    dense_cpu = convert.params_from_repro(lm_tree_np(cfg0, LM_SEED),
-                                          device="cpu")
-    dense_gpu = tree_map(lambda t: t.to(dev), dense_cpu)
+    dense_gpu = tree_map(lambda t: t.to(dev), convert.params_from_repro(
+        lm_tree_np(cfg0, LM_SEED), device="cpu"))
     toks = lm_tokens(cfg0, LM_SEED + 1, tw["batch"],
                      tw["prompt"] + tw["steps"])
     log("lm_twin", layers=tw["layers"], d_model=cfg0.d_model,
         vocab=cfg0.vocab_size, batch=tw["batch"], prompt=tw["prompt"],
         steps=tw["steps"], params_s=f"{time.perf_counter() - t0:.2f}")
-    counts = {}
+    card = {}
     for name, kw in LM_TWIN_VARIANTS.items():
-        kw = dict(kw, compute_dtype=getattr(
-            torch, kw.get("compute_dtype", "float32")))
-        bf16 = kw["compute_dtype"] == torch.bfloat16
-        cfg = dataclasses.replace(cfg0, **kw)
+        cfg = lm_variant(cfg0, kw)
         pg = lm_gse_params(dense_gpu, cfg) if cfg.gse_serve else dense_gpu
-        pc = tree_map(lambda t: t.cpu(), pg) if cfg.gse_serve else dense_cpu
         torch.cuda.synchronize()
         for mod in (E, F):
             mod.reset_launch_counts()
@@ -1978,7 +2095,18 @@ def phase_lm_twin():
                .items()}
         got.update({"f_" + k: v for k, v in
                     F.flash_attention_gqa.body_launches.items()})
-        lc, sc = lm_run(cfg, pc, toks, "cpu", tw["prompt"], tw["steps"])
+        card[name] = (lg, sg, got, tree_digest(pg))
+        del pg
+    del dense_gpu
+    cpu = twin_of(twins, "lm")
+    counts = {}
+    for name, kw in LM_TWIN_VARIANTS.items():
+        bf16 = lm_variant(cfg0, kw).compute_dtype == torch.bfloat16
+        lg, sg, got, digest = card[name]
+        lc, sc, cpu_digest = cpu[name]
+        if digest != cpu_digest:
+            raise AssertionError(f"lm_twin {name}: the card's params are not "
+                                 "the CPU twin's bit for bit")
         dg = lm_digest(lg)
         ref = [dict(tokens=a, first=b, maxabs=c) for a, b, c in LM_REF[name]]
         if not bool(torch.isfinite(lg).all()):
@@ -1986,7 +2114,6 @@ def phase_lm_twin():
         if bf16:
             counts["bf16"] = got
             lm_twin_bf16_check(name, lg, lc, dg, ref, sg, sc, got)
-            del pg, pc
             continue
         for k, v in got.items():
             counts[k] = counts.get(k, 0) + v
@@ -1999,7 +2126,8 @@ def phase_lm_twin():
         log("lm_twin", variant=name, gpu_s=f"{sg:.2f}", cpu_s=f"{sc:.2f}",
             twin_max_abs_err=twin_err, ref_max_abs_err=ref_err,
             tol=LM_TOL, logits_maxabs=dg[0]["maxabs"],
-            tokens=json.dumps(tokens), launches=json.dumps(got))
+            tokens=json.dumps(tokens), launches=json.dumps(got),
+            params_bitwise_cpu=True)
         if twin_err > LM_TOL or not torch.equal(lg.argmax(-1), lc.argmax(-1)):
             raise AssertionError(f"lm_twin {name}: card and CPU twin differ "
                                  f"by {twin_err} (tol {LM_TOL}) or in tokens")
@@ -2007,7 +2135,6 @@ def phase_lm_twin():
             raise AssertionError(f"lm_twin {name}: card differs from the "
                                  f"reference by {ref_err} (tol {LM_TOL}) or "
                                  "in tokens")
-        del pg, pc
     # The card's launches (the CPU twin launches none): at f32, E at M = 2
     # and 256 and F on its FFMA body; at bf16, E's tiled body on a bf16 x
     # and F's tensor-core body.
@@ -2404,18 +2531,32 @@ def gmres_example(device):
     return a, b.to(device)
 
 
-def phase_gmres_trajectory():
+def gmres_example_solve(where, pre):
+    """Phase 15's solve: the example's case (right Jacobi when ``pre``)
+    on ``where``; returns the result and the seconds."""
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.solvers import make_gse_operator, make_jacobi, solve_gmres
+    from repro_torch.sparse.csr import pack_csr
+
+    a, b = gmres_example(where)
+    kw = dict(tol=1e-7, restart=GMRES_RESTART, maxiter=8000,
+              params=MonitorParams(**GMRES_PARAMS))
+    if pre:
+        kw["precond"] = make_jacobi(a, k=8)
+    t0 = time.perf_counter()
+    r = solve_gmres(make_gse_operator(pack_csr(a, k=8)), b, **kw)
+    return r, time.perf_counter() - t0
+
+
+def phase_gmres_trajectory(twins=None):
     """Phase 15: the GMRES kernels against their plain versions, then the
     example's case and its right-Jacobi twin on the card and the CPU twin.
     Returns the operands phase 10 times the GEMVs on."""
     import numpy as np
     import torch
 
-    from repro_torch.core.precision import MonitorParams
     from repro_torch.kernels import gmres_f64 as GF
     from repro_torch.kernels import vec_f64 as V
-    from repro_torch.solvers import make_gse_operator, make_jacobi, solve_gmres
-    from repro_torch.sparse.csr import pack_csr
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(15)
@@ -2487,18 +2628,10 @@ def phase_gmres_trajectory():
         restart=restart, j_givens=[0, 1, 40, restart - 1],
         j_trsv=[0, 1, 17, 40, restart], bitwise=True)
 
-    params = MonitorParams(**GMRES_PARAMS)
+    cpu = twin_of(twins, "gmres")
     for pre in (None, "jacobi"):
-        runs = {}
-        for where in ("cuda", "cpu"):
-            a, b = gmres_example(where)
-            kw = dict(tol=1e-7, restart=restart, maxiter=8000, params=params)
-            if pre:
-                kw["precond"] = make_jacobi(a, k=8)
-            t0 = time.perf_counter()
-            r = solve_gmres(make_gse_operator(pack_csr(a, k=8)), b, **kw)
-            runs[where] = (r, time.perf_counter() - t0)
-        (rg, tg_s), (rc, tc_s) = runs["cuda"], runs["cpu"]
+        rg, tg_s = gmres_example_solve("cuda", pre)
+        rc, tc_s = cpu[pre]
         got = (int(rg.iters), rg.switch_iters.tolist(), int(rg.tag))
         log("gmres_trajectory", case="example", precond=pre, gpu_iters=got[0],
             cpu_iters=int(rc.iters), switch_iters=got[1], tag=got[2],
@@ -2523,7 +2656,8 @@ def phase_gmres_full():
     """Phase 16: stepped GMRES(80), right-Jacobi, on the example's
     construction at 2^20 unknowns, over a fixed budget of inner
     iterations; launch counts zeroed.  Returns the launches of its
-    kernels."""
+    kernels and the solve (operator, b, preconditioner, params, result
+    and seconds) that phase 23 repeats with the flight recorder."""
     import numpy as np
     import torch
 
@@ -2602,7 +2736,8 @@ def phase_gmres_full():
         raise AssertionError(f"a kernel of the GMRES path never launched: "
                              f"{launches}")
     require_bodies("phase 16: A64", a64_bodies, plan_bodies(g))
-    return launches
+    return launches, dict(op=op, b=b, m=m, params=params, res=res,
+                          wall=wall)
 
 
 def pcg_case(kind, device):
@@ -2623,24 +2758,32 @@ def pcg_case(kind, device):
     return pack_csr(a, k=8), getattr(PC, f"make_{kind}")(a, k=8), b.to(device)
 
 
-def phase_pcg_trajectory():
+def pcg_solve(kind, where):
+    """Phase 17's solve: quickstart section 4's case with ``kind``'s
+    preconditioner on ``where``; returns the result and the seconds."""
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.solvers import solve_pcg
+
+    g, m, b = pcg_case(kind, where)
+    t0 = time.perf_counter()
+    r = solve_pcg(g, b, m, tol=1e-10, maxiter=5000,
+                  params=MonitorParams(**PCG_PARAMS))
+    return r, time.perf_counter() - t0
+
+
+def phase_pcg_trajectory(twins=None):
     """Phase 17: PCG on quickstart section 4's cases, the card against the
     CPU twin, and the fused path against the generic one on the card."""
-    import torch
-
     from repro_torch.core.precision import MonitorParams
     from repro_torch.solvers import (make_gse_operator, make_precond_operator,
                                      solve_pcg)
 
     params = MonitorParams(**PCG_PARAMS)
     kw = dict(tol=1e-10, maxiter=5000, params=params)
+    cpu = twin_of(twins, "pcg")
     for kind, want in PCG_REF.items():
-        runs = {}
-        for where in ("cuda", "cpu"):
-            g, m, b = pcg_case(kind, where)
-            t0 = time.perf_counter()
-            runs[where] = (solve_pcg(g, b, m, **kw), time.perf_counter() - t0)
-        (rg, tg_s), (rc, tc_s) = runs["cuda"], runs["cpu"]
+        rg, tg_s = pcg_solve(kind, "cuda")
+        rc, tc_s = cpu[kind]
         g, m, b = pcg_case(kind, "cuda")
         generic = solve_pcg(make_gse_operator(g), b, make_precond_operator(m),
                             **kw)
@@ -2728,7 +2871,40 @@ def ir_case(device):
     return pack_csr(a, k=8), make_jacobi(a, k=8), *(b.to(device) for b in bs)
 
 
-def phase_ir_trajectory(params):
+def ir_solve(where, name):
+    """Phase 19's refinement ``name`` (IR_RUNS) on ``where``; the inner-CG
+    row at IR_CG_CUT's budget.  Returns the result and the seconds."""
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.solvers import solve_ir
+
+    inner, pre, restart = IR_RUNS[name]
+    cut = IR_CG_CUT if name == "cg" else {}
+    g, m, b, _ = ir_case(where)
+    t0 = time.perf_counter()
+    r = solve_ir(g, b, inner=inner, precond=m if pre else None,
+                 restart=restart,
+                 params=MonitorParams(**PCG_PARAMS) if inner == "cg" else None,
+                 **dict(IR_KW, **cut))
+    return r, time.perf_counter() - t0
+
+
+def ir_batched_solve(where):
+    """Phase 19's solve_ir_batched on [b, 2b, b', 0] on ``where``;
+    returns the result and the seconds."""
+    import torch
+
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.solvers import solve_ir_batched
+
+    g, m, b, b2 = ir_case(where)
+    block = torch.stack([b, 2 * b, b2, torch.zeros_like(b)], dim=1)
+    t0 = time.perf_counter()
+    r = solve_ir_batched(g, block, precond=m, params=MonitorParams(
+        **PCG_PARAMS), device=where, **IR_KW)
+    return r, time.perf_counter() - t0
+
+
+def phase_ir_trajectory(params, twins=None):
     """Phase 19: iterative refinement, batched PCG and the preconditioned
     service on the small cases, the card against the reference's numbers
     and the CPU twin."""
@@ -2736,30 +2912,20 @@ def phase_ir_trajectory(params):
 
     from repro_torch.core.precision import MonitorParams
     from repro_torch.solvers import (make_gse_operator, make_precond_operator,
-                                     solve_ir, solve_ir_batched, solve_pcg,
-                                     solve_pcg_batched)
+                                     solve_pcg, solve_pcg_batched)
 
     fast = MonitorParams(**PCG_PARAMS)
-
-    def ir(where, name, **cut):
-        inner, pre, restart = IR_RUNS[name]
-        g, m, b, _ = ir_case(where)
-        t0 = time.perf_counter()
-        r = solve_ir(g, b, inner=inner, precond=m if pre else None,
-                     restart=restart, params=fast if inner == "cg" else None,
-                     **dict(IR_KW, **cut))
-        return r, time.perf_counter() - t0
-
+    cpu = twin_of(twins, "ir")
     for name, want in IR_REF.items():
         # The inner-CG row (10,400 launch-bound inner iterations, ~19 s on
         # the card) runs at the twin's cut budget only, to leave phases
         # 21-22 room in the time limit; its full counts are IR_REF's.
         cut = IR_CG_CUT if name == "cg" else {}
-        rg, tg_s = ir("cuda", name, **cut)
+        rg, tg_s = ir_solve("cuda", name)
         got = (rg.outer_iters, rg.inner_iters, rg.relres)
         if not cut and (got != want or not rg.converged or rg.health != 0):
             raise AssertionError(f"IR {name} on the GPU: {got} != {want}")
-        rc, tc_s = ir("cpu", name, **cut)
+        rc, tc_s = cpu[name]
         if (rc.outer_iters, rc.inner_iters) != (rg.outer_iters,
                                                 rg.inner_iters):
             raise AssertionError(f"IR {name}: the GPU and the CPU twin "
@@ -2773,15 +2939,8 @@ def phase_ir_trajectory(params):
             gpu_s=f"{tg_s:.2f}", cpu_s=f"{tc_s:.2f}",
             cpu_twin=json.dumps(cut) if cut else "full", cpu_twin_bitwise=True)
 
-    runs = {}
-    for where in ("cuda", "cpu"):
-        g, m, b, b2 = ir_case(where)
-        block = torch.stack([b, 2 * b, b2, torch.zeros_like(b)], dim=1)
-        t0 = time.perf_counter()
-        runs[where] = (solve_ir_batched(g, block, precond=m, params=fast,
-                                        device=where, **IR_KW),
-                       time.perf_counter() - t0)
-    (rg, tg_s), (rc, tc_s) = runs["cuda"], runs["cpu"]
+    rg, tg_s = ir_batched_solve("cuda")
+    rc, tc_s = cpu["batched"]
     got = (rg.outer_iters.tolist(), rg.inner_iters.tolist(),
            rg.relres.tolist())
     if got != IR_BATCHED_REF:
@@ -2843,8 +3002,7 @@ def phase_ir_trajectory(params):
                                  f"{want_stats}")
         twin = {}
         if maxiter == 4:
-            _, reps_c, xs_c, wall_c = serve_small("cpu", maxiter, params,
-                                                  precond=kind)
+            reps_c, xs_c, wall_c = cpu["service", kind]
             for rg_, rc_, xg_, xc_ in zip(reps_g, reps_c, xs_g, xs_c):
                 if report_fields(rg_) != report_fields(rc_):
                     raise AssertionError(f"GPU report {rg_} != CPU {rc_}")
@@ -2938,7 +3096,8 @@ def phase_ir_full(csr, g, b, bs_full, params, pcg_res):
     log("ir_full", run="SolverService precond=jacobi",
         iters=[r.iters for r in reps], health=[r.health for r in reps],
         retries=[r.retries for r in reps],
-        est_bytes=[r.est_bytes for r in reps], stats=json.dumps(svc.stats),
+        est_bytes=[r.est_bytes for r in reps],
+        stats=json.dumps(dict(svc.stats)),
         wall_s=f"{wall_s:.2f}")
     if (reps[0].iters, reps[0].switch_iters.tolist(), reps[0].tag) != (
             int(pcg_res.iters), pcg_res.switch_iters.tolist(),
@@ -3644,10 +3803,553 @@ def mixed_entries(ctx, add_entry):
     del lib32, vals32, cols
 
 
+# Phase 23's tag-fault runs: spd_rs8_2k (phase 3's system) at this
+# tolerance, so the CPU twin's recovered runs (about 950 iterations each)
+# take seconds, not the minute the full 1e-8 solve would.
+FAULT_TOL = 1e-5
+FAULT_MODES = ("indefinite", "nan")
+# The main path's monitor (main's ``params``), which phase 23's CPU twins
+# rebuild in their own process.
+MAIN_PARAMS = dict(t=40, l=60, m=30)
+# The spans phase 23's trace must hold.
+TELEMETRY_SPANS = ("solve.cg", "solve.gmres", "solve.cg_batched",
+                   "solve.pcg_batched", "solve.ir", "pack.build")
+
+
+def require_same_ring(what, got, want):
+    """Two flight states (a ring or a stack of rings) bit for bit."""
+    import torch
+
+    for k in ("ibuf", "fbuf", "count"):
+        a, b = got[k].cpu(), want[k].cpu()
+        if a.dtype == torch.float64:
+            a, b = a.view(torch.int64), b.view(torch.int64)
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{what}: the flight ring's {k} differs "
+                                 "from the CPU twin's")
+
+
+def telemetry_resume(g, b, params, res4, wall4, counts4, tmp):
+    """Phase 23, part 1: phase 4's solve with the flight recorder, through
+    a checkpoint at iteration 1920, bitwise phase 4's result."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.kernels import gse_spmv as K
+    from repro_torch.kernels import vec_f64 as V
+    from repro_torch.obs import flight as OF
+    from repro_torch.robustness.guards import DEFAULT_GUARDS
+    from repro_torch.solvers import cg as T_cg
+
+    dev = b.device
+    args = (g, b, torch.zeros_like(b),
+            torch.tensor(1e-8, dtype=torch.float64, device=dev), 20000,
+            params)
+    kw = dict(guards=DEFAULT_GUARDS, flight=OF.FlightParams(capacity=4096))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    V.reset_launch_counts()
+    t0 = time.perf_counter()
+    r1, _, state = T_cg._solve_cg_fused(*args, stop_at=1920,
+                                        return_state=True, **kw)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    if int(r1.iters) != 1920:
+        raise AssertionError(f"phase 23: the first chunk ran {int(r1.iters)}")
+    crc = ckpt.tree_crc32(state)
+    t0 = time.perf_counter()
+    ckpt.save(tmp, state, 1920, extra={"phase": 23})
+    save_s = time.perf_counter() - t0
+    # ``like`` gives only the tree's structure, dtypes and device; the
+    # values come from the disk.
+    like = state
+    del state, r1
+    t0 = time.perf_counter()
+    tree, step, extra, skipped = ckpt.restore_latest_valid(tmp, like=like,
+                                                           device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del like
+    if (step, extra, skipped) != (1920, {"phase": 23}, []):
+        raise AssertionError(f"phase 23: restored {step} {extra} {skipped}")
+    if ckpt.tree_crc32(tree) != crc:
+        raise AssertionError("phase 23: the restored tree's CRC32 differs")
+    if tree["x"].device.type != "cuda":
+        raise AssertionError("phase 23: the state was not restored to cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, _, final = T_cg._solve_cg_fused(*args, resume=tree,
+                                         return_state=True, **kw)
+    torch.cuda.synchronize()
+    solve_s += time.perf_counter() - t0
+    counts = dict(a64=K.gse_spmv_csr_f64.launches,
+                  seq_dot=V.seq_dot.launches, fma_axpy=V.fma_axpy.launches)
+    require_bitwise("phase 23: x through the checkpoint against phase 4",
+                    res.x, res4.x)
+    got = (int(res.iters), float(res.relres), int(res.tag),
+           res.switch_iters.tolist())
+    want = (int(res4.iters), float(res4.relres), int(res4.tag),
+            res4.switch_iters.tolist())
+    if got != want:
+        raise AssertionError(f"phase 23: {got} != phase 4's {want}")
+    if counts != counts4:
+        raise AssertionError(f"phase 23: launches {counts} != phase 4's "
+                             f"{counts4}")
+    flog = OF.FlightLog.from_state(res.flight)
+    OF.assert_consistent(flog, res)
+    if (flog.switch_iters().tolist(), flog.recorded, flog.dropped) != (
+            [120, 150], int(res.iters), 0):
+        raise AssertionError(f"phase 23: flight {flog.summary()}")
+    # A second step whose blob lost a bit: restore_latest_valid skips it.
+    ckpt.save(tmp, final, int(res.iters))
+    blob = Path(tmp) / f"step_{int(res.iters):08d}" / ckpt._BLOB
+    raw = bytearray(blob.read_bytes())
+    raw[len(raw) // 3] ^= 0x04
+    blob.write_bytes(bytes(raw))
+    _, step2, _, skipped2 = ckpt.restore_latest_valid(tmp, like=tree,
+                                                      device=dev)
+    if (step2, skipped2) != (1920, [int(res.iters)]):
+        raise AssertionError(f"phase 23: the corrupt step was not skipped: "
+                             f"{step2} {skipped2}")
+    iters = int(res.iters)
+    blob_mb = blob.stat().st_size / 2**20
+    log("telemetry", part="checkpointed flight CG", rows=g.shape[0],
+        iters=iters, switch_iters=res.switch_iters.tolist(),
+        bitwise_phase4=True, tree_crc32=crc, blob_mb=f"{blob_mb:.1f}",
+        save_s=f"{save_s:.2f}", restore_s=f"{restore_s:.2f}",
+        solve_s=f"{solve_s:.2f}",
+        ms_per_iteration=f"{solve_s * 1e3 / iters:.3f}",
+        phase4_ms_per_iteration=f"{wall4 * 1e3 / iters:.3f}",
+        flight=json.dumps(flog.summary()), launches=json.dumps(counts),
+        launches_equal_phase4=True, corrupt_step_skipped=skipped2)
+    return dict(ms=solve_s * 1e3 / iters, phase4_ms=wall4 * 1e3 / iters)
+
+
+def twin_batched(where, pcg, params):
+    """Batched CG (or Jacobi PCG) on rs8_400_s3's block [b0, b1, b2, 0]
+    with a 2048-row flight ring per column, on ``where``; returns the
+    result, the seconds and C64's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import gse_spmm as C
+    from repro_torch.obs import flight as OF
+    from repro_torch.solvers import (make_jacobi, solve_cg_batched,
+                                     solve_pcg_batched)
+    from repro_torch.sparse.csr import pack_csr
+
+    host = rs8_400_s3("cpu")
+    blk = torch.from_numpy(np.stack([host_spmv(host, np.random.default_rng(
+        j).normal(size=400)) for j in range(3)] + [np.zeros(400)], axis=1))
+    a = rs8_400_s3(where)
+    kw = dict(tol=1e-8, maxiter=20000, params=params,
+              flight=OF.FlightParams(capacity=2048), device=where)
+    C.reset_launch_counts()
+    t0 = time.perf_counter()
+    if pcg:
+        r = solve_pcg_batched(pack_csr(a, k=8), blk, make_jacobi(a, k=8),
+                              **kw)
+    else:
+        r = solve_cg_batched(pack_csr(a, k=8), blk, **kw)
+    return r, time.perf_counter() - t0, C.gse_spmm_csr_f64.launches
+
+
+def twin_ir(where):
+    """Quickstart section 5's refinement (inner Jacobi PCG) with a
+    512-row flight ring a correction, on ``where``."""
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.obs import flight as OF
+    from repro_torch.solvers import solve_ir
+
+    g, m, b, _ = ir_case(where)
+    t0 = time.perf_counter()
+    r = solve_ir(g, b, precond=m, params=MonitorParams(**PCG_PARAMS),
+                 flight=OF.FlightParams(capacity=512), **IR_KW)
+    return r, time.perf_counter() - t0
+
+
+def twin_fault(where, mode, params):
+    """spd_rs8_2k through solve_cg (guards and recovery on) behind the
+    tag-fault operator (``mode``, fail_tag 1), on ``where``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.robustness import faults as F
+    from repro_torch.solvers.cg import solve_cg
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+
+    small = G.diag_rescale(G.random_spd(2000, seed=21, device="cpu"), 8.0, 21)
+    bs = torch.from_numpy(host_spmv(small, np.random.default_rng(0).normal(
+        size=2000)))
+    gs = pack_csr(G.diag_rescale(G.random_spd(2000, seed=21, device=where),
+                                 8.0, 21))
+    t0 = time.perf_counter()
+    r = solve_cg(F.make_tag_fault_operator(gs, mode=mode, fail_tag=1),
+                 bs.to(where), tol=FAULT_TOL, maxiter=20000, params=params)
+    return r, time.perf_counter() - t0
+
+
+def telemetry_twins(params, cpu):
+    """Phase 23, part 3: the flight rings of batched CG and Jacobi PCG on
+    rs8_400_s3 and of quickstart section 5's IR, the card against the
+    CPU twin's results ``cpu``."""
+    from repro_torch.obs import flight as OF
+
+    for name in ("cg_batched", "pcg_batched"):
+        rg, sg, c64 = twin_batched("cuda", name == "pcg_batched", params)
+        rc, sc = cpu[name]
+        require_same_ring(f"phase 23 {name}", rg.flight, rc.flight)
+        require_bitwise(f"phase 23 {name} x", rg.x, rc.x)
+        if c64 <= 0:
+            raise AssertionError(f"phase 23 {name}: C64 never launched")
+        for j, col in enumerate(OF.split_batched(rg.flight)):
+            flog = OF.FlightLog.from_state(col)
+            if flog.recorded != int(rg.iters[j]) or (
+                    j < 3 and flog.switch_iters().tolist()
+                    != rg.switch_iters[j].tolist()):
+                raise AssertionError(f"phase 23 {name} column {j}: "
+                                     f"{flog.summary()}")
+        log("telemetry", part=f"{name} rings against the CPU twin",
+            case="rs8_400_s3", iters=rg.iters.tolist(),
+            switch_iters=rg.switch_iters.tolist(), rings_bitwise=True,
+            c64_launches=c64, gpu_s=f"{sg:.2f}", cpu_s=f"{sc:.2f}")
+    rg, sg = twin_ir("cuda")
+    rc, sc = cpu["ir"]
+    if (rg.outer_iters, rg.inner_iters, rg.relres) != IR_REF["pcg_jacobi"]:
+        raise AssertionError(f"phase 23 IR: {rg.outer_iters} "
+                             f"{rg.inner_iters} {rg.relres!r}")
+    if len(rg.flight) != len(rc.flight) or len(rg.flight) != rg.outer_iters:
+        raise AssertionError("phase 23 IR: one ring a correction")
+    for i, (fg, fc) in enumerate(zip(rg.flight, rc.flight)):
+        require_same_ring(f"phase 23 IR correction {i}", fg, fc)
+    require_bitwise("phase 23 IR x", rg.x, rc.x)
+    log("telemetry", part="IR rings against the CPU twin",
+        case="quickstart section 5, inner PCG", outer=rg.outer_iters,
+        inner=rg.inner_iters,
+        rows_per_correction=[int(f["count"]) for f in rg.flight],
+        rings_bitwise=True, gpu_s=f"{sg:.2f}", cpu_s=f"{sc:.2f}")
+
+
+def telemetry_faults(g, params, cpu):
+    """Phase 23, part 4: fault injection on the card (the tag faults
+    against the CPU twin's results ``cpu``)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics as OM
+    from repro_torch.robustness import faults as F
+    from repro_torch.robustness.guards import HEALTH_OK, health_name
+
+    t0 = time.perf_counter()
+    ref = F.gsecsr_checksums(g)
+    named = {}
+    for target in ("head", "table"):
+        bad = F.corrupt_gsecsr(g, target, seed=23)
+        named[target] = F.verify_gsecsr(bad, ref)
+        del bad
+    if named != {"head": ["head"], "table": ["table"]} or F.verify_gsecsr(
+            g, ref):
+        raise AssertionError(f"phase 23: verify_gsecsr named {named}")
+    seg_s = time.perf_counter() - t0
+
+    key = ("ell", ops.LANE)
+    clean = [t.clone() for t in g.__dict__["_pack_cache"][key][0]]
+    before = dict(ops.PACK_STATS)
+    t0 = time.perf_counter()
+    if not F.corrupt_pack_cache(g, key=key, seed=23):
+        raise AssertionError("phase 23: no ELL entry to corrupt")
+    repacked = ops.ell_pack_gsecsr(g)
+    torch.cuda.synchronize()
+    repack_s = time.perf_counter() - t0
+    after = dict(ops.PACK_STATS)
+    if (after["corrupt"] - before["corrupt"], after["misses"]
+            - before["misses"]) != (1, 1):
+        raise AssertionError(f"phase 23: pack stats {before} -> {after}")
+    line = [ln for ln in OM.REGISTRY.to_prometheus().splitlines()
+            if ln.startswith('repro_pack_cache_events_total{event="corrupt"}')]
+    if not line or int(line[0].split()[-1]) != after["corrupt"]:
+        raise AssertionError(f"phase 23: the registry's corrupt counter "
+                             f"{line}")
+    for got, want in zip(repacked, clean):
+        if not torch.equal(got, want):
+            raise AssertionError("phase 23: the repacked ELL entry differs")
+    del clean, repacked
+    log("telemetry", part="pack faults", verify_named=json.dumps(named),
+        segments_s=f"{seg_s:.2f}", ell_repacked=True,
+        pack_stats=json.dumps(after), corrupt_counter=after["corrupt"],
+        repack_s=f"{repack_s:.2f}")
+
+    for mode in FAULT_MODES:
+        rg, sg = twin_fault("cuda", mode, params)
+        rc, sc = cpu[mode]
+        got = (int(rg.iters), rg.switch_iters.tolist(), int(rg.tag),
+               int(rg.trip_iter), int(rg.health), float(rg.relres))
+        twin = (int(rc.iters), rc.switch_iters.tolist(), int(rc.tag),
+                int(rc.trip_iter), int(rc.health), float(rc.relres))
+        if got != twin:
+            raise AssertionError(f"phase 23 {mode}: {got} != the CPU "
+                                 f"twin's {twin}")
+        require_bitwise(f"phase 23 {mode} x", rg.x, rc.x)
+        if not (int(rg.trip_iter) == 0 and int(rg.health) == HEALTH_OK
+                and bool(rg.converged) and int(rg.tag) >= 2):
+            raise AssertionError(f"phase 23 {mode}: tripped at "
+                                 f"{int(rg.trip_iter)}, ended "
+                                 f"{health_name(rg.health)}")
+        log("telemetry", part="tag fault", case="spd_rs8_2k", mode=mode,
+            fail_tag=1, tol=FAULT_TOL, iters=got[0], switch_iters=got[1],
+            tag=got[2], trip_iter=got[3], health=health_name(rg.health),
+            recovered=True, cpu_twin_bitwise=True, gpu_s=f"{sg:.2f}",
+            cpu_s=f"{sc:.2f}")
+
+
+def phase_telemetry(g, b, params, res4, wall4, counts4, gmres_full, twins):
+    """Phase 23: telemetry, faults and checkpoints, inside a trace
+    capture whose JSONL is validated at the end; the CPU twins' results
+    come from ``twins``."""
+    import tempfile
+
+    from repro_torch.obs import trace as OT
+
+    with tempfile.TemporaryDirectory(prefix="phase23_") as tmp:
+        trace = Path(tmp) / "trace.jsonl"
+        cpu, cpu_wait = telemetry_card(
+            g, b, params, res4, wall4, counts4, gmres_full, tmp, trace, twins)
+        n = OT.validate_jsonl(str(trace))
+        events = [json.loads(ln) for ln in trace.read_text().splitlines()]
+    check_trace(n, events, cpu_wait)
+
+
+def telemetry_card(g, b, params, res4, wall4, counts4, gmres_full, tmp,
+                   trace, twins):
+    """Phase 23's parts on the card, inside a trace capture; returns the
+    CPU twins' results and the seconds waited for them."""
+    import torch
+
+    from repro_torch.obs import flight as OF
+    from repro_torch.obs import trace as OT
+    from repro_torch.robustness.guards import health_name
+    from repro_torch.solvers import solve_gmres
+
+    with OT.capture(str(trace)):
+        t0 = time.perf_counter()
+        cost = telemetry_resume(g, b, params, res4, wall4, counts4,
+                                str(Path(tmp) / "ckpt"))
+        t1 = time.perf_counter()
+        gm = gmres_full
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = solve_gmres(gm["op"], gm["b"], tol=1e-7, restart=GMRES_RESTART,
+                          maxiter=GMRES_FULL_ITERS, params=gm["params"],
+                          precond=gm["m"], flight=OF.FlightParams())
+        torch.cuda.synchronize()
+        gwall = time.perf_counter() - t
+        want = gm["res"]
+        require_bitwise("phase 23 GMRES x against phase 16", res.x, want.x)
+        got = (int(res.iters), float(res.relres), int(res.tag),
+               res.switch_iters.tolist(), int(res.health))
+        if got != (int(want.iters), float(want.relres), int(want.tag),
+                   want.switch_iters.tolist(), int(want.health)):
+            raise AssertionError(f"phase 23 GMRES: {got}")
+        flog = OF.FlightLog.from_state(res.flight)
+        OF.assert_consistent(flog, res)
+        log("telemetry", part="flight GMRES", rows=gm["b"].shape[0],
+            iters=got[0], health=health_name(res.health),
+            bitwise_phase16=True, flight=json.dumps(flog.summary()),
+            ms_per_iteration=f"{gwall * 1e3 / got[0]:.3f}",
+            phase16_ms_per_iteration=f"{gm['wall'] * 1e3 / got[0]:.3f}")
+        t2 = time.perf_counter()
+        cpu = twins.get("telemetry")
+        t3 = time.perf_counter()
+        telemetry_twins(params, cpu)
+        t4 = time.perf_counter()
+        telemetry_faults(g, params, cpu)
+        t5 = time.perf_counter()
+    log("telemetry", part="seconds", checkpointed_cg_s=f"{t1 - t0:.1f}",
+        gmres_s=f"{t2 - t1:.1f}", cpu_twins_wait_s=f"{t3 - t2:.1f}",
+        twins_s=f"{t4 - t3:.1f}", faults_s=f"{t5 - t4:.1f}",
+        recorder_ms_per_iteration=f"{cost['ms']:.3f}",
+        phase4_ms_per_iteration=f"{cost['phase4_ms']:.3f}")
+    return cpu, t3 - t2
+
+
+def check_trace(n, events, cpu_wait):
+    """Phase 23, part 5: the trace's spans (parents intact: the validator
+    checked every id) and the registry's families."""
+    from repro_torch.obs import metrics as OM
+
+    names = {}
+    for e in events:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    missing = [s for s in TELEMETRY_SPANS if s not in names]
+    if missing:
+        raise AssertionError(f"phase 23: the trace lacks {missing}: {names}")
+    by_id = {e["id"]: e for e in events}
+    nested = sum(1 for e in events if e["name"] == "solve.pcg"
+                 and e["parent"] is not None
+                 and by_id[e["parent"]]["name"] == "solve.ir")
+    if nested == 0:
+        raise AssertionError("phase 23: no solve.pcg span under solve.ir")
+    text = OM.REGISTRY.to_prometheus()
+    families = ("repro_pack_cache_events_total", "repro_serve_events_total",
+                "repro_serve_queue_depth",
+                "repro_serve_flush_latency_seconds",
+                "repro_serve_request_bytes")
+    lacking = [f for f in families if f"# TYPE {f} " not in text]
+    if lacking:
+        raise AssertionError(f"phase 23: the registry lacks {lacking}")
+    log("telemetry", part="trace and registry", events=n,
+        spans=json.dumps(names), pcg_spans_under_ir=nested,
+        registry_lines=len(text.splitlines()), registry_families=len(
+            [ln for ln in text.splitlines() if ln.startswith("# TYPE ")]),
+        cpu_twins_wait_s=f"{cpu_wait:.1f}")
+
+
+# --- the CPU twins -----------------------------------------------------------
+# The twins run in two processes of their own: the small solves on one
+# core, in the order the phases need them, from before the build, and
+# phase 12's LM from after it.  A phase waits only if its twin is not
+# done yet.
+SMALL_TWINS = ("trajectory", "service", "sell", "gmres", "pcg", "ir",
+               "telemetry")
+LM_TWINS = ("lm",)
+
+
+def twin_trajectory(where, params):
+    """Phase 3's solve: spd_rs8_2k through solve_cg on ``where``; returns
+    the result and the seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.solvers.cg import solve_cg
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+
+    small = G.diag_rescale(G.random_spd(2000, seed=21, device="cpu"), 8.0, 21)
+    bs = torch.from_numpy(host_spmv(small, np.random.default_rng(0).normal(
+        size=2000)))
+    gs = pack_csr(G.diag_rescale(G.random_spd(2000, seed=21, device=where),
+                                 8.0, 21))
+    t0 = time.perf_counter()
+    r = solve_cg(gs, bs.to(where), tol=1e-8, maxiter=20000, params=params)
+    return r, time.perf_counter() - t0
+
+
+def cpu_twin(name: str):
+    """The CPU twin ``name``: what its phase holds the card's runs to."""
+    from repro_torch.core.precision import MonitorParams
+
+    params = MonitorParams(**MAIN_PARAMS)
+    if name == "trajectory":
+        return twin_trajectory("cpu", params)
+    if name == "service":
+        return serve_small("cpu", 200, params)[1:]
+    if name == "sell":
+        return (sell_solo("cpu", params),
+                serve_small("cpu", 200, params, case=sk512_rs8_s0,
+                            layout="sell")[1:])
+    if name == "gmres":
+        return {pre: gmres_example_solve("cpu", pre)
+                for pre in (None, "jacobi")}
+    if name == "pcg":
+        return {kind: pcg_solve(kind, "cpu") for kind in PCG_REF}
+    if name == "ir":
+        out = {run: ir_solve("cpu", run) for run in IR_REF}
+        out["batched"] = ir_batched_solve("cpu")
+        for kind, maxiter in PCG_SERVICE_REF:
+            if maxiter == 4:
+                out["service", kind] = serve_small("cpu", maxiter, params,
+                                                   precond=kind)[1:]
+        return out
+    if name == "telemetry":
+        out = {run: twin_batched("cpu", run == "pcg_batched", params)[:2]
+               for run in ("cg_batched", "pcg_batched")}
+        out["ir"] = twin_ir("cpu")
+        for mode in FAULT_MODES:
+            out[mode] = twin_fault("cpu", mode, params)
+        return out
+    if name == "lm":
+        return lm_twin_cpu()
+    raise KeyError(name)
+
+
+def twin_of(twins, name: str):
+    """The CPU twin ``name`` from ``twins`` (a CpuTwins), or computed here
+    when ``twins`` is None (a phase run alone)."""
+    return cpu_twin(name) if twins is None else twins.get(name)
+
+
+def twin_worker(names: str, out: str, threads: int):
+    """Compute the CPU twins ``names`` (comma-separated) in order on
+    ``threads`` threads, each saved to ``out/<name>.pt`` when done (a
+    failure's traceback to ``out/<name>.err``).  The process yields the
+    host's cores to the card's launching thread (niceness 10)."""
+    import traceback
+
+    import torch
+
+    os.nice(10)
+    torch.set_num_threads(threads)
+    for name in names.split(","):
+        try:
+            res = cpu_twin(name)
+        except BaseException:
+            Path(out, f"{name}.err").write_text(traceback.format_exc())
+            raise
+        tmp = Path(out, f"{name}.tmp")
+        torch.save(res, tmp)
+        os.replace(tmp, Path(out, f"{name}.pt"))
+
+
+class CpuTwins:
+    """The CPU twins' processes (CUDA hidden from them) and their results
+    by name; ``waited`` holds the seconds each ``get`` waited."""
+
+    def __init__(self, out: Path):
+        self.out = out
+        self.waited = {}
+        self.procs = {}
+
+    def start(self, names, threads: int):
+        """Start a process computing the twins ``names`` in order."""
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUDA_VISIBLE_DEVICES="")
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                f"import chip_smoke; chip_smoke.twin_worker("
+                f"{','.join(names)!r}, {str(self.out)!r}, {threads})")
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                                env=env)
+        self.procs.update({name: proc for name in names})
+
+    def get(self, name: str, timeout: float = 900.0):
+        import torch
+
+        t0 = time.perf_counter()
+        path, proc = self.out / f"{name}.pt", self.procs[name]
+        while not path.exists():
+            if proc.poll() is not None and not path.exists():
+                err = self.out / f"{name}.err"
+                raise AssertionError(
+                    f"the CPU twin {name!r} failed (exit {proc.returncode})"
+                    + (":\n" + err.read_text() if err.exists() else ""))
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"the CPU twin {name!r} took over "
+                                     f"{timeout:.0f} s more")
+            time.sleep(0.05)
+        self.waited[name] = time.perf_counter() - t0
+        return torch.load(path, weights_only=False)
+
+    def stop(self):
+        for proc in set(self.procs.values()):
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
 def main() -> int:
     import argparse
+    import tempfile
 
-    import numpy as np
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3660,6 +4362,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs the port on a GPU only")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_twins_") as tmp:
+        twins = CpuTwins(Path(tmp))
+        try:
+            twins.start(SMALL_TWINS, 1)
+            return run(opts, twins)
+        finally:
+            twins.stop()
+
+
+def run(opts, twins) -> int:
+    """The phases in order, the CPU twins computed beside them by
+    ``twins`` (a :class:`CpuTwins`)."""
+    import numpy as np
+    import torch
+
     from repro_torch.core.precision import MonitorParams
     from repro_torch.kernels import _build, gse_spmv as K, ops, ref
     from repro_torch.kernels import gse_spmm as C
@@ -3673,30 +4390,38 @@ def main() -> int:
     from repro_torch.sparse.spmv import decode_gsecsr, spmv_gse
 
     dev = torch.device("cuda")
-    params = MonitorParams(t=40, l=60, m=30)
+    params = MonitorParams(**MAIN_PARAMS)
 
-    # 1. build --------------------------------------------------------------
+    # 1. build, its nvcc processes beside phase 2's matrix generation -------
+    from concurrent.futures import ThreadPoolExecutor
+
     t_start = time.perf_counter()
-    t0 = time.perf_counter()
-    _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        build = pool.submit(_build.build_all)
+        t0 = time.perf_counter()
+        csr = G.diag_rescale(G.random_spd(N_FULL, nnz_per_row=8, seed=21,
+                                          device=dev), 8.0, 21)
+        g = pack_csr(csr)
+        ell = ops.ell_pack_gsecsr(g)
+        row_len = ops.ell_row_lengths(g)  # A32 and C32 read only these slots
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t0
+        build.result()
     for name, info in _build.BUILD_LOG.items():
         regs = [ln.strip() for ln in info["log"].splitlines()
                 if "registers" in ln]
         log("build", source=f"{name}.cu", nvcc_s=f"{info['seconds']:.2f}",
             ptxas=json.dumps(regs))
-    log("build", total_s=f"{time.perf_counter() - t0:.2f}")
+    log("build", total_s=f"{time.perf_counter() - t_start:.2f}")
+    # Phase 12's twin is needed last: it starts after the build, on the
+    # cores the card's host thread, the small twins and the host's own
+    # numpy work leave.
+    twins.start(LM_TWINS, max(1, len(os.sched_getaffinity(0)) - 5))
 
     # 2. kernel parity at full size ------------------------------------------
-    t0 = time.perf_counter()
-    csr = G.diag_rescale(G.random_spd(N_FULL, nnz_per_row=8, seed=21,
-                                      device=dev), 8.0, 21)
-    g = pack_csr(csr)
-    ell = ops.ell_pack_gsecsr(g)
-    row_len = ops.ell_row_lengths(g)  # A32 and C32 read only these slots
-    torch.cuda.synchronize()
     log("parity", rows=g.shape[0], nnz=g.nnz, ell_width=ell[0].shape[1],
         real_slot_share=g.nnz / ell[0].numel(),
-        generate_pack_s=f"{time.perf_counter() - t0:.2f}")
+        generate_pack_s=f"{generate_s:.2f}", beside_the_build=True)
     rng = np.random.default_rng(0)
     x32 = torch.from_numpy(rng.normal(size=N_FULL).astype(np.float32)).to(dev)
     x64 = torch.from_numpy(rng.normal(size=N_FULL)).to(dev)
@@ -3809,23 +4534,14 @@ def main() -> int:
     del sell_main
 
     # 3. trajectory parity: GPU against the CPU twin --------------------------
-    small = G.diag_rescale(G.random_spd(2000, seed=21, device="cpu"), 8.0, 21)
-    xs = np.random.default_rng(0).normal(size=2000)
-    bs = torch.from_numpy(host_spmv(small, xs))
-    runs = {}
-    for where in ("cuda", "cpu"):
-        gs = pack_csr(G.diag_rescale(G.random_spd(2000, seed=21, device=where),
-                                     8.0, 21))
-        t0 = time.perf_counter()
-        r = solve_cg(gs, bs.to(where), tol=1e-8, maxiter=20000, params=params)
-        runs[where] = (r, time.perf_counter() - t0)
-    (rg, tg_s), (rc, tc_s) = runs["cuda"], runs["cpu"]
+    rg, tg_s = twin_trajectory("cuda", params)
+    rc, tc_s = twins.get("trajectory")
     it_g, it_c = int(rg.iters), int(rc.iters)
     sw_g, sw_c = rg.switch_iters.tolist(), rc.switch_iters.tolist()
     log("trajectory", case="spd_rs8_2k", gpu_iters=it_g, cpu_iters=it_c,
         gpu_tag=int(rg.tag), cpu_tag=int(rc.tag), gpu_switch=sw_g,
         cpu_switch=sw_c, x_bitwise=bitwise(rg.x, rc.x), gpu_s=f"{tg_s:.2f}",
-        cpu_s=f"{tc_s:.2f}")
+        cpu_s=f"{tc_s:.2f}", cpu_waited_s=f"{twins.waited['trajectory']:.2f}")
     if int(rg.tag) != int(rc.tag) or sw_g != sw_c:
         raise AssertionError("GPU and CPU twin disagree on tag/switch_iters")
     if abs(it_g - it_c) > 0.03 * it_c:
@@ -3897,7 +4613,7 @@ def main() -> int:
                                  f"{[r.converged for r in reps_g]}")
         twin = {}
         if maxiter == 200:  # the tag-3 retry: GPU == CPU twin, bit for bit
-            _, reps_c, xs_c, wall_c = serve_small("cpu", maxiter, params)
+            reps_c, xs_c, wall_c = twins.get("service")
             for rg_, rc_, xg_, xc_ in zip(reps_g, reps_c, xs_g, xs_c):
                 if report_fields(rg_) != report_fields(rc_):
                     raise AssertionError(f"GPU report {rg_} != CPU {rc_}")
@@ -3909,7 +4625,7 @@ def main() -> int:
             health=[r.health for r in reps_g],
             retries=[r.retries for r in reps_g],
             est_bytes=[r.est_bytes for r in reps_g],
-            stats=json.dumps(svc_g.stats), matches_reference=True,
+            stats=json.dumps(dict(svc_g.stats)), matches_reference=True,
             gpu_s=f"{wall_g:.2f}", **twin)
 
     # 6. the service path at full size, counted --------------------------------
@@ -3950,7 +4666,7 @@ def main() -> int:
         switch_iters=[r.switch_iters.tolist() for r in reps],
         health=[r.health for r in reps], retries=[r.retries for r in reps],
         relres=[r.relres for r in reps], est_bytes=[r.est_bytes for r in reps],
-        stats=json.dumps(svc.stats), register_s=f"{register_s:.2f}",
+        stats=json.dumps(dict(svc.stats)), register_s=f"{register_s:.2f}",
         wall_s=f"{serve_wall:.2f}",
         ms_per_iteration=f"{serve_wall * 1e3 / loop_iters:.3f}",
         solo_ms_per_iteration=f"{wall * 1e3 / int(res.iters):.3f}",
@@ -3978,20 +4694,20 @@ def main() -> int:
 
     # 7-9. the SELL-C-sigma layout --------------------------------------------
     phase_sell_parity()
-    phase_sell_trajectory(params)
+    phase_sell_trajectory(params, twins)
     sell_ctx = phase_sell_full(params)
 
     # 15-20. stepped GMRES, PCG and iterative refinement ------------------------
     t0 = time.perf_counter()
-    gmres_ctx = phase_gmres_trajectory()
+    gmres_ctx = phase_gmres_trajectory(twins)
     t1 = time.perf_counter()
-    gmres_launches = phase_gmres_full()
+    gmres_launches, gmres_full = phase_gmres_full()
     t2 = time.perf_counter()
-    phase_pcg_trajectory()
+    phase_pcg_trajectory(twins)
     t3 = time.perf_counter()
     pcg_res = phase_pcg_full(csr, g, b, params, res, wall)
     t4 = time.perf_counter()
-    phase_ir_trajectory(params)
+    phase_ir_trajectory(params, twins)
     t5 = time.perf_counter()
     phase_ir_full(csr, g, b, bs_full, params, pcg_res)
     t6 = time.perf_counter()
@@ -4007,13 +4723,20 @@ def main() -> int:
     log("tagmap_phases", tagmap_trajectory_s=f"{t7 - t6:.1f}",
         adaptive_full_s=f"{time.perf_counter() - t7:.1f}")
 
+    # 23. telemetry, faults and checkpoints ----------------------------------
+    t8 = time.perf_counter()
+    phase_telemetry(g, b, params, res, wall,
+                    dict(a64=a64_launches, **vec_launches), gmres_full, twins)
+    del gmres_full
+    log("telemetry_phase", seconds=f"{time.perf_counter() - t8:.1f}")
+
     # 11-14. the LM serving path ----------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain E: full f32
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     lm_ctx = phase_lm_kernels()
     t1 = time.perf_counter()
-    twin_counts = phase_lm_twin()
+    twin_counts = phase_lm_twin(twins)
     t2 = time.perf_counter()
     lm_counts = phase_lm_full()
     t3 = time.perf_counter()
@@ -4021,6 +4744,8 @@ def main() -> int:
     log("lm_phases", lm_kernels_s=f"{t1 - t0:.1f}", lm_twin_s=f"{t2 - t1:.1f}",
         lm_full_s=f"{t3 - t2:.1f}",
         lm_serve_s=f"{time.perf_counter() - t3:.1f}")
+    log("twins", waited_s=json.dumps({k: round(v, 2)
+                                      for k, v in twins.waited.items()}))
 
     # 10. kernel times ---------------------------------------------------------
     t_kernels = time.perf_counter()

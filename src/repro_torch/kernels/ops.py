@@ -14,8 +14,9 @@ lane width (128, the reference's default plan) is padded.  The port keeps
 its own copy of the reference plan's SELL defaults (``perf/plan.py``
 :58-62).  Launch plans (``blocks=``, ``plan=``, ``planned_spmv``,
 ``planned_spmm``) are ROADMAP queue 1 item 14 and raise
-``NotImplementedError``.  ``PACK_STATS`` is a plain dict until the
-metrics registry is ported.
+``NotImplementedError``.  ``PACK_STATS`` is a dict-shaped view over the
+metrics registry's ``repro_pack_cache_events_total`` (``obs.metrics``),
+and a cache miss's build runs inside a ``pack.build`` span.
 
 Per-group precision (``masked_for_tagmap`` :250 with its SELL twin :222,
 ``sell_bucket_tags`` :291, and the map case of ``gse_spmv_sell`` and
@@ -49,6 +50,8 @@ from repro_torch.kernels.gse_matmul import gse_matmul_dense
 from repro_torch.kernels.gse_spmm import gse_spmm_ell_f32, gse_spmm_sell_f32
 from repro_torch.kernels.gse_spmv import gse_spmv_ell_f32, gse_spmv_sell_f32
 from repro_torch.core.tagmap import TagMap
+from repro_torch.obs import metrics as OM
+from repro_torch.obs import trace as OT
 from repro_torch.sparse.csr import (GSECSR, GSESellC, _col_of, _int_tag,
                                     entry_tags_t, pack_sell, scatter_rows)
 
@@ -62,8 +65,14 @@ __all__ = ["gse_decode", "gse_matmul", "gse_spmv_ell", "gse_spmm_ell",
 
 # Operand-pack cache accounting: ``hits``/``misses`` let callers assert
 # that repeated solves re-pack nothing; ``evictions`` counts LRU drops and
-# ``corrupt`` counts checksum-mismatch detect-and-repack events.
-PACK_STATS = {"hits": 0, "misses": 0, "evictions": 0, "corrupt": 0}
+# ``corrupt`` counts checksum-mismatch detect-and-repack events.  The
+# counts live in the metrics registry; the dict-shaped view keeps every
+# call site working.
+PACK_STATS = OM.stats_view(
+    "repro_pack_cache_events_total",
+    ("hits", "misses", "evictions", "corrupt"),
+    help="Operand pack-cache events by outcome.",
+)
 
 # Per-operator-instance LRU bound on cached packed layouts.
 PACK_CACHE_MAX = 8
@@ -138,7 +147,8 @@ def _cached_pack(a, key, build):
             cache.move_to_end(key)
     if not hit:
         PACK_STATS["misses"] += 1
-        entry = build()
+        with OT.span("pack.build", key=str(key)):
+            entry = build()
         cache[key] = (entry, _entry_checksum(entry))
         cache.move_to_end(key)
         while len(cache) > PACK_CACHE_MAX:

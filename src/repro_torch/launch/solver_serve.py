@@ -21,9 +21,14 @@ batch (matrix bytes split evenly across each iteration's active columns,
 vector bytes owned per column).  A padding column has ``||b|| = 0``: it
 converges at iteration 0 and never perturbs a real request.
 
-``stats`` is a plain dict with the reference's seven keys and
-``queue_depth`` an int; the flush-latency and byte histograms and the
-spans arrive with ``obs/`` (ROADMAP queue 1 item 12).  ``layout="sell"``
+Telemetry is the reference's (:186-211, :395-425), in the metrics
+registry (``obs.metrics``) under the reference's names, labeled by the
+service's id: ``stats`` is a dict-shaped view of
+``repro_serve_events_total`` (its seven keys), ``queue_depth`` the
+``repro_serve_queue_depth`` gauge, and every flush observes
+``repro_serve_flush_latency_seconds`` and, per report,
+``repro_serve_request_bytes``; ``flush`` runs inside the ``serve.flush``
+span (``obs.trace``).  ``layout="sell"``
 packs the operator into the SELL-C-sigma layout
 (``kernels.ops.sell_pack_gsecsr``): the batched operator is then kernel
 C′64 and the retry's B64, the trajectories are bitwise the ``"csr"``
@@ -57,6 +62,8 @@ from repro_torch.core import precision as P
 from repro_torch.core.tagmap import TagMap, normalize_tags
 from repro_torch.kernels.ops import sell_pack_gsecsr
 from repro_torch.kernels.vec_f64 import on_device, seq_dot
+from repro_torch.obs import metrics as OM
+from repro_torch.obs import trace as OT
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
     GuardParams,
@@ -72,6 +79,9 @@ from repro_torch.sparse.csr import (CSR, GSESellC, iteration_stream_bytes,
                                     pack_csr)
 
 __all__ = ["SolveRequest", "SolveReport", "SolverService"]
+
+# Each service's ``service`` label in the metrics registry.
+_SERVICE_IDS = itertools.count()
 
 _PRECOND_FACTORY = {"jacobi": make_jacobi, "spai0": make_spai0}
 
@@ -188,10 +198,34 @@ class SolverService:
         self._pending: List[SolveRequest] = []
         self._ids = itertools.count()
         self._solutions: Dict[int, torch.Tensor] = {}
-        self.stats = dict.fromkeys(
+        # Registry-backed telemetry: ``stats`` keeps the dict shape, the
+        # gauge tracks the queue, the histograms give the flush-latency and
+        # bytes-per-request percentiles.
+        self.service_id = str(next(_SERVICE_IDS))
+        const = {"service": self.service_id}
+        self.stats = OM.stats_view(
+            "repro_serve_events_total",
             ("batches", "requests", "padded_cols", "modeled_bytes",
-             "retries", "errors", "deadline_exceeded"), 0)
-        self.queue_depth = 0
+             "retries", "errors", "deadline_exceeded"),
+            help="SolverService lifetime event counts by kind.",
+            const=const,
+        )
+        self.queue_depth = OM.REGISTRY.gauge(
+            "repro_serve_queue_depth",
+            "Requests waiting for the next flush.",
+            labelnames=("service",),
+        ).labels(**const)
+        self.flush_latency = OM.REGISTRY.histogram(
+            "repro_serve_flush_latency_seconds",
+            "Wall-clock seconds per SolverService.flush call.",
+            labelnames=("service",),
+        ).labels(**const)
+        self.request_bytes = OM.REGISTRY.histogram(
+            "repro_serve_request_bytes",
+            "Modeled streamed bytes charged to each served request.",
+            labelnames=("service",),
+            buckets=OM.DEFAULT_BYTE_BUCKETS,
+        ).labels(**const)
 
     # -- registration ------------------------------------------------------
 
@@ -295,7 +329,7 @@ class SolverService:
         self._pending.append(SolveRequest(
             rid, handle, b.to(torch.float64).contiguous(), float(tol), x0,
             deadline_s=deadline_s, t_submit=time.monotonic(), tags=tags))
-        self.queue_depth = len(self._pending)
+        self.queue_depth.set(len(self._pending))
         return rid
 
     # -- batch execution ---------------------------------------------------
@@ -309,6 +343,7 @@ class SolverService:
         whose solve throws degrades to error reports (``health="error"``,
         not converged, no solution) for its requests, and every returned
         solution is either finite or flagged by a non-ok health."""
+        t0 = time.perf_counter()
         self._solutions.clear()
         buckets: Dict[tuple, tuple] = {}
         for req in self._pending:
@@ -316,27 +351,35 @@ class SolverService:
                 else self._ops[req.handle].tags
             key = (req.handle, req.tol, _tags_token(eff))
             buckets.setdefault(key, (eff, []))[1].append(req)
+        drained = len(self._pending)
         self._pending = []
-        self.queue_depth = 0
+        self.queue_depth.set(0)
 
         reports: Dict[int, SolveReport] = {}
-        for (handle, tol, _), (eff, reqs) in buckets.items():
-            op = self._ops[handle]
-            for i in range(0, len(reqs), self.slots):
-                chunk = reqs[i:i + self.slots]
-                try:
-                    reports.update(self._run_slot(op, tol, chunk, tags=eff))
-                except Exception:  # degraded, never propagated
-                    self.stats["errors"] += 1
-                    for req in chunk:
-                        self._solutions.pop(req.id, None)
-                        reports[req.id] = SolveReport(
-                            id=req.id, handle=op.name, iters=0,
-                            relres=float("inf"), converged=False, tag=0,
-                            switch_iters=np.full(2, -1, np.int64),
-                            est_bytes=0, batch_size=len(chunk),
-                            health="error",
-                        )
+        with OT.span("serve.flush", service=self.service_id,
+                     requests=drained) as attrs:
+            for (handle, tol, _), (eff, reqs) in buckets.items():
+                op = self._ops[handle]
+                for i in range(0, len(reqs), self.slots):
+                    chunk = reqs[i:i + self.slots]
+                    try:
+                        reports.update(
+                            self._run_slot(op, tol, chunk, tags=eff))
+                    except Exception:  # degraded, never propagated
+                        self.stats["errors"] += 1
+                        for req in chunk:
+                            self._solutions.pop(req.id, None)
+                            reports[req.id] = SolveReport(
+                                id=req.id, handle=op.name, iters=0,
+                                relres=float("inf"), converged=False, tag=0,
+                                switch_iters=np.full(2, -1, np.int64),
+                                est_bytes=0, batch_size=len(chunk),
+                                health="error",
+                            )
+            attrs["bytes"] = sum(r.est_bytes for r in reports.values())
+        for rep in reports.values():
+            self.request_bytes.observe(rep.est_bytes)
+        self.flush_latency.observe(time.perf_counter() - t0)
         return reports
 
     def _run_slot(self, op: _Operator, tol: float,

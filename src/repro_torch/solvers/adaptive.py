@@ -26,8 +26,9 @@ The segments run through ``solvers.cg``'s loop with its ``resume``,
 over zeroed tails, bitwise the reference's masked decode.  The planner is
 host numpy in the reference's order, the true residual and ``||b||`` the
 reference's norm bit for bit (``cg._norm``), so ``iters``, the map, the
-promotions, ``spmv_bytes`` and ``x`` are the reference's.  The trace span
-(``OT.span``) is not ported (ROADMAP queue 1 item 12).
+promotions, ``spmv_bytes`` and ``x`` are the reference's.  The planning
+and the segments run inside the ``solve.adaptive`` span (``obs.trace``);
+the result carries no flight recording, as the reference's does not.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ import torch
 
 from repro_torch.core import precision as P
 from repro_torch.core.tagmap import GROUP_SIZE, TagMap, normalize_tags
+from repro_torch.obs import trace as OT
 from repro_torch.sparse.csr import GSECSR
 
 __all__ = ["AdaptiveResult", "Promotion", "solve_adaptive"]
@@ -252,169 +254,171 @@ def solve_adaptive(
         promotions.append(Promotion(0, int((tm.tags > 1).sum()), tm.min_tag,
                                     tm.max_tag, tm.crc32))
 
-    planned = True  # an upfront plan or a seed disables the beta plan
-    if tags0 is not None:
-        tm = _init_map(tags0, m, group_size)
-    elif profile == "neumann":
-        with stage("plan"):
-            xh = _abs_neumann_profile(a, b.cpu().numpy())
-        tm = plan(xh)
-        upfront(tm)
-    elif profile == "probe":
-        with stage("solve"):
-            pr, _ = _solve_pcg(_gsecsr_operator(a), _probe_jacobi(a), b, x,
-                               torch.tensor(0.0, dtype=b.dtype,
-                                            device=b.device),
-                               max(int(probe_iters), 1),
-                               _pin_params(params, 1), init_tag=1,
-                               guards=None)
-        probe_done = int(pr.iters)
-        bytes_ += (probe_done + 1) * a.bytes_touched(1)
-        xh = np.abs(pr.x.cpu().numpy())
-        if not np.isfinite(xh).all() or xh.max() == 0:
-            xh = np.abs(b.cpu().numpy())
+    with OT.span("solve.adaptive", n=m, tol=float(tol), chunk=int(chunk)):
+        planned = True  # an upfront plan or a seed disables the beta plan
+        if tags0 is not None:
+            tm = _init_map(tags0, m, group_size)
+        elif profile == "neumann":
+            with stage("plan"):
+                xh = _abs_neumann_profile(a, b.cpu().numpy())
+            tm = plan(xh)
+            upfront(tm)
+        elif profile == "probe":
+            with stage("solve"):
+                pr, _ = _solve_pcg(_gsecsr_operator(a), _probe_jacobi(a), b, x,
+                                   torch.tensor(0.0, dtype=b.dtype,
+                                                device=b.device),
+                                   max(int(probe_iters), 1),
+                                   _pin_params(params, 1), init_tag=1,
+                                   guards=None)
+            probe_done = int(pr.iters)
+            bytes_ += (probe_done + 1) * a.bytes_touched(1)
+            xh = np.abs(pr.x.cpu().numpy())
+            if not np.isfinite(xh).all() or xh.max() == 0:
+                xh = np.abs(b.cpu().numpy())
+            else:
+                xh = _trim(xh, float(pr.relres))
+            tm = plan(xh)
+            upfront(tm)
         else:
-            xh = _trim(xh, float(pr.relres))
-        tm = plan(xh)
-        upfront(tm)
-    else:
-        tm = TagMap.for_rows(m, 1, group_size)
-        planned = False
+            tm = TagMap.for_rows(m, 1, group_size)
+            planned = False
 
-    hooks = dict(guards=None, return_state=True)
-    if precond is None:
-        def run_chunk(a_eff, x_start, state, stop, pinned, itag):
-            return _solve_cg_fused(a_eff, b, x_start, seg_tol_t, maxiter,
-                                   pinned, init_tag=itag, resume=state,
-                                   stop_at=stop, **hooks)
-    elif hasattr(precond, "apply_at"):
-        def run_chunk(a_eff, x_start, state, stop, pinned, itag):
-            return _solve_pcg_fused(a_eff, precond, b, x_start, seg_tol_t,
-                                    maxiter, pinned, init_tag=itag,
-                                    resume=state, stop_at=stop, **hooks)
-    else:
-        apply_m = precond if callable(precond) else precond.apply
+        hooks = dict(guards=None, return_state=True)
+        if precond is None:
+            def run_chunk(a_eff, x_start, state, stop, pinned, itag):
+                return _solve_cg_fused(a_eff, b, x_start, seg_tol_t, maxiter,
+                                       pinned, init_tag=itag, resume=state,
+                                       stop_at=stop, **hooks)
+        elif hasattr(precond, "apply_at"):
+            def run_chunk(a_eff, x_start, state, stop, pinned, itag):
+                return _solve_pcg_fused(a_eff, precond, b, x_start, seg_tol_t,
+                                        maxiter, pinned, init_tag=itag,
+                                        resume=state, stop_at=stop, **hooks)
+        else:
+            apply_m = precond if callable(precond) else precond.apply
 
-        def run_chunk(a_eff, x_start, state, stop, pinned, itag):
-            return _solve_pcg(_gsecsr_operator(a_eff), apply_m, b, x_start,
-                              seg_tol_t, maxiter, pinned, init_tag=itag,
-                              resume=state, stop_at=stop, **hooks)
+            def run_chunk(a_eff, x_start, state, stop, pinned, itag):
+                return _solve_pcg(_gsecsr_operator(a_eff), apply_m, b, x_start,
+                                  seg_tol_t, maxiter, pinned, init_tag=itag,
+                                  resume=state, stop_at=stop, **hooks)
 
-    def true_relres(xv) -> float:
-        with stage("true_residual"):
-            return float(_norm(b - gse_matvec(a, xv, tag3)) / bnorm)
+        def true_relres(xv) -> float:
+            with stage("true_residual"):
+                return float(_norm(b - gse_matvec(a, xv, tag3)) / bnorm)
 
-    def replan(tm, xv, rel, glob, force):
-        """(Re)plan from the live iterate; ``force`` (the recurrence
-        exhausted) escalates the worst open contributors even when the
-        model says the map already fits."""
-        with stage("plan"):
-            sc = P.decode_error_scores(
-                a, _trim(np.abs(xv.cpu().numpy()), rel), group_size)
-            tm2 = P.plan_tagmap(sc, theta * tol * bnorm, tags0=tm,
-                                group_size=group_size)
-            if force and tm2 == tm:
-                tm2 = P.promote_groups(tm, P.map_floor_contrib(sc, tm.tags),
-                                       frac=promote_frac)
-        if tm2 != tm:
-            promotions.append(Promotion(
-                glob, int((tm2.tags != tm.tags).sum()), tm2.min_tag,
-                tm2.max_tag, tm2.crc32))
-        return tm2
-
-    # ``res.iters`` counts from the start of the current segment (a
-    # restart re-enters the init); ``seg_off`` holds the earlier segments,
-    # so every reported and billed iteration is global.  Every chunk
-    # boundary measures the true tag-3 residual (billed): the stop test,
-    # the explore plan's trigger and the final verify.
-    state = None
-    seg_off = 0
-    seg_it = 0
-    chunks = 0
-    exhausted = False
-    demoted = False
-    res = None
-    tr = np.inf
-
-    a_eff = a_tm = None
-    while True:
-        if a_tm is not tm:  # a new map: its masked operand (cached by crc)
-            with stage("mask"):
-                a_eff, a_tm = masked_for_tagmap(a, tm), tm
-        pinned = _pin_params(params, tm.max_tag)
-        if state is None:
-            bytes_ += a.bytes_touched(tm)  # fresh initial residual SpMV
-        stop = min(seg_it + chunk, max(maxiter - seg_off, 1))
-        with stage("solve"):
-            res, _, state = run_chunk(a_eff, x, state, stop, pinned,
-                                      tm.max_tag)
-        chunks += 1
-        new_seg_it = int(res.iters)
-        bytes_ += (new_seg_it - seg_it) * a.bytes_touched(tm)
-        glob = seg_off + new_seg_it
-        relres = float(res.relres)
-        tr = true_relres(res.x)
-        bytes_ += a.bytes_touched(3)
-
-        if tr <= tol or glob >= maxiter:
-            break
-
-        rec_done = np.isfinite(relres) and relres <= seg_tol
-        plan_now = (not planned and np.isfinite(relres)
-                    and relres <= beta * tol)
-
-        if (planned and not demoted and not rec_done
-                and np.isfinite(relres) and tr > 3.0 * tol):
-            # Demote pass (one adoption at most): an upfront plan came
-            # from an approximate profile and may over-promote; re-plan
-            # from the sharper live iterate and adopt a strictly cheaper
-            # map.
-            tmf = plan(_trim(np.abs(res.x.cpu().numpy()), tr))
-            if (tmf != tm
-                    and a.bytes_touched(tmf) < 0.93 * a.bytes_touched(tm)):
-                demoted = True
+        def replan(tm, xv, rel, glob, force):
+            """(Re)plan from the live iterate; ``force`` (the recurrence
+            exhausted) escalates the worst open contributors even when the
+            model says the map already fits."""
+            with stage("plan"):
+                sc = P.decode_error_scores(
+                    a, _trim(np.abs(xv.cpu().numpy()), rel), group_size)
+                tm2 = P.plan_tagmap(sc, theta * tol * bnorm, tags0=tm,
+                                    group_size=group_size)
+                if force and tm2 == tm:
+                    tm2 = P.promote_groups(
+                        tm, P.map_floor_contrib(sc, tm.tags),
+                        frac=promote_frac)
+            if tm2 != tm:
                 promotions.append(Promotion(
-                    glob, int((tmf.tags != tm.tags).sum()),
-                    tmf.min_tag, tmf.max_tag, tmf.crc32))
-                tm = tmf
+                    glob, int((tm2.tags != tm.tags).sum()), tm2.min_tag,
+                    tm2.max_tag, tm2.crc32))
+            return tm2
+
+        # ``res.iters`` counts from the start of the current segment (a
+        # restart re-enters the init); ``seg_off`` holds the earlier segments,
+        # so every reported and billed iteration is global.  Every chunk
+        # boundary measures the true tag-3 residual (billed): the stop test,
+        # the explore plan's trigger and the final verify.
+        state = None
+        seg_off = 0
+        seg_it = 0
+        chunks = 0
+        exhausted = False
+        demoted = False
+        res = None
+        tr = np.inf
+
+        a_eff = a_tm = None
+        while True:
+            if a_tm is not tm:  # a new map: its masked operand (cached by crc)
+                with stage("mask"):
+                    a_eff, a_tm = masked_for_tagmap(a, tm), tm
+            pinned = _pin_params(params, tm.max_tag)
+            if state is None:
+                bytes_ += a.bytes_touched(tm)  # fresh initial residual SpMV
+            stop = min(seg_it + chunk, max(maxiter - seg_off, 1))
+            with stage("solve"):
+                res, _, state = run_chunk(a_eff, x, state, stop, pinned,
+                                          tm.max_tag)
+            chunks += 1
+            new_seg_it = int(res.iters)
+            bytes_ += (new_seg_it - seg_it) * a.bytes_touched(tm)
+            glob = seg_off + new_seg_it
+            relres = float(res.relres)
+            tr = true_relres(res.x)
+            bytes_ += a.bytes_touched(3)
+
+            if tr <= tol or glob >= maxiter:
+                break
+
+            rec_done = np.isfinite(relres) and relres <= seg_tol
+            plan_now = (not planned and np.isfinite(relres)
+                        and relres <= beta * tol)
+
+            if (planned and not demoted and not rec_done
+                    and np.isfinite(relres) and tr > 3.0 * tol):
+                # Demote pass (one adoption at most): an upfront plan came
+                # from an approximate profile and may over-promote; re-plan
+                # from the sharper live iterate and adopt a strictly cheaper
+                # map.
+                tmf = plan(_trim(np.abs(res.x.cpu().numpy()), tr))
+                if (tmf != tm
+                        and a.bytes_touched(tmf) < 0.93 * a.bytes_touched(tm)):
+                    demoted = True
+                    promotions.append(Promotion(
+                        glob, int((tmf.tags != tm.tags).sum()),
+                        tmf.min_tag, tmf.max_tag, tmf.crc32))
+                    tm = tmf
+                    x = res.x
+                    state = None
+                    seg_off = glob
+                    seg_it = 0
+                    continue
+
+            if rec_done or plan_now or not np.isfinite(relres):
+                tm2 = replan(tm, res.x, tr, glob, force=rec_done)
+                planned = True
+                if tm2 == tm:
+                    if rec_done:
+                        if exhausted:
+                            break  # fully promoted and restarted once
+                        exhausted = tm.min_tag == 3
+                    else:
+                        # The explore plan kept the uniform map: no operand
+                        # change, the recurrence keeps running.
+                        seg_it = new_seg_it
+                        continue
+                tm = tm2
                 x = res.x
                 state = None
                 seg_off = glob
                 seg_it = 0
                 continue
 
-        if rec_done or plan_now or not np.isfinite(relres):
-            tm2 = replan(tm, res.x, tr, glob, force=rec_done)
-            planned = True
-            if tm2 == tm:
-                if rec_done:
-                    if exhausted:
-                        break  # fully promoted and restarted once
-                    exhausted = tm.min_tag == 3
-                else:
-                    # The explore plan kept the uniform map: no operand
-                    # change, the recurrence keeps running.
-                    seg_it = new_seg_it
-                    continue
-            tm = tm2
-            x = res.x
-            state = None
-            seg_off = glob
-            seg_it = 0
-            continue
+            seg_it = new_seg_it
 
-        seg_it = new_seg_it
-
-    res_x = res.x.reshape(orig_shape)
-    return AdaptiveResult(
-        x=res_x,
-        iters=seg_off + int(res.iters),
-        relres=float(res.relres),
-        true_relres=float(tr) if np.isfinite(tr) else true_relres(res.x),
-        converged=bool(np.isfinite(tr) and tr <= tol),
-        tagmap=tm,
-        promotions=tuple(promotions),
-        spmv_bytes=int(bytes_),
-        chunks=chunks,
-        probe_iters=probe_done,
-    )
+        res_x = res.x.reshape(orig_shape)
+        return AdaptiveResult(
+            x=res_x,
+            iters=seg_off + int(res.iters),
+            relres=float(res.relres),
+            true_relres=float(tr) if np.isfinite(tr) else true_relres(res.x),
+            converged=bool(np.isfinite(tr) and tr <= tol),
+            tagmap=tm,
+            promotions=tuple(promotions),
+            spmv_bytes=int(bytes_),
+            chunks=chunks,
+            probe_iters=probe_done,
+        )

@@ -51,8 +51,16 @@ runs the masked operand (``kernels.ops.masked_for_tagmap``) for the whole
 batch at the map's max tag, the monitor pinned there, as ``solve_cg``
 does; ``"adaptive"`` is single-RHS and refused.
 
-Not yet ported (ROADMAP queue 1): ``flight=`` (item 12) and sharded
-operands (item 15).
+``flight=`` (``obs.flight``; the reference's :184-187, :211-212, :254-265
+and :313-315) gives every column its own recorder ring, stacked along a
+leading nrhs axis (``obs.flight.split_batched`` splits it): a row per
+live iteration of the column (alpha, beta, ``p.Ap``, the guard's health),
+gated on the column's ``active``.  ``solve_cg_batched`` and
+``solve_pcg_batched`` run inside the ``solve.cg_batched``/
+``solve.pcg_batched`` spans; ``BatchedIRResult.flight`` lists the
+stacked rings of the corrections.
+
+Not yet ported (ROADMAP queue 1 item 15): sharded operands.
 """
 from __future__ import annotations
 
@@ -66,6 +74,8 @@ from repro_torch.core.gse import _np
 from repro_torch.kernels.gse_spmm import gse_spmm_csr_f64, gse_spmm_sell_f64
 from repro_torch.kernels.vec_f64 import (fma_axpy_cols, on_device,
                                          ref_norm_cols, seq_dot_cols, sqrt_rn)
+from repro_torch.obs import flight as OF
+from repro_torch.obs import trace as OT
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
     GuardParams,
@@ -98,6 +108,9 @@ class BatchedCGResult(NamedTuple):
     # recovery is the serving layer's bounded tag-3 retry.
     health: torch.Tensor = HEALTH_OK
     trip_iter: torch.Tensor = -1
+    # Stacked per-column flight-recorder states (leading nrhs axis; None
+    # when recording is off): ``obs.flight.split_batched`` splits them.
+    flight: object = None
 
 
 def _normalize_block(b, x0, device):
@@ -147,7 +160,7 @@ def _cg_update_cols(x, r, p, rs, ap, active, device, apply_z=None):
 def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
                          init_tag: int, matvec: Callable,
                          guards: GuardParams | None, device,
-                         apply_m: Callable | None = None):
+                         apply_m: Callable | None = None, flight=None):
     """The batched stepped CG and PCG loop over ``(nrhs, n)`` blocks
     ``b``/``x0``.
 
@@ -155,7 +168,8 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
     ``v``, column j at the device tag ``tags[j]`` (rows of inactive
     columns are ignored); ``apply_m(v, tags, active)`` (PCG) returns
     ``M^{-1} v`` the same way, and each column then also carries ``z`` and
-    ``rz = r.z``.  Returns a :class:`BatchedCGResult`.
+    ``rz = r.z``.  ``flight`` (a ``FlightParams``) stacks a recorder ring
+    per column.  Returns a :class:`BatchedCGResult`.
     """
     nrhs = b.shape[0]
     pcg = apply_m is not None
@@ -187,6 +201,8 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
     state = dict(x=x0, r=r0, p=p0, rs=rs0 if pcg else rr0, rr=rr0,
                  it=torch.zeros(nrhs, dtype=torch.int32, device=b.device),
                  cols=cols)
+    if flight is not None:
+        state["fl"] = OF.flight_init(flight, b.dtype, b.device, batch=nrhs)
 
     def col_active(s):
         alive = (relres(s["rr"]) > tol) & (s["it"] < maxiter)
@@ -217,13 +233,25 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
                     finite_aux=(rs[j],) if pcg else ())
             cols.append(_freeze(act[j], new, c))
         live = act[:, None]
-        return dict(x=torch.where(live, x, s["x"]),
-                    r=torch.where(live, r, s["r"]),
-                    p=torch.where(live, p, s["p"]),
-                    rs=torch.where(act, rs, s["rs"]),
-                    rr=torch.where(act, rr, s["rr"]),
-                    it=torch.where(act, s["it"] + 1, s["it"]),
-                    cols=cols)
+        out = dict(x=torch.where(live, x, s["x"]),
+                   r=torch.where(live, r, s["r"]),
+                   p=torch.where(live, p, s["p"]),
+                   rs=torch.where(act, rs, s["rs"]),
+                   rr=torch.where(act, rr, s["rr"]),
+                   it=torch.where(act, s["it"] + 1, s["it"]),
+                   cols=cols)
+        if flight is not None:
+            # Observation only: alpha and beta from the scalars the step
+            # produced (the r.z recurrence under PCG, r.r under CG), a row
+            # for each active column.
+            out["fl"] = OF.flight_record(
+                s["fl"], it=s["it"], relres=rel, tag=tags,
+                health=(torch.stack([c["g"]["health"] for c in cols])
+                        if guards is not None else None),
+                a0=s["rs"] / torch.where(denom == 0, 1.0, denom),
+                a1=rs / torch.where(s["rs"] == 0, 1.0, s["rs"]),
+                a2=denom, active=act)
+        return out
 
     act = col_active(state)
     while bool(act.any()):  # the one host sync per chunk
@@ -257,6 +285,7 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
         converged=converged,
         health=health,
         trip_iter=trip_iter,
+        flight=state.get("fl"),
     )
 
 
@@ -290,23 +319,25 @@ def _per_column(apply: Callable) -> Callable:
 
 
 def _solve_cg_batched_fused(a, b, x0, tol, maxiter, params, init_tag=1,
-                            guards=None, device="cuda"):
+                            guards=None, device="cuda", flight=None):
     """Fused path: one C64 (``GSECSR``) or C′64 (``GSESellC``) launch per
     iteration serves every column."""
     return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
-                                _spmm(a, device), guards, device)
+                                _spmm(a, device), guards, device,
+                                flight=flight)
 
 
 def _solve_cg_batched(apply_a: Callable, b, x0, tol, maxiter, params,
-                      init_tag=1, guards=None, device="cuda"):
+                      init_tag=1, guards=None, device="cuda", flight=None):
     """Generic path: ``apply_a(v, tag)`` on each column at its device
     tag."""
     return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
-                                _per_column(apply_a), guards, device)
+                                _per_column(apply_a), guards, device,
+                                flight=flight)
 
 
 def _solve_pcg_batched_fused(a, m, b, x0, tol, maxiter, params, init_tag=1,
-                             guards=None, device="cuda"):
+                             guards=None, device="cuda", flight=None):
     """Fused path: per iteration one C64/C′64 launch for the operator and
     the preconditioner's column apply (a gather of decoded diagonals, or
     C64 on block-Jacobi's inverse), every column at its own tag."""
@@ -316,17 +347,17 @@ def _solve_pcg_batched_fused(a, m, b, x0, tol, maxiter, params, init_tag=1,
 
     return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
                                 _spmm(a, device), guards, device,
-                                apply_m=apply_m)
+                                apply_m=apply_m, flight=flight)
 
 
 def _solve_pcg_batched(apply_a: Callable, apply_m: Callable, b, x0, tol,
                        maxiter, params, init_tag=1, guards=None,
-                       device="cuda"):
+                       device="cuda", flight=None):
     """Generic path: ``apply_a(v, tag)`` and ``apply_m(r, tag)`` on each
     column at its device tag."""
     return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
                                 _per_column(apply_a), guards, device,
-                                apply_m=_per_column(apply_m))
+                                apply_m=_per_column(apply_m), flight=flight)
 
 
 def _batched_tag_axis(tags, apply_a, m: int, params):
@@ -385,12 +416,12 @@ def solve_cg_batched(
     column freezes and reports its health code (no in-batch escalation).
     An int ``tags`` (or a uniform ``TagMap``) starts every column's
     monitor at that tag; a non-uniform map runs the masked operand at its
-    max tag, the monitor pinned.  ``b`` and ``x0`` are ``(n,)`` or ``(n,
-    nrhs)`` float64; the solution comes back ``(n, nrhs)``.
+    max tag, the monitor pinned.  ``flight`` (a ``FlightParams``) gives each
+    column a recorder ring (``BatchedCGResult.flight``, stacked).  ``b``
+    and ``x0`` are ``(n,)`` or ``(n, nrhs)`` float64; the solution comes
+    back ``(n, nrhs)``.
     """
-    if flight is not None:
-        raise NotImplementedError(
-            "flight= is not ported yet (ROADMAP queue 1 item 12)")
+    OF.check_flight(flight)
     if params is None:
         params = P.MonitorParams.for_cg()
     init_tag, apply_a, params = _batched_tag_axis(
@@ -408,9 +439,11 @@ def solve_cg_batched(
         raise TypeError(f"b must be float64, got {b.dtype}")
     tol_ = torch.tensor(tol, dtype=b.dtype, device=b.device)
     solve = _solve_cg_batched_fused if fused else _solve_cg_batched
-    return solve(apply_a, b.t().contiguous(), x0.t().contiguous(), tol_,
-                 maxiter, params, init_tag=init_tag, guards=guards,
-                 device=device)
+    with OT.span("solve.cg_batched", n=int(b.shape[0]),
+                 nrhs=int(b.shape[1]), tol=float(tol)):
+        return solve(apply_a, b.t().contiguous(), x0.t().contiguous(), tol_,
+                     maxiter, params, init_tag=init_tag, guards=guards,
+                     device=device, flight=flight)
 
 
 def solve_pcg_batched(
@@ -438,11 +471,10 @@ def solve_pcg_batched(
     operator or a callable ``precond(r, tag)`` the generic one; the two
     give identical results.  ``guards`` work as in
     :func:`solve_cg_batched` and also flag ``z.r < 0`` per column;
-    ``tags`` too (a non-uniform map's preconditioner runs at its max tag).
+    ``tags`` and ``flight`` too (a non-uniform map's preconditioner runs at
+    its max tag).
     """
-    if flight is not None:
-        raise NotImplementedError(
-            "flight= is not ported yet (ROADMAP queue 1 item 12)")
+    OF.check_flight(flight)
     if params is None:
         params = P.MonitorParams.for_cg()
     init_tag, apply_a, params = _batched_tag_axis(
@@ -460,14 +492,18 @@ def solve_pcg_batched(
         raise TypeError(f"b must be float64, got {b.dtype}")
     tol_ = torch.tensor(tol, dtype=b.dtype, device=b.device)
     bt, x0t = b.t().contiguous(), x0.t().contiguous()
-    if gse_op and hasattr(precond, "apply_cols"):
-        return _solve_pcg_batched_fused(apply_a, precond, bt, x0t, tol_,
-                                        maxiter, params, init_tag=init_tag,
-                                        guards=guards, device=device)
-    apply_m = precond if callable(precond) else precond.apply
-    op = _gsecsr_operator(apply_a) if gse_op else apply_a
-    return _solve_pcg_batched(op, apply_m, bt, x0t, tol_, maxiter, params,
-                              init_tag=init_tag, guards=guards, device=device)
+    with OT.span("solve.pcg_batched", n=int(b.shape[0]),
+                 nrhs=int(b.shape[1]), tol=float(tol)):
+        if gse_op and hasattr(precond, "apply_cols"):
+            return _solve_pcg_batched_fused(
+                apply_a, precond, bt, x0t, tol_, maxiter, params,
+                init_tag=init_tag, guards=guards, device=device,
+                flight=flight)
+        apply_m = precond if callable(precond) else precond.apply
+        op = _gsecsr_operator(apply_a) if gse_op else apply_a
+        return _solve_pcg_batched(op, apply_m, bt, x0t, tol_, maxiter,
+                                  params, init_tag=init_tag, guards=guards,
+                                  device=device, flight=flight)
 
 
 class BatchedIRResult(NamedTuple):
@@ -478,7 +514,9 @@ class BatchedIRResult(NamedTuple):
     converged: np.ndarray      # (nrhs,) bool
     history: list              # nrhs arrays of outer residual trajectories
     health: np.ndarray = None  # (nrhs,) health codes, as IRResult's
-    flight: object = None      # the flight recorder is not ported (item 12)
+    # The stacked flight states of the inner batched solves, one per
+    # correction (None when recording is off).
+    flight: object = None
 
 
 def solve_ir_batched(
@@ -509,7 +547,9 @@ def solve_ir_batched(
     inner iteration 0.  The tag-3 residuals are applied column by column
     (A64, or the callable at tag 3, as the reference stacks them) and
     each column's norm is ``solve_ir``'s, so an active column's
-    trajectory is bitwise the single-RHS ``solve_ir``'s.
+    trajectory is bitwise the single-RHS ``solve_ir``'s.  ``flight`` (a
+    ``FlightParams``) collects each correction's stacked rings on
+    ``BatchedIRResult.flight``.
     """
     check_ir_options(apply_a, flight)
     gse_op = isinstance(apply_a, (GSECSR, GSESellC))
@@ -539,7 +579,8 @@ def solve_ir_batched(
     history = [[float(v)] for v in relres]
     active = (relres > tol) & np.isfinite(relres) & (outer < max_outer)
     kw = dict(tol=inner_tol, maxiter=inner_maxiter, params=params,
-              guards=guards, tags=tags, device=device)
+              guards=guards, flight=flight, tags=tags, device=device)
+    flights = [] if flight is not None else None
     while active.any():
         mask = torch.as_tensor(active, device=bt.device)
         # Converged columns drop out of the inner batch: a zero column
@@ -549,6 +590,8 @@ def solve_ir_batched(
             res = solve_pcg_batched(apply_a, r_in, precond, **kw)
         else:
             res = solve_cg_batched(apply_a, r_in, **kw)
+        if flights is not None:
+            flights.append(res.flight)
         inner_health[active] = res.health.cpu().numpy()[active]
         # A non-finite correction column is never folded into x; that
         # column stops with its inner health code.
@@ -576,7 +619,7 @@ def solve_ir_batched(
     return BatchedIRResult(
         x=x.t(), outer_iters=outer, inner_iters=total_inner, relres=relres,
         converged=converged, history=[np.asarray(h) for h in history],
-        health=health)
+        health=health, flight=flights)
 
 
 def column_tags_at(iters, switch_iters, it: int) -> np.ndarray:

@@ -38,8 +38,18 @@ at the map's max tag with the monitor pinned there, and recovery raises
 the map's floor (``run_with_recovery_map``); ``tags="adaptive"`` hands off
 to ``solvers.adaptive.solve_adaptive``.
 
-Not yet ported (ROADMAP queue 1): the flight recorder (``flight=``) and
-sharded operands.
+The flight recorder (``flight=``, ``obs.flight``; the reference's
+``_flight_init``/``_flight_body`` :183-205): the state carries a ring on
+the device and every live iteration appends a row (alpha, beta and the
+curvature ``p.Ap``, the guard's health after the update), gated on the
+iteration's ``active`` so frozen iterations write nothing; the row is
+pure observation, so the trajectory is bitwise the recorder-off one, and
+with ``flight=None`` the loop launches what it launched before.  A
+non-uniform map's rows carry the packed (min, max) tag pair
+(``_pack_map_flight``).  ``solve_cg`` and ``solve_pcg`` run inside the
+``solve.cg``/``solve.pcg`` spans (``obs.trace``).
+
+Not yet ported (ROADMAP queue 1): sharded operands.
 """
 from __future__ import annotations
 
@@ -51,6 +61,8 @@ import torch
 from repro_torch.core import precision as P
 from repro_torch.core.tagmap import normalize_tags
 from repro_torch.kernels.vec_f64 import ref_norm_cols, seq_dot, sqrt_rn
+from repro_torch.obs import flight as OF
+from repro_torch.obs import trace as OT
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
     GuardParams,
@@ -83,6 +95,9 @@ class CGResult(NamedTuple):
     # guard tripped (-1: never; >= 0 with health ok: tripped, recovered).
     health: torch.Tensor = HEALTH_OK
     trip_iter: torch.Tensor = -1
+    # The raw flight-recorder state (None when recording is off); decode
+    # with ``obs.flight.FlightLog.from_state``.
+    flight: object = None
 
 
 def _normalize_b_x0(b, x0, device=None):
@@ -150,7 +165,7 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
              params: P.MonitorParams, init_tag: int,
              guards: GuardParams | None, apply_m: Callable | None = None,
              resume: dict | None = None, stop_at: int | None = None,
-             return_state: bool = False):
+             return_state: bool = False, flight=None):
     """The stepped CG and PCG loop shared by the fused and generic paths.
 
     ``matvec(v, tag)`` forms the initial residual; ``step(s)`` returns
@@ -163,7 +178,8 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
     ``resume`` (a state this loop returned) skips the init and continues
     the exact operations the unchunked loop would run; ``stop_at`` (an
     iteration count) joins the loop condition, and the chunk it bounds
-    runs only the iterations left before it.
+    runs only the iterations left before it.  ``flight`` (a
+    ``FlightParams``) carries a recorder ring in the state under ``fl``.
     """
     bnorm = _norm(b)
     bnorm = torch.where(bnorm == 0, 1.0, bnorm)
@@ -192,6 +208,8 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
         if guards is not None:
             state["g"] = guard_init(relres(state["rr"]))
             state["ckpt"] = x0
+        if flight is not None:
+            state["fl"] = OF.flight_init(flight, b.dtype, b.device)
 
     def cond(s):
         ok = (relres(s["rr"]) > tol) & (s["it"] < maxiter)
@@ -201,7 +219,7 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
             ok = ok & (s["g"]["health"] == HEALTH_OK)
         return ok
 
-    def body(s):
+    def body(s, act):
         x, r, p, rs_new, rr_new, denom = step(s)
         rel = relres(rr_new)
         mon = P.record(s["mon"], rel)
@@ -219,6 +237,16 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
                            finite_aux=(rs_new,) if pcg else ())
             out["g"] = g
             out["ckpt"] = torch.where(g["health"] == HEALTH_OK, x, s["ckpt"])
+        if flight is not None:
+            # Observation only, after the guard: alpha and beta recomputed
+            # from the scalars the step produced, as the reference's fused
+            # path does; nothing here feeds back into the recurrence.
+            out["fl"] = OF.flight_record(
+                s["fl"], it=s["it"], relres=rel, tag=s["mon"].tag,
+                health=out["g"]["health"] if guards is not None else None,
+                a0=s["rs"] / torch.where(denom == 0, 1.0, denom),
+                a1=rs_new / torch.where(s["rs"] == 0, 1.0, s["rs"]),
+                a2=denom, active=act)
         return out
 
     while True:  # the one host sync per chunk
@@ -233,14 +261,20 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
                 break
             n = min(CHUNK, int(stop_at) - it)
         for _ in range(n):
-            state = _freeze(cond(state), body(state), state)
+            act = cond(state)
+            new = body(state, act)
+            fl = new.pop("fl", None)  # written only where act: no freeze
+            state = _freeze(act, new, state)
+            if fl is not None:
+                state["fl"] = fl
 
     rel = relres(state["rr"])
     conv = rel <= tol
     health, trip = finalize_health(state.get("g"), conv, rel)
     res = CGResult(x=state["x"], iters=state["it"], relres=rel,
                    tag=state["mon"].tag, switch_iters=state["switches"],
-                   converged=conv, health=health, trip_iter=trip)
+                   converged=conv, health=health, trip_iter=trip,
+                   flight=state.get("fl"))
     ckpt = state["ckpt"] if guards is not None else state["x"]
     if return_state:
         return res, ckpt, state
@@ -251,7 +285,7 @@ def _solve_cg_fused(a, b, x0, tol, maxiter, params, init_tag=1,
                     guards=None, **hooks):
     """Fused-path CG over a ``GSECSR`` or ``GSESellC``: each iteration is one
     ``fused_cg_step_g`` (the curvature it returns feeds the guards).
-    ``hooks``: ``resume``, ``stop_at``, ``return_state`` of
+    ``hooks``: ``resume``, ``stop_at``, ``return_state`` and ``flight`` of
     :func:`_cg_loop`."""
 
     def step(s):
@@ -336,14 +370,16 @@ def _finish_with_correction(res, b, tol, maxiter, apply3, resume):
         health=res2.health,
         trip_iter=torch.where(res2.trip_iter >= 0,
                               res2.trip_iter + res.iters, res.trip_iter),
+        # The resumed segment's recording (its ``it`` restarts at 0), or
+        # the first run's when the resume did not record.
+        flight=res2.flight if res2.flight is not None else res.flight,
     )
 
 
 def _check_unported(name, apply_a, flight):
-    """Raise for the options not ported yet."""
-    if flight is not None:
-        raise NotImplementedError(
-            "flight= is not ported yet (ROADMAP queue 1 item 12)")
+    """Refuse a ``flight=`` that is not a ``FlightParams`` and the
+    operands not ported yet."""
+    OF.check_flight(flight)
     if not isinstance(apply_a, (GSECSR, GSESellC)) and not callable(apply_a):
         raise NotImplementedError(
             f"{name} takes a GSECSR, a GSESellC or a callable; "
@@ -377,7 +413,17 @@ def _pin_params(params: P.MonitorParams, max_tag: int) -> P.MonitorParams:
     return dataclasses.replace(params, max_tag=max_tag)
 
 
-def _tagmap_run_cg(a, b, tol_, params, guards, tm):
+def _pack_map_flight(run_out, tme):
+    """Restamp a map segment's flight rows with the packed (min, max)
+    active tag pair (uniform maps keep the plain tag)."""
+    res, ckpt = run_out
+    if res.flight is None:
+        return res, ckpt
+    return res._replace(flight=OF.pack_state_tags(
+        res.flight, tme.min_tag, tme.max_tag)), ckpt
+
+
+def _tagmap_run_cg(a, b, tol_, params, guards, flight, tm):
     """The ``run(x_start, budget, floor)`` the per-group recovery ladder
     drives for CG: the operand masked at the floored map, decoded at its
     max tag, the monitor pinned."""
@@ -385,14 +431,16 @@ def _tagmap_run_cg(a, b, tol_, params, guards, tm):
 
     def run(x_start, budget, floor):
         tme = tm.floored(floor)
-        return _solve_cg_fused(masked_for_tagmap(a, tme), b, x_start, tol_,
-                               budget, _pin_params(params, tme.max_tag),
-                               init_tag=tme.max_tag, guards=guards)
+        return _pack_map_flight(_solve_cg_fused(
+            masked_for_tagmap(a, tme), b, x_start, tol_, budget,
+            _pin_params(params, tme.max_tag), init_tag=tme.max_tag,
+            guards=guards, flight=flight), tme)
 
     return run
 
 
-def _tagmap_run_pcg(a, precond, b, tol_, params, guards, fused: bool, tm):
+def _tagmap_run_pcg(a, precond, b, tol_, params, guards, flight,
+                    fused: bool, tm):
     """PCG twin of :func:`_tagmap_run_cg`; the preconditioner runs at the
     map's max tag (the charge ``iteration_stream_bytes`` models)."""
     from repro_torch.kernels.ops import masked_for_tagmap
@@ -405,12 +453,14 @@ def _tagmap_run_pcg(a, precond, b, tol_, params, guards, fused: bool, tm):
         masked = masked_for_tagmap(a, tme)
         pinned = _pin_params(params, tme.max_tag)
         if fused:
-            return _solve_pcg_fused(masked, precond, b, x_start, tol_,
-                                    budget, pinned, init_tag=tme.max_tag,
-                                    guards=guards)
-        return _solve_pcg(_gsecsr_operator(masked), apply_m, b, x_start,
-                          tol_, budget, pinned, init_tag=tme.max_tag,
-                          guards=guards)
+            out = _solve_pcg_fused(masked, precond, b, x_start, tol_,
+                                   budget, pinned, init_tag=tme.max_tag,
+                                   guards=guards, flight=flight)
+        else:
+            out = _solve_pcg(_gsecsr_operator(masked), apply_m, b, x_start,
+                             tol_, budget, pinned, init_tag=tme.max_tag,
+                             guards=guards, flight=flight)
+        return _pack_map_flight(out, tme)
 
     return run
 
@@ -463,6 +513,12 @@ def solve_cg(
     runs the masked operand at the map's max tag, the monitor pinned, and
     recovery raises the map's floor instead of the whole operator;
     ``"adaptive"`` hands off to :func:`solvers.adaptive.solve_adaptive`.
+
+    ``flight`` (an ``obs.flight.FlightParams``; default off) carries a
+    per-iteration recorder ring on the device through the loop, returned
+    raw on ``CGResult.flight`` (decode with ``FlightLog.from_state``);
+    the trajectory is bitwise the same either way.  After a recovery
+    restart the ring holds the last segment's rows.
     """
     _check_unported("solve_cg", apply_a, flight)
     if _adaptive(tags):
@@ -483,17 +539,22 @@ def solve_cg(
     tol_ = torch.tensor(tol, dtype=b.dtype, device=b.device)
     recover = recover and guards is not None
     if tm is not None:
-        run = _tagmap_run_cg(apply_a, b, tol_, params, guards, tm)
-        res = run_with_recovery_map(run, x0, maxiter, tm, recover=recover)
+        run = _tagmap_run_cg(apply_a, b, tol_, params, guards, flight, tm)
+        with OT.span("solve.cg", n=int(b.shape[0]), tol=float(tol),
+                     init_tag=tm.max_tag, fused=True):
+            res = run_with_recovery_map(run, x0, maxiter, tm,
+                                        recover=recover)
     else:
         solve = _solve_cg_fused if fused else _solve_cg
 
         def run(x_start, budget, tag):
             return solve(apply_a, b, x_start, tol_, budget, params,
-                         init_tag=tag, guards=guards)
+                         init_tag=tag, guards=guards, flight=flight)
 
-        res = run_with_recovery(run, x0, maxiter, init_tag=init_tag,
-                                recover=recover)
+        with OT.span("solve.cg", n=int(b.shape[0]), tol=float(tol),
+                     init_tag=init_tag, fused=fused):
+            res = run_with_recovery(run, x0, maxiter, init_tag=init_tag,
+                                    recover=recover)
     if not final_correction:
         return _restore_shape(res, orig_shape)
     tag3 = torch.full((), 3, dtype=torch.int32, device=b.device)
@@ -537,8 +598,8 @@ def solve_pcg(
     A ``GSECSR`` or ``GSESellC`` as ``apply_a`` with a preconditioner
     object selects the fused iteration path (``fused_pcg_step``), bitwise
     the generic path; it runs on the operand's device, a callable on
-    ``b``'s.  ``final_correction``, ``guards``, ``recover``, ``init_tag``
-    and ``tags`` are as in :func:`solve_cg` (a non-uniform map's
+    ``b``'s.  ``final_correction``, ``guards``, ``recover``, ``init_tag``,
+    ``tags`` and ``flight`` are as in :func:`solve_cg` (a non-uniform map's
     preconditioner runs at the map's max tag); a ``z.r < 0`` is a
     breakdown.  ``b``/``x0`` may be ``(n,)`` or ``(n, 1)``; the solution
     comes back in ``b``'s layout.
@@ -565,23 +626,29 @@ def solve_pcg(
     recover = recover and guards is not None
     if tm is not None:
         run = _tagmap_run_pcg(apply_a, precond, b, tol_, params, guards,
-                              fused, tm)
-        res = run_with_recovery_map(run, x0, maxiter, tm, recover=recover)
+                              flight, fused, tm)
+        with OT.span("solve.pcg", n=int(b.shape[0]), tol=float(tol),
+                     init_tag=tm.max_tag, fused=fused):
+            res = run_with_recovery_map(run, x0, maxiter, tm,
+                                        recover=recover)
     else:
         if fused:
             def run(x_start, budget, tag):
                 return _solve_pcg_fused(apply_a, precond, b, x_start, tol_,
                                         budget, params, init_tag=tag,
-                                        guards=guards)
+                                        guards=guards, flight=flight)
         else:
             apply_m = precond if callable(precond) else precond.apply
 
             def run(x_start, budget, tag):
                 return _solve_pcg(op, apply_m, b, x_start, tol_, budget,
-                                  params, init_tag=tag, guards=guards)
+                                  params, init_tag=tag, guards=guards,
+                                  flight=flight)
 
-        res = run_with_recovery(run, x0, maxiter, init_tag=init_tag,
-                                recover=recover)
+        with OT.span("solve.pcg", n=int(b.shape[0]), tol=float(tol),
+                     init_tag=init_tag, fused=fused):
+            res = run_with_recovery(run, x0, maxiter, init_tag=init_tag,
+                                    recover=recover)
     if not final_correction:
         return _restore_shape(res, orig_shape)
     tag3 = torch.full((), 3, dtype=torch.int32, device=b.device)

@@ -31,8 +31,12 @@ vectorized sum order depends on ``restart``
 are bitwise the reference's on the CPU, with or without right
 preconditioning, and the card's are bitwise the CPU twin's.
 
-Not yet ported: the flight recorder (``flight=``, ROADMAP queue 1
-item 12).
+``flight=`` (``obs.flight``; the reference's :188-196) appends a row per
+live inner iteration to a ring carried across restarts: the Givens
+magnitude ``d`` (``H[j, j]`` after the rotation) and the subdiagonal
+``H[j+1, j]`` before it, gated on ``active``, so the rows are the
+iterations ``iters`` counts.  ``solve_gmres`` runs inside the
+``solve.gmres`` span.
 """
 from __future__ import annotations
 
@@ -45,6 +49,8 @@ from repro_torch.kernels.gmres_f64 import givens, givens_step, trsv_upper_ref
 from repro_torch.kernels.vec_f64 import (gemv_cols_ref,
                                          gemv_cols_sliced_ref, gemv_rows_ref,
                                          seq_dot)
+from repro_torch.obs import flight as OF
+from repro_torch.obs import trace as OT
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
     GuardParams,
@@ -75,6 +81,8 @@ class GMRESResult(NamedTuple):
     # inner iteration (-1: never).
     health: torch.Tensor = HEALTH_OK
     trip_iter: torch.Tensor = -1
+    # The raw flight-recorder state (None when recording is off).
+    flight: object = None
 
 
 def _givens(a: torch.Tensor, b: torch.Tensor):
@@ -91,7 +99,7 @@ def _i32(v: int, dev) -> torch.Tensor:
 
 def _solve_gmres(apply_a: Callable, b, x0, tol, restart: int, maxiter: int,
                  params: P.MonitorParams, init_tag: int = 1, apply_m=None,
-                 guards: GuardParams | None = None):
+                 guards: GuardParams | None = None, flight=None):
     """One guarded stepped-GMRES run; returns ``(GMRESResult, ckpt,
     monitor)`` with ``ckpt`` the last cycle-end iterate the guard judged
     healthy and finite.
@@ -99,7 +107,8 @@ def _solve_gmres(apply_a: Callable, b, x0, tol, restart: int, maxiter: int,
     ``apply_m`` (optional) right-preconditions: Arnoldi runs on
     ``A M^{-1}`` and each cycle's correction is mapped back through
     ``M^{-1}``.  Both apply at the monitor's current tag; the cycle's
-    correction at the cycle's end tag."""
+    correction at the cycle's end tag.  ``flight`` (a ``FlightParams``)
+    records a row per inner iteration."""
     dev, dtype = b.device, b.dtype
     n = b.shape[0]
     bnorm = _norm(b)
@@ -110,6 +119,7 @@ def _solve_gmres(apply_a: Callable, b, x0, tol, restart: int, maxiter: int,
     relres = _norm(b - apply_a(x0, mon.tag)) / bnorm
     switches = torch.full((2,), -1, dtype=torch.int32, device=dev)
     gd = guard_init(relres) if guards is not None else None
+    fs = OF.flight_init(flight, dtype, dev) if flight is not None else None
     x = ckpt = x0
     it = 0
 
@@ -165,6 +175,11 @@ def _solve_gmres(apply_a: Callable, b, x0, tol, restart: int, maxiter: int,
                     gd, _i32(it0 + s, dev), rel, guards,
                     breakdown=(hj1 == 0) & (resid > abstol),
                     finite_aux=(hj1,)), gd)
+            if fs is not None:  # observation only, after the guard
+                fs = OF.flight_record(
+                    fs, it=_i32(it0 + s, dev), relres=rel, tag=mon.tag,
+                    health=gd["health"] if gd is not None else None,
+                    a0=H[s, s], a1=hj1, active=active)
             mon = _freeze(active, mon2, mon)
             switches = torch.where(active, sw, switches)
             j = j + active.to(torch.int32)
@@ -187,7 +202,7 @@ def _solve_gmres(apply_a: Callable, b, x0, tol, restart: int, maxiter: int,
     health, trip = finalize_health(gd, conv, relres, x_finite=x_fin)
     res = GMRESResult(x=x, iters=_i32(it, dev), relres=relres, tag=mon.tag,
                       switch_iters=switches, converged=conv, health=health,
-                      trip_iter=trip)
+                      trip_iter=trip, flight=fs)
     return res, (ckpt if gd is not None else x), mon
 
 
@@ -218,12 +233,12 @@ def solve_gmres(
     ``guards``/``recover``/``init_tag``: in-loop guardrails plus
     checkpoint-rollback tag-escalation recovery, as in ``solve_cg``; GMRES
     checkpoints at restart-cycle granularity (x changes only at cycle
-    ends).  ``b``/``x0`` may be ``(n,)`` or ``(n, 1)``; the solution
-    comes back in ``b``'s layout.
+    ends).  ``flight`` (a ``FlightParams``) records one row per inner
+    iteration on ``GMRESResult.flight``, bitwise the same solve.
+    ``b``/``x0`` may be ``(n,)`` or ``(n, 1)``; the solution comes back in
+    ``b``'s layout.
     """
-    if flight is not None:
-        raise NotImplementedError(
-            "flight= is not ported yet (ROADMAP queue 1 item 12)")
+    OF.check_flight(flight)
     if not callable(apply_a):
         raise TypeError(f"solve_gmres takes an operator apply_a(x, tag); got "
                         f"{type(apply_a).__name__}")
@@ -240,10 +255,12 @@ def solve_gmres(
     def run(x_start, budget, tag):
         return _solve_gmres(apply_a, b, x_start, tol_, restart, budget,
                             params, init_tag=tag, apply_m=apply_m,
-                            guards=guards)[:2]
+                            guards=guards, flight=flight)[:2]
 
-    res = run_with_recovery(run, x0, maxiter, init_tag=init_tag,
-                            recover=recover and guards is not None)
+    with OT.span("solve.gmres", n=int(b.shape[0]), tol=float(tol),
+                 restart=restart, init_tag=init_tag):
+        res = run_with_recovery(run, x0, maxiter, init_tag=init_tag,
+                                recover=recover and guards is not None)
     if not final_correction:
         return _restore_shape(res, orig_shape)
     tag3 = torch.full((), 3, dtype=torch.int32, device=b.device)

@@ -30,8 +30,13 @@ each correction through ``solvers.adaptive.solve_adaptive``.  The outer
 tag-3 residual always reads the unmasked operand, so the refinement
 target stays the true operator.
 
-Not yet ported (ROADMAP queue 1): the flight recorder (``flight=``, item
-12) and sharded operands (item 15); each raises ``NotImplementedError``.
+``flight=`` (:64-67, :172, :207-209, :244) threads a ``FlightParams`` to
+every inner solve and collects each correction's recorder state on
+``IRResult.flight`` (the adaptive driver's results carry none).
+``solve_ir`` runs its corrections inside the ``solve.ir`` span.
+
+Not yet ported (ROADMAP queue 1 item 15): sharded operands, which raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ import torch
 
 from repro_torch.core import precision as P
 from repro_torch.kernels.vec_f64 import seq_dot
+from repro_torch.obs import flight as OF
+from repro_torch.obs import trace as OT
 from repro_torch.robustness.guards import (
     DEFAULT_GUARDS,
     GuardParams,
@@ -68,15 +75,15 @@ class IRResult(NamedTuple):
     # code, HEALTH_NONFINITE if the outer tag-3 residual went non-finite,
     # or HEALTH_STALLED on plain max_outer exhaustion.
     health: int = HEALTH_OK
-    flight: object = None     # the flight recorder is not ported (item 12)
+    # The inner solves' flight-recorder states, one per correction in
+    # outer-iteration order, when ``flight`` was requested.
+    flight: object = None
 
 
 def check_ir_options(apply_a, flight):
-    """Raise for the options not ported yet (shared with
-    ``batched.solve_ir_batched``)."""
-    if flight is not None:
-        raise NotImplementedError(
-            "flight= is not ported yet (ROADMAP queue 1 item 12)")
+    """Refuse a ``flight=`` that is not a ``FlightParams`` and the
+    operands not ported yet (shared with ``batched.solve_ir_batched``)."""
+    OF.check_flight(flight)
     if not isinstance(apply_a, (GSECSR, GSESellC)) and not callable(apply_a):
         raise NotImplementedError(
             f"iterative refinement takes a GSECSR, a GSESellC or a callable; "
@@ -113,8 +120,10 @@ def solve_ir(
     operand, ``"adaptive"`` runs them through the adaptive driver; the
     outer tag-3 residual reads the unmasked operand.  ``guards`` thread
     into every inner solve; a non-finite correction is never folded into
-    ``x`` and ``health`` names the failing stage.  ``b`` is ``(n,)`` or
-    ``(n, 1)``; ``x`` comes back in its layout.
+    ``x`` and ``health`` names the failing stage.  ``flight`` (a
+    ``FlightParams``) records every inner solve; ``IRResult.flight`` lists
+    their states.  ``b`` is ``(n,)`` or ``(n, 1)``; ``x`` comes back in
+    its layout.
     """
     if tags is not None and inner != "cg":
         raise ValueError("tags= requires inner='cg' (the GMRES inner "
@@ -123,8 +132,10 @@ def solve_ir(
                    inner_tol=inner_tol, inner_maxiter=inner_maxiter,
                    params=params, precond=precond, restart=restart,
                    guards=guards, flight=flight, tags=tags)
-    while _ir_active(st):
-        _ir_step(st)
+    with OT.span("solve.ir", n=int(st["b"].shape[0]), tol=float(tol),
+                 inner=inner):
+        while _ir_active(st):
+            _ir_step(st)
     return _ir_result(st)
 
 
@@ -159,8 +170,9 @@ def _ir_setup(apply_a, b, *, tol, max_outer, inner, inner_tol, inner_maxiter,
         orig_shape=orig_shape, bnorm=bnorm, tol=tol, max_outer=max_outer,
         inner=inner, inner_tol=inner_tol, inner_maxiter=inner_maxiter,
         params=params, precond=precond, restart=restart, guards=guards,
-        tags=tags, x=x, r=r, d=None, relres=relres, history=[relres],
-        total_inner=0, outer=0, inner_health=HEALTH_OK, stopped=False,
+        flight=flight, tags=tags, x=x, r=r, d=None, relres=relres,
+        history=[relres], total_inner=0, outer=0, inner_health=HEALTH_OK,
+        stopped=False, flights=[] if flight is not None else None,
     )
 
 
@@ -177,7 +189,7 @@ def _ir_step(st: dict) -> dict:
     non-finite correction, an inner solve that made no progress); ``d``
     keeps the last correction."""
     kw = dict(tol=st["inner_tol"], maxiter=st["inner_maxiter"],
-              params=st["params"], guards=st["guards"])
+              params=st["params"], guards=st["guards"], flight=st["flight"])
     if st["inner"] == "cg":
         if st["precond"] is not None:
             res = solve_pcg(st["apply_a"], st["r"], st["precond"],
@@ -189,6 +201,9 @@ def _ir_step(st: dict) -> dict:
                           restart=st["restart"], precond=st["precond"], **kw)
     st["inner_health"] = int(getattr(res, "health", HEALTH_OK))
     st["total_inner"] += int(res.iters)
+    res_flight = getattr(res, "flight", None)  # adaptive results carry none
+    if st["flights"] is not None and res_flight is not None:
+        st["flights"].append(res_flight)
     st["d"] = res.x
     if not bool(torch.isfinite(seq_dot(res.x, res.x))):
         st["stopped"] = True  # never fold a non-finite correction into x
@@ -223,4 +238,5 @@ def _ir_result(st: dict) -> IRResult:
         converged=converged,
         history=np.asarray(st["history"]),
         health=health,
+        flight=st["flights"],
     )

@@ -21,11 +21,13 @@ from repro.sparse import csr as J_csr  # noqa: E402
 from repro.sparse import generators as J_gen  # noqa: E402
 from repro.sparse.spmv import spmv as j_spmv  # noqa: E402
 
-from repro_torch.convert import gsecsr_from_repro  # noqa: E402
+from repro_torch.convert import csr_from_repro, gsecsr_from_repro  # noqa: E402,E501
 from repro_torch.core import precision as T_P  # noqa: E402
+from repro_torch.obs.flight import FlightParams  # noqa: E402
 from repro_torch.solvers import batched as T_b  # noqa: E402
 from repro_torch.solvers.cg import solve_cg  # noqa: E402
 from repro_torch.solvers.operators import make_gse_operator  # noqa: E402
+from repro_torch.solvers.precond import make_jacobi  # noqa: E402
 
 QS = dict(t=40, l=60, m=30)
 CPU = "cpu"
@@ -108,7 +110,8 @@ def test_fused_and_generic_paths_give_identical_results(rs8):
     fused = T_b.solve_cg_batched(rs8["tg"], b, **kw)
     generic = T_b.solve_cg_batched(make_gse_operator(rs8["tg"]), b, **kw)
     assert fused.switch_iters[0].tolist() == [120, 210]
-    for f in fused._fields:
+    assert fused.flight is generic.flight is None  # the recorder is off
+    for f in fused._fields[:-1]:
         assert torch.equal(getattr(fused, f), getattr(generic, f)), f
     off = T_b.solve_cg_batched(rs8["tg"], b, guards=None, **kw)
     for f in ("x", "iters", "relres", "tag", "switch_iters", "converged"):
@@ -164,13 +167,28 @@ def test_one_dimensional_b_and_int_tags(rs8):
 def test_unported_options_raise_not_implemented(rs8):
     tg = rs8["tg"]
     b = torch.from_numpy(rs8["b"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    short = dict(maxiter=20, params=T_P.MonitorParams(**QS), device=CPU)
+    off = T_b.solve_cg_batched(tg, b, **short)
+    on = T_b.solve_cg_batched(tg, b, flight=FlightParams(capacity=8),
+                              **short)
+    assert torch.equal(on.x, off.x)
+    assert on.flight["count"].tolist() == off.iters.tolist() == [20] * 3 + [0]
+    with pytest.raises(TypeError, match="FlightParams"):
         T_b.solve_cg_batched(tg, b, flight=object(), device=CPU)
     with pytest.raises(TypeError, match="TagMap"):  # not a precision axis
         T_b.solve_cg_batched(tg, b, tags=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="item 15"):
         T_b.solve_cg_batched(object(), b, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T_b.solve_pcg_batched(tg, b, object(), flight=object(), device=CPU)
+    a = J_gen.diag_rescale(J_gen.random_spd(400, seed=3), 8.0, 3)
+    m = make_jacobi(csr_from_repro(
+        {n: np.asarray(getattr(a, n)) for n in
+         ("rowptr", "col", "val", "row_ids")}, a.shape, device=CPU), k=8)
+    off = T_b.solve_pcg_batched(tg, b, m, **short)
+    on = T_b.solve_pcg_batched(tg, b, m, flight=FlightParams(capacity=8),
+                               **short)
+    assert torch.equal(on.x, off.x)
+    assert on.flight["count"].tolist() == off.iters.tolist()
+    with pytest.raises(TypeError, match="FlightParams"):
+        T_b.solve_pcg_batched(tg, b, m, flight=object(), device=CPU)
     with pytest.raises(NotImplementedError, match="item 15"):
         T_b.solve_ir_batched(object(), b, device=CPU)

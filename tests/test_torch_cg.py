@@ -24,7 +24,9 @@ from repro.sparse.spmv import spmv as j_spmv  # noqa: E402
 from repro_torch.convert import (csr_from_repro, gsecsr_from_repro,  # noqa: E402
                                  monitor_params_from_repro)
 from repro_torch.core import precision as T_P  # noqa: E402
+from repro_torch.obs.flight import FlightParams  # noqa: E402
 from repro_torch.robustness import guards as T_guards  # noqa: E402
+from repro_torch.robustness import faults as T_faults  # noqa: E402
 from repro_torch.solvers.cg import CHUNK, solve_cg  # noqa: E402
 from repro_torch.solvers.operators import (make_fixed_operator,  # noqa: E402
                                            make_gse_operator)
@@ -124,7 +126,8 @@ def test_fused_and_generic_paths_give_identical_results():
     kw = dict(tol=1e-8, maxiter=400, params=T_P.MonitorParams(**QS))
     fused = solve_cg(tg, torch.from_numpy(b), **kw)
     generic = solve_cg(make_gse_operator(tg), torch.from_numpy(b), **kw)
-    for f in fused._fields:
+    assert fused.flight is generic.flight is None  # the recorder is off
+    for f in fused._fields[:-1]:
         assert torch.equal(torch.as_tensor(getattr(fused, f)),
                            torch.as_tensor(getattr(generic, f))), f
 
@@ -149,12 +152,8 @@ def test_tag_escalation_recovery_matches_reference():
     tg = T_csr.pack_csr(T_gen.poisson2d(24, device="cpu"))
     b = np.array(j_spmv(a, jnp.ones(a.shape[1])))
     fast = dict(t=30, l=30, m=15)
-    base = make_gse_operator(tg)
-
-    def bad(v, tag):  # the reference fault: indefinite at tag 1 only
-        y = base(v, tag)
-        return torch.where(torch.as_tensor(tag) <= 1, -y, y)
-
+    # The same fault in both packages: indefinite at tag 1 only.
+    bad = T_faults.make_tag_fault_operator(tg, mode="indefinite", fail_tag=1)
     rj = j_solve_cg(make_tag_fault_operator(g, mode="indefinite", fail_tag=1),
                     jnp.asarray(b), tol=1e-8, maxiter=2000,
                     params=J_P.MonitorParams(**fast))
@@ -262,7 +261,14 @@ def test_input_shapes_and_unported_options():
     assert int(t3.tag) == 3 and t3.switch_iters.tolist() == [-1, -1]
     with pytest.raises(ValueError, match="dtype"):
         solve_cg(tg, torch.from_numpy(b), x0=torch.zeros(2000), **kw)
-    with pytest.raises(NotImplementedError, match="flight"):
+    short = dict(kw, maxiter=40)
+    off = solve_cg(tg, torch.from_numpy(b), **short)
+    on = solve_cg(tg, torch.from_numpy(b),
+                  flight=FlightParams(capacity=16), **short)
+    assert torch.equal(on.x, off.x)
+    assert int(on.flight["count"]) == int(off.iters) > 16  # wrapped
+    assert on.flight["ibuf"].shape == (16, 3)
+    with pytest.raises(TypeError, match="FlightParams"):
         solve_cg(tg, torch.from_numpy(b), flight=object(), **kw)
     with pytest.raises(TypeError, match="TagMap"):  # not a precision axis
         solve_cg(tg, torch.from_numpy(b), tags=object(), **kw)

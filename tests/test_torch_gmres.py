@@ -34,6 +34,7 @@ from repro.sparse.spmv import spmv as j_spmv  # noqa: E402
 from repro_torch.configs import paper_solver  # noqa: E402
 from repro_torch.convert import csr_from_repro, gsecsr_from_repro  # noqa: E402
 from repro_torch.core import precision as T_P  # noqa: E402
+from repro_torch.obs.flight import FlightParams  # noqa: E402
 from repro_torch.kernels import gmres_f64 as GF  # noqa: E402
 from repro_torch.kernels import vec_f64 as V  # noqa: E402
 from repro_torch.robustness import guards as T_guards  # noqa: E402
@@ -497,7 +498,11 @@ def test_b_layouts_and_unported_options():
     r2 = solve_gmres(op, torch.from_numpy(b)[:, None], **kw)
     assert tuple(r2.x.shape) == (b.shape[0], 1)
     assert torch.equal(r1.x, r2.x[:, 0])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    r3 = solve_gmres(op, torch.from_numpy(b),
+                     flight=FlightParams(capacity=32), **kw)
+    assert torch.equal(r3.x, r1.x)
+    assert int(r3.flight["count"]) == int(r1.iters)
+    with pytest.raises(TypeError, match="FlightParams"):
         solve_gmres(op, torch.from_numpy(b), flight=object(), **kw)
     with pytest.raises(TypeError, match="apply_a"):
         solve_gmres(tg, torch.from_numpy(b), **kw)

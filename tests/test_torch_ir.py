@@ -32,6 +32,7 @@ from repro.sparse.spmv import spmv as j_spmv  # noqa: E402
 from repro_torch.configs import paper_solver  # noqa: E402
 from repro_torch.convert import csr_from_repro, gsecsr_from_repro  # noqa: E402
 from repro_torch.core import precision as T_P  # noqa: E402
+from repro_torch.obs.flight import FlightParams  # noqa: E402
 from repro_torch.robustness import guards as T_guards  # noqa: E402
 from repro_torch.solvers import ir as T_ir  # noqa: E402
 from repro_torch.solvers import (make_gse_operator, make_jacobi,  # noqa: E402
@@ -261,7 +262,10 @@ def test_options_and_layouts(quick):
     assert torch.equal(r1.x, r2.x[:, 0])
     r3 = solve_ir(q["tg"], b, tags=2, **kw)  # an int tag threads through
     assert r3.inner_iters == 30 and not torch.equal(r3.x, r1.x)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    rf = solve_ir(q["tg"], b, flight=FlightParams(capacity=16), **kw)
+    assert torch.equal(rf.x, r1.x) and len(rf.flight) == r1.outer_iters == 1
+    assert int(rf.flight[0]["count"]) == r1.inner_iters == 30
+    with pytest.raises(TypeError, match="FlightParams"):
         solve_ir(q["tg"], b, flight=object())
     with pytest.raises(TypeError, match="TagMap"):  # not a precision axis
         solve_ir(q["tg"], b, tags=object())

@@ -5,6 +5,7 @@ fails without a card or without the rest of the repository.
 """
 import ast
 import inspect
+import os
 import shutil
 import subprocess
 import sys
@@ -17,7 +18,12 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
     (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "msgpack", "zstandard"}
+# The telemetry, fault and checkpoint modules: the card's machine has no
+# msgpack and no zstandard, so the checkpoint blob is the port's own.
+TELEMETRY = ["repro_torch.obs", "repro_torch.obs.metrics",
+             "repro_torch.obs.trace", "repro_torch.obs.flight",
+             "repro_torch.checkpoint.ckpt", "repro_torch.robustness.faults"]
 
 
 def _imported_roots(tree):
@@ -39,6 +45,20 @@ def test_port_module_imports_no_jax_and_no_reference(path):
         if isinstance(node, ast.Attribute) and node.attr == "compile":
             assert not (isinstance(node.value, ast.Name)
                         and node.value.id == "torch"), path.name
+
+
+@pytest.mark.parametrize("module", TELEMETRY)
+def test_telemetry_modules_load_no_jax_msgpack_or_zstandard(module):
+    """Imported alone, in a fresh interpreter, each module loads none of
+    the forbidden packages (nor anything that imports them)."""
+    code = (f"import sys, {module}; "
+            "bad = sorted({m.split('.')[0] for m in sys.modules} & "
+            f"set({sorted(FORBIDDEN)!r})); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def _device_defaults():

@@ -29,6 +29,7 @@ from repro_torch.configs import paper_solver  # noqa: E402
 from repro_torch.convert import csr_from_repro, gsecsr_from_repro  # noqa: E402
 from repro_torch.core import precision as T_P  # noqa: E402
 from repro_torch.kernels import ops as T_ops  # noqa: E402
+from repro_torch.obs.flight import FlightParams  # noqa: E402
 from repro_torch.solvers import (fused_pcg_step, make_block_jacobi,  # noqa: E402
                                  make_gse_operator, make_jacobi,
                                  make_precond_operator, make_spai0,
@@ -259,7 +260,12 @@ def test_final_correction_matches_jax(illcond):
 def test_unported_options_raise(illcond):
     _, _, ta, tg, b = illcond
     m = make_jacobi(ta, k=8)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    short = dict(tol=1e-8, maxiter=30, params=T_P.MonitorParams(**FAST))
+    off = solve_pcg(tg, torch.from_numpy(b), m, **short)
+    on = solve_pcg(tg, torch.from_numpy(b), m,
+                   flight=FlightParams(capacity=8), **short)
+    assert torch.equal(on.x, off.x) and int(on.flight["count"]) == 30
+    with pytest.raises(TypeError, match="FlightParams"):
         solve_pcg(tg, torch.from_numpy(b), m, flight=object())
     with pytest.raises(ValueError, match="'adaptive'"):
         solve_pcg(tg, torch.from_numpy(b), m, tags="frobnicate")

@@ -89,9 +89,9 @@ def test_reports_and_stats_equal_the_reference(rs8, maxiter):
     bs = [_rhs(rs8, j) for j in range(3)]
     jids = [js.submit("op", jnp.asarray(b), tol=1e-8) for b in bs]
     tids = [ts.submit("op", torch.from_numpy(b), tol=1e-8) for b in bs]
-    assert ts.queue_depth == 3
+    assert ts.queue_depth.value == 3
     jrep, trep = js.flush(), ts.flush()
-    assert ts.queue_depth == 0
+    assert ts.queue_depth.value == 0
     reps = [trep[t] for t in tids]
     if maxiter == 20000:
         assert [r.iters for r in reps] == [1632, 1752, 1727]
