@@ -19,7 +19,9 @@ stepped iterative refinement, batched PCG and the preconditioned solve
 service; phases 21-22 per-group precision (TagMap, the masked operands,
 the adaptive driver and the mixed launch of kernels B32 and C′32); phase
 23 telemetry, faults and checkpoints (the flight recorder, spans, the
-metrics registry, fault injection, checkpoint and resume).  Every CPU
+metrics registry, fault injection, checkpoint and resume); phase 24 async
+serving (the chunked drivers, continuous batching, the circuit breaker,
+deadlines, warm starts and pack integrity).  Every CPU
 twin runs in one of two processes of its own (CpuTwins): the small
 solves on one thread, in the order the phases need them, from before the
 build; phase 12's LM from after the build, on the cores the rest leave.
@@ -291,6 +293,32 @@ Phases:
                   trace passes validate_jsonl with every solver span and
                   pack.build; the registry exposes the pack-cache and
                   service metrics.
+  24. async serving -- part 1 (phase_serve_small, runnable alone):
+                  AsyncSolveService under a fake clock (chunk_iters 32,
+                  slots 4, queue_limit 4) on rs8_400_s3 and poisson2d(12)
+                  on the card and on the CPU twin: three requests, the
+                  third joining the running group after two pumps; a
+                  queue_full burst; a tag-fault operator that trips the
+                  breaker, sheds breaker_open and heals through the
+                  half-open probe once lifted; a pack corrupted by
+                  corrupt_gsecsr, detected and repacked; a stall hook that
+                  expires a deadline (health "deadline", a finite x); a
+                  warm-LRU hit (iters 0).  Every case holds, every report
+                  equals the twin's field for field, every solution
+                  bitwise, the repro_serve_* series equal, no error.  Part
+                  2, launch counts zeroed: AsyncSolveService(slots=4,
+                  maxiter=20000, chunk_iters=64) on phase 4's matrix,
+                  phase 4's b alone for 20 pumps, then phase 6's second
+                  right-hand side joins the running group: request 0
+                  bitwise phase 4's solo solve (x, iters, switches,
+                  relres), request 1 bitwise phase 6's request 1, both ok
+                  with no retries and no errors; C64 launched once a
+                  group iteration and once a column init (predicted from
+                  the two solves' iterations before the run), every body
+                  of its row plan; ms per group iteration, host seconds
+                  outside the chunks, pumps and repro_serve_chunks_total.
+                  Part 3: phase 20's solo refinement through IRChunks two
+                  corrections a chunk, x and history bitwise phase 20's.
   10. kernels  -- run last: CUDA-event times (minimum over repeats; one
                   call for a function whose first call takes ONE_CALL_MS) of
                   every kernel beside its plain version, its bound (HBM
@@ -358,6 +386,7 @@ import dataclasses
 import faulthandler
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -3128,6 +3157,7 @@ def phase_ir_full(csr, g, b, bs_full, params, pcg_res):
                    plan_bodies(g))
     require_bodies("phase 20: C64", C.gse_spmm_csr_f64.body_launches,
                    plan_bodies(g))
+    return res, m
 
 
 def plan_depth(plan) -> int:
@@ -4205,13 +4235,337 @@ def check_trace(n, events, cpu_wait):
         cpu_twins_wait_s=f"{cpu_wait:.1f}")
 
 
+# --- phase 24: async serving -------------------------------------------------
+SERVE_CHUNK = 32  # part 1's chunk_iters
+SERVE_FULL_CHUNK = 64  # part 2's chunk_iters
+SERVE_FULL_PUMPS = 20  # part 2's pumps before request 1 joins
+
+
+class FakeClock:
+    """An injectable clock the scenario advances by hand."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def async_fields(r) -> dict:
+    """Every field of a SolveReport, relres as its bits, or "nan" (a NaN's
+    payload is the card's or the host's own)."""
+    d = report_fields(r)
+    d["relres"] = ("nan" if r.relres != r.relres else
+                   struct.unpack("<q", struct.pack("<d", r.relres))[0])
+    return d
+
+
+def serve_lines(svc) -> list:
+    """The service's ``repro_serve_*`` series in the registry's text, its
+    id replaced, without the flush-latency histogram (``perf_counter``)."""
+    from repro_torch.obs import metrics as OM
+
+    tag = f'service="{svc.service_id}"'
+    return [ln.replace(tag, 'service="S"')
+            for ln in OM.REGISTRY.to_prometheus().splitlines()
+            if tag in ln and "flush_latency" not in ln]
+
+
+def serve_scenario(where: str) -> dict:
+    """Phase 24, part 1, on ``where``: AsyncSolveService under a fake
+    clock (chunk_iters 32, slots 4, queue_limit 4) over rs8_400_s3 and
+    poisson2d(12): three requests, the third joining the running group
+    after two pumps; a queue_full burst; a tag-fault operator that trips
+    the breaker, sheds breaker_open and heals through the half-open probe
+    once lifted; a pack corrupted by corrupt_gsecsr, detected and
+    repacked; a stall hook that expires a deadline; a warm-LRU hit.
+    Returns the reports, solutions, scenario cases and counters."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.precision import MonitorParams
+    from repro_torch.robustness import faults as F
+    from repro_torch.serve import Accepted, AsyncSolveService, BreakerParams
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+
+    clock = FakeClock()
+
+    def stall(svc, key, group):  # the "slow" handle's chunks take 1 s
+        if key[0] == "slow":
+            clock.t += 1.0
+
+    t0 = time.perf_counter()
+    svc = AsyncSolveService(
+        slots=NRHS, params=MonitorParams(**MAIN_PARAMS), maxiter=20000,
+        chunk_iters=SERVE_CHUNK, queue_limit=4, clock=clock, seed=0,
+        breaker=BreakerParams(fail_threshold=2, backoff_s=1.0, jitter=0.1),
+        chunk_hook=stall, device=where)
+    hosts = {"rs8": rs8_400_s3("cpu"), "p12": G.poisson2d(12, device="cpu")}
+    svc.register("rs8", rs8_400_s3(where), k=8)
+    for name in ("p12", "slow", "bad", "rot"):
+        a = G.poisson2d(12, device=where)
+        op = None
+        if name == "bad":  # every tag fails: NaN products
+            op = F.make_tag_fault_operator(pack_csr(a, k=8), mode="nan",
+                                           fail_tag=3)
+        svc.register(name, a, k=8, operator=op)
+
+    def rhs(name, seed):
+        host = hosts["rs8" if name == "rs8" else "p12"]
+        return torch.from_numpy(host_spmv(host, np.random.default_rng(
+            seed).normal(size=host.shape[0])))
+
+    cases = {}
+    first = [svc.submit("rs8", rhs("rs8", j)) for j in range(2)]
+    svc.pump()
+    svc.pump()
+    joined = svc.submit("rs8", rhs("rs8", 2))
+    svc.pump()
+    widths = [g.chunks.nrhs for k, g in svc._groups.items() if k[0] == "rs8"]
+    cases["join"] = widths == [3] and all(
+        isinstance(r, Accepted) for r in first + [joined])
+    burst = [svc.submit("p12", rhs("p12", 10 + j)) for j in range(5)]
+    cases["queue_full"] = (
+        [type(r).__name__ for r in burst] == ["Accepted"] * 4 + ["Shed"]
+        and burst[4].reason == "queue_full")
+    svc.run_until_idle()
+    for seed in (20, 21):
+        svc.submit("bad", rhs("bad", seed))
+        svc.run_until_idle()
+    br = svc._breaker("bad")
+    opened = br.state == "open"
+    shed = svc.submit("bad", rhs("bad", 22))
+    cases["breaker_open"] = opened and type(shed).__name__ == "Shed" and \
+        shed.reason == "breaker_open" and shed.retry_after_s > 0
+    svc._operators.pop("bad")  # the operand heals
+    clock.t += 2.0
+    probe = svc.submit("bad", rhs("bad", 23))
+    svc.run_until_idle()
+    cases["healed"] = (isinstance(probe, Accepted)
+                       and svc.reports[probe.id].converged
+                       and svc.reports[probe.id].health == "ok"
+                       and br.state == "closed"
+                       and [s for s, _ in br.transitions]
+                       == ["open", "half_open", "closed"])
+    svc._ops["rot"].gse = F.corrupt_gsecsr(svc._ops["rot"].gse, "table",
+                                           seed=3)
+    rot = svc.submit("rot", rhs("rot", 30))
+    svc.run_until_idle()
+    cases["repacked"] = (dict(svc.pack_faults) == {"detected": 1,
+                                                   "repacked": 1}
+                         and svc.reports[rot.id].converged)
+    slow = svc.submit("slow", rhs("slow", 31), tol=1e-12, deadline_s=0.5)
+    svc.run_until_idle()
+    rep = svc.reports[slow.id]
+    x_slow = svc._solutions[slow.id]
+    cases["deadline"] = (rep.health == "deadline" and rep.deadline_exceeded
+                         and not rep.converged and rep.iters == SERVE_CHUNK
+                         and bool(torch.isfinite(x_slow).all()))
+    warm = svc.submit("p12", rhs("p12", 10))
+    svc.run_until_idle()
+    cases["warm_hit"] = (svc.warm["hit"] == 1
+                         and svc.reports[warm.id].iters == 0
+                         and svc.reports[warm.id].converged)
+    if where == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ids = sorted(svc.reports)
+    return dict(
+        reports=[async_fields(svc.reports[i]) for i in ids],
+        x={i: svc.solution(i).cpu() for i in ids if i in svc._solutions},
+        cases=cases,
+        counters=dict(stats=dict(svc.stats), sheds=dict(svc.sheds),
+                      warm=dict(svc.warm), pack_faults=dict(svc.pack_faults),
+                      chunks=svc.chunk_counter.value),
+        lines=serve_lines(svc), wall=wall)
+
+
+def phase_serve_small(twins=None):
+    """Phase 24, part 1: the serve scenario on the card against its CPU
+    twin (from ``twins``, or computed here when run alone)."""
+    got = serve_scenario("cuda")
+    want = twin_of(twins, "serve_async")
+    bad = [k for k, v in got["cases"].items() if not v]
+    if bad:
+        raise AssertionError(f"phase 24: scenario cases failed: {bad}")
+    if got["reports"] != want["reports"]:
+        for g, w in zip(got["reports"], want["reports"]):
+            if g != w:
+                raise AssertionError(f"phase 24: report {g} != the CPU "
+                                     f"twin's {w}")
+        raise AssertionError("phase 24: the reports differ in number")
+    if sorted(got["x"]) != sorted(want["x"]):
+        raise AssertionError("phase 24: the solutions differ in number")
+    for i, x in got["x"].items():
+        require_bitwise(f"phase 24 request {i}'s x", x, want["x"][i])
+    if got["counters"] != want["counters"] or got["lines"] != want["lines"]:
+        raise AssertionError(f"phase 24: counters {got['counters']} != the "
+                             f"CPU twin's {want['counters']}")
+    if got["counters"]["stats"]["errors"] != 0:
+        raise AssertionError(f"phase 24: errors {got['counters']}")
+    log("serve_async", part="scenario against the CPU twin",
+        cases=json.dumps(got["cases"]), requests=len(got["reports"]),
+        reports_bitwise=True, solutions_bitwise=len(got["x"]),
+        health=json.dumps([r["health"] for r in got["reports"]]),
+        counters=json.dumps(got["counters"]), gpu_s=f"{got['wall']:.2f}",
+        cpu_s=f"{want['wall']:.2f}")
+    for ln in got["lines"]:
+        if ln.startswith("repro_serve_") and "_bucket" not in ln:
+            log("serve_async", series=ln.replace(" ", "="))
+
+
+def phase_serve_full(csr, b, b1, params, res4, wall4, req1, x1, ms6):
+    """Phase 24, part 2: AsyncSolveService(slots=4, maxiter=20000,
+    chunk_iters=64) on phase 4's matrix, launch counts zeroed: phase 4's b
+    alone for 20 pumps, then phase 6's request 1 joins the running group.
+    Request 0 must be bitwise phase 4's solo solve (``res4``), request 1
+    phase 6's request 1 (``req1``, ``x1``); C64 launches once a group
+    iteration and once a column init."""
+    import torch
+
+    from repro_torch.kernels import gse_spmm as C
+    from repro_torch.kernels import gse_spmv as K
+    from repro_torch.kernels import vec_f64 as V
+    from repro_torch.serve import AsyncSolveService
+    from repro_torch.serve import chunked as SC
+    from repro_torch.solvers.cg import CHUNK
+
+    it0, it1 = int(res4.iters), int(req1.iters)
+    joined_at = SERVE_FULL_PUMPS * SERVE_FULL_CHUNK
+    # Each chunk runs whole CHUNK batches until every live column is done:
+    # column 0 alone to the join, then the group until the last column's
+    # batch ends; one C64 launch each, one more per column init.
+    group_iters = joined_at + CHUNK * -(-max(it0 - joined_at, it1) // CHUNK)
+    want_c64 = group_iters + 2
+    log("serve_async", part="full-width service, predicted",
+        request0_iters=it0, request1_iters=it1, joins_at=joined_at,
+        group_iters=group_iters, c64_launches_expected=want_c64)
+    t0 = time.perf_counter()
+    svc = AsyncSolveService(slots=NRHS, params=params, maxiter=20000,
+                            chunk_iters=SERVE_FULL_CHUNK)
+    svc.register("full", csr, k=8)
+    torch.cuda.synchronize()
+    register_s = time.perf_counter() - t0
+    g = svc._ops["full"].gse
+    for mod in (K, C, V):
+        mod.reset_launch_counts()
+    chunk_s = [0.0]
+    run_chunk = SC.BatchedChunks.run_chunk
+
+    def timed(self, k):  # device time of a chunk, syncs around it
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run_chunk(self, k)
+        torch.cuda.synchronize()
+        chunk_s[0] += time.perf_counter() - t
+        return out
+
+    SC.BatchedChunks.run_chunk = timed
+    try:
+        t0 = time.perf_counter()
+        r0 = svc.submit("full", b, tol=1e-8)
+        for _ in range(SERVE_FULL_PUMPS):
+            svc.pump()
+        width = [grp.chunks.nrhs for grp in svc._groups.values()]
+        r1 = svc.submit("full", b1, tol=1e-8)
+        pumps = SERVE_FULL_PUMPS
+        while svc._pending or svc._groups:
+            svc.pump()
+            pumps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        SC.BatchedChunks.run_chunk = run_chunk
+    c64 = C.gse_spmm_csr_f64.launches
+    c64_bodies = dict(C.gse_spmm_csr_f64.body_launches)
+    cols = {"seq_dot_cols": V.seq_dot_cols.launches,
+            "fma_axpy_cols": V.fma_axpy_cols.launches}
+    reps = [svc.reports[r0.id], svc.reports[r1.id]]
+    xs = [svc.solution(r0.id), svc.solution(r1.id)]
+    log("serve_async", part="full-width service", rows=g.shape[0],
+        nnz=g.nnz, chunk_iters=SERVE_FULL_CHUNK, width_before_join=width,
+        iters=[r.iters for r in reps],
+        switch_iters=[r.switch_iters.tolist() for r in reps],
+        relres=[r.relres for r in reps], health=[r.health for r in reps],
+        retries=[r.retries for r in reps],
+        batch=[r.batch_size for r in reps], stats=json.dumps(dict(svc.stats)),
+        pumps=pumps, chunks_total=svc.chunk_counter.value,
+        c64_launches=c64, c64_body_launches=json.dumps(c64_bodies),
+        seq_dot_cols_launches=cols["seq_dot_cols"],
+        fma_axpy_cols_launches=cols["fma_axpy_cols"],
+        register_s=f"{register_s:.2f}", wall_s=f"{wall:.2f}",
+        chunks_s=f"{chunk_s[0]:.2f}",
+        host_outside_chunks_s=f"{wall - chunk_s[0]:.2f}",
+        ms_per_group_iteration=f"{chunk_s[0] * 1e3 / group_iters:.3f}",
+        phase6_ms_per_iteration=ms6,
+        solo_ms_per_iteration=f"{wall4 * 1e3 / it0:.3f}")
+    if width != [1]:
+        raise AssertionError(f"phase 24: the group before the join {width}")
+    want0 = (it0, res4.switch_iters.tolist(), int(res4.tag),
+             float(res4.relres))
+    want1 = (it1, req1.switch_iters.tolist(), req1.tag, req1.relres)
+    for r, want, x, wx, what in ((reps[0], want0, xs[0], res4.x,
+                                  "phase 4's solo solve"),
+                                 (reps[1], want1, xs[1], x1,
+                                  "phase 6's request 1")):
+        got = (r.iters, r.switch_iters.tolist(), r.tag, r.relres)
+        if got != want:
+            raise AssertionError(f"phase 24: request {r.id} {got} is not "
+                                 f"{what} {want}")
+        require_bitwise(f"phase 24: request {r.id}'s x against {what}", x,
+                        wx)
+        if not r.converged or r.health != "ok" or r.retries != 0:
+            raise AssertionError(f"phase 24: request {r.id}: {r}")
+    if svc.stats["errors"] != 0:
+        raise AssertionError(f"phase 24: service errors {svc.stats}")
+    if c64 != want_c64:
+        raise AssertionError(f"phase 24: C64 launched {c64} times, "
+                             f"predicted {want_c64}")
+    if min(cols.values()) <= 0:
+        raise AssertionError(f"phase 24: {cols}")
+    require_bodies("phase 24: C64", c64_bodies, plan_bodies(g))
+
+
+def phase_serve_ir(g, b, params, ir_res, m):
+    """Phase 24, part 3: phase 20's solo refinement through IRChunks, two
+    corrections a chunk: x and the history bitwise phase 20's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.robustness.guards import DEFAULT_GUARDS
+    from repro_torch.serve import IRChunks
+
+    t0 = time.perf_counter()
+    drv = IRChunks(g, b, tol=1e-10, max_outer=10, inner="cg",
+                   inner_tol=1e-4, inner_maxiter=2000, params=params,
+                   precond=m, restart=30, guards=DEFAULT_GUARDS)
+    while not drv.done:
+        drv.run_chunk(2)
+    res = drv.result()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log("serve_async", part="IRChunks k=2 against phase 20",
+        chunks=drv.chunks, outer=res.outer_iters, inner=res.inner_iters,
+        relres=res.relres, wall_s=f"{wall:.2f}")
+    if (res.outer_iters, res.inner_iters, res.relres) != (
+            ir_res.outer_iters, ir_res.inner_iters, ir_res.relres) or \
+            not np.array_equal(res.history, ir_res.history):
+        raise AssertionError(f"phase 24: IRChunks {res.outer_iters} "
+                             f"{res.inner_iters} {res.relres!r} is not "
+                             "phase 20's")
+    require_bitwise("phase 24: IRChunks x against phase 20", res.x, ir_res.x)
+    if drv.chunks != -(-ir_res.outer_iters // 2):
+        raise AssertionError(f"phase 24: {drv.chunks} chunks")
+
+
 # --- the CPU twins -----------------------------------------------------------
 # The twins run in two processes of their own: the small solves on one
 # core, in the order the phases need them, from before the build, and
 # phase 12's LM from after it.  A phase waits only if its twin is not
 # done yet.
 SMALL_TWINS = ("trajectory", "service", "sell", "gmres", "pcg", "ir",
-               "telemetry")
+               "telemetry", "serve_async")
 LM_TWINS = ("lm",)
 
 
@@ -4268,6 +4622,8 @@ def cpu_twin(name: str):
         for mode in FAULT_MODES:
             out[mode] = twin_fault("cpu", mode, params)
         return out
+    if name == "serve_async":
+        return serve_scenario("cpu")
     if name == "lm":
         return lm_twin_cpu()
     raise KeyError(name)
@@ -4660,7 +5016,9 @@ def run(opts, twins) -> int:
                      "fma_axpy_cols": V.fma_axpy_cols.launches}
     reps = [reports[i] for i in ids]
     x_req0 = svc.solution(ids[0])
+    x_req1 = svc.solution(ids[1])  # phase 24 joins this request
     loop_iters = max(r.iters for r in reps)
+    ms6 = f"{serve_wall * 1e3 / loop_iters:.3f}"
     log("service", rows=N_FULL, slots=NRHS, requests=len(reps),
         iters=[r.iters for r in reps], tag=[r.tag for r in reps],
         switch_iters=[r.switch_iters.tolist() for r in reps],
@@ -4668,7 +5026,7 @@ def run(opts, twins) -> int:
         relres=[r.relres for r in reps], est_bytes=[r.est_bytes for r in reps],
         stats=json.dumps(dict(svc.stats)), register_s=f"{register_s:.2f}",
         wall_s=f"{serve_wall:.2f}",
-        ms_per_iteration=f"{serve_wall * 1e3 / loop_iters:.3f}",
+        ms_per_iteration=ms6,
         solo_ms_per_iteration=f"{wall * 1e3 / int(res.iters):.3f}",
         c64_launches=c64_launches,
         c64_body_launches=json.dumps(c64_body_launches),
@@ -4709,7 +5067,7 @@ def run(opts, twins) -> int:
     t4 = time.perf_counter()
     phase_ir_trajectory(params, twins)
     t5 = time.perf_counter()
-    phase_ir_full(csr, g, b, bs_full, params, pcg_res)
+    ir20 = phase_ir_full(csr, g, b, bs_full, params, pcg_res)
     t6 = time.perf_counter()
     log("solver_phases", gmres_trajectory_s=f"{t1 - t0:.1f}",
         gmres_full_s=f"{t2 - t1:.1f}", pcg_trajectory_s=f"{t3 - t2:.1f}",
@@ -4729,6 +5087,20 @@ def run(opts, twins) -> int:
                     dict(a64=a64_launches, **vec_launches), gmres_full, twins)
     del gmres_full
     log("telemetry_phase", seconds=f"{time.perf_counter() - t8:.1f}")
+
+    # 24. async serving --------------------------------------------------------
+    t9 = time.perf_counter()
+    phase_serve_small(twins)
+    t10 = time.perf_counter()
+    phase_serve_full(csr, b, bs_full[1], params, res, wall, reps[1], x_req1,
+                     ms6)
+    t11 = time.perf_counter()
+    phase_serve_ir(g, b, params, *ir20)
+    del ir20, x_req1
+    log("serve_async_phase", part1_s=f"{t10 - t9:.1f}",
+        part2_s=f"{t11 - t10:.1f}",
+        part3_s=f"{time.perf_counter() - t11:.1f}",
+        seconds=f"{time.perf_counter() - t9:.1f}")
 
     # 11-14. the LM serving path ----------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain E: full f32

@@ -160,7 +160,9 @@ def _cg_update_cols(x, r, p, rs, ap, active, device, apply_z=None):
 def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
                          init_tag: int, matvec: Callable,
                          guards: GuardParams | None, device,
-                         apply_m: Callable | None = None, flight=None):
+                         apply_m: Callable | None = None, flight=None,
+                         resume: dict | None = None, stop_at=None,
+                         return_state: bool = False):
     """The batched stepped CG and PCG loop over ``(nrhs, n)`` blocks
     ``b``/``x0``.
 
@@ -170,6 +172,18 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
     ``M^{-1} v`` the same way, and each column then also carries ``z`` and
     ``rz = r.z``.  ``flight`` (a ``FlightParams``) stacks a recorder ring
     per column.  Returns a :class:`BatchedCGResult`.
+
+    The chunk hooks (the reference's :163-317): ``resume`` is a state this
+    loop returned (the init is skipped; ``x0`` is then unused), ``stop_at``
+    a per-column sequence of iteration bounds ANDed into each column's
+    liveness (all 0: the init and no iteration), and ``return_state``
+    returns ``(result, state)``.  The state stacks the columns: ``x``,
+    ``r``, ``p`` as ``(nrhs, n)`` blocks, ``rs``, ``rr`` and ``it`` as
+    ``(nrhs,)``, a per-column list ``cols`` (monitor, switches, guard) and
+    the stacked ring ``fl``; :func:`take_cols` and :func:`cat_cols` select
+    and join columns of it.  A bound is a pure extra exit condition, so a
+    chunked run is bitwise the unchunked one, and a bounded call runs only
+    the iterations left before its last live column's bound.
     """
     nrhs = b.shape[0]
     pcg = apply_m is not None
@@ -180,32 +194,23 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
     def relres(rr):
         return sqrt_rn(torch.abs(rr)) / bnorms
 
-    mons = [P.init(params, dtype=b.dtype, tag=init_tag, device=b.device)
-            for _ in range(nrhs)]
-    tags0 = torch.stack([m.tag for m in mons])
-    r0 = b - matvec(x0, tags0, every)
-    if pcg:  # the reference's init_col: z0, then r0.z0, then r0.r0
-        p0 = apply_m(r0, tags0, every)
-        rs0 = seq_dot_cols(r0, p0, every, device=device)
+    if resume is not None:
+        state = resume
     else:
-        p0 = r0
-    rr0 = seq_dot_cols(r0, r0, every, device=device)
-    rel0 = relres(rr0)
-    cols = []
-    for j in range(nrhs):
-        c = dict(mon=mons[j],
-                 sw=torch.full((2,), -1, dtype=torch.int32, device=b.device))
-        if guards is not None:
-            c["g"] = guard_init(rel0[j])
-        cols.append(c)
-    state = dict(x=x0, r=r0, p=p0, rs=rs0 if pcg else rr0, rr=rr0,
-                 it=torch.zeros(nrhs, dtype=torch.int32, device=b.device),
-                 cols=cols)
-    if flight is not None:
-        state["fl"] = OF.flight_init(flight, b.dtype, b.device, batch=nrhs)
+        state = _batched_init(b, x0, params, init_tag, matvec, guards,
+                              device, apply_m, flight, relres)
+    bound = None
+    if stop_at is not None:
+        stop = [int(s) for s in stop_at]
+        if len(stop) != nrhs:
+            raise ValueError(f"stop_at has {len(stop)} bounds for {nrhs} "
+                             "columns")
+        bound = torch.tensor(stop, dtype=torch.int32, device=b.device)
 
     def col_active(s):
         alive = (relres(s["rr"]) > tol) & (s["it"] < maxiter)
+        if bound is not None:
+            alive = alive & (s["it"] < bound)
         if guards is not None:
             health = torch.stack([c["g"]["health"] for c in s["cols"]])
             alive = alive & (health == HEALTH_OK)
@@ -254,10 +259,25 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
         return out
 
     act = col_active(state)
-    while bool(act.any()):  # the one host sync per chunk
-        for _ in range(CHUNK):
+    while True:  # the one host sync per chunk
+        if bound is None:
+            if not bool(act.any()):
+                break
+            n = CHUNK
+        else:
+            row = torch.cat([act.to(torch.int64),
+                             state["it"].to(torch.int64)]).tolist()
+            live = [s - i for a, s, i in zip(row[:nrhs], stop, row[nrhs:])
+                    if a]
+            if not live:
+                break
+            left = max(live)  # iterations to the last live column's bound
+            n = min(CHUNK, left)
+        for _ in range(n):
             state = body(state, act)
             act = col_active(state)
+        if bound is not None and n == left:
+            break  # every live column has reached its bound: no sync
 
     rel = relres(state["rr"])
     cols = state["cols"]
@@ -276,7 +296,7 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
         trip_iter = torch.full((nrhs,), -1, dtype=torch.int32,
                                device=b.device)
         converged = rel <= tol
-    return BatchedCGResult(
+    res = BatchedCGResult(
         x=state["x"].t(),
         iters=state["it"],
         relres=rel,
@@ -287,6 +307,68 @@ def _batched_krylov_loop(b, x0, tol, maxiter: int, params: P.MonitorParams,
         trip_iter=trip_iter,
         flight=state.get("fl"),
     )
+    return (res, state) if return_state else res
+
+
+def _batched_init(b, x0, params, init_tag, matvec, guards, device, apply_m,
+                  flight, relres) -> dict:
+    """The loop state of a fresh batched run: every column's monitor, its
+    initial residual (one operator application at the start tag), search
+    direction and dots, as the reference's ``init_col`` makes them."""
+    nrhs = b.shape[0]
+    every = torch.ones(nrhs, dtype=torch.bool, device=b.device)
+    mons = [P.init(params, dtype=b.dtype, tag=init_tag, device=b.device)
+            for _ in range(nrhs)]
+    tags0 = torch.stack([m.tag for m in mons])
+    r0 = b - matvec(x0, tags0, every)
+    if apply_m is not None:  # the reference's init_col: z0, r0.z0, r0.r0
+        p0 = apply_m(r0, tags0, every)
+        rs0 = seq_dot_cols(r0, p0, every, device=device)
+    else:
+        p0 = r0
+    rr0 = seq_dot_cols(r0, r0, every, device=device)
+    rel0 = relres(rr0)
+    cols = []
+    for j in range(nrhs):
+        c = dict(mon=mons[j],
+                 sw=torch.full((2,), -1, dtype=torch.int32, device=b.device))
+        if guards is not None:
+            c["g"] = guard_init(rel0[j])
+        cols.append(c)
+    state = dict(x=x0, r=r0, p=p0, rs=rs0 if apply_m is not None else rr0,
+                 rr=rr0,
+                 it=torch.zeros(nrhs, dtype=torch.int32, device=b.device),
+                 cols=cols)
+    if flight is not None:
+        state["fl"] = OF.flight_init(flight, b.dtype, b.device, batch=nrhs)
+    return state
+
+
+_STACKED = ("x", "r", "p", "rs", "rr", "it")
+
+
+def take_cols(state: dict, idx) -> dict:
+    """The columns ``idx`` (a sequence of indices) of a batched loop state,
+    in that order: exactly the state the loop would hold on those columns
+    alone."""
+    sel = torch.as_tensor(list(idx), dtype=torch.long,
+                          device=state["x"].device)
+    out = {k: state[k].index_select(0, sel) for k in _STACKED}
+    out["cols"] = [state["cols"][j] for j in idx]
+    if "fl" in state:
+        out["fl"] = {k: v.index_select(0, sel) for k, v in state["fl"].items()}
+    return out
+
+
+def cat_cols(*states: dict) -> dict:
+    """The batched loop states ``states`` side by side, their columns in
+    order: exactly the state the loop would hold on all of them."""
+    out = {k: torch.cat([s[k] for s in states]) for k in _STACKED}
+    out["cols"] = [c for s in states for c in s["cols"]]
+    if any("fl" in s for s in states):
+        out["fl"] = {k: torch.cat([s["fl"][k] for s in states])
+                     for k in states[0]["fl"]}
+    return out
 
 
 def _spmm(a, device) -> Callable:
@@ -319,25 +401,30 @@ def _per_column(apply: Callable) -> Callable:
 
 
 def _solve_cg_batched_fused(a, b, x0, tol, maxiter, params, init_tag=1,
-                            guards=None, device="cuda", flight=None):
+                            guards=None, device="cuda", flight=None,
+                            **hooks):
     """Fused path: one C64 (``GSECSR``) or C′64 (``GSESellC``) launch per
-    iteration serves every column."""
+    iteration serves every column.  ``hooks``: ``resume``, ``stop_at`` and
+    ``return_state`` of :func:`_batched_krylov_loop` (as in the three
+    entries below)."""
     return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
                                 _spmm(a, device), guards, device,
-                                flight=flight)
+                                flight=flight, **hooks)
 
 
 def _solve_cg_batched(apply_a: Callable, b, x0, tol, maxiter, params,
-                      init_tag=1, guards=None, device="cuda", flight=None):
+                      init_tag=1, guards=None, device="cuda", flight=None,
+                      **hooks):
     """Generic path: ``apply_a(v, tag)`` on each column at its device
     tag."""
     return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
                                 _per_column(apply_a), guards, device,
-                                flight=flight)
+                                flight=flight, **hooks)
 
 
 def _solve_pcg_batched_fused(a, m, b, x0, tol, maxiter, params, init_tag=1,
-                             guards=None, device="cuda", flight=None):
+                             guards=None, device="cuda", flight=None,
+                             **hooks):
     """Fused path: per iteration one C64/C′64 launch for the operator and
     the preconditioner's column apply (a gather of decoded diagonals, or
     C64 on block-Jacobi's inverse), every column at its own tag."""
@@ -347,17 +434,18 @@ def _solve_pcg_batched_fused(a, m, b, x0, tol, maxiter, params, init_tag=1,
 
     return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
                                 _spmm(a, device), guards, device,
-                                apply_m=apply_m, flight=flight)
+                                apply_m=apply_m, flight=flight, **hooks)
 
 
 def _solve_pcg_batched(apply_a: Callable, apply_m: Callable, b, x0, tol,
                        maxiter, params, init_tag=1, guards=None,
-                       device="cuda", flight=None):
+                       device="cuda", flight=None, **hooks):
     """Generic path: ``apply_a(v, tag)`` and ``apply_m(r, tag)`` on each
     column at its device tag."""
     return _batched_krylov_loop(b, x0, tol, maxiter, params, init_tag,
                                 _per_column(apply_a), guards, device,
-                                apply_m=_per_column(apply_m), flight=flight)
+                                apply_m=_per_column(apply_m), flight=flight,
+                                **hooks)
 
 
 def _batched_tag_axis(tags, apply_a, m: int, params):

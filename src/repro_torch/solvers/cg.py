@@ -27,7 +27,8 @@ The loop takes the reference's chunking hooks (:214-293, :310-406,
 the init, ``stop_at`` joins the loop condition and ``return_state``
 returns the state, which resumes bitwise.  When ``stop_at`` bounds a
 chunk, the last chunk runs only ``stop_at - it`` iterations (the host
-knows ``it`` at its sync), so no frozen tail is paid.
+knows ``it`` at its sync), so no frozen tail is paid, and no sync follows
+it.
 
 The per-group precision axis (``_normalize_tag_axis`` :45, ``_pin_params``
 :623, ``_tagmap_run_cg``/``_tagmap_run_pcg`` :643/:660 and ``tags=`` in
@@ -267,6 +268,8 @@ def _cg_loop(matvec: Callable, step: Callable, b, x0, tol, maxiter: int,
             state = _freeze(act, new, state)
             if fl is not None:
                 state["fl"] = fl
+        if stop_at is not None and n == int(stop_at) - it:
+            break  # the bound is reached: no sync to learn it
 
     rel = relres(state["rr"])
     conv = rel <= tol

@@ -19,11 +19,14 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
     (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro", "msgpack", "zstandard"}
-# The telemetry, fault and checkpoint modules: the card's machine has no
-# msgpack and no zstandard, so the checkpoint blob is the port's own.
+# The telemetry, fault and checkpoint modules, and the async serving that
+# checkpoints through them: the card's machine has no msgpack and no
+# zstandard, so the checkpoint blob is the port's own.
 TELEMETRY = ["repro_torch.obs", "repro_torch.obs.metrics",
              "repro_torch.obs.trace", "repro_torch.obs.flight",
-             "repro_torch.checkpoint.ckpt", "repro_torch.robustness.faults"]
+             "repro_torch.checkpoint.ckpt", "repro_torch.robustness.faults",
+             "repro_torch.serve", "repro_torch.serve.breaker",
+             "repro_torch.serve.chunked", "repro_torch.serve.service"]
 
 
 def _imported_roots(tree):
@@ -68,6 +71,7 @@ def _device_defaults():
                                      gse_spmm, ops, vec_f64)
     from repro_torch.launch.solver_serve import SolverService
     from repro_torch.models import attention, transformer
+    from repro_torch.serve import AsyncSolveService
     from repro_torch.solvers.batched import (solve_cg_batched,
                                              solve_ir_batched,
                                              solve_pcg_batched)
@@ -75,7 +79,8 @@ def _device_defaults():
 
     fns = [csr.from_coo, gse.pack, gse.pack_with_table, precision.init,
            convert.gsecsr_from_repro, convert.csr_from_repro,
-           SolverService, solve_cg_batched, solve_pcg_batched,
+           SolverService, AsyncSolveService, solve_cg_batched,
+           solve_pcg_batched,
            solve_ir_batched, vec_f64.seq_dot_cols,
            vec_f64.fma_axpy_cols, vec_f64.ref_norm_cols,
            gse_spmm.gse_spmm_ell_f32, gse_spmm.gse_spmm_csr_f64,
@@ -93,7 +98,7 @@ def _device_defaults():
 
 def test_entry_points_default_to_cuda():
     fns = _device_defaults()
-    assert len(fns) >= 37
+    assert len(fns) >= 38
     for fn in fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__qualname__
