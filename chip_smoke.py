@@ -21,7 +21,9 @@ the adaptive driver and the mixed launch of kernels B32 and C′32); phase
 23 telemetry, faults and checkpoints (the flight recorder, spans, the
 metrics registry, fault injection, checkpoint and resume); phase 24 async
 serving (the chunked drivers, continuous batching, the circuit breaker,
-deadlines, warm starts and pack integrity).  Every CPU
+deadlines, warm starts and pack integrity); phase 25 the perf layer (the
+card's roofline, the autotuner and its tune cache, the byte ledger,
+timing).  Every CPU
 twin runs in one of two processes of its own (CpuTwins): the small
 solves on one thread, in the order the phases need them, from before the
 build; phase 12's LM from after the build, on the cores the rest leave.
@@ -319,6 +321,32 @@ Phases:
                   outside the chunks, pumps and repro_serve_chunks_total.
                   Part 3: phase 20's solo refinement through IRChunks two
                   corrections a chunk, x and history bitwise phase 20's.
+  25. perf     -- the perf layer (repro_torch.perf), the run's tune cache
+                  in a temporary file.  a: the card's roof probed
+                  (host_roofline(device="cuda"): a triad over three
+                  256 MiB f64 arrays, an 8192 FP32 matmul with TF32 off)
+                  and persisted (a second call probes nothing).  b:
+                  get_or_tune sweeps the lanes of A32 (nrhs 1) and C32
+                  (nrhs 4) on phase 2's operator at tag 1; every
+                  candidate bitwise the default at tags 1-3, planned_spmv/
+                  planned_spmm through the stored winner bitwise the
+                  default; a second call and one after clear_memory hit
+                  with no sweep and no launch; a flipped payload is
+                  detected (corrupt 1) and re-swept.  c: the SELL sweep
+                  of B32 (C, sigma, buckets) on phase 9's operator; every
+                  candidate pack's B32 (tags 1-3) and C′32 bitwise the
+                  default pack's; planned calls through the winner
+                  bitwise.  d: the ledger's launch bytes (perf.ledger)
+                  equal the integer arguments ops hands A32, C32, B32 and
+                  C′32 at tags 1-3, recorded.  e: SolverService(layout=
+                  "sell", tune=True) on sk512_rs8_s0 equals the
+                  reference's service under the winning plan
+                  (SELL_PLAN_SERVICE_REF) and is bitwise the untuned
+                  handle; phase 9's 256 iterations over every candidate
+                  pack bitwise the default pack's.  f: the decode
+                  crossover: A32 at tag 3 against tag 1 on
+                  random_spd(n, 8), n = 2^12 ... 2^20.  g: timing.measure
+                  beside cuda_ms (printed).
   10. kernels  -- run last: CUDA-event times (minimum over repeats; one
                   call for a function whose first call takes ONE_CALL_MS) of
                   every kernel beside its plain version, its bound (HBM
@@ -344,7 +372,10 @@ Phases:
                   tools/time_ell_kernels.py run there in a process of its
                   own); A64's, B32's, C′32's, C64's and
                   C′64's rows carry their launches per body
-                  (`body_launches`); E's tiled
+                  (`body_launches`); A32's, A64's, C32's and C64's
+                  rows take their bytes from perf.ledger.spmv_ledger
+                  (checked against the arithmetic of before) and carry
+                  `roofline_fraction` at phase 25's probed roof; E's tiled
                   rows are bound by the TF32 tensor cores (495 TFLOP/s
                   per TF32 term) and F's bf16 rows by the bf16 tensor
                   cores (989 TFLOP/s), with `fp32_bound_ms` beside.
@@ -620,11 +651,12 @@ def sk512_rs8_s0(device):
 
 
 def serve_small(where: str, maxiter: int, params, case=rs8_400_s3,
-                layout="csr", precond=None):
+                layout="csr", precond=None, **register):
     """``case`` (rs8_400_s3 or sk512_rs8_s0) through the port's
     SolverService on ``where``: three requests b_j = A x_j,
     x_j = default_rng(j).normal(n), slots=4, the handle registered with
-    ``precond`` (None, "jacobi" or "spai0")."""
+    ``precond`` (None, "jacobi" or "spai0") and ``register``'s other
+    keywords."""
     import numpy as np
     import torch
 
@@ -634,7 +666,8 @@ def serve_small(where: str, maxiter: int, params, case=rs8_400_s3,
     n = host.shape[0]
     svc = SolverService(slots=NRHS, params=params, maxiter=maxiter,
                         device=where)
-    svc.register("op", case(where), k=8, layout=layout, precond=precond)
+    svc.register("op", case(where), k=8, layout=layout, precond=precond,
+                 **register)
     ids = [svc.submit("op", torch.from_numpy(host_spmv(
         host, np.random.default_rng(j).normal(size=n))), tol=1e-8)
         for j in range(3)]
@@ -816,7 +849,9 @@ def sell_solo(where, params):
 
 def phase_sell_trajectory(params, twins=None):
     """Phase 8: sk512_rs8_s0 over its SELL pack, solo and served, on the
-    GPU against the CPU twin and the reference's reports."""
+    GPU against the CPU twin and the reference's reports.  Returns the
+    service's reports and solutions at maxiter 20000 (phase 25's untuned
+    handle)."""
     rg, tg_s = sell_solo("cuda", params)
     (rc, tc_s), (reps_c, xs_c, wall_c) = twin_of(twins, "sell")
     log("sell_trajectory", case="sk512_rs8_s0", layout="sell",
@@ -838,6 +873,8 @@ def phase_sell_trajectory(params, twins=None):
             raise AssertionError(f"sell service at maxiter {maxiter}: {got} "
                                  f"{svc_g.stats} != {want} {want_stats}")
         twin = {}
+        if maxiter == 20000:
+            untuned = (reps_g, xs_g)
         if maxiter == 200:  # the tag-3 retry: GPU == CPU twin, bit for bit
             for rg_, rc_, xg_, xc_ in zip(reps_g, reps_c, xs_g, xs_c):
                 if report_fields(rg_) != report_fields(rc_):
@@ -852,6 +889,7 @@ def phase_sell_trajectory(params, twins=None):
             est_bytes=[r.est_bytes for r in reps_g],
             stats=json.dumps(dict(svc_g.stats)), matches_reference=True,
             gpu_s=f"{wall_g:.2f}", **twin)
+    return untuned
 
 
 def sell_stall_witness(params):
@@ -1146,7 +1184,7 @@ def phase_sell_full(params):
                    sell_bodies(sell))
     return dict(csr=csr, g=g, sell=sell, x32=x32, x32c=x32c, counts=counts,
                 b32_err=b32_err, c32_err=c32_err, scales=scales,
-                longest=longest)
+                longest=longest, b=b, x256=short_sell.x)
 
 
 def sell_entries(ctx, add_entry, chain_bound_ms):
@@ -4559,6 +4597,449 @@ def phase_serve_ir(g, b, params, ir_res, m):
         raise AssertionError(f"phase 24: {drv.chunks} chunks")
 
 
+# --- 25. the perf layer: roofline, tune cache, ledger, timing ----------------
+# The assumed roof phase 10 prices its bounds with, beside the probed one.
+ROOF_ASSUMED = dict(stream_gbps=HBM_BYTES_PER_S / 1e9,
+                    peak_gflops=FP32_OPS_PER_S / 1e9)
+# Part f: A32 at tag 3 against tag 1 on random_spd(n, 8) at these n (from
+# 2^8: A32's device time at 2^12 is already past the ratio), then at 2^20
+# on phase 2's operator (the same construction rescaled), and the ratio
+# the crossover is read at.
+CROSSOVER_N = (1 << 8, 1 << 10, 1 << 12, 1 << 14, 1 << 16, 1 << 18)
+CROSSOVER_RATIO = 1.05
+# Parts b and c time each candidate best of 20 (the reference's tuner: 3).
+SWEEP_TIMING = dict(iters=20, warmup=2)
+# The reference's SELL service on sk512_rs8_s0 (slots 4, maxiter 20000,
+# MonitorParams(40, 60, 30), three requests) registered with each SELL
+# plan the autotuner may pick, keyed c{C}_s{sigma}_{bucket}: per request
+# (iters, tag, switch_iters, health, retries, est_bytes), then the stats
+# (tools/reference/plan_service_ref.py; JAX on the CPU, x64).  Part e
+# holds the tuned service to its winner's row.
+SELL_PLAN_SERVICE_REF = {
+    "c8_sNone_pow2": (
+        [(1498, 3, [210, 300], "ok", 0, 406957675),
+         (1498, 3, [150, 180], "ok", 0, 406957675),
+         (1678, 3, [120, 150], "ok", 0, 557737195)],
+        dict(batches=1, requests=3, padded_cols=1,
+             modeled_bytes=1371652544, retries=0, errors=0,
+             deadline_exceeded=0)),
+    "c16_sNone_pow2": (
+        [(1498, 3, [210, 300], "ok", 0, 418655851),
+         (1498, 3, [150, 180], "ok", 0, 418655851),
+         (1678, 3, [120, 150], "ok", 0, 573859051)],
+        dict(batches=1, requests=3, padded_cols=1,
+             modeled_bytes=1411170752, retries=0, errors=0,
+             deadline_exceeded=0)),
+    "c16_s64_pow2": (
+        [(1498, 3, [210, 300], "ok", 0, 523939435),
+         (1498, 3, [150, 180], "ok", 0, 523939435),
+         (1678, 3, [120, 150], "ok", 0, 718955755)],
+        dict(batches=1, requests=3, padded_cols=1,
+             modeled_bytes=1766834624, retries=0, errors=0,
+             deadline_exceeded=0)),
+    "c8_s32_pow2": (
+        [(1498, 3, [210, 300], "ok", 0, 471297643),
+         (1498, 3, [150, 180], "ok", 0, 471297643),
+         (1678, 3, [120, 150], "ok", 0, 646407403)],
+        dict(batches=1, requests=3, padded_cols=1,
+             modeled_bytes=1589002688, retries=0, errors=0,
+             deadline_exceeded=0)),
+    "c8_sNone_exact": (
+        [(1498, 3, [210, 300], "ok", 0, 406957675),
+         (1498, 3, [150, 180], "ok", 0, 406957675),
+         (1678, 3, [120, 150], "ok", 0, 557737195)],
+        dict(batches=1, requests=3, padded_cols=1,
+             modeled_bytes=1371652544, retries=0, errors=0,
+             deadline_exceeded=0)),
+}
+
+
+def sell_plan_name(plan) -> str:
+    return f"c{plan.sell_c}_s{plan.sell_sigma}_{plan.sell_bucket}"
+
+
+def queued_ms(fn, reps: int, inner: int, spacer) -> float:
+    """Minimum over ``reps`` of the device ms of ``inner`` back-to-back
+    calls of ``fn``, queued behind ``spacer`` (a few ms of device work), so
+    that the host's time to launch them stays out of the reading."""
+    import torch
+
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        spacer()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / inner)
+    return best
+
+
+def ell_sweep(g, ell, row_len, x32, x32n):
+    """Part b: the A32 (nrhs 1) and C32 (nrhs 4) lanes sweeps on phase 2's
+    operator at tag 1, every candidate bitwise the default at tags 1-3,
+    then replay (a hit in memory, then from the file); then a corrupted
+    entry (of a small operator's sweep) detected and healed."""
+    import torch
+
+    from repro_torch.kernels import gse_spmm as C, gse_spmv as K, ops
+    from repro_torch.perf import autotune, tunecache
+    from repro_torch.perf.plan import DEFAULT_PLAN, resolve
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+
+    out = {}
+    for nrhs, x, kernel in ((1, x32, K.gse_spmv_ell_f32),
+                            (NRHS, x32n, C.gse_spmm_ell_f32)):
+        stats0 = dict(tunecache.TUNE_STATS)
+        t0 = time.perf_counter()
+        plan, payload, hit = autotune.get_or_tune(g, tag=1, layout="ell",
+                                                  nrhs=nrhs, **SWEEP_TIMING)
+        sweep_s = time.perf_counter() - t0
+        if hit or tunecache.TUNE_STATS["sweeps"] != stats0["sweeps"] + 1:
+            raise AssertionError(f"phase 25: the ELL nrhs {nrhs} sweep did "
+                                 "not run once")
+
+        def run(p, t, x=x):
+            if nrhs == 1:
+                return ops.gse_spmv_ell(ell, g.table, x, g.ei_bit, tag=t,
+                                        plan=p, row_len=row_len)
+            return ops.gse_spmm_ell(ell, g.table, x, g.ei_bit, tag=t,
+                                    plan=p, row_len=row_len)
+
+        for t in TAGS:
+            want = run(DEFAULT_PLAN, t)
+            for cand in autotune.candidates("ell"):
+                require_bitwise(f"phase 25: {kernel.__name__} lanes "
+                                f"{cand.lanes} tag {t} against the default",
+                                run(cand, t), want)
+        want = run(DEFAULT_PLAN, 1)
+        if resolve(g, tag=1, layout="ell", nrhs=nrhs) != plan:
+            raise AssertionError("phase 25: the tuned ELL plan does not "
+                                 "resolve")
+        got = (ops.planned_spmv(g, x, tag=1) if nrhs == 1
+               else ops.planned_spmm(g, x, tag=1))
+        require_bitwise(f"phase 25: planned nrhs {nrhs} through the tuned "
+                        "plan against the default", got, want)
+        # Replay: a hit in memory, then from the file; no sweep, no launch.
+        torch.cuda.synchronize()
+        launches = kernel.launches
+        sweeps = tunecache.TUNE_STATS["sweeps"]
+        replay = []
+        for drop in (False, True):
+            if drop:
+                tunecache.clear_memory()
+            p2, payload2, hit2 = autotune.get_or_tune(g, tag=1, layout="ell",
+                                                      nrhs=nrhs)
+            replay.append(hit2 and p2 == plan and payload2 == payload)
+        torch.cuda.synchronize()
+        if not all(replay) or tunecache.TUNE_STATS["sweeps"] != sweeps \
+                or kernel.launches != launches:
+            raise AssertionError(f"phase 25: ELL nrhs {nrhs} replay "
+                                 f"{replay}, sweeps {sweeps} -> "
+                                 f"{tunecache.TUNE_STATS['sweeps']}, "
+                                 f"launches {launches} -> {kernel.launches}")
+        out[nrhs] = payload
+        log("perf", part="b", kernel=kernel.__name__, nrhs=nrhs,
+            winner_lanes=plan.lanes, us=f"{payload['us']:.3f}",
+            default_us=f"{payload['default_us']:.3f}",
+            sweep_us=json.dumps({r["plan"]["lanes"]: round(r["us"], 3)
+                                 for r in payload["sweep"]}),
+            decode_bound=payload["decode_bound"],
+            candidates_bitwise_default_tags_1_3=True,
+            planned_bitwise_default=True, replay_hits=replay,
+            replay_launches=kernel.launches - launches,
+            sweep_s=f"{sweep_s:.2f}")
+    # A flipped payload: detected, dropped and re-swept (on a small
+    # operator: the full-size pack's checksum would cost seconds a fetch).
+    small = pack_csr(G.random_spd(1 << 12, nnz_per_row=8, seed=3,
+                                  device=g.device))
+    autotune.get_or_tune(small, tag=1, layout="ell")
+    path = Path(tunecache.cache_path())
+    blob = json.loads(path.read_text())
+    name = tunecache.device_name("cuda")
+    key = next(k for k in blob["devices"][name]["plans"]
+               if k.startswith("m4096r"))
+    blob["devices"][name]["plans"][key]["payload"]["us"] = -1.0
+    path.write_text(json.dumps(blob))
+    tunecache.clear_memory()
+    corrupt, sweeps = (tunecache.TUNE_STATS["corrupt"],
+                       tunecache.TUNE_STATS["sweeps"])
+    _, healed, hit = autotune.get_or_tune(small, tag=1, layout="ell")
+    if (hit or tunecache.TUNE_STATS["corrupt"] != corrupt + 1
+            or tunecache.TUNE_STATS["sweeps"] != sweeps + 1
+            or not healed["us"] > 0):
+        raise AssertionError("phase 25: the corrupted entry was not healed")
+    log("perf", part="b", corrupted_entry=key, corrupt_detected=1,
+        resweep=1, healed_us=f"{healed['us']:.3f}")
+    return out
+
+
+def sell_sweep(ctx):
+    """Part c: the SELL sweep of B32 on phase 9's operator at tag 1: every
+    candidate pack's B32 (tags 1-3) and C′32 (nrhs 4, tag 1) bitwise the
+    default pack's; planned_spmv through the tuned cache entry and
+    planned_spmm through the tuned plan bitwise the explicit default
+    calls."""
+    from repro_torch.kernels import ops
+    from repro_torch.perf import autotune, tunecache
+    from repro_torch.perf.plan import DEFAULT_PLAN, KernelPlan, resolve
+
+    g, x32, x32n = ctx["g"], ctx["x32"], ctx["x32c"].t().contiguous()
+    t0 = time.perf_counter()
+    plan, payload, hit = autotune.get_or_tune(g, tag=1, layout="sell",
+                                              **SWEEP_TIMING)
+    sweep_s = time.perf_counter() - t0
+    if hit:
+        raise AssertionError("phase 25: the SELL sweep hit an empty cache")
+    packs = {sell_plan_name(c): ops.sell_pack_gsecsr(g, plan=c)
+             for c in autotune.candidates("sell")}
+    default = packs[sell_plan_name(DEFAULT_PLAN)]
+    want = {t: ops.gse_spmv_sell(default, x32, tag=t) for t in TAGS}
+    want_c = ops.gse_spmm_sell(default, x32n, tag=1)
+    for name, sell in packs.items():
+        for t in TAGS:
+            require_bitwise(f"phase 25: B32 over the {name} pack, tag {t}",
+                            ops.gse_spmv_sell(sell, x32, tag=t), want[t])
+        require_bitwise(f"phase 25: C′32 over the {name} pack",
+                        ops.gse_spmm_sell(sell, x32n, tag=1), want_c)
+    if resolve(g, tag=1, layout="sell") != plan:
+        raise AssertionError("phase 25: the tuned SELL plan does not resolve")
+    require_bitwise("phase 25: planned_spmv (SELL, tuned) against the "
+                    "default", ops.planned_spmv(g, x32, tag=1,
+                                                layout="sell"), want[1])
+    require_bitwise("phase 25: planned_spmm (SELL, the tuned plan) against "
+                    "the default", ops.planned_spmm(g, x32n, tag=1,
+                                                    layout="sell", plan=plan),
+                    want_c)
+    log("perf", part="c", kernel="gse_spmv_sell_f32", nrhs=1,
+        winner=sell_plan_name(plan), us=f"{payload['us']:.3f}",
+        default_us=f"{payload['default_us']:.3f}",
+        sweep_us=json.dumps({sell_plan_name(KernelPlan.from_dict(r["plan"])):
+                             round(r["us"], 3) for r in payload["sweep"]}),
+        slots=json.dumps({k: s.slots for k, s in packs.items()}),
+        candidates_bitwise_default=True, planned_bitwise_default=True,
+        sweeps=tunecache.TUNE_STATS["sweeps"], sweep_s=f"{sweep_s:.2f}")
+    return plan, payload, packs
+
+
+def ledger_check(g, ell, row_len, x32, x32n, packs9, x9, x9n):
+    """Part d: for A32 and C32 on phase 2's ELL and B32 and C′32 on phase
+    9's packs, at tags 1-3, the ledger's launch bytes equal the integer
+    arguments ops hands the kernel, byte for byte."""
+    from repro_torch.kernels import ops
+    from repro_torch.perf import ledger
+
+    rows = []
+    cases = [("gse_spmv_ell_f32", g, lambda t: ops.gse_spmv_ell(
+                  ell, g.table, x32, g.ei_bit, tag=t, row_len=row_len)),
+             ("gse_spmm_ell_f32", g, lambda t: ops.gse_spmm_ell(
+                 ell, g.table, x32n, g.ei_bit, tag=t, row_len=row_len))]
+    for name, sell in packs9.items():
+        cases += [(f"gse_spmv_sell_f32 {name}", sell,
+                   lambda t, s=sell: ops.gse_spmv_sell(s, x9, tag=t)),
+                  (f"gse_spmm_sell_f32 {name}", sell,
+                   lambda t, s=sell: ops.gse_spmm_sell(s, x9n, tag=t))]
+    for name, src, call in cases:
+        for t in TAGS:
+            rec = ledger.recorded_launch_bytes(call, t)
+            want = (ledger.launch_segment_bytes(src, t),
+                    ledger.launch_index_bytes(src))
+            if (rec["segments"], rec["index"], rec["launches"]) != \
+                    (*want, 1):
+                raise AssertionError(f"phase 25: {name} tag {t} recorded "
+                                     f"{rec} against the ledger's {want}")
+            rows.append((name, t, rec["segments"], rec["index"]))
+    log("perf", part="d", launches_checked=len(rows),
+        ledger_equals_recorded_arguments=True,
+        bytes=json.dumps({f"{n} tag{t}": s + i for n, t, s, i in rows[:6]}))
+    return rows
+
+
+def tuned_service(params, untuned, ctx, plan9, packs9):
+    """Part e: SolverService(layout="sell", tune=True) on sk512_rs8_s0
+    against the reference's service under the winning plan and bitwise the
+    untuned handle (phase 8); then phase 9's 256-iteration check over the
+    tuned plan's pack of phase 9's operator."""
+    import torch
+
+    from repro_torch.solvers.cg import solve_cg
+    from repro_torch.perf import tunecache
+
+    sweeps = tunecache.TUNE_STATS["sweeps"]
+    svc, reps, xs, wall = serve_small("cuda", 20000, params,
+                                      case=sk512_rs8_s0, layout="sell",
+                                      tune=True)
+    plan = svc._ops["op"].plan
+    if plan is None or plan.source != "tuned" or \
+            tunecache.TUNE_STATS["sweeps"] != sweeps + 1:
+        raise AssertionError(f"phase 25: register(tune=True) gave {plan}")
+    name = sell_plan_name(plan)
+    want, want_stats = SELL_PLAN_SERVICE_REF[name]
+    got = [list(report_key(r)) for r in reps]
+    if got != [list(w) for w in want] or dict(svc.stats) != want_stats:
+        raise AssertionError(f"phase 25: the tuned service ({name}): {got} "
+                             f"{dict(svc.stats)} != {want} {want_stats}")
+    # The trajectory is the untuned handle's, bit for bit.
+    reps0, xs0 = untuned
+    ref0, _ = SELL_SERVICE_REF[20000]
+    if [report_key(r)[:5] for r in reps] != [tuple(w[:5]) for w in ref0]:
+        raise AssertionError("phase 25: the tuned service left the untuned "
+                             "trajectory")
+    for r, r0, x, x0 in zip(reps, reps0, xs, xs0):
+        if r.relres != r0.relres:
+            raise AssertionError(f"phase 25: request {r.id} relres differs")
+        require_bitwise(f"phase 25: tuned service x of request {r.id}", x,
+                        x0)
+    # Phase 9's 256 iterations over the tuned pack (over C=16's if the
+    # default won), bitwise those over the default pack.
+    s256 = {}
+    name9 = sell_plan_name(plan9)
+    for pname in [name9 if name9 != "c8_sNone_pow2" else "c16_sNone_pow2"]:
+        sell = packs9[pname]
+        t0 = time.perf_counter()
+        res = solve_cg(sell, ctx["b"], tol=1e-8, maxiter=256, params=params)
+        torch.cuda.synchronize()
+        s256[pname] = round((time.perf_counter() - t0) * 1e3 / 256, 3)
+        require_bitwise(f"phase 25: 256 iterations over the {pname} pack "
+                        "against the default pack's", res.x, ctx["x256"])
+    log("perf", part="e", case="sk512_rs8_s0", winner=name,
+        iters=[r.iters for r in reps], est_bytes=[r.est_bytes for r in reps],
+        stats=json.dumps(dict(svc.stats)), matches_reference_plan=True,
+        x_bitwise_untuned=True, gpu_s=f"{wall:.2f}",
+        skewed_pack=name9, x256_bitwise_default_pack=True,
+        ms_per_iteration_256=json.dumps(s256))
+
+
+def decode_crossover(g2, ell2, row_len2):
+    """Part f: the nnz below which A32 at tag 3 takes no more than
+    CROSSOVER_RATIO times its tag-1 time on random_spd(n, 8): A32's
+    device time, launches queued behind a spacer (``queued_ms``).  The
+    time a caller of the wrapper sees, the host's launch included
+    (``cuda_ms``), is printed beside."""
+    import torch
+
+    from repro_torch.core.precision_table import TAG_BITS_USED
+    from repro_torch.kernels import gse_spmv as K, ops, ref
+    from repro_torch.sparse import generators as G
+    from repro_torch.sparse.csr import pack_csr
+
+    dev = g2.device
+    # About 2.7 ms of FP32 matmul: longer than the host takes to launch 20
+    # calls of A32.
+    sa = torch.ones(4096, 4096, device=dev)
+    sc_out = torch.empty_like(sa)
+
+    def spacer():
+        torch.mm(sa, sa, out=sc_out)
+
+    rows = []
+    for n in CROSSOVER_N + (g2.shape[0],):
+        if n == g2.shape[0]:
+            g, ell, row_len = g2, ell2, row_len2
+        else:
+            g = pack_csr(G.random_spd(n, nnz_per_row=8, seed=n, device=dev))
+            ell, row_len = ops.ell_pack_gsecsr(g), ops.ell_row_lengths(g)
+        x = torch.ones(n, dtype=torch.float32, device=dev)
+        sc = {t: ref.make_scales(g.table, TAG_BITS_USED[t]) for t in (1, 3)}
+
+        def a32(t):
+            return K.gse_spmv_ell_f32(
+                ell[0], ell[1], ell[2] if t >= 2 else None,
+                ell[3] if t == 3 else None, x, sc[t], ei_bit=g.ei_bit, tag=t,
+                row_len=row_len)
+
+        # The card idled while the host generated the operator: launch
+        # until its clocks are up, then time the two tags in turns.
+        for _ in range(200):
+            a32(3)
+        ms = {1: float("inf"), 3: float("inf")}
+        wall = dict(ms)
+        for _ in range(2):
+            for t in (1, 3):
+                ms[t] = min(ms[t], queued_ms(lambda t=t: a32(t), reps=5,
+                                             inner=20, spacer=spacer))
+                wall[t] = min(wall[t], cuda_ms(lambda t=t: a32(t), reps=5,
+                                               inner=20))
+        rows.append((n, g.nnz, ms[1], ms[3], ms[3] / ms[1]))
+        log("perf", part="f", n=n, nnz=g.nnz, tag1_ms=f"{ms[1]:.5f}",
+            tag3_ms=f"{ms[3]:.5f}", ratio=f"{ms[3] / ms[1]:.4f}",
+            wall_tag1_ms=f"{wall[1]:.5f}", wall_tag3_ms=f"{wall[3]:.5f}",
+            wall_ratio=f"{wall[3] / wall[1]:.4f}")
+    # The crossover: the smallest operator from which on every ratio
+    # exceeds CROSSOVER_RATIO (None if the largest does not).
+    within = [i for i, r in enumerate(rows) if r[4] <= CROSSOVER_RATIO]
+    first = within[-1] + 1 if within else 0
+    crossover = rows[first][1] if first < len(rows) else None
+    log("perf", part="f", crossover_nnz=crossover, ratio=CROSSOVER_RATIO,
+        above_below_the_crossover=[r[1] for r in rows[:first]
+                                   if r[4] > CROSSOVER_RATIO])
+    return crossover, rows
+
+
+def phase_perf(g, ell, row_len, x32, x32n, params, sell_ctx, untuned):
+    """Phase 25: the perf layer on the card.  Returns the probed roof (for
+    phase 10's roofline_fraction), the crossover and the sweeps."""
+    from repro_torch.core.precision_table import TAG_BITS_USED
+    from repro_torch.kernels import gse_spmv as K, ops, ref
+    from repro_torch.perf import roofline, timing, tunecache
+
+    t_start = time.perf_counter()
+    tunecache.clear_memory()
+    tunecache.reset()
+    # a. the roof of this card, probed and persisted.
+    t0 = time.perf_counter()
+    roof = roofline.host_roofline(device="cuda", refresh=True)
+    again = roofline.host_roofline(device="cuda")
+    if not roof["probed"] or again["probed"] or any(
+            again[k] != roof[k] for k in ("stream_gbps", "peak_gflops")):
+        raise AssertionError(f"phase 25: the roof was not persisted: {roof} "
+                             f"then {again}")
+    log("perf", part="a", stream_gbps=f"{roof['stream_gbps']:.1f}",
+        peak_gflops=f"{roof['peak_gflops']:.1f}",
+        assumed_stream_gbps=ROOF_ASSUMED["stream_gbps"],
+        assumed_peak_gflops=ROOF_ASSUMED["peak_gflops"],
+        stream_n=roof["stream_n"], matmul_n=roof["matmul_n"],
+        second_call_probed=again["probed"], device=roof["device"],
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    t1 = time.perf_counter()
+    ell_payloads = ell_sweep(g, ell, row_len, x32, x32n)
+    t2 = time.perf_counter()
+    plan9, sell_payload, packs9 = sell_sweep(sell_ctx)
+    t3 = time.perf_counter()
+    x9 = sell_ctx["x32"]
+    ledger_check(g, ell, row_len, x32, x32n,
+                 {"default": packs9["c8_sNone_pow2"],
+                  "tuned": packs9[sell_plan_name(plan9)]},
+                 x9, sell_ctx["x32c"].t().contiguous())
+    t4 = time.perf_counter()
+    tuned_service(params, untuned, sell_ctx, plan9, packs9)
+    del packs9
+    t5 = time.perf_counter()
+    crossover, crossover_rows = decode_crossover(g, ell, row_len)
+    t6 = time.perf_counter()
+    # g. timing.measure beside cuda_ms on one call (printed, not a gate).
+    sc = ref.make_scales(g.table, TAG_BITS_USED[1])
+    a32 = lambda: K.gse_spmv_ell_f32(ell[0], ell[1], None, None, x32, sc,
+                                     ei_bit=g.ei_bit, tag=1, row_len=row_len)
+    _, sec = timing.measure(a32, iters=10, warmup=2)
+    log("perf", part="g", kernel="gse_spmv_ell_f32", tag=1,
+        timing_measure_ms=f"{sec * 1e3:.5f}",
+        cuda_ms=f"{cuda_ms(a32, reps=10):.5f}")
+    log("perf", seconds=f"{time.perf_counter() - t_start:.1f}",
+        roof_s=f"{t1 - t_start:.1f}", ell_sweep_s=f"{t2 - t1:.1f}",
+        sell_sweep_s=f"{t3 - t2:.1f}", ledger_s=f"{t4 - t3:.1f}",
+        service_s=f"{t5 - t4:.1f}", crossover_s=f"{t6 - t5:.1f}",
+        tune_stats=json.dumps(dict(tunecache.TUNE_STATS)),
+        pack_stats=json.dumps(dict(ops.PACK_STATS)))
+    return dict(roof=roof, crossover=crossover, crossover_rows=crossover_rows,
+                ell=ell_payloads, sell=sell_payload)
+
+
 # --- the CPU twins -----------------------------------------------------------
 # The twins run in two processes of their own: the small solves on one
 # core, in the order the phases need them, from before the build, and
@@ -4719,6 +5200,9 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs the port on a GPU only")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_twins_") as tmp:
+        # The run's tune cache (phase 25): each run sweeps once, then
+        # replays from this file.
+        os.environ["REPRO_TORCH_TUNE_CACHE"] = str(Path(tmp, "tunecache.json"))
         twins = CpuTwins(Path(tmp))
         try:
             twins.start(SMALL_TWINS, 1)
@@ -5052,7 +5536,7 @@ def run(opts, twins) -> int:
 
     # 7-9. the SELL-C-sigma layout --------------------------------------------
     phase_sell_parity()
-    phase_sell_trajectory(params, twins)
+    untuned = phase_sell_trajectory(params, twins)
     sell_ctx = phase_sell_full(params)
 
     # 15-20. stepped GMRES, PCG and iterative refinement ------------------------
@@ -5102,6 +5586,10 @@ def run(opts, twins) -> int:
         part3_s=f"{time.perf_counter() - t11:.1f}",
         seconds=f"{time.perf_counter() - t9:.1f}")
 
+    # 25. the perf layer: roofline, sweeps, replay, ledger, crossover -------
+    perf = phase_perf(g, ell, row_len, x32, x32n, params, sell_ctx, untuned)
+    del untuned
+
     # 11-14. the LM serving path ----------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain E: full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -5120,6 +5608,8 @@ def run(opts, twins) -> int:
                                       for k, v in twins.waited.items()}))
 
     # 10. kernel times ---------------------------------------------------------
+    from repro_torch.perf import ledger, roofline
+
     t_kernels = time.perf_counter()
     m, n = g.shape
     kernels = []
@@ -5142,7 +5632,9 @@ def run(opts, twins) -> int:
         return steps * chain[op]["ns"] * 1e-6
 
     def add_entry(name, source, replaces, launch, plain, lib, nbytes, op_ms,
-                  plain_reps=3, reps=10, inner=10, **extra):
+                  plain_reps=3, reps=10, inner=10, led=None, **extra):
+        """One kernel's row; ``led`` (a ``perf.ledger.KernelLedger``) adds
+        its roofline fraction at phase 25's probed roof."""
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         entry = {
             "name": name,
@@ -5158,6 +5650,9 @@ def run(opts, twins) -> int:
             "bytes": nbytes,
             **extra,
         }
+        if led is not None:
+            entry["roofline_fraction"] = roofline.fraction(
+                led.flops, led.bytes, entry["ms"] / 1e3, perf["roof"])
         kernels.append(entry)
         log("kernels", name=name, ms=f"{entry['ms']:.4f}",
             plain_ms=f"{entry['plain_ms']:.3f}",
@@ -5242,9 +5737,14 @@ def run(opts, twins) -> int:
                     extra["earlier_design"] = (
                         "every slot of the 128-wide row on a warp"
                         + (", X (nrhs, n)" if ncols > 1 else ""))
+            # The ledger's bytes: today's arithmetic, checked.
+            led = ledger.spmv_ledger(g, tag=t, nrhs=ncols, vec_dtype=(
+                torch.float32 if xb == 4 else torch.float64))
+            if led.bytes != g.bytes_touched(t) + ncols * (m + n) * xb:
+                raise AssertionError(f"{name} tag {t}: the ledger's "
+                                     f"{led.bytes} bytes")
             add_entry(f"{name}.tag{t}", src, replaces, launch, plain, lib,
-                      g.bytes_touched(t) + ncols * (m + n) * xb,
-                      nops / ops_rate * 1e3, **extra)
+                      led.bytes, nops / ops_rate * 1e3, led=led, **extra)
     vec_src = "src/repro_torch/kernels/csrc/vec_f64.cu"
     for name, launch, plain, lib, ncols, plain_reps, count in (
         ("seq_dot", lambda: V.seq_dot(u64, x64),

@@ -7,14 +7,22 @@ beside it, :func:`ell_row_lengths`), ``sell_pack_gsecsr`` (:198),
 ``spmv_kernel_for`` (:349), ``spmm_kernel_for`` (:387), ``gse_spmm_ell``
 (:427), ``sell_kernel_for`` (:535), ``sell_spmm_kernel_for`` (:558),
 ``_sell_buckets`` (:572), ``gse_spmv_sell`` (:613), ``gse_spmm_sell``
-(:637) and ``gse_spmv_ell`` (:660); the dense kernels' wrappers
-``gse_decode`` (:120, kernel D) and ``gse_matmul`` (:142, kernel E).  The reference pads rows to its
-(8, 128) grid block; the CUDA kernels take any row count, so only the
-lane width (128, the reference's default plan) is padded.  The port keeps
-its own copy of the reference plan's SELL defaults (``perf/plan.py``
-:58-62).  Launch plans (``blocks=``, ``plan=``, ``planned_spmv``,
-``planned_spmm``) are ROADMAP queue 1 item 14 and raise
-``NotImplementedError``.  ``PACK_STATS`` is a dict-shaped view over the
+(:637), ``gse_spmv_ell`` (:660), ``planned_spmv`` (:458) and
+``planned_spmm`` (:494); the dense kernels' wrappers ``gse_decode``
+(:120, kernel D) and ``gse_matmul`` (:142, kernel E).  The reference pads
+rows to its (8, 128) grid block; the CUDA kernels take any row count, so
+only the lane width (128, the default plan's) is padded.
+
+Launch plans (``perf.plan``): every SpMV/SpMM entry point resolves
+explicit ``blocks=``, then ``plan=``, then (for an operand in hand) the
+tuned cache, then ``DEFAULT_PLAN``, which launches today's kernels bit
+for bit.  A plan's ``lanes`` picks the lanes a row of A32 and C32 runs on
+(``lanes=`` wins over it), ``lane`` the ELL and SELL pack alignment, and
+``sell_c``/``sell_sigma``/``sell_bucket`` the SELL pack.  ``blocks`` is
+the reference's Pallas grid: it is checked as the reference checks it (a
+SELL pack it cannot tile raises ValueError; a tuned plan falls back) and
+chooses no launch, as ``block=``/``blocks=`` of kernels D and E do.
+``PACK_STATS`` is a dict-shaped view over the
 metrics registry's ``repro_pack_cache_events_total`` (``obs.metrics``),
 and a cache miss's build runs inside a ``pack.build`` span.
 
@@ -48,10 +56,13 @@ from repro_torch.core.precision_table import TAG_SEGMENTS
 from repro_torch.kernels.gse_decode import gse_decode_dense
 from repro_torch.kernels.gse_matmul import gse_matmul_dense
 from repro_torch.kernels.gse_spmm import gse_spmm_ell_f32, gse_spmm_sell_f32
-from repro_torch.kernels.gse_spmv import gse_spmv_ell_f32, gse_spmv_sell_f32
+from repro_torch.kernels.gse_spmv import (ELL_LANES_DEFAULT, gse_spmv_ell_f32,
+                                          gse_spmv_sell_f32)
 from repro_torch.core.tagmap import TagMap
 from repro_torch.obs import metrics as OM
 from repro_torch.obs import trace as OT
+from repro_torch.perf import plan as launch_plan
+from repro_torch.perf.plan import KernelPlan
 from repro_torch.sparse.csr import (GSECSR, GSESellC, _col_of, _int_tag,
                                     entry_tags_t, pack_sell, scatter_rows)
 
@@ -60,8 +71,8 @@ __all__ = ["gse_decode", "gse_matmul", "gse_spmv_ell", "gse_spmm_ell",
            "gse_spmv_sell", "gse_spmm_sell", "spmv_kernel_for",
            "spmm_kernel_for", "sell_kernel_for", "sell_spmm_kernel_for",
            "planned_spmv", "planned_spmm", "masked_for_tagmap",
-           "sell_bucket_tags", "PACK_STATS", "PACK_CACHE_MAX", "LANE", "SELL_C", "SELL_SIGMA",
-           "SELL_BUCKET"]
+           "sell_bucket_tags", "PACK_STATS", "PACK_CACHE_MAX", "LANE", "SELL_C",
+           "SELL_SIGMA", "SELL_BUCKET"]
 
 # Operand-pack cache accounting: ``hits``/``misses`` let callers assert
 # that repeated solves re-pack nothing; ``evictions`` counts LRU drops and
@@ -77,21 +88,13 @@ PACK_STATS = OM.stats_view(
 # Per-operator-instance LRU bound on cached packed layouts.
 PACK_CACHE_MAX = 8
 
-# ELL row width alignment (the reference's default launch plan lane).
-LANE = 128
-
-# The reference plan's SELL-C-sigma defaults: slice height, sort window
-# (None: a full sort) and width-bucket granularity.
-SELL_C = 8
-SELL_SIGMA = None
-SELL_BUCKET = "pow2"
-
-
-def _no_plans(blocks=None, plan=None):
-    if blocks is not None or plan is not None:
-        raise NotImplementedError(
-            "launch plans (blocks=, plan=) are not ported yet (ROADMAP queue "
-            "1 item 14)")
+# The default launch plan's pack parameters: the ELL and SELL lane
+# alignment, and SELL's slice height, sort window (None: a full sort) and
+# width-bucket granularity.
+LANE = launch_plan.DEFAULT_PLAN.lane
+SELL_C = launch_plan.DEFAULT_PLAN.sell_c
+SELL_SIGMA = launch_plan.DEFAULT_PLAN.sell_sigma
+SELL_BUCKET = launch_plan.DEFAULT_PLAN.sell_bucket
 
 
 def _sell_tag(tag) -> int:
@@ -165,15 +168,20 @@ _SEGMENT_DTYPES = (
 )
 
 
-def ell_pack_gsecsr(a: GSECSR, lane: int = LANE):
+def ell_pack_gsecsr(a: GSECSR, lane: int | None = None,
+                    plan: KernelPlan | None = None):
     """GSE-SEM CSR -> padded uniform-ELL segment tensors for the SpMV
     kernel, on ``a``'s device.
 
     Returns ``(colpak, head, tail1, tail2)``, each (rows, L) with L the
-    longest row rounded up to ``lane``.  Padded slots hold colpak=0 and
-    head=0 (mantissa 0 -> decodes to +0.0).  Memoized on the operator
-    instance: repeat callers re-scatter nothing.
+    longest row rounded up to ``lane`` (explicit argument, then ``plan``,
+    then the default 128).  Padded slots hold colpak=0 and head=0
+    (mantissa 0 -> decodes to +0.0).  Memoized on the operator instance:
+    repeat callers re-scatter nothing.
     """
+    if lane is None:
+        lane = (plan or launch_plan.DEFAULT_PLAN).lane
+
     def build():
         rowptr = np.asarray(a.rowptr.cpu().numpy(), np.int64)
         L = int(max(1, np.diff(rowptr).max(initial=0)))
@@ -198,16 +206,18 @@ def ell_row_lengths(a: GSECSR) -> torch.Tensor:
 
 def sell_pack_gsecsr(a: GSECSR, c: int | None = None,
                      sigma: int | None = None, lane: int | None = None,
-                     bucket: str | None = None, plan=None) -> GSESellC:
+                     bucket: str | None = None,
+                     plan: KernelPlan | None = None) -> GSESellC:
     """GSE-SEM CSR -> SELL-C-sigma packed layout on ``a``'s device,
     memoized on the operator instance under ``("sell", c, sigma, lane,
-    bucket)``.  Parameters left ``None`` take the defaults (C=8, a full
-    sort, lane 128, pow2 width buckets)."""
-    _no_plans(plan=plan)
-    c = SELL_C if c is None else c
-    sigma = SELL_SIGMA if sigma is None else sigma
-    lane = LANE if lane is None else lane
-    bucket = SELL_BUCKET if bucket is None else bucket
+    bucket)``.  Each parameter resolves explicit argument, then ``plan``,
+    then the default plan (C=8, a full sort, lane 128, pow2 width
+    buckets)."""
+    base = plan or launch_plan.DEFAULT_PLAN
+    c = base.sell_c if c is None else c
+    sigma = base.sell_sigma if sigma is None else sigma
+    lane = base.lane if lane is None else lane
+    bucket = base.sell_bucket if bucket is None else bucket
     return _cached_pack(
         a, ("sell", c, sigma, lane, bucket),
         lambda: pack_sell(a, c=c, sigma=sigma, lane=lane, bucket=bucket))
@@ -312,25 +322,38 @@ def _sell_scales(sell: GSESellC) -> torch.Tensor:
     return scales
 
 
+def spmv_kernel_for(tag: int, ei_bit: int, blocks=None):
+    """Tag-specialized SpMV dispatch, cached per ``(tag, ei_bit,
+    blocks)``: the returned callable takes exactly the operands ``tag``
+    streams -- ``(colpak, head, x, scales)`` for tag 1, ``+ tail1`` for
+    tag 2, ``+ tail2`` for tag 3 -- so the tag-1/-2 launches never touch
+    the tail arrays, the rows' real slot counts as ``row_len=`` (required
+    on the card, :func:`ell_row_lengths`) and the lanes a row runs on as
+    ``lanes=``.  ``blocks`` (the reference's grid tile) chooses no launch:
+    every ``blocks``, ``None`` included, gives the same callable."""
+    return _spmv_kernel_cached(tag, ei_bit)
+
+
 @functools.lru_cache(maxsize=None)
-def spmv_kernel_for(tag: int, ei_bit: int):
-    """Tag-specialized SpMV dispatch: the returned callable takes exactly
-    the operands ``tag`` streams -- ``(colpak, head, x, scales)`` for tag
-    1, ``+ tail1`` for tag 2, ``+ tail2`` for tag 3 -- so the tag-1/-2
-    launches never touch the tail arrays, and the rows' real slot counts
-    as ``row_len=`` (required on the card, :func:`ell_row_lengths`)."""
+def _spmv_kernel_cached(tag: int, ei_bit: int):
     if tag == 1:
-        def call(colpak, head, x, scales, *, row_len=None):
+        def call(colpak, head, x, scales, *, row_len=None,
+                 lanes=ELL_LANES_DEFAULT):
             return gse_spmv_ell_f32(colpak, head, None, None, x, scales,
-                                    ei_bit=ei_bit, tag=1, row_len=row_len)
+                                    ei_bit=ei_bit, tag=1, row_len=row_len,
+                                    lanes=lanes)
     elif tag == 2:
-        def call(colpak, head, tail1, x, scales, *, row_len=None):
+        def call(colpak, head, tail1, x, scales, *, row_len=None,
+                 lanes=ELL_LANES_DEFAULT):
             return gse_spmv_ell_f32(colpak, head, tail1, None, x, scales,
-                                    ei_bit=ei_bit, tag=2, row_len=row_len)
+                                    ei_bit=ei_bit, tag=2, row_len=row_len,
+                                    lanes=lanes)
     elif tag == 3:
-        def call(colpak, head, tail1, tail2, x, scales, *, row_len=None):
+        def call(colpak, head, tail1, tail2, x, scales, *, row_len=None,
+                 lanes=ELL_LANES_DEFAULT):
             return gse_spmv_ell_f32(colpak, head, tail1, tail2, x, scales,
-                                    ei_bit=ei_bit, tag=3, row_len=row_len)
+                                    ei_bit=ei_bit, tag=3, row_len=row_len,
+                                    lanes=lanes)
     else:
         raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
     return call
@@ -342,54 +365,67 @@ def _ell_operands(ell, tag: int) -> list:
     return [colpak, head] + [t1, t2][:len(TAG_SEGMENTS[tag])]
 
 
-def gse_spmv_ell(ell, table, x: torch.Tensor, ei_bit: int, tag: int = 1, *,
-                 row_len=None) -> torch.Tensor:
+def gse_spmv_ell(ell, table, x: torch.Tensor, ei_bit: int, tag: int = 1,
+                 blocks=None, plan: KernelPlan | None = None, *,
+                 row_len=None, lanes: int | None = None) -> torch.Tensor:
     """y = A @ x (f32) from ELL-packed GSE-SEM segments (kernel A32).
 
     Only the segment arrays ``tag`` reads are passed, and of each row only
     its ``row_len`` real slots (required on the card: the operator's
     :func:`ell_row_lengths`) are streamed: ``GSECSR.bytes_touched(tag)``
     gives the modeled per-call matrix bytes (6/8/12 per nnz for tags 1/2/3
-    vs 12 for FP64 CSR).
+    vs 12 for FP64 CSR).  The launch resolves explicit ``blocks``, then
+    ``plan``, then the default plan; the plan's ``lanes`` (unless
+    ``lanes=`` is given) is the lanes a row runs on.
     """
+    resolved = launch_plan.resolve(blocks=blocks, plan=plan)
+    lanes = resolved.lanes if lanes is None else lanes
     scales = ref.make_scales(table, TAG_BITS_USED[tag])
-    return spmv_kernel_for(tag, ei_bit)(*_ell_operands(ell, tag), x, scales,
-                                        row_len=row_len)
+    return spmv_kernel_for(tag, ei_bit)(
+        *_ell_operands(ell, tag), x, scales, row_len=row_len, lanes=lanes)
 
 
-@functools.lru_cache(maxsize=None)
-def spmm_kernel_for(tag: int, ei_bit: int):
+def spmm_kernel_for(tag: int, ei_bit: int, blocks=None):
     """Tag-specialized SpMM dispatch, the multi-RHS twin of
     :func:`spmv_kernel_for`: the returned callable takes exactly the
     operands ``tag`` streams -- ``(colpak, head, x, scales)`` for tag 1,
     ``+ tail1`` for tag 2, ``+ tail2`` for tag 3 -- with ``x`` an
     ``(n, nrhs)`` row-major block, and the keywords ``row_len=`` (required
-    on the card) and ``device=`` (default ``"cuda"``).  The segments are
-    streamed once for every pass of four columns."""
+    on the card), ``lanes=`` and ``device=`` (default ``"cuda"``).  The
+    segments are streamed once for every pass of four columns.
+    ``blocks`` chooses no launch, as in :func:`spmv_kernel_for`."""
+    return _spmm_kernel_cached(tag, ei_bit)
+
+
+@functools.lru_cache(maxsize=None)
+def _spmm_kernel_cached(tag: int, ei_bit: int):
     if tag == 1:
-        def call(colpak, head, x, scales, *, row_len=None, device="cuda"):
+        def call(colpak, head, x, scales, *, row_len=None,
+                 lanes=ELL_LANES_DEFAULT, device="cuda"):
             return gse_spmm_ell_f32(colpak, head, None, None, x, scales,
                                     ei_bit=ei_bit, tag=1, row_len=row_len,
-                                    device=device)
+                                    lanes=lanes, device=device)
     elif tag == 2:
         def call(colpak, head, tail1, x, scales, *, row_len=None,
-                 device="cuda"):
+                 lanes=ELL_LANES_DEFAULT, device="cuda"):
             return gse_spmm_ell_f32(colpak, head, tail1, None, x, scales,
                                     ei_bit=ei_bit, tag=2, row_len=row_len,
-                                    device=device)
+                                    lanes=lanes, device=device)
     elif tag == 3:
         def call(colpak, head, tail1, tail2, x, scales, *, row_len=None,
-                 device="cuda"):
+                 lanes=ELL_LANES_DEFAULT, device="cuda"):
             return gse_spmm_ell_f32(colpak, head, tail1, tail2, x, scales,
                                     ei_bit=ei_bit, tag=3, row_len=row_len,
-                                    device=device)
+                                    lanes=lanes, device=device)
     else:
         raise ValueError(f"tag must be 1, 2 or 3, got {tag}")
     return call
 
 
-def gse_spmm_ell(ell, table, x: torch.Tensor, ei_bit: int, tag: int = 1, *,
-                 row_len=None, device="cuda") -> torch.Tensor:
+def gse_spmm_ell(ell, table, x: torch.Tensor, ei_bit: int, tag: int = 1,
+                 blocks=None, plan: KernelPlan | None = None, *,
+                 row_len=None, lanes: int | None = None,
+                 device="cuda") -> torch.Tensor:
     """Y = A @ X (f32, ``(m, nrhs)``) from ELL-packed GSE-SEM segments
     (kernel C32), X a dense ``(n, nrhs)`` block as in the reference, read
     as it lies (a contiguous copy only if it is not row-major f32).
@@ -398,15 +434,17 @@ def gse_spmm_ell(ell, table, x: torch.Tensor, ei_bit: int, tag: int = 1, *,
     its ``row_len`` real slots (required on the card: the operator's
     :func:`ell_row_lengths`), streamed once for every pass of four
     columns: ``iteration_stream_bytes(a, tag, nrhs=nrhs)`` is the modeled
-    traffic.
+    traffic.  The launch resolves as :func:`gse_spmv_ell`'s does.
     """
     if x.dim() != 2:
         raise ValueError(f"gse_spmm_ell wants a (n, nrhs) block; got "
                          f"{tuple(x.shape)}")
+    resolved = launch_plan.resolve(blocks=blocks, plan=plan)
+    lanes = resolved.lanes if lanes is None else lanes
     scales = ref.make_scales(table, TAG_BITS_USED[tag])
     return spmm_kernel_for(tag, ei_bit)(
         *_ell_operands(ell, tag), x.to(torch.float32).contiguous(), scales,
-        row_len=row_len, device=device)
+        row_len=row_len, lanes=lanes, device=device)
 
 
 def _sell_buckets(sell: GSESellC, tag: int):
@@ -443,8 +481,9 @@ def sell_kernel_for(tag: int, ei_bit: int, blocks=None):
     ``tag`` streams -- ``(colpak, head)`` for tag 1, ``+ tail1`` for tag 2,
     ``+ tail2`` for tag 3 -- then ``x, scales`` and the keywords
     ``buckets``, ``perm``, ``rows`` (and, on the card, ``long_from``).  One
-    launch covers every bucket."""
-    _no_plans(blocks)
+    launch covers every bucket.  ``blocks`` (the reference's grid tile)
+    chooses no launch: every ``blocks``, ``None`` included, gives the same
+    callable."""
     return _sell_dispatch(gse_spmv_sell_f32, tag, ei_bit)
 
 
@@ -452,9 +491,40 @@ def sell_spmm_kernel_for(tag: int, ei_bit: int, blocks=None):
     """Multi-RHS twin of :func:`sell_kernel_for` (kernel C′32): ``x`` is an
     ``(n, nrhs)`` row-major block, and the keywords ``long_from`` (on the
     card) and ``device=`` (default ``"cuda"``) follow the layout
-    keywords."""
-    _no_plans(blocks)
+    keywords; ``blocks`` chooses no launch."""
     return _sell_dispatch(gse_spmm_sell_f32, tag, ei_bit)
+
+
+def _check_sell_blocks(sell: GSESellC, blocks) -> None:
+    """The reference's check of a grid tile against a SELL pack (its
+    ``ops.py:580``): the slice height must be a multiple of BM and every
+    bucket width of BL.  The card's kernels have no such grid."""
+    bm, bl = blocks
+    if sell.c % bm != 0:
+        raise ValueError(
+            f"slice height {sell.c} must be a multiple of the row block "
+            f"{bm} (bucket rows are not re-padded: that would desync the "
+            "row permutation)")
+    if any(w % bl != 0 for w in sell.widths):
+        raise ValueError(
+            f"bucket widths {sell.widths} must be multiples of the lane "
+            f"block {bl}")
+
+
+def _resolve_sell_blocks(sell: GSESellC, tag, nrhs: int, blocks,
+                         plan: KernelPlan | None) -> None:
+    """SELL launch-block resolution as the reference's, for its checks
+    (the blocks choose no launch): explicit arguments are checked and
+    raise; a tuned plan recorded for another pack (its C or widths do not
+    tile this one) falls back to the default."""
+    if blocks is not None or plan is not None:
+        resolved = launch_plan.resolve(blocks=blocks, plan=plan)
+    else:
+        resolved = launch_plan.resolve(sell, tag=tag, layout="sell",
+                                       nrhs=nrhs)
+        if not resolved.compatible_with_sell(sell):
+            resolved = launch_plan.DEFAULT_PLAN
+    _check_sell_blocks(sell, resolved.blocks)
 
 
 def _gse_sell_tagmap(sell: GSESellC, x, tm: TagMap, spmm: bool, device):
@@ -479,7 +549,8 @@ def _gse_sell_tagmap(sell: GSESellC, x, tm: TagMap, spmm: bool, device):
 
 
 def gse_spmv_sell(sell: GSESellC, x: torch.Tensor, tag=1,
-                  blocks=None, plan=None) -> torch.Tensor:
+                  blocks=None, plan: KernelPlan | None = None
+                  ) -> torch.Tensor:
     """y = A @ x (f32) from a SELL-C-sigma packed operand (kernel B32).
 
     One launch streams each slice at its own lane-aligned width, so the
@@ -487,9 +558,12 @@ def gse_spmv_sell(sell: GSESellC, x: torch.Tensor, tag=1,
     slots.  For finite x the result is bitwise :func:`gse_spmv_ell` on the
     same operator.  ``tag`` may be a ``TagMap``: one mixed launch then
     runs each bucket of ``sell`` -- ``masked_for_tagmap(sell, tag)``, as
-    in the reference -- at its bucket tag.
+    in the reference -- at its bucket tag.  ``blocks`` resolves explicit
+    argument, then ``plan``, then the tuned cache, then the default, and is
+    checked against the pack (:func:`_resolve_sell_blocks`); it chooses no
+    launch.
     """
-    _no_plans(blocks, plan)
+    _resolve_sell_blocks(sell, tag, 1, blocks, plan)
     if isinstance(tag, TagMap):
         return _gse_sell_tagmap(sell, x, tag, spmm=False, device=None)
     tag = _sell_tag(tag)
@@ -501,17 +575,19 @@ def gse_spmv_sell(sell: GSESellC, x: torch.Tensor, tag=1,
 
 
 def gse_spmm_sell(sell: GSESellC, x: torch.Tensor, tag=1,
-                  blocks=None, plan=None, *, device="cuda") -> torch.Tensor:
+                  blocks=None, plan: KernelPlan | None = None, *,
+                  device="cuda") -> torch.Tensor:
     """Y = A @ X (f32, ``(m, nrhs)``) from a SELL-C-sigma packed operand
     (kernel C′32), X a dense ``(n, nrhs)`` block, read as it lies (a
     contiguous copy only if it is not row-major f32); each bucket's
     segments are streamed once for every pass of four columns.  Bitwise
     :func:`gse_spmm_ell` on the same operator for finite X.  ``tag`` may
-    be a ``TagMap``, as in :func:`gse_spmv_sell`."""
-    _no_plans(blocks, plan)
+    be a ``TagMap``, and ``blocks``/``plan`` resolve, as in
+    :func:`gse_spmv_sell`."""
     if x.dim() != 2:
         raise ValueError(f"gse_spmm_sell wants a (n, nrhs) block; got "
                          f"{tuple(x.shape)}")
+    _resolve_sell_blocks(sell, tag, x.shape[1], blocks, plan)
     if isinstance(tag, TagMap):
         return _gse_sell_tagmap(sell, x.to(torch.float32).contiguous(), tag,
                                 spmm=True, device=device)
@@ -524,14 +600,63 @@ def gse_spmm_sell(sell: GSESellC, x: torch.Tensor, tag=1,
         long_from=sell.long_from, device=device)
 
 
-def planned_spmv(*args, **kwargs):
-    """Launch-plan SpMV dispatch: not ported yet."""
-    _no_plans(plan=True)
+def planned_spmv(a: GSECSR, x: torch.Tensor, tag=1, layout: str = "ell",
+                 plan: KernelPlan | None = None) -> torch.Tensor:
+    """Operator-level SpMV with full launch-plan resolution.
+
+    Resolves ``plan`` (explicit, then the tuned cache keyed on the
+    operator's shape class and device, then the default), packs ``a`` with
+    the plan's layout parameters (memoized, :func:`ell_pack_gsecsr` /
+    :func:`sell_pack_gsecsr`) and runs A32 with the plan's ``lanes`` (and
+    the rows' real slot counts) or B32.  The entry point the autotuner
+    sweeps.
+
+    ``tag`` may be a ``TagMap``: the operand goes through
+    :func:`masked_for_tagmap` first; the ELL path decodes at the map's max
+    tag, the SELL path runs each bucket at its bucket tag.
+    """
+    plan = launch_plan.resolve(a, tag=tag, layout=layout, nrhs=1,
+                               plan=plan)
+    if isinstance(tag, TagMap):
+        a = masked_for_tagmap(a, tag)
+        if layout == "ell":
+            tag = tag.max_tag  # masked tails: the max-tag decode is the map
+    if layout == "sell":
+        sell = sell_pack_gsecsr(a, plan=plan)
+        blocks = (plan.blocks if plan.compatible_with_sell(sell)
+                  else launch_plan.DEFAULT_BLOCKS)
+        return gse_spmv_sell(sell, x, tag=tag, blocks=blocks)
+    if layout != "ell":
+        raise ValueError(f"layout must be 'ell' or 'sell', got {layout!r}")
+    ell = ell_pack_gsecsr(a, plan=plan)
+    return gse_spmv_ell(ell, a.table, x, a.ei_bit, tag=tag,
+                        blocks=plan.blocks, row_len=ell_row_lengths(a),
+                        lanes=plan.lanes)
 
 
-def planned_spmm(*args, **kwargs):
-    """Launch-plan SpMM dispatch: not ported yet."""
-    _no_plans(plan=True)
+def planned_spmm(a: GSECSR, x: torch.Tensor, tag=1, layout: str = "ell",
+                 plan: KernelPlan | None = None, *,
+                 device="cuda") -> torch.Tensor:
+    """Multi-RHS twin of :func:`planned_spmv` (X a dense ``(n, nrhs)``
+    block) on kernels C32 and C′32."""
+    nrhs = x.shape[1]
+    plan = launch_plan.resolve(a, tag=tag, layout=layout, nrhs=nrhs,
+                               plan=plan)
+    if isinstance(tag, TagMap):
+        a = masked_for_tagmap(a, tag)
+        if layout == "ell":
+            tag = tag.max_tag  # masked tails: the max-tag decode is the map
+    if layout == "sell":
+        sell = sell_pack_gsecsr(a, plan=plan)
+        blocks = (plan.blocks if plan.compatible_with_sell(sell)
+                  else launch_plan.DEFAULT_BLOCKS)
+        return gse_spmm_sell(sell, x, tag=tag, blocks=blocks, device=device)
+    if layout != "ell":
+        raise ValueError(f"layout must be 'ell' or 'sell', got {layout!r}")
+    ell = ell_pack_gsecsr(a, plan=plan)
+    return gse_spmm_ell(ell, a.table, x, a.ei_bit, tag=tag,
+                        blocks=plan.blocks, row_len=ell_row_lengths(a),
+                        lanes=plan.lanes, device=device)
 
 
 # --- the dense path: kernels D and E ---------------------------------------
@@ -554,16 +679,33 @@ def _dense_scales(packed: GSEPacked, tag: int):
     return ref.make_scales(packed.table, TAG_BITS_USED[tag] - packed.ei_bit)
 
 
+def _check_grid(blocks, dims: int, name: str) -> None:
+    """Raise unless ``blocks`` is ``None`` or a grid tile of ``dims``
+    positive ints, what the reference's ``gse_decode``/``gse_matmul`` pad
+    to.  Kernels D and E keep their own designs: the tile chooses no
+    launch."""
+    if blocks is None:
+        return
+    try:
+        tile = tuple(blocks)
+    except TypeError:
+        tile = ()
+    if len(tile) != dims or not all(
+            isinstance(b, (int, np.integer)) and not isinstance(b, bool)
+            and b > 0 for b in tile):
+        raise ValueError(f"{name} must be {dims} positive ints, got "
+                         f"{blocks!r}")
+
+
 def gse_decode(packed: GSEPacked, tag: int = 1, block=None,
                device="cuda") -> torch.Tensor:
     """Decode a dense 2-D (or 1-D) GSE-SEM tensor to f32 with kernel D.
 
     The reference pads to its (8, 128) grid block; the CUDA kernel takes
-    any shape, so nothing is padded.  Launch blocks are ROADMAP queue 1
-    item 14.
+    any shape, so nothing is padded: ``block`` (the reference's tile, two
+    positive ints) is checked and chooses no launch.
     """
-    if block is not None:
-        raise NotImplementedError("launch blocks: ROADMAP queue 1 item 14")
+    _check_grid(block, 2, "block")
     if packed.head.dim() not in (1, 2):
         raise ValueError(f"gse_decode takes a 1-D or 2-D pack, got shape "
                          f"{tuple(packed.head.shape)}")
@@ -577,10 +719,10 @@ def gse_matmul(x: torch.Tensor, packed: GSEPacked, tag: int = 1,
     """x @ decode(W) with the decode fused into kernel E.
 
     x: (M, K) f32 or bf16; packed: GSE-SEM weights of logical shape
-    (K, N).  Returns (M, N) f32.
+    (K, N).  Returns (M, N) f32.  ``blocks`` (the reference's (BM, BN, BK)
+    tile) is checked and chooses no launch: E picks its own body.
     """
-    if blocks is not None:
-        raise NotImplementedError("launch blocks: ROADMAP queue 1 item 14")
+    _check_grid(blocks, 3, "blocks")
     if packed.head.dim() != 2:
         raise ValueError(f"gse_matmul takes a 2-D pack, got shape "
                          f"{tuple(packed.head.shape)}")

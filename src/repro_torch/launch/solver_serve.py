@@ -40,8 +40,12 @@ at ``submit``: requests bucket by their effective axis (a map by its
 crc32); a non-uniform map runs the batched solve on the masked operand
 and its byte shares charge the blended stream; ``"adaptive"`` serves each
 request through ``solvers.adaptive.solve_adaptive`` on a CSR handle, with
-its own byte account.  Not yet ported: launch plans and tuning (item 14)
-and sharded handles (item 15); each raises ``NotImplementedError``.
+its own byte account.  ``register(plan=, tune=True)`` attaches a launch
+plan (``perf.plan.KernelPlan``) to the handle, explicit or from the
+autotuner (``perf.autotune.get_or_tune``, :283-301): the SELL pack takes
+its C, sigma, lane and buckets, and the trajectories stay bitwise the
+untuned handle's.  Not yet ported: sharded handles (item 15), which raise
+``NotImplementedError``.
 
 Usage (demo, on the card):
   PYTHONPATH=src python -m repro_torch.launch.solver_serve --requests 6 --slots 4
@@ -167,6 +171,7 @@ class _Operator:
     csr: CSR
     gse: object      # GSECSR or GSESellC, packed once at registration
     precond: object = None  # preconditioner object, packed once, or None
+    plan: object = None  # KernelPlan attached at register (explicit or tuned)
     tags: object = None  # handle-default axis: None | int | TagMap | "adaptive"
 
 
@@ -244,7 +249,18 @@ class SolverService:
         handle's default precision axis, overridable per request at
         :meth:`submit`: an int or a uniform ``TagMap`` the start tag, a
         non-uniform map the masked per-group schedule, ``"adaptive"`` the
-        adaptive driver for every request (CSR handles only)."""
+        adaptive driver for every request (CSR handles only).
+
+        ``plan``/``tune`` attach a launch plan to the handle: an explicit
+        ``perf.plan.KernelPlan`` is used as it is; ``tune=True`` (without
+        ``plan``) resolves one through ``perf.autotune.get_or_tune`` at
+        tag 1 for the handle's layout (``"sell"``, else ``"ell"``): a
+        sweep on the service's device the first time a matrix class is
+        registered, a cache hit afterwards.  The SELL pack then takes the
+        plan's C, sigma, lane and buckets; the trajectories stay bitwise
+        the untuned handle's (every f64 body sums a row in CSR order from
+        0.0, whatever the pack), and the byte reports charge the plan's
+        pack."""
         if name in self._ops:
             raise ValueError(f"handle {name!r} already registered")
         if layout not in ("csr", "sell"):
@@ -257,10 +273,6 @@ class SolverService:
         if sharded:
             raise NotImplementedError(
                 "sharded handles are not ported yet (ROADMAP queue 1 item 15)")
-        if plan is not None or tune:
-            raise NotImplementedError(
-                "launch plans and tune=True are not ported yet (ROADMAP "
-                "queue 1 item 14)")
         tags = _normalize_service_tags(tags, int(a.shape[0]),
                                        sharded=sharded,
                                        sell=layout == "sell")
@@ -273,10 +285,15 @@ class SolverService:
                     f"unknown preconditioner {precond!r}; expected one of "
                     f"{sorted(_PRECOND_FACTORY)}") from None
         gse = pack_csr(a, k=k)
+        if tune and plan is None:
+            from repro_torch.perf import autotune
+
+            plan, _, _ = autotune.get_or_tune(
+                gse, tag=1, layout="sell" if layout == "sell" else "ell")
         if layout == "sell":
-            gse = sell_pack_gsecsr(gse)
+            gse = sell_pack_gsecsr(gse, plan=plan)
         self._ops[name] = _Operator(name=name, csr=a, gse=gse,
-                                    precond=precond, tags=tags)
+                                    precond=precond, plan=plan, tags=tags)
         return name
 
     # -- request intake ----------------------------------------------------

@@ -173,9 +173,15 @@ def test_byte_models_equal_the_reference(packs):
 def test_tagmaps_and_plans_are_not_ported(packs):
     """Per-group maps are ported (tests/test_torch_tagmap.py): the bucket
     tags equal the reference's, and a tag that is neither an int nor a
-    map is refused; launch plans are not ported yet."""
+    map is refused.  Launch plans are ported too (tests/test_torch_perf.py):
+    explicit ``blocks=`` and ``plan=`` run the same launch bitwise, a grid
+    tile that does not fit the pack is refused as the reference refuses
+    it, and ``sell_pack_gsecsr(plan=)``, ``planned_spmv`` and
+    ``planned_spmm`` give the reference's pack and the default's bits."""
     from repro.core.tagmap import TagMap as JMap
+    from repro.perf.plan import KernelPlan as JPlan
     from repro_torch.core.tagmap import TagMap as TMap
+    from repro_torch.perf.plan import KernelPlan as TPlan
 
     jg, tg, js, ts = packs
     tags = np.ones(-(-ts.shape[0] // 8), np.uint8)
@@ -186,16 +192,26 @@ def test_tagmaps_and_plans_are_not_ported(packs):
         ts.bytes_touched(object())
     with pytest.raises(TypeError, match="int tag"):
         T_ops.gse_spmv_sell(ts, torch.zeros(ts.shape[1]), tag=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T_ops.gse_spmv_sell(ts, torch.zeros(ts.shape[1]), blocks=(8, 128))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T_ops.gse_spmm_sell(ts, torch.zeros(ts.shape[1], 2), plan=object(),
-                            device=CPU)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T_ops.sell_pack_gsecsr(tg, plan=object())
-    for fn in (T_ops.planned_spmv, T_ops.planned_spmm):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn(tg, torch.zeros(ts.shape[1]))
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=ts.shape[1]).astype(np.float32))
+    xc = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(ts.shape[1], 2)).astype(np.float32))
+    want = T_ops.gse_spmv_sell(ts, x)
+    want_c = T_ops.gse_spmm_sell(ts, xc, device=CPU)
+    assert torch.equal(T_ops.gse_spmv_sell(ts, x, blocks=(8, 128)), want)
+    assert torch.equal(T_ops.gse_spmm_sell(ts, xc, plan=TPlan(), device=CPU),
+                       want_c)
+    with pytest.raises(ValueError, match="multiple of the row block"):
+        T_ops.gse_spmv_sell(ts, x, blocks=(16, 128))
+    with pytest.raises(ValueError, match="lane block"):
+        T_ops.gse_spmm_sell(ts, xc, plan=TPlan(blocks=(8, 256)), device=CPU)
+    plan_t = TPlan(blocks=(16, 128), sell_c=16, sell_sigma=64)
+    plan_j = JPlan(blocks=(16, 128), sell_c=16, sell_sigma=64)
+    _assert_same_pack(J_ops.sell_pack_gsecsr(jg, plan=plan_j),
+                      T_ops.sell_pack_gsecsr(tg, plan=plan_t))
+    assert torch.equal(T_ops.planned_spmv(tg, x, layout="sell"), want)
+    assert torch.equal(T_ops.planned_spmm(tg, xc, layout="sell",
+                                          plan=plan_t, device=CPU), want_c)
 
 
 def test_sell_buckets_hold_the_segments_each_tag_reads(packs):

@@ -145,10 +145,7 @@ def test_submit_validation():
 
 @pytest.mark.parametrize("kw, item", [
     (dict(precond="jacobi", sharded=True), "item 15"),
-    (dict(plan=object()), "item 14"),
-    (dict(tags="adaptive", plan=object()), "item 14"),
     (dict(tags=2, sharded=True), "item 15"),
-    (dict(tune=True), "item 14"),
     (dict(sharded=True), "item 15"),
 ])
 def test_unported_register_options_raise(kw, item):
@@ -157,6 +154,49 @@ def test_unported_register_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         svc.register("op", a, **kw)
     assert "op" not in svc._ops
+
+
+@pytest.mark.parametrize("kw", [
+    dict(plan="c16"),
+    dict(tags="adaptive", plan="default"),
+    dict(tune=True),
+], ids=["plan", "adaptive-plan", "tune"])
+def test_register_plan_and_tune_options(kw, tmp_path, monkeypatch):
+    """``plan=`` and ``tune=True`` (launch plans, ported) register the
+    handle with its plan kept on it; the reports and solutions are bitwise
+    the untuned handle's."""
+    from repro_torch.perf import tunecache
+    from repro_torch.perf.plan import DEFAULT_PLAN, KernelPlan
+
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "tc.json"))
+    tunecache.clear_memory()
+    plans = {"c16": KernelPlan(blocks=(16, 128), sell_c=16),
+             "default": DEFAULT_PLAN}
+    kw = dict(kw)
+    if "plan" in kw:
+        kw["plan"] = plans[kw["plan"]]
+    a = J_gen.poisson2d(8)
+    b = _rhs(a, 0)
+    out = []
+    try:
+        untuned = {k: v for k, v in kw.items() if k not in ("plan", "tune")}
+        for extra in (kw, untuned):
+            svc = T_s.SolverService(slots=2, params=T_P.MonitorParams(**QS),
+                                    maxiter=2000, device=CPU)
+            svc.register("op", _port_csr(a), **extra)
+            rid = svc.submit("op", torch.from_numpy(b), tol=1e-8)
+            out.append((svc._ops["op"].plan, _fields(svc.flush()[rid]),
+                        svc.solution(rid)))
+    finally:
+        tunecache.clear_memory()
+    (plan, rep, x), (plan0, rep0, x0) = out
+    assert plan0 is None and plan is not None
+    if "plan" in kw:
+        assert plan is kw["plan"]
+    else:
+        assert plan.source == "tuned" and tunecache.TUNE_STATS["sweeps"] > 0
+    assert rep == rep0 and rep["converged"]
+    assert torch.equal(x.view(torch.int64), x0.view(torch.int64))
 
 
 def test_bucketing_by_tol_and_tag_and_slot_overflow():

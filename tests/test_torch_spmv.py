@@ -134,8 +134,10 @@ def test_spmv_kernel_for_takes_only_the_tag_segments():
                        (3, ["colpak", "head", "tail1", "tail2", "x",
                             "scales"])):
         fn = T_ops.spmv_kernel_for(tag, 3)
-        # The segments and vectors, then the rows' real slot counts.
-        assert list(inspect.signature(fn).parameters) == names + ["row_len"]
+        # The segments and vectors, then the rows' real slot counts and
+        # the lanes a row runs on (a launch plan's ``lanes``).
+        assert list(inspect.signature(fn).parameters) == names + [
+            "row_len", "lanes"]
     with pytest.raises(ValueError):
         T_ops.spmv_kernel_for(4, 3)
 
