@@ -1,8 +1,9 @@
 """Architecture registry: port of ``repro/configs/__init__.py``.
 
 ``get_config(arch, smoke)`` resolves the reference's ids and aliases.
-The dense family is ported (``qwen3_4b``, ``granite_3_2b``,
-``granite_34b``, ``qwen15_32b``); the other architectures raise
+The dense family (``qwen3_4b``, ``granite_3_2b``, ``granite_34b``,
+``qwen15_32b``) and the hybrid family (``recurrentgemma_2b``) are ported;
+the other architectures (moe, ssm, encdec, vlm) raise
 ``NotImplementedError`` naming ROADMAP queue 1 item 16.  Sharding rules
 (``get_rules``) have no counterpart: the port runs on one card.
 """
@@ -40,7 +41,8 @@ ALIASES = {
     "rwkv6-1.6b": "rwkv6_1p6b",
 }
 
-PORTED = ("qwen3_4b", "granite_3_2b", "granite_34b", "qwen15_32b")
+PORTED = ("qwen3_4b", "granite_3_2b", "granite_34b", "qwen15_32b",
+          "recurrentgemma_2b")
 
 
 def _module(arch: str):

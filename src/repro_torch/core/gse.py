@@ -365,14 +365,15 @@ def extract_shared_exponents_jnp(vals: torch.Tensor, k: int) -> torch.Tensor:
 _PACK32_CHUNK = 1 << 24
 
 
-def _pack32_flat(sign, e_b, frac, table, ei: int):
-    m_h = 15 - ei
-    w = m_h + 16
-    nonzero = (e_b != 0) | (frac != 0)
-    m24 = torch.where(e_b != 0, (1 << _F32_FRAC) | frac, frac).to(torch.int64)
-    e_eff = torch.where(e_b != 0, e_b, 1)
-    # argmin over the table of the positive gaps, first index on ties (a
-    # strict < keeps the earlier entry, as jnp.argmin does).
+def _exponent_plan(table, ei: int):
+    """Per biased exponent 0-255: (table index, left shift of the 24-bit
+    mantissa, overflow).  The index is the argmin over the table of the
+    positive gaps to the exponent (a subnormal's is 1), the first on ties
+    (a strict < keeps the earlier entry, as jnp.argmin does); a value whose
+    exponent no entry exceeds overflows."""
+    w = 15 - ei + 16
+    e_eff = torch.clamp(torch.arange(256, dtype=torch.int32,
+                                     device=table.device), min=1)
     big = 1 << 20
     best = torch.full_like(e_eff, big)
     exp_idx = torch.zeros_like(e_eff)
@@ -383,8 +384,19 @@ def _pack32_flat(sign, e_b, frac, table, ei: int):
         best = torch.where(upd, d, best)
         exp_idx = torch.where(upd, j, exp_idx)
     overflow = best >= big
-    min_diff = torch.where(overflow, 1, best)
-    lsh = w - _F32_FRAC - min_diff
+    lsh = w - _F32_FRAC - torch.where(overflow, 1, best)
+    return exp_idx, lsh, overflow
+
+
+def _pack32_flat(sign, e_b, frac, table, ei: int):
+    m_h = 15 - ei
+    w = m_h + 16
+    nonzero = (e_b != 0) | (frac != 0)
+    m24 = torch.where(e_b != 0, (1 << _F32_FRAC) | frac, frac).to(torch.int64)
+    # The table index and shift depend on the exponent alone: looked up.
+    plan_idx, plan_lsh, plan_overflow = _exponent_plan(table, ei)
+    e = e_b.to(torch.int64)
+    exp_idx, lsh, overflow = plan_idx[e], plan_lsh[e], plan_overflow[e]
     # Right shifts round to nearest-even on the discarded bits; a carry
     # past W saturates (the reference's ``pack32_jnp``).
     rsh = torch.clamp(-lsh, 0, 31).to(torch.int64)

@@ -21,13 +21,17 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCES", "build_all", "load",
-           "BUILD_LOG"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCES", "VARIANTS", "build_all",
+           "load", "BUILD_LOG"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gse_spmv", "gse_spmm", "gse_sell", "vec_f64", "gmres_f64",
-           "gse_dense", "flash_attn")
+           "gse_dense", "flash_attn", "flash_attn_window", "lru_scan")
+# Libraries built from another library's source with extra flags: kernel
+# F's windowed build (its window checks compiled in; the plain build keeps
+# them out, so a window of 0 runs the code of before at its speed).
+VARIANTS = {"flash_attn_window": ("flash_attn", ("-DFLASH_WINDOW=1",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,10 +51,18 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _source(name: str):
+    """(the ``.cu`` file, the extra nvcc flags) of library ``name``."""
+    base, flags = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{base}.cu", flags
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    cu, flags = _source(name)
+    src = cu.read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        src + " ".join(NVCC_FLAGS + flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -66,7 +78,8 @@ def build_all(names=SOURCES) -> dict:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cu, flags = _source(name)
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(cu)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())

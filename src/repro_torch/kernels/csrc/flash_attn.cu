@@ -1,5 +1,6 @@
 // Kernel F on Hopper: causal or full softmax attention with an online
-// softmax, GQA without repeating K and V.
+// softmax, GQA without repeating K and V, and causal attention over a
+// local window (RecurrentGemma's local layers).
 //
 // Replaces the Pallas kernel `flash_attention_pallas` (src/repro/kernels/
 // flash_attn.py:76, body `_flash_body`, `pallas_call` :89).  The function
@@ -8,7 +9,19 @@
 // i), the running max m, sum l and accumulator acc updated per key tile
 // (corr = exp(m_prev - m_new), p = exp(s - m_new), l = l * corr + sum p,
 // acc = acc * corr + p v), and out = acc / max(l, 1e-30) in q's dtype.
-// The (S, T) score matrix never exists in device memory.
+// The (S, T) score matrix never exists in device memory.  With a window w
+// > 0 (causal only), keys j <= i - w are filled with -1e30 as well, the
+// reference's mask (src/repro/models/attention.py:157-162): query i sees
+// keys i - w < j <= i.  A block's key loop then starts at the tile that
+// holds key q0 - w + 1 and a warp skips a tile whose keys all lie at or
+// below its first query minus w.  Windows and hd 256 are compiled in only
+// with FLASH_WINDOW=1 (the library `flash_attn_window`, which the wrapper
+// loads for a window above 0 or hd above 128).  The plain build keeps the
+// tensor-core body as it was before windows came and folds the window out
+// of the FFMA body, so a window of 0 at hd <= 128 runs the kernels of
+// before, bitwise and at their speed (compiled in, the window's checks
+// cost 9-36%; folded away, the windowed tensor-core body still ran 12%
+// slower at hd 128 on the card).
 //
 // Layout: q (B, S, H, hd) and k, v (B, T, KV, hd), read through element
 // strides (the last dimension contiguous), as the model holds them; query
@@ -18,20 +31,23 @@
 // Two bodies; the wrapper picks one from the dtype and hd before launch.
 //
 // * The tensor-core body (`flash_fwd_mma_kernel`): bf16 q, k, v with hd a
-//   multiple of 16 (<= 128), the model's prefill, compiled for each hd so
-//   that its loops unroll whole (a run-time hd kept them from it).  One
+//   multiple of 16 (<= 128) or 256, the model's prefill, compiled for each
+//   hd so that its loops unroll whole (a run-time hd kept them from it).  One
 //   block per (batch * head, query tile of 128), eight warps of 16
 //   queries; the Q fragments stay in registers and the K and V tiles of 64
 //   keys are double-buffered in shared memory with cp.async, one barrier
-//   per tile.  Both products run on mma.sync m16n8k16 bf16 -> f32: Q K^T
-//   is the reference's f32 dot of bf16 values (each product exact in f32;
-//   only the order of the sum differs), and P V takes P rounded to bf16
-//   (relative error 2^-9 per probability) with f32 sums.  The softmax is
+//   per tile.  At hd 256 O alone takes 128 f32 registers a thread, so the Q
+//   fragments are read again from shared memory (ldmatrix) at every key
+//   tile instead of being held in registers; the tiles take 202,752 bytes
+//   of shared memory.  Both products run on mma.sync m16n8k16 bf16 -> f32:
+//   Q K^T is the reference's f32 dot of bf16 values (each product exact in
+//   f32; only the order of the sum differs), and P V takes P rounded to
+//   bf16 (relative error 2^-9 per probability) with f32 sums.  The softmax is
 //   f32 (ex2.approx of the scores times log2 e).  Tiles above the diagonal
 //   are skipped, per block and per warp; only the tiles that cross the
 //   diagonal or T are masked.  Bound by operations on the bf16 tensor
 //   cores: 4 * S * T * hd per (batch, head), halved when causal, over 989
-//   TFLOP/s.
+//   TFLOP/s; with a window, 4 * hd * sum_i min(i + 1, w).
 //
 // * The FFMA body (`flash_fwd_kernel`): f32 (the f32 twin's model), and
 //   bf16 with hd not a multiple of 16.  The products run from register
@@ -45,15 +61,19 @@
 //   a query row) paced each FMA by one or two scalar shared loads (15.6
 //   ms on qwen3_4b's f32 prefill shape, 7.6x its FP32 bound; NVIDIA H100
 //   80GB HBM3, 700 W).
-//   hd is zero-padded to 16, 32, 64 or 128, each compiled.  A row's max
+//   hd is zero-padded to 16, 32, 64, 128 or 256, each compiled.  At 256 a
+//   block of 128 threads takes 64 queries and key tiles of 32 (a thread:
+//   8 queries x 2 keys of S, 8 queries x 16 dims of O), so Q, the
+//   double-buffered K and V tiles and P fit in 205,824 bytes of shared
+//   memory and O stays 128 registers a thread.  A row's max
 //   and sum go over its 16 threads with shuffles; the probabilities go
 //   through shared memory, each warp reading back its own rows.  Bound by
 //   FP32 operations (67 TFLOP/s): 4 * S * T * hd per (batch, head), halved
 //   when causal.
 //
 // Both: any S and T run (keys past T get probability 0, queries past S are
-// not written); skipping a tile above the diagonal changes nothing, since
-// its probabilities are exact zeros.  hd <= 128.
+// not written); skipping a tile above the diagonal, or below a window,
+// changes nothing, since its probabilities are exact zeros.  hd <= 256.
 //
 // The entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
@@ -65,9 +85,14 @@
 
 #include <type_traits>
 
+#ifndef FLASH_WINDOW
+#define FLASH_WINDOW 0
+#endif
+
 namespace {
 
-constexpr int kHdMax = 128;
+constexpr bool kWindowBuild = FLASH_WINDOW != 0;
+constexpr int kHdMax = kWindowBuild ? 256 : 128;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -157,6 +182,229 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
+#if FLASH_WINDOW
+// One block per (batch * head, query tile of 128), the longest causal tiles
+// first.  Warp w owns queries q0 + 16w .. +15: its Q fragments stay in
+// registers (at hd <= 128; at 256 they are read from the Q tile in shared
+// memory at every key tile); the K and V tiles of 64 keys are
+// double-buffered in shared memory (cp.async).  Per key tile: S = Q K^T
+// with mma m16n8k16 (bf16 in, f32 sums: the products of two bf16 values
+// are exact in f32, as in the reference's f32 dot), the scale, the masks
+// (only on tiles that cross the diagonal, a window's edge or T), the
+// online softmax in f32 (exp2 of the scores times
+// log2 e), then O += P V with P rounded to bf16 and f32 sums.  A warp skips
+// a tile whose keys all lie above its queries, or at or below its first
+// query minus the window.  A row whose keys so far all lie outside its
+// window (window > 0 only) keeps m = -1e30 with p = 0 and corr = 0: the
+// reference's exp(-1e30 - m) terms are zeroed by the first real score
+// anyway, and exp2 of fmaf(-1e30, log2 e, 1.44e30) is not 1 but 2^(the
+// product's rounding error).  The output tile is staged in shared memory
+// and stored with 16-byte writes.
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, int s_len, int t_len,
+    int heads, int kv_heads, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+    int64_t v_sh, int causal, int window, float scale) {
+  constexpr int kLd = HD + 8;  // padded rows: ldmatrix without conflicts
+  constexpr int kDk = HD / 16;
+  constexpr int kDt = HD / 8;
+  constexpr bool kQRegs = HD <= 128;  // Q fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // kMmaBQ rows, then O
+  bf16* ks = qs + kMmaBQ * kLd;                   // 2 x kMmaBK rows
+  bf16* vs = ks + 2 * kMmaBK * kLd;               // 2 x kMmaBK rows
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int kvh = h / (heads / kv_heads);
+  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * kMmaBQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int wq0 = q0 + warp * 16;  // the warp's first query
+  const bf16* qb = q + (int64_t)b * q_sb + (int64_t)h * q_sh;
+  const bf16* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
+  const bf16* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
+
+  load_tile<kMmaBQ, HD>(qs, qb, q_ss, q0, s_len);
+  cp_async_commit();
+  const int kv_end = causal ? min(t_len, q0 + kMmaBQ) : t_len;
+  const int ntiles = (kv_end + kMmaBK - 1) / kMmaBK;
+  // The first tile that holds key q0 - window + 1 (0 without a window).
+  const int t_first = window ? max(0, q0 - window + 1) / kMmaBK : 0;
+  if (ntiles > t_first) {
+    load_tile<kMmaBK, HD>(ks + (t_first & 1) * kMmaBK * kLd, kb, k_ss,
+                          t_first * kMmaBK, t_len);
+    load_tile<kMmaBK, HD>(vs + (t_first & 1) * kMmaBK * kLd, vb, v_ss,
+                          t_first * kMmaBK, t_len);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+  uint32_t qf[kQRegs ? kDk : 1][4];
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int kk = 0; kk < kDk; ++kk) {
+      ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * kLd + kk * 16 +
+                          (lane >> 4) * 8);
+    }
+  }
+
+  float acc[kDt][4];
+#pragma unroll
+  for (int d = 0; d < kDt; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.0f;
+  float m_r[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
+  float l_r[2] = {0.0f, 0.0f};            // this thread's part of the sum
+
+  for (int t = t_first; t < ntiles; ++t) {
+    const int kv0 = t * kMmaBK;
+    const int buf = t & 1;
+    cp_async_wait<0>();  // tile t has landed ...
+    __syncthreads();     // ... for every thread, and tile t - 1 is read
+    if (t + 1 < ntiles) {
+      load_tile<kMmaBK, HD>(ks + (buf ^ 1) * kMmaBK * kLd, kb, k_ss,
+                            kv0 + kMmaBK, t_len);
+      load_tile<kMmaBK, HD>(vs + (buf ^ 1) * kMmaBK * kLd, vb, v_ss,
+                            kv0 + kMmaBK, t_len);
+    }
+    cp_async_commit();
+    if (!(causal && kv0 > wq0 + 15) &&
+        !(window && kv0 + kMmaBK - 1 <= wq0 - window)) {
+      const bf16* kt = ks + buf * kMmaBK * kLd;
+      const bf16* vt = vs + buf * kMmaBK * kLd;
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kDk; ++kk) {
+        if constexpr (kQRegs) {
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t bk[4];
+            ldsm_x4(bk, kt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * kLd +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+            mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
+            mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+          }
+        } else {  // hd 256: this k step's Q fragment from shared memory
+          uint32_t qa[4];
+          ldsm_x4(qa, qs + (warp * 16 + (lane & 15)) * kLd + kk * 16 +
+                          (lane >> 4) * 8);
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t bk[4];
+            ldsm_x4(bk, kt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * kLd +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+            mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+            mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+          }
+        }
+      }
+      const bool edge =
+          kv0 + kMmaBK > t_len || (causal && kv0 + kMmaBK - 1 > wq0) ||
+          (window && kv0 <= wq0 + 15 - window);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sc = __fmul_rn(s[j][e], scale);
+          if (edge) {
+            const int kj = kv0 + j * 8 + 2 * tg + (e & 1);
+            const int qi = wq0 + g + (e >> 1) * 8;
+            if (kj >= t_len) sc = -INFINITY;          // no such key: p = 0
+            else if (causal && kj > qi) sc = kNegInf;  // the reference's fill
+            else if (window && kj <= qi - window) sc = kNegInf;
+          }
+          s[j][e] = sc;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc);
+        }
+      }
+      float corr[2], ms[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);
+        corr[r] = exp2_approx((m_r[r] - m_new) * kLog2e);
+        m_r[r] = m_new;
+        ms[r] = m_new * kLog2e;
+        if (window && m_new <= kNegInf) {  // no key of the row's window yet
+          corr[r] = 0.0f;
+          ms[r] = 0.0f;  // p = exp2(-1.44e30) = 0
+        }
+      }
+      uint32_t pf[4][4];  // P as bf16 A fragments, 16 keys each
+      float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p0 = exp2_approx(fmaf(s[j][0], kLog2e, -ms[0]));
+        const float p1 = exp2_approx(fmaf(s[j][1], kLog2e, -ms[0]));
+        const float p2 = exp2_approx(fmaf(s[j][2], kLog2e, -ms[1]));
+        const float p3 = exp2_approx(fmaf(s[j][3], kLog2e, -ms[1]));
+        rs[0] += p0 + p1;
+        rs[1] += p2 + p3;
+        pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * corr[r] + rs[r];
+#pragma unroll
+      for (int d = 0; d < kDt; ++d) {
+        acc[d][0] *= corr[0];
+        acc[d][1] *= corr[0];
+        acc[d][2] *= corr[1];
+        acc[d][3] *= corr[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int dp = 0; dp < kDt / 2; ++dp) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                 kLd + dp * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * dp], pf[kk], bv[0], bv[1]);
+          mma_bf16(acc[2 * dp + 1], pf[kk], bv[2], bv[3]);
+        }
+      }
+    }
+  }
+
+  // out = acc / max(l, 1e-30), staged in the Q rows (read into registers at
+  // the start), then stored with 16-byte writes.
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    den[r] = fmaxf(l_r[r], 1e-30f);
+  }
+  bf16* os = qs + warp * 16 * kLd;
+#pragma unroll
+  for (int d = 0; d < kDt; ++d) {
+    const int c = d * 8 + 2 * tg;
+    *reinterpret_cast<uint32_t*>(os + g * kLd + c) =
+        pack_bf16(__fdiv_rn(acc[d][0], den[0]), __fdiv_rn(acc[d][1], den[0]));
+    *reinterpret_cast<uint32_t*>(os + (g + 8) * kLd + c) =
+        pack_bf16(__fdiv_rn(acc[d][2], den[1]), __fdiv_rn(acc[d][3], den[1]));
+  }
+  __syncthreads();
+  bf16* ob = o + ((int64_t)b * s_len * heads + h) * HD;
+  constexpr int kChunks = HD / 8;
+  for (int e = threadIdx.x; e < kMmaBQ * kChunks; e += kMmaThreads) {
+    const int r = e / kChunks, c = (e % kChunks) * 8;
+    if (q0 + r < s_len) {
+      *reinterpret_cast<uint4*>(ob + (int64_t)(q0 + r) * heads * HD + c) =
+          *reinterpret_cast<const uint4*>(qs + r * kLd + c);
+    }
+  }
+}
+#else
+// The plain build's tensor-core body: no window, hd <= 128.  It is the
+// body as it was before windows came, kept apart: the windowed body above,
+// its window folded to 0 and hd <= 128, gave the same bits but ran 12%
+// slower (a longer prologue and loop, 2976 instructions against 2808).
 // One block per (batch * head, query tile of 128), the longest causal tiles
 // first.  Warp w owns queries q0 + 16w .. +15: its Q fragments stay in
 // registers; the K and V tiles of 64 keys are double-buffered in shared
@@ -339,6 +587,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
     }
   }
 }
+#endif  // FLASH_WINDOW
 
 // --- the FFMA body: f32, or bf16 at another hd ------------------------------
 
@@ -349,18 +598,24 @@ constexpr int kFRows = 8;     // queries per thread: ty * 8 + ii
 constexpr int kFKeys = 4;     // keys per thread in S: tx + 16 * jj
 
 // Shared-memory shape of the FFMA body at a padded head dim HDP (16, 32,
-// 64 or 128; hd zero-padded up to it).  K rows are padded to kLdK floats
-// (HDP + 4: the 16-byte loads of eight consecutive rows hit eight
+// 64, 128 or 256; hd zero-padded up to it).  K rows are padded to kLdK
+// floats (HDP + 4: the 16-byte loads of eight consecutive rows hit eight
 // distinct bank groups); Q and V rows are read by a whole quarter warp at
 // once (one row, or one dim range of one row) and stay unpadded.  P is
-// the tile's probabilities, kFBQ x kFBK.  At HDP 128: 231,424 bytes.
+// the tile's probabilities, kBQ x kBK.  At HDP 128: 231,424 bytes.  At
+// HDP 256 the block is 128 threads, 64 queries and tiles of 32 keys
+// (kKeys 2): 205,824 bytes; 128 queries would need 428 KB.
 template <int HDP>
 struct FTile {
+  static constexpr int kThreads = HDP > 128 ? 128 : kFThreads;
+  static constexpr int kKeys = HDP > 128 ? 2 : kFKeys;
+  static constexpr int kBQ = kThreads / 16 * kFRows;
+  static constexpr int kBK = 16 * kKeys;
   static constexpr int kLdK = HDP + 4;
-  static constexpr int kKBuf = kFBK * kLdK;
-  static constexpr int kVBuf = kFBK * HDP;
+  static constexpr int kKBuf = kBK * kLdK;
+  static constexpr int kVBuf = kBK * HDP;
   static constexpr int kFloats =
-      kFBQ * HDP + 2 * kKBuf + 2 * kVBuf + kFBQ * kFBK;
+      kBQ * HDP + 2 * kKBuf + 2 * kVBuf + kBQ * kBK;
   // O's dims per thread: kNv vectors of kVec, dim h * 16 * kVec + tx * kVec
   // + e, so a quarter warp's V loads are consecutive 16-byte words.
   static constexpr int kVec = HDP >= 64 ? 4 : HDP / 16;
@@ -394,7 +649,7 @@ __device__ __forceinline__ void ffma_load(float* dst, const T* src,
                                           int64_t ld, int r0, int limit,
                                           int hd, bool async) {
   constexpr int kChunks = HDP / 4;
-  for (int e = threadIdx.x; e < R * kChunks; e += kFThreads) {
+  for (int e = threadIdx.x; e < R * kChunks; e += FTile<HDP>::kThreads) {
     const int r = e / kChunks, c = (e % kChunks) * 4;
     const bool row = r0 + r < limit;
     const T* g = src + (int64_t)(r0 + r) * ld + c;
@@ -413,41 +668,49 @@ __device__ __forceinline__ void ffma_load(float* dst, const T* src,
   }
 }
 
-// One block per (batch * head, query tile of 128), the longest causal tiles
-// first; 256 threads, thread (ty, tx) = (t / 16, t % 16).  Per key tile of
-// 64 (double-buffered, cp.async for f32), after one barrier:
+// One block per (batch * head, query tile of kBQ = 128; 64 at HDP 256),
+// the longest causal tiles first; kThreads threads (256; 128 at HDP 256),
+// thread (ty, tx) = (t / 16, t % 16).  Per key tile of kBK = 64 (32 at HDP
+// 256; double-buffered, cp.async for f32), after one barrier:
 // * S = Q K^T from register tiles: the thread's 8 queries (ty * 8 + ii)
-//   against its 4 keys (tx + 16 jj), Q and K rows in shared memory read
-//   four dims at a time (16-byte loads), 128 FMAs per 12 loads;
-// * the scale, the masks (-1e30 above the diagonal on global indices, -inf
-//   past T), and the online softmax per query row, its max and sum over
+//   against its kKeys keys (tx + 16 jj), Q and K rows in shared memory
+//   read four dims at a time (16-byte loads), 128 FMAs per 12 loads;
+// * the scale, the masks (-1e30 above the diagonal on global indices and,
+//   with a window w, at or below i - w; -inf past T), and the online
+//   softmax per query row, its max and sum over
 //   the 16 threads of the row (shuffles within a half warp); corr per row;
 // * P (f32) into shared memory; each warp writes and reads back only its
 //   own 16 rows, so a __syncwarp orders them;
 // * O = O * corr + P V from register tiles: 8 queries x HDP / 16 dims, 256
 //   FMAs per 16 loads (HDP 128).
-// A warp skips a tile whose keys all lie above its 16 queries (its
-// probabilities there are exact zeros).  out = O / max(l, 1e-30).
+// A warp skips a tile whose keys all lie above its 16 queries, or at or
+// below its first query minus the window (its probabilities there are
+// exact zeros).  A row whose processed keys all lie outside its window
+// keeps m = -1e30 and sums exp(0) terms, as the reference's softmax would;
+// the first key inside the window zeroes them (corr = exp(-1e30 - m)).
+// out = O / max(l, 1e-30).
 template <typename T, int HDP>
-__global__ void __launch_bounds__(kFThreads, 1) flash_fwd_kernel(
+__global__ void __launch_bounds__(FTile<HDP>::kThreads, 1) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, int s_len, int t_len, int heads, int kv_heads, int hd,
     int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
     int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int causal,
-    float scale, int async) {
+    int window, float scale, int async) {
   using Tl = FTile<HDP>;
   constexpr int kLdK = Tl::kLdK, kVec = Tl::kVec, kNv = Tl::kNv;
   constexpr int kDims = kVec * kNv;
+  constexpr int kBQ = Tl::kBQ, kBK = Tl::kBK, kKeys = Tl::kKeys;
+  if (!kWindowBuild) window = 0;       // folds the window's code away
   extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;                     // kFBQ rows of HDP
-  float* ks = qs + kFBQ * HDP;         // 2 x K tile
+  float* qs = fsm;                     // kBQ rows of HDP
+  float* ks = qs + kBQ * HDP;          // 2 x K tile
   float* vs = ks + 2 * Tl::kKBuf;      // 2 x V tile
   float* ps = vs + 2 * Tl::kVBuf;      // P
 
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh % heads;
   const int kvh = h / (heads / kv_heads);
-  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * kFBQ;
+  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * kBQ;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int wq0 = q0 + (threadIdx.x >> 5) * 16;  // the warp's first query
   const bool as = async != 0;
@@ -455,12 +718,16 @@ __global__ void __launch_bounds__(kFThreads, 1) flash_fwd_kernel(
   const T* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
   const T* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
 
-  ffma_load<kFBQ, HDP, HDP>(qs, qb, q_ss, q0, s_len, hd, as);
-  const int kv_end = causal ? min(t_len, q0 + kFBQ) : t_len;
-  const int ntiles = (kv_end + kFBK - 1) / kFBK;
-  if (ntiles > 0) {
-    ffma_load<kFBK, HDP, kLdK>(ks, kb, k_ss, 0, t_len, hd, as);
-    ffma_load<kFBK, HDP, HDP>(vs, vb, v_ss, 0, t_len, hd, as);
+  ffma_load<kBQ, HDP, HDP>(qs, qb, q_ss, q0, s_len, hd, as);
+  const int kv_end = causal ? min(t_len, q0 + kBQ) : t_len;
+  const int ntiles = (kv_end + kBK - 1) / kBK;
+  // The first tile that holds key q0 - window + 1 (0 without a window).
+  const int t_first = window ? max(0, q0 - window + 1) / kBK : 0;
+  if (ntiles > t_first) {
+    ffma_load<kBK, HDP, kLdK>(ks + (t_first & 1) * Tl::kKBuf, kb, k_ss,
+                              t_first * kBK, t_len, hd, as);
+    ffma_load<kBK, HDP, HDP>(vs + (t_first & 1) * Tl::kVBuf, vb, v_ss,
+                             t_first * kBK, t_len, hd, as);
   }
   cp_async_commit();
 
@@ -473,33 +740,34 @@ __global__ void __launch_bounds__(kFThreads, 1) flash_fwd_kernel(
     for (int d = 0; d < kDims; ++d) acc[ii][d] = 0.0f;
   }
   const float* qrow = qs + ty * kFRows * HDP;
-  float* prow = ps + ty * kFRows * kFBK;
+  float* prow = ps + ty * kFRows * kBK;
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int kv0 = t * kFBK;
+  for (int t = t_first; t < ntiles; ++t) {
+    const int kv0 = t * kBK;
     const float* kt = ks + (t & 1) * Tl::kKBuf;
     const float* vt = vs + (t & 1) * Tl::kVBuf;
     cp_async_wait<0>();  // tile t has landed ...
     __syncthreads();     // ... for every thread, and tile t - 1 is read
     if (t + 1 < ntiles) {
-      ffma_load<kFBK, HDP, kLdK>(ks + ((t + 1) & 1) * Tl::kKBuf, kb, k_ss,
-                                 kv0 + kFBK, t_len, hd, as);
-      ffma_load<kFBK, HDP, HDP>(vs + ((t + 1) & 1) * Tl::kVBuf, vb, v_ss,
-                                kv0 + kFBK, t_len, hd, as);
+      ffma_load<kBK, HDP, kLdK>(ks + ((t + 1) & 1) * Tl::kKBuf, kb, k_ss,
+                                kv0 + kBK, t_len, hd, as);
+      ffma_load<kBK, HDP, HDP>(vs + ((t + 1) & 1) * Tl::kVBuf, vb, v_ss,
+                               kv0 + kBK, t_len, hd, as);
     }
     cp_async_commit();
     if (causal && kv0 > wq0 + 15) continue;
-    float s[kFRows][kFKeys];
+    if (window && kv0 + kBK - 1 <= wq0 - window) continue;
+    float s[kFRows][kKeys];
 #pragma unroll
     for (int ii = 0; ii < kFRows; ++ii) {
 #pragma unroll
-      for (int jj = 0; jj < kFKeys; ++jj) s[ii][jj] = 0.0f;
+      for (int jj = 0; jj < kKeys; ++jj) s[ii][jj] = 0.0f;
     }
 #pragma unroll 2
     for (int d = 0; d < HDP; d += 4) {
-      float4 kf[kFKeys];
+      float4 kf[kKeys];
 #pragma unroll
-      for (int jj = 0; jj < kFKeys; ++jj) {
+      for (int jj = 0; jj < kKeys; ++jj) {
         kf[jj] = *reinterpret_cast<const float4*>(
             kt + (tx + 16 * jj) * kLdK + d);
       }
@@ -508,7 +776,7 @@ __global__ void __launch_bounds__(kFThreads, 1) flash_fwd_kernel(
         const float4 qf =
             *reinterpret_cast<const float4*>(qrow + ii * HDP + d);
 #pragma unroll
-        for (int jj = 0; jj < kFKeys; ++jj) {
+        for (int jj = 0; jj < kKeys; ++jj) {
           s[ii][jj] = __fmaf_rn(qf.x, kf[jj].x, s[ii][jj]);
           s[ii][jj] = __fmaf_rn(qf.y, kf[jj].y, s[ii][jj]);
           s[ii][jj] = __fmaf_rn(qf.z, kf[jj].z, s[ii][jj]);
@@ -522,11 +790,12 @@ __global__ void __launch_bounds__(kFThreads, 1) flash_fwd_kernel(
       const int qi = q0 + ty * kFRows + ii;
       float mx = kNegInf;
 #pragma unroll
-      for (int jj = 0; jj < kFKeys; ++jj) {
+      for (int jj = 0; jj < kKeys; ++jj) {
         const int kj = kv0 + tx + 16 * jj;
         float sc = __fmul_rn(s[ii][jj], scale);
         if (kj >= t_len) sc = -INFINITY;           // no such key: p = 0
         else if (causal && kj > qi) sc = kNegInf;  // the reference's fill
+        else if (window && kj <= qi - window) sc = kNegInf;
         s[ii][jj] = sc;
         mx = fmaxf(mx, sc);
       }
@@ -539,9 +808,9 @@ __global__ void __launch_bounds__(kFThreads, 1) flash_fwd_kernel(
       m_i[ii] = m_new;
       float rs = 0.0f;
 #pragma unroll
-      for (int jj = 0; jj < kFKeys; ++jj) {
+      for (int jj = 0; jj < kKeys; ++jj) {
         const float p = expf(s[ii][jj] - m_new);
-        prow[ii * kFBK + tx + 16 * jj] = p;
+        prow[ii * kBK + tx + 16 * jj] = p;
         rs += p;
       }
 #pragma unroll
@@ -554,11 +823,11 @@ __global__ void __launch_bounds__(kFThreads, 1) flash_fwd_kernel(
     }
     __syncwarp();  // the warp's 16 rows of P are written
 #pragma unroll 2
-    for (int j = 0; j < kFBK; j += 4) {
+    for (int j = 0; j < kBK; j += 4) {
       float4 pf[kFRows];
 #pragma unroll
       for (int ii = 0; ii < kFRows; ++ii) {
-        pf[ii] = *reinterpret_cast<const float4*>(prow + ii * kFBK + j);
+        pf[ii] = *reinterpret_cast<const float4*>(prow + ii * kBK + j);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -604,7 +873,7 @@ template <typename T, int HDP>
 int launch_ffma_tiles(const void* q, const void* k, const void* v, void* o,
                       int batch, int s_len, int t_len, int heads,
                       int kv_heads, int hd, const long long* st, int causal,
-                      float scale, cudaStream_t stream) {
+                      int window, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)FTile<HDP>::kFloats;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -614,41 +883,53 @@ int launch_ffma_tiles(const void* q, const void* k, const void* v, void* o,
   bool async = sizeof(T) == 4 && hd % 4 == 0 && (uintptr_t)q % 16 == 0 &&
                (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
   for (int i = 0; i < 9; ++i) async = async && st[i] % 4 == 0;
+  constexpr int kBQ = FTile<HDP>::kBQ;
   const dim3 grid((unsigned)(batch * heads),
-                  (unsigned)((s_len + kFBQ - 1) / kFBQ));
-  flash_fwd_kernel<T, HDP><<<grid, kFThreads, smem, stream>>>(
+                  (unsigned)((s_len + kBQ - 1) / kBQ));
+  flash_fwd_kernel<T, HDP><<<grid, FTile<HDP>::kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, s_len, t_len, heads,
       kv_heads, hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], causal, scale, (int)async);
+      st[8], causal, window, scale, (int)async);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_ffma_hd(const void* q, const void* k, const void* v, void* o,
                    int batch, int s_len, int t_len, int heads, int kv_heads,
-                   int hd, const long long* st, int causal, float scale,
-                   cudaStream_t stream) {
+                   int hd, const long long* st, int causal, int window,
+                   float scale, cudaStream_t stream) {
   if (hd <= 0 || hd > kHdMax) return (int)cudaErrorInvalidValue;
   if (hd <= 16) {
     return launch_ffma_tiles<T, 16>(q, k, v, o, batch, s_len, t_len, heads,
-                                    kv_heads, hd, st, causal, scale, stream);
+                                    kv_heads, hd, st, causal, window, scale,
+                                    stream);
   }
   if (hd <= 32) {
     return launch_ffma_tiles<T, 32>(q, k, v, o, batch, s_len, t_len, heads,
-                                    kv_heads, hd, st, causal, scale, stream);
+                                    kv_heads, hd, st, causal, window, scale,
+                                    stream);
   }
   if (hd <= 64) {
     return launch_ffma_tiles<T, 64>(q, k, v, o, batch, s_len, t_len, heads,
-                                    kv_heads, hd, st, causal, scale, stream);
+                                    kv_heads, hd, st, causal, window, scale,
+                                    stream);
   }
+#if FLASH_WINDOW
+  if (hd > 128) {
+    return launch_ffma_tiles<T, 256>(q, k, v, o, batch, s_len, t_len, heads,
+                                     kv_heads, hd, st, causal, window, scale,
+                                     stream);
+  }
+#endif
   return launch_ffma_tiles<T, 128>(q, k, v, o, batch, s_len, t_len, heads,
-                                   kv_heads, hd, st, causal, scale, stream);
+                                   kv_heads, hd, st, causal, window, scale,
+                                   stream);
 }
 
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                int batch, int s_len, int t_len, int heads, int kv_heads,
-               const long long* st, int causal, float scale,
+               const long long* st, int causal, int window, float scale,
                cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (size_t)(kMmaBQ + 4 * kMmaBK) *
                       (size_t)(HD + 8);
@@ -661,46 +942,63 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   flash_fwd_mma_kernel<HD><<<grid, kMmaThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, s_len, t_len,
       heads, kv_heads, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+#if FLASH_WINDOW
+      st[8], causal, window, scale);
+#else
       st[8], causal, scale);
+#endif
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // body 0: the FFMA body (f32, or bf16 with is_bf16 = 1); body 1: the tensor-core
-// body (bf16 only, hd a multiple of 16 up to 128, every row 16-byte aligned:
-// pointers at 16 bytes, strides in multiples of 8 elements).
+// body (bf16 only, hd a multiple of 16 up to 128, or 256 in the windowed
+// build, every row 16-byte aligned: pointers at 16 bytes, strides in
+// multiples of 8 elements).  hd above 128 only in the windowed build.
 // strides: q (batch, seq, head), k (...), v (...) in elements, nine values;
+// window: 0, or (the FLASH_WINDOW=1 build only) w > 0 with causal = 1
+// (keys i - w < j <= i);
 // scale is the f32 of 1/sqrt(hd), as the Pallas kernel rounds it.
 extern "C" int flash_attention_fwd(int body, int is_bf16, const void* q,
                                    const void* k, const void* v, void* o,
                                    int batch, int s_len, int t_len, int heads,
                                    int kv_heads, int hd,
                                    const long long* strides, int causal,
-                                   float scale, void* stream) {
+                                   int window, float scale, void* stream) {
+  if (window < 0 || (window && (!causal || !kWindowBuild))) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (batch == 0 || s_len == 0 || heads == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (body == 1) {
-    if (!is_bf16 || hd <= 0 || hd % 16 != 0 || hd > kHdMax) {
+    if (!is_bf16 || hd <= 0 || hd % 16 != 0 || hd > kHdMax ||
+        (hd > 128 && hd != 256)) {
       return (int)cudaErrorInvalidValue;
     }
     switch (hd) {  // hd fixed at compile time: the loops unroll whole
-      case 16: return launch_mma<16>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, scale, st);
-      case 32: return launch_mma<32>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, scale, st);
-      case 48: return launch_mma<48>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, scale, st);
-      case 64: return launch_mma<64>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, scale, st);
-      case 80: return launch_mma<80>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, scale, st);
-      case 96: return launch_mma<96>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, scale, st);
-      case 112: return launch_mma<112>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, scale, st);
-      default: return launch_mma<128>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, scale, st);
+      case 16: return launch_mma<16>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+      case 32: return launch_mma<32>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+      case 48: return launch_mma<48>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+      case 64: return launch_mma<64>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+      case 80: return launch_mma<80>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+      case 96: return launch_mma<96>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+      case 112: return launch_mma<112>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+#if FLASH_WINDOW
+      case 128: return launch_mma<128>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+      default: return launch_mma<256>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+#else
+      default: return launch_mma<128>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+#endif
     }
   }
   if (body != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     return launch_ffma_hd<__nv_bfloat16>(q, k, v, o, batch, s_len, t_len,
                                          heads, kv_heads, hd, strides, causal,
-                                         scale, st);
+                                         window, scale, st);
   }
   return launch_ffma_hd<float>(q, k, v, o, batch, s_len, t_len, heads,
-                               kv_heads, hd, strides, causal, scale, st);
+                               kv_heads, hd, strides, causal, window, scale,
+                               st);
 }

@@ -51,18 +51,20 @@ launches in its ``launches`` attribute and per body in ``body_launches``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.kernels.gse_decode import (check_scales, check_segments,
                                             dense_fn, gse_decode_dense_plain)
 from repro_torch.kernels.gse_spmv import _raise_on
 from repro_torch.kernels.vec_f64 import on_device
 
-__all__ = ["gse_matmul_dense", "gse_matmul_dense_plain",
+__all__ = ["gse_matmul_dense", "gse_matmul_dense_plain", "plain_memo",
            "gemv_plan", "GemvPlan", "KERNELS",
            "reset_launch_counts", "X_DTYPES", "GEMV_M_MAX", "GEMV_COLS",
            "GEMV_X_FLOATS", "GEMV_SPLITS", "gemv_rows_max", "TILE_M",
@@ -255,6 +257,45 @@ def tiled_terms(x_dtype) -> int:
     return 2 if x_dtype == torch.bfloat16 else 3
 
 
+# The plain version's decoded column blocks, per stored head tensor, while
+# :func:`plain_memo` is on (None otherwise).
+_MEMO = None
+
+
+@contextlib.contextmanager
+def plain_memo():
+    """Within the block, :func:`gse_matmul_dense_plain` keeps each decoded
+    column block of W (keyed by the head tensor that stores it, its view,
+    version, tag and scales) and reuses it: the same products, each weight
+    decoded once.  For a CPU twin that multiplies the same packed weights
+    at every step; the memory goes when the block ends or the weights
+    die."""
+    global _MEMO
+    outer, _MEMO = _MEMO, WeakIdKeyDictionary()
+    try:
+        yield
+    finally:
+        _MEMO = outer
+
+
+def _decoded_block(head, tail1, tail2, scales, ei_bit, tag, cols):
+    args = (head[:, cols], tail1[:, cols] if tag >= 2 else None,
+            tail2[:, cols] if tag == 3 else None)
+    if _MEMO is None:
+        return gse_decode_dense_plain(*args, scales, ei_bit=ei_bit, tag=tag)
+    base = head if head._base is None else head._base
+    key = (head.storage_offset(), tuple(head.shape), head.stride(),
+           head._version, cols.start, tag, ei_bit,
+           tuple(scales.reshape(-1).tolist()))
+    blocks = _MEMO.get(base)
+    if blocks is None:
+        blocks = _MEMO[base] = {}
+    if key not in blocks:
+        blocks[key] = gse_decode_dense_plain(*args, scales, ei_bit=ei_bit,
+                                             tag=tag)
+    return blocks[key]
+
+
 def gse_matmul_dense_plain(x, head, tail1, tail2, scales, *, ei_bit: int,
                            tag: int) -> torch.Tensor:
     """Plain version of E: D's plain decode, then a full-f32
@@ -265,10 +306,7 @@ def gse_matmul_dense_plain(x, head, tail1, tail2, scales, *, ei_bit: int,
     step = max(1, _CHUNK // max(kk, 1))
     for c0 in range(0, n, step):
         cols = slice(c0, c0 + step)
-        w = gse_decode_dense_plain(
-            head[:, cols], tail1[:, cols] if tag >= 2 else None,
-            tail2[:, cols] if tag == 3 else None, scales, ei_bit=ei_bit,
-            tag=tag)
+        w = _decoded_block(head, tail1, tail2, scales, ei_bit, tag, cols)
         y[:, cols] = torch.matmul(x32, w)
     return y
 

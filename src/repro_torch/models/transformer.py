@@ -1,21 +1,25 @@
-"""Model assembly, the ``dense`` family: port of
+"""Model assembly, the ``dense`` and ``hybrid`` families: port of
 ``repro/models/transformer.py``.
 
-Pre-norm decoder-only stacks (qwen3-4b, granite-3-2b, granite-34b,
-qwen1.5-32b).  The params tree keeps the
-reference's layout, including the stacked ``(L, ...)`` layer leaves that
-its ``init_params`` builds with ``vmap``: under ``gse_serve`` each layer's
-weights are packed with their own shared-exponent table, stacked to
-``(L, k)``.  Layers run in a Python loop over views of the stacked
-leaves (the reference scans).  The other families (moe, hybrid, ssm,
-encdec, vlm prefixes) raise ``NotImplementedError`` (ROADMAP queue 1 item
-16).
+``dense``: pre-norm decoder-only stacks (qwen3-4b, granite-3-2b,
+granite-34b, qwen1.5-32b).  ``hybrid``: RecurrentGemma (recurrentgemma-2b),
+RG-LRU blocks (``models/rglru.py``) with every ``hybrid_period``-th layer
+a local-window MQA (``"local_attn"``, ``cfg.local_window``).  The params
+tree keeps the reference's layout: the stacked ``(L, ...)`` layer leaves
+that its ``init_params`` builds with ``vmap`` for a homogeneous stack
+(under ``gse_serve`` each layer's weights are packed with their own
+shared-exponent table, stacked to ``(L, k)``), and a list of per-layer
+trees for a heterogeneous one (the hybrid family, ``scan_layers=False``).
+Layers run in a Python loop (the reference scans a homogeneous stack).
+The other families (moe, ssm, encdec, vlm prefixes) raise
+``NotImplementedError`` (ROADMAP queue 1 item 16).
 
 Decode state is updated in place: ``decode_step`` writes each layer's new
-key and value into the stacked cache and returns the same state object
-(the reference returns a new one).  ``forward(..., state=)`` fills the
-cache with the prompt's keys and values, so decoding can follow a
-prefill.
+key and value into its cache (a ring for local-window layers) and each
+RG-LRU layer's ``h`` and conv inputs into its state, and returns the same
+state object (the reference returns a new one).  ``forward(...,
+state=)`` fills the caches with the prompt's keys and values and the
+RG-LRU states with the prompt's, so decoding can follow a prefill.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import modules as M
+from repro_torch.models import rglru as R
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -33,15 +38,18 @@ __all__ = ["init_params", "forward", "logits_from_hidden",
            "decode_state_init", "decode_step"]
 
 
-def _dense_only(cfg):
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP queue 1 "
-            "item 16); the port runs the dense family")
+_FAMILIES = ("dense", "hybrid")
 
 
 def _layer_kinds(cfg) -> Tuple[str, ...]:
-    _dense_only(cfg)
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is not ported yet (ROADMAP queue 1 "
+            f"item 16); the port runs the families {_FAMILIES}")
+    if cfg.family == "hybrid":
+        attn_ids = set(cfg.attn_layer_ids())
+        return tuple("local_attn" if i in attn_ids else "rglru"
+                     for i in range(cfg.num_layers))
     return ("attn",) * cfg.num_layers
 
 
@@ -50,15 +58,18 @@ def _stackable(cfg) -> bool:
 
 
 def _layer_init(gen, cfg, kind: str, dtype, device) -> Params:
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP item 16)")
-    return {
-        "norm1": M.rmsnorm_init(cfg.d_model, dtype, device),
-        "attn": A.attn_init(gen, cfg, dtype, device),
-        "norm2": M.rmsnorm_init(cfg.d_model, dtype, device),
-        "mlp": M.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
-                          cfg=cfg, device=device),
-    }
+    p = {"norm1": M.rmsnorm_init(cfg.d_model, dtype, device)}
+    if kind in ("attn", "local_attn"):
+        p["attn"] = A.attn_init(gen, cfg, dtype, device)
+    elif kind == "rglru":
+        p["rglru"] = R.rglru_init(gen, cfg, dtype, device)
+    else:
+        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue 1 "
+                                  "item 16)")
+    p["norm2"] = M.rmsnorm_init(cfg.d_model, dtype, device)
+    p["mlp"] = M.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
+                          cfg=cfg, device=device)
+    return p
 
 
 def _stack(make_layer, n: int) -> Params:
@@ -109,13 +120,32 @@ def _layers(cfg, params):
 # Full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _block_apply(cfg, p, x, positions, kind: str, cache=None):
-    """Returns (y, aux)."""
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP item 16)")
+def _norm_in(x, x_sum):
+    """What a layer's first norm, or the final norm, reads: the previous
+    layer's output ``x``, or in an unrolled stack its f32 sum ``x_sum``
+    before the rounding to x's dtype.  The reference scans a homogeneous
+    stack, whose carry is rounded, and loops over a heterogeneous one (the
+    hybrid family), where XLA's CPU build fuses a layer's last residual
+    add into the next norm with f32 excess precision."""
+    return x if x_sum is None else x_sum
+
+
+def _block_apply(cfg, p, x, positions, kind: str, cache=None, x_sum=None):
+    """Returns (the f32 sum of the layer's output, aux); fills the layer's
+    decode ``cache`` (a KV cache or an RG-LRU state) when one is given.
+    ``x_sum``: see :func:`_norm_in`."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = M.rmsnorm(p["norm1"], x)
-    y = A.attn_apply(p["attn"], h, cfg, positions, cache=cache)
+    h = M.rmsnorm(p["norm1"], _norm_in(x, x_sum)).to(x.dtype)
+    if kind == "attn":
+        y = A.attn_apply(p["attn"], h, cfg, positions, cache=cache)
+    elif kind == "local_attn":
+        y = A.attn_apply(p["attn"], h, cfg, positions,
+                         window=cfg.local_window, cache=cache)
+    elif kind == "rglru":
+        y = R.rglru_apply(p["rglru"], h, cfg, state=cache)
+    else:
+        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue 1 "
+                                  "item 16)")
     return _mlp_half(cfg, p, x, y), aux
 
 
@@ -124,18 +154,22 @@ def _mlp_half(cfg, p, x, y):
     second residual add.  The norm reads the first sum before it is
     rounded to x's dtype, as XLA's CPU build of the reference computes it
     (the add is fused into the norm with f32 excess precision); the
-    residual stream itself is rounded after each add, as there."""
+    residual stream itself is rounded after each add, as there.  Returns
+    the second sum in f32; rounded to x's dtype it is the layer's output
+    (the same bits as adding in x's dtype)."""
     x_mid = x.to(torch.float32) + y.to(x.dtype).to(torch.float32)
     h2 = M.rmsnorm(p["norm2"], x_mid).to(x.dtype)
     y2 = M.mlp(p["mlp"], h2, cfg.mlp_act, cfg.compute_dtype, cfg=cfg)
-    return x_mid.to(x.dtype) + y2.to(x.dtype)
+    return (x_mid.to(x.dtype).to(torch.float32)
+            + y2.to(x.dtype).to(torch.float32))
 
 
 def forward(cfg, params: Params, tokens: torch.Tensor, prefix_embeds=None,
             enc_embeds=None, state: Dict | None = None):
     """Returns (final_hidden (B, S, D), aux_loss).  With ``state`` (from
-    ``decode_state_init``), each layer's cache gets the prompt's keys and
-    values in slots ``[0, S)``."""
+    ``decode_state_init``), each attention layer's cache gets the prompt's
+    keys and values where the decode loop would write them, and each
+    RG-LRU layer's state its ``h`` and conv inputs after the prompt."""
     if prefix_embeds is not None or enc_embeds is not None:
         raise NotImplementedError("prefix and encoder embeddings (vlm, "
                                   "encdec; ROADMAP queue 1 item 16)")
@@ -147,10 +181,12 @@ def forward(cfg, params: Params, tokens: torch.Tensor, prefix_embeds=None,
     kinds = _layer_kinds(cfg)
     caches = _layers(cfg, state) if state is not None else [None] * len(kinds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    unrolled, x_sum = not _stackable(cfg), None
     for p, kind, cache in zip(_layers(cfg, params), kinds, caches):
-        x, a = _block_apply(cfg, p, x, positions, kind, cache)
+        out, a = _block_apply(cfg, p, x, positions, kind, cache, x_sum)
+        x, x_sum = out.to(dtype), (out if unrolled else None)
         aux = aux + a
-    return M.rmsnorm(params["final_norm"], x), aux
+    return M.rmsnorm(params["final_norm"], _norm_in(x, x_sum)).to(dtype), aux
 
 
 def logits_from_hidden(cfg, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -170,21 +206,42 @@ def logits_from_hidden(cfg, params: Params, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def decode_state_init(cfg, batch: int, max_len: int, device="cuda") -> Dict:
-    """Stacked per-layer KV caches, ``(L, B, max_len, KV, hd)``."""
+    """Per-layer decode state: stacked KV caches ``(L, B, max_len, KV,
+    hd)`` for a homogeneous stack; else a list of KV caches (rings of
+    ``min(local_window, max_len)`` slots on local-window layers) and
+    RG-LRU states ``{"h", "conv"}``."""
     kinds = _layer_kinds(cfg)
+
+    def one(kind):
+        if kind == "attn":
+            return A.cache_init(cfg, batch, max_len, device=device)
+        if kind == "local_attn":
+            return A.cache_init(cfg, batch, max_len, window=cfg.local_window,
+                                device=device)
+        return R.rglru_state_init(cfg, batch, cfg.compute_dtype,
+                                  device=device)
+
     if _stackable(cfg):
-        one = A.cache_init(cfg, batch, max_len, device=device)
+        first = one(kinds[0])
         return {"layers": {k: v.new_zeros((cfg.num_layers, *v.shape))
-                           for k, v in one.items()}}
-    return {"layers": [A.cache_init(cfg, batch, max_len, device=device)
-                       for _ in kinds]}
+                           for k, v in first.items()}}
+    return {"layers": [one(kind) for kind in kinds]}
 
 
-def _block_decode(cfg, p, x, cache, pos: int, kind: str):
-    if kind != "attn":
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP item 16)")
-    h = M.rmsnorm(p["norm1"], x)
-    y, cache = A.decode_attn_apply(p["attn"], h, cache, pos, cfg)
+def _block_decode(cfg, p, x, cache, pos: int, kind: str, x_sum=None):
+    """Returns (the f32 sum of the layer's output, cache), the cache
+    updated in place; ``x_sum``: see :func:`_norm_in`."""
+    h = M.rmsnorm(p["norm1"], _norm_in(x, x_sum)).to(x.dtype)
+    if kind == "attn":
+        y, cache = A.decode_attn_apply(p["attn"], h, cache, pos, cfg)
+    elif kind == "local_attn":
+        y, cache = A.decode_attn_apply(p["attn"], h, cache, pos, cfg,
+                                       window=cfg.local_window)
+    elif kind == "rglru":
+        y, cache = R.rglru_step(p["rglru"], h, cache, cfg)
+    else:
+        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue 1 "
+                                  "item 16)")
     return _mlp_half(cfg, p, x, y), cache
 
 
@@ -195,10 +252,13 @@ def decode_step(cfg, params: Params, state: Dict, tokens: torch.Tensor,
     if enc_out is not None:
         raise NotImplementedError("encoder outputs (encdec; ROADMAP queue 1 "
                                   "item 16)")
-    x = M.embed(params["embed"], tokens[:, None], cfg.compute_dtype)
+    dtype = cfg.compute_dtype
+    x = M.embed(params["embed"], tokens[:, None], dtype)
     kinds = _layer_kinds(cfg)
+    unrolled, x_sum = not _stackable(cfg), None
     for p, kind, cache in zip(_layers(cfg, params), kinds,
                               _layers(cfg, state)):
-        x, _ = _block_decode(cfg, p, x, cache, pos, kind)
-    h = M.rmsnorm(params["final_norm"], x)
+        out, _ = _block_decode(cfg, p, x, cache, pos, kind, x_sum)
+        x, x_sum = out.to(dtype), (out if unrolled else None)
+    h = M.rmsnorm(params["final_norm"], _norm_in(x, x_sum)).to(dtype)
     return logits_from_hidden(cfg, params, h)[:, 0, :], state

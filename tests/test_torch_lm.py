@@ -168,12 +168,15 @@ def test_unported_archs_and_options_raise():
     with pytest.raises(NotImplementedError, match="item 16"):
         T_T.init_params(dataclasses.replace(ct, family="moe"),
                         torch.Generator(), device=CPU)
+    # The 8-bit cache and local windows are ported: uint8 slots, a ring.
     from repro_torch.models import attention as T_A
-    with pytest.raises(NotImplementedError, match="item 16"):
-        T_A.cache_init(dataclasses.replace(ct, kv_cache_gse=True), 1, 4,
-                       device=CPU)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        T_A.cache_init(ct, 1, 4, window=2, device=CPU)
+    kv8 = T_A.cache_init(dataclasses.replace(ct, kv_cache_gse=True), 1, 4,
+                         device=CPU)
+    assert kv8["k"].dtype == kv8["v"].dtype == torch.uint8
+    assert kv8["k"].shape == (1, 4, ct.num_kv_heads, ct.hd)
+    ring = T_A.cache_init(ct, 1, 4, window=2, device=CPU)
+    assert ring["k"].shape == ring["v"].shape == (1, 2, ct.num_kv_heads,
+                                                  ct.hd)
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))

@@ -3,11 +3,13 @@
 layers: the logits digest that ``chip_smoke.py`` phase 12 holds the port
 to.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference/lm_serve_ref.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference/lm_serve_ref.py [VARIANT ...]
 
-JAX on the CPU at ``compute_dtype=float32``, for the dense model and for
-``gse_serve`` at tags 1 and 2, and at ``compute_dtype=bfloat16`` (the
-served dtype) for ``gse_serve`` at tag 2 (``tag2_bf16``).  The params
+JAX on the CPU at ``compute_dtype=float32``, for the dense model, for
+``gse_serve`` at tags 1 and 2 and for the 8-bit KV cache (``kv8``:
+``kv_cache_gse``, dense weights), and at ``compute_dtype=bfloat16`` (the
+served dtype) for ``gse_serve`` at tag 2 (``tag2_bf16``); naming variants
+runs only those.  The params
 are ``chip_smoke.lm_tree_np``'s numpy tree (seed ``LM_SEED``); under ``gse_serve`` each layer's linear
 weights are packed with the reference's ``extract_shared_exponents_jnp``
 and ``pack32_jnp``, one table per layer, as its ``init_params`` does.
@@ -15,7 +17,8 @@ Two requests of ``LM_TWIN["prompt"]`` tokens go through
 ``make_prefill_step``; then ``LM_TWIN["steps"]`` teacher-forced
 ``decode_step``s follow, over a cache that holds the prompt's keys and
 values (computed with the reference's ``_project_qkv`` and ``rope`` for
-each layer, as its decode path would write them).  It prints one JSON
+each layer, as its decode path would write them; packed with
+``_kv_pack_u8`` under ``kv8``).  It prints one JSON
 line per variant: the greedy tokens, the first 8 logits of request 0 and
 the largest |logit| of each step (``chip_smoke.lm_digest``).  This script
 runs the JAX package (it is not part of the port); it holds about 8 GB.
@@ -45,7 +48,8 @@ from repro.models import transformer as T  # noqa: E402
 VARIANTS = {"dense": {}, "tag1": dict(gse_serve=True, gse_tag=1),
             "tag2": dict(gse_serve=True, gse_tag=2),
             "tag2_bf16": dict(gse_serve=True, gse_tag=2,
-                              compute_dtype=jnp.bfloat16)}
+                              compute_dtype=jnp.bfloat16),
+            "kv8": dict(kv_cache_gse=True)}
 ROWS = 256  # rows of a weight packed per pack32_jnp call
 
 
@@ -86,6 +90,8 @@ def prompt_cache(cfg, params, tokens, max_len):
         h = M.rmsnorm(lp["norm1"], x)
         _, k, v = A._project_qkv(lp["attn"], h, cfg, dtype)
         k = M.rope(k, positions, cfg.rope_theta)
+        if cfg.kv_cache_gse:
+            k, v = A._kv_pack_u8(k), A._kv_pack_u8(v)
         y, _ = T._block_apply(cfg, lp, x, positions, "attn")
         return y, k, v
 
@@ -100,7 +106,7 @@ def prompt_cache(cfg, params, tokens, max_len):
                        "v": lay["v"].at[:, :, :s].set(jnp.stack(vs))}}
 
 
-def main():
+def main(argv):
     twin = chip_smoke.LM_TWIN
     base = dataclasses.replace(configs.get_config("qwen3_4b"),
                                num_layers=twin["layers"],
@@ -111,6 +117,8 @@ def main():
                                   twin["prompt"] + twin["steps"])
     prompt = jnp.asarray(tokens[:, :twin["prompt"]])
     for name, kw in VARIANTS.items():
+        if argv and name not in argv:
+            continue
         t0 = time.perf_counter()
         cfg = dataclasses.replace(base, **kw)
         params = params_for(cfg, tree)
@@ -132,4 +140,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
