@@ -25,11 +25,14 @@ deadlines, warm starts and pack integrity); phase 25 the perf layer (the
 card's roofline, the autotuner and its tune cache, the byte ledger,
 timing); phases 26-27 the hybrid family (recurrentgemma_2b: RG-LRU
 blocks on the lru_scan kernel, local-window attention on kernel F at hd
-256, the 8-bit GSE-SEM KV cache).  Every CPU
+256, the 8-bit GSE-SEM KV cache); phases 28-29 the moe family
+(qwen3_moe_235b_a22b, grok1_314b: routing, capacity dispatch and the
+expert products beside kernels E and F); phases 30-31 the ssm family
+(rwkv6_1p6b on the wkv6 kernel).  Every CPU
 twin runs in one of two processes of its own (CpuTwins): the small
-solves on one thread, in the order the phases need them, from before the
-build; phase 12's LM and phase 26's hybrid from after the build, on the
-cores the rest leave.
+solves (and phase 30's rwkv twin, last) on one thread, in the order the
+phases need them, from before the build; the LM twins of phases 12, 26
+and 28 from after the build, on the cores the rest leave.
 A phase waits only for a twin that is not done yet.
 
 Phases:
@@ -320,7 +323,7 @@ Phases:
                   bitwise, the repro_serve_* series equal, no error.  Part
                   2, launch counts zeroed: AsyncSolveService(slots=4,
                   maxiter=20000, chunk_iters=64) on phase 4's matrix,
-                  phase 4's b alone for 20 pumps, then phase 6's second
+                  phase 4's b alone for 2 pumps, then phase 6's second
                   right-hand side joins the running group: request 0
                   bitwise phase 4's solo solve (x, iters, switches,
                   relres), request 1 bitwise phase 6's request 1, both ok
@@ -390,6 +393,58 @@ Phases:
                   launches of E, F and lru_scan by body; finite logits;
                   E's GEMV and tiled bodies, F's windowed tensor-core body
                   and lru_scan must have launched.
+  28. moe twin -- F at the moe attention shapes (MOE_FLASH: B 4, S 512,
+                  H 64 / KV 4 and H 48 / KV 8, hd 128, bf16) against its
+                  plain version (rtol/atol 2e-2).  Then qwen3_moe_235b_a22b
+                  at full width (d 4096, H 64 / KV 4, hd 128, qk-norm, 128
+                  experts top-8, vocab 151936) cut to 2 layers and an
+                  expert ff of 256, params from moe_tree_np (drawn on a
+                  thread beside the earlier phases): a 64-token prompt
+                  for 2 requests and 16 teacher-forced decode steps;
+                  dense, gse_serve tag 2 and capacity_factor 0.5 (pairs
+                  dropped at the prefill) at f32, gse_serve tag 2 at
+                  bf16, on the card and on its CPU twin, the routes
+                  recorded (moe.record_routes, route_digest): at f32 the
+                  routes and drops equal the twin's and the reference's
+                  and the logits are held as phase 12's; at bf16 the
+                  route digests that differ are counted, then the card
+                  and the twin replay the reference's expert ids
+                  (replay_routes, MOE_REF_IDS) and their logits are held
+                  to BF16_TOL at every position, against each other and
+                  against MOE_REF (tools/reference/moe_serve_ref.py);
+                  where a side's own top 8 differs from the replayed ids
+                  the router logit gap is at most ROUTE_GAP_TOL.
+                  grok1_314b's smoke config the same way against the CPU
+                  (at bf16 both replay the CPU's own expert ids).
+                  E (GEMV and tiled) and F (FFMA at f32, tensor cores at
+                  bf16) must have launched.
+  29. moe full -- (runs right after the build, while the card holds only
+                  phase 2's operator) launch counts zeroed;
+                  qwen3_moe_235b_a22b at full width
+                  cut to 6 layers, then grok1_314b cut to 2, each
+                  initialized on the card (T.init_params, f32 expert
+                  stacks), gse_serve tag 2, bf16; B 4, a 512-token prompt
+                  through make_prefill_step(state=), 32 (grok1: 8) greedy
+                  steps: init, prefill and step times, peak GB, the pairs
+                  dropped per layer at the prefill; then one decode
+                  step's expert products of a qwen3_moe layer timed
+                  against the bytes they read.
+  30. rwkv twin -- wkv6 bitwise its plain version on the card at
+                  WKV_SHAPES ((4, 2048, 32, 64), (2, 64, 32, 64) and two
+                  ragged shapes), from a zero and a non-zero state.  Then rwkv6_1p6b at full
+                  width (d 2048, ff 7168, 32 heads of 64, vocab 65536) cut
+                  to 3 layers, params from rwkv_tree_np: a 64-token prompt
+                  for 2 requests, 16 steps; dense and gse_serve tag 2 at
+                  f32, gse_serve tag 2 at bf16, against the CPU twin and
+                  RWKV_REF (tools/reference/rwkv_serve_ref.py), as phase
+                  12's variants.
+  31. rwkv full -- (right after phase 29) launch counts zeroed; rwkv6_1p6b
+                  whole (24 layers),
+                  gse_serve tag 2, bf16; B 4, a 2048-token prompt, 32
+                  greedy steps, as phase 29.  Phase 30 ends with the
+                  serve CLI at --gse-tag 2 on the three archs' smoke
+                  configs (kernel D on the 4-D expert packs), tokens equal
+                  to the CPU's.
   10. kernels  -- run last: CUDA-event times (minimum over repeats; one
                   call for a function whose first call takes ONE_CALL_MS) of
                   every kernel beside its plain version, its bound (HBM
@@ -462,6 +517,7 @@ the line before the last the card's name and power limit, the last line
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
 import json
@@ -877,6 +933,25 @@ def phase_sell_parity():
         a64_bitwise_plain=True, body_launches=json.dumps(launched))
 
 
+_SKEWED: dict = {}
+
+
+def skewed_base(dev, last: bool = False):
+    """``skewed_spd(N_SKEW, seed=5)`` on ``dev``, generated once for phases
+    9 and 22 (each rescales it its own way); ``last`` drops the kept
+    copy."""
+    from repro_torch.sparse import generators as G
+
+    base = _SKEWED.get(dev)
+    if base is None:
+        base = G.skewed_spd(N_SKEW, seed=5, device=dev)
+        if not last:
+            _SKEWED[dev] = base
+    elif last:
+        del _SKEWED[dev]
+    return base
+
+
 def sell_solo(where, params):
     """Phase 8's solo solve: sk512_rs8_s0 over its SELL pack on
     ``where``; returns the result and the seconds."""
@@ -1013,7 +1088,7 @@ def phase_sell_full(params):
     sell_stall_witness(params)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    csr = G.diag_rescale(G.skewed_spd(N_SKEW, seed=5, device=dev), 8.0, 5)
+    csr = G.diag_rescale(skewed_base(dev), 8.0, 5)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1595,6 +1670,13 @@ LM_TOL = 1e-3
 # attention scores, probabilities and products to bf16 where the port's
 # plain E and F keep f32, and F's tensor-core body rounds P to bf16.
 BF16_TOL = dict(rtol=0.02, atol=0.075)
+# A replayed bf16 route's largest gap (replay_routes: the router logits'
+# difference between a token's own k-th pick and the least replayed one).
+# The router logits are about N(0, 1); BF16_TOL's 2% on the MoE input
+# moves one by ~0.02, so two that close can trade places.  A route that is
+# wrong, not near a tie, lies ~1 below the k-th (the 8th of 128 at ~1.5
+# against ~0 for a random expert).
+ROUTE_GAP_TOL = 0.1
 # The kv8 variants (f32, the 8-bit GSE-SEM KV cache): a cache entry keeps
 # a 4-bit mantissa, so an f32 rounding difference in a key or value (the
 # card's products against the CPU's or JAX's) can move it by a whole
@@ -1606,7 +1688,8 @@ KV8_TOL = dict(rtol=0.005, atol=0.02)
 # Tolerances other than LM_TOL, by phase 12's and 26's variant names.
 LOOSE_TOL = {("lm_twin", "tag2_bf16"): BF16_TOL, ("lm_twin", "kv8"): KV8_TOL,
              ("hybrid_twin", "tag2_bf16"): BF16_TOL,
-             ("hybrid_twin", "kv8"): KV8_TOL}
+             ("hybrid_twin", "kv8"): KV8_TOL,
+             ("rwkv_twin", "tag2_bf16"): BF16_TOL}
 # tools/reference/lm_serve_ref.py's output (JAX on the CPU): per variant,
 # per step (prefill, then the decode steps), lm_digest's fields as
 # (tokens, first 8 logits of request 0, max |logit|).
@@ -1930,7 +2013,8 @@ def lm_digest(logits) -> list:
 def lm_gse_params(params, cfg):
     """``params`` with every linear weight packed into ``gse_serve``
     segments on its device, one table per layer (``init_params``'s
-    layout); the other leaves are shared."""
+    layout; a moe layer's expert stacks stay dense); the other leaves are
+    shared."""
     import torch
 
     from repro_torch.models.modules import pack_linear_weight
@@ -1939,6 +2023,8 @@ def lm_gse_params(params, cfg):
     out = tree_map(lambda t: t, params)
     out["unembed"]["w"] = pack_linear_weight(params["unembed"]["w"], cfg)
     for group, name in LM_LINEAR:
+        if group not in params["layers"]:  # a moe layer has no MLP
+            continue
         w = params["layers"][group][name]
         per = [pack_linear_weight(w[i], cfg) for i in range(w.shape[0])]
         out["layers"][group][name] = {f: torch.stack([q[f] for q in per])
@@ -3417,6 +3503,1508 @@ def hybrid_entries(ctx, counts, twin_counts, add_entry):
               max_abs_err=0.0)
 
 
+# --- the moe and ssm families (phases 28-31) ------------------------------
+
+# Phase 28: qwen3_moe_235b_a22b at full width (d 4096, H 64 / KV 4 / hd
+# 128, qk-norm, 128 experts top-8, vocab 151936) cut to two layers and an
+# expert ff of 256 (from 1536) so the host holds the CPU twin's params;
+# two requests of a 64-token prompt, 16 teacher-forced decode steps.
+# "tag2_drops" also sets capacity_factor 0.5, so the prefill's capacity is
+# the floor of 8 pairs an expert against 8 on average: more pairs are
+# dropped than at the default 1.25 (which drops some too).
+MOE_SEED = 0
+MOE_TWIN = dict(batch=2, prompt=64, steps=16, layers=2, expert_ff=256)
+MOE_TWIN_VARIANTS = {"dense": {},
+                     "tag2_drops": dict(gse_serve=True, gse_tag=2,
+                                        capacity_factor=0.5),
+                     "tag2_bf16": dict(gse_serve=True, gse_tag=2,
+                                       compute_dtype="bfloat16")}
+# Phase 29: full width; qwen3_moe cut to 6 of 94 layers (f32 expert
+# stacks: 9.66 GB a layer), grok1 to 2 of 64 (19.3 GB a layer).
+MOE_FULL = {"qwen3_moe_235b_a22b": dict(layers=6, batch=4, prompt=512,
+                                        steps=32),
+            "grok1_314b": dict(layers=2, batch=4, prompt=512, steps=8)}
+# F at the moe attention shapes: (arch, B, S, H, KV, hd): phase 29's
+# prefill.
+MOE_FLASH = (("qwen3_moe_235b_a22b", 4, 512, 64, 4, 128),
+             ("grok1_314b", 4, 512, 48, 8, 128))
+# tools/reference/moe_serve_ref.py's output (JAX on the CPU): per variant,
+# per step, lm_digest's fields and the route digest (route_digest).
+MOE_REF = {
+    'dense': [
+        ([72849, 143792], [-0.5549846887588501, 0.38110366463661194,
+         -1.2837132215499878, -1.1295300722122192, 0.10903647541999817,
+         -0.13757501542568207, -0.5037400722503662, -0.8933053016662598],
+         5.260203838348389, [[4113897324, 4204957801], [2711537529,
+         3772532523]]),
+        ([7579, 128413], [0.643554151058197, 0.7396838665008545,
+         -0.5333328247070312, -1.4337811470031738, -0.1915052831172943,
+         0.044506460428237915, 0.3417765200138092, -0.5833737850189209],
+         4.714756488800049, [[856460807, 3126053847], [717265070,
+         2736270207]]),
+        ([92074, 40064], [0.5849089026451111, 1.6344045400619507,
+         0.0001779552549123764, -0.867948055267334, 0.35290759801864624,
+         1.3261914253234863, 0.03641560673713684, -0.29132142663002014],
+         5.189885139465332, [[896141796, 3068807240], [2420656568,
+         521699914]]),
+        ([3367, 118518], [0.638471245765686, 0.24160483479499817,
+         -0.33068811893463135, -0.4692653715610504, 0.2925625443458557,
+         1.5602779388427734, -0.5304183959960938, -1.3149383068084717],
+         5.51070499420166, [[168705624, 3122342280], [3668438558, 964642715]]),
+        ([115582, 62289], [0.09953658282756805, 0.21981143951416016,
+         -0.8145215511322021, -0.4090338349342346, -0.45598727464675903,
+         1.0123568773269653, 0.0551476925611496, -0.5393152832984924],
+         4.51425313949585, [[4294788655, 1649912480], [922849524,
+         2023113002]]),
+        ([3367, 128413], [0.49321627616882324, 1.301030158996582,
+         -0.09587281942367554, -0.9741561412811279, 0.22513626515865326,
+         0.17638760805130005, -0.7834083437919617, -1.2159020900726318],
+         4.673076152801514, [[640001148, 2908689974], [3068575948,
+         3949464366]]),
+        ([52796, 81346], [-0.07310079038143158, -0.5755606293678284,
+         -1.5364092588424683, -0.7252005338668823, -0.2355046570301056,
+         -0.005772411823272705, 0.3528476059436798, -0.12587812542915344],
+         4.595286846160889, [[3928205092, 4058135657], [1237407074,
+         3150951002]]),
+        ([148956, 143792], [-0.6107665300369263, 1.033854365348816,
+         -1.2336974143981934, -0.6442798376083374, -0.8761874437332153,
+         0.681721568107605, -0.15421003103256226, -0.1443856656551361],
+         4.686004161834717, [[1492011625, 3755486342], [1564007754,
+         3173448117]]),
+        ([10033, 66079], [0.6428629755973816, -0.8350423574447632,
+         -1.8328827619552612, 0.8327939510345459, -0.975183367729187,
+         -0.2344808429479599, -0.6341031789779663, -0.9903367757797241],
+         4.70616340637207, [[1827913417, 3141446956], [1823535179,
+         2316771824]]),
+        ([84768, 55534], [1.4929193258285522, 0.9788857698440552,
+         -1.5594550371170044, -1.524868130683899, -0.44922828674316406,
+         0.3470468521118164, -0.9110338687896729, -0.15143010020256042],
+         4.7850871086120605, [[455038931, 503916057], [2678761030,
+         2394658638]]),
+        ([92074, 128413], [1.2926702499389648, 0.5220051407814026,
+         -0.9479805827140808, 0.21494245529174805, -0.9741777181625366,
+         0.9842702150344849, 0.685082197189331, -1.2173242568969727],
+         4.38983678817749, [[4176469144, 2428685385], [3617797801,
+         3113035618]]),
+        ([125165, 56885], [1.4757121801376343, -0.5768179893493652,
+         -1.0053834915161133, 0.24901902675628662, -0.1702212691307068,
+         -0.4235106110572815, -0.4842391312122345, -1.058012843132019],
+         4.560692310333252, [[3266131310, 118062730], [635523156,
+         2811017053]]),
+        ([27259, 70294], [0.45575839281082153, 0.3957841396331787,
+         -1.7757678031921387, 0.09532380849123001, 0.32895371317863464,
+         0.6100082397460938, -0.36805328726768494, -0.45283424854278564],
+         4.610324382781982, [[3223582536, 380393232], [1464360497,
+         4252506698]]),
+        ([76072, 70294], [0.26252174377441406, 0.16192704439163208,
+         -0.6706266403198242, -0.3479729890823364, -0.18626031279563904,
+         -1.3356114625930786, -0.15165945887565613, -0.880134105682373],
+         4.684993743896484, [[1467501897, 599146602], [529561970,
+         1275521824]]),
+        ([92074, 114977], [0.9305054545402527, -0.9930357933044434,
+         -1.0610549449920654, 0.5859928131103516, -0.8338172435760498,
+         0.2883424758911133, 0.5364298820495605, -1.0552194118499756],
+         5.06736421585083, [[950291956, 1010779297], [3068910929, 445224383]]),
+        ([52796, 40264], [1.2394558191299438, 1.0178141593933105,
+         -1.1907176971435547, 0.7244192957878113, -0.9755896329879761,
+         0.5478988885879517, 1.4301800727844238, -0.5011102557182312],
+         4.925798416137695, [[123780493, 2969778940], [2178625626,
+         649374330]]),
+        ([92074, 47701], [1.2283272743225098, 0.47154951095581055,
+         -1.4622550010681152, -0.10741038620471954, -0.8963394165039062,
+         0.40289685130119324, 0.21032455563545227, 0.2552017569541931],
+         5.077579021453857, [[2411157677, 3911286774], [996972783,
+         887355592]]),
+    ],
+    'tag2_drops': [
+        ([72849, 143792], [-0.12246251106262207, 0.6110796928405762,
+         -1.4689143896102905, -0.9542742967605591, 0.026057392358779907,
+         0.29414111375808716, -0.8029292225837708, -0.7342826724052429],
+         5.170915603637695, [[4113897324, 4204957801], [3935894010,
+         1363029158]]),
+        ([118479, 128413], [0.740718424320221, 0.918310284614563,
+         -0.5362386107444763, -1.431419849395752, -0.3223456144332886,
+         0.09438848495483398, 0.2924650311470032, -0.4584237337112427],
+         5.010201454162598, [[856460807, 3126053847], [2411140103,
+         2330067560]]),
+        ([92074, 70294], [0.5356578230857849, 1.3595285415649414,
+         -0.1965932846069336, -1.0276721715927124, 0.40354952216148376,
+         1.2684459686279297, -0.0021722614765167236, -0.5829335451126099],
+         5.1682209968566895, [[896141796, 3068807240], [1601846067,
+         1943594376]]),
+        ([3367, 58588], [0.38375166058540344, -0.0011496543884277344,
+         -0.4511737823486328, -0.23885290324687958, 0.12208887934684753,
+         1.5682907104492188, -0.5428429245948792, -1.2917627096176147],
+         5.652839660644531, [[168705624, 3122342280], [3986687865,
+         233410568]]),
+        ([115582, 62289], [0.144457146525383, 0.5346131324768066,
+         -1.073089361190796, -0.7937285900115967, -0.8246220350265503,
+         1.191274881362915, 0.07150620222091675, -0.3154276907444],
+         4.467638969421387, [[4294788655, 1649912480], [2994141963,
+         1535743646]]),
+        ([125900, 128413], [0.41747352480888367, 1.2847696542739868,
+         -0.1831727921962738, -1.4322365522384644, 0.13727876543998718,
+         0.26599186658859253, -0.8180826902389526, -1.1406269073486328],
+         4.891800403594971, [[640001148, 2908689974], [2249599720,
+         354192781]]),
+        ([52796, 114977], [-0.19164158403873444, -0.5324585437774658,
+         -1.5276182889938354, -0.6923192739486694, -0.1062123030424118,
+         -0.07951688766479492, 0.307235985994339, -0.1769920140504837],
+         4.594461917877197, [[3928205092, 4058135657], [1232587916,
+         1278926844]]),
+        ([108022, 143792], [-0.6373689770698547, 0.8250508308410645,
+         -1.4113346338272095, -0.579010009765625, -0.8844456076622009,
+         0.348075270652771, -0.07159319519996643, -0.13137198984622955],
+         4.729921817779541, [[1492011625, 3755486342], [1865585272,
+         4146825608]]),
+        ([10033, 66079], [0.6256283521652222, -1.2736080884933472,
+         -1.7693723440170288, 0.732082724571228, -1.0392110347747803,
+         -0.3668173849582672, -0.48177284002304077, -1.1660429239273071],
+         4.802757740020752, [[1827913417, 3141446956], [3795734900,
+         672675448]]),
+        ([84768, 55534], [1.2999584674835205, 0.8077991604804993,
+         -1.6217849254608154, -1.6118911504745483, -0.11472609639167786,
+         0.30798792839050293, -1.1552084684371948, -0.12027620524168015],
+         4.703027248382568, [[455038931, 503916057], [1371949102, 342102274]]),
+        ([92074, 128413], [1.097564697265625, 0.6031863689422607,
+         -1.0983843803405762, 0.11625614762306213, -1.1015746593475342,
+         1.0986316204071045, 0.5144177079200745, -1.251968502998352],
+         4.44688606262207, [[4176469144, 2428685385], [167381927,
+         4091283813]]),
+        ([125165, 56885], [1.6356785297393799, -0.5745009183883667,
+         -0.9249469041824341, -0.07481923699378967, -0.16667354106903076,
+         -0.4056486189365387, -0.5841987133026123, -0.8999944925308228],
+         4.674523830413818, [[3266131310, 118062730], [1749408693, 32702611]]),
+        ([140004, 40064], [0.6614280343055725, 0.5538039803504944,
+         -1.6847119331359863, -0.42918071150779724, 0.1446126103401184,
+         0.7486038208007812, -0.5911819934844971, -0.23352786898612976],
+         4.734269142150879, [[3223582536, 380393232], [195957822,
+         2135012351]]),
+        ([76072, 70294], [0.16795587539672852, -0.09598356485366821,
+         -0.5827515125274658, -0.34358227252960205, -0.40004920959472656,
+         -1.6696763038635254, -0.06724774837493896, -0.6181250810623169],
+         4.652497291564941, [[1467501897, 599146602], [2656119127,
+         3145105457]]),
+        ([92074, 114977], [0.898042619228363, -0.9678638577461243,
+         -1.0152419805526733, 0.2343212068080902, -0.8758034110069275,
+         0.6040961146354675, 0.4343939423561096, -1.3998452425003052],
+         5.183383464813232, [[950291956, 1010779297], [3861300126,
+         3690973550]]),
+        ([52796, 40264], [1.3346189260482788, 0.9242316484451294,
+         -1.2028318643569946, 0.5428922772407532, -0.7395631074905396,
+         0.7553785443305969, 1.4247640371322632, -0.5010208487510681],
+         4.879655361175537, [[123780493, 2969778940], [3371401349,
+         2496048663]]),
+        ([92074, 47701], [1.3570891618728638, 0.03446340560913086,
+         -1.6790893077850342, -0.08368901908397675, -0.7347949147224426,
+         0.31104952096939087, -0.05312860757112503, 0.02951076626777649],
+         4.937164306640625, [[2411157677, 3911286774], [2340349891,
+         1457048137]]),
+    ],
+    'tag2_bf16': [
+        ([72849, 143792], [-0.5401073694229126, 0.3924626111984253,
+         -1.3016914129257202, -1.107738971710205, 0.09487760066986084,
+         -0.13466113805770874, -0.5238803029060364, -0.8919861912727356],
+         5.254668235778809, [[3821039952, 772252665], [668336998,
+         1495934377]]),
+        ([7579, 128413], [0.7418786287307739, 0.6620293259620667,
+         -0.6563580632209778, -1.342419147491455, -0.19121134281158447,
+         -0.05469966679811478, 0.3205533027648926, -0.5758650302886963],
+         4.703514575958252, [[856460807, 3126053847], [715539682,
+         2736270207]]),
+        ([92074, 51758], [0.5979433655738831, 1.6332144737243652,
+         -0.0014960765838623047, -0.8790841102600098, 0.3565283715724945,
+         1.3163045644760132, -0.00611075758934021, -0.30549103021621704],
+         5.15675163269043, [[896141796, 3068807240], [2102667446, 810072611]]),
+        ([3367, 118518], [0.6444046497344971, 0.2301580309867859,
+         -0.33420369029045105, -0.4807074964046478, 0.2549241781234741,
+         1.545218825340271, -0.5441434383392334, -1.330696702003479],
+         5.506861209869385, [[168705624, 3344476698], [2687655051,
+         964642715]]),
+        ([115582, 62289], [0.5747995972633362, 0.197435200214386,
+         -0.8994855284690857, -0.6236493587493896, -0.731605589389801,
+         1.8019696474075317, 0.17621228098869324, -0.928855299949646],
+         4.5348615646362305, [[812779893, 1649912480], [3778574570,
+         3421444061]]),
+        ([3367, 128413], [0.4760948717594147, 1.34121572971344,
+         -0.10489632189273834, -1.0091187953948975, 0.22170060873031616,
+         0.13863909244537354, -0.8174423575401306, -1.1594901084899902],
+         4.702786445617676, [[640001148, 2908689974], [1526549192,
+         3949464366]]),
+        ([52796, 81346], [-0.03241872787475586, -0.5631398558616638,
+         -1.5301196575164795, -0.7364183664321899, -0.19505178928375244,
+         -0.04153051972389221, 0.34699591994285583, -0.11187359690666199],
+         4.580964088439941, [[3928205092, 3127769661], [1237407074,
+         3150951002]]),
+        ([108022, 143792], [-0.5837652683258057, 0.9976177215576172,
+         -1.4483280181884766, -0.7422603964805603, -0.841588020324707,
+         0.7419013977050781, -0.20410335063934326, -0.15153738856315613],
+         4.649373531341553, [[1492011625, 3755486342], [119205216,
+         2289186572]]),
+        ([10033, 66079], [0.6287897825241089, -0.8003010749816895,
+         -1.829946517944336, 0.8188170194625854, -0.9542113542556763,
+         -0.21685338020324707, -0.6455909013748169, -0.9665178060531616],
+         4.669661521911621, [[3184376991, 3234421125], [1823535179,
+         435868249]]),
+        ([84768, 55534], [1.5097378492355347, 0.9682307243347168,
+         -1.5432450771331787, -1.518391489982605, -0.49154314398765564,
+         0.3482435345649719, -0.9491668939590454, -0.11348342895507812],
+         4.768244743347168, [[455038931, 503916057], [4160735580,
+         1543188531]]),
+        ([92074, 128413], [1.2161203622817993, 0.4385160505771637,
+         -0.8584488034248352, 0.27847859263420105, -0.9719275236129761,
+         0.903564453125, 0.6336000561714172, -1.2875763177871704],
+         4.41469669342041, [[4176469144, 2428685385], [926373388,
+         3113035618]]),
+        ([125165, 56885], [1.5597648620605469, -0.6184097528457642,
+         -0.9736014604568481, 0.18642058968544006, -0.27765363454818726,
+         -0.5714110136032104, -0.3094962239265442, -0.94920814037323],
+         4.768843650817871, [[1755643365, 118062730], [2001478460,
+         4216956930]]),
+        ([86416, 70294], [0.48215997219085693, 0.4125392436981201,
+         -1.7912622690200806, 0.08197532594203949, 0.2884495258331299,
+         0.5883229970932007, -0.38229987025260925, -0.42526474595069885],
+         4.589367866516113, [[3223582536, 380393232], [1431898712,
+         4252506698]]),
+        ([128372, 70294], [0.25777366757392883, 0.18658232688903809,
+         -0.4720221757888794, -0.41003069281578064, -0.08474940061569214,
+         -1.3753340244293213, -0.19847312569618225, -0.8307411670684814],
+         4.6538896560668945, [[3909569192, 599146602], [2925263218,
+         2327539216]]),
+        ([131974, 114977], [0.9529109597206116, -0.9903386235237122,
+         -1.0919368267059326, 0.5758624076843262, -0.8499236106872559,
+         0.3012758493423462, 0.5219261646270752, -1.0526429414749146],
+         5.0236711502075195, [[950291956, 1010779297], [2897679884,
+         3846154706]]),
+        ([52796, 40264], [1.1250195503234863, 0.8119287490844727,
+         -1.0379518270492554, 0.6816294193267822, -0.8668351769447327,
+         0.3814968466758728, 1.188097357749939, -0.6442272663116455],
+         4.9596452713012695, [[123780493, 167545810], [1177434313,
+         649374330]]),
+        ([92074, 47701], [1.2471085786819458, 0.4461267590522766,
+         -1.473625898361206, -0.1947176456451416, -0.9207199811935425,
+         0.39947861433029175, 0.14558061957359314, 0.2660539150238037],
+         5.091961860656738, [[3489431461, 3911286774], [3804015320,
+         887355592]]),
+    ],
+}
+# tools/reference/moe_serve_ref.py's expert ids (its "ids", JAX on the
+# CPU) for the bf16 variant, which phase 28 replays (replay_routes).
+MOE_REF_IDS = {
+    "tag2_bf16": (
+        "aANDRSJMQVNMH0MsWkQHRUpSDkQBTi07THxaUg4qTkoHOEZKRHFMZkZETUw1GkIXGkx3Tn"
+        "xEWiJmKTUOQE4HQ0YgXBVODX5pRkwPcVN3RE5EFXwJQ3EhJlhEFWweIWRpGlpvZCddfHFO"
+        "fBkvB3h+aURGfENOSGYNFUROGmkcfiVdTm8Aa1pSMlpENBpGfGlOSl8HRlJLGkF8XhpYKg"
+        "1EIQcjQjZfVlITRjtpaB5aXjRGXn9aNiAcHg1oRi58bU5eIFpeTmhCGBpIeFYgaSwtWnwV"
+        "KV1DVQ1af1ogQyE2bVxaZjYNW09GSl4gT1o4B0FSBxkcKUFkAzZfB1ovRDZDYCZkCU5MDU"
+        "YDTCEHZEhHCmwVBzhEDWhBWmhSREFqLEYHDUwgB2RtA2poUg4pQUYgDVggRBkhb3BkRFgg"
+        "OEEhcw04CiBpOUEbSmU2X1I1OQdqTEonZUY5AzREByBfaiYxWkwpIBdtQ2UIaDlPIDZYXg"
+        "dMISc5aHFSWiAHIShDaAFiQ0paWC1mJw1bOWVqI094DmUqSlQSNWJbRE9NUgcgWBkHbXdE"
+        "ahMpZQd2Q3F+Sl53NEpaRBMnT3V7OWpfflIsVE4VIENMNFIcL18jZUwHKA1UalJmS35BXF"
+        "8gUhdtIwo2Ukp4cEw5JiBqI0wNGFpvXwd3EzVNdThCIC9iXywZXgk9R05QcHsFK3BHK30A"
+        "QikkQnUAO2onYgULYlMTQnMWS3dNQhYqfRpwQitzLUxwGksvC1sBdSxyYmUGe05XQhQkRx"
+        "wXYmwWdkR1C0wcaDkvQz42cBgcTDcsYjUXBgFMR3g0L0dsHGIXC3BONDYGRx8sYjh1K1ks"
+        "BTMcLGpwMkckYhh1NSssYjNEBiwtAXU0GDMGFwBSLREsQhwfcHUUTFJ2cDtODVJXBSxZNH"
+        "BIOwIVV0RKUhwHLDQbe3BrHGw0A051DRRaXUx7LFdHdS0bAW4xC3UxGy0WeVRwNhw4e2UF"
+        "MUNTXTIGLA56LHs2VxNlQwlEVzE2Q05KKzVrTlYxUC0LLSExBlkbRCwjH01MNB4xRngwax"
+        "gtLAsRVy5OQVI2RGlSejUYVwYZTRgHcDMUHgZBa3dwHDgLLR4eVysGcFIXRy0ZF0oGFCNU"
+        "MVJOSh4ANikZcCxHQwsYERxlexUxeFImazFsK1BKNxQGAUheHElGNnAsMEk+LRU6HU58Nh"
+        "YUKQhOC1I2MTBbPk4LXjprLTJDHhg1RklweAc2RxxPEUYfEH0YQUtRRyg0EBcCSgQDFERJ"
+        "MnAsC1RGPistNkEJfDU+FCseI0cyTnsXTkEtGB81CR46Th0YaGF1F15OSUNGCz4WQTJOWh"
+        "1JGHAUSTMAaT40HkFKLEQUQjorHlRlPjI2FBwmUzcrSnpLVRxYJlM3RytiIjlHFFMAVWJT"
+        "BEdYFF05OWJTRwBVFAE4UWJVUzA5R1NYATdiOSYcRwFVHDl/YlM5R2IWOBxYFBZoR3c5OC"
+        "ZlAVhicxxdOBZHOV0yARxTYiZiH0dTORYQOXcaVxYmWGIWOSYKMF03HEdiFhEwSncMJhYf"
+        "RzcaDHdiJh9YJxU5ciZNH2hmYicPWHIWOWYmG0czFmgnRwsfARBNH1UmJxYzARZVYndyOF"
+        "1HKzBuXTktHzAWR10BVR86H2YnMEdycV86MBY3H3JVYnIWAR9HMHdYASZ3FnIAFQsmFkcB"
+        "VTB3AGJHJh83VW4WJhEfN1VyZjoYNwEfVSYwRxZfOh9iJgEHN0ddSl4mMR9yRxYwJgc6N2"
+        "YWclEBBSY9MF8WciZHMXFyJgVHFgFdNzAWckddLwEmJjBuRzNqeAFyMDddLyVfEhZiMAxy"
+        "JlUBciYWJx8lB24mR3EwFkh4OBYwcnd4HycrMBZIKzd4JjMmMBZyKzpxERZyRwwHbiZYNz"
+        "AWcR9yJ3gmYh86MBlydzdyMBZdIl5iXzA3FXJmcSY6OBZMdzAsJlUwd18RXQt4FnIwN3FV"
+        "Xx8wFnJ3Zl1iSjdmcjBdFnheMCtycRA6Fn03MBZ6X2ZxaBZfJh9yYiABOjByFjcQBwtfB3"
+        "hyMB9HLBZdcjAfd0Z4eTARB0x0VU4wVRgpfElfeUwsX1tVdgI3dHZOUUsCF1tjBBhbEQI8"
+        "LVVbSzBALARYW2Z+Q3koVUBbLGI3YwIVWFt0PUA3AmMsY1ssSzAtPUlYFF4sQAg3S1hLPQ"
+        "IQVVtjWEtfVSMIaURLY1tYPVYIX1gEY19LI3gIeVgYXwhbS0wVWDV4CEsfMEtYY1t4I0wX"
+        "eF83I3QfcHxYI0t0c1U8X0x9I0t0CB95I0sQTF8VeXRLfUxKCDcjYiM1VWIXAhBLMUtMXl"
+        "9ENVh4I0wNMARzGUsxFXUja2ZJcH14IzFMSggxeHNLH1gKSDFLI0wwVQh5dWNVS31bIzEj"
+        "W0wxS2N9SDFbIx9LdHhrTH1LWDEfEGtMdHhLEHkxNltLMSMVCDAfMVtYTCN5C0gjTDF9JC"
+        "wpdCMxHzZMNQhLWFsxFR9MCHQxTBUfWzd9LCMIdExVNWMxMUwfIzJLY1t0CHAxW0s3NTEj"
+        "dH09SwhjMUwjCFsVNX0jCEwxWGNbSxB0TFhjMTdbTGMjMR9YGXBbIxlYMUtjZEtbMh1MMX"
+        "R4fVUxS1tYTBBbI0x0WjFkMCN9FTFfakx0MVsQH1h0BEx0eBBYMSRbHxBMMUtRW3QjWFtM"
+        "eH1LYzExNSNbSiRzdEwQI1t5Ah8xMWN0WyM1S3lbMUxLNUhVIyNMW0t9H3RYWzF0ECMYVU"
+        "tff2YgFy9BWUY+RDJBHFlHMHJ0cUp+XSxbHzF0FUtKWCh+THZ3RBdlBhMwBAsuGS8wFh9x"
+        "Xl8FJiNMS31bHzUxUlpid15tEwF6fRgyRxBObxZmXzA3YncHWxVYIzV9YyQpan9GaF8dE2"
+        "V9BihBaDIgMDonB3QzNzhbeDEVVUofbkpfJ0NedkxJIwZlNiE+K2tdchYfZnFIK1sxNRAj"
+        "TH1jRDkpX0wcegoYCys/LU4ufjoWdGZKd11fW0wjKTEQZAhDYi5fIDQXSUROSRx9QT5lXw"
+        "dHOjB3J3JLGDF4WxB9QRw0Xz9UIDZOMkEGJRt9d34wXStxSnIHESMfMR10TCRKfkRMHC9k"
+        "dU0tRgYZFGVwHnhfJgswSHIWZGNKZlhMYUJKTAdfEwoGLRdwGElEHkF3RyYfcThIFhExcF"
+        "t0eBBMPDQxF2pDVG9lLRdZFDRLBkg6BxYreDAmd1tuZjFMdGNKJzYxdyEmHUotFxh/Bhsr"
+        "KWY3MCtIFh9MEHRMMXgyH0tfDVoHaBVKWy14NkgGcFILFmleSDpmYit0WEt4MR8INWJUfj"
+        "ESFxx2Ky0DHxdHTnh4MHdmcUhickt0MWNMeBAjXxlUYg0dfhc0GUQzMHNONjcwFiYQZitd"
+        "W3QxI0tjGCJ3VH4TYiEoTFIlNk4XWjEfC3hfdBYQNXF0MVtnI30QNQ=="
+    ),
+}
+
+# Phase 30: rwkv6_1p6b at full width (d 2048, ff 7168, vocab 65536, 32
+# heads of 64) cut to three layers; two requests of a 64-token prompt, 16
+# steps.  Phase 31: the whole model (24 layers), a 2048-token prompt.
+RWKV_SEED = 0
+RWKV_TWIN = dict(batch=2, prompt=64, steps=16, layers=3)
+RWKV_TWIN_VARIANTS = {"dense": {}, "tag2": dict(gse_serve=True, gse_tag=2),
+                      "tag2_bf16": dict(gse_serve=True, gse_tag=2,
+                                        compute_dtype="bfloat16")}
+RWKV_FULL = dict(batch=4, prompt=2048, steps=32)
+# wkv6's shapes (B, S, H, N): phase 31's prefill and phase 30's, then
+# ragged ones (a partial last chunk of steps; N below its block's width).
+WKV_SHAPES = ((4, 2048, 32, 64), (2, 64, 32, 64), (1, 77, 3, 16),
+              (2, 45, 2, 40))
+# tools/reference/rwkv_serve_ref.py's output (JAX on the CPU), as LM_REF.
+RWKV_REF = {
+    'dense': [
+        ([30921, 63488], [-0.23144644498825073, 0.9628686904907227,
+         -0.5423518419265747, 0.625275731086731, 0.46391889452934265,
+         -0.11972951889038086, 0.1990918517112732, 1.9490225315093994],
+         4.641010761260986),
+        ([32165, 31567], [1.821578025817871, 0.9594517946243286,
+         -0.20952171087265015, -1.2689106464385986, 1.9981958866119385,
+         -0.5242118239402771, 1.2745037078857422, 0.8259862065315247],
+         4.784292697906494),
+        ([8892, 41578], [0.35589009523391724, 0.4653151035308838,
+         0.5821906328201294, -0.42806845903396606, -1.52805495262146,
+         -1.2665631771087646, 0.7439504861831665, 2.722834587097168],
+         4.603595733642578),
+        ([6687, 37294], [0.2894449830055237, 0.5609356760978699,
+         -0.8430083990097046, -0.4597196877002716, -0.688781201839447,
+         -0.0762423649430275, 0.49653974175453186, 1.7740217447280884],
+         4.643120765686035),
+        ([28184, 35958], [0.5327107906341553, 0.409314900636673,
+         -1.66075599193573, -1.4876608848571777, 1.7497992515563965,
+         -1.6205596923828125, 0.8096519112586975, 0.8140638470649719],
+         4.146695137023926),
+        ([2460, 52347], [1.221136212348938, 2.2016913890838623,
+         0.35567474365234375, -0.47077080607414246, 0.9592642784118652,
+         -0.5365192890167236, -0.38022381067276, 1.2513755559921265],
+         4.758448123931885),
+        ([59534, 49296], [-0.5602054595947266, 1.3929393291473389,
+         -0.10404059290885925, 0.6333270072937012, -0.7032851576805115,
+         -1.2003281116485596, 1.0046849250793457, 1.3463134765625],
+         4.465242385864258),
+        ([17812, 14600], [-1.8203506469726562, 0.3377749025821686,
+         0.8629947900772095, 0.7342548370361328, -1.7597689628601074,
+         -0.1930641531944275, 0.018736541271209717, -0.3608980178833008],
+         4.6394147872924805),
+        ([884, 42541], [0.19531497359275818, 1.0049453973770142,
+         2.6065733432769775, 1.5168352127075195, -0.9996159076690674,
+         1.1107364892959595, -0.3992839455604553, 1.0694535970687866],
+         4.587402820587158),
+        ([45779, 14966], [0.5806832909584045, 3.2548818588256836,
+         -0.5095479488372803, -0.2190396636724472, -0.74269038438797,
+         1.5187339782714844, -0.08202403783798218, -0.5854350328445435],
+         4.798650741577148),
+        ([51342, 18127], [0.5428822040557861, 2.507938861846924,
+         -0.6836529970169067, -0.6318686604499817, -0.14959843456745148,
+         0.522004246711731, -0.9585305452346802, -0.8331575393676758],
+         4.5237202644348145),
+        ([7052, 26289], [0.543302595615387, 0.6654735803604126,
+         0.3535904884338379, 0.31861674785614014, -0.617779552936554,
+         1.6548914909362793, -0.5627545714378357, 1.7762773036956787],
+         5.4401044845581055),
+        ([38848, 1070], [1.4051756858825684, 1.1546151638031006,
+         0.07125961780548096, -0.5727719068527222, -0.3245375454425812,
+         0.84648197889328, -0.08730053901672363, 1.3219393491744995],
+         4.541697025299072),
+        ([60277, 12598], [1.7165539264678955, -0.43961048126220703,
+         -0.005715906620025635, -1.4767473936080933, 1.459580659866333,
+         -0.6451352834701538, -0.19073788821697235, 0.37304237484931946],
+         4.49050235748291),
+        ([36571, 53092], [-0.18497446179389954, 1.1440297365188599,
+         -0.18795791268348694, -0.9120907187461853, 0.3600965142250061,
+         -1.2723867893218994, -0.6980093717575073, 1.0061215162277222],
+         4.118523597717285),
+        ([7433, 44768], [0.3969001770019531, -0.14456751942634583,
+         -0.3540341854095459, -1.0767909288406372, 1.4029791355133057,
+         -0.45750442147254944, -0.32952046394348145, 2.3357129096984863],
+         4.456151962280273),
+        ([36839, 56417], [-0.6852049827575684, -0.09165112674236298,
+         0.041147381067276, 0.0940205380320549, 0.12149682641029358,
+         0.1500282883644104, -0.6029267311096191, 0.3245677649974823],
+         4.416971206665039),
+    ],
+    'tag2': [
+        ([30921, 63488], [-0.23144644498825073, 0.9628686904907227,
+         -0.5423518419265747, 0.625275731086731, 0.46391889452934265,
+         -0.11972951889038086, 0.1990918517112732, 1.9490225315093994],
+         4.641010761260986),
+        ([32165, 31567], [1.821578025817871, 0.9594517946243286,
+         -0.20952171087265015, -1.2689106464385986, 1.9981958866119385,
+         -0.5242118239402771, 1.2745037078857422, 0.8259862065315247],
+         4.784292697906494),
+        ([8892, 41578], [0.35589009523391724, 0.4653151035308838,
+         0.5821906328201294, -0.42806845903396606, -1.52805495262146,
+         -1.2665631771087646, 0.7439504861831665, 2.722834587097168],
+         4.603595733642578),
+        ([6687, 37294], [0.2894449830055237, 0.5609356760978699,
+         -0.8430083990097046, -0.4597196877002716, -0.688781201839447,
+         -0.0762423649430275, 0.49653974175453186, 1.7740217447280884],
+         4.643120765686035),
+        ([28184, 35958], [0.5327107906341553, 0.409314900636673,
+         -1.66075599193573, -1.4876608848571777, 1.7497992515563965,
+         -1.6205596923828125, 0.8096519112586975, 0.8140638470649719],
+         4.146695137023926),
+        ([2460, 52347], [1.221136212348938, 2.2016913890838623,
+         0.35567474365234375, -0.47077080607414246, 0.9592642784118652,
+         -0.5365192890167236, -0.38022381067276, 1.2513755559921265],
+         4.758448123931885),
+        ([59534, 49296], [-0.5602054595947266, 1.3929393291473389,
+         -0.10404059290885925, 0.6333270072937012, -0.7032851576805115,
+         -1.2003281116485596, 1.0046849250793457, 1.3463134765625],
+         4.465242385864258),
+        ([17812, 14600], [-1.8203506469726562, 0.3377749025821686,
+         0.8629947900772095, 0.7342548370361328, -1.7597689628601074,
+         -0.1930641531944275, 0.018736541271209717, -0.3608980178833008],
+         4.6394147872924805),
+        ([884, 42541], [0.19531497359275818, 1.0049453973770142,
+         2.6065733432769775, 1.5168352127075195, -0.9996159076690674,
+         1.1107364892959595, -0.3992839455604553, 1.0694535970687866],
+         4.587402820587158),
+        ([45779, 14966], [0.5806832909584045, 3.2548818588256836,
+         -0.5095479488372803, -0.2190396636724472, -0.74269038438797,
+         1.5187339782714844, -0.08202403783798218, -0.5854350328445435],
+         4.798650741577148),
+        ([51342, 18127], [0.5428822040557861, 2.507938861846924,
+         -0.6836529970169067, -0.6318686604499817, -0.14959843456745148,
+         0.522004246711731, -0.9585305452346802, -0.8331575393676758],
+         4.5237202644348145),
+        ([7052, 26289], [0.543302595615387, 0.6654735803604126,
+         0.3535904884338379, 0.31861674785614014, -0.617779552936554,
+         1.6548914909362793, -0.5627545714378357, 1.7762773036956787],
+         5.4401044845581055),
+        ([38848, 1070], [1.4051756858825684, 1.1546151638031006,
+         0.07125961780548096, -0.5727719068527222, -0.3245375454425812,
+         0.84648197889328, -0.08730053901672363, 1.3219393491744995],
+         4.541697025299072),
+        ([60277, 12598], [1.7165539264678955, -0.43961048126220703,
+         -0.005715906620025635, -1.4767473936080933, 1.459580659866333,
+         -0.6451352834701538, -0.19073788821697235, 0.37304237484931946],
+         4.49050235748291),
+        ([36571, 53092], [-0.18497446179389954, 1.1440297365188599,
+         -0.18795791268348694, -0.9120907187461853, 0.3600965142250061,
+         -1.2723867893218994, -0.6980093717575073, 1.0061215162277222],
+         4.118523597717285),
+        ([7433, 44768], [0.3969001770019531, -0.14456751942634583,
+         -0.3540341854095459, -1.0767909288406372, 1.4029791355133057,
+         -0.45750442147254944, -0.32952046394348145, 2.3357129096984863],
+         4.456151962280273),
+        ([36839, 56417], [-0.6852049827575684, -0.09165112674236298,
+         0.041147381067276, 0.0940205380320549, 0.12149682641029358,
+         0.1500282883644104, -0.6029267311096191, 0.3245677649974823],
+         4.416971206665039),
+    ],
+    'tag2_bf16': [
+        ([30921, 63488], [-0.18493251502513885, 1.003002405166626,
+         -0.5164691805839539, 0.6223088502883911, 0.5100724697113037,
+         -0.1326383352279663, 0.23300319910049438, 1.974677324295044],
+         4.654474258422852),
+        ([32165, 13132], [1.8315112590789795, 0.9814014434814453,
+         -0.228563129901886, -1.269181251525879, 2.0035464763641357,
+         -0.5156430006027222, 1.2888561487197876, 0.7927974462509155],
+         4.7621355056762695),
+        ([8892, 41578], [0.3751932382583618, 0.5218309164047241,
+         0.639310359954834, -0.4666904807090759, -1.6054627895355225,
+         -1.277347445487976, 0.7695540189743042, 2.7183845043182373],
+         4.543407440185547),
+        ([6687, 37294], [0.3412601053714752, 0.5500340461730957,
+         -0.8647339940071106, -0.43054571747779846, -0.726951003074646,
+         -0.10957616567611694, 0.5190017819404602, 1.8003878593444824],
+         4.667027473449707),
+        ([28184, 41885], [0.5654032826423645, 0.4411790072917938,
+         -1.6493136882781982, -1.492159366607666, 1.7449960708618164,
+         -1.6435362100601196, 0.8077999949455261, 0.8190850019454956],
+         4.148651123046875),
+        ([2460, 52347], [1.2186592817306519, 2.247140407562256,
+         0.37307208776474, -0.4684516489505768, 0.9451637864112854,
+         -0.5165732502937317, -0.3447474539279938, 1.292590856552124],
+         4.731500148773193),
+        ([59534, 49296], [-0.5508317351341248, 1.4316983222961426,
+         -0.11359602212905884, 0.6347084641456604, -0.7034364342689514,
+         -1.1949595212936401, 1.0269979238510132, 1.3298346996307373],
+         4.479331016540527),
+        ([17812, 14600], [-1.803584337234497, 0.3255951404571533,
+         0.8421750068664551, 0.7435647249221802, -1.7480823993682861,
+         -0.2147258222103119, 0.027941912412643433, -0.3749030828475952],
+         4.639154434204102),
+        ([884, 42541], [0.19819509983062744, 0.9484021663665771,
+         2.5830581188201904, 1.5137274265289307, -1.014961838722229,
+         1.0790901184082031, -0.3835170865058899, 1.041411280632019],
+         4.617395877838135),
+        ([27758, 14966], [0.5548219084739685, 3.2575531005859375,
+         -0.5557040572166443, -0.25552648305892944, -0.7193335294723511,
+         1.5110172033309937, -0.030708372592926025, -0.6175211668014526],
+         4.763855457305908),
+        ([51342, 18127], [0.5612160563468933, 2.5262813568115234,
+         -0.6701016426086426, -0.5889241695404053, -0.13641169667243958,
+         0.48728078603744507, -0.9663254022598267, -0.8627417087554932],
+         4.538640975952148),
+        ([7052, 26289], [0.5204450488090515, 0.6593767404556274,
+         0.3881871700286865, 0.31046926975250244, -0.6126617789268494,
+         1.6556332111358643, -0.5807003378868103, 1.764883041381836],
+         5.431459426879883),
+        ([38848, 1070], [1.3935399055480957, 1.1527137756347656,
+         0.08703771233558655, -0.5890214443206787, -0.33230239152908325,
+         0.8733053207397461, -0.08282772451639175, 1.3439857959747314],
+         4.5188069343566895),
+        ([60277, 12598], [1.7382545471191406, -0.4423831105232239,
+         -0.032124340534210205, -1.5165483951568604, 1.4645507335662842,
+         -0.6193141341209412, -0.22674807906150818, 0.3708333969116211],
+         4.463666915893555),
+        ([36571, 53092], [-0.18018020689487457, 1.1792373657226562,
+         -0.19649738073349, -0.9000402688980103, 0.35133635997772217,
+         -1.2754242420196533, -0.7094278931617737, 0.9763752818107605],
+         4.125972270965576),
+        ([7433, 44768], [0.39957988262176514, -0.15732571482658386,
+         -0.36422836780548096, -1.0837969779968262, 1.3875163793563843,
+         -0.45412999391555786, -0.3298155665397644, 2.332526683807373],
+         4.411626815795898),
+        ([36839, 56417], [-0.6731373071670532, -0.10610690712928772,
+         0.04795563220977783, 0.08030843734741211, 0.09279145300388336,
+         0.18284475803375244, -0.6249336004257202, 0.31048741936683655],
+         4.433780670166016),
+    ],
+}
+
+
+def moe_twin_config():
+    """Phase 28's qwen3_moe_235b_a22b: full width, MOE_TWIN's depth and
+    expert ff, float32."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    ff = MOE_TWIN["expert_ff"]
+    return dataclasses.replace(get_config("qwen3_moe_235b_a22b"),
+                               num_layers=MOE_TWIN["layers"], d_ff=ff,
+                               moe_d_ff=ff, compute_dtype=torch.float32)
+
+
+def moe_tree_np(cfg, seed: int) -> dict:
+    """Params of a moe ``cfg`` in the reference's stacked layout as numpy
+    f32, drawn from ``default_rng(seed)`` in a fixed order: weights of
+    variance 1/fan-in (the router and the expert stacks as the reference's
+    ``moe_init`` scales them), unit norms.  They are uniform, not normal:
+    the twin's 2.2G values take a third of a normal draw's host time (40 s
+    on one core).  ``tools/reference/moe_serve_ref.py`` builds the
+    reference's params from this same function."""
+    import math
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, fan_in):
+        a = rng.random(shape, dtype=np.float32)
+        a -= np.float32(0.5)
+        a *= np.float32(math.sqrt(12.0 / fan_in))
+        return a
+
+    n, d, h, kv = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, ff, e, vp = cfg.hd, cfg.expert_ff, cfg.num_experts, cfg.padded_vocab
+    attn = {"wq": normal((n, d, h * hd), d),
+            "wk": normal((n, d, kv * hd), d),
+            "wv": normal((n, d, kv * hd), d),
+            "wo": normal((n, h * hd, d), h * hd)}
+    if cfg.qk_norm:
+        attn["q_norm"] = np.ones((n, hd), np.float32)
+        attn["k_norm"] = np.ones((n, hd), np.float32)
+    return {
+        "embed": {"table": normal((vp, d), d)},
+        "final_norm": {"scale": np.ones(d, np.float32)},
+        "unembed": {"w": normal((d, vp), d)},
+        "layers": {
+            "norm1": {"scale": np.ones((n, d), np.float32)},
+            "attn": attn,
+            "norm2": {"scale": np.ones((n, d), np.float32)},
+            "moe": {"router": normal((n, d, e), d),
+                    "w_gate": normal((n, e, d, ff), d),
+                    "w_up": normal((n, e, d, ff), d),
+                    "w_down": normal((n, e, ff, d), ff)},
+        },
+    }
+
+
+def moe_params_cpu():
+    """Phase 28's dense params as CPU tensors."""
+    from repro_torch import convert
+
+    return convert.params_from_repro(
+        moe_tree_np(moe_twin_config(), MOE_SEED), device="cpu")
+
+
+def route_digest(records, batch: int, layers: int) -> list:
+    """Per step (the prefill, then each decode step), per layer, per
+    request: the crc32 of the int32 expert ids its tokens were routed to
+    (``moe.record_routes``' entries, layers in order within a step)."""
+    import zlib
+
+    import numpy as np
+
+    out = []
+    for i in range(0, len(records), layers):
+        out.append([[zlib.crc32(ids.tobytes()) for ids in
+                     r["expert_ids"].numpy().astype(np.int32)
+                     .reshape(batch, -1)] for r in records[i:i + layers]])
+    return out
+
+
+def encode_route_ids(ids) -> str:
+    """Expert ids (a list of int arrays, one per moe_apply call in order:
+    the prefill's layers, then each decode step's) as base64 of their
+    uint8 values, in call order, row-major."""
+    import base64
+
+    import numpy as np
+
+    flat = np.concatenate([np.asarray(e).reshape(-1) for e in ids])
+    if flat.min() < 0 or flat.max() > 255:
+        raise ValueError("expert ids beyond uint8")
+    return base64.b64encode(flat.astype(np.uint8).tobytes()).decode()
+
+
+def decode_route_ids(text: str, batch: int, prompt: int, steps: int,
+                     layers: int, k: int) -> list:
+    """encode_route_ids' inverse for a prefill of ``prompt`` tokens and
+    ``steps`` decode steps: a list of int64 ``(T, k)`` arrays in call
+    order (T = batch * prompt, then batch)."""
+    import base64
+
+    import numpy as np
+
+    flat = np.frombuffer(base64.b64decode(text), np.uint8).astype(np.int64)
+    sizes = [batch * prompt] * layers + [batch] * (layers * steps)
+    if flat.size != k * sum(sizes):
+        raise ValueError(f"{flat.size} route ids, expected {k * sum(sizes)}")
+    cuts = np.cumsum([0] + [t * k for t in sizes])
+    return [flat[a:b].reshape(-1, k) for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+@contextlib.contextmanager
+def replay_routes(forced):
+    """Within the block every ``moe_apply`` routes its tokens to the next
+    of ``forced`` (``(T, k)`` expert id arrays, in call order) in place of
+    its own top k; its gates are its own probabilities at those ids,
+    renormalized over k.  Yields a list that gets, per call, the largest
+    near-tie gap and the tokens whose own top-k set differs from the
+    forced one.  The gap of a token is ``log p[its own k-th] - log
+    min(p[forced ids])`` (its router logits' difference: 0 where the sets
+    agree).  All of ``forced`` must be used."""
+    import torch
+
+    from repro_torch.models import moe as MOE
+
+    own_route = MOE._route
+    queue = list(forced)
+    gaps: list = []
+
+    def route(router, x, k):
+        probs, _, own = own_route(router, x, k)
+        if not queue:
+            raise AssertionError("replay_routes: more moe_apply calls than "
+                                 "forced routes")
+        ids = torch.as_tensor(queue.pop(0), device=x.device)
+        ids = ids.view(own.shape)
+        g = probs.gather(-1, ids)
+        gap = (torch.log(probs.gather(-1, own[..., -1:]))
+               - torch.log(g.amin(-1, keepdim=True))).clamp_min(0)
+        gaps.append((float(gap.max()), int((gap > 0).sum())))
+        return probs, g / g.sum(dim=-1, keepdim=True), ids
+
+    MOE._route = route
+    try:
+        yield gaps
+    finally:
+        MOE._route = own_route
+    if queue:
+        raise AssertionError(f"replay_routes: {len(queue)} forced routes "
+                             "were not used")
+
+
+def moe_run(cfg, params, tokens, device, prompt: int, steps: int,
+            forced=None):
+    """lm_run with the routes recorded: (logits, seconds, route digest, the
+    pairs dropped per layer at the prefill, the expert ids per call).
+    ``forced`` (expert ids per call): the run replays them
+    (replay_routes) and returns its near-tie gaps as a sixth item."""
+    from repro_torch.models import moe as MOE
+
+    with contextlib.ExitStack() as stack:
+        rec = stack.enter_context(MOE.record_routes())
+        gaps = (stack.enter_context(replay_routes(forced))
+                if forced is not None else None)
+        logits, sec = lm_run(cfg, params, tokens, device, prompt, steps)
+    drops = [int((~r["keep"]).sum()) for r in rec[:cfg.num_layers]]
+    out = (logits, sec, route_digest(rec, tokens.shape[0], cfg.num_layers),
+           drops, [r["expert_ids"].numpy() for r in rec])
+    return out if forced is None else out + (gaps,)
+
+
+def moe_ref_ids(name: str, cfg) -> list:
+    """The reference's expert ids for phase 28's variant ``name``
+    (MOE_REF_IDS), per moe_apply call."""
+    tw = MOE_TWIN
+    return decode_route_ids(MOE_REF_IDS[name], tw["batch"], tw["prompt"],
+                            tw["steps"], cfg.num_layers,
+                            cfg.experts_per_token)
+
+
+def moe_twin_cpu():
+    """Phase 28's CPU twin, from the same numpy params as the card's run:
+    per variant (logits, seconds, params digest, routes, drops, replay);
+    replay: for a variant in MOE_REF_IDS, (logits, routes, drops, gaps)
+    of a run that replays the reference's expert ids, else None."""
+    tw = MOE_TWIN
+    cfg0 = moe_twin_config()
+    dense = moe_params_cpu()
+    toks = lm_tokens(cfg0, MOE_SEED + 1, tw["batch"],
+                     tw["prompt"] + tw["steps"])
+    out, packed, memo = {}, None, {}
+    for name, kw in MOE_TWIN_VARIANTS.items():
+        cfg = lm_variant(cfg0, kw)
+        pc = dense
+        if cfg.gse_serve:
+            packed = packed or lm_gse_params(dense, cfg)
+            pc = packed
+        lc, sc, routes, drops, _ = moe_run(cfg, pc, toks, "cpu",
+                                           tw["prompt"], tw["steps"])
+        replay = None
+        if name in MOE_REF_IDS:
+            lr, _, rr, dr, _, gaps = moe_run(cfg, pc, toks, "cpu",
+                                             tw["prompt"], tw["steps"],
+                                             moe_ref_ids(name, cfg))
+            replay = (lr, rr, dr, gaps)
+        out[name] = (lc, sc, tree_digest(packed_leaves(pc), memo), routes,
+                     drops, replay)
+    return out
+
+
+def packed_leaves(tree) -> list:
+    """The ``gse_serve`` segment dicts of ``tree``: the leaves the card and
+    a CPU twin pack on their own.  Phase 28 digests only these; its dense
+    leaves are the same numpy arrays on both sides (a copy to the card is
+    exact), and digesting its 2.2G dense values took the CPU twin 28 s."""
+    from repro_torch.models.modules import is_segments
+    from repro_torch.tree import tree_leaves
+
+    return [leaf for leaf in tree_leaves(tree, is_leaf=is_segments)
+            if is_segments(leaf)]
+
+
+def route_flips(routes, other, batch: int) -> int:
+    """The (step, layer, request) route digests of ``routes`` that differ
+    from ``other``'s."""
+    return sum(m[b] != t[b] for ms, ts in zip(routes, other)
+               for m, t in zip(ms, ts) for b in range(batch))
+
+
+def check_moe_twin(phase, name, card, cpu, ref_rows, tol):
+    """One variant of phase 28 (``ref_rows`` None: no reference digest).
+    ``card`` = (logits, seconds, launches, params digest, routes, drops,
+    replay), ``cpu`` = (logits, seconds, params digest, routes, drops,
+    replay); replay = (logits, routes, drops, gaps) of a run that replays
+    one source's expert ids (the reference's, or the CPU twin's where
+    there is no reference) on both sides, or None.  The params must be the
+    CPU twin's bit for bit.  At f32 (``tol`` None) the routes equal the
+    CPU twin's and the reference's, and the logits are check_twin's.  At
+    bf16 an ulp in a router input flips near ties (top-8 of 128: the
+    port's attention keeps f32 where the reference rounds to bf16), and a
+    flip anywhere in the prompt changes every later position, so the free
+    runs' differing route digests are counted, and the replay runs carry
+    the check: at every (step, request) position the card's logits are
+    held to ``tol`` of the CPU twin's and of the reference's digest, and
+    where a side's own top k differs from the replayed ids the gap
+    (replay_routes) is at most ROUTE_GAP_TOL."""
+    import torch
+
+    lg, sg, got, digest, routes, drops, replay_g = card
+    lc, sc, cpu_digest, cpu_routes, cpu_drops, replay_c = cpu
+    batch = lg.shape[1]
+    if digest != cpu_digest:
+        raise AssertionError(f"{phase} {name}: the card's params are not the "
+                             "CPU twin's bit for bit")
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"{phase} {name}: non-finite logits")
+    ref = ref_rows or []
+    ref_routes = [r[3] for r in ref]
+    flips = {"cpu": route_flips(routes, cpu_routes, batch)}
+    if ref:
+        flips["ref"] = route_flips(routes, ref_routes, batch)
+    if tol is None:
+        if any(flips.values()) or drops != cpu_drops:
+            raise AssertionError(f"{phase} {name}: f32 routes differ "
+                                 f"(route digests differing {flips}, drops "
+                                 f"{drops} against {cpu_drops})")
+        if ref:
+            check_twin(phase, name, (lg, sg, got, digest), (lc, sc, digest),
+                       [r[:3] for r in ref])
+        else:
+            err = float((lg - lc).abs().max())
+            log(phase, variant=name, twin_max_abs_err=err, tol=LM_TOL,
+                launches=json.dumps(got), drops=json.dumps(drops))
+            if err > LM_TOL or not torch.equal(lg.argmax(-1), lc.argmax(-1)):
+                raise AssertionError(f"{phase} {name}: card and CPU twin "
+                                     f"differ by {err} (tol {LM_TOL})")
+        log(phase, variant=name, routes_equal_cpu=True,
+            routes_equal_ref=bool(ref) or None, drops=json.dumps(drops))
+        return
+    if replay_g is None or replay_c is None:
+        raise AssertionError(f"{phase} {name}: no replay run to hold bf16 to")
+    lr, rr, dr, gaps_g = replay_g
+    lcr, rcr, dcr, gaps_c = replay_c
+    if rr != rcr or dr != dcr or (ref and rr != ref_routes):
+        raise AssertionError(f"{phase} {name}: the replay runs did not "
+                             "follow the replayed routes")
+    if not bool(torch.isfinite(lr).all()):
+        raise AssertionError(f"{phase} {name}: non-finite replay logits")
+    rtol, atol = tol["rtol"], tol["atol"]
+    excess = (lr - lcr).abs() - (atol + rtol * lcr.abs())
+    twin_err = float((lr - lcr).abs().max())
+    ref_err, ref_bad, ref_held = 0.0, 0, 0
+    for x, y in zip(lm_digest(lr), ref):
+        for a, b in list(zip(x["first"], y[1])) + [(x["maxabs"], y[2])]:
+            ref_err = max(ref_err, abs(a - b))
+            ref_bad += abs(a - b) > atol + rtol * abs(b)
+        ref_held += 1
+    if ref and ref_held != lr.shape[0]:
+        raise AssertionError(f"{phase} {name}: {ref_held} reference steps "
+                             f"for {lr.shape[0]} positions")
+    gap = {"card": max(g for g, _ in gaps_g), "cpu": max(g for g, _ in gaps_c)}
+    near = {"card": sum(n for _, n in gaps_g),
+            "cpu": sum(n for _, n in gaps_c)}
+    log(phase, variant=name, gpu_s=f"{sg:.2f}", cpu_s=f"{sc:.2f}",
+        tol=f"rtol {rtol} atol {atol}", route_flips_free=json.dumps(flips),
+        drops_free=json.dumps(drops), drops_free_cpu=json.dumps(cpu_drops),
+        twin_max_abs_err_free=float((lg - lc).abs().max()),
+        replayed="reference" if ref else "cpu twin",
+        positions_held=int(lr.shape[0] * batch),
+        replay_twin_max_abs_err=twin_err,
+        replay_ref_max_abs_err=ref_err if ref else None,
+        replay_ref_steps=ref_held if ref else None,
+        replay_tokens_flipped_own_topk=json.dumps(near),
+        replay_max_route_gap=json.dumps(gap), gap_tol=ROUTE_GAP_TOL,
+        replay_tokens_equal_cpu=bool(torch.equal(lr.argmax(-1),
+                                                 lcr.argmax(-1))),
+        replay_drops=json.dumps(dr), launches=json.dumps(got))
+    if max(gap.values()) > ROUTE_GAP_TOL:
+        raise AssertionError(f"{phase} {name}: a replayed route is no near "
+                             f"tie (router logit gap {gap}, tol "
+                             f"{ROUTE_GAP_TOL})")
+    if bool((excess > 0).any()) or ref_bad:
+        raise AssertionError(f"{phase} {name}: replay logits beyond {tol} "
+                             f"(twin {twin_err}, reference {ref_err}, "
+                             f"{ref_bad} reference values)")
+
+
+def moe_smoke_twin(dev):
+    """Phase 28, grok1_314b: its smoke config (f32 and bf16, one variant
+    with forced drops) on the card against the CPU from the same params:
+    routes and drops equal at f32, logits within LM_TOL; at bf16 both
+    sides replay the CPU's free run's expert ids and are held to BF16_TOL
+    at every position (check_moe_twin)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    cfg0 = get_config("grok1_314b", smoke=True)
+    params = T.init_params(cfg0, torch.Generator().manual_seed(MOE_SEED),
+                           device="cpu")
+    toks = lm_tokens(cfg0, MOE_SEED + 3, 2, 24 + 8)
+    pg = tree_map(lambda t: t.to(dev), params)
+    for name, kw in (("dense", {}), ("drops", dict(capacity_factor=0.25)),
+                     ("bf16", dict(compute_dtype="bfloat16"))):
+        cfg = lm_variant(cfg0, kw)
+        lg, sg, rg, dg, _ = moe_run(cfg, pg, toks, dev, 24, 8)
+        lc, sc, rc, dc, ids = moe_run(cfg, params, toks, "cpu", 24, 8)
+        replay_g = replay_c = None
+        if name == "bf16":
+            replay_g, replay_c = (
+                (r[0], r[2], r[3], r[5]) for r in
+                (moe_run(cfg, pg, toks, dev, 24, 8, ids),
+                 moe_run(cfg, params, toks, "cpu", 24, 8, ids)))
+        check_moe_twin("moe_twin_grok1_smoke", name,
+                       (lg, sg, {}, [], rg, dg, replay_g),
+                       (lc, sc, [], rc, dc, replay_c), None,
+                       BF16_TOL if name == "bf16" else None)
+        if name == "drops" and min(dg) <= 0:
+            raise AssertionError(f"grok1 smoke: no pair dropped ({dg})")
+
+
+def phase_moe_twin(twins=None, params=None):
+    """Phase 28: qwen3_moe_235b_a22b at full width (two layers, expert ff
+    256) on the card and as its CPU twin from the same numpy params
+    (``params``: a future of moe_params_cpu), against each other and
+    against the reference's digest (MOE_REF): dense and gse_serve tag 2
+    with forced drops at f32, gse_serve tag 2 at bf16 (held through a run
+    that replays the reference's expert ids: check_moe_twin); then grok1's
+    smoke config against its CPU twin.  Returns the launches per kernel
+    body of the f32 variants and (key "bf16") of the bf16 one, counted
+    over the runs that route on their own."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+    from repro_torch.kernels import gse_matmul as E
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda")
+    tw = MOE_TWIN
+    cfg0 = moe_twin_config()
+    t0 = time.perf_counter()
+    dense_cpu = params.result() if params is not None else moe_params_cpu()
+    dense_gpu = tree_map(lambda t: t.to(dev), dense_cpu)
+    del dense_cpu
+    toks = lm_tokens(cfg0, MOE_SEED + 1, tw["batch"],
+                     tw["prompt"] + tw["steps"])
+    log("moe_twin", arch=cfg0.name, layers=tw["layers"],
+        d_model=cfg0.d_model, heads=cfg0.num_heads,
+        kv_heads=cfg0.num_kv_heads, hd=cfg0.hd, experts=cfg0.num_experts,
+        top_k=cfg0.experts_per_token, expert_ff=cfg0.expert_ff,
+        vocab=cfg0.vocab_size, batch=tw["batch"], prompt=tw["prompt"],
+        steps=tw["steps"], params_s=f"{time.perf_counter() - t0:.2f}")
+    card, packed = {}, None
+    for name, kw in MOE_TWIN_VARIANTS.items():
+        cfg = lm_variant(cfg0, kw)
+        pg = dense_gpu
+        if cfg.gse_serve:
+            packed = packed or lm_gse_params(dense_gpu, cfg)
+            pg = packed
+        torch.cuda.synchronize()
+        for mod in (E, F):
+            mod.reset_launch_counts()
+        lg, sg, routes, drops, _ = moe_run(cfg, pg, toks, dev,
+                                           tw["prompt"], tw["steps"])
+        got = {"e_" + k: v for k, v in E.gse_matmul_dense.body_launches
+               .items()}
+        got.update({"f_" + k: v for k, v in
+                    F.flash_attention_gqa.body_launches.items()})
+        replay = None
+        if name in MOE_REF_IDS:
+            lr, _, rr, dr, _, gaps = moe_run(cfg, pg, toks, dev,
+                                             tw["prompt"], tw["steps"],
+                                             moe_ref_ids(name, cfg))
+            replay = (lr, rr, dr, gaps)
+        card[name] = (lg, sg, got, tree_digest(packed_leaves(pg)), routes,
+                      drops, replay)
+    del dense_gpu, packed
+    cpu = twin_of(twins, "moe")
+    counts = {}
+    for name, kw in MOE_TWIN_VARIANTS.items():
+        bf16 = lm_variant(cfg0, kw).compute_dtype == torch.bfloat16
+        check_moe_twin("moe_twin", name, card[name], cpu[name],
+                       MOE_REF.get(name), BF16_TOL if bf16 else None)
+        if bf16:
+            counts["bf16"] = card[name][2]
+            continue
+        for k, v in card[name][2].items():
+            counts[k] = counts.get(k, 0) + v
+    drops = card["tag2_drops"][5]
+    if min(drops) <= 0 or min(a - b for a, b in
+                              zip(drops, card["dense"][5])) <= 0:
+        raise AssertionError(f"moe_twin tag2_drops: capacity factor 0.5 "
+                             f"dropped no more pairs than the default "
+                             f"({drops} against {card['dense'][5]})")
+    log("moe_twin", launches_f32=json.dumps(
+        {k: v for k, v in counts.items() if k != "bf16"}),
+        launches_bf16=json.dumps(counts["bf16"]))
+    if min(counts[k] for k in ("e_gemv", "e_tiled", "f_ffma")) <= 0:
+        raise AssertionError(f"a kernel body of the f32 moe twin never "
+                             f"launched: {counts}")
+    if min(counts["bf16"][k] for k in ("e_gemv", "e_tiled", "f_mma")) <= 0:
+        raise AssertionError(f"a kernel body of the bf16 moe twin never "
+                             f"launched: {counts['bf16']}")
+    moe_smoke_twin(dev)
+    return counts
+
+
+def phase_moe_kernels():
+    """Phase 28, part 2: F at the moe attention shapes (MOE_FLASH, bf16 on
+    the tensor-core body) against its plain version; returns the inputs
+    for phase 10."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    ctx = {"err": {}, "qkv": {}}
+    for arch, b, s, h, kv, hd in MOE_FLASH:
+        dt = torch.bfloat16
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dt)
+        got = F.flash_attention_gqa(q, k, v, causal=True)
+        want = F.flash_attention_gqa_plain(q, k, v, causal=True)
+        diff = (got.float() - want.float()).abs()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        ctx["err"][arch] = float(diff.max())
+        ctx["qkv"][arch] = (q, k, v)
+        log("moe_kernels", kernel="flash_attention_gqa", arch=arch,
+            body=F.flash_body(dt, hd), b=b, s=s, heads=h, kv_heads=kv,
+            hd=hd, dtype="bfloat16", max_abs_err=float(diff.max()),
+            tol="rtol 0.02 atol 0.02")
+        del got, want, diff
+    return ctx
+
+
+def serve_cli_archs(archs):
+    """``repro_torch.launch.serve`` on ``archs`` (smoke configs) at
+    --gse-tag 2 on the card, counted, against the CPU's tokens: kernel D
+    decodes the quantized tree (the 4-D expert stacks included)."""
+    import torch
+
+    from repro_torch.kernels import gse_decode as D
+    from repro_torch.launch import serve
+
+    out = {}
+    for arch in archs:
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        quiet = lambda msg: None  # noqa: E731
+        t0 = time.perf_counter()
+        args = serve.parser().parse_args(["--arch", arch, "--gse-tag", "2"])
+        tokens = serve_main_quiet(serve, args, quiet)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = D.gse_decode_dense.launches
+        args = serve.parser().parse_args(["--arch", arch, "--gse-tag", "2",
+                                          "--device", "cpu"])
+        tokens_cpu = serve_main_quiet(serve, args, quiet)
+        log("serve_cli", arch=arch, gse_tag=2, wall_s=f"{wall:.2f}",
+            d_launches=launches, tokens_equal_cpu=tokens == tokens_cpu)
+        if launches <= 0:
+            raise AssertionError(f"serve CLI {arch}: kernel D never "
+                                 "launched")
+        if tokens != tokens_cpu:
+            raise AssertionError(f"serve CLI {arch}: the card's tokens are "
+                                 f"not the CPU's: {tokens} {tokens_cpu}")
+        out[arch] = launches
+    return out
+
+
+def serve_main_quiet(serve, args, log_fn):
+    """``serve.main``'s path for parsed ``args`` with its log lines
+    dropped: the served tokens."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config(args.arch, smoke=args.smoke)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=args.device)
+    if args.gse_tag:
+        params = serve.gse_params(params, args.gse_tag, log_fn)
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(args.device)
+    return serve.serve(cfg, params, prompts, args.gen, log_fn)
+
+
+def serve_full(cfg, fu, seed, phase, need):
+    """Phases 29 and 31: ``cfg`` initialized on the card with
+    ``T.init_params``, a prompt of ``fu["prompt"]`` tokens through
+    ``make_prefill_step(state=)``, then ``fu["steps"]`` greedy decode
+    steps, counted; logs the times, the peak memory and (moe) the pairs
+    dropped per layer at the prefill.  ``need``: launch counts that must
+    be positive.  Returns the counts."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+    from repro_torch.kernels import gse_matmul as E
+    from repro_torch.kernels import wkv6 as K
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import stepfns, transformer as T
+    from repro_torch.quant import gse_tensor as Q
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the earlier phases' tensors
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - held
+    nbytes = Q.tree_bytes(params, cfg.gse_tag)
+    toks = torch.from_numpy(lm_tokens(cfg, seed + 2, fu["batch"],
+                                      fu["prompt"])).to(dev)
+    state = T.decode_state_init(cfg, fu["batch"], fu["prompt"] + fu["steps"],
+                                device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (E, F, K):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    with MOE.record_routes() as rec:
+        logits = stepfns.make_prefill_step(cfg)(params, toks, state=state)
+        torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    drops = [int((~r["keep"]).sum()) for r in rec]
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(fu["steps"]):
+        logits, state = T.decode_step(cfg, params, state, tok,
+                                      fu["prompt"] + i)
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = {"e_" + k: v for k, v in E.gse_matmul_dense.body_launches
+              .items()}
+    counts.update({"f_" + k: v for k, v in
+                   F.flash_attention_gqa.body_launches.items()})
+    counts["wkv6"] = K.wkv6.launches
+    step_ms = decode_s * 1e3 / fu["steps"]
+    log(phase, arch=cfg.name, layers=cfg.num_layers, gse_tag=cfg.gse_tag,
+        dtype=str(cfg.compute_dtype), batch=fu["batch"], prompt=fu["prompt"],
+        steps=fu["steps"], init_s=f"{init_s:.2f}",
+        prefill_s=f"{prefill_s:.3f}",
+        prefill_tok_per_s=f"{fu['batch'] * fu['prompt'] / prefill_s:.0f}",
+        ms_per_decode_step=f"{step_ms:.3f}",
+        decode_tok_per_s=f"{fu['batch'] * 1e3 / step_ms:.1f}",
+        tree_bytes=nbytes, init_peak_gb=f"{init_peak / 1e9:.2f}",
+        serve_peak_gb=f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.2f}",
+        prefill_drops_per_layer=json.dumps(drops) if rec else None,
+        launches=json.dumps(counts))
+    log(phase, arch=cfg.name, tokens=json.dumps(torch.stack(out, 1).tolist()))
+    if not bool(finite):
+        raise AssertionError(f"{phase} {cfg.name}: non-finite logits")
+    if min(counts[k] for k in need) <= 0:
+        raise AssertionError(f"{phase} {cfg.name}: a kernel of the serving "
+                             f"path never launched: {counts}")
+    del params, state, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_moe_full():
+    """Phase 29: qwen3_moe_235b_a22b (6 layers) and grok1_314b (2 layers)
+    at full width under gse_serve tag 2 at bf16 (MOE_FULL), one after the
+    other; then the expert products of one decode step of qwen3_moe
+    timed against the bytes they read.  Returns the launches of each."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, fu in MOE_FULL.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=fu["layers"],
+                                  gse_serve=True, gse_tag=2)
+        out[arch] = serve_full(cfg, fu, MOE_SEED, "moe_full",
+                               ("e_gemv", "e_tiled", "f_mma"))
+    return out
+
+
+def expert_decode_timing():
+    """Phase 29, part 2: one decode step's expert products of a
+    qwen3_moe_235b_a22b layer (4 requests: 128 experts x 8 slots, every
+    expert's weights read, the reference computes all E x cap rows):
+    ``moe._expert_ffn`` on f32 stacks (the casts to bf16 included) and on
+    stacks already in bf16, against the bytes each must move."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3_moe_235b_a22b")
+    e, d, ff = cfg.num_experts, cfg.d_model, cfg.expert_ff
+    cap = MOE._capacity(cfg, MOE_FULL[cfg.name]["batch"])
+    gen = torch.Generator(device=dev).manual_seed(29)
+    p = {name: torch.randn(shape, generator=gen, device=dev)
+         for name, shape in (("w_gate", (e, d, ff)), ("w_up", (e, d, ff)),
+                             ("w_down", (e, ff, d)))}
+    pb = {k: v.to(torch.bfloat16) for k, v in p.items()}
+    xe = torch.randn((e, cap, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = 3 * e * d * ff
+    f32_ms = cuda_ms(lambda: MOE._expert_ffn(p, xe, torch.bfloat16), reps=3)
+    bf16_ms = cuda_ms(lambda: MOE._expert_ffn(pb, xe, torch.bfloat16),
+                      reps=5)
+    # f32 stacks: each weight read in f32, written and read again in bf16.
+    f32_bytes, bf16_bytes = w * (4 + 2 + 2), w * 2
+    out = dict(experts=e, cap=cap, d=d, ff=ff, f32_stacks_ms=f32_ms,
+               f32_stacks_bytes=f32_bytes,
+               f32_stacks_bound_ms=f32_bytes / HBM_BYTES_PER_S * 1e3,
+               bf16_stacks_ms=bf16_ms, bf16_stacks_bytes=bf16_bytes,
+               bf16_stacks_bound_ms=bf16_bytes / HBM_BYTES_PER_S * 1e3)
+    log("moe_expert_decode", **{k: (f"{v:.4f}" if isinstance(v, float)
+                                    else v) for k, v in out.items()})
+    del p, pb, xe
+    torch.cuda.empty_cache()
+    return out
+
+
+def rwkv_twin_config():
+    """Phase 30's rwkv6_1p6b: full width, RWKV_TWIN's depth, float32."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("rwkv6_1p6b"),
+                               num_layers=RWKV_TWIN["layers"],
+                               compute_dtype=torch.float32)
+
+
+def rwkv_tree_np(cfg, seed: int) -> dict:
+    """Params of an ssm ``cfg`` in the reference's stacked layout as numpy
+    f32, drawn from ``default_rng(seed)`` in a fixed order: normal weights
+    scaled as the reference's ``rwkv_time_init``/``rwkv_channel_init``
+    scale them, ``w_base`` uniform in [-2, 0), the mixes 0.5, unit norms.
+    ``tools/reference/rwkv_serve_ref.py`` builds the reference's params
+    from this same function."""
+    import math
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= np.float32(scale)
+        return a
+
+    n, d, ff, vp = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    hn = cfg.rwkv_head_dim
+    half = np.full((n, d), 0.5, np.float32)
+    time_mix = {"mix_r": half, "mix_k": half.copy(), "mix_v": half.copy(),
+                "mix_w": half.copy()}
+    for name in ("wr", "wk", "wv", "wg", "wo"):
+        time_mix[name] = normal((n, d, d), 1 / math.sqrt(d))
+    time_mix["w_base"] = rng.uniform(-2.0, 0.0, size=(n, d)).astype(
+        np.float32)
+    time_mix["w_lora_a"] = normal((n, d, 64), 1 / math.sqrt(d))
+    time_mix["w_lora_b"] = normal((n, 64, d), 1 / 8.0)
+    time_mix["bonus_u"] = normal((n, d // hn, hn), 0.1)
+    return {
+        "embed": {"table": normal((vp, d), 1 / math.sqrt(d))},
+        "final_norm": {"scale": np.ones(d, np.float32)},
+        "unembed": {"w": normal((d, vp), 1 / math.sqrt(d))},
+        "layers": {
+            "norm1": {"scale": np.ones((n, d), np.float32)},
+            "time": time_mix,
+            "norm2": {"scale": np.ones((n, d), np.float32)},
+            "chan": {"mix_k": np.full((n, d), 0.5, np.float32),
+                     "wk": normal((n, d, ff), 1 / math.sqrt(d)),
+                     "wv": normal((n, ff, d), 1 / math.sqrt(ff)),
+                     "wr": normal((n, d, d), 1 / math.sqrt(d))},
+        },
+    }
+
+
+def rwkv_gse_params(params, cfg):
+    """``params`` with the unembedding packed into ``gse_serve`` segments
+    (the RWKV weights stay dense, as the reference's init draws them)."""
+    from repro_torch.models.modules import pack_linear_weight
+    from repro_torch.tree import tree_map
+
+    out = tree_map(lambda t: t, params)
+    out["unembed"]["w"] = pack_linear_weight(params["unembed"]["w"], cfg)
+    return out
+
+
+def rwkv_params_cpu():
+    """Phase 30's dense params as CPU tensors."""
+    from repro_torch import convert
+
+    return convert.params_from_repro(
+        rwkv_tree_np(rwkv_twin_config(), RWKV_SEED), device="cpu")
+
+
+def rwkv_twin_cpu():
+    """Phase 30's CPU twin: per variant the logits, the seconds and the
+    params digest."""
+    tw = RWKV_TWIN
+    cfg0 = rwkv_twin_config()
+    dense = rwkv_params_cpu()
+    toks = lm_tokens(cfg0, RWKV_SEED + 1, tw["batch"],
+                     tw["prompt"] + tw["steps"])
+    out, packed, memo = {}, None, {}
+    for name, kw in RWKV_TWIN_VARIANTS.items():
+        cfg = lm_variant(cfg0, kw)
+        pc = dense
+        if cfg.gse_serve:
+            packed = packed or rwkv_gse_params(dense, cfg)
+            pc = packed
+        lc, sc = lm_run(cfg, pc, toks, "cpu", tw["prompt"], tw["steps"])
+        out[name] = (lc, sc, tree_digest(pc, memo))
+    return out
+
+
+def wkv_inputs(shape, seed, nonzero, dev):
+    """wkv6's inputs at ``shape`` (B, S, H, N) on ``dev``: r, k, v normal,
+    w uniform in [0.3, 1), u 0.1-normal, s0 normal or zero."""
+    import torch
+
+    b, s, h, n = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    w = 0.3 + 0.7 * torch.rand(shape, generator=gen, device=dev)
+    u = 0.1 * torch.randn((h, n), generator=gen, device=dev)
+    s0 = torch.randn((b, h, n, n), generator=gen, device=dev)
+    return r, k, v, w, u, s0 if nonzero else torch.zeros_like(s0)
+
+
+def phase_rwkv_kernels():
+    """Phase 30, part 1: wkv6 bitwise its plain version on the card at
+    WKV_SHAPES, from a zero and a non-zero state; returns the full
+    shape's inputs and the plain version's seconds for phase 10."""
+    import torch
+
+    from repro_torch.kernels import wkv6 as K
+
+    dev = torch.device("cuda")
+    ctx = {}
+    for shape in WKV_SHAPES:
+        for nonzero in (False, True):
+            args = wkv_inputs(shape, 30 + nonzero, nonzero, dev)
+            out, st = K.wkv6(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            po, ps = K.wkv6_plain(*args)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            require_bitwise(f"wkv6 {shape} out against its plain version",
+                            out, po)
+            require_bitwise(f"wkv6 {shape} state against its plain version",
+                            st, ps)
+            log("rwkv_kernels", kernel="wkv6", shape=list(shape),
+                nonzero_state=nonzero, bitwise_plain=True, max_abs_err=0.0,
+                plain_s=f"{plain_s:.2f}",
+                fused_addcmul=K._BOUND.get(("addcmul", "cuda")))
+            if shape == WKV_SHAPES[0] and nonzero:
+                ctx["args"], ctx["plain_s"] = args, plain_s
+            del out, st, po, ps
+    return ctx
+
+
+def phase_rwkv_twin(twins=None, params=None):
+    """Phase 30, part 2: rwkv6_1p6b at full width, three layers, on the
+    card and as its CPU twin from the same numpy params (``params``: a
+    future of rwkv_params_cpu), against each other and the reference's
+    digest (RWKV_REF): dense and gse_serve tag 2 at f32, gse_serve tag 2
+    at bf16.  Returns the launches."""
+    import torch
+
+    from repro_torch.kernels import gse_matmul as E
+    from repro_torch.kernels import wkv6 as K
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda")
+    tw = RWKV_TWIN
+    cfg0 = rwkv_twin_config()
+    t0 = time.perf_counter()
+    dense_cpu = params.result() if params is not None else \
+        rwkv_params_cpu()
+    dense_gpu = tree_map(lambda t: t.to(dev), dense_cpu)
+    del dense_cpu
+    toks = lm_tokens(cfg0, RWKV_SEED + 1, tw["batch"],
+                     tw["prompt"] + tw["steps"])
+    log("rwkv_twin", layers=tw["layers"], d_model=cfg0.d_model,
+        d_ff=cfg0.d_ff, heads=cfg0.d_model // cfg0.rwkv_head_dim,
+        head_dim=cfg0.rwkv_head_dim, vocab=cfg0.vocab_size,
+        batch=tw["batch"], prompt=tw["prompt"], steps=tw["steps"],
+        params_s=f"{time.perf_counter() - t0:.2f}")
+    card, packed = {}, None
+    for name, kw in RWKV_TWIN_VARIANTS.items():
+        cfg = lm_variant(cfg0, kw)
+        pg = dense_gpu
+        if cfg.gse_serve:
+            packed = packed or rwkv_gse_params(dense_gpu, cfg)
+            pg = packed
+        torch.cuda.synchronize()
+        for mod in (E, K):
+            mod.reset_launch_counts()
+        lg, sg = lm_run(cfg, pg, toks, dev, tw["prompt"], tw["steps"])
+        got = {"e_" + k: v for k, v in E.gse_matmul_dense.body_launches
+               .items()}
+        got["wkv6"] = K.wkv6.launches
+        card[name] = (lg, sg, got, tree_digest(pg))
+    del dense_gpu, packed
+    cpu = twin_of(twins, "rwkv")
+    counts = {}
+    for name in RWKV_TWIN_VARIANTS:
+        check_twin("rwkv_twin", name, card[name], cpu[name], RWKV_REF[name])
+        for k, v in card[name][2].items():
+            counts[k] = counts.get(k, 0) + v
+    log("rwkv_twin", launches=json.dumps(counts))
+    if min(counts[k] for k in ("e_gemv", "wkv6")) <= 0:
+        raise AssertionError(f"a kernel of the rwkv twin never launched: "
+                             f"{counts}")
+    return counts
+
+
+def phase_rwkv_full():
+    """Phase 31: rwkv6_1p6b whole (24 layers) under gse_serve tag 2 at
+    bf16, a 2048-token prompt, 32 steps."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("rwkv6_1p6b"), gse_serve=True,
+                              gse_tag=2)
+    # Only the unembedding is packed, and the prefill multiplies its last
+    # position only: E runs its GEMV, never the tiled body.
+    return serve_full(cfg, RWKV_FULL, RWKV_SEED, "rwkv_full",
+                      ("e_gemv", "wkv6"))
+
+
+def moe_rwkv_entries(moe_ctx, moe_counts, rwkv_ctx, rwkv_counts, add_entry):
+    """Phase 10's rows for F at the moe attention shapes (launches from
+    phase 29's run of that arch) and for wkv6 (launches from phase 31)."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+    from repro_torch.kernels import wkv6 as K
+
+    flash_src = "src/repro_torch/kernels/csrc/flash_attn.cu"
+    for arch, b, s, h, kv, hd in MOE_FLASH:
+        q, k, v = moe_ctx["qkv"][arch]
+        g = h // kv
+        ql, kl, vl = (q.transpose(1, 2).contiguous(),
+                      k.repeat_interleave(g, dim=2).transpose(1, 2)
+                      .contiguous(),
+                      v.repeat_interleave(g, dim=2).transpose(1, 2)
+                      .contiguous())
+        flops = 4 * b * h * s * s * hd / 2
+        add_entry(f"flash_attention_gqa.bfloat16.causal.{arch}",
+                  flash_src, "src/repro/kernels/flash_attn.py:76",
+                  lambda: F.flash_attention_gqa(q, k, v, causal=True),
+                  lambda: F.flash_attention_gqa_plain(q, k, v, causal=True),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      ql, kl, vl, is_causal=True),
+                  (q.numel() * 2 + k.numel() * 2) * q.element_size(),
+                  flops / BF16_TC_OPS_PER_S * 1e3,
+                  plain_reps=2, reps=5, inner=3, shape=[b, s, h, kv, hd],
+                  body=F.flash_body(q.dtype, hd),
+                  fp32_bound_ms=flops / FP32_OPS_PER_S * 1e3,
+                  launches=moe_counts[arch]["f_mma"],
+                  launches_from="phase 29", max_abs_err=moe_ctx["err"][arch])
+        del ql, kl, vl
+    r, k, v, w, u, s0 = rwkv_ctx["args"]
+    bsz, s, h, n = r.shape
+    nbytes = 4 * (5 * r.numel() + 2 * s0.numel() + u.numel())
+    add_entry("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
+              "src/repro/models/rwkv.py:150 (lax.scan, no Pallas kernel)",
+              lambda: K.wkv6(r, k, v, w, u, s0), None, None, nbytes,
+              7 * bsz * s * h * n * n / FP32_OPS_PER_S * 1e3,
+              reps=5, inner=2, shape=[bsz, s, h, n],
+              plain_ms=rwkv_ctx["plain_s"] * 1e3,
+              plain_from="phase 30 (one synchronized call, host clock)",
+              launches=rwkv_counts["wkv6"], launches_from="phase 31",
+              max_abs_err=0.0)
+
+
 # The example's stepped GMRES case (examples/solve_stepped_gmres.py) and its
 # right-Jacobi twin: the reference's (iters, switch_iters, tag) on the CPU,
 # which tests/test_torch_gmres.py holds the port's CPU twin to.
@@ -4583,8 +6171,7 @@ def phase_adaptive_full():
     # rescale (PERF.md: at the 65536 row's 6 decades the hubs' diagonals
     # take the top shared exponent, 152,660 diagonal heads decode to 0 at
     # tag 1 and the driver does not converge; tools/tag1_probe.py).
-    csr = G.diag_rescale(G.skewed_spd(N_SKEW, seed=5, device=dev),
-                         ADAPTIVE_DECADES, 11)
+    csr = G.diag_rescale(skewed_base(dev, last=True), ADAPTIVE_DECADES, 11)
     g = pack_csr(csr)
     del csr
     torch.cuda.synchronize()
@@ -5179,7 +6766,9 @@ def check_trace(n, events, cpu_wait):
 # --- phase 24: async serving -------------------------------------------------
 SERVE_CHUNK = 32  # part 1's chunk_iters
 SERVE_FULL_CHUNK = 64  # part 2's chunk_iters
-SERVE_FULL_PUMPS = 20  # part 2's pumps before request 1 joins
+# Part 2's pumps before request 1 joins: a join at 128 iterations keeps
+# every check of a later one and runs fewer group iterations.
+SERVE_FULL_PUMPS = 2
 
 
 class FakeClock:
@@ -5359,7 +6948,8 @@ def phase_serve_small(twins=None):
 def phase_serve_full(csr, b, b1, params, res4, wall4, req1, x1, ms6):
     """Phase 24, part 2: AsyncSolveService(slots=4, maxiter=20000,
     chunk_iters=64) on phase 4's matrix, launch counts zeroed: phase 4's b
-    alone for 20 pumps, then phase 6's request 1 joins the running group.
+    alone for SERVE_FULL_PUMPS pumps, then phase 6's request 1 joins the
+    running group.
     Request 0 must be bitwise phase 4's solo solve (``res4``), request 1
     phase 6's request 1 (``req1``, ``x1``); C64 launches once a group
     iteration and once a column init."""
@@ -5949,8 +7539,8 @@ def phase_perf(g, ell, row_len, x32, x32n, params, sell_ctx, untuned):
 # phase 12's LM and phase 26's hybrid from after it.  A phase waits only if its twin is not
 # done yet.
 SMALL_TWINS = ("trajectory", "service", "sell", "gmres", "pcg", "ir",
-               "telemetry", "serve_async")
-LM_TWINS = ("lm", "hybrid")
+               "telemetry", "serve_async", "rwkv")
+LM_TWINS = ("lm", "hybrid", "moe")
 
 
 def twin_trajectory(where, params):
@@ -6012,13 +7602,23 @@ def cpu_twin(name: str):
         return lm_twin_cpu()
     if name == "hybrid":
         return hybrid_twin_cpu()
+    if name == "moe":
+        return moe_twin_cpu()
+    if name == "rwkv":
+        return rwkv_twin_cpu()
     raise KeyError(name)
 
 
 def twin_of(twins, name: str):
     """The CPU twin ``name`` from ``twins`` (a CpuTwins), or computed here
-    when ``twins`` is None (a phase run alone)."""
-    return cpu_twin(name) if twins is None else twins.get(name)
+    when ``twins`` is None (a phase run alone), each packed weight decoded
+    once as in twin_worker."""
+    if twins is not None:
+        return twins.get(name)
+    from repro_torch.kernels.gse_matmul import plain_memo
+
+    with plain_memo():
+        return cpu_twin(name)
 
 
 def twin_worker(names: str, out: str, threads: int):
@@ -6167,6 +7767,18 @@ def run(opts, twins) -> int:
     # build, on the cores the card's host thread, the small twins and the
     # host's own numpy work leave.
     twins.start(LM_TWINS, max(1, len(os.sched_getaffinity(0)) - 5))
+
+    # 29, 31. the moe and ssm families at full width, first: the card holds
+    # only phase 2's operator yet (qwen3_moe's init holds ~68 GB) -------
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 router, decay
+    moe_counts = phase_moe_full()
+    expert_decode_timing()
+    t1 = time.perf_counter()
+    rwkv_counts = phase_rwkv_full()
+    log("moe_rwkv_full", moe_full_s=f"{t1 - t0:.1f}",
+        rwkv_full_s=f"{time.perf_counter() - t1:.1f}",
+        run_s=f"{time.perf_counter() - t_start:.1f}")
 
     # 2. kernel parity at full size ------------------------------------------
     log("parity", rows=g.shape[0], nnz=g.nnz, ell_width=ell[0].shape[1],
@@ -6507,6 +8119,8 @@ def run(opts, twins) -> int:
     # releases the GIL while it draws).
     params_pool = ThreadPoolExecutor(1)
     hybrid_params = params_pool.submit(hybrid_params_cpu)
+    moe_params = params_pool.submit(moe_params_cpu)
+    rwkv_params = params_pool.submit(rwkv_params_cpu)
     t0 = time.perf_counter()
     lm_ctx = phase_lm_kernels()
     t1 = time.perf_counter()
@@ -6525,13 +8139,32 @@ def run(opts, twins) -> int:
     hybrid_ctx = phase_hybrid_kernels()
     t1 = time.perf_counter()
     hybrid_twin_counts = phase_hybrid_twin(twins, hybrid_params)
-    params_pool.shutdown()
     del hybrid_params
     t2 = time.perf_counter()
     hybrid_counts = phase_hybrid_full()
     log("hybrid_phases", hybrid_kernels_s=f"{t1 - t0:.1f}",
         hybrid_twin_s=f"{t2 - t1:.1f}",
         hybrid_full_s=f"{time.perf_counter() - t2:.1f}",
+        run_s=f"{time.perf_counter() - t_start:.1f}")
+
+    # 28, 30. the moe and ssm families against their twins (29 and 31 ran
+    # after the build) -----------------------------------------------------
+    t0 = time.perf_counter()
+    moe_ctx = phase_moe_kernels()
+    moe_twin_counts = phase_moe_twin(twins, moe_params)
+    del moe_params
+    t1 = time.perf_counter()
+    rwkv_ctx = phase_rwkv_kernels()
+    rwkv_twin_counts = phase_rwkv_twin(twins, rwkv_params)
+    params_pool.shutdown()
+    del rwkv_params
+    cli_counts = serve_cli_archs(("qwen3_moe_235b_a22b", "grok1_314b",
+                                  "rwkv6_1p6b"))
+    log("moe_rwkv_phases", moe_twin_s=f"{t1 - t0:.1f}",
+        rwkv_twin_s=f"{time.perf_counter() - t1:.1f}",
+        twin_launches=json.dumps({"moe": moe_twin_counts,
+                                  "rwkv": rwkv_twin_counts}),
+        serve_cli_d_launches=json.dumps(cli_counts),
         run_s=f"{time.perf_counter() - t_start:.1f}")
     log("twins", waited_s=json.dumps({k: round(v, 2)
                                       for k, v in twins.waited.items()}))
@@ -6565,6 +8198,7 @@ def run(opts, twins) -> int:
         """One kernel's row; ``led`` (a ``perf.ledger.KernelLedger``) adds
         its roofline fraction at phase 25's probed roof."""
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        plain_ms = extra.pop("plain_ms", None)  # measured by its phase
         if lib is not None:  # the library's first call sets it up: untimed
             lib()
         entry = {
@@ -6573,7 +8207,8 @@ def run(opts, twins) -> int:
             "source": source,
             "replaces": replaces,
             "ms": cuda_ms(launch, reps=reps, inner=inner),
-            "plain_ms": cuda_ms(plain, reps=plain_reps),
+            "plain_ms": (cuda_ms(plain, reps=plain_reps)
+                         if plain_ms is None else plain_ms),
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": (cuda_ms(lib, reps=reps, inner=inner)
@@ -6709,6 +8344,7 @@ def run(opts, twins) -> int:
     mixed_entries(adaptive_ctx, add_entry)
     lm_entries(lm_ctx, lm_counts, twin_counts, add_entry)
     hybrid_entries(hybrid_ctx, hybrid_counts, hybrid_twin_counts, add_entry)
+    moe_rwkv_entries(moe_ctx, moe_counts, rwkv_ctx, rwkv_counts, add_entry)
     log("kernels", seconds=f"{time.perf_counter() - t_kernels:.1f}",
         total_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,8 +2,10 @@
 
 ``get_config(arch, smoke)`` resolves the reference's ids and aliases.
 The dense family (``qwen3_4b``, ``granite_3_2b``, ``granite_34b``,
-``qwen15_32b``) and the hybrid family (``recurrentgemma_2b``) are ported;
-the other architectures (moe, ssm, encdec, vlm) raise
+``qwen15_32b``), the hybrid family (``recurrentgemma_2b``), the moe
+family (``qwen3_moe_235b_a22b``, ``grok1_314b``) and the ssm family
+(``rwkv6_1p6b``) are ported; the encdec and vlm architectures
+(``seamless_m4t_large_v2``, ``internvl2_2b``) raise
 ``NotImplementedError`` naming ROADMAP queue 1 item 16.  Sharding rules
 (``get_rules``) have no counterpart: the port runs on one card.
 """
@@ -42,7 +44,8 @@ ALIASES = {
 }
 
 PORTED = ("qwen3_4b", "granite_3_2b", "granite_34b", "qwen15_32b",
-          "recurrentgemma_2b")
+          "recurrentgemma_2b", "qwen3_moe_235b_a22b", "grok1_314b",
+          "rwkv6_1p6b")
 
 
 def _module(arch: str):

@@ -39,7 +39,7 @@ __all__ = ["linear_weight_init", "pack_linear_weight", "take_weight",
 def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
     vals = torch.randn(tuple(shape), generator=gen, device=gen.device,
                        dtype=torch.float32)
-    return (scale * vals).to(dtype).to(device)
+    return vals.mul_(scale).to(dtype).to(device)  # in place: one copy held
 
 
 def is_segments(w) -> bool:

@@ -1,25 +1,29 @@
-"""Model assembly, the ``dense`` and ``hybrid`` families: port of
-``repro/models/transformer.py``.
+"""Model assembly, the ``dense``, ``hybrid``, ``moe`` and ``ssm``
+families: port of ``repro/models/transformer.py``.
 
 ``dense``: pre-norm decoder-only stacks (qwen3-4b, granite-3-2b,
 granite-34b, qwen1.5-32b).  ``hybrid``: RecurrentGemma (recurrentgemma-2b),
 RG-LRU blocks (``models/rglru.py``) with every ``hybrid_period``-th layer
-a local-window MQA (``"local_attn"``, ``cfg.local_window``).  The params
+a local-window MQA (``"local_attn"``, ``cfg.local_window``).  ``moe``: the
+dense skeleton with the MoE FFN (``models/moe.py``; qwen3-moe-235b-a22b,
+grok-1-314b), its expert stacks stacked ``(L, E, ...)``.  ``ssm``: RWKV-6
+time-mix and channel-mix (``models/rwkv.py``; rwkv6-1.6b).  The params
 tree keeps the reference's layout: the stacked ``(L, ...)`` layer leaves
 that its ``init_params`` builds with ``vmap`` for a homogeneous stack
 (under ``gse_serve`` each layer's weights are packed with their own
 shared-exponent table, stacked to ``(L, k)``), and a list of per-layer
 trees for a heterogeneous one (the hybrid family, ``scan_layers=False``).
 Layers run in a Python loop (the reference scans a homogeneous stack).
-The other families (moe, ssm, encdec, vlm prefixes) raise
-``NotImplementedError`` (ROADMAP queue 1 item 16).
+The encdec family and vlm prefixes raise ``NotImplementedError``
+(ROADMAP queue 1 item 16).
 
 Decode state is updated in place: ``decode_step`` writes each layer's new
-key and value into its cache (a ring for local-window layers) and each
-RG-LRU layer's ``h`` and conv inputs into its state, and returns the same
-state object (the reference returns a new one).  ``forward(...,
-state=)`` fills the caches with the prompt's keys and values and the
-RG-LRU states with the prompt's, so decoding can follow a prefill.
+key and value into its cache (a ring for local-window layers), each
+RG-LRU layer's ``h`` and conv inputs and each RWKV layer's ``S``,
+``last_t`` and ``last_c`` into its state, and returns the same state
+object (the reference returns a new one).  ``forward(..., state=)`` fills
+the caches with the prompt's keys and values and the recurrent states
+with the prompt's, so decoding can follow a prefill.
 """
 from __future__ import annotations
 
@@ -29,7 +33,9 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import modules as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
+from repro_torch.models import rwkv as W
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -38,7 +44,7 @@ __all__ = ["init_params", "forward", "logits_from_hidden",
            "decode_state_init", "decode_step"]
 
 
-_FAMILIES = ("dense", "hybrid")
+_FAMILIES = ("dense", "hybrid", "moe", "ssm")
 
 
 def _layer_kinds(cfg) -> Tuple[str, ...]:
@@ -50,6 +56,10 @@ def _layer_kinds(cfg) -> Tuple[str, ...]:
         attn_ids = set(cfg.attn_layer_ids())
         return tuple("local_attn" if i in attn_ids else "rglru"
                      for i in range(cfg.num_layers))
+    if cfg.family == "ssm":
+        return ("rwkv",) * cfg.num_layers
+    if cfg.family == "moe":
+        return ("moe",) * cfg.num_layers
     return ("attn",) * cfg.num_layers
 
 
@@ -57,9 +67,17 @@ def _stackable(cfg) -> bool:
     return cfg.scan_layers and len(set(_layer_kinds(cfg))) == 1
 
 
-def _layer_init(gen, cfg, kind: str, dtype, device) -> Params:
+def _layer_init(gen, cfg, kind: str, dtype, device,
+                lazy: bool = False) -> Params:
+    """One layer's params; ``lazy``: the expert stacks as ``moe.Lazy``
+    leaves, for :func:`_stack`."""
     p = {"norm1": M.rmsnorm_init(cfg.d_model, dtype, device)}
-    if kind in ("attn", "local_attn"):
+    if kind == "rwkv":
+        p["time"] = W.rwkv_time_init(gen, cfg, dtype, device)
+        p["norm2"] = M.rmsnorm_init(cfg.d_model, dtype, device)
+        p["chan"] = W.rwkv_channel_init(gen, cfg, dtype, device)
+        return p
+    if kind in ("attn", "local_attn", "moe"):
         p["attn"] = A.attn_init(gen, cfg, dtype, device)
     elif kind == "rglru":
         p["rglru"] = R.rglru_init(gen, cfg, dtype, device)
@@ -67,20 +85,34 @@ def _layer_init(gen, cfg, kind: str, dtype, device) -> Params:
         raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue 1 "
                                   "item 16)")
     p["norm2"] = M.rmsnorm_init(cfg.d_model, dtype, device)
-    p["mlp"] = M.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
-                          cfg=cfg, device=device)
+    if kind == "moe":
+        p["moe"] = MOE.moe_init(gen, cfg, dtype, device, lazy=lazy)
+    else:
+        p["mlp"] = M.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
+                              cfg=cfg, device=device)
     return p
 
 
 def _stack(make_layer, n: int) -> Params:
     """Stack ``n`` layers' trees into ``(n, ...)`` leaves, filling
-    preallocated tensors so no layer is held twice."""
+    preallocated tensors so no layer is held twice.  A ``moe.Lazy`` leaf
+    (an expert stack) is drawn as it is stored, so at most one such leaf
+    is held beside the stack; the draws keep the order of an eager init
+    (the expert stacks are a layer's last random leaves)."""
+    is_lazy = lambda t: isinstance(t, MOE.Lazy)  # noqa: E731
+
+    def store(stacked, layer, i):
+        tree_map(lambda s, t: s[i].copy_(t.draw() if is_lazy(t) else t),
+                 stacked, layer, is_leaf=is_lazy)
+
     first = make_layer(0)
-    stacked = tree_map(lambda t: t.new_empty((n, *t.shape)), first)
-    tree_map(lambda s, t: s[0].copy_(t), stacked, first)
+    stacked = tree_map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype,
+                                             device=t.device),
+                       first, is_leaf=is_lazy)
+    store(stacked, first, 0)
     del first
     for i in range(1, n):
-        tree_map(lambda s, t, i=i: s[i].copy_(t), stacked, make_layer(i))
+        store(stacked, make_layer(i), i)
     return stacked
 
 
@@ -99,9 +131,10 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> Params:
         params["unembed"] = M.unembed_init(gen, cfg.padded_vocab,
                                            cfg.d_model, dtype, cfg=cfg,
                                            device=device)
-    make = lambda i: _layer_init(gen, cfg, kinds[i], dtype, device)  # noqa: E731
+    make = lambda i, lazy=False: _layer_init(  # noqa: E731
+        gen, cfg, kinds[i], dtype, device, lazy)
     if _stackable(cfg):
-        params["layers"] = _stack(make, cfg.num_layers)
+        params["layers"] = _stack(lambda i: make(i, True), cfg.num_layers)
     else:
         params["layers"] = [make(i) for i in range(cfg.num_layers)]
     return params
@@ -132,11 +165,16 @@ def _norm_in(x, x_sum):
 
 def _block_apply(cfg, p, x, positions, kind: str, cache=None, x_sum=None):
     """Returns (the f32 sum of the layer's output, aux); fills the layer's
-    decode ``cache`` (a KV cache or an RG-LRU state) when one is given.
-    ``x_sum``: see :func:`_norm_in`."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    decode ``cache`` (a KV cache, an RG-LRU or an RWKV state) when one is
+    given.  ``x_sum``: see :func:`_norm_in`."""
     h = M.rmsnorm(p["norm1"], _norm_in(x, x_sum)).to(x.dtype)
-    if kind == "attn":
+    if kind == "rwkv":
+        y, st = W.rwkv_time_apply(p["time"], h, cfg)
+        if cache is not None:
+            cache["S"].copy_(st["S"])
+            cache["last_t"].copy_(st["last"])
+        return _rwkv_half(cfg, p, x, y, cache, prev=None), _no_aux(x)
+    if kind in ("attn", "moe"):
         y = A.attn_apply(p["attn"], h, cfg, positions, cache=cache)
     elif kind == "local_attn":
         y = A.attn_apply(p["attn"], h, cfg, positions,
@@ -146,30 +184,55 @@ def _block_apply(cfg, p, x, positions, kind: str, cache=None, x_sum=None):
     else:
         raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue 1 "
                                   "item 16)")
-    return _mlp_half(cfg, p, x, y), aux
+    return _mlp_half(cfg, p, x, y, kind)
 
 
-def _mlp_half(cfg, p, x, y):
-    """The block after attention: ``x + y``, the MLP on its norm, and the
-    second residual add.  The norm reads the first sum before it is
-    rounded to x's dtype, as XLA's CPU build of the reference computes it
-    (the add is fused into the norm with f32 excess precision); the
-    residual stream itself is rounded after each add, as there.  Returns
-    the second sum in f32; rounded to x's dtype it is the layer's output
-    (the same bits as adding in x's dtype)."""
+def _no_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _mlp_half(cfg, p, x, y, kind: str = "attn"):
+    """The block after attention: ``x + y``, the MLP (the MoE on a moe
+    layer) on its norm, and the second residual add.  The norm reads the
+    first sum before it is rounded to x's dtype, as XLA's CPU build of the
+    reference computes it (the add is fused into the norm with f32 excess
+    precision); the residual stream itself is rounded after each add, as
+    there.  Returns (the second sum in f32, aux); rounded to x's dtype the
+    sum is the layer's output (the same bits as adding in x's dtype)."""
     x_mid = x.to(torch.float32) + y.to(x.dtype).to(torch.float32)
     h2 = M.rmsnorm(p["norm2"], x_mid).to(x.dtype)
-    y2 = M.mlp(p["mlp"], h2, cfg.mlp_act, cfg.compute_dtype, cfg=cfg)
+    if kind == "moe":
+        y2, aux = MOE.moe_apply(p["moe"], h2, cfg)
+    else:
+        y2 = M.mlp(p["mlp"], h2, cfg.mlp_act, cfg.compute_dtype, cfg=cfg)
+        aux = _no_aux(x)
+    return (x_mid.to(x.dtype).to(torch.float32)
+            + y2.to(x.dtype).to(torch.float32)), aux
+
+
+def _rwkv_half(cfg, p, x, y, cache, prev):
+    """An RWKV layer after its time-mix: ``x + y``, the channel-mix on its
+    norm (``prev``: the previous token's norm output, None at the start),
+    the second residual add; ``cache["last_c"]`` (when given) takes the
+    last norm output.  Rounded as :func:`_mlp_half`; returns the f32
+    sum."""
+    x_mid = x.to(torch.float32) + y.to(x.dtype).to(torch.float32)
+    h2 = M.rmsnorm(p["norm2"], x_mid).to(x.dtype)
+    y2, last_c = W.rwkv_channel_apply(p["chan"], h2, cfg, prev=prev)
+    if cache is not None:
+        cache["last_c"].copy_(last_c)
     return (x_mid.to(x.dtype).to(torch.float32)
             + y2.to(x.dtype).to(torch.float32))
 
 
 def forward(cfg, params: Params, tokens: torch.Tensor, prefix_embeds=None,
             enc_embeds=None, state: Dict | None = None):
-    """Returns (final_hidden (B, S, D), aux_loss).  With ``state`` (from
-    ``decode_state_init``), each attention layer's cache gets the prompt's
-    keys and values where the decode loop would write them, and each
-    RG-LRU layer's state its ``h`` and conv inputs after the prompt."""
+    """Returns (final_hidden (B, S, D), aux_loss: the sum of the moe
+    layers').  With ``state`` (from ``decode_state_init``), each attention
+    layer's cache gets the prompt's keys and values where the decode loop
+    would write them, each RG-LRU layer's state its ``h`` and conv inputs
+    after the prompt and each RWKV layer's its ``S``, ``last_t`` and
+    ``last_c``."""
     if prefix_embeds is not None or enc_embeds is not None:
         raise NotImplementedError("prefix and encoder embeddings (vlm, "
                                   "encdec; ROADMAP queue 1 item 16)")
@@ -206,15 +269,18 @@ def logits_from_hidden(cfg, params: Params, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def decode_state_init(cfg, batch: int, max_len: int, device="cuda") -> Dict:
-    """Per-layer decode state: stacked KV caches ``(L, B, max_len, KV,
-    hd)`` for a homogeneous stack; else a list of KV caches (rings of
-    ``min(local_window, max_len)`` slots on local-window layers) and
-    RG-LRU states ``{"h", "conv"}``."""
+    """Per-layer decode state: for a homogeneous stack, stacked KV caches
+    ``(L, B, max_len, KV, hd)`` (dense, moe) or RWKV states ``{"S": (L, B,
+    H, N, N) f32, "last_t", "last_c": (L, B, D) f32}`` (ssm); else a list
+    of KV caches (rings of ``min(local_window, max_len)`` slots on
+    local-window layers) and RG-LRU states ``{"h", "conv"}``."""
     kinds = _layer_kinds(cfg)
 
     def one(kind):
-        if kind == "attn":
+        if kind in ("attn", "moe"):
             return A.cache_init(cfg, batch, max_len, device=device)
+        if kind == "rwkv":
+            return W.rwkv_state_init(cfg, batch, device=device)
         if kind == "local_attn":
             return A.cache_init(cfg, batch, max_len, window=cfg.local_window,
                                 device=device)
@@ -232,7 +298,13 @@ def _block_decode(cfg, p, x, cache, pos: int, kind: str, x_sum=None):
     """Returns (the f32 sum of the layer's output, cache), the cache
     updated in place; ``x_sum``: see :func:`_norm_in`."""
     h = M.rmsnorm(p["norm1"], _norm_in(x, x_sum)).to(x.dtype)
-    if kind == "attn":
+    if kind == "rwkv":
+        y, st = W.rwkv_time_apply(p["time"], h, cfg, state={
+            "S": cache["S"], "last": cache["last_t"]})
+        cache["S"].copy_(st["S"])
+        cache["last_t"].copy_(st["last"])
+        return _rwkv_half(cfg, p, x, y, cache, prev=cache["last_c"]), cache
+    if kind in ("attn", "moe"):
         y, cache = A.decode_attn_apply(p["attn"], h, cache, pos, cfg)
     elif kind == "local_attn":
         y, cache = A.decode_attn_apply(p["attn"], h, cache, pos, cfg,
@@ -242,7 +314,7 @@ def _block_decode(cfg, p, x, cache, pos: int, kind: str, x_sum=None):
     else:
         raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue 1 "
                                   "item 16)")
-    return _mlp_half(cfg, p, x, y), cache
+    return _mlp_half(cfg, p, x, y, kind)[0], cache
 
 
 def decode_step(cfg, params: Params, state: Dict, tokens: torch.Tensor,
