@@ -28,11 +28,15 @@ blocks on the lru_scan kernel, local-window attention on kernel F at hd
 256, the 8-bit GSE-SEM KV cache); phases 28-29 the moe family
 (qwen3_moe_235b_a22b, grok1_314b: routing, capacity dispatch and the
 expert products beside kernels E and F); phases 30-31 the ssm family
-(rwkv6_1p6b on the wkv6 kernel).  Every CPU
+(rwkv6_1p6b on the wkv6 kernel); phases 32-33 the encdec and vlm
+families (seamless_m4t_large_v2: an encoder and cross-attention on F's
+non-causal mode; internvl2_2b: the dense stack behind 256 patch
+embeddings).  Every CPU
 twin runs in one of two processes of its own (CpuTwins): the small
-solves (and phase 30's rwkv twin, last) on one thread, in the order the
-phases need them, from before the build; the LM twins of phases 12, 26
-and 28 from after the build, on the cores the rest leave.
+solves (and phase 30's rwkv twin and phase 32's encdec and vlm twins,
+last) on one thread, in the order the phases need them, from before the
+build; the LM twins of phases 12, 26 and 28 from after the build, on the
+cores the rest leave.
 A phase waits only for a twin that is not done yet.
 
 Phases:
@@ -443,8 +447,42 @@ Phases:
                   gse_serve tag 2, bf16; B 4, a 2048-token prompt, 32
                   greedy steps, as phase 29.  Phase 30 ends with the
                   serve CLI at --gse-tag 2 on the three archs' smoke
-                  configs (kernel D on the 4-D expert packs), tokens equal
-                  to the CPU's.
+                  configs (kernel D on the 4-D expert packs) and on
+                  internvl2_2b's (text only, as the reference's CLI),
+                  tokens equal to the CPU's.
+  32. encdec/vlm twin -- F with causal=False against its plain version
+                  (rtol/atol 2e-5 f32 on the FFMA body, 2e-2 bf16 on the
+                  tensor-core body) at EV_FLASH: seamless's encoder (B 4,
+                  S = T = 512, H = KV = 16, hd 64), its cross-attention (S
+                  64 over T 512) and a ragged S 77 over T 300.  Then
+                  seamless_m4t_large_v2 at full width cut to 2 encoder and
+                  2 decoder layers (params from encdec_tree_np): 2
+                  requests of 128 frames and a 64-token prompt, T.encode,
+                  the prefill, 16 teacher-forced decode steps each
+                  recomputing every layer's cross_kv; and internvl2_2b at
+                  full width cut to 2 layers (lm_tree_np): 256 patches and
+                  a 64-token prompt through the prefill (the caches filled
+                  for all 320 positions), 16 steps.  Dense and gse_serve
+                  tag 2 at f32, gse_serve tag 2 at bf16, on the card and
+                  on the CPU twins (the small child), held as phase 12's
+                  variants against the twins and ENCDEC_REF / VLM_REF
+                  (tools/reference/encdec_serve_ref.py: the reference's
+                  sinusoidal and _scan_encdec, then decode_step(...,
+                  enc_out) teacher-forced; vlm_serve_ref.py: the
+                  reference's forward over the whole teacher-forced
+                  sequence).  E (GEMV and tiled) and F on both bodies must
+                  have launched, and for seamless F's non-causal launches
+                  on both bodies (noncausal_launches).
+  33. encdec/vlm full -- (right after phase 31) launch counts zeroed;
+                  seamless_m4t_large_v2 whole (24 + 24 layers) and
+                  internvl2_2b whole (24 layers), each initialized on the
+                  card, gse_serve tag 2, bf16, B 4: 512 frames and a
+                  512-token prompt (seamless), 256 patches and 256 text
+                  tokens (internvl2), 32 greedy steps: init, encode and
+                  prefill seconds, ms per step, peak GB, E's and F's
+                  launches by body (F's non-causal ones apart); finite
+                  logits; then every seamless layer's cross_kv timed alone
+                  against the step (ROADMAP queue 2 O20).
   10. kernels  -- run last: CUDA-event times (minimum over repeats; one
                   call for a function whose first call takes ONE_CALL_MS) of
                   every kernel beside its plain version, its bound (HBM
@@ -509,7 +547,10 @@ Phases:
                   bound by the pairs it keeps (4 hd sum_i min(i + 1, w)
                   operations per batch and head) and timed beside SDPA
                   with the same boolean mask; lru_scan at (4, 2560, 2560)
-                  is bound by 12 B S W bytes (no library call).
+                  is bound by 12 B S W bytes (no library call).  F without
+                  a mask at phase 32's three bf16 shapes is bound by 4 S T
+                  hd operations per batch and head at 989 TFLOP/s, beside
+                  SDPA, with phase 33's non-causal launches.
 
 The line before the last two is the ``{"kernels": [...]}`` JSON record,
 the line before the last the card's name and power limit, the last line
@@ -1689,7 +1730,9 @@ KV8_TOL = dict(rtol=0.005, atol=0.02)
 LOOSE_TOL = {("lm_twin", "tag2_bf16"): BF16_TOL, ("lm_twin", "kv8"): KV8_TOL,
              ("hybrid_twin", "tag2_bf16"): BF16_TOL,
              ("hybrid_twin", "kv8"): KV8_TOL,
-             ("rwkv_twin", "tag2_bf16"): BF16_TOL}
+             ("rwkv_twin", "tag2_bf16"): BF16_TOL,
+             ("encdec_twin", "tag2_bf16"): BF16_TOL,
+             ("vlm_twin", "tag2_bf16"): BF16_TOL}
 # tools/reference/lm_serve_ref.py's output (JAX on the CPU): per variant,
 # per step (prefill, then the decode steps), lm_digest's fields as
 # (tokens, first 8 logits of request 0, max |logit|).
@@ -1954,18 +1997,22 @@ def lm_tree_np(cfg, seed: int) -> dict:
 
     n, d, h, kv = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd, ff, vp = cfg.hd, cfg.d_ff, cfg.padded_vocab
+    embed = {"table": normal((vp, d), d)}
+    unembed = {"w": normal((d, vp), d)}
+    attn = {"wq": normal((n, d, h * hd), d),
+            "wk": normal((n, d, kv * hd), d),
+            "wv": normal((n, d, kv * hd), d),
+            "wo": normal((n, h * hd, d), h * hd)}
+    if cfg.qk_norm:  # no draws: the other leaves are the same either way
+        attn["q_norm"] = np.ones((n, hd), np.float32)
+        attn["k_norm"] = np.ones((n, hd), np.float32)
     return {
-        "embed": {"table": normal((vp, d), d)},
+        "embed": embed,
         "final_norm": {"scale": np.ones(d, np.float32)},
-        "unembed": {"w": normal((d, vp), d)},
+        "unembed": unembed,
         "layers": {
             "norm1": {"scale": np.ones((n, d), np.float32)},
-            "attn": {"wq": normal((n, d, h * hd), d),
-                     "wk": normal((n, d, kv * hd), d),
-                     "wv": normal((n, d, kv * hd), d),
-                     "wo": normal((n, h * hd, d), h * hd),
-                     "q_norm": np.ones((n, hd), np.float32),
-                     "k_norm": np.ones((n, hd), np.float32)},
+            "attn": attn,
             "norm2": {"scale": np.ones((n, d), np.float32)},
             "mlp": {"w_gate": normal((n, d, ff), d),
                     "w_up": normal((n, d, ff), d),
@@ -5005,6 +5052,1005 @@ def moe_rwkv_entries(moe_ctx, moe_counts, rwkv_ctx, rwkv_counts, add_entry):
               max_abs_err=0.0)
 
 
+# --- the encdec and vlm families (phases 32-33) ---------------------------
+
+# Phase 32: seamless_m4t_large_v2 at full width (d 1024, 16 heads of 64,
+# ff 8192, GELU, vocab 256206) cut to 2 encoder and 2 decoder layers, two
+# requests of 128 frames and a 64-token prompt, 16 teacher-forced decode
+# steps; internvl2_2b at full width (d 2048, H 16 / KV 8, hd 128, ff 8192,
+# vocab 92553) cut to 2 layers, two requests of 256 patches and 64 text
+# tokens, 16 steps.  Frames and patches are standard normal, as the
+# reference's data pipeline draws them.
+ENCDEC_SEED = 0
+ENCDEC_TWIN = dict(batch=2, frames=128, prompt=64, steps=16, layers=2)
+VLM_SEED = 0
+VLM_TWIN = dict(batch=2, patches=256, prompt=64, steps=16, layers=2)
+# Phase 32's variants of both twins, by ENCDEC_REF / VLM_REF key.
+EV_TWIN_VARIANTS = {"dense": {}, "tag2": dict(gse_serve=True, gse_tag=2),
+                    "tag2_bf16": dict(gse_serve=True, gse_tag=2,
+                                      compute_dtype="bfloat16")}
+# Phase 33: both models whole, gse_serve tag 2 at bf16; seamless at the
+# reference's 50/50 split of a 1024-position prefill budget
+# (repro/launch/shapes.py:56-58), internvl2 with its 256 patches.
+ENCDEC_FULL = dict(batch=4, frames=512, prompt=512, steps=32)
+VLM_FULL = dict(batch=4, patches=256, prompt=256, steps=32)
+# F's non-causal cases: (label, B, S, T, H, KV, hd): seamless's encoder
+# (S = T), its cross-attention at the full cell (64 decoder queries of
+# the twin's prompt over 512 frames) and a ragged S != T.
+EV_FLASH = (("encoder", 4, 512, 512, 16, 16, 64),
+            ("cross", 4, 64, 512, 16, 16, 64),
+            ("ragged", 2, 77, 300, 16, 16, 64))
+# tools/reference/encdec_serve_ref.py's and vlm_serve_ref.py's output
+# (JAX 0.9.0 on the CPU): per variant, per step (the prompt's last
+# position, then the decode steps), lm_digest's fields as (tokens, first
+# 8 logits of request 0, max |logit|).
+ENCDEC_REF = {
+    "dense": [
+        ([145145, 57435],
+         [-0.2303829789161682, -0.5649142861366272, 0.4069576561450958,
+          0.05807274580001831, 0.19695451855659485, 0.5187386870384216,
+          1.5450007915496826, -0.7679505348205566],
+         4.674875259399414),
+        ([57435, 87773],
+         [-0.543327808380127, -0.9649472236633301, 0.41138944029808044,
+          -0.061871886253356934, 0.38044387102127075, 0.4866302013397217,
+          1.6246554851531982, -0.5280464291572571],
+         4.659073352813721),
+        ([57435, 57435],
+         [0.23170748353004456, -0.6796976923942566, 0.292117178440094,
+          -0.2261430025100708, 0.28216999769210815, 0.557375431060791,
+          1.3380074501037598, -1.107369303703308],
+         4.817905902862549),
+        ([145145, 57435],
+         [-0.46152976155281067, -0.7008187770843506, 0.4138888716697693,
+          -0.030931532382965088, 0.42705145478248596, 0.6366924047470093,
+          1.5748114585876465, -0.8499006628990173],
+         4.841366767883301),
+        ([63344, 197486],
+         [0.11260759830474854, -0.5926237106323242, 0.5939528942108154,
+          0.11184117197990417, 0.23323510587215424, 0.25305241346359253,
+          1.5160083770751953, -0.8010305762290955],
+         4.720278739929199),
+        ([63344, 57435],
+         [-0.2062060534954071, -0.5464729070663452, 0.4980258047580719,
+          -0.3869333863258362, 0.4027012884616852, 0.3309415578842163,
+          1.6683361530303955, -0.8686895370483398],
+         4.717931747436523),
+        ([63344, 57435],
+         [-0.033292949199676514, -0.657836377620697, 0.3767364025115967,
+          -0.0990174412727356, 0.2342003881931305, 0.6849785447120667,
+          1.3018888235092163, -0.751635730266571],
+         4.808943748474121),
+        ([63344, 197486],
+         [-0.3107469975948334, -0.5425944924354553, 0.37298983335494995,
+          -0.06744551658630371, 0.5291147232055664, 0.6813672184944153,
+          1.5500080585479736, -0.7351117730140686],
+         4.558588027954102),
+        ([145145, 57435],
+         [0.055866748094558716, -0.5636581182479858, 0.2151632010936737,
+          -0.2795500159263611, 0.4297742545604706, 0.9387980699539185,
+          1.6892836093902588, -0.4517762362957001],
+         4.896973609924316),
+        ([145145, 57435],
+         [-0.1709168553352356, -0.6511212587356567, 0.3958488404750824,
+          -0.16623157262802124, 0.38467496633529663, 0.405886709690094,
+          1.3167872428894043, -0.7293776273727417],
+         4.911936283111572),
+        ([145145, 57435],
+         [-0.14690521359443665, -0.45629560947418213, 0.24973705410957336,
+          -0.16810500621795654, 0.24498561024665833, 0.7463778853416443,
+          1.60627019405365, -0.9676947593688965],
+         4.767870903015137),
+        ([87213, 57435],
+         [-0.6007128953933716, -0.8283066153526306, 0.21689200401306152,
+          -0.15588945150375366, 0.1666789948940277, 0.3691880702972412,
+          1.416177749633789, -0.8026508092880249],
+         4.664279937744141),
+        ([145145, 57435],
+         [-0.4115179777145386, -0.8898230195045471, 0.1377716362476349,
+          -0.34543561935424805, 0.19154690206050873, 0.6622738838195801,
+          1.4867165088653564, -0.6537685394287109],
+         4.912820816040039),
+        ([63344, 87773],
+         [-0.09812116622924805, -0.8666033148765564, 0.1422586739063263,
+          -0.10005098581314087, 0.45724841952323914, 0.3671809434890747,
+          1.5990444421768188, -0.5088608264923096],
+         4.979177951812744),
+        ([145145, 57435],
+         [-0.28023257851600647, -0.40697187185287476, 0.3026825785636902,
+          -0.11123061180114746, 0.4805009365081787, 0.5702435970306396,
+          1.5305602550506592, -0.6439251899719238],
+         4.759711265563965),
+        ([57435, 57435],
+         [-0.3778785467147827, -0.6936790943145752, 0.20646679401397705,
+          -0.14059430360794067, 0.3074870705604553, 0.46007251739501953,
+          1.5373409986495972, -0.8100203275680542],
+         4.725212097167969),
+        ([141092, 57435],
+         [-0.2354840338230133, -0.6935240030288696, 0.30315476655960083,
+          -0.28485602140426636, 0.4203277826309204, 0.7179087400436401,
+          1.7435529232025146, -0.6580289602279663],
+         4.902503490447998),
+    ],
+    "tag2": [
+        ([145145, 57435],
+         [-0.23038333654403687, -0.5649136900901794, 0.4069574475288391,
+          0.05807363986968994, 0.19695493578910828, 0.5187381505966187,
+          1.5450012683868408, -0.7679502964019775],
+         4.674874782562256),
+        ([57435, 87773],
+         [-0.5433292388916016, -0.964945912361145, 0.41138914227485657,
+          -0.06187206506729126, 0.38044288754463196, 0.48662930727005005,
+          1.6246554851531982, -0.5280470848083496],
+         4.659071445465088),
+        ([57435, 57435],
+         [0.23170778155326843, -0.6796972155570984, 0.29211804270744324,
+          -0.22614246606826782, 0.28217074275016785, 0.5573768615722656,
+          1.3380086421966553, -1.1073683500289917],
+         4.817905426025391),
+        ([145145, 57435],
+         [-0.46152999997138977, -0.700817346572876, 0.4138883054256439,
+          -0.030931830406188965, 0.4270510673522949, 0.6366921663284302,
+          1.5748112201690674, -0.8499018549919128],
+         4.841365814208984),
+        ([63344, 197486],
+         [0.11260759830474854, -0.5926231145858765, 0.5939524173736572,
+          0.11184164881706238, 0.23323488235473633, 0.2530519366264343,
+          1.5160086154937744, -0.801031231880188],
+         4.720277309417725),
+        ([63344, 57435],
+         [-0.20620569586753845, -0.5464726090431213, 0.4980263113975525,
+          -0.3869338035583496, 0.40270066261291504, 0.3309412896633148,
+          1.6683356761932373, -0.8686888217926025],
+         4.717931747436523),
+        ([63344, 57435],
+         [-0.0332925021648407, -0.6578366160392761, 0.3767358660697937,
+          -0.09901678562164307, 0.2342015504837036, 0.6849790811538696,
+          1.3018895387649536, -0.7516354918479919],
+         4.808941841125488),
+        ([63344, 197486],
+         [-0.310746967792511, -0.5425940752029419, 0.3729904890060425,
+          -0.06744557619094849, 0.5291150808334351, 0.681366503238678,
+          1.5500081777572632, -0.7351119518280029],
+         4.558587551116943),
+        ([145145, 57435],
+         [0.0558658242225647, -0.5636583566665649, 0.21516478061676025,
+          -0.2795493006706238, 0.4297749698162079, 0.9387984275817871,
+          1.6892837285995483, -0.4517763555049896],
+         4.896975517272949),
+        ([145145, 57435],
+         [-0.17091643810272217, -0.6511217355728149, 0.3958497941493988,
+          -0.16623073816299438, 0.38467520475387573, 0.40588679909706116,
+          1.3167872428894043, -0.729377031326294],
+         4.911935806274414),
+        ([145145, 57435],
+         [-0.14690497517585754, -0.4562954902648926, 0.2497374713420868,
+          -0.16810452938079834, 0.2449844777584076, 0.7463768720626831,
+          1.606269121170044, -0.9676949977874756],
+         4.767871856689453),
+        ([87213, 57435],
+         [-0.6007116436958313, -0.8283059000968933, 0.21689167618751526,
+          -0.155889630317688, 0.16667932271957397, 0.36918753385543823,
+          1.4161789417266846, -0.8026511669158936],
+         4.664280891418457),
+        ([145145, 57435],
+         [-0.4115186333656311, -0.8898226022720337, 0.13777151703834534,
+          -0.34543511271476746, 0.19154757261276245, 0.6622748374938965,
+          1.4867162704467773, -0.6537679433822632],
+         4.912819862365723),
+        ([63344, 87773],
+         [-0.0981208086013794, -0.8666036128997803, 0.14225837588310242,
+          -0.10005027055740356, 0.45724910497665405, 0.36718136072158813,
+          1.5990445613861084, -0.50886070728302],
+         4.979178428649902),
+        ([145145, 57435],
+         [-0.2802315354347229, -0.4069725275039673, 0.30268192291259766,
+          -0.11123001575469971, 0.48050159215927124, 0.5702430605888367,
+          1.5305612087249756, -0.6439247727394104],
+         4.759711265563965),
+        ([57435, 57435],
+         [-0.37787824869155884, -0.693679928779602, 0.20646759867668152,
+          -0.14059418439865112, 0.30748674273490906, 0.4600719213485718,
+          1.5373420715332031, -0.810019850730896],
+         4.725212574005127),
+        ([141092, 57435],
+         [-0.2354845106601715, -0.6935247778892517, 0.30315476655960083,
+          -0.2848552465438843, 0.42032793164253235, 0.7179100513458252,
+          1.7435520887374878, -0.6580294370651245],
+         4.90250301361084),
+    ],
+    "tag2_bf16": [
+        ([145145, 57435],
+         [-0.22692999243736267, -0.5650274157524109, 0.4078206717967987,
+          0.07063433527946472, 0.1959918588399887, 0.5206574201583862,
+          1.5396292209625244, -0.7689437866210938],
+         4.686429023742676),
+        ([57435, 87773],
+         [-0.5385918617248535, -0.96000736951828, 0.4088243246078491,
+          -0.05078546702861786, 0.3810674250125885, 0.4915143847465515,
+          1.6188688278198242, -0.5239042043685913],
+         4.6579084396362305),
+        ([57435, 57435],
+         [0.23884251713752747, -0.6822072267532349, 0.3011292517185211,
+          -0.2146514505147934, 0.283311128616333, 0.5657856464385986,
+          1.3313825130462646, -1.109519362449646],
+         4.806922912597656),
+        ([145145, 57435],
+         [-0.4492604732513428, -0.697832465171814, 0.41589927673339844,
+          -0.02712780050933361, 0.4399395287036896, 0.6245522499084473,
+          1.5622950792312622, -0.8474226593971252],
+         4.849029064178467),
+        ([63344, 197486],
+         [0.12114132940769196, -0.5929242372512817, 0.6059461236000061,
+          0.11273252964019775, 0.24052605032920837, 0.2628406882286072,
+          1.5183017253875732, -0.804744303226471],
+         4.713278293609619),
+        ([63344, 57435],
+         [-0.20681262016296387, -0.5506725311279297, 0.49731308221817017,
+          -0.3787074089050293, 0.4080762267112732, 0.33978280425071716,
+          1.66775381565094, -0.8644176721572876],
+         4.727907180786133),
+        ([63344, 57435],
+         [-0.0299176424741745, -0.6612327694892883, 0.3696649372577667,
+          -0.09797759354114532, 0.24320180714130402, 0.6894850134849548,
+          1.3034863471984863, -0.7524639964103699],
+         4.814774990081787),
+        ([63344, 197486],
+         [-0.31290921568870544, -0.5474790334701538, 0.36364609003067017,
+          -0.05389314889907837, 0.5355316400527954, 0.6877352595329285,
+          1.5510618686676025, -0.7278444766998291],
+         4.566646099090576),
+        ([145145, 57435],
+         [0.0657849907875061, -0.5659763216972351, 0.21932484209537506,
+          -0.2656322717666626, 0.4301351308822632, 0.9401465654373169,
+          1.688977837562561, -0.4465711712837219],
+         4.893865585327148),
+        ([145145, 57435],
+         [-0.16050118207931519, -0.6464283466339111, 0.4030507206916809,
+          -0.15734395384788513, 0.39775270223617554, 0.40994489192962646,
+          1.3167823553085327, -0.7440021634101868],
+         4.915122032165527),
+        ([145145, 57435],
+         [-0.13049757480621338, -0.45500773191452026, 0.24305185675621033,
+          -0.16199930012226105, 0.2520201802253723, 0.7423915266990662,
+          1.6082799434661865, -0.962183952331543],
+         4.757846355438232),
+        ([87213, 57435],
+         [-0.5976046323776245, -0.8300777673721313, 0.21710079908370972,
+          -0.1550467610359192, 0.1652854084968567, 0.36901533603668213,
+          1.416536808013916, -0.8084326386451721],
+         4.651119232177734),
+        ([145145, 57435],
+         [-0.4090215861797333, -0.8867428302764893, 0.13355392217636108,
+          -0.3327743411064148, 0.19836004078388214, 0.6730601787567139,
+          1.4864256381988525, -0.6423094272613525],
+         4.918923854827881),
+        ([63344, 87773],
+         [-0.0877273678779602, -0.8755220174789429, 0.14068937301635742,
+          -0.09312494099140167, 0.4674077033996582, 0.3682008981704712,
+          1.5961850881576538, -0.5055261850357056],
+         4.985227584838867),
+        ([145145, 57435],
+         [-0.2791907787322998, -0.4148990511894226, 0.3013521432876587,
+          -0.09828856587409973, 0.48685747385025024, 0.5725915431976318,
+          1.5278000831604004, -0.6386657953262329],
+         4.764135360717773),
+        ([57435, 57435],
+         [-0.3736189007759094, -0.689374566078186, 0.20015640556812286,
+          -0.13099557161331177, 0.3154856562614441, 0.4536452889442444,
+          1.549621343612671, -0.8157262206077576],
+         4.718565940856934),
+        ([141092, 57435],
+         [-0.2244323492050171, -0.6991139650344849, 0.30568811297416687,
+          -0.2766909599304199, 0.4242575764656067, 0.7181311845779419,
+          1.7455761432647705, -0.658583402633667],
+         4.909258842468262),
+    ],
+}
+VLM_REF = {
+    "dense": [
+        ([57440, 1859],
+         [-1.758371353149414, -0.6318517923355103, 0.2540406286716461,
+          -1.2728021144866943, -0.9365660548210144, -1.5471713542938232,
+          0.8297064304351807, -1.0209977626800537],
+         5.506089210510254),
+        ([63478, 80067],
+         [-0.4157378673553467, -0.24569112062454224, -1.402124047279358,
+          -0.7356704473495483, -0.974199652671814, -0.10065409541130066,
+          0.6516137719154358, 1.225717306137085],
+         4.528637886047363),
+        ([87468, 12404],
+         [-0.2940085530281067, 0.39399051666259766, 0.13006284832954407,
+          -0.7007160186767578, 1.1712658405303955, -0.7208169102668762,
+          0.2708381712436676, -0.06588643789291382],
+         4.594902992248535),
+        ([3592, 48354],
+         [0.6186583638191223, 1.6555962562561035, 0.5804991722106934,
+          1.1376739740371704, -0.19599974155426025, -0.17801401019096375,
+          0.7566788196563721, -1.3702583312988281],
+         4.558615207672119),
+        ([25504, 63659],
+         [-0.34591084718704224, 1.2993237972259521, 1.2419251203536987,
+          -0.3748452961444855, -0.9894154071807861, -1.735792636871338,
+          -0.7592374086380005, -0.7502540946006775],
+         5.179904937744141),
+        ([64025, 91356],
+         [1.9616494178771973, -0.29407626390457153, 0.49203765392303467,
+          -1.6769014596939087, 1.42166268825531, -1.50654935836792,
+          -1.6332803964614868, -0.22471296787261963],
+         4.687118053436279),
+        ([43202, 179],
+         [-1.5888720750808716, 0.5507030487060547, 0.6375433206558228,
+          1.4719719886779785, 0.40485870838165283, 0.1607217788696289,
+          0.612954318523407, 0.6638695597648621],
+         4.758852481842041),
+        ([92387, 432],
+         [1.5502794981002808, 1.3090417385101318, -1.1569212675094604,
+          0.682579517364502, -0.6078132390975952, -1.8875154256820679,
+          0.8138689994812012, 0.8180441856384277],
+         4.578082084655762),
+        ([71409, 85169],
+         [-1.2445508241653442, 0.8884714245796204, -0.48908424377441406,
+          0.5225874781608582, 0.022224605083465576, -0.411588191986084,
+          0.6473309993743896, 0.6462600827217102],
+         4.274839401245117),
+        ([80875, 11990],
+         [-0.7717984914779663, -0.28902149200439453, -0.2397441267967224,
+          -1.3163625001907349, 0.33658087253570557, 0.7286459803581238,
+          0.6123003363609314, 0.8806142807006836],
+         4.360042572021484),
+        ([70746, 38533],
+         [0.23279130458831787, -0.6130837202072144, -0.6147834062576294,
+          -0.06903497874736786, -0.8924688100814819, -1.292907476425171,
+          1.7295246124267578, 1.6871013641357422],
+         4.5689520835876465),
+        ([21779, 36075],
+         [-0.7066975235939026, 0.9520242810249329, -0.5600389242172241,
+          0.02102316915988922, -1.5526916980743408, -1.1977330446243286,
+          1.3693503141403198, -1.0072612762451172],
+         4.793268203735352),
+        ([73752, 75350],
+         [1.0548286437988281, -0.62736976146698, -0.01421530544757843,
+          0.08271145820617676, -0.004217613488435745, 1.284722924232483,
+          1.755358099937439, 0.6056947112083435],
+         4.289740562438965),
+        ([16157, 16875],
+         [-1.248150110244751, -1.195378065109253, 0.07909578084945679,
+          1.356903076171875, -0.8921041488647461, 0.8647692203521729,
+          0.37209585309028625, 0.6668504476547241],
+         4.978658676147461),
+        ([51452, 92322],
+         [-0.02831888198852539, -0.9673961400985718, 0.7646067142486572,
+          -1.292982816696167, -0.8536267876625061, -0.8437491059303284,
+          2.3516292572021484, -0.07936698198318481],
+         4.55015230178833),
+        ([64947, 20831],
+         [-1.4251782894134521, 0.2534211277961731, 0.6539058089256287,
+          0.7514166831970215, -1.9028146266937256, 1.0045859813690186,
+          -0.08602628111839294, 1.1632356643676758],
+         4.837944984436035),
+        ([70609, 75550],
+         [1.0317741632461548, -1.662367820739746, -1.754441499710083,
+          -0.44084790349006653, 0.27260762453079224, 0.3776480257511139,
+          0.5767899751663208, 0.3872600197792053],
+         5.069161891937256),
+    ],
+    "tag2": [
+        ([57440, 1859],
+         [-1.7583709955215454, -0.6318521499633789, 0.2540402412414551,
+          -1.2728030681610107, -0.9365662932395935, -1.5471720695495605,
+          0.8297065496444702, -1.0209977626800537],
+         5.506088733673096),
+        ([63478, 80067],
+         [-0.4157378673553467, -0.24569052457809448, -1.4021238088607788,
+          -0.735672116279602, -0.9741994738578796, -0.10065369307994843,
+          0.6516135334968567, 1.2257177829742432],
+         4.528639793395996),
+        ([87468, 12404],
+         [-0.2940084636211395, 0.3939906358718872, 0.13006334006786346,
+          -0.7007166147232056, 1.1712653636932373, -0.7208161354064941,
+          0.27083826065063477, -0.06588566303253174],
+         4.594902992248535),
+        ([3592, 48354],
+         [0.6186584234237671, 1.6555962562561035, 0.5804988145828247,
+          1.137673258781433, -0.19600051641464233, -0.1780146062374115,
+          0.7566785216331482, -1.3702588081359863],
+         4.558614253997803),
+        ([25504, 63659],
+         [-0.3459104895591736, 1.2993242740631104, 1.24192476272583,
+          -0.374845027923584, -0.98941570520401, -1.7357932329177856,
+          -0.7592384815216064, -0.7502533793449402],
+         5.179904937744141),
+        ([64025, 91356],
+         [1.9616491794586182, -0.2940751016139984, 0.4920385479927063,
+          -1.676901936531067, 1.4216634035110474, -1.5065486431121826,
+          -1.6332800388336182, -0.22471195459365845],
+         4.687118053436279),
+        ([43202, 179],
+         [-1.5888721942901611, 0.5507034063339233, 0.6375430226325989,
+          1.4719722270965576, 0.40485912561416626, 0.16072289645671844,
+          0.6129541397094727, 0.6638702154159546],
+         4.758851051330566),
+        ([92387, 432],
+         [1.550281047821045, 1.3090425729751587, -1.1569218635559082,
+          0.6825792789459229, -0.6078132390975952, -1.8875157833099365,
+          0.813868522644043, 0.818044126033783],
+         4.578082084655762),
+        ([71409, 85169],
+         [-1.244550347328186, 0.8884708881378174, -0.4890840947628021,
+          0.5225868225097656, 0.02222353219985962, -0.41158902645111084,
+          0.6473309993743896, 0.6462608575820923],
+         4.274838447570801),
+        ([80875, 11990],
+         [-0.7717985510826111, -0.2890225052833557, -0.2397444099187851,
+          -1.316361665725708, 0.33658045530319214, 0.7286457419395447,
+          0.6123015284538269, 0.8806148767471313],
+         4.360043525695801),
+        ([70746, 38533],
+         [0.2327919602394104, -0.6130848526954651, -0.6147825717926025,
+          -0.06903566420078278, -0.8924684524536133, -1.2929059267044067,
+          1.72952401638031, 1.6871001720428467],
+         4.568951606750488),
+        ([21779, 36075],
+         [-0.7066970467567444, 0.9520247578620911, -0.5600395202636719,
+          0.021023079752922058, -1.552691102027893, -1.19773268699646,
+          1.3693513870239258, -1.007261037826538],
+         4.793266773223877),
+        ([73752, 75350],
+         [1.0548295974731445, -0.6273699402809143, -0.014215081930160522,
+          0.08271211385726929, -0.004216574132442474, 1.2847223281860352,
+          1.755359172821045, 0.6056948900222778],
+         4.289741039276123),
+        ([16157, 16875],
+         [-1.2481498718261719, -1.1953763961791992, 0.07909619808197021,
+          1.3569036722183228, -0.8921039700508118, 0.8647696375846863,
+          0.3720959424972534, 0.6668494939804077],
+         4.9786577224731445),
+        ([51452, 92322],
+         [-0.028318971395492554, -0.9673964977264404, 0.7646063566207886,
+          -1.292982816696167, -0.853626012802124, -0.8437495827674866,
+          2.3516297340393066, -0.07936716079711914],
+         4.550152778625488),
+        ([64947, 20831],
+         [-1.4251785278320312, 0.25342032313346863, 0.6539061069488525,
+          0.7514160871505737, -1.9028156995773315, 1.0045846700668335,
+          -0.08602586388587952, 1.1632353067398071],
+         4.837946891784668),
+        ([70609, 75550],
+         [1.0317734479904175, -1.6623687744140625, -1.7544424533843994,
+          -0.44084784388542175, 0.27260780334472656, 0.37764832377433777,
+          0.5767902731895447, 0.387259840965271],
+         5.069162368774414),
+    ],
+    "tag2_bf16": [
+        ([57440, 1859],
+         [-1.7483086585998535, -0.6131460070610046, 0.24517026543617249,
+          -1.275111198425293, -0.9300446510314941, -1.5588582754135132,
+          0.8269565105438232, -1.0346007347106934],
+         5.514208793640137),
+        ([63478, 80067],
+         [-0.3963627219200134, -0.23801065981388092, -1.3920835256576538,
+          -0.7450331449508667, -0.9689167737960815, -0.11355021595954895,
+          0.6528810262680054, 1.219651222229004],
+         4.544737339019775),
+        ([87468, 12404],
+         [-0.2864997982978821, 0.3955110013484955, 0.12417984008789062,
+          -0.6820834875106812, 1.1982110738754272, -0.738117516040802,
+          0.237860769033432, -0.07724858820438385],
+         4.584490776062012),
+        ([3592, 48354],
+         [0.5818746089935303, 1.6787322759628296, 0.5649808049201965,
+          1.1252073049545288, -0.16620749235153198, -0.18623389303684235,
+          0.7386801242828369, -1.3816754817962646],
+         4.552156448364258),
+        ([25504, 63659],
+         [-0.3318805992603302, 1.2983347177505493, 1.2493987083435059,
+          -0.36887139081954956, -0.9953083992004395, -1.7260781526565552,
+          -0.7376068234443665, -0.7561291456222534],
+         5.2002482414245605),
+        ([64025, 91356],
+         [1.970296025276184, -0.28164762258529663, 0.4958823323249817,
+          -1.6697182655334473, 1.3708561658859253, -1.537726640701294,
+          -1.633000373840332, -0.20724225044250488],
+         4.673956871032715),
+        ([43202, 47220],
+         [-1.5889278650283813, 0.5569843649864197, 0.64067143201828,
+          1.4681754112243652, 0.42678868770599365, 0.1586654931306839,
+          0.610119104385376, 0.6476072669029236],
+         4.794105052947998),
+        ([92387, 432],
+         [1.564155101776123, 1.2944965362548828, -1.1632286310195923,
+          0.693429708480835, -0.6266530752182007, -1.8943120241165161,
+          0.7984279990196228, 0.8090305328369141],
+         4.581965923309326),
+        ([71409, 85169],
+         [-1.2441151142120361, 0.8772373199462891, -0.5013718008995056,
+          0.5216677188873291, 0.03306889533996582, -0.3999362587928772,
+          0.6637341380119324, 0.643700122833252],
+         4.262365818023682),
+        ([80875, 11990],
+         [-0.7632055878639221, -0.2730373442173004, -0.2151670902967453,
+          -1.3026634454727173, 0.33449554443359375, 0.7224559187889099,
+          0.6082806587219238, 0.8712739944458008],
+         4.36497163772583),
+        ([70746, 38533],
+         [0.22362637519836426, -0.6167502999305725, -0.6197070479393005,
+          -0.05329515039920807, -0.9129000902175903, -1.3012886047363281,
+          1.7156480550765991, 1.6971827745437622],
+         4.554347991943359),
+        ([21779, 36075],
+         [-0.6741492748260498, 0.999583899974823, -0.5886942744255066,
+          0.003955215215682983, -1.5614454746246338, -1.2240020036697388,
+          1.3713834285736084, -1.0118452310562134],
+         4.788599967956543),
+        ([73752, 75350],
+         [1.0736535787582397, -0.6311559677124023, 0.010284937918186188,
+          0.08315353840589523, -0.022307664155960083, 1.27847421169281,
+          1.7810521125793457, 0.6141876578330994],
+         4.2689290046691895),
+        ([16157, 16875],
+         [-1.273711919784546, -1.1895993947982788, 0.1133400946855545,
+          1.3549716472625732, -0.9129165410995483, 0.853611946105957,
+          0.3689427971839905, 0.653290867805481],
+         4.9758806228637695),
+        ([51452, 92322],
+         [-0.016978830099105835, -0.9787105917930603, 0.7971447110176086,
+          -1.3267409801483154, -0.8577880859375, -0.8610545992851257,
+          2.3621788024902344, -0.09542606770992279],
+         4.534228324890137),
+        ([64947, 20831],
+         [-1.3907979726791382, 0.24788428843021393, 0.6552689671516418,
+          0.7231197357177734, -1.8833918571472168, 1.0066921710968018,
+          -0.09059023857116699, 1.1873903274536133],
+         4.834137439727783),
+        ([70609, 75550],
+         [1.06103515625, -1.6755191087722778, -1.7624493837356567,
+          -0.4457451105117798, 0.2925903797149658, 0.35420873761177063,
+          0.5756018757820129, 0.4145965278148651],
+         5.0640034675598145),
+    ],
+}
+
+
+def ev_twin_config(arch: str):
+    """Phase 32's seamless_m4t_large_v2 or internvl2_2b: full width,
+    two layers (each stack), float32."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    layers = (ENCDEC_TWIN if arch == "seamless_m4t_large_v2"
+              else VLM_TWIN)["layers"]
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        cfg, num_layers=layers,
+        encoder_layers=layers if cfg.family == "encdec" else 0,
+        compute_dtype=torch.float32)
+
+
+def encdec_tree_np(cfg, seed: int) -> dict:
+    """Params of an encdec ``cfg`` in the reference's layout (stacked
+    ``encoder`` and ``decoder`` leaves) as numpy f32, drawn from
+    ``default_rng(seed)`` in a fixed order: normal weights scaled by
+    1/sqrt(fan-in), as the reference's init scales them, and unit norms.
+    ``tools/reference/encdec_serve_ref.py`` builds the reference's params
+    from this same function."""
+    import math
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, fan_in):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        a *= np.float32(1.0 / math.sqrt(fan_in))
+        return a
+
+    d, ff, vp = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    hd = cfg.hd * cfg.num_heads
+    kvd = cfg.hd * cfg.num_kv_heads
+
+    def attn(n):
+        return {"wq": normal((n, d, hd), d), "wk": normal((n, d, kvd), d),
+                "wv": normal((n, d, kvd), d), "wo": normal((n, hd, d), hd)}
+
+    def ones(n):
+        return {"scale": np.ones((n, d), np.float32)}
+
+    def mlp(n):
+        return {"w_up": normal((n, d, ff), d), "w_down": normal((n, ff, d),
+                                                                 ff)}
+
+    ne, nd = cfg.encoder_layers, cfg.num_layers
+    return {
+        "embed": {"table": normal((vp, d), d)},
+        "final_norm": {"scale": np.ones(d, np.float32)},
+        "unembed": {"w": normal((d, vp), d)},
+        "encoder": {"norm1": ones(ne), "attn": attn(ne), "norm2": ones(ne),
+                    "mlp": mlp(ne)},
+        "decoder": {"norm1": ones(nd), "attn": attn(nd), "norm_x": ones(nd),
+                    "xattn": attn(nd), "norm2": ones(nd), "mlp": mlp(nd)},
+    }
+
+
+def ev_inputs(cfg, seed: int, tw: dict):
+    """A twin's or full cell's tokens (B, prompt + steps) and frames or
+    patches (B, n, d), standard normal f32."""
+    import numpy as np
+
+    toks = lm_tokens(cfg, seed + 1, tw["batch"], tw["prompt"] + tw["steps"])
+    n = tw["frames"] if cfg.family == "encdec" else tw["patches"]
+    emb = np.random.default_rng(seed + 2).standard_normal(
+        (tw["batch"], n, cfg.d_model), dtype=np.float32)
+    return toks, emb
+
+
+EV_LINEAR = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+             ("xattn", "wq"), ("xattn", "wk"), ("xattn", "wv"),
+             ("xattn", "wo"), ("mlp", "w_up"), ("mlp", "w_down"))
+
+
+def ev_gse_params(params, cfg):
+    """``params`` with every linear packed into ``gse_serve`` segments on
+    its device, one table per layer (``init_params``'s layout): the vlm
+    stack as ``lm_gse_params``, both encdec stacks likewise."""
+    import torch
+
+    from repro_torch.models.modules import pack_linear_weight
+    from repro_torch.tree import tree_map
+
+    if cfg.family != "encdec":
+        return lm_gse_params(params, cfg)
+    out = tree_map(lambda t: t, params)
+    out["unembed"]["w"] = pack_linear_weight(params["unembed"]["w"], cfg)
+    for stack in ("encoder", "decoder"):
+        for group, name in EV_LINEAR:
+            if group not in params[stack]:
+                continue
+            w = params[stack][group][name]
+            per = [pack_linear_weight(w[i], cfg) for i in range(w.shape[0])]
+            out[stack][group][name] = {f: torch.stack([q[f] for q in per])
+                                       for f in per[0]}
+    return out
+
+
+def ev_params_cpu(arch: str):
+    """Phase 32's dense params of ``arch`` as CPU tensors."""
+    from repro_torch import convert
+
+    cfg = ev_twin_config(arch)
+    tree = (encdec_tree_np(cfg, ENCDEC_SEED) if cfg.family == "encdec"
+            else lm_tree_np(cfg, VLM_SEED))
+    return convert.params_from_repro(tree, device="cpu")
+
+
+def ev_run(cfg, params, tokens, emb, device, prompt: int, steps: int):
+    """The served path of an encdec or vlm model: ``T.encode`` of the
+    frames (encdec), ``make_prefill_step(state=)`` over the patches
+    (vlm) and the first ``prompt`` tokens, then ``steps`` teacher-forced
+    decode steps; returns the ``(steps + 1, B, V)`` logits on the host,
+    the seconds and (encdec) the encoder's output."""
+    import torch
+
+    from repro_torch.models import stepfns, transformer as T
+
+    toks = torch.from_numpy(tokens).to(device)
+    e = torch.from_numpy(emb).to(device)
+    t0 = time.perf_counter()
+    kw, enc_out, off = {}, None, 0
+    if cfg.family == "encdec":
+        enc_out = T.encode(cfg, params, e)
+        kw["enc_out"] = enc_out
+    else:
+        kw["prefix_embeds"], off = e, e.shape[1]
+    state = T.decode_state_init(cfg, toks.shape[0], off + prompt + steps,
+                                device=device)
+    logits = [stepfns.make_prefill_step(cfg)(params, toks[:, :prompt],
+                                             state=state, **kw)]
+    for i in range(steps):
+        lg, state = T.decode_step(cfg, params, state, toks[:, prompt + i],
+                                  off + prompt + i, enc_out=enc_out)
+        logits.append(lg)
+    out = torch.stack(logits).float().cpu()
+    return out, time.perf_counter() - t0
+
+
+def ev_twin_cpu(arch: str):
+    """Phase 32's CPU twin of ``arch``: per variant the logits, the
+    seconds and the params digest."""
+    cfg0 = ev_twin_config(arch)
+    enc = cfg0.family == "encdec"
+    tw, seed = (ENCDEC_TWIN, ENCDEC_SEED) if enc else (VLM_TWIN, VLM_SEED)
+    dense = ev_params_cpu(arch)
+    toks, emb = ev_inputs(cfg0, seed, tw)
+    out, packed, memo = {}, None, {}
+    for name, kw in EV_TWIN_VARIANTS.items():
+        cfg = lm_variant(cfg0, kw)
+        pc = dense
+        if cfg.gse_serve:
+            packed = packed or ev_gse_params(dense, cfg)
+            pc = packed
+        lc, sc = ev_run(cfg, pc, toks, emb, "cpu", tw["prompt"], tw["steps"])
+        out[name] = (lc, sc, tree_digest(pc, memo))
+    return out
+
+
+def phase_ev_kernels():
+    """Phase 32, part 1: F without a mask (``causal=False``) against its
+    plain version at EV_FLASH's shapes, f32 on the FFMA body and bf16 on
+    the tensor-core body; returns the bf16 inputs and errors for phase
+    10."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    ctx = {"err": {}, "qkv": {}}
+    for label, b, s, t, h, kv, hd in EV_FLASH:
+        for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
+            k = torch.randn((b, t, kv, hd), generator=gen, device=dev).to(dt)
+            v = torch.randn((b, t, kv, hd), generator=gen, device=dev).to(dt)
+            got = F.flash_attention_gqa(q, k, v, causal=False)
+            want = F.flash_attention_gqa_plain(q, k, v, causal=False)
+            diff = (got.float() - want.float()).abs()
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            used = float((diff / (tol + tol * want.float().abs())).max())
+            body = F.flash_body(dt, hd)
+            ctx["err"][label, body] = float(diff.max())
+            if dt == torch.bfloat16:
+                ctx["qkv"][label] = (q, k, v)
+            log("ev_kernels", kernel="flash_attention_gqa", case=label,
+                causal=False, body=body, b=b, heads=h, kv_heads=kv, s=s, t=t,
+                hd=hd, dtype=str(dt), max_abs_err=float(diff.max()),
+                tol=f"rtol {tol} atol {tol}", tol_used=f"{used:.3f}")
+            del got, want, diff
+    return ctx
+
+
+def phase_ev_twin(twins=None, params=None):
+    """Phase 32, part 2: seamless_m4t_large_v2 and internvl2_2b at full
+    width, two layers, on the card and as their CPU twins from the same
+    numpy params (``params``: arch -> a future of ev_params_cpu), against
+    each other and the reference's digests (ENCDEC_REF, VLM_REF): dense
+    and gse_serve tag 2 at f32, gse_serve tag 2 at bf16.  F's non-causal
+    launches (the encoder and the cross-attention prefill) must reach both
+    bodies.  Returns the launches."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+    from repro_torch.kernels import gse_matmul as E
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda")
+    counts = {}
+    for arch, name_twin, refs in (
+            ("seamless_m4t_large_v2", "encdec", ENCDEC_REF),
+            ("internvl2_2b", "vlm", VLM_REF)):
+        cfg0 = ev_twin_config(arch)
+        enc = cfg0.family == "encdec"
+        tw, seed = (ENCDEC_TWIN, ENCDEC_SEED) if enc else (VLM_TWIN,
+                                                            VLM_SEED)
+        t0 = time.perf_counter()
+        dense_cpu = (params[arch].result() if params is not None
+                     else ev_params_cpu(arch))
+        dense_gpu = tree_map(lambda t: t.to(dev), dense_cpu)
+        del dense_cpu
+        toks, emb = ev_inputs(cfg0, seed, tw)
+        log("ev_twin", arch=arch, layers=tw["layers"], d_model=cfg0.d_model,
+            heads=cfg0.num_heads, kv_heads=cfg0.num_kv_heads, hd=cfg0.hd,
+            d_ff=cfg0.d_ff, vocab=cfg0.vocab_size, batch=tw["batch"],
+            frames_or_patches=emb.shape[1], prompt=tw["prompt"],
+            steps=tw["steps"], params_s=f"{time.perf_counter() - t0:.2f}")
+        card, packed = {}, None
+        for name, kw in EV_TWIN_VARIANTS.items():
+            cfg = lm_variant(cfg0, kw)
+            pg = dense_gpu
+            if cfg.gse_serve:
+                packed = packed or ev_gse_params(dense_gpu, cfg)
+                pg = packed
+            torch.cuda.synchronize()
+            for mod in (E, F):
+                mod.reset_launch_counts()
+            lg, sg = ev_run(cfg, pg, toks, emb, dev, tw["prompt"],
+                            tw["steps"])
+            got = {"e_" + k: v for k, v in E.gse_matmul_dense.body_launches
+                   .items()}
+            got.update({"f_" + k: v for k, v in
+                        F.flash_attention_gqa.body_launches.items()})
+            got.update({"f_noncausal_" + k: v for k, v in
+                        F.flash_attention_gqa.noncausal_launches.items()})
+            card[name] = (lg, sg, got, tree_digest(pg))
+        del dense_gpu, packed
+        cpu = twin_of(twins, name_twin)
+        per = {}
+        for name in EV_TWIN_VARIANTS:
+            check_twin(f"{name_twin}_twin", name, card[name], cpu[name],
+                       refs[name])
+            for k, v in card[name][2].items():
+                per[k] = per.get(k, 0) + v
+        log("ev_twin", arch=arch, launches=json.dumps(per))
+        need = ["e_gemv", "e_tiled", "f_ffma", "f_mma"]
+        if enc:
+            need += ["f_noncausal_ffma", "f_noncausal_mma"]
+        if min(per[k] for k in need) <= 0:
+            raise AssertionError(f"ev_twin {arch}: a kernel body never "
+                                 f"launched: {per}")
+        counts[arch] = per
+    return counts
+
+
+def serve_full_ev(cfg, fu, seed, phase):
+    """Phase 33: ``cfg`` (encdec or vlm) initialized on the card with
+    ``T.init_params``, ``fu["batch"]`` requests of frames (``T.encode``)
+    or patches and a ``fu["prompt"]``-token prompt through
+    ``make_prefill_step(state=)``, then ``fu["steps"]`` greedy decode
+    steps, counted; logs the times, the peak memory and the launches by
+    body.  For encdec, the share of a decode step spent recomputing every
+    layer's ``cross_kv`` from the encoder's output (timed alone after the
+    run).  Returns the counts and (encdec) the cross_kv timing."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+    from repro_torch.kernels import gse_matmul as E
+    from repro_torch.models import attention as A
+    from repro_torch.models import stepfns, transformer as T
+    from repro_torch.quant import gse_tensor as Q
+
+    dev = torch.device("cuda")
+    enc = cfg.family == "encdec"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - held
+    nbytes = Q.tree_bytes(params, cfg.gse_tag)
+    toks, emb = ev_inputs(cfg, seed, dict(fu, steps=0))
+    toks = torch.from_numpy(toks).to(dev)
+    e = torch.from_numpy(emb).to(dev)
+    off = 0 if enc else e.shape[1]
+    state = T.decode_state_init(cfg, fu["batch"],
+                                off + fu["prompt"] + fu["steps"], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (E, F):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    kw, enc_out = {}, None
+    if enc:
+        enc_out = T.encode(cfg, params, e)
+        kw["enc_out"] = enc_out
+    else:
+        kw["prefix_embeds"] = e
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    encode_nc = F.flash_attention_gqa.noncausal_launches["mma"]
+    t0 = time.perf_counter()
+    logits = stepfns.make_prefill_step(cfg)(params, toks, state=state, **kw)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(fu["steps"]):
+        logits, state = T.decode_step(cfg, params, state, tok,
+                                      off + fu["prompt"] + i,
+                                      enc_out=enc_out)
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = {"e_" + k: v for k, v in E.gse_matmul_dense.body_launches
+              .items()}
+    counts.update({"f_" + k: v for k, v in
+                   F.flash_attention_gqa.body_launches.items()})
+    counts.update({"f_noncausal_" + k: v for k, v in
+                   F.flash_attention_gqa.noncausal_launches.items()})
+    counts["f_noncausal_mma_encode"] = encode_nc
+    serve_peak = torch.cuda.max_memory_allocated() - held
+    step_ms = decode_s * 1e3 / fu["steps"]
+    xkv = {}
+    if enc:
+        # O20: every decode step recomputes each layer's cross_kv (two
+        # (B T, d) x (d, d) products over the encoder's output).
+        layers = T._layers(cfg, params, "decoder")
+
+        def all_cross_kv():
+            for p in layers:
+                A.cross_kv(p["xattn"], enc_out, cfg)
+
+        xkv_ms = cuda_ms(all_cross_kv, reps=3)
+        xkv = dict(cross_kv_ms_per_step=f"{xkv_ms:.3f}",
+                   cross_kv_share_of_step=f"{xkv_ms / step_ms:.3f}")
+    log(phase, arch=cfg.name, layers=cfg.num_layers,
+        encoder_layers=cfg.encoder_layers, gse_tag=cfg.gse_tag,
+        dtype=str(cfg.compute_dtype), batch=fu["batch"],
+        frames_or_patches=emb.shape[1], prompt=fu["prompt"],
+        steps=fu["steps"], init_s=f"{init_s:.2f}",
+        encode_s=f"{encode_s:.3f}", prefill_s=f"{prefill_s:.3f}",
+        ms_per_decode_step=f"{step_ms:.3f}",
+        decode_tok_per_s=f"{fu['batch'] * 1e3 / step_ms:.1f}",
+        tree_bytes=nbytes, init_peak_gb=f"{init_peak / 1e9:.2f}",
+        serve_peak_gb=f"{serve_peak / 1e9:.2f}", launches=json.dumps(counts),
+        **xkv)
+    log(phase, arch=cfg.name, tokens=json.dumps(torch.stack(out, 1).tolist()))
+    if not bool(finite):
+        raise AssertionError(f"{phase} {cfg.name}: non-finite logits")
+    need = ["e_gemv", "e_tiled", "f_mma"] + (["f_noncausal_mma"] if enc
+                                             else [])
+    if min(counts[k] for k in need) <= 0:
+        raise AssertionError(f"{phase} {cfg.name}: a kernel of the serving "
+                             f"path never launched: {counts}")
+    del params, state, logits, enc_out, e
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_ev_full():
+    """Phase 33: seamless_m4t_large_v2 (24 + 24 layers) and internvl2_2b
+    (24 layers) whole under gse_serve tag 2 at bf16 (ENCDEC_FULL,
+    VLM_FULL).  Returns the launches of each."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, fu, seed in (("seamless_m4t_large_v2", ENCDEC_FULL,
+                            ENCDEC_SEED),
+                           ("internvl2_2b", VLM_FULL, VLM_SEED)):
+        cfg = dataclasses.replace(get_config(arch), gse_serve=True,
+                                  gse_tag=2)
+        out[arch] = serve_full_ev(cfg, fu, seed, "ev_full")
+    return out
+
+
+def ev_entries(ctx, counts, add_entry):
+    """Phase 10's rows for F without a mask at EV_FLASH's shapes (bf16,
+    the tensor-core body), bound by 4 S T hd operations per (batch, head)
+    at the bf16 tensor-core rate, beside SDPA on heads-first copies;
+    launches from phase 33's seamless run: the encoder's at ``encode``
+    (S = T = 512), the cross-attention's at the prefill (S 512 over T
+    512), and for the ragged shape, on no path, their sum."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+
+    flash_src = "src/repro_torch/kernels/csrc/flash_attn.cu"
+    seamless = counts["seamless_m4t_large_v2"]
+    launches = {"encoder": seamless["f_noncausal_mma_encode"],
+                "cross": (seamless["f_noncausal_mma"]
+                          - seamless["f_noncausal_mma_encode"]),
+                "ragged": seamless["f_noncausal_mma"]}
+    launched = {"encoder": "the encoder's", "cross": "the cross-attention "
+                "prefill's", "ragged": "every non-causal launch"}
+    for label, b, s, t, h, kv, hd in EV_FLASH:
+        q, k, v = ctx["qkv"][label]
+        ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        flops = 4 * b * h * s * t * hd
+        add_entry(f"flash_attention_gqa.bfloat16.noncausal.{label}",
+                  flash_src, "src/repro/kernels/flash_attn.py:76",
+                  lambda: F.flash_attention_gqa(q, k, v, causal=False),
+                  lambda: F.flash_attention_gqa_plain(q, k, v, causal=False),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      ql, kl, vl),
+                  (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                  flops / BF16_TC_OPS_PER_S * 1e3,
+                  plain_reps=2, reps=5, inner=3, shape=[b, s, t, h, kv, hd],
+                  causal=False, body=F.flash_body(q.dtype, hd),
+                  fp32_bound_ms=flops / FP32_OPS_PER_S * 1e3,
+                  launches=launches[label],
+                  launches_from=f"phase 33 (seamless, {launched[label]})",
+                  max_abs_err=ctx["err"][label, "mma"])
+        del ql, kl, vl
+
+
 # The example's stepped GMRES case (examples/solve_stepped_gmres.py) and its
 # right-Jacobi twin: the reference's (iters, switch_iters, tag) on the CPU,
 # which tests/test_torch_gmres.py holds the port's CPU twin to.
@@ -7539,7 +8585,7 @@ def phase_perf(g, ell, row_len, x32, x32n, params, sell_ctx, untuned):
 # phase 12's LM and phase 26's hybrid from after it.  A phase waits only if its twin is not
 # done yet.
 SMALL_TWINS = ("trajectory", "service", "sell", "gmres", "pcg", "ir",
-               "telemetry", "serve_async", "rwkv")
+               "telemetry", "serve_async", "rwkv", "encdec", "vlm")
 LM_TWINS = ("lm", "hybrid", "moe")
 
 
@@ -7606,6 +8652,10 @@ def cpu_twin(name: str):
         return moe_twin_cpu()
     if name == "rwkv":
         return rwkv_twin_cpu()
+    if name == "encdec":
+        return ev_twin_cpu("seamless_m4t_large_v2")
+    if name == "vlm":
+        return ev_twin_cpu("internvl2_2b")
     raise KeyError(name)
 
 
@@ -7776,8 +8826,12 @@ def run(opts, twins) -> int:
     expert_decode_timing()
     t1 = time.perf_counter()
     rwkv_counts = phase_rwkv_full()
+    t2 = time.perf_counter()
+    # 33. the encdec and vlm families whole, after the moe init's 68 GB.
+    ev_counts = phase_ev_full()
     log("moe_rwkv_full", moe_full_s=f"{t1 - t0:.1f}",
-        rwkv_full_s=f"{time.perf_counter() - t1:.1f}",
+        rwkv_full_s=f"{t2 - t1:.1f}",
+        ev_full_s=f"{time.perf_counter() - t2:.1f}",
         run_s=f"{time.perf_counter() - t_start:.1f}")
 
     # 2. kernel parity at full size ------------------------------------------
@@ -8121,6 +9175,8 @@ def run(opts, twins) -> int:
     hybrid_params = params_pool.submit(hybrid_params_cpu)
     moe_params = params_pool.submit(moe_params_cpu)
     rwkv_params = params_pool.submit(rwkv_params_cpu)
+    ev_params = {arch: params_pool.submit(ev_params_cpu, arch)
+                 for arch in ("seamless_m4t_large_v2", "internvl2_2b")}
     t0 = time.perf_counter()
     lm_ctx = phase_lm_kernels()
     t1 = time.perf_counter()
@@ -8156,14 +9212,22 @@ def run(opts, twins) -> int:
     t1 = time.perf_counter()
     rwkv_ctx = phase_rwkv_kernels()
     rwkv_twin_counts = phase_rwkv_twin(twins, rwkv_params)
-    params_pool.shutdown()
     del rwkv_params
+    # 32. the encdec and vlm families against their twins -------------------
+    t2 = time.perf_counter()
+    ev_ctx = phase_ev_kernels()
+    ev_twin_counts = phase_ev_twin(twins, ev_params)
+    params_pool.shutdown()
+    del ev_params
+    t3 = time.perf_counter()
     cli_counts = serve_cli_archs(("qwen3_moe_235b_a22b", "grok1_314b",
-                                  "rwkv6_1p6b"))
+                                  "rwkv6_1p6b", "internvl2_2b"))
     log("moe_rwkv_phases", moe_twin_s=f"{t1 - t0:.1f}",
-        rwkv_twin_s=f"{time.perf_counter() - t1:.1f}",
+        rwkv_twin_s=f"{t2 - t1:.1f}", ev_twin_s=f"{t3 - t2:.1f}",
+        serve_cli_s=f"{time.perf_counter() - t3:.1f}",
         twin_launches=json.dumps({"moe": moe_twin_counts,
-                                  "rwkv": rwkv_twin_counts}),
+                                  "rwkv": rwkv_twin_counts,
+                                  "ev": ev_twin_counts}),
         serve_cli_d_launches=json.dumps(cli_counts),
         run_s=f"{time.perf_counter() - t_start:.1f}")
     log("twins", waited_s=json.dumps({k: round(v, 2)
@@ -8345,6 +9409,7 @@ def run(opts, twins) -> int:
     lm_entries(lm_ctx, lm_counts, twin_counts, add_entry)
     hybrid_entries(hybrid_ctx, hybrid_counts, hybrid_twin_counts, add_entry)
     moe_rwkv_entries(moe_ctx, moe_counts, rwkv_ctx, rwkv_counts, add_entry)
+    ev_entries(ev_ctx, ev_counts, add_entry)
     log("kernels", seconds=f"{time.perf_counter() - t_kernels:.1f}",
         total_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

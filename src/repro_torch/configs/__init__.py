@@ -1,13 +1,13 @@
 """Architecture registry: port of ``repro/configs/__init__.py``.
 
 ``get_config(arch, smoke)`` resolves the reference's ids and aliases.
-The dense family (``qwen3_4b``, ``granite_3_2b``, ``granite_34b``,
-``qwen15_32b``), the hybrid family (``recurrentgemma_2b``), the moe
-family (``qwen3_moe_235b_a22b``, ``grok1_314b``) and the ssm family
-(``rwkv6_1p6b``) are ported; the encdec and vlm architectures
-(``seamless_m4t_large_v2``, ``internvl2_2b``) raise
-``NotImplementedError`` naming ROADMAP queue 1 item 16.  Sharding rules
-(``get_rules``) have no counterpart: the port runs on one card.
+Every architecture is ported: the dense family (``qwen3_4b``,
+``granite_3_2b``, ``granite_34b``, ``qwen15_32b``), the hybrid family
+(``recurrentgemma_2b``), the moe family (``qwen3_moe_235b_a22b``,
+``grok1_314b``), the ssm family (``rwkv6_1p6b``), the encdec family
+(``seamless_m4t_large_v2``) and the vlm family (``internvl2_2b``).
+Sharding rules (``get_rules``) have no counterpart: the port runs on one
+card.
 """
 from __future__ import annotations
 
@@ -43,19 +43,13 @@ ALIASES = {
     "rwkv6-1.6b": "rwkv6_1p6b",
 }
 
-PORTED = ("qwen3_4b", "granite_3_2b", "granite_34b", "qwen15_32b",
-          "recurrentgemma_2b", "qwen3_moe_235b_a22b", "grok1_314b",
-          "rwkv6_1p6b")
+PORTED = ARCH_IDS
 
 
 def _module(arch: str):
     arch = ALIASES.get(arch, arch).replace("-", "_")
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP queue 1 item 16); "
-            f"ported: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -60,8 +60,10 @@ window compiled in they ran 9-36% slower at qwen3_4b's shapes, the
 tensor-core body still 12% with it folded away).  The wrapper launches
 the kernel for CUDA tensors (or raises) and runs
 :func:`flash_attention_gqa_plain` only for CPU tensors; it counts its
-launches in its ``launches`` attribute, per body in ``body_launches``
-and the windowed ones per body in ``window_launches``.
+launches in its ``launches`` attribute, per body in ``body_launches``,
+the windowed ones per body in ``window_launches`` and the non-causal ones
+(an encoder's self-attention, a decoder's cross-attention) per body in
+``noncausal_launches``.
 """
 from __future__ import annotations
 
@@ -207,6 +209,8 @@ def flash_attention_gqa(q, k, v, *, causal: bool = True, window: int = 0,
     flash_attention_gqa.body_launches[body] += 1
     if window:
         flash_attention_gqa.window_launches[body] += 1
+    if not causal:
+        flash_attention_gqa.noncausal_launches[body] += 1
     _raise_on(rc, "flash_attention_gqa")
     return out
 
@@ -225,12 +229,13 @@ KERNELS = (flash_attention_gqa,)
 
 
 def reset_launch_counts():
-    """Zero ``launches`` and the per-body ``body_launches`` and
-    ``window_launches``."""
+    """Zero ``launches`` and the per-body ``body_launches``,
+    ``window_launches`` and ``noncausal_launches``."""
     for k in KERNELS:
         k.launches = 0
     flash_attention_gqa.body_launches = dict.fromkeys(BODIES, 0)
     flash_attention_gqa.window_launches = dict.fromkeys(BODIES, 0)
+    flash_attention_gqa.noncausal_launches = dict.fromkeys(BODIES, 0)
 
 
 reset_launch_counts()

@@ -13,7 +13,11 @@ Usage:
 The reference's ``--smoke`` is ``store_true`` with ``default=True``, so it
 can never select the full config; here it is ``--smoke/--no-smoke`` with
 the same default.  Params and prompts come from torch generators seeded 0
-and 1 (the reference's JAX keys 0 and 1 give other numbers).
+and 1 (the reference's JAX keys 0 and 1 give other numbers).  The CLI
+serves text only, as the reference's does: ``internvl2_2b`` without its
+patch prefix; ``seamless_m4t_large_v2`` needs the encoder's frame
+embeddings, which the CLI does not supply, so it raises ``ValueError``
+(the reference's dies in ``cross_kv``).
 """
 from __future__ import annotations
 
@@ -77,6 +81,12 @@ def main(argv=None):
     log = lambda msg: print(msg, flush=True)  # noqa: E731
 
     cfg = configs.get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "encdec":
+        raise ValueError(f"{args.arch} is an encoder-decoder model: the "
+                         "serve CLI supplies no encoder input (frame "
+                         "embeddings); serve it through "
+                         "stepfns.make_prefill_step(enc_embeds=) and "
+                         "decode_step(enc_out=)")
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            device=args.device)
     if args.gse_tag:

@@ -27,7 +27,15 @@ repeat): q ``(B, S, KV, G, hd)`` against k ``(B, T, KV, hd)``.
   decode runs over the whole cache at every step in plain torch; a kernel
   that fuses it into decode attention is an owed design (ROADMAP queue 2).
 
-Cross-attention raises ``NotImplementedError`` (ROADMAP queue 1 item 16).
+* The encoder-decoder family (seamless): :func:`encoder_attn_apply` is
+  bidirectional self-attention without rope, on F with ``causal=False``
+  (S = T).  :func:`cross_kv` projects the encoder's output to keys and
+  values; :func:`cross_attn_apply` attends the decoder's queries over
+  them: on F with ``causal=False`` (S decoder queries over T encoder
+  keys, S != T) in the prefill, and for one query (a decode step) in
+  plain torch with ``_attend`` under an all-true mask, as
+  :func:`decode_attn_apply` attends one token.  Neither applies rope or
+  qk-norm, as the reference's (``:169-210``).
 """
 from __future__ import annotations
 
@@ -44,7 +52,8 @@ Params = Dict[str, Any]
 NEG_INF = -1e30
 
 __all__ = ["attn_init", "attn_apply", "cache_init", "decode_attn_apply",
-           "NEG_INF"]
+           "cross_attn_init", "encoder_attn_apply", "cross_kv",
+           "cross_attn_apply", "NEG_INF"]
 
 
 def attn_init(gen, cfg, dtype, device) -> Params:
@@ -66,6 +75,11 @@ def attn_init(gen, cfg, dtype, device) -> Params:
         p["q_norm"] = torch.ones(hd, dtype=dtype, device=device)
         p["k_norm"] = torch.ones(hd, dtype=dtype, device=device)
     return p
+
+
+def cross_attn_init(gen, cfg, dtype, device) -> Params:
+    """Cross-attention's params: :func:`attn_init`'s layout."""
+    return attn_init(gen, cfg, dtype, device)
 
 
 def _qk_normalize(p, q, k):
@@ -142,6 +156,52 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
                               device=q.device)
     b2, s2 = out.shape[:2]
     return M.linear(out.reshape(b2, s2, -1), p["wo"], cfg, dtype)
+
+
+def encoder_attn_apply(p: Params, x: torch.Tensor, cfg,
+                       positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Bidirectional (encoder) self-attention on kernel F (``causal=False``),
+    no rope; ``positions`` is unused, as in the reference."""
+    dtype = cfg.compute_dtype
+    q, k, v = _project_qkv(p, x, cfg, dtype)
+    out = flash_attention_gqa(q, k, v, causal=False, device=q.device)
+    b2, s2 = out.shape[:2]
+    return M.linear(out.reshape(b2, s2, -1), p["wo"], cfg, dtype)
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor, cfg):
+    """The encoder output's keys and values ``(B, T, KV, hd)`` for one
+    decoder layer's cross-attention."""
+    dtype = cfg.compute_dtype
+    xc = enc_out.to(dtype)
+    k = M.linear(xc, p["wk"], cfg, dtype)
+    v = M.linear(xc, p["wv"], cfg, dtype)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    b, t = enc_out.shape[:2]
+    return (k.reshape(b, t, cfg.num_kv_heads, cfg.hd),
+            v.reshape(b, t, cfg.num_kv_heads, cfg.hd))
+
+
+def cross_attn_apply(p: Params, x: torch.Tensor, enc_kv, cfg) -> torch.Tensor:
+    """Decoder cross-attention of x ``(B, S, D)`` over ``enc_kv = (k, v)``
+    from :func:`cross_kv`: kernel F without a mask for S > 1, ``_attend``
+    for one query."""
+    dtype = cfg.compute_dtype
+    b, s = x.shape[:2]
+    q = M.linear(x.to(dtype), p["wq"], cfg, dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dtype)
+    q = q.reshape(b, s, cfg.num_heads, cfg.hd)
+    k, v = enc_kv
+    if s == 1:
+        every = torch.ones((1, 1, 1, 1, k.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        out = _attend(q, k, v, every, cfg, dtype)
+    else:
+        out = flash_attention_gqa(q, k, v, causal=False, device=q.device)
+    return M.linear(out.reshape(b, s, -1), p["wo"], cfg, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,8 @@
 
 The same fields and defaults as the reference's ``ModelConfig``, with
 torch dtypes (``param_dtype`` float32, ``compute_dtype`` bfloat16).  The
-port runs the ``dense``, ``hybrid``, ``moe`` and ``ssm`` families; the
-fields of the other families are kept so a configuration reads the same
-in both packages.
+port runs every family of the reference: ``dense``, ``hybrid``, ``moe``,
+``ssm``, ``encdec`` and ``vlm``.
 """
 from __future__ import annotations
 

@@ -32,7 +32,7 @@ Params = Dict[str, Any]
 
 __all__ = ["linear_weight_init", "pack_linear_weight", "take_weight",
            "linear", "rmsnorm_init", "rmsnorm", "embed_init", "embed",
-           "unembed_init", "unembed", "rope", "mlp_init", "mlp",
+           "unembed_init", "unembed", "rope", "sinusoidal", "mlp_init", "mlp",
            "is_segments", "segment_read", "table_scales"]
 
 
@@ -209,6 +209,49 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def _fma(a, b, c):
+    """f32 ``a * b + c`` rounded once (the product of two f32 is exact in
+    f64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+# Cephes' exp: log2(e), ln(2) split in two, the polynomial's coefficients.
+_CEPHES_EXP = (1.44269504088896341, 0.693359375, -2.12194440e-4,
+               (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+                4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1))
+
+
+def _exp_xla(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of f32 ``x`` as XLA's CPU build evaluates it: Cephes'
+    range reduction and polynomial with fused multiply-adds (bitwise the
+    jitted ``jnp.exp`` on 400,000 seeded values in [-80, 80];
+    ``torch.exp`` differs by an ulp in 1 of 32 frequencies at d 64 and 51
+    of 512 at d 1024, which the positions multiply)."""
+    log2e, c1, c2, poly = _CEPHES_EXP
+    one = lambda v: torch.full_like(x, v)  # noqa: E731
+    x = torch.clamp(x, -88.3762626647949, 88.3762626647950)
+    fx = torch.floor(_fma(x, one(log2e), one(0.5)))
+    r = _fma(fx, one(-c1), x)
+    r = _fma(fx, one(-c2), r)
+    y = one(poly[0])
+    for c in poly[1:]:
+        y = _fma(y, r, one(c))
+    y = _fma(y, r * r, r) + 1.0
+    return y * torch.exp2(fx)
+
+
+def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal position table ``(..., d)`` in f32: ``sin`` of the angles
+    ``positions * exp(-log(10000) * i / (d/2))``, then their ``cos``.  The
+    frequencies are XLA's bit for bit (:func:`_exp_xla`); ``sin`` and
+    ``cos`` are torch's, within an ulp of XLA's."""
+    half = d // 2
+    freqs = _exp_xla(-math.log(10000.0) * torch.arange(
+        0, half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GELU-2mat)
 # ---------------------------------------------------------------------------
@@ -233,6 +276,19 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (approximate) as XLA evaluates it: the tanh form
+    ``x * (0.5 * (1 + tanh(c1 * (x + c2 * x^3))))`` with every operation
+    and both constants rounded to x's dtype (bf16: 0.796875 and
+    0.044677734375), ``x^3`` as ``(x * x) * x``
+    (``torch.nn.functional.gelu(approximate="tanh")`` rounds once and gives
+    other bits in bf16)."""
+    c1 = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype)
+    c2 = torch.tensor(0.044715, dtype=x.dtype)
+    inner = (x + c2.to(x.device) * ((x * x) * x)) * c1.to(x.device)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 def mlp(p: Params, x: torch.Tensor, act: str, dtype, cfg=None):
     xc = x.to(dtype)
     c = cfg or _Plain()
@@ -241,6 +297,5 @@ def mlp(p: Params, x: torch.Tensor, act: str, dtype, cfg=None):
         u = linear(xc, p["w_up"], c, dtype)
         h = _silu(g) * u
     else:
-        h = torch.nn.functional.gelu(linear(xc, p["w_up"], c, dtype),
-                                     approximate="tanh")
+        h = _gelu(linear(xc, p["w_up"], c, dtype))
     return linear(h, p["w_down"], c, dtype)

@@ -28,7 +28,8 @@ optimized HLO of the jitted ``rglru_apply``), where parity needs them:
 
 * ``jax.nn.gelu`` is the tanh form ``x * (0.5 * (1 + tanh(c1 * (x + c2 *
   x^3))))`` with every operation rounded to x's dtype and the constants
-  rounded to it (bf16: 0.796875 and 0.044677734375), :func:`_gelu`;
+  rounded to it (bf16: 0.796875 and 0.044677734375),
+  ``modules._gelu`` (shared with the gelu MLP);
 * ``_conv1d`` is the reference's Python ``sum`` from 0 over the four taps,
   each product and partial sum rounded to the compute dtype except the
   last sum, which its only consumers (the f32 gates) read unrounded;
@@ -108,15 +109,6 @@ def _sigmoid(x):
     return 1.0 / (1.0 + torch.exp(-x))
 
 
-def _gelu(x):
-    """``jax.nn.gelu`` (approximate): each operation and constant rounded to
-    x's dtype, ``x^3`` as ``(x * x) * x``."""
-    c1 = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype)
-    c2 = torch.tensor(0.044715, dtype=x.dtype)
-    inner = (x + c2.to(x.device) * ((x * x) * x)) * c1.to(x.device)
-    return x * (0.5 * (1.0 + torch.tanh(inner)))
-
-
 def _gates(p, u):
     """(a, gated) in f32 from the conv's output ``u``."""
     if u.is_cuda and torch.backends.cuda.matmul.allow_tf32:
@@ -134,7 +126,7 @@ def _gates(p, u):
 
 def _branches(p, x, dtype):
     u = torch.matmul(x.to(dtype), p["w_in"].to(dtype))
-    gate = _gelu(torch.matmul(x.to(dtype), p["w_gate_branch"].to(dtype)))
+    gate = M._gelu(torch.matmul(x.to(dtype), p["w_gate_branch"].to(dtype)))
     return u, gate
 
 

@@ -1,29 +1,40 @@
-"""Model assembly, the ``dense``, ``hybrid``, ``moe`` and ``ssm``
-families: port of ``repro/models/transformer.py``.
+"""Model assembly, every family of the reference: port of
+``repro/models/transformer.py``.
 
 ``dense``: pre-norm decoder-only stacks (qwen3-4b, granite-3-2b,
-granite-34b, qwen1.5-32b).  ``hybrid``: RecurrentGemma (recurrentgemma-2b),
-RG-LRU blocks (``models/rglru.py``) with every ``hybrid_period``-th layer
-a local-window MQA (``"local_attn"``, ``cfg.local_window``).  ``moe``: the
-dense skeleton with the MoE FFN (``models/moe.py``; qwen3-moe-235b-a22b,
-grok-1-314b), its expert stacks stacked ``(L, E, ...)``.  ``ssm``: RWKV-6
-time-mix and channel-mix (``models/rwkv.py``; rwkv6-1.6b).  The params
-tree keeps the reference's layout: the stacked ``(L, ...)`` layer leaves
-that its ``init_params`` builds with ``vmap`` for a homogeneous stack
-(under ``gse_serve`` each layer's weights are packed with their own
+granite-34b, qwen1.5-32b).  ``vlm``: the dense stack (internvl2-2b's
+InternLM2 backbone) with the frontend's patch embeddings (``forward``'s
+``prefix_embeds``, ``num_prefix_tokens`` of them) prepended to the text,
+positions ``arange(P + S)``.  ``hybrid``: RecurrentGemma
+(recurrentgemma-2b), RG-LRU blocks (``models/rglru.py``) with every
+``hybrid_period``-th layer a local-window MQA (``"local_attn"``,
+``cfg.local_window``).  ``moe``: the dense skeleton with the MoE FFN
+(``models/moe.py``; qwen3-moe-235b-a22b, grok-1-314b), its expert stacks
+stacked ``(L, E, ...)``.  ``ssm``: RWKV-6 time-mix and channel-mix
+(``models/rwkv.py``; rwkv6-1.6b).  ``encdec``: Seamless-M4T
+(seamless-m4t-large-v2), a bidirectional encoder over the frontend's
+frame embeddings (``enc_embeds`` plus a sinusoidal table; ``"enc_attn"``
+layers) and a causal decoder whose layers (``"dec_attn"``) add
+cross-attention over each layer's ``cross_kv`` of the encoder output
+after the self-attention residual.  The params tree keeps the
+reference's layout: the stacked ``(L, ...)`` layer leaves that its
+``init_params`` builds with ``vmap`` for a homogeneous stack
+(``params["encoder"]`` and ``params["decoder"]`` for encdec; under
+``gse_serve`` each layer's weights are packed with their own
 shared-exponent table, stacked to ``(L, k)``), and a list of per-layer
 trees for a heterogeneous one (the hybrid family, ``scan_layers=False``).
 Layers run in a Python loop (the reference scans a homogeneous stack).
-The encdec family and vlm prefixes raise ``NotImplementedError``
-(ROADMAP queue 1 item 16).
 
 Decode state is updated in place: ``decode_step`` writes each layer's new
 key and value into its cache (a ring for local-window layers), each
 RG-LRU layer's ``h`` and conv inputs and each RWKV layer's ``S``,
 ``last_t`` and ``last_c`` into its state, and returns the same state
 object (the reference returns a new one).  ``forward(..., state=)`` fills
-the caches with the prompt's keys and values and the recurrent states
-with the prompt's, so decoding can follow a prefill.
+the caches with the prompt's keys and values (for vlm all P + S
+positions, for encdec the decoder's prompt) and the recurrent states with
+the prompt's, so decoding can follow a prefill.  An encdec decode step
+takes the encoder output (:func:`encode`) and recomputes each layer's
+``cross_kv`` from it, as the reference's does.
 """
 from __future__ import annotations
 
@@ -40,18 +51,20 @@ from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 
-__all__ = ["init_params", "forward", "logits_from_hidden",
+__all__ = ["init_params", "forward", "encode", "logits_from_hidden",
            "decode_state_init", "decode_step"]
 
 
-_FAMILIES = ("dense", "hybrid", "moe", "ssm")
+_FAMILIES = ("dense", "hybrid", "moe", "ssm", "encdec", "vlm")
 
 
 def _layer_kinds(cfg) -> Tuple[str, ...]:
+    """The layer kinds of the stack that decodes (encdec: the decoder's)."""
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP queue 1 "
-            f"item 16); the port runs the families {_FAMILIES}")
+        raise ValueError(f"unknown family {cfg.family!r}; the families are "
+                         f"{_FAMILIES}")
+    if cfg.family == "encdec":
+        return ("dec_attn",) * cfg.num_layers
     if cfg.family == "hybrid":
         attn_ids = set(cfg.attn_layer_ids())
         return tuple("local_attn" if i in attn_ids else "rglru"
@@ -77,13 +90,15 @@ def _layer_init(gen, cfg, kind: str, dtype, device,
         p["norm2"] = M.rmsnorm_init(cfg.d_model, dtype, device)
         p["chan"] = W.rwkv_channel_init(gen, cfg, dtype, device)
         return p
-    if kind in ("attn", "local_attn", "moe"):
+    if kind in ("attn", "enc_attn", "dec_attn", "local_attn", "moe"):
         p["attn"] = A.attn_init(gen, cfg, dtype, device)
     elif kind == "rglru":
         p["rglru"] = R.rglru_init(gen, cfg, dtype, device)
     else:
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue 1 "
-                                  "item 16)")
+        raise ValueError(kind)
+    if kind == "dec_attn":
+        p["norm_x"] = M.rmsnorm_init(cfg.d_model, dtype, device)
+        p["xattn"] = A.cross_attn_init(gen, cfg, dtype, device)
     p["norm2"] = M.rmsnorm_init(cfg.d_model, dtype, device)
     if kind == "moe":
         p["moe"] = MOE.moe_init(gen, cfg, dtype, device, lazy=lazy)
@@ -133,20 +148,25 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> Params:
                                            device=device)
     make = lambda i, lazy=False: _layer_init(  # noqa: E731
         gen, cfg, kinds[i], dtype, device, lazy)
-    if _stackable(cfg):
+    if cfg.family == "encdec":
+        params["encoder"] = _stack(lambda i: _layer_init(
+            gen, cfg, "enc_attn", dtype, device), cfg.encoder_layers)
+        params["decoder"] = _stack(make, cfg.num_layers)
+    elif _stackable(cfg):
         params["layers"] = _stack(lambda i: make(i, True), cfg.num_layers)
     else:
         params["layers"] = [make(i) for i in range(cfg.num_layers)]
     return params
 
 
-def _layers(cfg, params):
-    """Each layer's params: views into the stacked leaves."""
-    layers = params["layers"]
+def _layers(cfg, params, key: str = "layers"):
+    """Each layer's params (or decode state) under ``key``: views into the
+    stacked leaves."""
+    layers = params[key]
     if isinstance(layers, list):
         return layers
-    return [tree_map(lambda t, i=i: t[i], layers)
-            for i in range(cfg.num_layers)]
+    n = cfg.encoder_layers if key == "encoder" else cfg.num_layers
+    return [tree_map(lambda t, i=i: t[i], layers) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -163,10 +183,12 @@ def _norm_in(x, x_sum):
     return x if x_sum is None else x_sum
 
 
-def _block_apply(cfg, p, x, positions, kind: str, cache=None, x_sum=None):
+def _block_apply(cfg, p, x, positions, kind: str, cache=None, x_sum=None,
+                 enc_kv=None):
     """Returns (the f32 sum of the layer's output, aux); fills the layer's
     decode ``cache`` (a KV cache, an RG-LRU or an RWKV state) when one is
-    given.  ``x_sum``: see :func:`_norm_in`."""
+    given.  ``x_sum``: see :func:`_norm_in`; ``enc_kv``: a ``"dec_attn"``
+    layer's cross keys and values."""
     h = M.rmsnorm(p["norm1"], _norm_in(x, x_sum)).to(x.dtype)
     if kind == "rwkv":
         y, st = W.rwkv_time_apply(p["time"], h, cfg)
@@ -174,21 +196,35 @@ def _block_apply(cfg, p, x, positions, kind: str, cache=None, x_sum=None):
             cache["S"].copy_(st["S"])
             cache["last_t"].copy_(st["last"])
         return _rwkv_half(cfg, p, x, y, cache, prev=None), _no_aux(x)
-    if kind in ("attn", "moe"):
+    if kind in ("attn", "moe", "dec_attn"):
         y = A.attn_apply(p["attn"], h, cfg, positions, cache=cache)
+    elif kind == "enc_attn":
+        y = A.encoder_attn_apply(p["attn"], h, cfg, positions)
     elif kind == "local_attn":
         y = A.attn_apply(p["attn"], h, cfg, positions,
                          window=cfg.local_window, cache=cache)
     elif kind == "rglru":
         y = R.rglru_apply(p["rglru"], h, cfg, state=cache)
     else:
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue 1 "
-                                  "item 16)")
+        raise ValueError(kind)
+    if kind == "dec_attn":
+        x, y = _cross_half(cfg, p, x, y, enc_kv)
     return _mlp_half(cfg, p, x, y, kind)
 
 
 def _no_aux(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _cross_half(cfg, p, x, y, enc_kv):
+    """A decoder layer's cross-attention after its self-attention ``y``:
+    ``x + y``, cross-attention over ``enc_kv`` on its norm (``norm_x``),
+    rounded as :func:`_mlp_half` rounds the sum its norm reads.  Returns
+    (``x + y`` in x's dtype, the cross-attention's output): the pair
+    :func:`_mlp_half` adds."""
+    x_mid = x.to(torch.float32) + y.to(x.dtype).to(torch.float32)
+    hx = M.rmsnorm(p["norm_x"], x_mid).to(x.dtype)
+    return x_mid.to(x.dtype), A.cross_attn_apply(p["xattn"], hx, enc_kv, cfg)
 
 
 def _mlp_half(cfg, p, x, y, kind: str = "attn"):
@@ -226,30 +262,63 @@ def _rwkv_half(cfg, p, x, y, cache, prev):
 
 
 def forward(cfg, params: Params, tokens: torch.Tensor, prefix_embeds=None,
-            enc_embeds=None, state: Dict | None = None):
-    """Returns (final_hidden (B, S, D), aux_loss: the sum of the moe
-    layers').  With ``state`` (from ``decode_state_init``), each attention
-    layer's cache gets the prompt's keys and values where the decode loop
-    would write them, each RG-LRU layer's state its ``h`` and conv inputs
-    after the prompt and each RWKV layer's its ``S``, ``last_t`` and
-    ``last_c``."""
-    if prefix_embeds is not None or enc_embeds is not None:
-        raise NotImplementedError("prefix and encoder embeddings (vlm, "
-                                  "encdec; ROADMAP queue 1 item 16)")
+            enc_embeds=None, state: Dict | None = None, enc_out=None):
+    """Returns (final_hidden (B, P + S, D), aux_loss: the sum of the moe
+    layers').  ``prefix_embeds`` (B, P, D) (vlm: the patch embeddings)
+    come before the text, in the compute dtype.  An encdec model runs its
+    encoder over ``enc_embeds`` (B, T, D) (:func:`encode`), or takes its
+    output ``enc_out``, and its decoder over the tokens.  With ``state``
+    (from ``decode_state_init``), each attention layer's cache gets the
+    sequence's keys and values where the decode loop would write them,
+    each RG-LRU layer's state its ``h`` and conv inputs after the prompt
+    and each RWKV layer's its ``S``, ``last_t`` and ``last_c``."""
     dtype = cfg.compute_dtype
     x = M.embed(params["embed"], tokens, dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "encdec":
+        if enc_out is None:
+            if enc_embeds is None:
+                raise ValueError("encdec needs encoder-side embeddings "
+                                 "(enc_embeds) or the encoder's output")
+            enc_out = encode(cfg, params, enc_embeds)
+        caches = (_layers(cfg, state, "self") if state is not None
+                  else [None] * cfg.num_layers)
+        for p, cache in zip(_layers(cfg, params, "decoder"), caches):
+            kv = A.cross_kv(p["xattn"], enc_out, cfg)
+            out, _ = _block_apply(cfg, p, x, positions, "dec_attn", cache,
+                                  enc_kv=kv)
+            x = out.to(dtype)
+        return M.rmsnorm(params["final_norm"], x).to(dtype), aux
     kinds = _layer_kinds(cfg)
     caches = _layers(cfg, state) if state is not None else [None] * len(kinds)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     unrolled, x_sum = not _stackable(cfg), None
     for p, kind, cache in zip(_layers(cfg, params), kinds, caches):
         out, a = _block_apply(cfg, p, x, positions, kind, cache, x_sum)
         x, x_sum = out.to(dtype), (out if unrolled else None)
         aux = aux + a
     return M.rmsnorm(params["final_norm"], _norm_in(x, x_sum)).to(dtype), aux
+
+
+def encode(cfg, params: Params, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """An encdec model's encoder: ``enc_embeds`` (B, T, D) in the compute
+    dtype plus the sinusoidal table of positions ``arange(T)``, through
+    the ``"enc_attn"`` stack.  Returns the encoder output (B, T, D), what
+    ``decode_step`` takes as ``enc_out``."""
+    dtype = cfg.compute_dtype
+    e = enc_embeds.to(dtype)
+    b, t = e.shape[:2]
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=e.device).expand(b, t)
+    e = e + M.sinusoidal(positions, cfg.d_model).to(dtype)
+    for p in _layers(cfg, params, "encoder"):
+        out, _ = _block_apply(cfg, p, e, positions, "enc_attn")
+        e = out.to(dtype)
+    return e
 
 
 def logits_from_hidden(cfg, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -270,14 +339,15 @@ def logits_from_hidden(cfg, params: Params, h: torch.Tensor) -> torch.Tensor:
 
 def decode_state_init(cfg, batch: int, max_len: int, device="cuda") -> Dict:
     """Per-layer decode state: for a homogeneous stack, stacked KV caches
-    ``(L, B, max_len, KV, hd)`` (dense, moe) or RWKV states ``{"S": (L, B,
-    H, N, N) f32, "last_t", "last_c": (L, B, D) f32}`` (ssm); else a list
-    of KV caches (rings of ``min(local_window, max_len)`` slots on
-    local-window layers) and RG-LRU states ``{"h", "conv"}``."""
+    ``(L, B, max_len, KV, hd)`` (dense, vlm, moe; encdec's decoder under
+    the key ``"self"``) or RWKV states ``{"S": (L, B, H, N, N) f32,
+    "last_t", "last_c": (L, B, D) f32}`` (ssm); else a list of KV caches
+    (rings of ``min(local_window, max_len)`` slots on local-window layers)
+    and RG-LRU states ``{"h", "conv"}``."""
     kinds = _layer_kinds(cfg)
 
     def one(kind):
-        if kind in ("attn", "moe"):
+        if kind in ("attn", "moe", "dec_attn"):
             return A.cache_init(cfg, batch, max_len, device=device)
         if kind == "rwkv":
             return W.rwkv_state_init(cfg, batch, device=device)
@@ -287,16 +357,19 @@ def decode_state_init(cfg, batch: int, max_len: int, device="cuda") -> Dict:
         return R.rglru_state_init(cfg, batch, cfg.compute_dtype,
                                   device=device)
 
-    if _stackable(cfg):
+    if _stackable(cfg) or cfg.family == "encdec":
         first = one(kinds[0])
-        return {"layers": {k: v.new_zeros((cfg.num_layers, *v.shape))
-                           for k, v in first.items()}}
+        key = "self" if cfg.family == "encdec" else "layers"
+        return {key: {k: v.new_zeros((cfg.num_layers, *v.shape))
+                      for k, v in first.items()}}
     return {"layers": [one(kind) for kind in kinds]}
 
 
-def _block_decode(cfg, p, x, cache, pos: int, kind: str, x_sum=None):
+def _block_decode(cfg, p, x, cache, pos: int, kind: str, x_sum=None,
+                  enc_kv=None):
     """Returns (the f32 sum of the layer's output, cache), the cache
-    updated in place; ``x_sum``: see :func:`_norm_in`."""
+    updated in place; ``x_sum``: see :func:`_norm_in`; ``enc_kv``: a
+    ``"dec_attn"`` layer's cross keys and values."""
     h = M.rmsnorm(p["norm1"], _norm_in(x, x_sum)).to(x.dtype)
     if kind == "rwkv":
         y, st = W.rwkv_time_apply(p["time"], h, cfg, state={
@@ -304,7 +377,7 @@ def _block_decode(cfg, p, x, cache, pos: int, kind: str, x_sum=None):
         cache["S"].copy_(st["S"])
         cache["last_t"].copy_(st["last"])
         return _rwkv_half(cfg, p, x, y, cache, prev=cache["last_c"]), cache
-    if kind in ("attn", "moe"):
+    if kind in ("attn", "moe", "dec_attn"):
         y, cache = A.decode_attn_apply(p["attn"], h, cache, pos, cfg)
     elif kind == "local_attn":
         y, cache = A.decode_attn_apply(p["attn"], h, cache, pos, cfg,
@@ -312,20 +385,32 @@ def _block_decode(cfg, p, x, cache, pos: int, kind: str, x_sum=None):
     elif kind == "rglru":
         y, cache = R.rglru_step(p["rglru"], h, cache, cfg)
     else:
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue 1 "
-                                  "item 16)")
+        raise ValueError(kind)
+    if kind == "dec_attn":
+        x, y = _cross_half(cfg, p, x, y, enc_kv)
     return _mlp_half(cfg, p, x, y, kind)[0], cache
 
 
 def decode_step(cfg, params: Params, state: Dict, tokens: torch.Tensor,
                 pos: int, enc_out=None):
     """One decode step: returns (logits (B, V), state), the state updated
-    in place."""
-    if enc_out is not None:
-        raise NotImplementedError("encoder outputs (encdec; ROADMAP queue 1 "
-                                  "item 16)")
+    in place.  An encdec model needs the encoder output ``enc_out`` (B, T,
+    D) (:func:`encode`); each decoder layer's ``cross_kv`` is recomputed
+    from it, as the reference's step does."""
     dtype = cfg.compute_dtype
     x = M.embed(params["embed"], tokens[:, None], dtype)
+    if cfg.family == "encdec":
+        if enc_out is None:
+            raise ValueError("an encdec decode step needs the encoder's "
+                             "output (enc_out)")
+        for p, cache in zip(_layers(cfg, params, "decoder"),
+                            _layers(cfg, state, "self")):
+            kv = A.cross_kv(p["xattn"], enc_out, cfg)
+            out, _ = _block_decode(cfg, p, x, cache, pos, "dec_attn",
+                                   enc_kv=kv)
+            x = out.to(dtype)
+        h = M.rmsnorm(params["final_norm"], x).to(dtype)
+        return logits_from_hidden(cfg, params, h)[:, 0, :], state
     kinds = _layer_kinds(cfg)
     unrolled, x_sum = not _stackable(cfg), None
     for p, kind, cache in zip(_layers(cfg, params), kinds,

@@ -160,23 +160,21 @@ def test_config_matches_the_reference(arch, smoke):
 
 
 def test_unported_archs_and_options_raise():
-    """What is still owed (ROADMAP queue 1 item 16): the encdec and vlm
-    archs, the encdec family and vlm prefixes."""
-    for arch in ("seamless_m4t_large_v2", "internvl2_2b"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            T_configs.get_config(arch)
+    """What is still owed (ROADMAP queue 1 item 16.3): the train step.
+    Every architecture resolves (the encdec and vlm families included), an
+    unknown one raises, and the port's step functions serve only."""
+    for arch in J_configs.ARCH_IDS:
+        assert T_configs.get_config(arch).family == \
+            J_configs.get_config(arch).family
+    assert set(T_configs.PORTED) == set(J_configs.ARCH_IDS)
     with pytest.raises(KeyError):
         T_configs.get_config("no_such_arch")
+    assert hasattr(J_steps, "make_train_step") and hasattr(J_steps,
+                                                           "lm_loss")
+    assert not hasattr(T_steps, "make_train_step")
+    assert not hasattr(T_steps, "lm_loss")
+    assert T_steps.__all__ == ["make_serve_step", "make_prefill_step"]
     _, ct = _cfgs("dense")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        T_T.init_params(dataclasses.replace(ct, family="encdec"),
-                        torch.Generator(), device=CPU)
-    params = T_T.init_params(ct, torch.Generator().manual_seed(0),
-                             device=CPU)
-    toks = torch.zeros(1, 3, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        T_T.forward(ct, params, toks,
-                    prefix_embeds=torch.zeros(1, 2, ct.d_model))
     # The 8-bit cache and local windows are ported: uint8 slots, a ring.
     from repro_torch.models import attention as T_A
     kv8 = T_A.cache_init(dataclasses.replace(ct, kv_cache_gse=True), 1, 4,
