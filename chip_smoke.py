@@ -31,12 +31,15 @@ expert products beside kernels E and F); phases 30-31 the ssm family
 (rwkv6_1p6b on the wkv6 kernel); phases 32-33 the encdec and vlm
 families (seamless_m4t_large_v2: an encoder and cross-attention on F's
 non-causal mode; internvl2_2b: the dense stack behind 256 patch
-embeddings).  Every CPU
-twin runs in one of two processes of its own (CpuTwins): the small
+embeddings); phases 34-37 the train path (kernel F's backward, the train
+step, AdamW, the token pipeline, remat and the train CLI's resume).
+Every CPU
+twin runs in one of three processes of its own (CpuTwins): the small
 solves (and phase 30's rwkv twin and phase 32's encdec and vlm twins,
 last) on one thread, in the order the phases need them, from before the
-build; the LM twins of phases 12, 26 and 28 from after the build, on the
-cores the rest leave.
+build; phase 35's train twin on two threads from before the build; the
+LM twins of phases 12, 26 and 28 from after the build, on the cores the
+rest leave.
 A phase waits only for a twin that is not done yet.
 
 Phases:
@@ -67,8 +70,10 @@ Phases:
                   The reference's schedule there is [120, 150] in 2791
                   iterations; the tests hold the CPU twin to it.
   4. main path -- launch counts zeroed; the f32 SpMV at tags 1-3 and
-                  stepped CG (tol 1e-8, MonitorParams(40, 60, 30),
-                  maxiter 20000, default guards) on the full-size matrix;
+                  stepped CG (tol MAIN_TOL = 1e-5, MonitorParams(40, 60,
+                  30), maxiter 20000, default guards) on the full-size
+                  matrix (tol 1e-8 before PR 30: the cut that made room
+                  for phases 34-37);
                   every kernel must have launched, and every body of A64
                   that the pack's row plan holds.
   5. service trajectory -- rs8_400_s3 (diag_rescale(random_spd(400, seed=3),
@@ -80,7 +85,7 @@ Phases:
   6. service   -- launch counts zeroed; the f32 SpMM at tags 1-3 on a
                   4-column block, then the full-size matrix registered in
                   SolverService(slots=4, maxiter=20000) and three requests
-                  at tol 1e-8 flushed.  Request 0 (phase 4's b) must equal
+                  at MAIN_TOL flushed.  Request 0 (phase 4's b) must equal
                   phase 4's solo solve bitwise; all converge, health ok,
                   no retries, no errors; every kernel of the path must
                   have launched, and every body of C64 that the row plan
@@ -292,7 +297,8 @@ Phases:
                   buckets' tags printed.
   23. telemetry -- inside obs.trace.capture: launch counts zeroed; phase
                   4's solve with flight=FlightParams(4096) run to
-                  iteration 1920, its state saved (checkpoint.ckpt),
+                  iteration MAIN_RESUME_AT = 960, its state saved
+                  (checkpoint.ckpt),
                   restored onto the card by restore_latest_valid (the
                   tree's CRC32 unchanged) and resumed: x, iters, relres,
                   tag and switch_iters bitwise phase 4's, A64's and the
@@ -483,6 +489,33 @@ Phases:
                   launches by body (F's non-causal ones apart); finite
                   logits; then every seamless layer's cross_kv timed alone
                   against the step (ROADMAP queue 2 O20).
+  34. train kernels -- F's backward (flash_attention_gqa_bwd, csrc/
+                  flash_attn_bwd.cu) against autograd through F's plain
+                  version at TRAIN_FLASH's shapes (qwen3_4b's training
+                  shape B 4, S 2048, H 32, KV 8, hd 128 in bf16 and f32;
+                  causal windows; seamless's encoder and cross shapes;
+                  ragged S and S != T): dq, dk and dv within each case's
+                  tolerance, the kernel's row statistic within 1e-3 of
+                  the plain log-sum-exp, the backward bitwise when run
+                  again, and F's forward with the statistic (grad mode)
+                  bitwise its forward without it.
+  35. train twin -- qwen3_4b at full width cut to 2 layers, f32 (TF32
+                  off), 3 steps of make_train_step + AdamW at B 2, S 64
+                  from lm_tree_np's params and the pipeline's batches,
+                  under deterministic algorithms: loss, grad_norm and
+                  three leaves after each update against the CPU twin
+                  and TRAIN_REF (tools/reference/train_ref.py), within
+                  TRAIN_TOL; F's forward twice a layer a step (remat) and
+                  its backward once.
+  36. train full -- qwen3_4b at full width cut to 8 layers, bf16, remat
+                  "full", B 4, S 2048, 3 steps from launch.train.build:
+                  finite loss and grad_norm, ms per step, peak GB, F's
+                  launches per step; the same with remat off, its loss
+                  and grad_norm bitwise equal.
+  37. train CLI -- python -m repro_torch.launch.train on its smoke config
+                  with checkpoints: uninterrupted, and killed by
+                  --simulate-failure-at (exit 17) then resumed; the final
+                  checkpoints' tree_crc32 equal.
   10. kernels  -- run last: CUDA-event times (minimum over repeats; one
                   call for a function whose first call takes ONE_CALL_MS) of
                   every kernel beside its plain version, its bound (HBM
@@ -550,7 +583,13 @@ Phases:
                   is bound by 12 B S W bytes (no library call).  F without
                   a mask at phase 32's three bf16 shapes is bound by 4 S T
                   hd operations per batch and head at 989 TFLOP/s, beside
-                  SDPA, with phase 33's non-causal launches.
+                  SDPA, with phase 33's non-causal launches.  F's
+                  backward at qwen3_4b's training shape (bf16, causal) is
+                  bound by 10 S T hd / 2 operations per batch and head at
+                  989 TFLOP/s (bf16 tensor cores; its FFMA body's FP32
+                  bound as `fp32_bound_ms`), beside SDPA's backward
+                  (is_causal, enable_gqa; warmed) and autograd through F's
+                  plain version, with phase 36's launches.
 
 The line before the last two is the ``{"kernels": [...]}`` JSON record,
 the line before the last the card's name and power limit, the last line
@@ -1977,13 +2016,30 @@ LM_LINEAR = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
              ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
 
 
+_LM_TREES = {}
+
+
 def lm_tree_np(cfg, seed: int) -> dict:
     """Params of a dense ``cfg`` in the reference's tree layout (stacked
     ``(L, ...)`` layer leaves) as numpy f32, drawn from
     ``default_rng(seed)`` in a fixed order: normal weights scaled by
     1/sqrt(fan-in), as the reference's init scales them, and unit norms.
     ``tools/reference/lm_serve_ref.py`` builds the reference's params from
-    this same function."""
+    this same function.  The last two trees drawn are kept (phases 12
+    and 35 draw the same one, phase 32 another between them; callers copy
+    the arrays, as ``convert`` does)."""
+    key = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.hd, cfg.d_ff, cfg.padded_vocab, cfg.qk_norm, seed)
+    tree = _LM_TREES.get(key)
+    if tree is None:
+        tree = _lm_tree_draw(cfg, seed)
+        while len(_LM_TREES) >= 2:
+            _LM_TREES.pop(next(iter(_LM_TREES)))
+        _LM_TREES[key] = tree
+    return tree
+
+
+def _lm_tree_draw(cfg, seed: int) -> dict:
     import math
 
     import numpy as np
@@ -6051,6 +6107,563 @@ def ev_entries(ctx, counts, add_entry):
         del ql, kl, vl
 
 
+# --- the train path: phases 34-37 ------------------------------------------
+# Phase 35's train twin: qwen3_4b at full width cut to two layers, f32
+# compute (TF32 off), from lm_tree_np's tree (LM_SEED) with zero moments,
+# AdamW(lr, warmup 1, total steps), the pipeline's batches (seed 0).
+TRAIN_TWIN = dict(batch=2, seq=64, steps=3, layers=2, lr=3e-4)
+# The leaves whose first 8 values and max |value| the twin's digest holds
+# after each update.
+TRAIN_LEAVES = (("embed", "table"), ("layers", "attn", "wq"),
+                ("layers", "mlp", "w_down"))
+# The twin's loss and grad_norm against the CPU twin and TRAIN_REF
+# (relative); a leaf's values within TRAIN_TOL relative plus 2 lr per step
+# taken (Adam's step of a gradient near zero may take the other sign).
+TRAIN_TOL = 1e-4
+# Against TRAIN_REF after the first step: the reference clips with its own
+# f32-chain gradient norm (13% low on this twin; the port sums in f64), and
+# Adam's eps makes an update depend on the clip scale where |g| is small,
+# so the params after the first update differ by up to lr in such
+# elements and the next steps' loss and gradient norm by 2e-4 (step 1)
+# and 1.2e-3 (step 2) on the CPU twin.
+TRAIN_REF_LATER_TOL = 5e-3
+# Phase 36: qwen3_4b at full width cut to 8 layers, bf16 compute,
+# remat="full", from launch.train.build (params drawn on the card).
+TRAIN_FULL = dict(layers=8, batch=4, seq=2048, steps=3)
+# Phase 37: the train CLI on its default smoke config, killed after step
+# fail_at and resumed, against an uninterrupted run.
+TRAIN_CLI = dict(steps=6, every=2, fail_at=3)
+# Phase 34: F's backward against autograd through its plain version:
+# (label, b, s, t, h, kv, hd, causal, window, dtype, tol), tol on the
+# largest error over max(1, the largest |gradient|); qwen3_4b's training
+# shape, windows, seamless's encoder and cross shapes, ragged S and T.
+TRAIN_FLASH = (
+    ("qwen3_4b", 4, 2048, 2048, 32, 8, 128, True, 0, "bfloat16", 1e-2),
+    ("qwen3_4b_f32", 4, 2048, 2048, 32, 8, 128, True, 0, "float32", 1e-4),
+    ("window", 2, 1024, 1024, 8, 2, 64, True, 256, "bfloat16", 1e-2),
+    ("window_f32", 2, 1024, 1024, 8, 2, 64, True, 256, "float32", 1e-4),
+    ("encoder", 4, 512, 512, 16, 16, 64, False, 0, "bfloat16", 1e-2),
+    ("encoder_f32", 4, 512, 512, 16, 16, 64, False, 0, "float32", 1e-4),
+    ("cross", 4, 64, 512, 16, 16, 64, False, 0, "bfloat16", 1e-2),
+    ("cross_f32", 4, 64, 512, 16, 16, 64, False, 0, "float32", 1e-4),
+    ("ragged", 3, 777, 777, 12, 4, 96, True, 0, "bfloat16", 1e-2),
+    ("ragged_f32", 3, 777, 777, 12, 4, 80, True, 0, "float32", 1e-4),
+    ("ragged_cross", 2, 300, 451, 8, 2, 48, False, 0, "float32", 1e-4),
+)
+# tools/reference/train_ref.py's output (JAX 0.9.0 on the CPU): per step,
+# train_row's fields, grad_norm the norm of the step's gradients summed in
+# f64 (the port's optim.global_norm sums so); grad_norm_f32_vdot, the
+# reference step's own metric (an f32 vdot per leaf, one sequential sum on
+# XLA's CPU build), is 13% low here and is not compared.
+TRAIN_REF = [{'loss': 12.584062576293945,
+              'grad_norm': 25.977269766723367,
+              'leaves': {'embed/table': {'first': [0.021788282319903374,
+                                                   -0.027714639902114868,
+                                                   -0.00873060803860426,
+                                                   -0.015581810846924782,
+                                                   0.011586403474211693,
+                                                   -0.0011821402003988624,
+                                                   0.0008797553600743413,
+                                                   -0.0009325561113655567],
+                                         'maxabs': 0.12321735918521881},
+                         'layers/attn/wq': {'first': [-0.03639296069741249,
+                                                      -0.0008929799660108984,
+                                                      0.023095302283763885,
+                                                      0.003453486133366823,
+                                                      -0.018454089760780334,
+                                                      0.04406781122088432,
+                                                      0.010413548909127712,
+                                                      -0.0015601518098264933],
+                                            'maxabs': 0.10481730103492737},
+                         'layers/mlp/w_down': {'first': [-0.012628881260752678,
+                                                         0.00245414930395782,
+                                                         0.015178355388343334,
+                                                         0.009006066247820854,
+                                                         -0.005190737079828978,
+                                                         0.003987685311585665,
+                                                         0.005799031350761652,
+                                                         -0.0046863798052072525],
+                                               'maxabs': 0.05848146602511406}},
+              'grad_norm_f32_vdot': 22.483089447021484},
+             {'loss': 11.470359802246094,
+              'grad_norm': 29.87504452186174,
+              'leaves': {'embed/table': {'first': [0.021669302135705948,
+                                                   -0.027883417904376984,
+                                                   -0.00901740975677967,
+                                                   -0.015316675417125225,
+                                                   0.011613041162490845,
+                                                   -0.0008844928815960884,
+                                                   0.0005947158788330853,
+                                                   -0.001204724540002644],
+                                         'maxabs': 0.12321366369724274},
+                         'layers/attn/wq': {'first': [-0.03668442368507385,
+                                                      -0.0011372406734153628,
+                                                      0.023390524089336395,
+                                                      0.0032868417911231518,
+                                                      -0.0187256820499897,
+                                                      0.04382216930389404,
+                                                      0.010681499727070332,
+                                                      -0.0018395355436950922],
+                                            'maxabs': 0.10480248183012009},
+                         'layers/mlp/w_down': {'first': [-0.01236327551305294,
+                                                         0.002172270091250539,
+                                                         0.015303075313568115,
+                                                         0.008897732943296432,
+                                                         -0.005314853508025408,
+                                                         0.004259868990629911,
+                                                         0.005723133683204651,
+                                                         -0.004984348546713591],
+                                               'maxabs': 0.05867669731378555}},
+              'grad_norm_f32_vdot': 26.046724319458008},
+             {'loss': 12.984763145446777,
+              'grad_norm': 23.414666401056277,
+              'leaves': {'embed/table': {'first': [0.02158096805214882,
+                                                   -0.027951570227742195,
+                                                   -0.009177926927804947,
+                                                   -0.015163952484726906,
+                                                   0.011685055680572987,
+                                                   -0.0007906302926130593,
+                                                   0.00045603016042150557,
+                                                   -0.0013603788102045655],
+                                         'maxabs': 0.12321162968873978},
+                         'layers/attn/wq': {'first': [-0.036841630935668945,
+                                                      -0.0011993624502792954,
+                                                      0.023443827405571938,
+                                                      0.0032461932860314846,
+                                                      -0.018858088180422783,
+                                                      0.04370449110865593,
+                                                      0.010794788599014282,
+                                                      -0.0017473769839853048],
+                                            'maxabs': 0.10487665981054306},
+                         'layers/mlp/w_down': {'first': [-0.012297194451093674,
+                                                         0.0020260612946003675,
+                                                         0.015334269031882286,
+                                                         0.00897334236651659,
+                                                         -0.005368628539144993,
+                                                         0.0042647989466786385,
+                                                         0.00563095835968852,
+                                                         -0.005142253823578358],
+                                               'maxabs': 0.05874556303024292}},
+              'grad_norm_f32_vdot': 20.78228759765625}]
+
+
+def train_twin_config():
+    """Phase 35's config: qwen3_4b at full width, TRAIN_TWIN's layers,
+    f32 compute (its remat="full" kept)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("qwen3_4b"),
+                               num_layers=TRAIN_TWIN["layers"],
+                               compute_dtype=torch.float32)
+
+
+def train_row(loss, gnorm, params, to_np) -> dict:
+    """One step of the train digest: the loss, the grad_norm and the first
+    8 values and the largest |value| of each of TRAIN_LEAVES of
+    ``params`` (jax or torch arrays, brought to numpy by ``to_np``)."""
+    row = {"loss": float(to_np(loss)), "grad_norm": float(to_np(gnorm)),
+           "leaves": {}}
+    for path in TRAIN_LEAVES:
+        leaf = params
+        for k in path:
+            leaf = leaf[k]
+        row["leaves"]["/".join(path)] = {
+            "first": [float(v) for v in to_np(leaf.reshape(-1)[:8])],
+            "maxabs": float(to_np(abs(leaf).max()))}
+    return row
+
+
+def train_twin_run(device):
+    """Phase 35's three steps on ``device``: (the digest rows, F's forward
+    and backward launches)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attn as F
+    from repro_torch.models import stepfns
+    from repro_torch.optim import AdamW
+
+    tw = TRAIN_TWIN
+    cfg = train_twin_config()
+    params = convert.params_from_repro(lm_tree_np(cfg, LM_SEED),
+                                       device=device)
+    opt = AdamW(lr=tw["lr"], warmup_steps=1, total_steps=tw["steps"])
+    state = stepfns.TrainState(params, opt.init(params), torch.zeros(
+        (), dtype=torch.int32, device=device))
+    del params
+    step = stepfns.make_train_step(cfg, opt)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=tw["seq"],
+                                    global_batch=tw["batch"], seed=0),
+                         device=device)
+    to_np = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    F.reset_launch_counts()
+    rows = []
+    for i in range(tw["steps"]):
+        state, m = step(state, pipe.batch_at(i))
+        rows.append(train_row(m["loss"], m["grad_norm"], state.params,
+                              to_np))
+    counts = {"f_fwd": F.flash_attention_gqa.launches,
+              "f_fwd_lse": dict(F.flash_attention_gqa.lse_launches),
+              "f_bwd": F.flash_attention_gqa_bwd.launches}
+    return rows, counts
+
+
+class deterministic_algorithms:
+    """``torch.use_deterministic_algorithms(True)`` for the train phases,
+    off again after (the solver phases use ops without a deterministic
+    CUDA implementation)."""
+
+    def __enter__(self):
+        from repro_torch.launch.train import deterministic
+
+        deterministic("cuda")
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.use_deterministic_algorithms(False)
+
+
+def bwd_error(got, want) -> float:
+    """The largest |got - want| over max(1, the largest |want|)."""
+    w = want.float()
+    return float((got.float() - w).abs().max()) / max(1.0,
+                                                      float(w.abs().max()))
+
+
+def phase_train_kernels():
+    """Phase 34: F's backward (``flash_attention_gqa_bwd``) against
+    autograd through F's plain version at TRAIN_FLASH's shapes: dq, dk and
+    dv within each case's tolerance, the kernel's row statistic within
+    1e-3 of the plain log-sum-exp, and F's forward with the statistic
+    (grad mode) bitwise F's forward without it (the serve paths' launch).
+    Returns the qwen3_4b case's inputs and errors for phase 10."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(34)
+    ctx = {"err": {}}
+    for (label, b, s, t, h, kv, hd, causal, window, dt,
+         tol) in TRAIN_FLASH:
+        dt = getattr(torch, dt)
+        q, k, v, dout = (
+            torch.randn(shape, generator=gen, device=dev).to(dt)
+            for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd),
+                          (b, s, h, hd)))
+        with torch.no_grad():
+            out_serve = F.flash_attention_gqa(q, k, v, causal=causal,
+                                              window=window)
+        qa, ka, va = (x.detach().requires_grad_(True) for x in (q, k, v))
+        F.reset_launch_counts()
+        out = F.flash_attention_gqa(qa, ka, va, causal=causal, window=window)
+        lse = out.grad_fn.saved_tensors[4]
+        if F.flash_attention_gqa.lse_launches[F.flash_body(dt, hd)] != 1:
+            raise AssertionError(f"phase 34 {label}: the grad-mode forward "
+                                 "did not write the row statistic")
+        require_bitwise(f"phase 34 {label}: F's forward with the row "
+                        "statistic against F's forward without it",
+                        out.detach(), out_serve)
+        got = torch.autograd.grad(out, (qa, ka, va), dout)
+        if F.flash_attention_gqa_bwd.launches != 1:
+            raise AssertionError(f"phase 34 {label}: the backward kernel "
+                                 "did not launch")
+        del out, qa, ka, va
+        want = F.flash_attention_gqa_bwd_plain(q, k, v, dout, causal=causal,
+                                               window=window)
+        errs = [bwd_error(g_, w_) for g_, w_ in zip(got, want)]
+        lse_err = float((lse - F.flash_lse_plain(
+            q, k, causal=causal, window=window)).abs().max())
+        if max(errs) > tol or lse_err > 1e-3:
+            raise AssertionError(f"phase 34 {label}: dq/dk/dv errors "
+                                 f"{errs} (tol {tol}), lse {lse_err}")
+        again = F.flash_attention_gqa_bwd(q, k, v, out_serve, lse, dout,
+                                          causal=causal, window=window)
+        for g_, a_ in zip(got, again):
+            require_bitwise(f"phase 34 {label}: the backward run twice", a_,
+                            g_)
+        ctx["err"][label] = max(float((g_.float() - w_.float()).abs().max())
+                                for g_, w_ in zip(got, want))
+        if label == "qwen3_4b":
+            ctx["qwen3_4b"] = (q, k, v, out_serve, lse, dout)
+        log("train_kernels", kernel="flash_attention_gqa_bwd", case=label,
+            b=b, heads=h, kv_heads=kv, s=s, t=t, hd=hd, causal=causal,
+            window=window, dtype=str(dt), forward_body=F.flash_body(dt, hd),
+            dq_dk_dv_err=json.dumps([round(e, 9) for e in errs]),
+            tol=f"{tol} of max(1, max |grad|)", lse_max_abs_err=lse_err,
+            forward_lse_bitwise_no_lse=True, backward_bitwise_rerun=True)
+        del got, want, again, lse
+    return ctx
+
+
+def check_train_rows(what, got, want, lr, later_tol=TRAIN_TOL):
+    """``got`` against ``want`` (train_row digests): loss and grad_norm
+    within TRAIN_TOL relative at the first step and ``later_tol`` after
+    it; each leaf value within TRAIN_TOL relative plus 2 lr per step
+    taken.  Returns the largest errors."""
+    worst = {"loss": 0.0, "grad_norm": 0.0, "leaves": 0.0}
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in ("loss", "grad_norm"):
+            rel = abs(g[key] - w[key]) / abs(w[key])
+            worst[key] = max(worst[key], rel)
+            if rel > (TRAIN_TOL if i == 0 else later_tol):
+                raise AssertionError(f"{what} step {i}: {key} {g[key]} vs "
+                                     f"{w[key]} (rel {rel:.3e})")
+        atol = 2 * lr * (i + 1)
+        for name, gl in g["leaves"].items():
+            wl = w["leaves"][name]
+            for a, b in zip(gl["first"] + [gl["maxabs"]],
+                            wl["first"] + [wl["maxabs"]]):
+                err = abs(a - b)
+                worst["leaves"] = max(worst["leaves"], err)
+                if err > atol + TRAIN_TOL * abs(b):
+                    raise AssertionError(f"{what} step {i}: {name} {a} vs "
+                                         f"{b} (atol {atol})")
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} steps vs {len(want)}")
+    return worst
+
+
+def phase_train_twin(twins=None):
+    """Phase 35: the train twin on the card against its CPU twin and the
+    reference's TRAIN_REF (TRAIN_TOL; TF32 off), F's forward (with the row
+    statistic, twice a layer under remat) and backward launched every
+    layer of every step.  Returns the launches."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        rows, counts = train_twin_run("cuda")
+    gpu_s = time.perf_counter() - t0
+    cpu = twin_of(twins, "train")
+    tw = TRAIN_TWIN
+    worst_cpu = check_train_rows("train_twin (CPU twin)", rows, cpu,
+                                 tw["lr"])
+    worst_ref = check_train_rows("train_twin (TRAIN_REF)", rows, TRAIN_REF,
+                                 tw["lr"], TRAIN_REF_LATER_TOL)
+    n = tw["layers"] * tw["steps"]
+    if counts["f_bwd"] != n or counts["f_fwd"] != 2 * n:
+        raise AssertionError(f"train_twin: F launched {counts}, expected "
+                             f"{2 * n} forwards and {n} backwards")
+    log("train_twin", layers=tw["layers"], d_model=2560, vocab=151936,
+        batch=tw["batch"], seq=tw["seq"], steps=tw["steps"],
+        dtype="float32", gpu_s=f"{gpu_s:.2f}",
+        loss=[r["loss"] for r in rows],
+        grad_norm=[r["grad_norm"] for r in rows],
+        worst_vs_cpu=json.dumps(worst_cpu), worst_vs_ref=json.dumps(worst_ref),
+        tol=(f"rel {TRAIN_TOL} (TRAIN_REF after step 0: "
+             f"{TRAIN_REF_LATER_TOL}), leaves + 2 lr per step"),
+        launches=json.dumps(counts))
+    return counts
+
+
+def train_full_config(remat: str = "full"):
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("qwen3_4b"),
+                               num_layers=TRAIN_FULL["layers"], remat=remat)
+
+
+def train_full_run(remat: str, batches):
+    """Phase 36's steps at ``remat``: per step (loss, grad_norm, ms), F's
+    forward and backward launches, the peak GB."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+    from repro_torch.launch import train as TR
+
+    cfg = train_full_config(remat)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step = TR.build(cfg, TRAIN_FULL["steps"], device="cuda")
+    F.reset_launch_counts()
+    out = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out.append((m["loss"].item(), m["grad_norm"].item(),
+                    (time.perf_counter() - t0) * 1e3))
+    counts = {"f_fwd": F.flash_attention_gqa.launches,
+              "f_bwd": F.flash_attention_gqa_bwd.launches,
+              "f_fwd_mma": F.flash_attention_gqa.body_launches["mma"]}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, step
+    torch.cuda.empty_cache()
+    return out, counts, peak
+
+
+def phase_train_full():
+    """Phase 36: qwen3_4b at full width, TRAIN_FULL's layers, bf16 compute,
+    remat="full", three steps from launch.train.build on the pipeline's
+    batches (V 151936, B 4, S 2048): finite loss and grad_norm, F's forward
+    twice a layer a step (the forward and its remat, on the tensor-core
+    body) and its backward once; then the same with remat off, whose loss
+    and grad_norm must be bitwise equal.  Returns the launches for phase
+    10."""
+    import math
+
+    import torch
+
+    from repro_torch.data import DataConfig, TokenPipeline
+
+    fu = TRAIN_FULL
+    cfg = train_full_config()
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=fu["seq"],
+                                        global_batch=fu["batch"], seed=0))
+        batches = [pipe.batch_at(i) for i in range(fu["steps"])]
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        remat, counts, peak = train_full_run("full", batches)
+        plain, counts_off, peak_off = train_full_run("none", batches)
+    del batches
+    n = fu["layers"] * fu["steps"]
+    for (l1, g1, _), (l2, g2, _) in zip(remat, plain):
+        if not (math.isfinite(l1) and math.isfinite(g1)):
+            raise AssertionError(f"train_full: loss {l1} grad_norm {g1}")
+        if (l1, g1) != (l2, g2):
+            raise AssertionError(f"train_full: remat {l1!r} {g1!r} != no "
+                                 f"remat {l2!r} {g2!r}")
+    if (counts["f_fwd"], counts["f_bwd"], counts["f_fwd_mma"]) != (
+            2 * n, n, 2 * n) or (counts_off["f_fwd"],
+                                 counts_off["f_bwd"]) != (n, n):
+        raise AssertionError(f"train_full: F launched {counts} (remat) and "
+                             f"{counts_off} (none)")
+    log("train_full", arch="qwen3_4b", layers=fu["layers"], d_model=2560,
+        heads=32, kv_heads=8, hd=128, d_ff=9728, vocab=151936,
+        batch=fu["batch"], seq=fu["seq"], steps=fu["steps"],
+        dtype="bfloat16", remat="full", batches_s=f"{batch_s:.2f}",
+        loss=[r[0] for r in remat], grad_norm=[r[1] for r in remat],
+        ms_per_step=[round(r[2], 3) for r in remat],
+        ms_per_step_no_remat=[round(r[2], 3) for r in plain],
+        peak_gb=f"{peak:.2f}", peak_gb_no_remat=f"{peak_off:.2f}",
+        f_fwd_per_step=counts["f_fwd"] // fu["steps"],
+        f_bwd_per_step=counts["f_bwd"] // fu["steps"],
+        remat_bitwise_no_remat=True)
+    return dict(counts, steps=fu["steps"],
+                ms_per_step=[r[2] for r in remat])
+
+
+def phase_train_cli():
+    """Phase 37: ``repro_torch.launch.train`` (its default smoke config)
+    for TRAIN_CLI's steps with checkpoints: uninterrupted (its ``main``
+    here), and in a process of its own killed by
+    ``--simulate-failure-at`` (exit 17), then resumed here: the final
+    checkpoints' ``tree_crc32`` equal.  ``main`` turns on deterministic
+    algorithms; they are turned off again after."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train as TR
+
+    tc = TRAIN_CLI
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        def argv(where):
+            return ["--smoke", "--steps", str(tc["steps"]), "--ckpt-dir",
+                    str(Path(tmp, where)), "--ckpt-every", str(tc["every"])]
+
+        def here(where):
+            out = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(out):
+                    TR.main(argv(where))
+            finally:
+                torch.use_deterministic_algorithms(False)
+            return out.getvalue()
+
+        here("whole")
+        killed = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *argv("resumed"), "--simulate-failure-at", str(tc["fail_at"])],
+            cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=300)
+        if killed.returncode != 17:
+            raise AssertionError(f"train_cli: the killed run exited "
+                                 f"{killed.returncode}, not 17:\n"
+                                 f"{killed.stdout}\n{killed.stderr}")
+        resumed = here("resumed")
+        if "resumed from step" not in resumed:
+            raise AssertionError(f"train_cli: no resume:\n{resumed}")
+        crcs = {}
+        for where in ("whole", "resumed"):
+            meta = Path(tmp, where, f"step_{tc['steps']:08d}", "meta.json")
+            crcs[where] = json.loads(meta.read_text())["tree_crc32"]
+        if crcs["whole"] != crcs["resumed"]:
+            raise AssertionError(f"train_cli: tree_crc32 {crcs}")
+        steps = {w: ckpt.list_steps(str(Path(tmp, w)))
+                 for w in ("whole", "resumed")}
+        resumed_from = resumed.split("resumed from step")[1].split()[0]
+    log("train_cli", arch="granite_3_2b (smoke)", steps=tc["steps"],
+        ckpt_every=tc["every"], failure_after_step=tc["fail_at"],
+        killed_exit=17, resumed_from=int(resumed_from),
+        checkpoints=json.dumps(steps), tree_crc32=crcs["whole"],
+        tree_crc32_equal=True, device=torch.cuda.get_device_name(0),
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def train_entries(ctx, counts, add_entry):
+    """Phase 10's row for F's backward at qwen3_4b's training shape (bf16,
+    causal), bound by 10 S T hd operations per (batch, head), halved when
+    causal, at the bf16 tensor cores' rate (the inputs' type; the FP32
+    rate of its FFMA body beside, as ``fp32_bound_ms``), beside SDPA's
+    backward (``is_causal=True, enable_gqa=True``, heads-first copies,
+    warmed) and autograd through F's plain version; launches from phase
+    36's remat run."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as F
+
+    q, k, v, out, lse, dout = ctx["qwen3_4b"]
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    ql, kl, vl = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    ol = torch.nn.functional.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=True, enable_gqa=True)
+    dl = dout.transpose(1, 2).contiguous()
+    flops = 10 * b * h * s * s * hd // 2
+    es = q.element_size()
+    nbytes = (3 * q.numel() + 2 * k.numel()) * es + 4 * b * h * s \
+        + (q.numel() + 2 * k.numel()) * es
+    add_entry("flash_attention_gqa_bwd.bfloat16.causal.qwen3_4b",
+              "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+              "src/repro/kernels/flash_attn.py:76",
+              lambda: F.flash_attention_gqa_bwd(q, k, v, out, lse, dout),
+              lambda: F.flash_attention_gqa_bwd_plain(q, k, v, dout),
+              lambda: torch.autograd.grad(ol, (ql, kl, vl), dl,
+                                          retain_graph=True),
+              nbytes, flops / BF16_TC_OPS_PER_S * 1e3, plain_reps=1,
+              reps=3, inner=2, shape=[b, s, s, h, kv, hd], causal=True,
+              body="ffma", fp32_bound_ms=flops / FP32_OPS_PER_S * 1e3,
+              launches=counts["f_bwd"],
+              launches_from=(f"phase 36 (qwen3_4b, {TRAIN_FULL['layers']} "
+                             f"layers, {counts['steps']} steps, remat)"),
+              launches_per_step=counts["f_bwd"] // counts["steps"],
+              f_fwd_launches_per_step=counts["f_fwd"] // counts["steps"],
+              max_abs_err=ctx["err"]["qwen3_4b"])
+    del ql, kl, vl, ol
+
+
 # The example's stepped GMRES case (examples/solve_stepped_gmres.py) and its
 # right-Jacobi twin: the reference's (iters, switch_iters, tag) on the CPU,
 # which tests/test_torch_gmres.py holds the port's CPU twin to.
@@ -7415,6 +8028,13 @@ FAULT_MODES = ("indefinite", "nan")
 # The main path's monitor (main's ``params``), which phase 23's CPU twins
 # rebuild in their own process.
 MAIN_PARAMS = dict(t=40, l=60, m=30)
+# The tolerance of phase 4's solve at 2^20 unknowns and of the phases held
+# bitwise to it (6's service, 23's checkpointed solve, 24's join): 1e-8
+# until PR 29, cut to 1e-5 to make room for the train phases 34-37 (the
+# host-bound iterations run at ~12.3 ms each); every check stays.
+MAIN_TOL = 1e-5
+# Phase 23 checkpoints phase 4's solve at this iteration (1920 at 1e-8).
+MAIN_RESUME_AT = 960
 # The spans phase 23's trace must hold.
 TELEMETRY_SPANS = ("solve.cg", "solve.gmres", "solve.cg_batched",
                    "solve.pcg_batched", "solve.ir", "pack.build")
@@ -7435,7 +8055,7 @@ def require_same_ring(what, got, want):
 
 def telemetry_resume(g, b, params, res4, wall4, counts4, tmp):
     """Phase 23, part 1: phase 4's solve with the flight recorder, through
-    a checkpoint at iteration 1920, bitwise phase 4's result."""
+    a checkpoint at iteration MAIN_RESUME_AT, bitwise phase 4's result."""
     import torch
 
     from repro_torch.checkpoint import ckpt
@@ -7447,22 +8067,22 @@ def telemetry_resume(g, b, params, res4, wall4, counts4, tmp):
 
     dev = b.device
     args = (g, b, torch.zeros_like(b),
-            torch.tensor(1e-8, dtype=torch.float64, device=dev), 20000,
+            torch.tensor(MAIN_TOL, dtype=torch.float64, device=dev), 20000,
             params)
     kw = dict(guards=DEFAULT_GUARDS, flight=OF.FlightParams(capacity=4096))
     torch.cuda.synchronize()
     K.reset_launch_counts()
     V.reset_launch_counts()
     t0 = time.perf_counter()
-    r1, _, state = T_cg._solve_cg_fused(*args, stop_at=1920,
+    r1, _, state = T_cg._solve_cg_fused(*args, stop_at=MAIN_RESUME_AT,
                                         return_state=True, **kw)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    if int(r1.iters) != 1920:
+    if int(r1.iters) != MAIN_RESUME_AT:
         raise AssertionError(f"phase 23: the first chunk ran {int(r1.iters)}")
     crc = ckpt.tree_crc32(state)
     t0 = time.perf_counter()
-    ckpt.save(tmp, state, 1920, extra={"phase": 23})
+    ckpt.save(tmp, state, MAIN_RESUME_AT, extra={"phase": 23})
     save_s = time.perf_counter() - t0
     # ``like`` gives only the tree's structure, dtypes and device; the
     # values come from the disk.
@@ -7474,7 +8094,7 @@ def telemetry_resume(g, b, params, res4, wall4, counts4, tmp):
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     del like
-    if (step, extra, skipped) != (1920, {"phase": 23}, []):
+    if (step, extra, skipped) != (MAIN_RESUME_AT, {"phase": 23}, []):
         raise AssertionError(f"phase 23: restored {step} {extra} {skipped}")
     if ckpt.tree_crc32(tree) != crc:
         raise AssertionError("phase 23: the restored tree's CRC32 differs")
@@ -7512,7 +8132,7 @@ def telemetry_resume(g, b, params, res4, wall4, counts4, tmp):
     blob.write_bytes(bytes(raw))
     _, step2, _, skipped2 = ckpt.restore_latest_valid(tmp, like=tree,
                                                       device=dev)
-    if (step2, skipped2) != (1920, [int(res.iters)]):
+    if (step2, skipped2) != (MAIN_RESUME_AT, [int(res.iters)]):
         raise AssertionError(f"phase 23: the corrupt step was not skipped: "
                              f"{step2} {skipped2}")
     iters = int(res.iters)
@@ -8041,11 +8661,11 @@ def phase_serve_full(csr, b, b1, params, res4, wall4, req1, x1, ms6):
     SC.BatchedChunks.run_chunk = timed
     try:
         t0 = time.perf_counter()
-        r0 = svc.submit("full", b, tol=1e-8)
+        r0 = svc.submit("full", b, tol=MAIN_TOL)
         for _ in range(SERVE_FULL_PUMPS):
             svc.pump()
         width = [grp.chunks.nrhs for grp in svc._groups.values()]
-        r1 = svc.submit("full", b1, tol=1e-8)
+        r1 = svc.submit("full", b1, tol=MAIN_TOL)
         pumps = SERVE_FULL_PUMPS
         while svc._pending or svc._groups:
             svc.pump()
@@ -8580,13 +9200,18 @@ def phase_perf(g, ell, row_len, x32, x32n, params, sell_ctx, untuned):
 
 
 # --- the CPU twins -----------------------------------------------------------
-# The twins run in two processes of their own: the small solves on one
-# core, in the order the phases need them, from before the build, and
-# phase 12's LM and phase 26's hybrid from after it.  A phase waits only if its twin is not
-# done yet.
+# The twins run in three processes of their own: the small solves on one
+# core, in the order the phases need them, from before the build; phase
+# 35's train twin on two cores from before the build; and phase 12's LM,
+# phase 26's hybrid and phase 28's moe from after it.  A phase waits only
+# if its twin is not done yet.
 SMALL_TWINS = ("trajectory", "service", "sell", "gmres", "pcg", "ir",
                "telemetry", "serve_async", "rwkv", "encdec", "vlm")
 LM_TWINS = ("lm", "hybrid", "moe")
+# Phase 35's twin: three f32 train steps of a 1.59 B-weight model on the
+# host (AdamW's passes over four copies of the weights dominate), in a
+# process of its own on two threads from the start.
+TRAIN_TWINS = ("train",)
 
 
 def twin_trajectory(where, params):
@@ -8656,6 +9281,8 @@ def cpu_twin(name: str):
         return ev_twin_cpu("seamless_m4t_large_v2")
     if name == "vlm":
         return ev_twin_cpu("internvl2_2b")
+    if name == "train":
+        return train_twin_run("cpu")[0]
     raise KeyError(name)
 
 
@@ -8754,6 +9381,9 @@ def main() -> int:
                     help="an earlier checkout whose A32 and C32 phase 10 "
                          "times beside this tree's (earlier_ms)")
     opts = ap.parse_args()
+    # Phases 35-37 train under torch.use_deterministic_algorithms, which
+    # needs cuBLAS's fixed workspace, set before the first handle.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     # A crash in native code prints the Python stack of every thread.
     faulthandler.enable()
     if not torch.cuda.is_available():
@@ -8766,6 +9396,7 @@ def main() -> int:
         twins = CpuTwins(Path(tmp))
         try:
             twins.start(SMALL_TWINS, 1)
+            twins.start(TRAIN_TWINS, 2)
             return run(opts, twins)
         finally:
             twins.stop()
@@ -8981,7 +9612,7 @@ def run(opts, twins) -> int:
         if y.shape != (N_FULL,) or not bool(torch.isfinite(y).all()):
             raise AssertionError(f"gse_spmv_ell tag {t}: bad output")
     t0 = time.perf_counter()
-    res = solve_cg(g, b, tol=1e-8, maxiter=20000, params=params)
+    res = solve_cg(g, b, tol=MAIN_TOL, maxiter=20000, params=params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     a64_launches = K.gse_spmv_csr_f64.launches
@@ -9065,7 +9696,7 @@ def run(opts, twins) -> int:
     svc.register("full", csr, k=8)
     torch.cuda.synchronize()
     register_s = time.perf_counter() - t0
-    ids = [svc.submit("full", bj, tol=1e-8) for bj in bs_full]
+    ids = [svc.submit("full", bj, tol=MAIN_TOL) for bj in bs_full]
     t0 = time.perf_counter()
     reports = svc.flush()
     torch.cuda.synchronize()
@@ -9222,9 +9853,23 @@ def run(opts, twins) -> int:
     t3 = time.perf_counter()
     cli_counts = serve_cli_archs(("qwen3_moe_235b_a22b", "grok1_314b",
                                   "rwkv6_1p6b", "internvl2_2b"))
+    # 34-37. the train path -------------------------------------------------
+    t4 = time.perf_counter()
+    train_ctx = phase_train_kernels()
+    t5 = time.perf_counter()
+    train_twin_counts = phase_train_twin(twins)
+    t6 = time.perf_counter()
+    train_counts = phase_train_full()
+    t7 = time.perf_counter()
+    phase_train_cli()
+    log("train_phases", train_kernels_s=f"{t5 - t4:.1f}",
+        train_twin_s=f"{t6 - t5:.1f}", train_full_s=f"{t7 - t6:.1f}",
+        train_cli_s=f"{time.perf_counter() - t7:.1f}",
+        twin_launches=json.dumps(train_twin_counts),
+        run_s=f"{time.perf_counter() - t_start:.1f}")
     log("moe_rwkv_phases", moe_twin_s=f"{t1 - t0:.1f}",
         rwkv_twin_s=f"{t2 - t1:.1f}", ev_twin_s=f"{t3 - t2:.1f}",
-        serve_cli_s=f"{time.perf_counter() - t3:.1f}",
+        serve_cli_s=f"{t4 - t3:.1f}",
         twin_launches=json.dumps({"moe": moe_twin_counts,
                                   "rwkv": rwkv_twin_counts,
                                   "ev": ev_twin_counts}),
@@ -9410,6 +10055,7 @@ def run(opts, twins) -> int:
     hybrid_entries(hybrid_ctx, hybrid_counts, hybrid_twin_counts, add_entry)
     moe_rwkv_entries(moe_ctx, moe_counts, rwkv_ctx, rwkv_counts, add_entry)
     ev_entries(ev_ctx, ev_counts, add_entry)
+    train_entries(train_ctx, train_counts, add_entry)
     log("kernels", seconds=f"{time.perf_counter() - t_kernels:.1f}",
         total_s=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -46,6 +46,7 @@ __all__ = [
     "pack32_jnp",
     "pack32",
     "decode32_jnp",
+    "gse_fake_quant",
 ]
 
 _F64_BIAS = 1023
@@ -461,3 +462,30 @@ def decode32_jnp(table, head, tail1, k: int, tag: int = 1,
     zeros = torch.zeros(head.shape, dtype=torch.uint32, device=head.device)
     return _decode_jnp(table, head, tail1, zeros, _ei_bit(k), _F32_FRAC, tag,
                        dtype)
+
+
+# ---------------------------------------------------------------------------
+# Fake-quant (straight-through) for stepped-precision training
+# ---------------------------------------------------------------------------
+
+class _FakeQuant(torch.autograd.Function):
+    """decode32(pack32(x)) forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, k, tag):
+        table = extract_shared_exponents_jnp(x, k)
+        head, tail1 = pack32_jnp(x, table, k)
+        return decode32_jnp(table, head, tail1, k, tag,
+                            torch.float32).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def gse_fake_quant(x: torch.Tensor, k: int = 8, tag: int = 1) -> torch.Tensor:
+    """``decode(pack(x))`` with an identity gradient (the straight-through
+    estimator): the reference's ``gse_fake_quant``, the forward bitwise
+    its ``decode32_jnp(pack32_jnp(x))`` at ``tag`` (1 or 2), on x's
+    device."""
+    return _FakeQuant.apply(x, k, tag)

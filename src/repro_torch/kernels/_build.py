@@ -27,8 +27,8 @@ __all__ = ["NVCC_FLAGS", "BUILD_DIR", "SOURCES", "VARIANTS", "build_all",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gse_spmv", "gse_spmm", "gse_sell", "vec_f64", "gmres_f64",
-           "gse_dense", "flash_attn", "flash_attn_window", "lru_scan",
-           "wkv6")
+           "gse_dense", "flash_attn", "flash_attn_window", "flash_attn_bwd",
+           "lru_scan", "wkv6")
 # Libraries built from another library's source with extra flags: kernel
 # F's windowed build (its window checks compiled in; the plain build keeps
 # them out, so a window of 0 runs the code of before at its speed).

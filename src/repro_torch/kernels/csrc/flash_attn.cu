@@ -75,6 +75,13 @@
 // not written); skipping a tile above the diagonal, or below a window,
 // changes nothing, since its probabilities are exact zeros.  hd <= 256.
 //
+// Given a non-null `lse` (f32, (B, H, S)), both bodies also write each
+// query row's log-sum-exp m + log(max(l, 1e-30)) in natural-log units at
+// their epilogue: the row statistic the backward (csrc/flash_attn_bwd.cu)
+// recomputes P = exp(s - lse) from.  With lse null nothing else changes:
+// the same output bits (training and the serve paths launch the same
+// loops; only the epilogue's store is added).
+//
 // The entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
@@ -206,7 +213,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
     const bf16* __restrict__ v, bf16* __restrict__ o, int s_len, int t_len,
     int heads, int kv_heads, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-    int64_t v_sh, int causal, int window, float scale) {
+    int64_t v_sh, int causal, int window, float scale,
+    float* __restrict__ lse) {
   constexpr int kLd = HD + 8;  // padded rows: ldmatrix without conflicts
   constexpr int kDk = HD / 16;
   constexpr int kDt = HD / 8;
@@ -380,6 +388,15 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     den[r] = fmaxf(l_r[r], 1e-30f);
   }
+  if (lse != nullptr && tg == 0) {  // the backward's row statistic
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = wq0 + g + r * 8;
+      if (qi < s_len) {
+        lse[((int64_t)b * heads + h) * s_len + qi] = m_r[r] + logf(den[r]);
+      }
+    }
+  }
   bf16* os = qs + warp * 16 * kLd;
 #pragma unroll
   for (int d = 0; d < kDt; ++d) {
@@ -421,7 +438,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
     const bf16* __restrict__ v, bf16* __restrict__ o, int s_len, int t_len,
     int heads, int kv_heads, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-    int64_t v_sh, int causal, float scale) {
+    int64_t v_sh, int causal, float scale, float* __restrict__ lse) {
   constexpr int kLd = HD + 8;  // padded rows: ldmatrix without conflicts
   constexpr int kDk = HD / 16;
   constexpr int kDt = HD / 8;
@@ -567,6 +584,15 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     den[r] = fmaxf(l_r[r], 1e-30f);
   }
+  if (lse != nullptr && tg == 0) {  // the backward's row statistic
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = wq0 + g + r * 8;
+      if (qi < s_len) {
+        lse[((int64_t)b * heads + h) * s_len + qi] = m_r[r] + logf(den[r]);
+      }
+    }
+  }
   bf16* os = qs + warp * 16 * kLd;
 #pragma unroll
   for (int d = 0; d < kDt; ++d) {
@@ -695,7 +721,7 @@ __global__ void __launch_bounds__(FTile<HDP>::kThreads, 1) flash_fwd_kernel(
     T* __restrict__ o, int s_len, int t_len, int heads, int kv_heads, int hd,
     int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
     int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int causal,
-    int window, float scale, int async) {
+    int window, float scale, int async, float* __restrict__ lse) {
   using Tl = FTile<HDP>;
   constexpr int kLdK = Tl::kLdK, kVec = Tl::kVec, kNv = Tl::kNv;
   constexpr int kDims = kVec * kNv;
@@ -857,6 +883,9 @@ __global__ void __launch_bounds__(FTile<HDP>::kThreads, 1) flash_fwd_kernel(
     const int qi = q0 + ty * kFRows + ii;
     if (qi >= s_len) continue;
     const float denom = fmaxf(l_i[ii], 1e-30f);
+    if (lse != nullptr && tx == 0) {  // the backward's row statistic
+      lse[((int64_t)b * heads + h) * s_len + qi] = m_i[ii] + logf(denom);
+    }
     T* ob = o + (((int64_t)b * s_len + qi) * heads + h) * hd;
 #pragma unroll
     for (int hv = 0; hv < kNv; ++hv) {
@@ -873,7 +902,8 @@ template <typename T, int HDP>
 int launch_ffma_tiles(const void* q, const void* k, const void* v, void* o,
                       int batch, int s_len, int t_len, int heads,
                       int kv_heads, int hd, const long long* st, int causal,
-                      int window, float scale, cudaStream_t stream) {
+                      int window, float scale, float* lse,
+                      cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)FTile<HDP>::kFloats;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -889,7 +919,7 @@ int launch_ffma_tiles(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T, HDP><<<grid, FTile<HDP>::kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, s_len, t_len, heads,
       kv_heads, hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], causal, window, scale, (int)async);
+      st[8], causal, window, scale, (int)async, lse);
   return (int)cudaGetLastError();
 }
 
@@ -897,40 +927,40 @@ template <typename T>
 int launch_ffma_hd(const void* q, const void* k, const void* v, void* o,
                    int batch, int s_len, int t_len, int heads, int kv_heads,
                    int hd, const long long* st, int causal, int window,
-                   float scale, cudaStream_t stream) {
+                   float scale, float* lse, cudaStream_t stream) {
   if (hd <= 0 || hd > kHdMax) return (int)cudaErrorInvalidValue;
   if (hd <= 16) {
     return launch_ffma_tiles<T, 16>(q, k, v, o, batch, s_len, t_len, heads,
                                     kv_heads, hd, st, causal, window, scale,
-                                    stream);
+                                    lse, stream);
   }
   if (hd <= 32) {
     return launch_ffma_tiles<T, 32>(q, k, v, o, batch, s_len, t_len, heads,
                                     kv_heads, hd, st, causal, window, scale,
-                                    stream);
+                                    lse, stream);
   }
   if (hd <= 64) {
     return launch_ffma_tiles<T, 64>(q, k, v, o, batch, s_len, t_len, heads,
                                     kv_heads, hd, st, causal, window, scale,
-                                    stream);
+                                    lse, stream);
   }
 #if FLASH_WINDOW
   if (hd > 128) {
     return launch_ffma_tiles<T, 256>(q, k, v, o, batch, s_len, t_len, heads,
                                      kv_heads, hd, st, causal, window, scale,
-                                     stream);
+                                     lse, stream);
   }
 #endif
   return launch_ffma_tiles<T, 128>(q, k, v, o, batch, s_len, t_len, heads,
                                    kv_heads, hd, st, causal, window, scale,
-                                   stream);
+                                   lse, stream);
 }
 
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                int batch, int s_len, int t_len, int heads, int kv_heads,
                const long long* st, int causal, int window, float scale,
-               cudaStream_t stream) {
+               float* lse, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (size_t)(kMmaBQ + 4 * kMmaBK) *
                       (size_t)(HD + 8);
   cudaError_t err = cudaFuncSetAttribute(
@@ -943,9 +973,9 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, s_len, t_len,
       heads, kv_heads, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
 #if FLASH_WINDOW
-      st[8], causal, window, scale);
+      st[8], causal, window, scale, lse);
 #else
-      st[8], causal, scale);
+      st[8], causal, scale, lse);
 #endif
   return (int)cudaGetLastError();
 }
@@ -959,13 +989,18 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
 // strides: q (batch, seq, head), k (...), v (...) in elements, nine values;
 // window: 0, or (the FLASH_WINDOW=1 build only) w > 0 with causal = 1
 // (keys i - w < j <= i);
-// scale is the f32 of 1/sqrt(hd), as the Pallas kernel rounds it.
+// scale is the f32 of 1/sqrt(hd), as the Pallas kernel rounds it;
+// lse: null, or an f32 (batch, heads, s_len) that takes each query row's
+// m + log(max(l, 1e-30)) (the backward's row statistic, csrc/
+// flash_attn_bwd.cu); null writes nothing and computes the same output.
 extern "C" int flash_attention_fwd(int body, int is_bf16, const void* q,
                                    const void* k, const void* v, void* o,
                                    int batch, int s_len, int t_len, int heads,
                                    int kv_heads, int hd,
                                    const long long* strides, int causal,
-                                   int window, float scale, void* stream) {
+                                   int window, float scale, void* lse,
+                                   void* stream) {
+  float* lse_out = (float*)lse;
   if (window < 0 || (window && (!causal || !kWindowBuild))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -977,18 +1012,18 @@ extern "C" int flash_attention_fwd(int body, int is_bf16, const void* q,
       return (int)cudaErrorInvalidValue;
     }
     switch (hd) {  // hd fixed at compile time: the loops unroll whole
-      case 16: return launch_mma<16>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
-      case 32: return launch_mma<32>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
-      case 48: return launch_mma<48>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
-      case 64: return launch_mma<64>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
-      case 80: return launch_mma<80>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
-      case 96: return launch_mma<96>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
-      case 112: return launch_mma<112>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+      case 16: return launch_mma<16>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, lse_out, st);
+      case 32: return launch_mma<32>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, lse_out, st);
+      case 48: return launch_mma<48>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, lse_out, st);
+      case 64: return launch_mma<64>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, lse_out, st);
+      case 80: return launch_mma<80>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, lse_out, st);
+      case 96: return launch_mma<96>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, lse_out, st);
+      case 112: return launch_mma<112>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, lse_out, st);
 #if FLASH_WINDOW
-      case 128: return launch_mma<128>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
-      default: return launch_mma<256>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+      case 128: return launch_mma<128>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, lse_out, st);
+      default: return launch_mma<256>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, lse_out, st);
 #else
-      default: return launch_mma<128>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, st);
+      default: return launch_mma<128>(q, k, v, o, batch, s_len, t_len, heads, kv_heads, strides, causal, window, scale, lse_out, st);
 #endif
     }
   }
@@ -996,9 +1031,9 @@ extern "C" int flash_attention_fwd(int body, int is_bf16, const void* q,
   if (is_bf16) {
     return launch_ffma_hd<__nv_bfloat16>(q, k, v, o, batch, s_len, t_len,
                                          heads, kv_heads, hd, strides, causal,
-                                         window, scale, st);
+                                         window, scale, lse_out, st);
   }
   return launch_ffma_hd<float>(q, k, v, o, batch, s_len, t_len, heads,
                                kv_heads, hd, strides, causal, window, scale,
-                               st);
+                               lse_out, st);
 }

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gse_spmv import _raise_on
-from repro_torch.kernels.vec_f64 import on_device
+from repro_torch.kernels.vec_f64 import on_device, refuse_grad
 
 __all__ = ["gse_decode_dense", "gse_decode_dense_plain", "KERNELS",
            "reset_launch_counts"]
@@ -147,6 +147,7 @@ def gse_decode_dense(head, tail1, tail2, scales, *, ei_bit: int, tag: int,
     dev = on_device(device, head=head, scales=scales,
                     tail1=tail1 if tag >= 2 else None,
                     tail2=tail2 if tag == 3 else None)
+    refuse_grad("gse_decode_dense", scales=scales)
     if dev.type == "cpu":
         return gse_decode_dense_plain(head, tail1, tail2, scales,
                                       ei_bit=ei_bit, tag=tag,

@@ -62,7 +62,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch.kernels.gse_decode import (check_scales, check_segments,
                                             dense_fn, gse_decode_dense_plain)
 from repro_torch.kernels.gse_spmv import _raise_on
-from repro_torch.kernels.vec_f64 import on_device
+from repro_torch.kernels.vec_f64 import on_device, refuse_grad
 
 __all__ = ["gse_matmul_dense", "gse_matmul_dense_plain", "plain_memo",
            "gemv_plan", "GemvPlan", "KERNELS",
@@ -323,6 +323,7 @@ def gse_matmul_dense(x, head, tail1, tail2, scales, *, ei_bit: int, tag: int,
     dev = on_device(device, x=x, head=head, scales=scales,
                     tail1=tail1 if tag >= 2 else None,
                     tail2=tail2 if tag == 3 else None)
+    refuse_grad("gse_matmul_dense", x=x, scales=scales)
     if x.dim() != 2 or head.dim() != 2 or x.shape[1] != head.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} @ W {tuple(head.shape)}: "
                          "expected (M, K) @ (K, N)")

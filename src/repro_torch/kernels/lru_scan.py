@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gse_spmv import _raise_on
-from repro_torch.kernels.vec_f64 import on_device
+from repro_torch.kernels.vec_f64 import on_device, refuse_grad
 
 __all__ = ["lru_scan", "lru_scan_plain", "KERNELS", "reset_launch_counts"]
 
@@ -74,6 +74,7 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
     """``h_t = a_t * h_(t-1) + b_t`` over the S axis of ``(B, S, W)`` f32
     a and b from ``h0`` ``(B, W)``; returns ``(h, h_last)``."""
     dev = on_device(device, a=a, b=b, h0=h0)
+    refuse_grad("lru_scan", a=a, b=b, h0=h0)
     _check(a, b, h0)
     if dev.type == "cpu":
         return lru_scan_plain(a, b, h0)

@@ -109,7 +109,8 @@ __all__ = ["seq_dot", "seq_dot_plain", "fma_axpy", "fma_axpy_plain",
            "gemv_cols_sliced_ref_plain", "sliced_plan", "fma_into",
            "GEMV_LANES", "SLICED_VECTOR_ROWS", "SLICED_LOOP_ROWS",
            "SLICED_FUSION_ROWS", "ref_norm_cols", "sqrt_rn", "KERNELS",
-           "reset_launch_counts", "chain_latency"]
+           "reset_launch_counts", "chain_latency", "on_device",
+           "refuse_grad"]
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
@@ -207,6 +208,18 @@ def on_device(device, **tensors) -> torch.device:
         if t is not None and not test(t):
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
     return dev
+
+
+def refuse_grad(name: str, **tensors):
+    """Raise where autograd would record a kernel that has no backward:
+    grad mode on and an input requiring grad.  Such a kernel writes its
+    output through ``ctypes``, so autograd would take it for a constant
+    and train everything below it with a gradient of zero."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors.values()):
+        raise NotImplementedError(
+            f"{name} has no backward, so it cannot be trained through: its "
+            "backward is ROADMAP queue 1 item 18")
 
 
 # --- the dot: one chain ------------------------------------------------------

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gse_spmv import _raise_on
-from repro_torch.kernels.vec_f64 import on_device
+from repro_torch.kernels.vec_f64 import on_device, refuse_grad
 
 __all__ = ["wkv6", "wkv6_plain", "fma_f32", "N_MAX", "KERNELS",
            "reset_launch_counts"]
@@ -151,6 +151,7 @@ def wkv6(r, k, v, w, u, s0, device="cuda"):
     """The RWKV-6 recurrence over the S axis of ``(B, S, H, N)`` f32 r, k,
     v, w from the state s0 ``(B, H, N, N)``; returns ``(out, s_final)``."""
     dev = on_device(device, r=r, k=k, v=v, w=w, u=u, s0=s0)
+    refuse_grad("wkv6", r=r, k=k, v=v, w=w, u=u, s0=s0)
     _check(r, k, v, w, u, s0)
     if dev.type == "cpu":
         return wkv6_plain(r, k, v, w, u, s0)

@@ -51,6 +51,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models import modules as M
+from repro_torch.tree import tree_leaves
 
 Params = Dict[str, Any]
 
@@ -171,7 +172,14 @@ def _fold_sorted(contrib: torch.Tensor, order: torch.Tensor, t: int,
 def moe_apply(p: Params, x: torch.Tensor, cfg,
               dispatch: str | None = None) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
-    """x: (B, S, D) -> (y in x's dtype, the f32 aux loss)."""
+    """x: (B, S, D) -> (y in x's dtype, the f32 aux loss).  Serving only:
+    where autograd records it raises (the dispatch's gradients are not yet
+    held to the reference's)."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in tree_leaves(p)
+            if isinstance(t, torch.Tensor))):
+        raise NotImplementedError("the moe dispatch under autograd is "
+                                  "ROADMAP queue 1 item 18")
     if dispatch is None:
         dispatch = cfg.moe_dispatch
     if dispatch == "grouped":

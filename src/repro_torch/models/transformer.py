@@ -24,6 +24,8 @@ reference's layout: the stacked ``(L, ...)`` layer leaves that its
 shared-exponent table, stacked to ``(L, k)``), and a list of per-layer
 trees for a heterogeneous one (the hybrid family, ``scan_layers=False``).
 Layers run in a Python loop (the reference scans a homogeneous stack).
+Under autograd each layer is one rematerialized unit when ``cfg.remat``
+asks for it (:func:`_remat`, the reference's ``_maybe_remat``).
 
 Decode state is updated in place: ``decode_step`` writes each layer's new
 key and value into its cache (a ring for local-window layers), each
@@ -41,6 +43,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import modules as M
@@ -173,6 +176,23 @@ def _layers(cfg, params, key: str = "layers"):
 # Full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _remat(cfg, fn, *args, **kw):
+    """``fn(*args, **kw)``, as one rematerialized unit where autograd
+    records and ``cfg.remat`` asks for it: the reference's ``_maybe_remat``
+    (``jax.checkpoint`` around each layer) as
+    ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, which
+    keeps only the layer's inputs and runs its forward again in the
+    backward.  ``"dots"`` (the reference's policy that saves the matmul
+    outputs) recomputes the whole layer here too: the same values, more
+    recompute.  The gradients are the bits of a run without remat."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args, **kw)
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def _norm_in(x, x_sum):
     """What a layer's first norm, or the final norm, reads: the previous
     layer's output ``x``, or in an unrolled stack its f32 sum ``x_sum``
@@ -288,17 +308,20 @@ def forward(cfg, params: Params, tokens: torch.Tensor, prefix_embeds=None,
             enc_out = encode(cfg, params, enc_embeds)
         caches = (_layers(cfg, state, "self") if state is not None
                   else [None] * cfg.num_layers)
-        for p, cache in zip(_layers(cfg, params, "decoder"), caches):
+        def dec_layer(p, x, cache):
             kv = A.cross_kv(p["xattn"], enc_out, cfg)
-            out, _ = _block_apply(cfg, p, x, positions, "dec_attn", cache,
-                                  enc_kv=kv)
-            x = out.to(dtype)
+            return _block_apply(cfg, p, x, positions, "dec_attn", cache,
+                                enc_kv=kv)[0]
+
+        for p, cache in zip(_layers(cfg, params, "decoder"), caches):
+            x = _remat(cfg, dec_layer, p, x, cache).to(dtype)
         return M.rmsnorm(params["final_norm"], x).to(dtype), aux
     kinds = _layer_kinds(cfg)
     caches = _layers(cfg, state) if state is not None else [None] * len(kinds)
     unrolled, x_sum = not _stackable(cfg), None
     for p, kind, cache in zip(_layers(cfg, params), kinds, caches):
-        out, a = _block_apply(cfg, p, x, positions, kind, cache, x_sum)
+        out, a = _remat(cfg, _block_apply, cfg, p, x, positions, kind, cache,
+                        x_sum)
         x, x_sum = out.to(dtype), (out if unrolled else None)
         aux = aux + a
     return M.rmsnorm(params["final_norm"], _norm_in(x, x_sum)).to(dtype), aux
@@ -316,7 +339,7 @@ def encode(cfg, params: Params, enc_embeds: torch.Tensor) -> torch.Tensor:
                              device=e.device).expand(b, t)
     e = e + M.sinusoidal(positions, cfg.d_model).to(dtype)
     for p in _layers(cfg, params, "encoder"):
-        out, _ = _block_apply(cfg, p, e, positions, "enc_attn")
+        out, _ = _remat(cfg, _block_apply, cfg, p, e, positions, "enc_attn")
         e = out.to(dtype)
     return e
 

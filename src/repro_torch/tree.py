@@ -6,7 +6,7 @@ in ``jax.tree.map``.
 """
 from __future__ import annotations
 
-__all__ = ["tree_map", "tree_leaves"]
+__all__ = ["tree_map", "tree_leaves", "tree_leaves_sorted"]
 
 
 def tree_map(fn, tree, *rest, is_leaf=None):
@@ -29,3 +29,18 @@ def tree_leaves(tree, is_leaf=None) -> list:
     out = []
     tree_map(out.append, tree, is_leaf=is_leaf)
     return out
+
+
+def tree_leaves_sorted(tree, is_leaf=None) -> list:
+    """The leaves of ``tree`` in ``jax.tree.leaves`` order: a dict's
+    entries by sorted key (lists, tuples and NamedTuples in order).  Where
+    the reference sums over its leaves (a gradient's global norm), the port
+    sums in this order."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in tree_leaves_sorted(tree[k], is_leaf)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves_sorted(v, is_leaf)]
+    return [tree]

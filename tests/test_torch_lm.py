@@ -160,20 +160,19 @@ def test_config_matches_the_reference(arch, smoke):
 
 
 def test_unported_archs_and_options_raise():
-    """What is still owed (ROADMAP queue 1 item 16.3): the train step.
-    Every architecture resolves (the encdec and vlm families included), an
-    unknown one raises, and the port's step functions serve only."""
+    """Every architecture resolves (the encdec and vlm families included),
+    an unknown one raises, and the port's step functions now include the
+    train step (ROADMAP queue 1 item 16.3; tests/test_torch_train.py holds
+    it to the reference)."""
     for arch in J_configs.ARCH_IDS:
         assert T_configs.get_config(arch).family == \
             J_configs.get_config(arch).family
     assert set(T_configs.PORTED) == set(J_configs.ARCH_IDS)
     with pytest.raises(KeyError):
         T_configs.get_config("no_such_arch")
-    assert hasattr(J_steps, "make_train_step") and hasattr(J_steps,
-                                                           "lm_loss")
-    assert not hasattr(T_steps, "make_train_step")
-    assert not hasattr(T_steps, "lm_loss")
-    assert T_steps.__all__ == ["make_serve_step", "make_prefill_step"]
+    for name in ("make_train_step", "lm_loss", "make_loss_fn", "TrainState",
+                 "make_serve_step", "make_prefill_step"):
+        assert hasattr(J_steps, name) and name in T_steps.__all__, name
     _, ct = _cfgs("dense")
     # The 8-bit cache and local windows are ported: uint8 slots, a ring.
     from repro_torch.models import attention as T_A
